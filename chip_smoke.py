@@ -11,27 +11,39 @@ built from ``src/repro_torch/csrc`` at first use), and no JAX.  Phases, each
 timed on its own line:
 
 1. the card (``nvidia-smi`` name and power limit) and the versions;
-2. build the four CUDA kernels (one ``nvcc`` per source, in parallel);
+2. build the five CUDA kernels (one ``nvcc`` per source, in parallel);
 3. serve full-width llava-1.6-7b (seeded random weights) on a bf16 page
    pool: four two-image MMDU-style dialogues (576-token images, mpic k=32,
    8 new tokens each) plus one MRAG-linked image, through the engine a user
-   calls; the prefill and decode kernels must have launched;
+   calls (uploads included); the prefill, decode and dense kernels must
+   have launched;
 4. the same traffic on an int8 page pool, through the int8 kernels;
-5. each kernel against its plain PyTorch version on the pool state that
-   phases 3 and 4 wrote (layer 0, live page tables and lengths), and on a
-   synthetic GQA shape (32 query heads on 8 kv heads, window 64), then
+5. the same traffic under each of the paper's baselines on a bf16 pool
+   (``full_recompute``, ``prefix_caching`` with the system prompt's KV in
+   the engine's prefix store, ``full_reuse``, ``cacheblend`` r=0.15), under
+   dense ``mpic`` on the engine's dense cache (``paged=False``), and under
+   ``cacheblend`` and ``full_recompute`` on an int8 pool; the dense
+   selective attention must have launched in every run;
+6. each kernel against its plain PyTorch version on the state phases 3-5
+   left (layer 0 of the live pool or the captured dense-attention inputs)
+   and on synthetic shapes (32 query heads on 8 kv heads, window 64), then
    timed beside its plain version, a PyTorch yardstick and its bound;
    the limit is per element (``repro_torch/kernels/check.py``): one bf16
    ulp of the value for bf16 outputs, 1e-4 for fp32 ones;
-6. a small fp32 model served by the same engine on the card and on the CPU
-   (plain versions): same greedy tokens, first-token logits within 1e-3.
+7. a small fp32 model served by the same engine on the card and on the CPU
+   (plain versions) under every policy and on the dense cache: same greedy
+   tokens, first-token logits within 1e-3.
 
-It prints one JSON line ``{"kernels": [...]}``, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.  Any failure raises and
-exits non-zero before the last line.  Without a card it exits 2.
+During the serving phases the plain versions and ``layers.attend`` raise
+if called.  Each serving run resets the kernels' launch counts before its
+uploads and reads them after its last request.  It prints one JSON line
+``{"kernels": [...]}``, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
+before the last line.  Without a card it exits 2.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -51,6 +63,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 K_MPIC = 32
 MAX_NEW = 8
 KERNEL_FILES = {
+    "sel_attn": ("src/repro_torch/csrc/selective_attn.cu",
+                 "src/repro/kernels/selective_attn/selective_attn.py:30"),
     "sel_attn_paged": ("src/repro_torch/csrc/selective_attn.cu",
                        "src/repro/kernels/selective_attn/selective_attn.py:77"),
     "sel_attn_paged_q8": ("src/repro_torch/csrc/selective_attn.cu",
@@ -64,6 +78,19 @@ TOLERANCE = ("per element: bf16 one ulp of max(|out|,|ref|) + 2^-17 max|V|, "
              "fp32 1e-4 (repro_torch/kernels/check.py)")
 LIBRARY_CALL = ("torch.nn.functional.scaled_dot_product_attention over K/V "
                 "gathered (and dequantized) beforehand, gather excluded")
+DENSE_LIBRARY_CALL = ("torch.nn.functional.scaled_dot_product_attention "
+                      "with a boolean mask built from the positions "
+                      "beforehand (K/V repeated to the query heads for GQA)")
+# (name, policy, policy kwargs, pool dtype, paged) of the phase-5 runs
+POLICY_RUNS = [
+    ("full_recompute", "full_recompute", {}, "", True),
+    ("prefix_caching", "prefix_caching", {}, "", True),
+    ("full_reuse", "full_reuse", {}, "", True),
+    ("cacheblend", "cacheblend", {"r": 0.15}, "", True),
+    ("mpic_dense", "mpic", {"k": K_MPIC}, "", False),
+    ("cacheblend_int8", "cacheblend", {"r": 0.15}, "int8", True),
+    ("full_recompute_int8", "full_recompute", {}, "int8", True),
+]
 
 
 def phase(name: str, t0: float) -> None:
@@ -85,20 +112,32 @@ def main() -> int:
         return 2
     import torch.nn.functional as F
 
+    import repro_torch.kernels.paged_attn.ops as paged_ops
+    import repro_torch.kernels.selective_attn.ops as sel_ops
+    import repro_torch.models.layers as layers
+    import repro_torch.models.transformer as tf
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core.linker import bucket
     from repro_torch.core.select import mpic_selection, selection_indices
-    from repro_torch.data import image_embeds, make_dialogues
+    from repro_torch.data import (
+        SYSTEM_PROMPT,
+        ByteTokenizer,
+        image_embeds,
+        make_dialogues,
+    )
     from repro_torch.device import resolve_device
     from repro_torch.kernels import KERNELS, _build
     from repro_torch.kernels.check import compare, v_absmax
     from repro_torch.kernels.paged_attn.ops import paged_attention
     from repro_torch.kernels.paged_attn.ref import paged_attention_ref
     from repro_torch.kernels.selective_attn.ops import (
+        selective_attention,
         selective_attention_paged,
     )
     from repro_torch.kernels.selective_attn.ref import (
+        INVALID_POS,
         selective_attention_paged_ref,
+        selective_attention_ref,
     )
     from repro_torch.models import build_model
     from repro_torch.serving import EngineConfig, MPICEngine, Request, State
@@ -124,7 +163,7 @@ def main() -> int:
     print(f"built {sorted(secs)} in {secs}")
     phase("build", t0)
 
-    # -- 3/4. serve full-width llava-1.6-7b -----------------------------------
+    # -- 3/4/5. serve full-width llava-1.6-7b ---------------------------------
     cfg = get_config("llava-1.6-7b")
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -135,73 +174,155 @@ def main() -> int:
           f"{nbytes / 2**30:.2f} GiB of seeded weights")
     phase("init", t0)
 
-    def serve(pool_dtype: str):
+    guarded = [(sel_ops, "selective_attention_ref"),
+               (sel_ops, "selective_attention_paged_ref"),
+               (paged_ops, "paged_attention_ref"), (layers, "attend")]
+
+    @contextlib.contextmanager
+    def no_plain_versions():
+        """The plain versions and ``layers.attend`` raise while serving on
+        the card: every attention there must go through a kernel."""
+        saved = [(mod, name, getattr(mod, name)) for mod, name in guarded]
+
+        def forbid(name):
+            def call(*args, **kwargs):
+                raise RuntimeError(f"{name} was called while serving on "
+                                   "the card")
+            return call
+
+        for mod, name, _ in saved:
+            setattr(mod, name, forbid(name))
+        try:
+            yield
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+
+    @contextlib.contextmanager
+    def capture_dense(cases, eng):
+        """Keep a copy of the inputs of the first dense-attention call of
+        each kind (``"prefill"``: one sequence against a full slot;
+        ``"decode"``: every slot, one query, once all slots are busy;
+        ``"upload"``: a contiguous media prefill), i.e. layer 0 of the first
+        such pass, under the names ``cases`` gives."""
+        real = tf.selective_attention
+        max_seq_len, slots = eng.cfg.max_seq_len, eng.cfg.decode_slots
+
+        def kind(q, k):
+            if q.shape[0] == 1 and k.shape[1] == max_seq_len and q.shape[1] > 1:
+                return "prefill"
+            # an idle slot sees only the one key it writes: wait for a step
+            # in which every slot serves a request
+            if q.shape[1] == 1 and q.shape[0] == slots and all(
+                    r is not None and r.state is State.RUNNING
+                    for r in eng.running):
+                return "decode"
+            if q.shape[0] == 1 and q.shape[1] == k.shape[1]:
+                return "upload"
+            return None
+
+        def recording(q, k, v, q_pos, kv_pos, *, window=0):
+            name = cases.get(kind(q, k))
+            if name is not None and name not in captured:
+                captured[name] = tuple(t.clone() for t in
+                                       (q, k, v, q_pos, kv_pos)) + (window,)
+            return real(q, k, v, q_pos, kv_pos, window=window)
+
+        tf.selective_attention = recording
+        try:
+            yield
+        finally:
+            tf.selective_attention = real
+
+    captured = {}
+    sys_toks = ByteTokenizer().encode(SYSTEM_PROMPT, bos=True)
+
+    def serve(label, policy="mpic", kwargs=None, pool_dtype="", paged=True,
+              snap_paged=False, cases=None):
         eng = MPICEngine(model, params, EngineConfig(
             max_seq_len=2048, decode_slots=4, page_size=16,
-            pool_dtype=pool_dtype))
+            pool_dtype=pool_dtype, paged=paged))
+        # set-up: the system prompt's KV in the prefix store, built as the
+        # JAX package's benchmarks build it
+        n_sys = len(sys_toks)
+        sc = model.make_cache(1, n_sys + 1)
+        _, sc = model.prefill(params, torch.as_tensor(
+            sys_toks[None], dtype=torch.int32, device=dev), sc)
+        eng.prefix_store.put(sys_toks, sc["k"][:, 0, :n_sys].clone(),
+                             sc["v"][:, 0, :n_sys].clone())
+        del sc
         samples = make_dialogues(n=4, n_images=2, d_model=cfg.d_model,
                                  media_len=cfg.media_token_len, style="mmdu")
-        t_up = time.perf_counter()
-        for s in samples:
-            for _, seg in s.prompt.media_segments():
-                eng.upload(s.prompt.user_id, seg.media_id, seg.embeds)
         rag = image_embeds("rag-0", cfg.media_token_len, cfg.d_model)
-        eng.upload("*", "rag-0", rag, dynamic=True)
-        torch.cuda.synchronize()
-        upload_s = time.perf_counter() - t_up
-        reqs = [Request(prompt=s.prompt, max_new_tokens=MAX_NEW,
-                        policy_kwargs={"k": K_MPIC}) for s in samples]
-        reqs[-1].retrieval_query = rag.mean(0)
 
-        firsts, nonfinite = {}, []
-        finalize, decode_step = eng._finalize_prefill, eng._decode_paged_step
+        nonfinite = []
+        finalize = eng._finalize_prefill
+        step_name = "_decode_paged_step" if paged else "_decode_dense_step"
+        decode_step = getattr(eng, step_name)
 
-        def record_first(req, result):
-            firsts[req.req_id] = result.first_logits
+        def checked_finalize(req, result):
             if not np.isfinite(result.first_logits).all():
                 nonfinite.append(f"first logits of {req.req_id}")
             return finalize(req, result)
 
         def checked_decode(live):
-            live, logits = decode_step(live)
+            out = decode_step(live)
+            live, logits = out if paged else (live, out)
             if logits is not None and not np.isfinite(
                     logits[[r.slot for r in live]]).all():
                 nonfinite.append("decode logits")
-            return live, logits
+            return out
 
-        eng._finalize_prefill = record_first
-        eng._decode_paged_step = checked_decode
+        eng._finalize_prefill = checked_finalize
+        setattr(eng, step_name, checked_decode)
         snap = None
-        _build.reset_launches(KERNELS.values())     # count the main path only
-        t_serve = time.perf_counter()
-        for r in reqs:
-            eng.submit(r)
-        steps = 0
-        while eng.queue or any(eng.running):
-            eng.step()
-            steps += 1
-            if steps > 10 * MAX_NEW * len(reqs):
-                raise RuntimeError("engine made no progress")
-            if snap is None and all(r is not None and r.state is State.RUNNING
-                                    for r in eng.running):
-                snap = snapshot(eng)
-        torch.cuda.synchronize()
-        serve_s = time.perf_counter() - t_serve
-        launches = {k: v.launches for k, v in KERNELS.items()}
+        with no_plain_versions(), capture_dense(cases or {}, eng):
+            _build.reset_launches(KERNELS.values())     # the main path only
+            t_up = time.perf_counter()
+            for s in samples:
+                for _, seg in s.prompt.media_segments():
+                    eng.upload(s.prompt.user_id, seg.media_id, seg.embeds)
+            eng.upload("*", "rag-0", rag, dynamic=True)
+            torch.cuda.synchronize()
+            upload_s = time.perf_counter() - t_up
+            # the requests arrive once their images are stored: TTFT counts
+            # queueing and prefill, not the uploads
+            reqs = [Request(prompt=s.prompt, max_new_tokens=MAX_NEW,
+                            policy=policy, policy_kwargs=dict(kwargs or {}))
+                    for s in samples]
+            reqs[-1].retrieval_query = rag.mean(0)
+            t_serve = time.perf_counter()
+            for r in reqs:
+                eng.submit(r)
+            steps = 0
+            while eng.queue or any(eng.running):
+                eng.step()
+                steps += 1
+                if steps > 10 * MAX_NEW * len(reqs):
+                    raise RuntimeError("engine made no progress")
+                if snap_paged and snap is None and all(
+                        r is not None and r.state is State.RUNNING
+                        for r in eng.running):
+                    snap = snapshot(eng)
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t_serve
+            launches = {k: v.launches for k, v in KERNELS.items()}
 
         if nonfinite:
-            raise RuntimeError(f"non-finite logits: {nonfinite}")
+            raise RuntimeError(f"{label}: non-finite logits: {nonfinite}")
         for r in reqs:
             if not r.done or len(r.output_tokens) != MAX_NEW:
-                raise RuntimeError(f"{r.req_id} did not finish: {r.state}")
+                raise RuntimeError(f"{label}: {r.req_id} did not finish: "
+                                   f"{r.state} {r.error}")
         if "rag-0" not in reqs[-1].linked_media:
-            raise RuntimeError("MRAG did not link its image")
-        if snap is None:
-            raise RuntimeError("never saw all slots running")
+            raise RuntimeError(f"{label}: MRAG did not link its image")
+        if snap_paged and snap is None:
+            raise RuntimeError(f"{label}: never saw all slots running")
         rep = eng.report()
         tokens = rep["total_tokens"]
+        n_rec = [r.prefill_stats["n_recomputed"] for r in reqs]
         print(f"  prompts {[r.prompt.total_len for r in reqs]} tokens, "
-              f"recomputed {[r.prefill_stats['n_recomputed'] for r in reqs]}, "
+              f"recomputed {n_rec} (mean {np.mean(n_rec):.1f}), "
               f"linked {reqs[-1].linked_media}")
         print(f"  uploads {upload_s:.3f} s for 9 images; served {len(reqs)} "
               f"requests in {serve_s:.3f} s ({steps} steps)")
@@ -211,7 +332,19 @@ def main() -> int:
               f"{rep['mean_decode_step_s'] * 1e3:.2f} ms over "
               f"{rep['decode_steps']} steps; {tokens / serve_s:.1f} tokens/s")
         print(f"  launches {launches}", flush=True)
-        return reqs, firsts, launches, snap, eng
+        runs[label] = {
+            "policy": policy, "pool": pool_dtype or "bf16", "paged": paged,
+            "mean_ttft_ms": rep["mean_ttft_s"] * 1e3,
+            "p90_ttft_ms": rep["p90_ttft_s"] * 1e3,
+            "mean_prefill_ms": rep["mean_prefill_s"] * 1e3,
+            "mean_decode_step_ms": rep["mean_decode_step_s"] * 1e3,
+            "mean_recomputed": float(np.mean(n_rec)),
+            "upload_s": upload_s, "launches": launches}
+        # the wrapped methods make a cycle through the engine and its pool
+        del eng, finalize, decode_step, checked_finalize, checked_decode
+        gc.collect()
+        torch.cuda.empty_cache()
+        return reqs, launches, snap
 
     def snapshot(eng):
         """Layer 0 of the pool and the live decode / newest prefill shapes."""
@@ -239,19 +372,17 @@ def main() -> int:
             "n_sel": len(sel), "ps": ps,
         }
 
+    runs = {}
     t0 = time.perf_counter()
-    print("serve, bf16 pool:")
-    reqs16, firsts16, launches16, snap16, eng = serve("")
-    del eng                 # its pool: the wrapped methods make a cycle
-    gc.collect()
-    torch.cuda.empty_cache()
+    print("serve, bf16 pool, mpic:")
+    reqs16, launches16, snap16 = serve(
+        "mpic", kwargs={"k": K_MPIC}, snap_paged=True,
+        cases={"upload": "upload"})
     phase("serve_bf16", t0)
     t0 = time.perf_counter()
-    print("serve, int8 pool:")
-    reqs8, firsts8, launches8, snap8, eng = serve("int8")
-    del eng
-    gc.collect()
-    torch.cuda.empty_cache()
+    print("serve, int8 pool, mpic:")
+    reqs8, launches8, snap8 = serve(
+        "mpic_int8", kwargs={"k": K_MPIC}, pool_dtype="int8", snap_paged=True)
     agree = sum(a.output_tokens[0] == b.output_tokens[0]
                 for a, b in zip(reqs16, reqs8))
     print(f"  first tokens equal to the bf16 pool's: {agree}/{len(reqs8)} "
@@ -259,12 +390,32 @@ def main() -> int:
     phase("serve_int8", t0)
     for name, launches in (("sel_attn_paged", launches16),
                            ("paged_attn", launches16),
+                           ("sel_attn", launches16),
                            ("sel_attn_paged_q8", launches8),
-                           ("paged_attn_q8", launches8)):
+                           ("paged_attn_q8", launches8),
+                           ("sel_attn", launches8)):
         if launches[name] <= 0:
             raise RuntimeError(f"{name} never launched on the main path")
 
-    # -- 5. kernels against their plain versions ----------------------------
+    t0 = time.perf_counter()
+    for label, policy, kwargs, pool_dtype, paged in POLICY_RUNS:
+        print(f"serve, {'dense cache' if not paged else pool_dtype or 'bf16'}"
+              f"{' pool' if paged else ''}, {policy} {kwargs}:")
+        cases = {}
+        if label == "full_recompute":
+            cases = {"prefill": "full_recompute"}
+        elif label == "mpic_dense":
+            cases = {"prefill": "dense_mpic", "decode": "dense_decode"}
+        serve(label, policy, kwargs, pool_dtype, paged, cases=cases)
+        if runs[label]["launches"]["sel_attn"] <= 0:
+            raise RuntimeError(f"{label}: sel_attn never launched")
+    phase("serve_policies", t0)
+    missing = {"upload", "full_recompute", "dense_mpic",
+               "dense_decode"} - set(captured)
+    if missing:
+        raise RuntimeError(f"dense attention inputs never seen: {missing}")
+
+    # -- 6. kernels against their plain versions ----------------------------
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     hq, dh = cfg.num_heads, cfg.head_dim
@@ -463,22 +614,131 @@ def main() -> int:
             if not check["worst"] <= 1.0:
                 raise RuntimeError(f"{name}: synthetic GQA error {check}")
             results[name]["synthetic_err"] = check["max_abs_err"]
+
+    # dense selective attention: the main-path inputs phases 3-5 captured,
+    # then a synthetic GQA shape
+    def dense_ref(q, k, v, q_pos, kv_pos, window):
+        return selective_attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), q_pos,
+            kv_pos, window=window).transpose(1, 2)
+
+    def dense_mask(q_pos, kv_pos, window):
+        """(B, Sq, Skv) bool: the (query, key) pairs the function keeps."""
+        kp = kv_pos.long()[:, None, :]
+        qp = q_pos.long()[:, :, None]
+        m = (kp != INVALID_POS) & (kp <= qp)
+        if window > 0:
+            m &= kp > qp - window
+        return m
+
+    def dense_case(q, k, v, q_pos, kv_pos, window, timed=True):
+        out = selective_attention(q, k, v, q_pos, kv_pos, window=window)
+        res = {**compare(out, dense_ref(q, k, v, q_pos, kv_pos, window),
+                         v_absmax(v)), "out": out}
+        if not timed:
+            return res
+        b, sq, hq_, dh_ = q.shape
+        skv, hkv_ = k.shape[1], k.shape[2]
+        mask = dense_mask(q_pos, kv_pos, window)
+        pairs = int(mask.sum())
+        keys = int(mask.any(dim=1).sum())      # keys some query keeps
+        nbytes = (2 * q.numel() * q.element_size()
+                  + 4 * (q_pos.numel() + kv_pos.numel())
+                  + 2 * keys * hkv_ * dh_ * k.element_size())
+        bound_ms, bound_by = bound(nbytes, 4 * dh_ * hq_ * pairs, q.dtype)
+        rep = hq_ // hkv_
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+        m4 = mask[:, None]
+        res.update(
+            bound_ms=bound_ms, bound_by=bound_by,
+            ms=events_ms(lambda: selective_attention(
+                q, k, v, q_pos, kv_pos, window=window), 20),
+            plain_ms=events_ms(lambda: dense_ref(
+                q, k, v, q_pos, kv_pos, window), 5),
+            library_ms=events_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=m4), 20),
+            shape=f"q {tuple(q.shape)} {str(q.dtype)[6:]}, k/v "
+                  f"{tuple(k.shape)}, {keys} of {b * skv} key slots kept, "
+                  f"{pairs} (query, key) pairs, window {window}")
+        return res
+
+    dense = {}
+    for name in ("dense_mpic", "full_recompute", "dense_decode", "upload"):
+        res = dense_case(*captured[name])
+        res.pop("out")
+        if not res["worst"] <= 1.0:
+            raise RuntimeError(f"sel_attn: main-path error at {name}: {res}")
+        dense[name] = res
+    del captured
+    syn = {}
+    b, sq, skv = 2, 101, 300
+    for dtype in (torch.bfloat16, torch.float32):
+        q = randn(b, sq, syn_hq, dh, dtype=dtype)
+        k = randn(b, skv, syn_hkv, dh, dtype=dtype)
+        v = randn(b, skv, syn_hkv, dh, dtype=dtype)
+        # positions 5..304 in a random order, ~10% of the slots empty;
+        # query 0 of sequence 0 at position 2 sees no key at all
+        kv_pos = torch.stack([torch.randperm(skv, generator=gen, device=dev)
+                              + 5 for _ in range(b)]).to(torch.int32)
+        kv_pos[torch.rand((b, skv), generator=gen, device=dev) < 0.1] = \
+            INVALID_POS
+        q_pos = torch.stack([torch.randperm(skv + 10, generator=gen,
+                                            device=dev)[:sq]
+                             for _ in range(b)]).to(torch.int32)
+        q_pos[0, 0] = 2
+        res = dense_case(q, k, v, q_pos, kv_pos, syn_win,
+                         timed=dtype == torch.bfloat16)
+        if not torch.all(res.pop("out")[0, 0] == 0):
+            raise RuntimeError("sel_attn: fully masked row is not zero")
+        if not res["worst"] <= 1.0:
+            raise RuntimeError(f"sel_attn: synthetic error ({dtype}): {res}")
+        syn["bf16" if dtype == torch.bfloat16 else "fp32"] = res
+    head = dense["dense_mpic"]
+    results["sel_attn"] = {
+        **{key: head[key] for key in ("ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by", "shape")},
+        "max_abs_err": max(r["max_abs_err"] for r in dense.values()),
+        "max_abs_ref": max(r["max_abs_ref"] for r in dense.values()),
+        "worst": max(r["worst"] for r in [*dense.values(), *syn.values()]),
+        "synthetic_err": max(r["max_abs_err"] for r in syn.values()),
+        "cases": {**dense, **{f"synthetic_{n}": r for n, r in syn.items()}}}
+    for name, r in results["sel_attn"]["cases"].items():
+        timing = (f"; {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, SDPA "
+                  f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+                  f"{r['bound_by']})" if "ms" in r else "")
+        print(f"  sel_attn {name}: max |err| {r['max_abs_err']:.3e}, err/limit "
+              f"{r['worst']:.3f}{timing}; {r.get('shape', '')}")
     torch.cuda.synchronize()
     phase("kernels", t0)
 
-    # -- 6. small reference: the engine on the card against the CPU ---------
+    # -- 7. small reference: the engine on the card against the CPU ---------
     t0 = time.perf_counter()
     small = dataclasses.replace(get_smoke_config("llava-1.6-7b"),
                                 param_dtype="float32", compute_dtype="float32")
     smodel = build_model(small)
     p_cpu = smodel.init(seed=1, device="cpu")
     p_gpu = copy.deepcopy(p_cpu).to(dev)
-    for pool_dtype, logit_tol in (("", 1e-3), ("int8", 5e-2)):
+    small_runs = [("mpic", {"k": 8}, "", True, 1e-3),
+                  ("mpic", {"k": 8}, "int8", True, 5e-2),
+                  ("cacheblend", {"r": 0.15}, "", True, 1e-3),
+                  ("full_recompute", {}, "", True, 1e-3),
+                  ("prefix_caching", {}, "", True, 1e-3),
+                  ("full_reuse", {}, "", True, 1e-3),
+                  ("mpic", {"k": 8}, "", False, 1e-3)]
+    for policy, kwargs, pool_dtype, paged, logit_tol in small_runs:
         outs = {}
         for where, p in (("cpu", p_cpu), (None, p_gpu)):
             eng = MPICEngine(smodel, p, EngineConfig(
-                max_seq_len=320, decode_slots=2, pool_dtype=pool_dtype),
-                device=where)
+                max_seq_len=320, decode_slots=2, pool_dtype=pool_dtype,
+                paged=paged), device=where)
+            n_sys = len(sys_toks)
+            sc = smodel.make_cache(1, n_sys + 1, device=eng.device)
+            _, sc = smodel.prefill(p, torch.as_tensor(
+                sys_toks[None], dtype=torch.int32, device=eng.device), sc)
+            eng.prefix_store.put(sys_toks, sc["k"][:, 0, :n_sys],
+                                 sc["v"][:, 0, :n_sys])
             firsts = {}
             finalize = eng._finalize_prefill
 
@@ -493,38 +753,52 @@ def main() -> int:
                 for _, seg in s.prompt.media_segments():
                     eng.upload(s.prompt.user_id, seg.media_id, seg.embeds)
             rs = [eng.submit(Request(prompt=s.prompt, max_new_tokens=MAX_NEW,
-                                     policy_kwargs={"k": 8}))
+                                     policy=policy, policy_kwargs=kwargs))
                   for s in samples]
             eng.run()
+            if not all(r.done for r in rs):
+                raise RuntimeError(f"small model, {policy}: unfinished "
+                                   f"{[r.error for r in rs]}")
             outs[where] = ([r.output_tokens for r in rs],
                            np.stack([firsts[r.req_id] for r in rs]))
         diff = float(np.abs(outs["cpu"][1] - outs[None][1]).max())
         same = outs["cpu"][0] == outs[None][0]
-        print(f"small fp32 model, pool {pool_dtype or 'fp32'}: card vs CPU "
+        where = "dense cache" if not paged else f"{pool_dtype or 'fp32'} pool"
+        print(f"small fp32 model, {policy} on the {where}: card vs CPU "
               f"first-logit max diff {diff:.2e}, tokens identical {same}")
         if not diff <= logit_tol or (pool_dtype == "" and not same):
             raise RuntimeError("the card's engine disagrees with the CPU's")
     phase("small_reference", t0)
 
     # -- report ------------------------------------------------------------
-    launches = {**{k: launches16[k] for k in ("sel_attn_paged", "paged_attn")},
-                **{k: launches8[k] for k in ("sel_attn_paged_q8",
-                                             "paged_attn_q8")}}
+    # launches: every serving run's count, each reset before its uploads
+    launches = {name: sum(r["launches"][name] for r in runs.values())
+                for name in KERNEL_FILES}
+    for label, r in runs.items():
+        print(f"run {label}: " + json.dumps(
+            {k: v for k, v in r.items() if k != "launches"}))
     rows = []
-    for name in ("sel_attn_paged", "sel_attn_paged_q8", "paged_attn",
-                 "paged_attn_q8"):
+    for name in ("sel_attn", "sel_attn_paged", "sel_attn_paged_q8",
+                 "paged_attn", "paged_attn_q8"):
         r = results[name]
         source, replaces = KERNEL_FILES[name]
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
+            "launches_by_run": {label: run["launches"][name]
+                                for label, run in runs.items()},
             "max_abs_err": r["max_abs_err"], "max_abs_ref": r["max_abs_ref"],
             "err_over_limit": r["worst"], "tolerance": TOLERANCE,
             "synthetic_err": r["synthetic_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "library": LIBRARY_CALL,
-            "shape": r["shape"], "card": card})
+            "library_ms": r["library_ms"],
+            "library": DENSE_LIBRARY_CALL if name == "sel_attn"
+            else LIBRARY_CALL,
+            "shape": r["shape"], "card": card}
+        if "cases" in r:
+            row["cases"] = r["cases"]
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,30 +1,50 @@
-"""The MPIC **Linker**, paged target (port of the JAX package's
-``core/linker.py``).
+"""The MPIC **Linker** (port of the JAX package's ``core/linker.py``).
 
 Stored segment caches are computed at canonical position 0; at link time
 each is relocated to its offset in the prompt (an exact RoPE rotation by
-the offset) and written straight into the request's reserved pool pages.
-The selected (recomputed) tokens' K/V are written into their pages by the
-selective prefill that follows, so no dense blended cache exists.
+the offset) and placed into the request's KV cache.  Two targets:
 
-Not ported yet: the dense ``link_prompt`` target and the spool-to-pool
-int8 direct link.
+* :func:`link_prompt` builds a dense per-request blended cache (the
+  baselines' path, and the engine without a page pool): placed segments at
+  their offsets, and the **dummy cache** (zero K/V, ``INVALID_POS``) in the
+  selected slots, which the single-step selective prefill fills;
+* :func:`link_paged` writes the same segments straight into the request's
+  reserved pool pages; the selected tokens' K/V are written into their
+  pages by the paged selective prefill, so no dense blended cache exists.
+
+Not ported yet: the spool-to-pool int8 direct link.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.segments import Prompt
 from repro_torch.core.select import selection_indices
+from repro_torch.models.layers import INVALID_POS, rope_relink
+
+
+@dataclasses.dataclass
+class LinkResult:
+    cache: dict                   # dense blended cache (batch 1)
+    sel_idx: np.ndarray           # (S_sel,) positions of recomputed tokens
+    sel_tokens: np.ndarray        # (S_sel,) token ids (media slots: pad 0)
+    sel_media_embeds: np.ndarray  # (S_sel, D)
+    sel_media_mask: np.ndarray    # (S_sel,)
+    n_reused: int
+    n_recomputed: int
+    misses: list                  # media ids absent from the library
 
 
 @dataclasses.dataclass
 class PagedLinkResult:
     """Reused KV already sits in the request's pages; ``sel_*`` are the
-    per-selected-token inputs of the prefill."""
+    per-selected-token inputs of the prefill.  ``forced`` marks tokens whose
+    segment missed the library: a re-selection (cacheblend's deviation
+    pass) must keep them selected."""
     sel_idx: np.ndarray
     sel_tokens: np.ndarray
     sel_media_embeds: np.ndarray
@@ -33,6 +53,7 @@ class PagedLinkResult:
     n_recomputed: int
     misses: list
     total: int
+    forced: np.ndarray            # (total,) bool
 
 
 def selection_arrays(prompt: Prompt, d_model: int, sel_idx: np.ndarray):
@@ -51,9 +72,10 @@ def precompute_media_kv(model, params, embeds: torch.Tensor):
     (L, length, Hkv, Dh) in the compute dtype.  This is what the library
     stores when a user uploads a file."""
     length = embeds.shape[0]
+    cache = model.make_cache(1, length, device=embeds.device)
     tokens = torch.zeros((1, length), dtype=torch.int32, device=embeds.device)
     mask = torch.ones((1, length), dtype=torch.bool, device=embeds.device)
-    _, cache = model.prefill(params, tokens, media_embeds=embeds[None],
+    _, cache = model.prefill(params, tokens, cache, media_embeds=embeds[None],
                              media_mask=mask)
     return cache["k"][:, 0], cache["v"][:, 0]
 
@@ -74,6 +96,62 @@ def _gather_placements(prompt: Prompt, library, selection: np.ndarray):
         else:
             placed.append((off, entry, seg.length))
     return sel, placed, misses
+
+
+def link_prompt(model, prompt: Prompt, library, selection: np.ndarray, *,
+                kv_len: Optional[int] = None, device=None) -> LinkResult:
+    """Build the dense blended cache of one request on ``device`` (None
+    means the card).
+
+    Placed segments (already on the device, in the library) are relinked
+    with one ``rope_relink`` over their concatenation and written at their
+    offsets; the selected slots, which may overlap placed segments (MPIC
+    recomputes each segment's first k tokens), are then zeroed and marked
+    ``INVALID_POS`` until the selective prefill writes them.  ``kv_len``
+    defaults to the prompt plus one scratch slot.
+    """
+    cfg = model.cfg
+    total = prompt.total_len
+    kv_len = kv_len or total + 1
+    if kv_len < total + 1:
+        raise ValueError(f"kv_len {kv_len} < prompt {total} + 1")
+    sel, placed, misses = _gather_placements(prompt, library, selection)
+    sel_idx = selection_indices(sel)
+    cache = model.make_cache(1, kv_len, device=device)
+    k_buf, v_buf, pos = cache["k"][:, 0], cache["v"][:, 0], cache["pos"][0]
+    if placed:
+        dev = k_buf.device
+        idx = torch.as_tensor(np.concatenate(
+            [np.arange(off, off + n) for off, _, n in placed]), device=dev)
+        k_cat = torch.cat([e.k for _, e, _ in placed], dim=1)
+        v_cat = torch.cat([e.v for _, e, _ in placed], dim=1)
+        if cfg.rope_theta:
+            # exact position relocation: K(p + d) = R(d) K(p), per token
+            delta = torch.as_tensor(np.concatenate(
+                [np.full(n, off, np.int32) for off, _, n in placed]),
+                device=dev)
+            k_cat = rope_relink(k_cat, delta, cfg.rope_theta)
+        k_buf[:, idx] = k_cat.to(k_buf.dtype)
+        v_buf[:, idx] = v_cat.to(v_buf.dtype)
+        pos[idx] = idx.to(torch.int32)
+        if len(sel_idx):
+            # dummy cache, written after the placement it may overlap
+            sidx = torch.as_tensor(sel_idx, device=dev)
+            k_buf[:, sidx] = 0
+            v_buf[:, sidx] = 0
+            pos[sidx] = INVALID_POS
+    sel_tokens, sel_media_embeds, sel_media_mask = selection_arrays(
+        prompt, cfg.d_model, sel_idx)
+    return LinkResult(
+        cache=cache,
+        sel_idx=sel_idx,
+        sel_tokens=sel_tokens,
+        sel_media_embeds=sel_media_embeds,
+        sel_media_mask=sel_media_mask,
+        n_reused=int(total - sel.sum()),
+        n_recomputed=int(sel.sum()),
+        misses=misses,
+    )
 
 
 def bucket(n: int, lo: int = 8) -> int:
@@ -100,6 +178,7 @@ def link_paged(model, prompt: Prompt, library, selection: np.ndarray, pool,
     total = prompt.total_len
     ps = pool.cfg.page_size
     sel, placed, misses = _gather_placements(prompt, library, selection)
+    forced = sel & ~selection                   # miss-driven recomputes
     sel_idx = selection_indices(sel)
 
     if placed:
@@ -139,4 +218,23 @@ def link_paged(model, prompt: Prompt, library, selection: np.ndarray, pool,
         n_recomputed=int(sel.sum()),
         misses=misses,
         total=total,
+        forced=forced,
     )
+
+
+def reselect_paged(model, prompt: Prompt, link: PagedLinkResult,
+                   selection: np.ndarray) -> PagedLinkResult:
+    """A new selection over an already linked paged prompt, without writing
+    anything again: placement does not depend on the selection in the
+    paged path (selected slots are overwritten by the prefill, not zeroed
+    at link time), so cacheblend's re-selection needs only fresh selection
+    arrays.  Miss-forced tokens stay selected."""
+    sel = selection | link.forced
+    sel_idx = selection_indices(sel)
+    sel_tokens, sel_media_embeds, sel_media_mask = selection_arrays(
+        prompt, model.cfg.d_model, sel_idx)
+    return dataclasses.replace(
+        link, sel_idx=sel_idx, sel_tokens=sel_tokens,
+        sel_media_embeds=sel_media_embeds, sel_media_mask=sel_media_mask,
+        n_reused=int(link.total - sel.sum()),
+        n_recomputed=int(sel.sum()))

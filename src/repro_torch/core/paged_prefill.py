@@ -17,7 +17,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.linker import PagedLinkResult, bucket, link_paged
+from repro_torch.core.linker import (
+    PagedLinkResult,
+    bucket,
+    link_paged,
+    reselect_paged,
+)
 from repro_torch.core.segments import Prompt
 
 PREFILL_BUCKET_MIN = 16         # smallest selection shape bucket
@@ -89,6 +94,27 @@ class BoundPagedPrefill:
         return link_paged(model, prompt, library, selection,
                           self.prefiller.pool, self.page_row,
                           scratch_page=self.prefiller.scratch_page)
+
+    def reselect(self, model, prompt: Prompt, link: PagedLinkResult,
+                 selection: np.ndarray) -> PagedLinkResult:
+        return reselect_paged(model, prompt, link, selection)
+
+    def gather_k0(self, n_tokens: int) -> torch.Tensor:
+        """Layer-0 cached K of the first ``n_tokens`` slots, (n, Hkv, Dh),
+        a fresh tensor (cacheblend's deviation probe reads the pool where
+        the dense path reads its blended cache).  An int8 pool gives the
+        fp32 view dequantized by each slot's page scale."""
+        pool = self.pool
+        ps = pool.cfg.page_size
+        slots = np.arange(n_tokens)
+        pages = torch.as_tensor(self.page_row[slots // ps], dtype=torch.long,
+                                device=pool.device)
+        offs = torch.as_tensor(slots % ps, dtype=torch.long,
+                               device=pool.device)
+        k0 = pool.k[0][pages, offs]
+        if pool.quantized:
+            k0 = k0.float() * pool.k_scale[0][pages][..., None]
+        return k0
 
     def prefill(self, params, link: PagedLinkResult) -> np.ndarray:
         return self.prefiller.prefill(params, link, self.page_row)

@@ -1,5 +1,6 @@
-// Paged selective-prefill attention (MPIC) for Hopper (sm_90a), one source
-// for both pool types.
+// Selective-attention kernels (MPIC) for Hopper (sm_90a): the paged
+// selective prefill, one kernel for both pool types, and below it the dense
+// selective attention over an explicit kv_pos.
 //
 // Replaces the Pallas TPU kernels `_sel_attn_paged_kernel` (16-bit pool) and
 // `_sel_attn_paged_q8_kernel` (int8 pool) of
@@ -271,3 +272,315 @@ SEL_ATTN_ENTRY(sel_attn_paged_f32, float, false)
 SEL_ATTN_ENTRY(sel_attn_paged_bf16, __nv_bfloat16, false)
 SEL_ATTN_ENTRY(sel_attn_paged_q8_f32, float, true)
 SEL_ATTN_ENTRY(sel_attn_paged_q8_bf16, __nv_bfloat16, true)
+
+// ---------------------------------------------------------------------------
+// Dense selective attention over an explicit kv_pos.
+//
+// Replaces the Pallas TPU kernel `_sel_attn_kernel` of
+// src/repro/kernels/selective_attn/selective_attn.py: every dense attention
+// pass of the serving path (the baselines' prefills, dense mpic/cacheblend,
+// the media upload and the dense-cache decode step).  Queries sit at
+// positions `q_pos`; key slot `i` holds the token at position `kv_pos[i]`,
+// in any order, with INVALID_POS (int32 max) for an empty slot.  A key is
+// kept iff `kv_pos != INVALID_POS && kv_pos <= q_pos` and, with a window,
+// `kv_pos > q_pos - window`.  An online softmax over the kept keys, summed
+// in fp32 and rounded once; a row with no kept key gives zeros.
+//
+// Layouts are the model's, read in place: q and out (B, Sq, Hq, Dh), k and v
+// (B, Skv, Hkv, Dh), q_pos (B, Sq), kv_pos (B, Skv).  Both ragged edges (Sq
+// and Skv) are masked here; nothing is padded.
+//
+// What bounds it on an H100: at the prefill shapes (hundreds to ~1.3k
+// queries against a 2048-slot cache, Dh 128) the ~4 * Dh FLOPs per kept
+// (query, key) pair outweigh the bytes, so a kernel at its limit would be
+// bound by tensor-core operations; the decode step (one query per sequence)
+// is bound by the bytes of the kept keys.  This kernel does its math in fp32
+// on the CUDA cores.  What the design does:
+//   * one block per (sequence, kv head, tile of queries) holds up to 16
+//     (query, head) rows of one GQA group, so each K/V tile it loads serves
+//     the whole group;
+//   * a K/V tile is loaded only if one of its keys is visible to one of the
+//     block's rows, judged from each key's own kv_pos (no order is assumed:
+//     the loop visits every tile and skips the ones with no visible key);
+//   * a logit is computed by a whole warp: each lane holds Dh/32 of the
+//     row's q in registers and forms partial dots with 32 keys, and a
+//     transposing butterfly (31 shuffles for 32 sums) leaves lane t with the
+//     logit of key t, so the softmax statistics are warp reductions;
+//   * P.V reads each V row once per warp from shared memory as a vector and
+//     updates every row the warp owns.
+// Moving both products onto `mma.sync` / `wgmma` tensor-core tiles is later
+// work.
+
+namespace {
+
+constexpr int DENSE_ROWS = 16;                // (query, head) rows per block
+constexpr int ROWS_PER_WARP = DENSE_ROWS / NWARPS;
+constexpr int INVALID_POS = 0x7fffffff;
+
+template <int OFF>
+__device__ __forceinline__ void butterfly_step(float (&v)[32], int lane) {
+  const bool upper = lane & OFF;
+#pragma unroll
+  for (int i = 0; i < OFF; ++i) {
+    const float send = upper ? v[i] : v[i + OFF];
+    const float keep = upper ? v[i + OFF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+  }
+}
+
+// v[t] on every lane -> the sum over the warp of v[lane], on lane `lane`.
+__device__ __forceinline__ float transpose_sum(float (&v)[32], int lane) {
+  butterfly_step<16>(v, lane);
+  butterfly_step<8>(v, lane);
+  butterfly_step<4>(v, lane);
+  butterfly_step<2>(v, lane);
+  butterfly_step<1>(v, lane);
+  return v[0];
+}
+
+template <typename T>
+struct Vec16;  // 16 bytes of T
+template <>
+struct Vec16<float> {
+  static constexpr int N = 4;
+  __device__ static void to_f(const void* p, float* out) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    out[0] = x.x, out[1] = x.y, out[2] = x.z, out[3] = x.w;
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void to_f(const void* p, float* out) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x, out[2 * i + 1] = f.y;
+    }
+  }
+};
+
+// DPL consecutive floats of shared memory (16-byte aligned when DPL >= 4).
+template <int DPL>
+__device__ __forceinline__ void load_row(const float* p, float (&x)[DPL]) {
+  if constexpr (DPL % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < DPL; j += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(p + j);
+      x[j] = f.x, x[j + 1] = f.y, x[j + 2] = f.z, x[j + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) x[j] = p[j];
+  }
+}
+
+// grid (ceil(Sq / QT), Hkv * (G / GB), B), block THREADS.  The block's rows
+// r = qi * GB + g: query qi of the tile, head g of its GB-head part of the
+// group; warp w owns rows [w * ROWS_PER_WARP, (w + 1) * ROWS_PER_WARP).
+// Lane l holds elements [l * DPL, (l + 1) * DPL) of each row.  Shared: the
+// K and V tiles (KT x Dh fp32 each), the tile's kv positions and
+// visibility, the probabilities (DENSE_ROWS x KT).
+template <typename T, int DPL>
+__global__ void __launch_bounds__(THREADS) sel_attn_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
+    T* __restrict__ out, int Sq, int Skv, int Hq, int Hkv, int window, int QT,
+    int GB, float scale) {
+  constexpr int Dh = DPL * 32;
+  constexpr int VN = Vec16<T>::N;
+  const int b = blockIdx.z;
+  const int G = Hq / Hkv;
+  const int parts = G / GB;
+  const int h = blockIdx.y / parts;                  // kv head
+  const int head0 = h * G + (blockIdx.y % parts) * GB;
+  const int q0 = blockIdx.x * QT;
+  const int nq = min(QT, Sq - q0);
+  const int R = QT * GB;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* k_s = reinterpret_cast<float*>(smem_raw);
+  float* v_s = k_s + KT * Dh;
+  float* p_s = v_s + KT * Dh;
+  int* kp_s = reinterpret_cast<int*>(p_s + DENSE_ROWS * KT);
+  __shared__ int qrange_s[2];
+
+  // this warp's rows: query position, q slice, running m / l / acc
+  int qp[ROWS_PER_WARP];
+  bool live[ROWS_PER_WARP];
+  float qv[ROWS_PER_WARP][DPL];
+  float acc[ROWS_PER_WARP][DPL];
+  float m[ROWS_PER_WARP], l[ROWS_PER_WARP];
+  int qmin = 0x7fffffff, qmax = -0x7fffffff - 1;
+#pragma unroll
+  for (int i = 0; i < ROWS_PER_WARP; ++i) {
+    const int r = warp * ROWS_PER_WARP + i;
+    const int qi = r / GB, g = r - qi * GB;
+    live[i] = r < R && qi < nq;
+    qp[i] = live[i] ? q_pos[(size_t)b * Sq + q0 + qi] : 0;
+    const size_t base =
+        (((size_t)b * Sq + q0 + qi) * Hq + head0 + g) * Dh + lane * DPL;
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) {
+      qv[i][j] = live[i] ? to_f(q[base + j]) : 0.f;
+      acc[i][j] = 0.f;
+    }
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+    if (live[i]) {
+      qmin = min(qmin, qp[i]);
+      qmax = max(qmax, qp[i]);
+    }
+  }
+  if (tid == 0) {
+    qrange_s[0] = 0x7fffffff;
+    qrange_s[1] = -0x7fffffff - 1;
+  }
+  __syncthreads();
+  if (lane == 0) {
+    atomicMin(&qrange_s[0], qmin);
+    atomicMax(&qrange_s[1], qmax);
+  }
+  __syncthreads();
+  const int bq_min = qrange_s[0], bq_max = qrange_s[1];
+  const int* kvp = kv_pos + (size_t)b * Skv;
+
+  for (int t0 = 0; t0 < Skv; t0 += KT) {
+    const int nt = min(KT, Skv - t0);
+    // positions of the tile's keys; does any block row see any of them?
+    int vis = 0;
+    if (tid < KT) {
+      const int p = tid < nt ? kvp[t0 + tid] : INVALID_POS;
+      kp_s[tid] = p;
+      vis = p != INVALID_POS && p <= bq_max &&
+            (window <= 0 || p > bq_min - window);
+    }
+    if (!__syncthreads_or(vis)) continue;
+    for (int i = tid; i < nt * (Dh / VN); i += THREADS) {
+      const int t = i / (Dh / VN), c = i - t * (Dh / VN);
+      const size_t g = (((size_t)b * Skv + t0 + t) * Hkv + h) * Dh + c * VN;
+      Vec16<T>::to_f(k + g, k_s + t * Dh + c * VN);
+      Vec16<T>::to_f(v + g, v_s + t * Dh + c * VN);
+    }
+    __syncthreads();
+    // rows are live in order, so live[0] says whether the warp has any
+    if (live[0]) {
+      // partial dots of every row with all 32 keys: each K row is read
+      // from shared memory once per warp
+      float dots[ROWS_PER_WARP][32];
+#pragma unroll
+      for (int t = 0; t < 32; ++t) {
+        float kr[DPL];
+        load_row<DPL>(k_s + t * Dh + lane * DPL, kr);
+#pragma unroll
+        for (int i = 0; i < ROWS_PER_WARP; ++i) {
+          float s = 0.f;
+#pragma unroll
+          for (int j = 0; j < DPL; ++j) s += qv[i][j] * kr[j];
+          dots[i][t] = s;
+        }
+      }
+      const int kp = kp_s[lane];
+#pragma unroll
+      for (int i = 0; i < ROWS_PER_WARP; ++i) {
+        if (!live[i]) continue;                      // warp-uniform
+        const float dot = transpose_sum(dots[i], lane);  // key `lane`
+        const bool ok = lane < nt && kp != INVALID_POS && kp <= qp[i] &&
+                        (window <= 0 || kp > qp[i] - window);
+        const float s = ok ? dot * scale : NEG_INF;
+        const float m_new = fmaxf(m[i], warp_max(s));
+        const float p = ok ? expf(s - m_new) : 0.f;
+        const float alpha = expf(m[i] - m_new);
+        l[i] = alpha * l[i] + warp_sum(p);
+        m[i] = m_new;
+        p_s[(warp * ROWS_PER_WARP + i) * KT + lane] = p;
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) acc[i][j] *= alpha;
+      }
+      __syncwarp();
+      for (int t = 0; t < nt; ++t) {
+        float vv[DPL];
+        load_row<DPL>(v_s + t * Dh + lane * DPL, vv);
+#pragma unroll
+        for (int i = 0; i < ROWS_PER_WARP; ++i) {
+          const float p = p_s[(warp * ROWS_PER_WARP + i) * KT + t];
+#pragma unroll
+          for (int j = 0; j < DPL; ++j) acc[i][j] += p * vv[j];
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < ROWS_PER_WARP; ++i) {
+    if (!live[i]) continue;
+    const int r = warp * ROWS_PER_WARP + i;
+    const int qi = r / GB, g = r - qi * GB;
+    const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+    const size_t base =
+        (((size_t)b * Sq + q0 + qi) * Hq + head0 + g) * Dh + lane * DPL;
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) out[base + j] = from_f<T>(acc[i][j] * inv);
+  }
+}
+
+template <typename T, int DPL>
+int launch_dense(const void* q, const void* k, const void* v,
+                 const void* q_pos, const void* kv_pos, void* out, int B,
+                 int Sq, int Skv, int Hq, int Hkv, int window, void* stream) {
+  const int G = Hq / Hkv;
+  int GB = G < DENSE_ROWS ? G : DENSE_ROWS;   // heads of the group per block
+  while (G % GB) --GB;
+  const int QT = DENSE_ROWS / GB;
+  const size_t smem = sizeof(float) * (2 * KT * DPL * 32 + DENSE_ROWS * KT) +
+                      sizeof(int) * KT;
+  auto kern = sel_attn_kernel<T, DPL>;
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  const dim3 grid((Sq + QT - 1) / QT, Hkv * (G / GB), B);
+  kern<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(q_pos),
+      static_cast<const int*>(kv_pos), static_cast<T*>(out), Sq, Skv, Hq, Hkv,
+      window, QT, GB, 1.0f / sqrtf((float)(DPL * 32)));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_dense(const void* q, const void* k, const void* v,
+                   const void* q_pos, const void* kv_pos, void* out, int B,
+                   int Sq, int Skv, int Hq, int Hkv, int Dh, int window,
+                   void* stream) {
+  switch (Dh) {
+    case 32:
+      return launch_dense<T, 1>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, Hq,
+                                Hkv, window, stream);
+    case 64:
+      return launch_dense<T, 2>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, Hq,
+                                Hkv, window, stream);
+    case 128:
+      return launch_dense<T, 4>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, Hq,
+                                Hkv, window, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+#define SEL_ATTN_DENSE_ENTRY(NAME, T)                                        \
+  extern "C" int NAME(const void* q, const void* k, const void* v,           \
+                      const void* q_pos, const void* kv_pos, void* out,      \
+                      int B, int Sq, int Skv, int Hq, int Hkv, int Dh,       \
+                      int window, void* stream) {                            \
+    return dispatch_dense<T>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, Hq,    \
+                             Hkv, Dh, window, stream);                       \
+  }
+
+SEL_ATTN_DENSE_ENTRY(sel_attn_f32, float)
+SEL_ATTN_DENSE_ENTRY(sel_attn_bf16, __nv_bfloat16)

@@ -1,5 +1,14 @@
-"""Dispatch for paged selective-prefill attention: the CUDA kernel on the
-card, the plain version on the CPU.
+"""Dispatch for selective attention: the CUDA kernels on the card, the plain
+versions on the CPU.
+
+``selective_attention`` (dense, over an explicit ``kv_pos``) takes the
+model's layout: q (B, Sq, Hq, Dh); k/v (B, Skv, Hkv, Dh); q_pos (B, Sq)
+int32; kv_pos (B, Skv) int32 with ``INVALID_POS`` for an empty slot.  It
+returns (B, Sq, Hq, Dh) in q's dtype.  A CPU tensor goes to
+:func:`selective_attention_ref` (layout (B, H, S, Dh)); a CUDA tensor
+launches ``sel_attn`` of ``csrc/selective_attn.cu``, which reads every
+operand in place and masks both ragged edges itself (the JAX wrapper pads
+to block multiples), or raises.
 
 ``selective_attention_paged`` takes the model's layout: q (B, Sq, Hq, Dh);
 pools (P, page_size, Hkv, Dh) of one layer; page_table (B, mp) int32; q_pos
@@ -22,19 +31,64 @@ import torch
 from repro_torch.kernels._build import Kernel, ptr
 from repro_torch.kernels.selective_attn.ref import (
     selective_attention_paged_ref,
+    selective_attention_ref,
 )
 
 _ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
 SEL_ATTN_PAGED = Kernel("sel_attn_paged", "selective_attn", _ARGS)
 SEL_ATTN_PAGED_Q8 = Kernel("sel_attn_paged_q8", "selective_attn", _ARGS)
-KERNELS = (SEL_ATTN_PAGED, SEL_ATTN_PAGED_Q8)
+SEL_ATTN = Kernel("sel_attn", "selective_attn",
+                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7)
+KERNELS = (SEL_ATTN_PAGED, SEL_ATTN_PAGED_Q8, SEL_ATTN)
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def _check(cond: bool, what: str) -> None:
+def _check(cond: bool, what: str, name="selective_attention_paged") -> None:
     if not cond:
-        raise ValueError(f"selective_attention_paged: {what}")
+        raise ValueError(f"{name}: {what}")
+
+
+def selective_attention(q, k, v, q_pos, kv_pos, *, window: int = 0):
+    if q.device.type == "cpu":
+        out = selective_attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), q_pos,
+            kv_pos, window=window)
+        return out.transpose(1, 2)
+    if q.device.type != "cuda":
+        raise ValueError(f"selective_attention: unsupported device {q.device}")
+    b, sq, hq, dh = q.shape
+    _, skv, hkv, dh_k = k.shape
+    tensors = [q, k, v, q_pos, kv_pos]
+
+    def check(cond, what):
+        _check(cond, what, "selective_attention")
+
+    check(all(t.device == q.device for t in tensors),
+          "all tensors must be on one device")
+    check(all(t.is_contiguous() for t in tensors),
+          "all tensors must be contiguous")
+    check(q.dtype in _SUFFIX, f"q dtype {q.dtype} not float32/bfloat16")
+    check(k.dtype == q.dtype and v.dtype == q.dtype,
+          "k and v must have q's dtype")
+    check(k.shape[0] == b and dh_k == dh and v.shape == k.shape,
+          "k/v must be (B, Skv, Hkv, Dh) matching q")
+    check(dh in (32, 64, 128), f"head dim {dh} not 32, 64 or 128")
+    check(hq % hkv == 0, f"Hq {hq} not a multiple of Hkv {hkv}")
+    check(q_pos.dtype == torch.int32 and q_pos.shape == (b, sq),
+          "q_pos must be int32 (B, Sq)")
+    check(kv_pos.dtype == torch.int32 and kv_pos.shape == (b, skv),
+          "kv_pos must be int32 (B, Skv)")
+    # the kernel reads K/V rows as 16-byte vectors
+    check(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+          "q, k and v must be 16-byte aligned")
+    out = torch.empty_like(q)
+    if sq == 0:
+        return out
+    SEL_ATTN.launch(_SUFFIX[q.dtype], ptr(q), ptr(k), ptr(v), ptr(q_pos),
+                    ptr(kv_pos), ptr(out), b, sq, skv, hq, hkv, dh,
+                    int(window))
+    return out
 
 
 def selective_attention_paged(q, k_pool, v_pool, page_table, q_pos, lengths,

@@ -1,6 +1,9 @@
-"""Plain PyTorch version of paged selective-prefill attention (mirror of
-``selective_attention_paged_ref`` in the JAX package's
-``kernels/selective_attn/ref.py``).
+"""Plain PyTorch versions of selective attention (mirrors of the JAX
+package's ``kernels/selective_attn/ref.py``): the paged form
+(:func:`selective_attention_paged_ref`) and the dense form over an explicit
+``kv_pos`` (:func:`selective_attention_ref`).
+
+Paged form:
 
 q          (B, Hq, Sq, Dh)         selected (recomputed) tokens
 k/v pool   (P, page_size, Hkv, Dh) one layer's page pool
@@ -19,6 +22,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+INVALID_POS = torch.iinfo(torch.int32).max
 
 
 def selective_attention_paged_ref(q, k_pool, v_pool, page_table, q_pos,
@@ -50,3 +55,29 @@ def selective_attention_paged_ref(q, k_pool, v_pool, page_table, q_pos,
     probs = torch.where(mask.any(dim=-1, keepdim=True), probs,
                         torch.zeros_like(probs))
     return torch.einsum("bhqk,bhkd->bhqd", probs, v).to(q.dtype)
+
+
+def selective_attention_ref(q, k, v, q_pos, kv_pos, *, window: int = 0):
+    """Dense selective attention.  q (B, Hq, Sq, Dh); k/v (B, Hkv, Skv, Dh);
+    q_pos (B, Sq); kv_pos (B, Skv) int32 with ``INVALID_POS`` for an empty
+    slot, in any order.  A key is kept iff its position is valid, at most
+    the query's and, with a window, above ``q_pos - window``.  Logits,
+    probabilities and the value product in fp32, rounded once to q's dtype;
+    a row with no kept key gives zeros.  Returns (B, Hq, Sq, Dh)."""
+    b, hq, sq, dh = q.shape
+    rep = hq // k.shape[1]
+    k = torch.repeat_interleave(k, rep, dim=1)
+    v = torch.repeat_interleave(v, rep, dim=1)
+
+    scale = 1.0 / math.sqrt(dh)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    kp = kv_pos.long()[:, None, None, :]
+    qp = q_pos.long()[:, None, :, None]
+    mask = (kp != INVALID_POS) & (kp <= qp)
+    if window > 0:
+        mask = mask & (kp > qp - window)
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    p = torch.softmax(logits, dim=-1)
+    # fully masked rows (padding queries) -> zeros, not the uniform mean
+    p = torch.where(mask.any(dim=-1, keepdim=True), p, torch.zeros_like(p))
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)

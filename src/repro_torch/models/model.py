@@ -46,14 +46,45 @@ class Model:
         return tf.embed_tokens(params, self.cfg, tokens, media_embeds,
                                media_mask)
 
-    def prefill(self, params, tokens, *, media_embeds=None, media_mask=None):
-        """Plain contiguous prefill from position 0; returns (logits
-        (B, S, V), cache {"k", "v": (L, B, S, Hkv, Dh), "pos"})."""
+    # -- serving ------------------------------------------------------------
+    def make_cache(self, batch: int, kv_len: int, *, device=None) -> dict:
+        """Empty dense cache on ``device`` (None means the card); see
+        :func:`repro_torch.models.transformer.make_cache`."""
+        return tf.make_cache(self.cfg, batch, kv_len, device=device)
+
+    def prefill(self, params, tokens, cache, *, media_embeds=None,
+                media_mask=None, positions=None, write_idx=None):
+        """Prefill ``tokens`` (B, S) into ``cache``, in place; contiguous
+        from position 0 unless ``positions``/``write_idx`` (B, S) int32 say
+        otherwise.  Returns (logits (B, S, V), cache)."""
         b, s = tokens.shape
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=tokens.device).expand(b, s)
+        contiguous = positions is None and write_idx is None
+        if positions is None:
+            positions = torch.arange(s, dtype=torch.int32,
+                                     device=tokens.device).repeat(b, 1)
+        if write_idx is None:
+            write_idx = positions
         x = self.embed(params, tokens, media_embeds, media_mask)
-        return tf.forward_with_cache(params, self.cfg, x, positions)
+        return tf.forward_with_cache(params, self.cfg, x, positions, cache,
+                                     write_idx, contiguous=contiguous)
+
+    def selective_prefill(self, params, sel_tokens, sel_positions, cache,
+                          write_idx, *, media_embeds=None, media_mask=None):
+        """MPIC selective-attention prefill (single step) against a linked
+        dense cache: reused segment KV already placed, dummy (zero, invalid)
+        KV in the selected slots, which the recomputed tokens' K/V fill
+        inside this one pass.  Returns (logits (B, Sq, V), cache)."""
+        x = self.embed(params, sel_tokens, media_embeds, media_mask)
+        return tf.forward_with_cache(params, self.cfg, x, sel_positions,
+                                     cache, write_idx)
+
+    def decode_step(self, params, token, position, cache, write_idx):
+        """One decode step against a dense cache.  token, position and
+        write_idx (B, 1).  Returns (logits (B, V), cache)."""
+        x = self.embed(params, token)
+        logits, cache = tf.forward_with_cache(params, self.cfg, x, position,
+                                              cache, write_idx)
+        return logits[:, -1, :], cache
 
     def supports_paged_prefill(self) -> bool:
         return self.supports_paged_decode()

@@ -1,6 +1,5 @@
 """Decoder-only transformer for the attention architectures (port of the
-JAX package's ``models/transformer.py``, the parts the paged serving path
-runs).
+JAX package's ``models/transformer.py``, the parts the serving paths run).
 
 The weights are ``nn.Module``s: a :class:`Transformer` holds the embedding,
 an ``nn.ModuleList`` of :class:`DecoderLayer` (run in a Python loop where
@@ -8,16 +7,18 @@ the JAX package scans over a stacked layer axis), the final norm and the LM
 head.  Weights keep the JAX layout ``(in, out)`` and apply as ``x @ W``.
 The serving passes are plain functions on tensors:
 
-* :func:`prefill_kv` / :func:`forward_with_cache`: contiguous prefill from
-  position 0 (what ``precompute_media_kv`` runs on an upload);
+* :func:`forward_with_cache`: any tokens at any positions against a dense
+  cache (:func:`make_cache`): the media upload, the baselines' prefills,
+  the dense selective prefill and the dense decode step;
 * :func:`decode_paged`: one decode step for every slot against the page
   pool;
 * :func:`selective_prefill_paged`: the MPIC selective prefill against the
   page pool.
 
-The paged passes write each layer's new K/V into the pool tensors in place
-(the JAX versions return new buffers from donated jits) and run attention
-through the kernel dispatchers, which launch the CUDA kernels on the card.
+Every pass writes each layer's new K/V into its cache or pool tensors in
+place (the JAX versions return new buffers from donated jits or functional
+scatters; no caller reads the old buffer again) and runs attention through
+the kernel dispatchers, which launch the CUDA kernels on the card.
 """
 from __future__ import annotations
 
@@ -30,9 +31,12 @@ from torch import nn
 from repro_torch.cache.pagequant import quant_scatter
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.kernels.paged_attn.ops import paged_attention
-from repro_torch.kernels.selective_attn.ops import selective_attention_paged
+from repro_torch.kernels.selective_attn.ops import (
+    selective_attention,
+    selective_attention_paged,
+)
 from repro_torch.models.layers import (
-    attend,
+    INVALID_POS,
     attention_out,
     attention_qkv,
     banded_attend,
@@ -144,39 +148,60 @@ def _mlp(lp: DecoderLayer, cfg, x) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# contiguous prefill (media upload)
+# dense cache passes
 # ---------------------------------------------------------------------------
 
-def prefill_kv(params: Transformer, cfg, embeds, positions, *,
-               window: Optional[int] = None):
-    """Causal pass over contiguous tokens from position 0: embeds (B, S, D),
-    positions (B, S) = arange.  Returns the last hidden states (B, S, D) and
-    every layer's K/V, each (L, B, S, Hkv, Dh) in the compute dtype."""
+def make_cache(cfg, batch: int, kv_len: int, *, device=None) -> dict:
+    """Empty dense cache, every slot invalid: ``k``/``v`` (L, B, kv_len,
+    Hkv, Dh) zeros in the compute dtype, ``pos`` (B, kv_len) int32
+    ``INVALID_POS``."""
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch, kv_len, cfg.num_kv_heads, cfg.head_dim)
+    dt = torch_dtype(cfg.compute_dtype)
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev),
+            "pos": torch.full((batch, kv_len), INVALID_POS,
+                              dtype=torch.int32, device=dev)}
+
+
+def _scatter_rows(buf, vals, idx):
+    """buf (B, S, ...) <- vals (B, Sq, ...) at idx (B, Sq), in place;
+    returns ``buf``."""
+    rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
+    buf[rows, idx.long()] = vals.to(buf.dtype)
+    return buf
+
+
+def forward_with_cache(params: Transformer, cfg, embeds, positions, cache,
+                       write_idx, *, window: Optional[int] = None,
+                       contiguous: bool = False):
+    """Run tokens (any subset, any positions) against a dense cache.
+
+    embeds (B, Sq, D) of the tokens to compute; positions (B, Sq) int32
+    their positions in the full prompt; cache from :func:`make_cache`, which
+    may already hold reused (linked) KV; write_idx (B, Sq) the slots their
+    K/V go to.  Per layer the new K/V and positions are written into the
+    cache in place, then selective attention runs over the whole cache, so
+    the computed tokens see each other inside this one pass.  ``contiguous``
+    marks a plain prefill from position 0 (``positions == write_idx ==
+    arange``).  Returns (logits (B, Sq, V) fp32, cache).
+    """
     w = cfg.sliding_window if window is None else window
-    s = embeds.shape[1]
-    if w and s % w == 0 and s >= 2 * w:
+    s_q = embeds.shape[1]
+    kv_len = cache["k"].shape[2]
+    if contiguous and w and s_q == kv_len and s_q % w == 0 and s_q >= 2 * w:
         banded_attend()
-    cdt = torch_dtype(cfg.compute_dtype)
+    kv_pos = _scatter_rows(cache["pos"], positions, write_idx)
     x = embeds
-    ks, vs = [], []
-    for lp in params.layers:
+    for l, lp in enumerate(params.layers):
         h = rmsnorm(lp.attn_norm, x, cfg.rms_norm_eps)
-        q, k, v = attention_qkv(lp.attn, cfg, h, positions)
-        k, v = k.to(cdt), v.to(cdt)
-        o = attend(q, k, v, positions, positions, window=w)
+        q, k_new, v_new = attention_qkv(lp.attn, cfg, h, positions)
+        k_full = _scatter_rows(cache["k"][l], k_new, write_idx)
+        v_full = _scatter_rows(cache["v"][l], v_new, write_idx)
+        o = selective_attention(q.contiguous(), k_full, v_full, positions,
+                                kv_pos, window=w)
         x = _mlp(lp, cfg, x + attention_out(lp.attn.wo, o))
-        ks.append(k)
-        vs.append(v)
-    return x, torch.stack(ks), torch.stack(vs)
-
-
-def forward_with_cache(params: Transformer, cfg, embeds, positions, *,
-                       window: Optional[int] = None):
-    """Contiguous prefill form of the JAX ``forward_with_cache``: the cache
-    holds exactly these tokens, so it is returned fresh.  Returns (logits
-    (B, S, V) fp32, {"k", "v": (L, B, S, Hkv, Dh), "pos": positions})."""
-    x, k, v = prefill_kv(params, cfg, embeds, positions, window=window)
-    return _logits(params, cfg, x), {"k": k, "v": v, "pos": positions}
+    return _logits(params, cfg, x), cache
 
 
 # ---------------------------------------------------------------------------

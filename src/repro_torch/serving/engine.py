@@ -1,28 +1,41 @@
-"""MPIC serving engine, paged path (port of the JAX package's
-``serving/engine.py``).
+"""MPIC serving engine (port of the JAX package's ``serving/engine.py``).
 
 The paper's request flow, with continuous batching over fixed slots:
 
   1. ``upload``   user file -> ``precompute_media_kv`` -> static library
                   (``dynamic=True``: the shared MRAG library + retriever)
   2. ``submit``   a query with media references joins the waiting queue
-  3. admission    one request per step into a free slot: its pages are
-                  reserved (the pool gives every slot its whole
-                  ``max_seq_len`` region, so a free slot always has room),
-                  the policy (``mpic``) links the stored media KV
-                  into them (``link_paged``) and runs the selective prefill
-                  (``PagedPrefiller``), which gives the first token
+  3. admission    one request per step into a free slot; its policy
+                  (``mpic``, ``cacheblend``, ``full_reuse``,
+                  ``prefix_caching`` or ``full_recompute``) links the stored
+                  media KV and runs the prefill, which gives the first token
   4. MRAG         retrieved dynamic-library KV is relinked after the prompt
-  5. decode       every step advances all running slots by one token with
-                  one paged decode step over the pool
+  5. decode       every step advances all running slots by one token
 
-The KV pool is a :class:`~repro_torch.cache.paged.PagedKVPool`, bf16 (the
-model's compute dtype) or int8 (``EngineConfig.pool_dtype="int8"``), written
-in place.  On the card, attention runs in the port's CUDA kernels.
+Two batch caches:
+
+* **paged** (``EngineConfig.paged=True``, the default): a
+  :class:`~repro_torch.cache.paged.PagedKVPool`, bf16 (the model's compute
+  dtype) or int8 (``pool_dtype="int8"``).  Admission reserves the prompt's
+  pages (every slot owns its whole ``max_seq_len`` region, so a free slot
+  always has room).  ``mpic`` and ``cacheblend`` link and prefill straight
+  into those pages (``link_paged``, ``PagedPrefiller``); the other policies
+  build a dense per-request cache, which is spliced into the pages
+  (``_splice_paged``, quantized on an int8 pool).  Decode is one paged step
+  over the pool.
+* **dense** (``paged=False``): one ``(L, slots, max_seq_len, Hkv, Dh)``
+  cache plus ``pos``; every policy builds a dense per-request cache, which
+  is spliced into its slot's row, and decode is ``Model.decode_step`` over
+  the whole batch.  It has no int8 form.
+
+Every cache is written in place.  On the card, attention runs in the
+port's CUDA kernels: the paged prefill and decode kernels on the pool, the
+dense selective attention everywhere else (uploads, the dense prefills,
+the dense decode step).
 
 Not ported yet: the pipelined scheduler and its loader, chunked prefill,
-the dense fallback cache, sessions, deadlines and faults, sampling other
-than greedy, and mesh sharding.
+sessions, deadlines and faults, sampling other than greedy, and mesh
+sharding.
 """
 from __future__ import annotations
 
@@ -37,8 +50,9 @@ from repro_torch.cache.library import KVLibrary
 from repro_torch.cache.paged import PagedConfig, PagedKVPool
 from repro_torch.core.linker import bucket, precompute_media_kv
 from repro_torch.core.paged_prefill import PagedPrefiller
-from repro_torch.core.policies import POLICIES, PolicyResult
+from repro_torch.core.policies import POLICIES, PolicyResult, PrefixStore
 from repro_torch.device import resolve_device
+from repro_torch.models.layers import INVALID_POS, rope_relink
 from repro_torch.serving.request import Request, State
 from repro_torch.serving.retriever import Retriever
 from repro_torch.serving.scheduler import WaitingQueue
@@ -50,6 +64,8 @@ class EngineConfig:
     decode_slots: int = 4           # continuous-batching capacity
     page_size: int = 16             # tokens per KV page
     pool_dtype: str = ""            # "" -> model compute dtype; "int8"
+                                    # (paged engines only)
+    paged: bool = True              # page pool; False -> dense batch cache
 
 
 class MPICEngine:
@@ -75,8 +91,29 @@ class MPICEngine:
         self.finished: List[Request] = []
         self.failed: List[Request] = []
         self.decode_step_s: List[float] = []    # wall time of each decode step
+        # token prefix -> KV, read by ``prefix_caching``; empty until the
+        # caller stores a prefix (the system prompt, say)
+        self.prefix_store = PrefixStore()
 
-        mcfg = model.cfg
+        self._paged = self.cfg.paged
+        if self.cfg.pool_dtype == "int8" and not self._paged:
+            # the dense cache has no scale buffers and no dequantizing read
+            raise ValueError(
+                "pool_dtype='int8' requires the paged KV pool "
+                "(EngineConfig.paged=True): the dense cache carries no "
+                "per-page scales")
+        self.pool = None
+        self._prefiller = None
+        self._batch_cache = None
+        if self._paged:
+            self._init_pool()
+        else:
+            self._batch_cache = model.make_cache(
+                self.cfg.decode_slots, self.cfg.max_seq_len,
+                device=self.device)
+
+    def _init_pool(self) -> None:
+        mcfg = self.model.cfg
         ps = self.cfg.page_size
         self._pages_per_slot = -(-self.cfg.max_seq_len // ps)
         # every slot's whole region, plus the scratch page
@@ -86,13 +123,14 @@ class MPICEngine:
             num_kv_heads=mcfg.num_kv_heads, head_dim=mcfg.head_dim,
             dtype=self.cfg.pool_dtype or mcfg.compute_dtype),
             device=self.device)
-        # scratch page: absorbs padding writes (idle slots, bucket pads) so
-        # real pages are never aliased
+        # scratch page: absorbs padding writes (idle slots, bucket pads,
+        # splice tails) so real pages are never aliased
         self._scratch_page = int(self.pool.alloc("__scratch__", 1)[0])
         self._page_tables = np.full(
             (self.cfg.decode_slots, self._pages_per_slot),
             self._scratch_page, np.int32)
-        self._prefiller = PagedPrefiller(model, self.pool, self._scratch_page)
+        self._prefiller = PagedPrefiller(self.model, self.pool,
+                                         self._scratch_page)
 
     # ------------------------------------------------------------------
     # workflow 1: upload -> precompute KV -> store
@@ -160,12 +198,18 @@ class MPICEngine:
         req.slot = slot
         req.state = State.PREFILLING
         self.running[slot] = req
-        pages = self.pool.alloc(req.req_id, req.prompt.total_len + 1)
-        self._set_page_row(slot, pages)
+        paged_ctx = None
+        if self._paged:
+            pages = self.pool.alloc(req.req_id, req.prompt.total_len + 1)
+            self._set_page_row(slot, pages)
+            # mpic / cacheblend link and prefill straight into the pages;
+            # the other policies build a dense cache that is spliced in
+            if req.policy in ("mpic", "cacheblend"):
+                paged_ctx = self._prefiller.bind(self._page_tables[slot])
         try:
             result = policy(self.model, self.params, req.prompt,
-                            self.static_lib,
-                            paged=self._prefiller.bind(self._page_tables[slot]),
+                            self.static_lib, kv_len=self.cfg.max_seq_len,
+                            prefix_store=self.prefix_store, paged=paged_ctx,
                             **req.policy_kwargs)
             self._finalize_prefill(req, result)
         except BaseException as exc:
@@ -184,6 +228,13 @@ class MPICEngine:
         req.t_first_token = time.perf_counter()
         req.cur_len = req.prompt.total_len
         req.state = State.RUNNING
+        # a dense result cache goes into the slot's pages or its row of the
+        # dense batch cache; a paged prefill left nothing to splice
+        if result.cache is not None:
+            if self._paged:
+                self._splice_paged(req.slot, result.cache, req.cur_len + 1)
+            else:
+                self._dense_splice(req.slot, result.cache)
         # workflow 4: MRAG, link retrieved KV position-independently with no
         # recompute of the existing cache
         if req.retrieval_query is not None:
@@ -193,6 +244,38 @@ class MPICEngine:
         row = np.full((self._pages_per_slot,), self._scratch_page, np.int32)
         row[:len(pages)] = pages
         self._page_tables[slot] = row
+
+    def _splice_paged(self, slot: int, rc: dict, n_tokens: int) -> None:
+        """Write a dense per-request cache into the slot's pages, with one
+        pool write of ``bucket(n_tokens, 1)`` rows (quantizing on an int8
+        pool).  Rows past the slot's owned pages land on the scratch page;
+        owned slots past ``n_tokens`` may keep a previous tenant's KV,
+        which every read masks by length."""
+        b = min(bucket(n_tokens, 1), rc["k"].shape[2])
+        self.pool.write_tokens(self._page_tables[slot], 0,
+                               rc["k"][:, 0, :b], rc["v"][:, 0, :b])
+
+    def _dense_splice(self, slot: int, rc: dict) -> None:
+        """Copy a per-request cache (batch 1, ``max_seq_len`` slots) into
+        row ``slot`` of the dense batch cache."""
+        bc = self._batch_cache
+        bc["pos"][slot] = rc["pos"][0]
+        bc["k"][:, slot] = rc["k"][:, 0]
+        bc["v"][:, slot] = rc["v"][:, 0]
+
+    def _dense_link(self, slot: int, k_seg, v_seg, off: int) -> None:
+        """Link one MRAG segment (L, n, Hkv, Dh), stored at position 0, at
+        positions ``off ..`` of row ``slot`` of the dense batch cache."""
+        bc = self._batch_cache
+        n = k_seg.shape[1]
+        theta = self.model.cfg.rope_theta
+        if theta:
+            k_seg = rope_relink(k_seg, torch.full(
+                (n,), off, dtype=torch.int32, device=self.device), theta)
+        bc["k"][:, slot, off:off + n] = k_seg
+        bc["v"][:, slot, off:off + n] = v_seg
+        bc["pos"][slot, off:off + n] = torch.arange(
+            off, off + n, dtype=torch.int32, device=self.device)
 
     def _mrag_link(self, req: Request) -> None:
         hits = self.retriever.query(req.retrieval_query, req.retrieval_top_k)
@@ -206,6 +289,11 @@ class MPICEngine:
             off = req.cur_len
             if off + length + 1 >= self.cfg.max_seq_len:
                 break
+            if not self._paged:
+                self._dense_link(req.slot, entry.k, entry.v, off)
+                req.cur_len += length
+                req.linked_media.append(media_id)
+                continue
             pages = self.pool.extend(req.req_id, length, off)
             if pages is None:           # pool full: stop linking
                 break
@@ -230,13 +318,35 @@ class MPICEngine:
                 if r is not None and r.state is State.RUNNING]
         if not live:
             return
-        live, logits = self._decode_paged_step(live)
+        if self._paged:
+            live, logits = self._decode_paged_step(live)
+        else:
+            logits = self._decode_dense_step(live)
         for r in live:
             r.output_tokens.append(int(np.argmax(logits[r.slot])))
             r.cur_len += 1
             if len(r.output_tokens) >= r.max_new_tokens or \
                     r.cur_len + 1 >= self.cfg.max_seq_len:
                 self._finish(r)
+
+    def _decode_dense_step(self, live: List[Request]) -> np.ndarray:
+        """One decode step over the dense batch cache for every slot.  Idle
+        slots decode token 0 at position ``max_seq_len - 1`` into that
+        slot, so they see one key; their logits are dropped."""
+        t0 = time.perf_counter()
+        B = self.cfg.decode_slots
+        tokens = np.zeros((B, 1), np.int32)
+        positions = np.full((B, 1), self.cfg.max_seq_len - 1, np.int32)
+        for r in live:
+            tokens[r.slot, 0] = r.output_tokens[-1]
+            positions[r.slot, 0] = r.cur_len
+        pos = torch.as_tensor(positions, device=self.device)
+        logits, self._batch_cache = self.model.decode_step(
+            self.params, torch.as_tensor(tokens, device=self.device), pos,
+            self._batch_cache, pos)
+        logits = logits.float().cpu().numpy()
+        self.decode_step_s.append(time.perf_counter() - t0)
+        return logits
 
     def _decode_paged_step(self, live: List[Request]):
         """One decode step over the page pool for all live slots.
@@ -289,8 +399,12 @@ class MPICEngine:
 
     def _release(self, r: Request) -> None:
         self.running[r.slot] = None
-        self.pool.free(r.req_id)
-        self._page_tables[r.slot] = self._scratch_page
+        if self._paged:
+            self.pool.free(r.req_id)
+            self._page_tables[r.slot] = self._scratch_page
+        elif r.slot >= 0:
+            # the row's K/V stay; marking every slot invalid empties it
+            self._batch_cache["pos"][r.slot] = INVALID_POS
         r.slot = -1
 
     def _finish(self, r: Request) -> None:
@@ -316,5 +430,6 @@ class MPICEngine:
             "decode_steps": len(steps),
             "mean_decode_step_s": float(np.mean(steps)) if steps else 0.0,
             "total_tokens": sum(len(r.output_tokens) for r in done),
+            "paged": self._paged,
             "library": self.static_lib.stats(),
         }

@@ -7,6 +7,13 @@ A stand-in for a correct kernel (the plain version with the full pages of
 each row visited in reverse order: the same keys, summed in another order)
 must pass.  Stand-ins for a kernel that drops the newest key, the ragged
 last page or a few pages' K scales must fail it.
+
+The same for the dense selective attention at the dense decode step's
+shape: four slots of a 2048-slot cache holding 1.3k-1.9k tokens at
+permuted slots, the rest empty (``INVALID_POS``, with a previous tenant's
+K/V left in them, as a dense cache keeps them).  A reordered sum passes; a
+kernel that reads the empty slots as keys, or whose window edge is off by
+one, fails.
 """
 import math
 
@@ -15,6 +22,10 @@ import torch
 
 from repro_torch.kernels.check import compare, v_absmax
 from repro_torch.kernels.paged_attn.ref import paged_attention_ref
+from repro_torch.kernels.selective_attn.ref import (
+    INVALID_POS,
+    selective_attention_ref,
+)
 
 PS, HKV, HQ, DH = 16, 8, 8, 128
 LENGTHS = [1302, 1497, 1650, 1889]
@@ -89,3 +100,51 @@ def test_fp32_limit_and_row_mask():
     res = compare(a, b, 1.0, rows=torch.tensor([False, True, True]))
     assert res["max_abs_err"] == pytest.approx(5e-5)
     assert res["worst"] == pytest.approx(0.5)
+
+
+SKV, DENSE_HQ, WINDOW = 2048, 8, 1024
+
+
+def _dense_decode_inputs():
+    g = torch.Generator().manual_seed(1)
+    b = len(LENGTHS)
+    k = torch.randn((b, HKV, SKV, DH), generator=g).to(torch.bfloat16)
+    v = torch.randn((b, HKV, SKV, DH), generator=g).to(torch.bfloat16)
+    kv_pos = torch.full((b, SKV), INVALID_POS, dtype=torch.int32)
+    for i, n in enumerate(LENGTHS):
+        slots = torch.randperm(SKV, generator=g)[:n]
+        kv_pos[i, slots] = torch.arange(n, dtype=torch.int32)
+    # the query is the newest token, at position n - 1
+    q_pos = torch.tensor(LENGTHS, dtype=torch.int32)[:, None] - 1
+    q = torch.randn((b, DENSE_HQ, 1, DH), generator=g).to(torch.bfloat16)
+    return q, k, v, q_pos, kv_pos
+
+
+def _dense_stand_in(mutation, q, k, v, q_pos, kv_pos, window):
+    """What a dense kernel with the given fault would return."""
+    if mutation == "reordered":              # correct: another slot order
+        perm = torch.randperm(SKV, generator=torch.Generator().manual_seed(2))
+        k, v, kv_pos = k[:, :, perm], v[:, :, perm], kv_pos[:, perm]
+    elif mutation == "empty_slots":          # INVALID_POS not masked: an
+        slot = torch.arange(SKV, dtype=torch.int32)   # empty slot read as
+        kv_pos = torch.where(kv_pos == INVALID_POS,   # the key at its index
+                             slot[None], kv_pos)
+    elif mutation == "window_edge":          # kv_pos >= q_pos - window
+        window += 1
+    return selective_attention_ref(q, k, v, q_pos, kv_pos, window=window)
+
+
+@pytest.mark.parametrize("mutation,window", [
+    ("reordered", 0), ("reordered", WINDOW), ("empty_slots", 0),
+    ("window_edge", WINDOW)])
+def test_bf16_limit_catches_dense_kernel_faults(mutation, window):
+    q, k, v, q_pos, kv_pos = _dense_decode_inputs()
+    ref = selective_attention_ref(q, k, v, q_pos, kv_pos, window=window)
+    out = _dense_stand_in(mutation, q, k, v, q_pos, kv_pos, window)
+    assert out.dtype == torch.bfloat16
+    res = compare(out, ref, v_absmax(v))
+    assert math.isfinite(res["worst"])
+    if mutation == "reordered":
+        assert res["worst"] <= 1.0, res
+    else:
+        assert res["worst"] > 1.0, res

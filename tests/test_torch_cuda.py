@@ -1,4 +1,4 @@
-"""The port's four CUDA kernels against their plain versions, on the card.
+"""The port's five CUDA kernels against their plain versions, on the card.
 
 Skips without a card.  On a machine with one (and no JAX), run::
 
@@ -11,6 +11,11 @@ gives the uniform mean there, so the comparison skips it).  Tolerance, per
 element (``repro_torch.kernels.check``): fp32 outputs 1e-4 (sum order);
 bf16 outputs one bf16 ulp of the larger of the two values plus
 ``2**-17 * max|V|`` (two roundings of fp32 sums taken in another order).
+
+The dense selective attention (``sel_attn``) runs on its own synthetic
+shape: 32 query heads on 8 kv heads (and MHA), window 64 (and none), Sq 101
+and Skv 300 (neither a multiple of a tile), kv positions permuted with
+``INVALID_POS`` holes, and one query whose every key is masked (zeros).
 """
 import pytest
 import torch
@@ -19,9 +24,14 @@ from repro_torch.kernels import KERNELS
 from repro_torch.kernels.check import compare, v_absmax
 from repro_torch.kernels.paged_attn.ops import paged_attention
 from repro_torch.kernels.paged_attn.ref import paged_attention_ref
-from repro_torch.kernels.selective_attn.ops import selective_attention_paged
+from repro_torch.kernels.selective_attn.ops import (
+    selective_attention,
+    selective_attention_paged,
+)
 from repro_torch.kernels.selective_attn.ref import (
+    INVALID_POS,
     selective_attention_paged_ref,
+    selective_attention_ref,
 )
 
 pytestmark = pytest.mark.cuda
@@ -121,3 +131,61 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         paged_attention(q, k, v, pt.long(), lens)                # index dtype
     with pytest.raises(ValueError):
         paged_attention(q, k.transpose(0, 1), v, pt, lens)       # layout
+
+
+def _dense_inputs(dev, dtype, hq, hkv, seed, b=2, sq=101, skv=300):
+    """Positions 5..304 in a random order per sequence, ~10% of the slots
+    empty; query 0 of sequence 0 sits at position 2, below every key."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, sq, hq, DH), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, skv, hkv, DH), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, skv, hkv, DH), generator=g, device=dev).to(dtype)
+    kv_pos = torch.stack([torch.randperm(skv, generator=g, device=dev) + 5
+                          for _ in range(b)]).to(torch.int32)
+    holes = torch.rand((b, skv), generator=g, device=dev) < 0.1
+    kv_pos[holes] = INVALID_POS
+    q_pos = torch.stack([torch.randperm(skv + 10, generator=g,
+                                        device=dev)[:sq]
+                         for _ in range(b)]).to(torch.int32)
+    q_pos[0, 0] = 2
+    return q, k, v, q_pos, kv_pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@HEADS
+@WINDOWS
+def test_dense_selective_kernel(dev, dtype, hq, hkv, window):
+    q, k, v, q_pos, kv_pos = _dense_inputs(dev, dtype, hq, hkv, seed=4)
+    kern = KERNELS["sel_attn"]
+    before = kern.launches
+    out = selective_attention(q, k, v, q_pos, kv_pos, window=window)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    ref = selective_attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), q_pos,
+        kv_pos, window=window).transpose(1, 2)
+    assert torch.all(out[0, 0] == 0)           # no visible key: zeros
+    res = compare(out, ref, v_absmax(v))
+    assert res["worst"] <= 1.0, res
+
+
+def test_dense_kernel_ignores_slot_order(dev):
+    """Permuting the KV slots together with kv_pos leaves the output as it
+    was, up to the sum order (the position-independence property)."""
+    q, k, v, q_pos, kv_pos = _dense_inputs(dev, torch.float32, 32, 8, seed=5)
+    perm = torch.randperm(k.shape[1], device=dev)
+    a = selective_attention(q, k, v, q_pos, kv_pos, window=64)
+    b = selective_attention(q, k[:, perm].contiguous(), v[:, perm].contiguous(),
+                            q_pos, kv_pos[:, perm].contiguous(), window=64)
+    assert compare(b, a, v_absmax(v))["worst"] <= 1.0
+
+
+def test_dense_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    q, k, v, q_pos, kv_pos = _dense_inputs(dev, torch.float32, 8, 8, seed=6)
+    with pytest.raises(ValueError):
+        selective_attention(q.half(), k, v, q_pos, kv_pos)          # dtype
+    with pytest.raises(ValueError):
+        selective_attention(q, k, v, q_pos, kv_pos.long())          # index
+    with pytest.raises(ValueError):
+        selective_attention(q, k.transpose(1, 2), v, q_pos, kv_pos)  # layout

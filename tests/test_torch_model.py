@@ -1,10 +1,13 @@
 """The port's model against the JAX ``Model`` on the same weights (carried
 over by the weight bridge): media KV precompute, paged selective prefill
-(logits and the pool it writes) and paged decode, on the fp32 llava smoke
-config.  The JAX side runs its ``ref`` kernels.  Tolerance: atol 1e-4 (fp32
-sums in another order over two layers); int8 pool codes may differ by one
-step on at most 0.1% of entries (see test_torch_layers' quant_scatter
-test), scales to rtol 1e-5.
+(logits and the pool it writes), paged decode, and the dense cache passes
+(``prefill`` with and without ``positions``/``write_idx``,
+``selective_prefill``, ``decode_step``), on the fp32 llava smoke config.
+The JAX side runs its ``ref`` kernels.  Tolerance: logits atol 1e-4 (fp32
+sums in another order over two layers); a dense cache's K/V within 1e-5
+and its positions exact; int8 pool codes may differ by one step on at most
+0.1% of entries (see test_torch_layers' quant_scatter test), scales to
+rtol 1e-5.
 """
 import dataclasses
 
@@ -15,6 +18,7 @@ import torch
 
 from repro.core.linker import precompute_media_kv as jax_precompute
 from repro_torch.core.linker import precompute_media_kv
+from repro_torch.models.layers import INVALID_POS
 
 from _torch_parity import build_pair, smoke_configs
 
@@ -174,3 +178,156 @@ def test_decode_step_paged_matches(pair, pool):
     np.testing.assert_allclose(tlogits.numpy(), np.asarray(jout[0]),
                                atol=ATOL, rtol=0)
     _assert_pools_match(tpools, jpools, pool)
+
+
+# -- dense cache passes -------------------------------------------------------
+
+CACHE_ATOL = 1e-5
+KV_LEN = 48
+
+
+def _dense_cache(cfg, batch, valid, seed):
+    """A dense cache whose slot ``i`` of sequence ``b`` holds a random K/V at
+    position ``valid[b][i]`` (``INVALID_POS`` where the slot is empty), as
+    numpy arrays."""
+    rng = np.random.default_rng(seed)
+    shape = (cfg.num_layers, batch, KV_LEN, cfg.num_kv_heads, cfg.head_dim)
+    k = (rng.standard_normal(shape) * 0.5).astype(np.float32)
+    v = (rng.standard_normal(shape) * 0.5).astype(np.float32)
+    pos = np.asarray(valid, np.int32)
+    empty = pos == INVALID_POS
+    k[:, empty] = 0.0
+    v[:, empty] = 0.0
+    return {"k": k, "v": v, "pos": pos}
+
+
+def _as(cache, pkg):
+    if pkg == "jax":
+        return {n: jnp.asarray(a) for n, a in cache.items()}
+    return {n: torch.from_numpy(a.copy()) for n, a in cache.items()}
+
+
+def _assert_cache_match(tcache, jcache):
+    for name in ("k", "v"):
+        np.testing.assert_allclose(tcache[name].numpy(),
+                                   np.asarray(jcache[name]), atol=CACHE_ATOL,
+                                   rtol=0)
+    np.testing.assert_array_equal(tcache["pos"].numpy(),
+                                  np.asarray(jcache["pos"]))
+
+
+def _inputs(cfg, rng, shape, media_frac=0.4):
+    tokens = rng.integers(8, cfg.vocab_size, shape).astype(np.int32)
+    mask = rng.random(shape) < media_frac
+    emb = (rng.standard_normal(shape + (cfg.d_model,)) * 0.02).astype(
+        np.float32)
+    return tokens, mask, emb
+
+
+def test_selective_prefill_dense_matches(pair):
+    """A linked cache: placed slots at permuted positions, the selected
+    slots empty until this pass writes them."""
+    jmodel, jparams, tmodel, tparams = pair
+    cfg = tmodel.cfg
+    rng = np.random.default_rng(5)
+    valid, sel = [], []
+    for total in (40, 29):
+        order = rng.permutation(KV_LEN - 1)[:total]   # slot of position p
+        pos = np.full(KV_LEN, INVALID_POS, np.int64)
+        pos[order] = np.arange(total)
+        chosen = np.sort(rng.choice(total, 12, replace=False))
+        pos[order[chosen]] = INVALID_POS
+        valid.append(pos)
+        sel.append((chosen, order[chosen]))
+    cache = _dense_cache(cfg, 2, valid, seed=6)
+    positions = np.stack([c for c, _ in sel]).astype(np.int32)
+    write_idx = np.stack([w for _, w in sel]).astype(np.int32)
+    tokens, mask, emb = _inputs(cfg, rng, positions.shape)
+    jl, jc = jmodel.selective_prefill(
+        jparams, jnp.asarray(tokens), jnp.asarray(positions),
+        _as(cache, "jax"), jnp.asarray(write_idx),
+        media_embeds=jnp.asarray(emb), media_mask=jnp.asarray(mask))
+    tl, tc = tmodel.selective_prefill(
+        tparams, torch.from_numpy(tokens), torch.from_numpy(positions),
+        _as(cache, "torch"), torch.from_numpy(write_idx),
+        media_embeds=torch.from_numpy(emb), media_mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
+    _assert_cache_match(tc, jc)
+
+
+@pytest.mark.parametrize("n_hit", [0, 11], ids=["contiguous", "suffix"])
+def test_prefill_dense_matches(pair, n_hit):
+    """``prefill`` from position 0 (no positions given) and, as prefix
+    caching runs it, of the suffix after ``n_hit`` cached tokens."""
+    jmodel, jparams, tmodel, tparams = pair
+    cfg = tmodel.cfg
+    rng = np.random.default_rng(7)
+    total = 30
+    pos = np.full((1, KV_LEN), INVALID_POS, np.int64)
+    pos[0, :n_hit] = np.arange(n_hit)
+    cache = _dense_cache(cfg, 1, pos, seed=8)
+    tokens, mask, emb = _inputs(cfg, rng, (1, total - n_hit))
+    kw = {}
+    if n_hit:
+        p = np.arange(n_hit, total, dtype=np.int32)[None]
+        kw = {"positions": p, "write_idx": p}
+    jl, jc = jmodel.prefill(
+        jparams, jnp.asarray(tokens), _as(cache, "jax"),
+        media_embeds=jnp.asarray(emb), media_mask=jnp.asarray(mask),
+        **{n: jnp.asarray(a) for n, a in kw.items()})
+    tl, tc = tmodel.prefill(
+        tparams, torch.from_numpy(tokens), _as(cache, "torch"),
+        media_embeds=torch.from_numpy(emb), media_mask=torch.from_numpy(mask),
+        **{n: torch.from_numpy(a) for n, a in kw.items()})
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
+    _assert_cache_match(tc, jc)
+
+
+def test_decode_step_dense_matches(pair):
+    """Three slots of a dense batch cache; slot 1 is idle and writes its
+    token at the last slot, position ``KV_LEN - 1``, as the engine does."""
+    jmodel, jparams, tmodel, tparams = pair
+    cfg = tmodel.cfg
+    rng = np.random.default_rng(9)
+    lengths = [33, 0, 20]
+    pos = np.full((3, KV_LEN), INVALID_POS, np.int64)
+    for b, n in enumerate(lengths):
+        pos[b, :n] = np.arange(n)
+    cache = _dense_cache(cfg, 3, pos, seed=10)
+    position = np.asarray([[33], [KV_LEN - 1], [20]], np.int32)
+    token = rng.integers(8, cfg.vocab_size, (3, 1)).astype(np.int32)
+    jl, jc = jmodel.decode_step(jparams, jnp.asarray(token),
+                                jnp.asarray(position), _as(cache, "jax"),
+                                jnp.asarray(position))
+    tl, tc = tmodel.decode_step(tparams, torch.from_numpy(token),
+                                torch.from_numpy(position),
+                                _as(cache, "torch"),
+                                torch.from_numpy(position))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
+    _assert_cache_match(tc, jc)
+
+
+def test_forward_with_cache_matches(pair):
+    """The transformer-level cache form on embeddings, with a window that
+    bites (8 < the 30-token span)."""
+    from repro.models import transformer as jtf
+    from repro_torch.models import transformer as ttf
+    jmodel, jparams, tmodel, tparams = pair
+    cfg = tmodel.cfg
+    rng = np.random.default_rng(11)
+    pos = np.full((1, KV_LEN), INVALID_POS, np.int64)
+    pos[0, 10:30] = np.arange(20) + 5
+    cache = _dense_cache(cfg, 1, pos, seed=12)
+    positions = np.asarray([[25, 26, 27, 30]], np.int32)
+    write_idx = np.asarray([[2, 3, 4, 5]], np.int32)
+    emb = (rng.standard_normal((1, 4, cfg.d_model)) * 0.5).astype(np.float32)
+    jl, jc, _ = jtf.forward_with_cache(jparams, jmodel.cfg, jnp.asarray(emb),
+                                       jnp.asarray(positions),
+                                       _as(cache, "jax"),
+                                       jnp.asarray(write_idx), window=8)
+    tl, tc = ttf.forward_with_cache(tparams, cfg, torch.from_numpy(emb),
+                                    torch.from_numpy(positions),
+                                    _as(cache, "torch"),
+                                    torch.from_numpy(write_idx), window=8)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
+    _assert_cache_match(tc, jc)

@@ -98,9 +98,9 @@ def test_unknown_policy_fails_only_that_request():
                      EngineConfig(max_seq_len=256, decode_slots=1),
                      device="cpu")
     s = make_dialogues(n=1, n_images=0, d_model=cfg.d_model)[0]
-    bad = eng.submit(Request(prompt=s.prompt, policy="cacheblend",
+    bad = eng.submit(Request(prompt=s.prompt, policy="cache_blend",
                              max_new_tokens=2))
     good = eng.submit(Request(prompt=s.prompt, max_new_tokens=2))
     eng.run()
-    assert bad.error and "cacheblend" in bad.error and not bad.done
+    assert bad.error and "cache_blend" in bad.error and not bad.done
     assert good.done and eng.pool.free_pages == eng.pool.cfg.num_pages - 1
