@@ -11,7 +11,7 @@ built from ``src/repro_torch/csrc`` at first use), and no JAX.  Phases, each
 timed on its own line:
 
 1. the card (``nvidia-smi`` name and power limit) and the versions;
-2. build the five CUDA kernels (one ``nvcc`` per source, in parallel);
+2. build the six CUDA kernels (one ``nvcc`` per source, in parallel);
 3. serve full-width llava-1.6-7b (seeded random weights) on a bf16 page
    pool: four two-image MMDU-style dialogues (576-token images, mpic k=32,
    8 new tokens each) plus one MRAG-linked image, through the engine a user
@@ -24,14 +24,23 @@ timed on its own line:
    dense ``mpic`` on the engine's dense cache (``paged=False``), and under
    ``cacheblend`` and ``full_recompute`` on an int8 pool; the dense
    selective attention must have launched in every run;
-6. each kernel against its plain PyTorch version on the state phases 3-5
-   left (layer 0 of the live pool or the captured dense-attention inputs)
-   and on synthetic shapes (32 query heads on 8 kv heads, window 64), then
-   timed beside its plain version, a PyTorch yardstick and its bound;
-   the limit is per element (``repro_torch/kernels/check.py``): one bf16
-   ulp of the value for bf16 outputs, 1e-4 for fp32 ones;
+5b. serve full-width mamba2-130m (seeded random weights) through the same
+   engine with ``paged=True``, which falls back to its dense cache: the
+   four dialogues with their images inlined (no upload) plus one text-only
+   request, once under ``full_recompute`` and once under ``mpic`` k=32
+   (rewritten to ``full_recompute``); the SSD chunk kernel must have
+   launched once per layer of every prefill;
+6. each kernel against its plain PyTorch version on the state phases 3-5b
+   left (layer 0 of the live pool or the captured dense-attention and SSD
+   inputs) and on synthetic shapes (32 query heads on 8 kv heads, window
+   64; the SSD chunk at the JAX package's test shapes, Q = 128, pad rows
+   and a large dt), then timed beside its plain version, a PyTorch
+   yardstick where one exists and its bound; the limit is per element
+   (``repro_torch/kernels/check.py``): one bf16 ulp of the value for bf16
+   outputs, 1e-4 for fp32 ones, 1e-4 + 1e-4 |ref| for the SSD chunk;
 7. a small fp32 model served by the same engine on the card and on the CPU
-   (plain versions) under every policy and on the dense cache: same greedy
+   (plain versions) under every policy and on the dense cache, and the
+   small fp32 mamba2 under ``full_recompute`` and ``mpic``: same greedy
    tokens, first-token logits within 1e-3.
 
 During the serving phases the plain versions and ``layers.attend`` raise
@@ -73,6 +82,8 @@ KERNEL_FILES = {
                    "src/repro/kernels/paged_attn/paged_attn.py:22"),
     "paged_attn_q8": ("src/repro_torch/csrc/paged_attn.cu",
                       "src/repro/kernels/paged_attn/paged_attn.py:70"),
+    "ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
+                  "src/repro/kernels/ssd_chunk/ssd_chunk.py:19"),
 }
 TOLERANCE = ("per element: bf16 one ulp of max(|out|,|ref|) + 2^-17 max|V|, "
              "fp32 1e-4 (repro_torch/kernels/check.py)")
@@ -81,6 +92,11 @@ LIBRARY_CALL = ("torch.nn.functional.scaled_dot_product_attention over K/V "
 DENSE_LIBRARY_CALL = ("torch.nn.functional.scaled_dot_product_attention "
                       "with a boolean mask built from the positions "
                       "beforehand (K/V repeated to the query heads for GQA)")
+SSD_TOLERANCE = ("per element: fp32 1e-4 + 1e-4 |ref| "
+                 "(repro_torch/kernels/check.py ssd_limit)")
+SSD_LIBRARY_CALL = ("none: no single PyTorch call computes this function "
+                    "(the plain version is five einsums and a cumsum)")
+MEDIA_LEN = 576                           # llava's tokens per image
 # (name, policy, policy kwargs, pool dtype, paged) of the phase-5 runs
 POLICY_RUNS = [
     ("full_recompute", "full_recompute", {}, "", True),
@@ -114,9 +130,13 @@ def main() -> int:
 
     import repro_torch.kernels.paged_attn.ops as paged_ops
     import repro_torch.kernels.selective_attn.ops as sel_ops
+    import repro_torch.kernels.ssd_chunk.ops as ssd_ops
     import repro_torch.models.layers as layers
+    import repro_torch.models.ssm as ssm_mod
     import repro_torch.models.transformer as tf
     from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import Prompt, text_segment
+    from repro_torch.core.policies import full_recompute
     from repro_torch.core.linker import bucket
     from repro_torch.core.select import mpic_selection, selection_indices
     from repro_torch.data import (
@@ -127,7 +147,7 @@ def main() -> int:
     )
     from repro_torch.device import resolve_device
     from repro_torch.kernels import KERNELS, _build
-    from repro_torch.kernels.check import compare, v_absmax
+    from repro_torch.kernels.check import compare, ssd_limit, v_absmax
     from repro_torch.kernels.paged_attn.ops import paged_attention
     from repro_torch.kernels.paged_attn.ref import paged_attention_ref
     from repro_torch.kernels.selective_attn.ops import (
@@ -139,6 +159,8 @@ def main() -> int:
         selective_attention_paged_ref,
         selective_attention_ref,
     )
+    from repro_torch.kernels.ssd_chunk.ops import ssd_chunk
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
     from repro_torch.models import build_model
     from repro_torch.serving import EngineConfig, MPICEngine, Request, State
 
@@ -176,12 +198,14 @@ def main() -> int:
 
     guarded = [(sel_ops, "selective_attention_ref"),
                (sel_ops, "selective_attention_paged_ref"),
-               (paged_ops, "paged_attention_ref"), (layers, "attend")]
+               (paged_ops, "paged_attention_ref"), (layers, "attend"),
+               (ssd_ops, "ssd_chunk_ref")]
 
     @contextlib.contextmanager
     def no_plain_versions():
         """The plain versions and ``layers.attend`` raise while serving on
-        the card: every attention there must go through a kernel."""
+        the card: every attention and SSD chunk step there must go through
+        a kernel."""
         saved = [(mod, name, getattr(mod, name)) for mod, name in guarded]
 
         def forbid(name):
@@ -414,6 +438,168 @@ def main() -> int:
                "dense_decode"} - set(captured)
     if missing:
         raise RuntimeError(f"dense attention inputs never seen: {missing}")
+
+    # -- 5b. serve full-width mamba2-130m on the dense fallback cache -------
+    t0 = time.perf_counter()
+    mcfg = get_config("mamba2-130m")
+    mmodel = build_model(mcfg)
+    mparams = mmodel.init(seed=0)
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in mparams.parameters())
+    print(f"{mcfg.name}: {mcfg.num_layers} layers, d_model {mcfg.d_model}, "
+          f"{mcfg.ssm_num_heads} SSM heads of {mcfg.ssm_head_dim}, state "
+          f"{mcfg.ssm_state}, chunk {mcfg.ssm_chunk}, "
+          f"{nbytes / 2**30:.2f} GiB of seeded weights")
+    ssd_live = {}
+
+    @contextlib.contextmanager
+    def capture_ssd():
+        """Keep a copy of the inputs of the first SSD chunk call (layer 0
+        of the first prefill), strides and all."""
+        real = ssm_mod.ssd_chunk
+
+        def recording(*args):
+            if not ssd_live:
+                ssd_live["args"] = tuple(t.clone() for t in args)
+            return real(*args)
+
+        ssm_mod.ssd_chunk = recording
+        try:
+            yield
+        finally:
+            ssm_mod.ssd_chunk = real
+
+    def serve_ssm(label, policy, kwargs):
+        eng = MPICEngine(mmodel, mparams, EngineConfig(
+            max_seq_len=2048, decode_slots=4, paged=True))
+        if eng.pool is not None or set(eng._batch_cache) != {"ssm_h",
+                                                             "ssm_conv"}:
+            raise RuntimeError(f"{label}: the SSM did not land on the "
+                               "dense cache")
+        samples = make_dialogues(n=4, n_images=2, d_model=mcfg.d_model,
+                                 media_len=MEDIA_LEN, style="mmdu")
+        prompts = [s.prompt for s in samples] + [Prompt([text_segment(
+            np.random.default_rng(5).integers(8, 200, 333))],
+            user_id="u0")]
+        nonfinite = []
+        finalize, decode_step = eng._finalize_prefill, eng._decode_dense_step
+
+        def checked_finalize(req, result):
+            if not np.isfinite(result.first_logits).all():
+                nonfinite.append(f"first logits of {req.req_id}")
+            return finalize(req, result)
+
+        def checked_decode(live):
+            logits = decode_step(live)
+            if not np.isfinite(logits[[r.slot for r in live]]).all():
+                nonfinite.append("decode logits")
+            return logits
+
+        eng._finalize_prefill = checked_finalize
+        eng._decode_dense_step = checked_decode
+        with no_plain_versions(), capture_ssd():
+            _build.reset_launches(KERNELS.values())     # the main path only
+            reqs = [Request(prompt=p, max_new_tokens=MAX_NEW, policy=policy,
+                            policy_kwargs=dict(kwargs)) for p in prompts]
+            t_serve = time.perf_counter()
+            for r in reqs:
+                eng.submit(r)
+            steps = 0
+            while eng.queue or any(eng.running):
+                eng.step()
+                steps += 1
+                if steps > 10 * MAX_NEW * len(reqs):
+                    raise RuntimeError("engine made no progress")
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t_serve
+            launches = {k: v.launches for k, v in KERNELS.items()}
+        if nonfinite:
+            raise RuntimeError(f"{label}: non-finite logits: {nonfinite}")
+        for r in reqs:
+            if not r.done or len(r.output_tokens) != MAX_NEW:
+                raise RuntimeError(f"{label}: {r.req_id} did not finish: "
+                                   f"{r.state} {r.error}")
+            if r.prefill_stats["policy"] != "full_recompute":
+                raise RuntimeError(f"{label}: {r.req_id} ran "
+                                   f"{r.prefill_stats['policy']}")
+        want = mcfg.num_layers * len(reqs)
+        if launches["ssd_chunk"] != want or any(
+                n for k, n in launches.items() if k != "ssd_chunk"):
+            raise RuntimeError(f"{label}: launches {launches}, want "
+                               f"ssd_chunk {want} and nothing else")
+        rep = eng.report()
+        lens = [r.prompt.total_len for r in reqs]
+        chunks = [-(-n // mcfg.ssm_chunk) for n in lens]
+        print(f"  prompts {lens} tokens ({chunks} chunks of "
+              f"{mcfg.ssm_chunk}), policies "
+              f"{sorted({r.prefill_stats['policy'] for r in reqs})}")
+        print(f"  served {len(reqs)} requests in {serve_s:.3f} s ({steps} "
+              f"steps)")
+        print(f"  TTFT mean {rep['mean_ttft_s'] * 1e3:.2f} ms (p90 "
+              f"{rep['p90_ttft_s'] * 1e3:.2f} ms, prefill alone "
+              f"{rep['mean_prefill_s'] * 1e3:.2f} ms); decode step mean "
+              f"{rep['mean_decode_step_s'] * 1e3:.2f} ms over "
+              f"{rep['decode_steps']} steps; "
+              f"{rep['total_tokens'] / serve_s:.1f} tokens/s")
+        print(f"  launches {launches}", flush=True)
+        runs[label] = {
+            "model": mcfg.name, "policy": policy, "pool": None,
+            "paged": False, "mean_ttft_ms": rep["mean_ttft_s"] * 1e3,
+            "p90_ttft_ms": rep["p90_ttft_s"] * 1e3,
+            "mean_prefill_ms": rep["mean_prefill_s"] * 1e3,
+            "mean_decode_step_ms": rep["mean_decode_step_s"] * 1e3,
+            "mean_recomputed": float(np.mean(
+                [r.prefill_stats["n_recomputed"] for r in reqs])),
+            "launches": launches}
+        del eng, finalize, decode_step, checked_finalize, checked_decode
+        gc.collect()
+
+    for label, policy, kwargs in (("ssm_full_recompute", "full_recompute", {}),
+                                  ("ssm_mpic", "mpic", {"k": K_MPIC})):
+        print(f"serve {mcfg.name}, paged=True (dense fallback), {policy} "
+              f"{kwargs}:")
+        serve_ssm(label, policy, kwargs)
+
+    # where a mamba2 prefill's time goes: device busy time of one profiled
+    # prefill against the median host time of three unprofiled ones
+    prompt = make_dialogues(n=1, n_images=2, d_model=mcfg.d_model,
+                            media_len=MEDIA_LEN, style="mmdu")[0].prompt
+
+    def ssm_prefill():
+        full_recompute(mmodel, mparams, prompt, kv_len=2048)
+        torch.cuda.synchronize()
+
+    with no_plain_versions():
+        walls = []
+        for _ in range(3):
+            t = time.perf_counter()
+            ssm_prefill()
+            walls.append((time.perf_counter() - t) * 1e3)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            ssm_prefill()
+    kernels_ms = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count)
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA),
+        key=lambda k: -k[1])
+    busy = sum(ms for _, ms, _ in kernels_ms)
+    wall = float(np.median(walls))
+    print(f"  one prefill of {prompt.total_len} tokens: {wall:.2f} ms on the "
+          f"host clock (median of {[round(w, 2) for w in walls]}), device "
+          + (f"busy {busy:.2f} ms ({100 * busy / wall:.1f} %) under the "
+             "profiler" if busy > 0 else "time not measured (the profiler "
+             "saw no device activity)"))
+    for name, ms, n in kernels_ms[:8]:
+        print(f"    {ms:8.3f} ms  {n:5d}x  {name[:90]}")
+    runs["ssm_full_recompute"]["profiled_prefill"] = {
+        "tokens": prompt.total_len, "wall_ms": wall,
+        "device_busy_ms": busy if busy > 0 else None,
+        "top_kernels": [[name[:90], ms, n] for name, ms, n in kernels_ms[:8]]}
+    del prof
+    torch.cuda.empty_cache()
+    phase("serve_ssm", t0)
 
     # -- 6. kernels against their plain versions ----------------------------
     t0 = time.perf_counter()
@@ -710,6 +896,82 @@ def main() -> int:
                   f"{r['bound_by']})" if "ms" in r else "")
         print(f"  sel_attn {name}: max |err| {r['max_abs_err']:.3e}, err/limit "
               f"{r['worst']:.3f}{timing}; {r.get('shape', '')}")
+
+    # SSD chunk: the layer-0 inputs captured from a live mamba2 prefill,
+    # then synthetic shapes
+    def ssd_case(args, timed=False):
+        out = ssd_chunk(*args)
+        checks = [compare(o, r, limit=ssd_limit)
+                  for o, r in zip(out, ssd_chunk_ref(*args))]
+        res = {"max_abs_err": max(c["max_abs_err"] for c in checks),
+               "max_abs_ref": max(c["max_abs_ref"] for c in checks),
+               "worst": max(c["worst"] for c in checks)}
+        if not all(bool(torch.isfinite(o).all()) for o in out):
+            res["worst"] = float("inf")
+        if not timed:
+            return res
+        x, bm = args[0], args[1]
+        b, nc, h, q, hd = x.shape
+        ds = bm.shape[-1]
+        # each operand read once, each output written once
+        nbytes = 4 * (sum(t.numel() for t in args)
+                      + sum(t.numel() for t in out))
+        # the least work: C.B^T once per chunk (it does not depend on the
+        # head) and only over the kept pairs k <= q; per head the scores
+        # times x over those pairs, their decay and dt factors, the state
+        pairs = q * (q + 1) // 2
+        flops = b * nc * (2 * ds * pairs
+                          + h * (2 * hd * pairs + 4 * pairs + 2 * ds * q * hd))
+        bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+        res.update(
+            bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
+            ms=events_ms(lambda: ssd_chunk(*args), 50),
+            plain_ms=events_ms(lambda: ssd_chunk_ref(*args), 10),
+            library_ms=None,
+            shape=f"x {tuple(x.shape)} (B, NC, H, Q, hd) read through the "
+                  f"model's layout, bm/cm {tuple(bm.shape)}, fp32")
+        return res
+
+    ssd = {"live": ssd_case(ssd_live.pop("args"), timed=True)}
+
+    def ssd_inputs(b, nc, h, q, hd, ds, dt_hi=0.2):
+        return (randn(b, nc, h, q, hd, dtype=torch.float32),
+                randn(b, nc, q, ds, dtype=torch.float32),
+                randn(b, nc, q, ds, dtype=torch.float32),
+                -(0.01 + 0.39 * torch.rand((b, nc, h, q), generator=gen,
+                                           device=dev)),
+                0.01 + (dt_hi - 0.01) * torch.rand((b, nc, h, q),
+                                                   generator=gen, device=dev))
+
+    for shape in ((1, 2, 2, 8, 16, 8), (2, 3, 4, 16, 32, 16),
+                  (1, 4, 3, 32, 64, 128), (2, 2, 5, 64, 64, 16),
+                  (1, 3, 2, 128, 64, 128)):
+        ssd[f"synthetic_{shape}"] = ssd_case(ssd_inputs(*shape))
+    x, bm, cm, la, dt = ssd_inputs(1, 3, 4, 64, 64, 128)
+    la[:, -1, :, 29:] = 0.0                 # the last chunk's pad steps
+    dt[:, -1, :, 29:] = 0.0
+    ssd["synthetic_pad_rows"] = ssd_case((x, bm, cm, la, dt))
+    ssd["synthetic_large_dt"] = ssd_case(
+        (x, bm, cm, torch.full_like(la, -60.0), torch.full_like(dt, 4.0)))
+    for name, r in ssd.items():
+        if not r["worst"] <= 1.0:
+            raise RuntimeError(f"ssd_chunk: error at {name}: {r}")
+        timing = (f"; {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+                  f"{r['bound_ms']:.4f} by {r['bound_by']})"
+                  if "ms" in r else "")
+        print(f"  ssd_chunk {name}: max |err| {r['max_abs_err']:.3e}, max "
+              f"|ref| {r['max_abs_ref']:.3e}, err/limit "
+              f"{r['worst']:.3f}{timing}; {r.get('shape', '')}")
+    live = ssd["live"]
+    results["ssd_chunk"] = {
+        **{key: live[key] for key in ("ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by", "shape")},
+        "max_abs_err": live["max_abs_err"],
+        "max_abs_ref": live["max_abs_ref"],
+        "worst": max(r["worst"] for r in ssd.values()),
+        "synthetic_err": max(r["max_abs_err"] for n, r in ssd.items()
+                             if n != "live"),
+        "cases": ssd}
     torch.cuda.synchronize()
     phase("kernels", t0)
 
@@ -768,10 +1030,53 @@ def main() -> int:
               f"first-logit max diff {diff:.2e}, tokens identical {same}")
         if not diff <= logit_tol or (pool_dtype == "" and not same):
             raise RuntimeError("the card's engine disagrees with the CPU's")
+    # the small fp32 mamba2 on the dense fallback cache: images inlined
+    ssm_small = dataclasses.replace(get_smoke_config("mamba2-130m"),
+                                    param_dtype="float32",
+                                    compute_dtype="float32")
+    smodel = build_model(ssm_small)
+    p_cpu = smodel.init(seed=1, device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to(dev)
+    for policy, kwargs in (("full_recompute", {}), ("mpic", {"k": 8})):
+        outs = {}
+        for where, p in (("cpu", p_cpu), (None, p_gpu)):
+            eng = MPICEngine(smodel, p, EngineConfig(
+                max_seq_len=320, decode_slots=2, paged=True), device=where)
+            firsts = {}
+            finalize = eng._finalize_prefill
+
+            def record(req, result, firsts=firsts, finalize=finalize):
+                firsts[req.req_id] = result.first_logits
+                return finalize(req, result)
+
+            eng._finalize_prefill = record
+            samples = make_dialogues(n=3, n_images=2,
+                                     d_model=ssm_small.d_model,
+                                     media_len=ssm_small.media_token_len,
+                                     seed=3)
+            rs = [eng.submit(Request(prompt=s.prompt, max_new_tokens=MAX_NEW,
+                                     policy=policy, policy_kwargs=kwargs))
+                  for s in samples]
+            eng.run()
+            if eng.pool is not None or not all(
+                    r.done and r.prefill_stats["policy"] == "full_recompute"
+                    for r in rs):
+                raise RuntimeError(f"small mamba2, {policy}: "
+                                   f"{[r.error for r in rs]}")
+            outs[where] = ([r.output_tokens for r in rs],
+                           np.stack([firsts[r.req_id] for r in rs]))
+        diff = float(np.abs(outs["cpu"][1] - outs[None][1]).max())
+        same = outs["cpu"][0] == outs[None][0]
+        print(f"small fp32 mamba2, {policy} (served as full_recompute) on "
+              f"the dense cache: card vs CPU first-logit max diff "
+              f"{diff:.2e}, tokens identical {same}")
+        if not diff <= 1e-3 or not same:
+            raise RuntimeError("the card's engine disagrees with the CPU's")
     phase("small_reference", t0)
 
     # -- report ------------------------------------------------------------
-    # launches: every serving run's count, each reset before its uploads
+    # launches: every serving run's count, each reset before its first
+    # upload or request
     launches = {name: sum(r["launches"][name] for r in runs.values())
                 for name in KERNEL_FILES}
     for label, r in runs.items():
@@ -779,7 +1084,7 @@ def main() -> int:
             {k: v for k, v in r.items() if k != "launches"}))
     rows = []
     for name in ("sel_attn", "sel_attn_paged", "sel_attn_paged_q8",
-                 "paged_attn", "paged_attn_q8"):
+                 "paged_attn", "paged_attn_q8", "ssd_chunk"):
         r = results[name]
         source, replaces = KERNEL_FILES[name]
         row = {
@@ -788,13 +1093,15 @@ def main() -> int:
             "launches_by_run": {label: run["launches"][name]
                                 for label, run in runs.items()},
             "max_abs_err": r["max_abs_err"], "max_abs_ref": r["max_abs_ref"],
-            "err_over_limit": r["worst"], "tolerance": TOLERANCE,
+            "err_over_limit": r["worst"],
+            "tolerance": SSD_TOLERANCE if name == "ssd_chunk" else TOLERANCE,
             "synthetic_err": r["synthetic_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            "library": DENSE_LIBRARY_CALL if name == "sel_attn"
-            else LIBRARY_CALL,
+            "library": {"sel_attn": DENSE_LIBRARY_CALL,
+                        "ssd_chunk": SSD_LIBRARY_CALL}.get(name,
+                                                           LIBRARY_CALL),
             "shape": r["shape"], "card": card}
         if "cases" in r:
             row["cases"] = r["cases"]

@@ -1,13 +1,13 @@
 """Config registry: ``get_config(arch_id)`` / ``get_smoke_config(arch_id)``.
 
-The port serves the paper's model only; other architectures of the JAX
-package are not ported yet."""
+The port serves the paper's model and mamba2-130m; the other
+architectures of the JAX package are not ported yet."""
 from __future__ import annotations
 
-from repro_torch.configs import llava_mpic
+from repro_torch.configs import llava_mpic, mamba2_130m
 from repro_torch.configs.base import ModelConfig, reduced
 
-_REGISTRY = {"llava-1.6-7b": llava_mpic}
+_REGISTRY = {"llava-1.6-7b": llava_mpic, "mamba2-130m": mamba2_130m}
 
 
 def _module(arch_id: str):

@@ -2,9 +2,9 @@
 
 Field for field the same as the JAX package's ``ModelConfig``, so one
 configuration reads the same in both packages and the tests can compare
-them with ``dataclasses.asdict``.  The port serves only the attention-only
-architectures (``Model`` rejects the rest); the other fields are kept so
-that the two dataclasses stay interchangeable.
+them with ``dataclasses.asdict``.  The port serves the attention-only
+architectures and the pure SSM (``Model`` rejects the rest); the other
+fields are kept so that the two dataclasses stay interchangeable.
 """
 from __future__ import annotations
 
@@ -84,6 +84,14 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+    @property
+    def ssm_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_num_heads(self) -> int:
+        return self.ssm_inner // self.ssm_head_dim
 
 
 def reduced(cfg: ModelConfig, **over) -> ModelConfig:

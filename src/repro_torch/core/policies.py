@@ -245,6 +245,10 @@ def cacheblend(model, params, prompt: Prompt, library, *, r: float = 0.15,
     reads layer-0 K back from the pool, and the re-selection reuses the
     same placement (no second link) before one paged prefill.
     """
+    if model.cfg.arch_type == "ssm":
+        # the JAX package raises this from its probe; here the link, which
+        # comes first, would fail on the SSM's cache without K/V
+        raise ValueError("cacheblend needs attention KV")
     t0 = time.perf_counter()
     dev = _device(params)
     base_sel = sel_mod.full_reuse_selection(prompt)

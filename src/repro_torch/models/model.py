@@ -16,7 +16,7 @@ from repro_torch.models import transformer as tf
 
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = []
-    if cfg.arch_type in ("ssm", "hybrid", "moe", "audio") or cfg.hybrid:
+    if cfg.arch_type in ("hybrid", "moe", "audio") or cfg.hybrid:
         unsupported.append(f"arch_type={cfg.arch_type!r}")
     if cfg.is_encoder_decoder:
         unsupported.append("encoder-decoder")
@@ -24,12 +24,15 @@ def _check_supported(cfg: ModelConfig) -> None:
         unsupported.append("qkv_bias")
     if cfg.learned_pos_emb:
         unsupported.append("learned_pos_emb")
-    if cfg.tie_embeddings:
-        unsupported.append("tie_embeddings")
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet ({', '.join(unsupported)}); the "
-            "port serves attention-only models with RoPE")
+            "port serves attention-only models with RoPE and the pure SSM")
+
+
+def _pad_right(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """(B, S, ...) -> (B, S + pad, ...), zeros (False) appended."""
+    return torch.cat([t, t.new_zeros((t.shape[0], pad, *t.shape[2:]))], 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +59,13 @@ class Model:
                 media_mask=None, positions=None, write_idx=None):
         """Prefill ``tokens`` (B, S) into ``cache``, in place; contiguous
         from position 0 unless ``positions``/``write_idx`` (B, S) int32 say
-        otherwise.  Returns (logits (B, S, V), cache)."""
+        otherwise.  Returns (logits (B, S, V), cache).
+
+        An SSM needs S to be a multiple of ``ssm_chunk``: the tokens are
+        right-padded with steps that ``ssm_mask`` (0 on the pads) makes
+        no-ops (dt = 0: the state neither decays nor absorbs input), the
+        conv state's tail starts at S - (W-1), and the logits are cut back
+        to S."""
         b, s = tokens.shape
         contiguous = positions is None and write_idx is None
         if positions is None:
@@ -64,9 +73,29 @@ class Model:
                                      device=tokens.device).repeat(b, 1)
         if write_idx is None:
             write_idx = positions
+        ssm_mask = ssm_tail = None
+        pad = 0
+        if self.cfg.arch_type == "ssm":
+            pad = (-s) % self.cfg.ssm_chunk
+            if pad:
+                tokens = _pad_right(tokens, pad)
+                if media_embeds is not None:
+                    media_embeds = _pad_right(media_embeds, pad)
+                    media_mask = _pad_right(media_mask, pad)
+            ssm_mask = (torch.arange(s + pad, device=tokens.device)
+                        < s).float()[None].expand(b, s + pad)
+            ssm_tail = torch.full((b,), s - (self.cfg.ssm_conv_width - 1),
+                                  dtype=torch.int32, device=tokens.device)
         x = self.embed(params, tokens, media_embeds, media_mask)
-        return tf.forward_with_cache(params, self.cfg, x, positions, cache,
-                                     write_idx, contiguous=contiguous)
+        logits, cache = tf.forward_with_cache(
+            params, self.cfg, x, positions, cache, write_idx,
+            contiguous=contiguous, ssm_mask=ssm_mask, ssm_tail_start=ssm_tail)
+        return (logits[:, :s] if pad else logits), cache
+
+    def _needs_attention(self, what: str) -> None:
+        if self.cfg.arch_type == "ssm":
+            raise ValueError(f"{what} needs attention KV; {self.cfg.name} "
+                             "is attention-free")
 
     def selective_prefill(self, params, sel_tokens, sel_positions, cache,
                           write_idx, *, media_embeds=None, media_mask=None):
@@ -74,6 +103,7 @@ class Model:
         dense cache: reused segment KV already placed, dummy (zero, invalid)
         KV in the selected slots, which the recomputed tokens' K/V fill
         inside this one pass.  Returns (logits (B, Sq, V), cache)."""
+        self._needs_attention("selective prefill")
         x = self.embed(params, sel_tokens, media_embeds, media_mask)
         return tf.forward_with_cache(params, self.cfg, x, sel_positions,
                                      cache, write_idx)
@@ -90,8 +120,11 @@ class Model:
         return self.supports_paged_decode()
 
     def supports_paged_decode(self) -> bool:
-        # every architecture the port accepts is attention-only
-        return True
+        """Paged decode covers pure-attention KV caches; an SSM keeps the
+        dense decode path (its state is no KV).  The JAX predicate also
+        excludes hybrid and encoder-decoder models, which the port does
+        not accept."""
+        return not self.cfg.attn_free
 
     def selective_prefill_paged(self, params, sel_tokens, sel_positions,
                                 pool_k, pool_v, page_table, lengths,
@@ -101,6 +134,7 @@ class Model:
         """MPIC selective prefill against the page pool, written in place.
         See :func:`repro_torch.models.transformer.selective_prefill_paged`.
         Returns logits (B, Sq, V)."""
+        self._needs_attention("selective prefill")
         x = self.embed(params, sel_tokens, media_embeds, media_mask)
         return tf.selective_prefill_paged(
             params, self.cfg, x, sel_positions, pool_k, pool_v, page_table,

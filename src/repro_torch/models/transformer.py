@@ -1,15 +1,19 @@
-"""Decoder-only transformer for the attention architectures (port of the
-JAX package's ``models/transformer.py``, the parts the serving paths run).
+"""Decoder-only model for the attention architectures and the pure SSM
+(port of the JAX package's ``models/transformer.py``, the parts the serving
+paths run).
 
 The weights are ``nn.Module``s: a :class:`Transformer` holds the embedding,
-an ``nn.ModuleList`` of :class:`DecoderLayer` (run in a Python loop where
-the JAX package scans over a stacked layer axis), the final norm and the LM
-head.  Weights keep the JAX layout ``(in, out)`` and apply as ``x @ W``.
-The serving passes are plain functions on tensors:
+an ``nn.ModuleList`` of :class:`DecoderLayer` (or, for an SSM, of
+:class:`SSMLayer`; run in a Python loop where the JAX package scans over a
+stacked layer axis), the final norm and the LM head (none when the
+embeddings are tied: the head is then ``embed.T``).  Weights keep the JAX
+layout ``(in, out)`` and apply as ``x @ W``.  The serving passes are plain
+functions on tensors:
 
 * :func:`forward_with_cache`: any tokens at any positions against a dense
   cache (:func:`make_cache`): the media upload, the baselines' prefills,
-  the dense selective prefill and the dense decode step;
+  the dense selective prefill and the dense decode step; for an SSM, a
+  contiguous prefill (the SSD chunk kernel) or one recurrent decode step;
 * :func:`decode_paged`: one decode step for every slot against the page
   pool;
 * :func:`selective_prefill_paged`: the MPIC selective prefill against the
@@ -43,6 +47,7 @@ from repro_torch.models.layers import (
     rmsnorm,
     swiglu,
 )
+from repro_torch.models.ssm import SSM, init_ssm_state, ssm_decode, ssm_forward
 
 
 def _weight(shape, dtype, device) -> nn.Parameter:
@@ -86,6 +91,13 @@ class DecoderLayer(nn.Module):
         self.mlp = SwiGLU(cfg, dtype, device)
 
 
+class SSMLayer(nn.Module):
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        self.norm = _ones(cfg.d_model, dtype, device)
+        self.ssm = SSM(cfg, dtype, device)
+
+
 class Transformer(nn.Module):
     """The parameters of one model (``params`` in the functions below)."""
 
@@ -93,20 +105,25 @@ class Transformer(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         dt = torch_dtype(cfg.param_dtype)
+        layer = SSMLayer if cfg.arch_type == "ssm" else DecoderLayer
         self.embed = _weight((cfg.vocab_size, cfg.d_model), dt, dev)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, dt, dev) for _ in range(cfg.num_layers))
+            layer(cfg, dt, dev) for _ in range(cfg.num_layers))
         self.final_norm = _ones(cfg.d_model, dt, dev)
-        self.lm_head = _weight((cfg.d_model, cfg.vocab_size), dt, dev)
+        self.lm_head = (None if cfg.tie_embeddings else
+                        _weight((cfg.d_model, cfg.vocab_size), dt, dev))
 
 
 def init_params(cfg, *, seed: int = 0, device=None) -> Transformer:
     """Seeded random weights on ``device``, drawn as the JAX package's
     ``dense_init`` draws them: N(0, 1) in fp32 scaled by 1/sqrt(fan_in)
-    (0.02 for the embedding and the LM head), then cast to the parameter
-    dtype; norm scales are ones.  The numbers differ from the JAX ones (a
-    ``torch.Generator`` is not ``jax.random``); the tests carry the JAX
-    weights over with :func:`repro_torch.weights.params_from_numpy`."""
+    (0.02 for the embedding and the LM head, 0.5 for the SSM conv), then
+    cast to the parameter dtype; norm scales are ones.  The SSM's other
+    leaves are set as ``init_ssm`` sets them: ``dt_bias`` -4.6, ``A_log``
+    log(linspace(1, 16)), ``D`` ones, ``conv_b`` zeros.  The numbers
+    differ from the JAX ones (a ``torch.Generator`` is not ``jax.random``);
+    the tests carry the JAX weights over with
+    :func:`repro_torch.weights.params_from_numpy`."""
     params = Transformer(cfg, device=device)
     gen = torch.Generator(device=params.embed.device).manual_seed(seed)
 
@@ -118,10 +135,21 @@ def init_params(cfg, *, seed: int = 0, device=None) -> Transformer:
     with torch.no_grad():
         fill(params.embed, 0.02)
         for lp in params.layers:
+            if isinstance(lp, SSMLayer):
+                p = lp.ssm
+                for w in (p.in_proj, p.bc_proj, p.dt_proj, p.out_proj):
+                    fill(w)
+                fill(p.conv_w, 0.5)
+                p.dt_bias.fill_(-4.6)
+                p.A_log.copy_(torch.log(torch.linspace(
+                    1.0, 16.0, p.A_log.shape[0], dtype=torch.float32)))
+                p.D.fill_(1.0)
+                continue
             for w in (lp.attn.wq, lp.attn.wk, lp.attn.wv, lp.attn.wo,
                       lp.mlp.w_gate, lp.mlp.w_up, lp.mlp.w_down):
                 fill(w)
-        fill(params.lm_head, 0.02)
+        if params.lm_head is not None:
+            fill(params.lm_head, 0.02)
     return params
 
 
@@ -140,7 +168,8 @@ def embed_tokens(params: Transformer, cfg, tokens, media_embeds=None,
 
 def _logits(params: Transformer, cfg, x) -> torch.Tensor:
     x = rmsnorm(params.final_norm, x, cfg.rms_norm_eps)
-    return x.float() @ params.lm_head.float()
+    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    return x.float() @ head.float()
 
 
 def _mlp(lp: DecoderLayer, cfg, x) -> torch.Tensor:
@@ -154,10 +183,16 @@ def _mlp(lp: DecoderLayer, cfg, x) -> torch.Tensor:
 def make_cache(cfg, batch: int, kv_len: int, *, device=None) -> dict:
     """Empty dense cache, every slot invalid: ``k``/``v`` (L, B, kv_len,
     Hkv, Dh) zeros in the compute dtype, ``pos`` (B, kv_len) int32
-    ``INVALID_POS``."""
+    ``INVALID_POS``.  An SSM's cache is its recurrent state instead, zeros:
+    ``ssm_h`` (L, B, H, ds, hd) fp32 and ``ssm_conv`` (L, B, W-1, di) in
+    the compute dtype (``kv_len`` unused)."""
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch, kv_len, cfg.num_kv_heads, cfg.head_dim)
     dt = torch_dtype(cfg.compute_dtype)
+    if cfg.arch_type == "ssm":
+        st = init_ssm_state(cfg, cfg.num_layers * batch, dt, dev)
+        return {"ssm_h": st["h"].unflatten(0, (cfg.num_layers, batch)),
+                "ssm_conv": st["conv"].unflatten(0, (cfg.num_layers, batch))}
+    shape = (cfg.num_layers, batch, kv_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
             "v": torch.zeros(shape, dtype=dt, device=dev),
             "pos": torch.full((batch, kv_len), INVALID_POS,
@@ -172,9 +207,30 @@ def _scatter_rows(buf, vals, idx):
     return buf
 
 
+def _forward_ssm(params: Transformer, cfg, embeds, cache, ssm_mask,
+                 ssm_tail_start):
+    """The SSM layers: a prefill (``Sq > 1``, from an empty state, Sq a
+    multiple of ``cfg.ssm_chunk``) or one decode step from the cached
+    state; each layer's new state is written into ``cache`` in place."""
+    x = embeds
+    for l, lp in enumerate(params.layers):
+        h = rmsnorm(lp.norm, x, cfg.rms_norm_eps)
+        if x.shape[1] == 1:
+            out, st = ssm_decode(lp.ssm, cfg, h, {
+                "h": cache["ssm_h"][l], "conv": cache["ssm_conv"][l]})
+        else:
+            out, st = ssm_forward(lp.ssm, cfg, h, dt_mask=ssm_mask,
+                                  tail_start=ssm_tail_start)
+        cache["ssm_h"][l] = st["h"]
+        cache["ssm_conv"][l] = st["conv"]
+        x = x + out
+    return _logits(params, cfg, x), cache
+
+
 def forward_with_cache(params: Transformer, cfg, embeds, positions, cache,
                        write_idx, *, window: Optional[int] = None,
-                       contiguous: bool = False):
+                       contiguous: bool = False, ssm_mask=None,
+                       ssm_tail_start=None):
     """Run tokens (any subset, any positions) against a dense cache.
 
     embeds (B, Sq, D) of the tokens to compute; positions (B, Sq) int32
@@ -185,7 +241,15 @@ def forward_with_cache(params: Transformer, cfg, embeds, positions, cache,
     the computed tokens see each other inside this one pass.  ``contiguous``
     marks a plain prefill from position 0 (``positions == write_idx ==
     arange``).  Returns (logits (B, Sq, V) fp32, cache).
+
+    An SSM ignores positions and write_idx: a prefill of Sq > 1 tokens
+    starts from an empty state (``ssm_mask`` (B, Sq) 0 on padding steps,
+    ``ssm_tail_start`` (B,) the start of the conv state's tail; see
+    :func:`repro_torch.models.ssm.ssm_forward`), Sq == 1 is a decode step.
     """
+    if cfg.arch_type == "ssm":
+        return _forward_ssm(params, cfg, embeds, cache, ssm_mask,
+                            ssm_tail_start)
     w = cfg.sliding_window if window is None else window
     s_q = embeds.shape[1]
     kv_len = cache["k"].shape[2]

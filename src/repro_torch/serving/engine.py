@@ -23,10 +23,15 @@ Two batch caches:
   build a dense per-request cache, which is spliced into the pages
   (``_splice_paged``, quantized on an int8 pool).  Decode is one paged step
   over the pool.
-* **dense** (``paged=False``): one ``(L, slots, max_seq_len, Hkv, Dh)``
-  cache plus ``pos``; every policy builds a dense per-request cache, which
-  is spliced into its slot's row, and decode is ``Model.decode_step`` over
-  the whole batch.  It has no int8 form.
+* **dense** (``paged=False``, or a model without paged decode: the SSM):
+  one ``(L, slots, max_seq_len, Hkv, Dh)`` cache plus ``pos``, or the
+  SSM's per-slot recurrent state; every policy builds a dense per-request
+  cache, which is spliced into its slot's row, and decode is
+  ``Model.decode_step`` over the whole batch.  It has no int8 form.
+
+An SSM has no attention KV to reuse: ``mpic``, ``cacheblend`` and
+``full_reuse`` requests are served as ``full_recompute`` (the JAX engine's
+``_resolve_policy``), and the prefill runs the SSD chunk kernel.
 
 Every cache is written in place.  On the card, attention runs in the
 port's CUDA kernels: the paged prefill and decode kernels on the pool, the
@@ -95,13 +100,14 @@ class MPICEngine:
         # caller stores a prefix (the system prompt, say)
         self.prefix_store = PrefixStore()
 
-        self._paged = self.cfg.paged
+        self._paged = self.cfg.paged and model.supports_paged_decode()
         if self.cfg.pool_dtype == "int8" and not self._paged:
             # the dense cache has no scale buffers and no dequantizing read
             raise ValueError(
-                "pool_dtype='int8' requires the paged KV pool "
-                "(EngineConfig.paged=True): the dense cache carries no "
-                "per-page scales")
+                "pool_dtype='int8' requires the paged KV pool: set "
+                "EngineConfig.paged=True and use an attention arch that "
+                "supports paged decode (the dense cache carries no "
+                "per-page scales)")
         self.pool = None
         self._prefiller = None
         self._batch_cache = None
@@ -185,9 +191,18 @@ class MPICEngine:
         if self.queue and slot >= 0:
             self._begin_prefill(self.queue.pop(), slot)
 
+    def _resolve_policy(self, req: Request) -> str:
+        """The policy a request runs: an SSM has no attention KV, so the
+        policies that reuse media KV become ``full_recompute``."""
+        if self.model.cfg.attn_free and req.policy in (
+                "mpic", "cacheblend", "full_reuse"):
+            return "full_recompute"
+        return req.policy
+
     def _begin_prefill(self, req: Request, slot: int) -> None:
         req.t_admitted = time.perf_counter()
-        policy = POLICIES.get(req.policy)
+        policy_name = self._resolve_policy(req)
+        policy = POLICIES.get(policy_name)
         if policy is None:
             # a bad policy name fails THAT request, the engine keeps serving
             req.state = State.FAILED
@@ -204,7 +219,7 @@ class MPICEngine:
             self._set_page_row(slot, pages)
             # mpic / cacheblend link and prefill straight into the pages;
             # the other policies build a dense cache that is spliced in
-            if req.policy in ("mpic", "cacheblend"):
+            if policy_name in ("mpic", "cacheblend"):
                 paged_ctx = self._prefiller.bind(self._page_tables[slot])
         try:
             result = policy(self.model, self.params, req.prompt,
@@ -256,12 +271,15 @@ class MPICEngine:
                                rc["k"][:, 0, :b], rc["v"][:, 0, :b])
 
     def _dense_splice(self, slot: int, rc: dict) -> None:
-        """Copy a per-request cache (batch 1, ``max_seq_len`` slots) into
-        row ``slot`` of the dense batch cache."""
+        """Copy every key of a per-request cache (batch 1) into row
+        ``slot`` of the dense batch cache: K/V and ``pos``, or an SSM's
+        state."""
         bc = self._batch_cache
-        bc["pos"][slot] = rc["pos"][0]
-        bc["k"][:, slot] = rc["k"][:, 0]
-        bc["v"][:, slot] = rc["v"][:, 0]
+        for key, buf in bc.items():
+            if key == "pos":
+                buf[slot] = rc["pos"][0]
+            else:
+                buf[:, slot] = rc[key][:, 0]
 
     def _dense_link(self, slot: int, k_seg, v_seg, off: int) -> None:
         """Link one MRAG segment (L, n, Hkv, Dh), stored at position 0, at
@@ -402,8 +420,9 @@ class MPICEngine:
         if self._paged:
             self.pool.free(r.req_id)
             self._page_tables[r.slot] = self._scratch_page
-        elif r.slot >= 0:
-            # the row's K/V stay; marking every slot invalid empties it
+        elif r.slot >= 0 and "pos" in self._batch_cache:
+            # the row's K/V stay; marking every slot invalid empties it (an
+            # SSM's state stays too: the next splice overwrites it)
             self._batch_cache["pos"][r.slot] = INVALID_POS
         r.slot = -1
 

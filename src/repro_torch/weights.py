@@ -18,25 +18,38 @@ import torch
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models.transformer import Transformer
 
+SSM_FP32 = ("dt_bias", "A_log", "D")
+
 
 def params_from_numpy(tree: dict, cfg, device=None, dtype=None) -> Transformer:
-    """``dtype`` (a torch dtype) defaults to ``cfg.param_dtype``."""
+    """``dtype`` (a torch dtype) defaults to ``cfg.param_dtype``; the SSM
+    leaves the JAX package keeps in fp32 (``dt_bias``, ``A_log``, ``D``)
+    stay fp32.  A model with tied embeddings has no ``lm_head`` leaf."""
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.param_dtype)
     params = Transformer(cfg, device=dev)
 
-    def put(param: torch.nn.Parameter, arr) -> None:
+    def put(param: torch.nn.Parameter, arr, to=None) -> None:
         a = np.array(arr, dtype=np.float32)
         if a.shape != tuple(param.shape):
             raise ValueError(f"weight shape {a.shape} != {tuple(param.shape)}")
-        param.data = torch.from_numpy(a).to(device=dev, dtype=dt)
+        param.data = torch.from_numpy(a).to(device=dev, dtype=to or dt)
 
     layers = tree["layers"]
     with torch.no_grad():
         put(params.embed, tree["embed"])
         put(params.final_norm, tree["final_norm"]["scale"])
-        put(params.lm_head, tree["lm_head"])
+        if params.lm_head is not None:
+            put(params.lm_head, tree["lm_head"])
         for i, lp in enumerate(params.layers):
+            if cfg.arch_type == "ssm":
+                put(lp.norm, layers["norm"]["scale"][i])
+                ssm = layers["ssm"]
+                for name, p in lp.ssm.named_parameters():
+                    leaf = ssm[name]["scale"] if name == "out_norm" \
+                        else ssm[name]
+                    put(p, leaf[i], torch.float32 if name in SSM_FP32 else None)
+                continue
             put(lp.attn_norm, layers["attn_norm"]["scale"][i])
             put(lp.mlp_norm, layers["mlp_norm"]["scale"][i])
             for name in ("wq", "wk", "wv", "wo"):

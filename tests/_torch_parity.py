@@ -1,5 +1,6 @@
-"""Shared set-up for the port's parity tests: one small fp32 llava config
-built in both packages, and the JAX weights carried into the port.
+"""Shared set-up for the port's parity tests: one small fp32 config (llava
+unless a test names another arch) built in both packages, and the JAX
+weights carried into the port.
 
 Everything runs on the CPU: the JAX side with its plain ``ref`` kernels or
 Pallas in interpret mode, the port with ``device="cpu"``.
@@ -19,16 +20,16 @@ ARCH = "llava-1.6-7b"
 FP32 = dict(param_dtype="float32", compute_dtype="float32")
 
 
-def smoke_configs(**over):
-    """(JAX config, port config): the llava smoke config in fp32."""
-    return (dataclasses.replace(jax_smoke_config(ARCH), **FP32, **over),
-            dataclasses.replace(torch_smoke_config(ARCH), **FP32, **over))
+def smoke_configs(arch: str = ARCH, **over):
+    """(JAX config, port config): the arch's smoke config in fp32."""
+    return (dataclasses.replace(jax_smoke_config(arch), **FP32, **over),
+            dataclasses.replace(torch_smoke_config(arch), **FP32, **over))
 
 
-def build_pair(seed: int = 0, **over):
+def build_pair(seed: int = 0, arch: str = ARCH, **over):
     """Both models and their parameters, the port's carried over from the
     JAX ones: (jax_model, jax_params, torch_model, torch_params)."""
-    jcfg, tcfg = smoke_configs(**over)
+    jcfg, tcfg = smoke_configs(arch, **over)
     jmodel = jax_build_model(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(seed))
     tree = jax.tree_util.tree_map(np.asarray, jparams)

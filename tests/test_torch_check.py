@@ -14,6 +14,11 @@ permuted slots, the rest empty (``INVALID_POS``, with a previous tenant's
 K/V left in them, as a dense cache keeps them).  A reordered sum passes; a
 kernel that reads the empty slots as keys, or whose window edge is off by
 one, fails.
+
+The SSD chunk limit (``1e-4 + 1e-4 * |ref|``) at mamba2's chunk shape: a
+float64 evaluation of the same sums passes at 0.03 of the limit; a kernel
+that drops the diagonal or key 0, decays one step short or leaves the last
+step out of the chunk state fails by more than 1000x.
 """
 import math
 
@@ -148,3 +153,53 @@ def test_bf16_limit_catches_dense_kernel_faults(mutation, window):
         assert res["worst"] <= 1.0, res
     else:
         assert res["worst"] > 1.0, res
+
+
+def _ssd_f64(x, bm, cm, la, dt, fault=None):
+    """The SSD chunk step in float64 (another rounding of the same sums),
+    or with one fault a kernel could have."""
+    x, bm, cm, la, dt = (t.double() for t in (x, bm, cm, la, dt))
+    q = x.shape[-2]
+    cum = torch.cumsum(la, dim=-1)
+    if fault == "exclusive_cumsum":             # decays one step short
+        cum = cum - la
+    keep = torch.ones((q, q), dtype=torch.bool).tril(
+        -1 if fault == "no_diagonal" else 0)
+    if fault == "dropped_key":                  # key 0 never seen
+        keep[:, 0] = False
+    cb = torch.einsum("bnqs,bnks->bnqk", cm, bm)
+    diff = torch.where(keep, cum[..., :, None] - cum[..., None, :], 0.0)
+    scores = torch.where(keep, cb[:, :, None] * torch.exp(diff)
+                         * dt[..., None, :], 0.0)
+    y = torch.einsum("bnhqk,bnhkd->bnhqd", scores, x)
+    total = cum[..., -1]
+    wgt = torch.exp(total[..., None] - cum) * dt
+    if fault == "state_drops_last_step":
+        wgt[..., -1] = 0.0
+    s = torch.einsum("bnqs,bnhq,bnhqd->bnhsd", bm, wgt, x)
+    return y.float(), s.float(), torch.exp(total).float()
+
+
+@pytest.mark.parametrize("fault", [None, "no_diagonal", "dropped_key",
+                                   "exclusive_cumsum",
+                                   "state_drops_last_step"])
+def test_ssd_limit_separates_faults_from_rounding(fault):
+    """At mamba2's chunk shape (Q 64, hd 64, ds 128) and the JAX package's
+    test distributions, a float64 evaluation of the same sums passes the
+    SSD limit; each fault fails it on some output by a wide margin."""
+    from repro_torch.kernels.check import ssd_limit
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
+
+    g = torch.Generator().manual_seed(3)
+    b, nc, h, q, hd, ds = 1, 4, 4, 64, 64, 128
+    args = (torch.randn((b, nc, h, q, hd), generator=g),
+            torch.randn((b, nc, q, ds), generator=g),
+            torch.randn((b, nc, q, ds), generator=g),
+            -(0.01 + 0.39 * torch.rand((b, nc, h, q), generator=g)),
+            0.01 + 0.19 * torch.rand((b, nc, h, q), generator=g))
+    worst = max(compare(o, r, limit=ssd_limit)["worst"]
+                for o, r in zip(_ssd_f64(*args, fault), ssd_chunk_ref(*args)))
+    if fault is None:
+        assert worst <= 0.5
+    else:
+        assert worst > 100.0

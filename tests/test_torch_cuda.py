@@ -1,4 +1,4 @@
-"""The port's five CUDA kernels against their plain versions, on the card.
+"""The port's six CUDA kernels against their plain versions, on the card.
 
 Skips without a card.  On a machine with one (and no JAX), run::
 
@@ -16,12 +16,19 @@ The dense selective attention (``sel_attn``) runs on its own synthetic
 shape: 32 query heads on 8 kv heads (and MHA), window 64 (and none), Sq 101
 and Skv 300 (neither a multiple of a tile), kv positions permuted with
 ``INVALID_POS`` holes, and one query whose every key is masked (zeros).
+
+The SSD chunk kernel (``ssd_chunk``) runs at the four shapes of
+``tests/test_ssd_kernel.py``, at Q = ds = 128 (its largest chunk), with
+``dt = 0`` pad rows, with a large ``dt`` (its masked exponents overflow:
+no NaN may leak) and on the model's layout read through permuted views;
+fp32, held per element to ``1e-4 + 1e-4 * |ref|``
+(``repro_torch.kernels.check.ssd_limit``).
 """
 import pytest
 import torch
 
 from repro_torch.kernels import KERNELS
-from repro_torch.kernels.check import compare, v_absmax
+from repro_torch.kernels.check import compare, ssd_limit, v_absmax
 from repro_torch.kernels.paged_attn.ops import paged_attention
 from repro_torch.kernels.paged_attn.ref import paged_attention_ref
 from repro_torch.kernels.selective_attn.ops import (
@@ -33,6 +40,8 @@ from repro_torch.kernels.selective_attn.ref import (
     selective_attention_paged_ref,
     selective_attention_ref,
 )
+from repro_torch.kernels.ssd_chunk.ops import ssd_chunk
+from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
 
 pytestmark = pytest.mark.cuda
 PS, P, DH = 16, 96, 128
@@ -189,3 +198,78 @@ def test_dense_wrapper_rejects_what_the_kernel_does_not_take(dev):
         selective_attention(q, k, v, q_pos, kv_pos.long())          # index
     with pytest.raises(ValueError):
         selective_attention(q, k.transpose(1, 2), v, q_pos, kv_pos)  # layout
+
+
+def _ssd_inputs(dev, b, nc, h, q, hd, ds, seed, dt_hi=0.2):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    return (torch.randn((b, nc, h, q, hd), generator=g, device=dev),
+            torch.randn((b, nc, q, ds), generator=g, device=dev),
+            torch.randn((b, nc, q, ds), generator=g, device=dev),
+            -(0.01 + 0.39 * rand(b, nc, h, q)),
+            0.01 + (dt_hi - 0.01) * rand(b, nc, h, q))
+
+
+def _ssd_check(args, views=None):
+    """One launch on ``views`` (default ``args``), held per element to the
+    plain version on ``args``."""
+    kern = KERNELS["ssd_chunk"]
+    before = kern.launches
+    out = ssd_chunk(*(views or args))
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    for o, r in zip(out, ssd_chunk_ref(*args)):
+        assert bool(torch.isfinite(o).all())
+        res = compare(o, r, limit=ssd_limit)
+        assert res["worst"] <= 1.0, res
+
+
+SSD_SHAPES = [(1, 2, 2, 8, 16, 8), (2, 3, 4, 16, 32, 16),
+              (1, 4, 3, 32, 64, 128), (2, 2, 5, 64, 64, 16),
+              (1, 21, 24, 64, 64, 128), (1, 3, 2, 128, 64, 128)]
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=[str(s) for s in SSD_SHAPES])
+def test_ssd_chunk_kernel(dev, shape):
+    _ssd_check(_ssd_inputs(dev, *shape, seed=7))
+
+
+def test_ssd_chunk_kernel_pad_rows_and_large_dt(dev):
+    x, bm, cm, la, dt = _ssd_inputs(dev, 1, 3, 4, 64, 64, 128, seed=8)
+    la[:, -1, :, 29:] = 0.0                 # the last chunk's pad steps
+    dt[:, -1, :, 29:] = 0.0
+    _ssd_check((x, bm, cm, la, dt))
+    # masked exponents overflow here (exp(60 * 63)); only a select keeps
+    # them out of the sums
+    _ssd_check((x, bm, cm, torch.full_like(la, -60.0),
+                torch.full_like(dt, 4.0)))
+
+
+def test_ssd_chunk_kernel_reads_the_model_layout(dev):
+    """x (B, NC, Q, H, hd), la/dt (B, NC, Q, H) and bm/cm cut from one
+    (B, T, 2 ds) projection, passed as views, as ``ssd_chunked`` does."""
+    b, nc, h, q, hd, ds = 2, 3, 4, 64, 64, 32
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn((b, nc, q, h, hd), generator=g, device=dev)
+    bc = torch.randn((b, nc * q, 2 * ds), generator=g, device=dev)
+    la = -0.3 * torch.rand((b, nc, q, h), generator=g, device=dev)
+    dt = 0.2 * torch.rand((b, nc, q, h), generator=g, device=dev)
+    bm, cm = (t.reshape(b, nc, q, ds) for t in bc.chunk(2, dim=-1))
+    views = (x.permute(0, 1, 3, 2, 4), bm, cm, la.permute(0, 1, 3, 2),
+             dt.permute(0, 1, 3, 2))
+    assert not views[0].is_contiguous() and not bm.is_contiguous()
+    _ssd_check(tuple(t.contiguous() for t in views), views=views)
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    x, bm, cm, la, dt = _ssd_inputs(dev, 1, 2, 2, 16, 32, 16, seed=10)
+    with pytest.raises(ValueError):
+        ssd_chunk(x.double(), bm, cm, la, dt)                     # dtype
+    with pytest.raises(ValueError):
+        ssd_chunk(x, bm.transpose(2, 3), cm, la, dt)              # layout
+    big = _ssd_inputs(dev, 1, 1, 1, 256, 32, 16, seed=11)
+    with pytest.raises(ValueError, match="chunk length"):
+        ssd_chunk(*big)                                           # Q > 128
