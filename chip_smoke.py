@@ -33,7 +33,10 @@ timed on its own line:
 6. each kernel against its plain PyTorch version on the state phases 3-5b
    left (layer 0 of the live pool or the captured dense-attention and SSD
    inputs) and on synthetic shapes (32 query heads on 8 kv heads, window
-   64; the SSD chunk at the JAX package's test shapes, Q = 128, pad rows
+   64; the paged prefill on both pools in fp32, through the CUDA-core
+   kernel, and in bf16, through the tensor-core kernel, whose registers,
+   shared memory, spills and resident blocks per SM it prints; the SSD
+   chunk at the JAX package's test shapes, Q = 128, pad rows
    and a large dt), then timed beside its plain version, a PyTorch
    yardstick where one exists and its bound; the limit is per element
    (``repro_torch/kernels/check.py``): one bf16 ulp of the value for bf16
@@ -180,7 +183,8 @@ def main() -> int:
     secs = _build.build()
     for name, log in _build.build_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line):
                 print(f"  {name}: {line.strip()}")
     print(f"built {sorted(secs)} in {secs}")
     phase("build", t0)
@@ -355,9 +359,13 @@ def main() -> int:
               f"{rep['mean_prefill_s'] * 1e3:.2f} ms); decode step mean "
               f"{rep['mean_decode_step_s'] * 1e3:.2f} ms over "
               f"{rep['decode_steps']} steps; {tokens / serve_s:.1f} tokens/s")
+        prefills = [(r.t_first_token - r.t_admitted) * 1e3 for r in reqs]
+        print(f"  prefill alone per request, in submission order: "
+              f"{[round(t, 2) for t in prefills]} ms")
         print(f"  launches {launches}", flush=True)
         runs[label] = {
             "policy": policy, "pool": pool_dtype or "bf16", "paged": paged,
+            "prefill_ms": prefills,
             "mean_ttft_ms": rep["mean_ttft_s"] * 1e3,
             "p90_ttft_ms": rep["p90_ttft_s"] * 1e3,
             "mean_prefill_ms": rep["mean_prefill_s"] * 1e3,
@@ -756,8 +764,9 @@ def main() -> int:
               f"max |ref| {r['max_abs_ref']:.3e}, err/limit "
               f"{r['worst']:.3f}")
 
-    # synthetic shape: GQA group 4 with a window that bites, fp32 q, a
-    # ragged query count, an idle row and scratch-padded page tables
+    # synthetic shape: GQA group 4 with a window that bites, a ragged query
+    # count, an idle row and scratch-padded page tables; fp32 q (the
+    # CUDA-core kernels), then the prefill in bf16 (the tensor-core kernel)
     syn_hq, syn_hkv, syn_win, syn_ps, syn_p = 32, 8, 64, 16, 160
     syn_lens = [0, 300, 1000]
     perm = torch.randperm(syn_p - 1, generator=gen, device=dev) + 1
@@ -800,6 +809,36 @@ def main() -> int:
             if not check["worst"] <= 1.0:
                 raise RuntimeError(f"{name}: synthetic GQA error {check}")
             results[name]["synthetic_err"] = check["max_abs_err"]
+        name = "sel_attn_paged_q8" if q8 else "sel_attn_paged"
+        kb, vb = (k, v) if q8 else (k.to(torch.bfloat16), v.to(torch.bfloat16))
+        check_b, out_b = prefill_case(qp.to(torch.bfloat16), kb, vb, ks, vs,
+                                      syn_pt, q_pos, lens, syn_win)
+        if not torch.all(out_b[0] == 0):
+            raise RuntimeError(f"{name}: bf16 idle row is not zero")
+        if not check_b["worst"] <= 1.0:
+            raise RuntimeError(f"{name}: synthetic bf16 GQA error {check_b}")
+        results[name]["synthetic_bf16_err"] = check_b["max_abs_err"]
+        results[name]["synthetic_err_over_limit"] = {
+            "fp32": check_p["worst"], "bf16": check_b["worst"]}
+        print(f"  {name} synthetic GQA: err/limit fp32 "
+              f"{check_p['worst']:.3f}, bf16 {check_b['worst']:.3f} (max "
+              f"|err| {check_b['max_abs_err']:.3e})")
+    # the bf16 prefill kernel's instantiations, as the card reports them
+    # (local memory is what spills, 0 when nothing does)
+    for q8 in (False, True):
+        for d in (64, 128):
+            fn = f"sel_attn_paged_mma_kernel<{d}, {int(q8)}>"
+            res = sel_ops.paged_mma_resources(d, q8)
+            print(f"  {fn}: {res['registers']} registers, "
+                  f"{res['local_bytes']} bytes local memory, "
+                  f"{res['static_smem_bytes']} + {res['smem_bytes']} bytes "
+                  f"static + dynamic smem, {res['blocks_per_sm']} blocks of "
+                  f"{res['threads']} threads per SM")
+            if res["local_bytes"] != 0:
+                raise RuntimeError(f"{fn} spills: {res}")
+            if d == dh:
+                results["sel_attn_paged_q8" if q8 else
+                        "sel_attn_paged"]["resources"] = {"kernel": fn, **res}
 
     # dense selective attention: the main-path inputs phases 3-5 captured,
     # then a synthetic GQA shape
@@ -1096,6 +1135,9 @@ def main() -> int:
             "err_over_limit": r["worst"],
             "tolerance": SSD_TOLERANCE if name == "ssd_chunk" else TOLERANCE,
             "synthetic_err": r["synthetic_err"],
+            **{key: r[key] for key in ("synthetic_bf16_err",
+                                       "synthetic_err_over_limit",
+                                       "resources") if key in r},
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

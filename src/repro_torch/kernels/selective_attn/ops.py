@@ -20,7 +20,11 @@ A CPU tensor goes to :func:`selective_attention_paged_ref` (whose layout is
 ``csrc/selective_attn.cu`` (``sel_attn_paged`` for a 16-bit pool,
 ``sel_attn_paged_q8`` for an int8 pool), which reads q and writes the
 output in the model's layout and masks the ragged Sq edge itself, or
-raises: there is no fallback on the card.
+raises: there is no fallback on the card.  The source holds two kernels
+behind each entry, chosen by q's dtype: bf16 goes to the tensor-core
+kernel, which takes head dims 64 and 128 and copies 16-byte vectors (so q
+and the pools must be 16-byte aligned); fp32 goes to the CUDA-core
+kernel, any head dim.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import Kernel, ptr
+from repro_torch.kernels._build import Kernel, library, ptr
 from repro_torch.kernels.selective_attn.ref import (
     selective_attention_paged_ref,
     selective_attention_ref,
@@ -133,6 +137,12 @@ def selective_attention_paged(q, k_pool, v_pool, page_table, q_pos, lengths,
         _check(k_pool.dtype == q.dtype and v_pool.dtype == q.dtype,
                "a 16-bit pool must have q's dtype")
         kernel, scales = SEL_ATTN_PAGED, (None, None)
+    if q.dtype == torch.bfloat16:
+        _check(dh in (64, 128),
+               f"head dim {dh} not 64 or 128 (the bf16 kernel's)")
+        # the bf16 kernel copies q and K/V rows as 16-byte vectors
+        _check(all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool)),
+               "q and the pools must be 16-byte aligned")
     out = torch.empty_like(q)
     if sq == 0:
         return out
@@ -140,3 +150,21 @@ def selective_attention_paged(q, k_pool, v_pool, page_table, q_pos, lengths,
                   ptr(page_table), ptr(q_pos), ptr(lengths), ptr(out), b, sq,
                   hq, hkv, dh, ps, page_table.shape[1], int(window))
     return out
+
+
+def paged_mma_resources(dh: int, quantized: bool) -> dict:
+    """Registers, local memory per thread (bytes: spills and stack, 0 when
+    nothing spills), static and dynamic shared memory (bytes), resident
+    blocks per SM and threads per block of the bf16 tensor-core
+    paged-prefill kernel for head dim ``dh``, as the card reports them
+    (``cudaFuncGetAttributes`` and the occupancy calculator)."""
+    fn = library("selective_attn").sel_attn_paged_mma_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 6)()
+    err = fn(dh, int(quantized), info)
+    if err != 0:
+        raise RuntimeError(f"sel_attn_paged_mma_info failed (cudaError {err})")
+    keys = ("registers", "local_bytes", "static_smem_bytes", "smem_bytes",
+            "blocks_per_sm", "threads")
+    return dict(zip(keys, info))

@@ -15,6 +15,11 @@ K/V left in them, as a dense cache keeps them).  A reordered sum passes; a
 kernel that reads the empty slots as keys, or whose window edge is off by
 one, fails.
 
+Why the bf16 paged prefill kernel splits P in two for its tensor-core
+P.V: at the main path's shape (224 sorted queries among 1312 keys, Dh 128,
+bf16 and int8 pools) P rounded once to bf16 breaks the limit ~20-26x, P
+split into hi = bf16(p) and lo = bf16(p - hi) stays within it (0.96).
+
 The SSD chunk limit (``1e-4 + 1e-4 * |ref|``) at mamba2's chunk shape: a
 float64 evaluation of the same sums passes at 0.03 of the limit; a kernel
 that drops the diagonal or key 0, decays one step short or leaves the last
@@ -22,6 +27,7 @@ step out of the chunk state fails by more than 1000x.
 """
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -203,3 +209,84 @@ def test_ssd_limit_separates_faults_from_rounding(fault):
         assert worst <= 0.5
     else:
         assert worst > 100.0
+
+
+# The bf16 paged prefill kernel's P.V on the tensor cores takes P in 16
+# bits.  At the main path's shape (224 selected queries, sorted, among 1312
+# cached keys; Dh 128), rounding P once to bf16 breaks the limit many times
+# over; splitting it into hi = bf16(p) and lo = bf16(p - hi), both
+# multiplied by the same bf16 V, keeps within it.  This is why the kernel
+# runs two products, and it guards the limit against being loosened to fit
+# a cheaper kernel.
+SEL_LEN, SEL_N, SEL_H = 1312, 224, 4
+
+
+def _selective_inputs(pool):
+    rng = np.random.default_rng(7)
+    npg = -(-SEL_LEN // PS)
+    p = npg + 1                               # page 0 is the scratch page
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(torch.bfloat16)
+
+    q = bf16(1, SEL_H, SEL_N, DH)
+    k, v = bf16(p, PS, SEL_H, DH), bf16(p, PS, SEL_H, DH)
+    ks = vs = None
+    if pool == "int8":
+        ks = k.float().abs().amax(dim=(1, 3)) / 127
+        vs = v.float().abs().amax(dim=(1, 3)) / 127
+        k = torch.round(k.float() / ks[:, None, :, None]).to(torch.int8)
+        v = torch.round(v.float() / vs[:, None, :, None]).to(torch.int8)
+    pt = torch.from_numpy(rng.permutation(npg).astype(np.int32) + 1)[None]
+    q_pos = torch.from_numpy(np.sort(rng.choice(
+        SEL_LEN, SEL_N, replace=False)).astype(np.int32))[None]
+    lens = torch.tensor([SEL_LEN], dtype=torch.int32)
+    return q, k, v, ks, vs, pt, q_pos, lens
+
+
+def _pv_in_16_bits(split, q, k, v, ks, vs, pt, q_pos, lens):
+    """The paged prefill with fp32 logits and softmax, and P.V fed bf16 P
+    (once, or split into two bf16 halves) against bf16 V, summed in fp32,
+    divided by the fp32 normaliser and rounded once."""
+    b, hq, sq, dh = q.shape
+    n = pt.shape[1] * PS
+    kg = k[pt.long()].reshape(b, n, -1, dh).float().transpose(1, 2)
+    vg = v[pt.long()].reshape(b, n, -1, dh).float().transpose(1, 2)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kg) / math.sqrt(dh)
+    if ks is not None:
+        logits = logits * torch.repeat_interleave(
+            ks[pt.long()], PS, dim=1).transpose(1, 2)[:, :, None, :]
+    idx = torch.arange(n)
+    keep = (idx < lens[:, None, None, None]) & (idx <= q_pos[:, None, :, None])
+    logits = torch.where(keep, logits, -1e30)
+    p = torch.where(keep, torch.exp(logits - logits.amax(-1, keepdim=True)),
+                    0.0)
+    l_sum = p.sum(-1, keepdim=True)
+    if vs is not None:                        # the V scale joins P, not l
+        p = p * torch.repeat_interleave(
+            vs[pt.long()], PS, dim=1).transpose(1, 2)[:, :, None, :]
+    hi = p.to(torch.bfloat16).float()
+    out = torch.einsum("bhqk,bhkd->bhqd", hi, vg)
+    if split:
+        lo = (p - hi).to(torch.bfloat16).float()
+        out = out + torch.einsum("bhqk,bhkd->bhqd", lo, vg)
+    return (out / l_sum).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("split", [False, True], ids=["p_once", "p_split"])
+def test_bf16_limit_needs_p_split_in_two(pool, split):
+    from repro_torch.kernels.selective_attn.ref import (
+        selective_attention_paged_ref,
+    )
+
+    args = _selective_inputs(pool)
+    q, k, v, ks, vs, pt, q_pos, lens = args
+    ref = selective_attention_paged_ref(q, k, v, pt, q_pos, lens, ks, vs)
+    out = _pv_in_16_bits(split, *args)
+    res = compare(out, ref, v_absmax(v, vs))
+    if split:
+        assert res["worst"] <= 1.0, res
+    else:
+        assert res["worst"] > 4.0, res

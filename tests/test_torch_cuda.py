@@ -12,6 +12,13 @@ element (``repro_torch.kernels.check``): fp32 outputs 1e-4 (sum order);
 bf16 outputs one bf16 ulp of the larger of the two values plus
 ``2**-17 * max|V|`` (two roundings of fp32 sums taken in another order).
 
+The bf16 paged prefill runs on the tensor-core kernel, which
+``test_selective_prefill_mma_kernel`` drives across its edges: Dh 64 and
+128 on both pools, MHA and GQA 32/8, Sq 150 (three or more 64-row tiles
+with a ragged last one), lengths 77 and 700 (not multiples of the 64-key
+tile), windows that start mid-tile, and the idle length-0 row, whose output
+must be all zeros.
+
 The dense selective attention (``sel_attn``) runs on its own synthetic
 shape: 32 query heads on 8 kv heads (and MHA), window 64 (and none), Sq 101
 and Skv 300 (neither a multiple of a tile), kv positions permuted with
@@ -55,9 +62,9 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(dev, hkv, pool, seed):
+def _inputs(dev, hkv, pool, seed, dh=DH):
     g = torch.Generator(device=dev).manual_seed(seed)
-    shape = (P, PS, hkv, DH)
+    shape = (P, PS, hkv, dh)
     if pool == "int8":
         k = torch.randint(-127, 128, shape, generator=g, device=dev,
                           dtype=torch.int8)
@@ -131,6 +138,41 @@ def test_selective_prefill_kernel(dev, pool, qdt, hq, hkv, window):
     assert res["worst"] <= 1.0, res
 
 
+@pytest.mark.parametrize("pool", ["bfloat16", "int8"])
+@pytest.mark.parametrize("dh", [64, 128])
+@HEADS
+@pytest.mark.parametrize("window", [0, 64, 100])
+def test_selective_prefill_mma_kernel(dev, pool, dh, hq, hkv, window):
+    k, v, ks, vs, pt, lens, g = _inputs(dev, hkv, pool, seed=12, dh=dh)
+    sq = 150
+    q = torch.randn((len(LENGTHS), sq, hq, dh), generator=g,
+                    device=dev).to(torch.bfloat16)
+    q_pos = torch.stack([
+        torch.sort(torch.randperm(max(n, sq), generator=g, device=dev)[:sq])[0]
+        for n in LENGTHS]).to(torch.int32)
+    kern = KERNELS["sel_attn_paged_q8" if ks is not None else "sel_attn_paged"]
+    before = kern.launches
+    out = selective_attention_paged(q, k, v, pt, q_pos, lens, k_scale=ks,
+                                    v_scale=vs, window=window)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    ref = selective_attention_paged_ref(q.transpose(1, 2), k, v, pt, q_pos,
+                                        lens, ks, vs,
+                                        window=window).transpose(1, 2)
+    assert torch.all(out[0] == 0)              # length 0: no key, zeros
+    res = compare(out, ref, v_absmax(v, vs))
+    assert res["worst"] <= 1.0, res
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 2 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     k, v, ks, vs, pt, lens, g = _inputs(dev, 8, "float32", seed=3)
     q = torch.randn((len(LENGTHS), 8, DH), device=dev)
@@ -140,6 +182,20 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         paged_attention(q, k, v, pt.long(), lens)                # index dtype
     with pytest.raises(ValueError):
         paged_attention(q, k.transpose(0, 1), v, pt, lens)       # layout
+    # the bf16 paged prefill: head dims 64 and 128 only, 16-byte aligned
+    q_pos = torch.zeros((len(LENGTHS), 5), dtype=torch.int32, device=dev)
+    for dh in (32, 96):
+        kb, vb, _, _, ptb, lensb, _ = _inputs(dev, 8, "bfloat16", seed=3,
+                                              dh=dh)
+        qb = torch.randn((len(LENGTHS), 5, 8, dh), device=dev).bfloat16()
+        with pytest.raises(ValueError, match="head dim"):
+            selective_attention_paged(qb, kb, vb, ptb, q_pos, lensb)
+    kb, vb, _, _, ptb, lensb, _ = _inputs(dev, 8, "bfloat16", seed=3)
+    qb = torch.randn((len(LENGTHS), 5, 8, DH), device=dev).bfloat16()
+    for args in ((_misaligned(qb), kb, vb), (qb, _misaligned(kb), vb),
+                 (qb, kb, _misaligned(vb))):
+        with pytest.raises(ValueError, match="aligned"):
+            selective_attention_paged(*args, ptb, q_pos, lensb)
 
 
 def _dense_inputs(dev, dtype, hq, hkv, seed, b=2, sq=101, skv=300):
