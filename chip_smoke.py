@@ -29,13 +29,18 @@ timed on its own line:
    four dialogues with their images inlined (no upload) plus one text-only
    request, once under ``full_recompute`` and once under ``mpic`` k=32
    (rewritten to ``full_recompute``); the SSD chunk kernel must have
-   launched once per layer of every prefill;
+   launched once per layer of every prefill; one mamba2 prefill under
+   ``torch.profiler``; then one warm llava paged decode step per pool
+   (phase 3's dialogues on a fresh engine, all four slots decoding): three
+   on the host clock, one under the profiler (device busy time, the
+   decode kernels' device time per call, the top kernels);
 6. each kernel against its plain PyTorch version on the state phases 3-5b
    left (layer 0 of the live pool or the captured dense-attention and SSD
    inputs) and on synthetic shapes (32 query heads on 8 kv heads, window
-   64; the paged prefill on both pools in fp32, through the CUDA-core
-   kernel, and in bf16, through the tensor-core kernel, whose registers,
-   shared memory, spills and resident blocks per SM it prints; the SSD
+   64; the paged prefill and decode on both pools in fp32 and in bf16 (the
+   prefill's bf16 calls run its tensor-core kernel); the registers, shared
+   memory, spills and resident blocks per SM of the bf16 prefill kernel and
+   of every decode kernel instantiation are printed, and a spill fails; the SSD
    chunk at the JAX package's test shapes, Q = 128, pad rows
    and a large dt), then timed beside its plain version, a PyTorch
    yardstick where one exists and its bound; the limit is per element
@@ -568,6 +573,16 @@ def main() -> int:
               f"{kwargs}:")
         serve_ssm(label, policy, kwargs)
 
+    def device_kernels(prof):
+        """(name, device ms, launches) of every device activity the
+        profile saw, largest first, and their summed time (device busy)."""
+        kernels = sorted(
+            ((e.key, e.self_device_time_total / 1e3, e.count)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA),
+            key=lambda k: -k[1])
+        return kernels, sum(ms for _, ms, _ in kernels)
+
     # where a mamba2 prefill's time goes: device busy time of one profiled
     # prefill against the median host time of three unprofiled ones
     prompt = make_dialogues(n=1, n_images=2, d_model=mcfg.d_model,
@@ -587,12 +602,7 @@ def main() -> int:
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             ssm_prefill()
-    kernels_ms = sorted(
-        ((e.key, e.self_device_time_total / 1e3, e.count)
-         for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA),
-        key=lambda k: -k[1])
-    busy = sum(ms for _, ms, _ in kernels_ms)
+    kernels_ms, busy = device_kernels(prof)
     wall = float(np.median(walls))
     print(f"  one prefill of {prompt.total_len} tokens: {wall:.2f} ms on the "
           f"host clock (median of {[round(w, 2) for w in walls]}), device "
@@ -608,6 +618,79 @@ def main() -> int:
     del prof
     torch.cuda.empty_cache()
     phase("serve_ssm", t0)
+
+    # where a paged decode step's time goes, on each pool: the four
+    # dialogues of phase 3 under mpic again, on a fresh engine, stepped
+    # until all four slots decode; three steps on the host clock (median),
+    # then one under torch.profiler.  It runs after every serving run, as
+    # the mamba2 profile does, so that no run's numbers carry the
+    # profiler's start-up.
+    t0 = time.perf_counter()
+
+    def profile_decode(pool_dtype):
+        eng = MPICEngine(model, params, EngineConfig(
+            max_seq_len=2048, decode_slots=4, page_size=16,
+            pool_dtype=pool_dtype))
+        samples = make_dialogues(n=4, n_images=2, d_model=cfg.d_model,
+                                 media_len=cfg.media_token_len, style="mmdu")
+        reqs = [Request(prompt=s.prompt, max_new_tokens=4 * MAX_NEW,
+                        policy="mpic", policy_kwargs={"k": K_MPIC})
+                for s in samples]
+        walls = []
+        with no_plain_versions():
+            for s in samples:
+                for _, seg in s.prompt.media_segments():
+                    eng.upload(s.prompt.user_id, seg.media_id, seg.embeds)
+            for r in reqs:
+                eng.submit(r)
+            for _ in range(len(reqs)):          # one admission a step
+                eng.step()
+            if not all(r.state is State.RUNNING for r in reqs):
+                raise RuntimeError("decode profile: not every slot decodes: "
+                                   f"{[(r.state, r.error) for r in reqs]}")
+            lengths = [r.cur_len for r in reqs]
+            for _ in range(3):
+                t = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t) * 1e3)
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                eng.step()
+                torch.cuda.synchronize()
+            eng.run()
+        if not all(r.done for r in reqs):
+            raise RuntimeError(f"decode profile: {[r.error for r in reqs]}")
+        kernels_ms, busy = device_kernels(prof)
+        wall = float(np.median(walls))
+        # one paged_attention call is its split kernel and its merge kernel
+        calls = max((n for name, _, n in kernels_ms
+                     if "paged_decode_split" in name), default=0)
+        per_call = (sum(ms for name, ms, _ in kernels_ms
+                        if "paged_decode_" in name) / calls
+                    if calls else None)
+        print(f"  {pool_dtype or 'bf16'} pool, one decode step, 4 slots at "
+              f"{lengths} tokens: {wall:.2f} ms on the host clock (median "
+              f"of {[round(w, 2) for w in walls]}), device "
+              + (f"busy {busy:.2f} ms ({100 * busy / wall:.1f} %) under the "
+                 f"profiler; paged_attention {per_call:.4f} ms a call on "
+                 f"the device ({calls} calls)" if busy > 0 and calls else
+                 "time not measured (the profiler saw no device activity)"))
+        for name, ms, n in kernels_ms[:8]:
+            print(f"    {ms:8.3f} ms  {n:5d}x  {name[:90]}")
+        del eng, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"lengths": lengths, "wall_ms": wall, "walls_ms": walls,
+                "device_busy_ms": busy if busy > 0 else None,
+                "paged_attn_device_ms": per_call,
+                "top_kernels": [[name[:90], ms, n]
+                                for name, ms, n in kernels_ms[:8]]}
+
+    decode_profiles = {"paged_attn": profile_decode(""),
+                       "paged_attn_q8": profile_decode("int8")}
+    phase("decode_profile", t0)
 
     # -- 6. kernels against their plain versions ----------------------------
     t0 = time.perf_counter()
@@ -701,6 +784,8 @@ def main() -> int:
         bound_ms, bound_by = bound(nbytes, flops, q.dtype)
         results[name] = {
             **check, "bound_ms": bound_ms, "bound_by": bound_by,
+            "device_ms": decode_profiles[name]["paged_attn_device_ms"],
+            "profiled_decode_step": decode_profiles[name],
             "ms": events_ms(lambda: paged_attention(
                 q, k, v, pt, lens, k_scale=ks, v_scale=vs, window=window), 50),
             "plain_ms": events_ms(lambda: paged_attention_ref(
@@ -796,33 +881,33 @@ def main() -> int:
         for n in syn_lens]).to(torch.int32)
     for q8 in (False, True):
         k, v, ks, vs = pools[q8]
-        qd = randn(3, syn_hq, dh, dtype=torch.float32)
-        check_d, out_d = decode_case(qd, k, v, ks, vs, syn_pt, lens, syn_win)
-        if out_d.is_cuda and not torch.all(out_d[0] == 0):
-            raise RuntimeError("decode kernel: idle row is not zero")
-        qp = randn(3, sq, syn_hq, dh, dtype=torch.float32)
-        check_p, _ = prefill_case(qp, k, v, ks, vs, syn_pt, q_pos, lens,
-                                  syn_win)
-        for name, check in (
-                (("paged_attn_q8" if q8 else "paged_attn"), check_d),
-                (("sel_attn_paged_q8" if q8 else "sel_attn_paged"), check_p)):
-            if not check["worst"] <= 1.0:
-                raise RuntimeError(f"{name}: synthetic GQA error {check}")
-            results[name]["synthetic_err"] = check["max_abs_err"]
-        name = "sel_attn_paged_q8" if q8 else "sel_attn_paged"
         kb, vb = (k, v) if q8 else (k.to(torch.bfloat16), v.to(torch.bfloat16))
-        check_b, out_b = prefill_case(qp.to(torch.bfloat16), kb, vb, ks, vs,
-                                      syn_pt, q_pos, lens, syn_win)
-        if not torch.all(out_b[0] == 0):
-            raise RuntimeError(f"{name}: bf16 idle row is not zero")
-        if not check_b["worst"] <= 1.0:
-            raise RuntimeError(f"{name}: synthetic bf16 GQA error {check_b}")
-        results[name]["synthetic_bf16_err"] = check_b["max_abs_err"]
-        results[name]["synthetic_err_over_limit"] = {
-            "fp32": check_p["worst"], "bf16": check_b["worst"]}
-        print(f"  {name} synthetic GQA: err/limit fp32 "
-              f"{check_p['worst']:.3f}, bf16 {check_b['worst']:.3f} (max "
-              f"|err| {check_b['max_abs_err']:.3e})")
+        qd = randn(3, syn_hq, dh, dtype=torch.float32)
+        qp = randn(3, sq, syn_hq, dh, dtype=torch.float32)
+        suffix = "_q8" if q8 else ""
+        def syn_prefill(q, k, v, ks, vs, pt, lens, window):
+            return prefill_case(q, k, v, ks, vs, pt, q_pos, lens, window)
+
+        for name, case, qs in (
+                ("paged_attn" + suffix, decode_case, (qd, qd.bfloat16())),
+                ("sel_attn_paged" + suffix, syn_prefill, (qp, qp.bfloat16()))):
+            check_f, out_f = case(qs[0], k, v, ks, vs, syn_pt, lens, syn_win)
+            check_b, out_b = case(qs[1], kb, vb, ks, vs, syn_pt, lens, syn_win)
+            for what, check, out in (("fp32", check_f, out_f),
+                                     ("bf16", check_b, out_b)):
+                if not torch.all(out[0] == 0):
+                    raise RuntimeError(f"{name}: {what} idle row is not zero")
+                if not check["worst"] <= 1.0:
+                    raise RuntimeError(f"{name}: synthetic {what} GQA error "
+                                       f"{check}")
+            results[name].update(
+                synthetic_err=check_f["max_abs_err"],
+                synthetic_bf16_err=check_b["max_abs_err"],
+                synthetic_err_over_limit={"fp32": check_f["worst"],
+                                          "bf16": check_b["worst"]})
+            print(f"  {name} synthetic GQA: err/limit fp32 "
+                  f"{check_f['worst']:.3f}, bf16 {check_b['worst']:.3f} (max "
+                  f"|err| {check_b['max_abs_err']:.3e})")
     # the bf16 prefill kernel's instantiations, as the card reports them
     # (local memory is what spills, 0 when nothing does)
     for q8 in (False, True):
@@ -839,6 +924,32 @@ def main() -> int:
             if d == dh:
                 results["sel_attn_paged_q8" if q8 else
                         "sel_attn_paged"]["resources"] = {"kernel": fn, **res}
+    # every instantiation of the split-key decode kernel: each q dtype and
+    # pool, Dh 64 and 128, one query head per block (G 1) and the wide tile
+    # (G 2-8)
+    for q_dt in (torch.float32, torch.bfloat16):
+        for q8 in (False, True):
+            for d in (64, 128):
+                for group in (1, 8):
+                    res = paged_ops.decode_resources(q_dt, q8, d, group)
+                    qn = str(q_dt)[6:]
+                    fn = (f"paged_decode_split_kernel<q {qn}, "
+                          f"{'int8' if q8 else qn} pool, Dh {d}, "
+                          f"{res['heads_per_block']} heads a block>")
+                    print(f"  {fn}: {res['registers']} registers, "
+                          f"{res['local_bytes']} bytes local memory, "
+                          f"{res['static_smem_bytes']} bytes static smem, "
+                          f"{res['blocks_per_sm']} blocks of "
+                          f"{res['threads']} threads per SM")
+                    if res["local_bytes"] != 0:
+                        raise RuntimeError(f"{fn} spills: {res}")
+                    row = results["paged_attn_q8" if q8 else "paged_attn"]
+                    row.setdefault("instantiations", []).append(
+                        {"kernel": fn, **res})
+                    if (q_dt == torch.bfloat16 and d == dh
+                            and group == (1 if hq == cfg.num_kv_heads
+                                          else 8)):
+                        row["resources"] = {"kernel": fn, **res}
 
     # dense selective attention: the main-path inputs phases 3-5 captured,
     # then a synthetic GQA shape
@@ -1137,7 +1248,9 @@ def main() -> int:
             "synthetic_err": r["synthetic_err"],
             **{key: r[key] for key in ("synthetic_bf16_err",
                                        "synthetic_err_over_limit",
-                                       "resources") if key in r},
+                                       "resources", "instantiations",
+                                       "device_ms", "profiled_decode_step")
+               if key in r},
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

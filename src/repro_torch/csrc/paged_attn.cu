@@ -1,33 +1,73 @@
-// Paged decode attention for Hopper (sm_90a), one source for both pool types.
+// Paged decode attention for Hopper (sm_90a): split-key (flash-decoding)
+// kernels, one source for the 16-bit, fp32 and int8 pools.
 //
 // Replaces the Pallas TPU kernels `_paged_attn_kernel` (16-bit pool) and
 // `_paged_attn_q8_kernel` (int8 pool) of
 // src/repro/kernels/paged_attn/paged_attn.py.  What it computes is theirs:
-// one query per sequence, the GQA group of query heads per kv head, keys read
-// through the page table, an online softmax, and a key kept iff
-// `idx < length` and, with a window, `idx > length - 1 - window`.  A row with
-// no valid key (an idle slot, `length == 0`) gives zeros, as Pallas does.
-// On the int8 pool the K scale of each key's page multiplies its logit and
-// the V scale multiplies that key's probability before `p * v` is added to
-// the accumulator.
+// one query per sequence, the GQA group of query heads per kv head, keys
+// read through the page table, a softmax over the keys
+// `lo <= idx < hi` with `lo = max(0, length - window)` (0 without a
+// window) and `hi = min(length, mp * ps)`.  On the int8 pool the K scale of
+// a key's page multiplies its logit and the V scale multiplies its
+// probability before it meets V (not the normaliser).  A row with no valid
+// key (an idle slot, `length == 0`) gives zeros, as Pallas does.
 //
-// What bounds it on an H100: bytes.  Each key of a sequence is read once per
-// kv head (Dh values of K and of V) and used by only `group` queries, so the
-// work is a few FLOPs per byte, far below the ~295 FLOP/byte the card needs
-// before its tensor cores limit.  The design therefore only tries not to
-// waste bytes:
-//   * one block per (sequence, kv head) holds the whole query group, so a kv
-//     row is read once for the group, not `group` times as the Pallas grid
-//     (B, Hkv, pages) over query heads would on a GPU;
-//   * the page loop runs inside the block, over the valid keys only:
-//     [max(0, length - window), length), never the padding pages of the
-//     table, and the ragged tail of the last page is skipped;
-//   * K and V stay in their storage type (bf16, fp32 or int8) in device
-//     memory and turn into fp32 in registers; nothing is dequantized to
-//     device memory.
-// It is a first, simple kernel: no tensor cores, no TMA, and no split over
-// the key axis (flash-decoding), which a small batch would need to fill the
-// card's 132 SMs.
+// What bounds it on an H100: bytes.  A key costs 4·Dh·G FLOPs (the logit
+// and P·V for the G query heads of its kv head) over 4·Dh bytes of bf16 K
+// and V: G FLOP per byte, 1 for llava (MHA), at most 8 for the GQA groups
+// the repo's configurations have.  The card needs ~295 FLOP per byte
+// before its tensor cores, not its memory, limit, so tensor cores (wgmma,
+// mma.sync) would buy nothing: the design only keeps enough bytes moving.
+//
+// What held the first kernel (one block per sequence and kv head) back,
+// and what this one does about each:
+//   1. Too few bytes in flight (128 blocks, one 2-byte load per lane per
+//      key behind a dependent page-table load).  Here every lane loads 16
+//      bytes of a key row at a time (a bf16 row of Dh 128 is 16 lanes, a
+//      warp takes two keys a step; int8 8 lanes, fp32 32), the chunk's
+//      page indices (and int8 scales) are loaded once per page into shared
+//      memory before the loop, and each warp keeps the K and V of its
+//      next stage (STEPS = 2 steps) in flight in registers while it
+//      computes on the current one: a register double buffer, loads issued
+//      a stage ahead.  In flight per warp: 2 steps x 32 lanes x 32 bytes
+//      = 2 KB for the next stage, up to 4 KB while the current one still
+//      lands.  At the main path's shape (bf16, Dh 128, G 1: 72 registers)
+//      7 blocks of 4 warps fit an SM (int8: 94 registers, 5 blocks), so
+//      56-112 KB per SM, against the ~20 KB an SM's share of HBM bandwidth
+//      needs (25 B/ns at ~0.8 us of loaded latency, an estimate).  Deeper
+//      stages (4, 8 steps) were no faster on the card and spilled at 8.
+//   2. Serial reductions and idle warps.  A key's logit is a 4-step
+//      shuffle within its row's 16 lanes (bf16, Dh 128), once per query
+//      head; every warp walks keys; there is no barrier in the key loop.
+//   3. Scalar P·V from shared memory.  V is read with K's lane layout, so
+//      P·V accumulates in each lane's registers.
+//   4. No split over keys.  The grid is (n_splits, Hkv x G-tiles, B): the
+//      key range of a row is cut into chunks of CHUNK keys counted from
+//      `lo`, so a window costs only the chunks it covers, four sequences
+//      of 2k keys give ~1k blocks and one sequence still spreads over the
+//      card.  `n_splits` comes from the page table's width (the host never
+//      reads `lengths`); a block whose chunk starts past its row's range
+//      writes an empty partial and exits.
+//
+// Each block merges its warps' (m, l, acc) through shared memory and
+// writes one fp32 partial per (b, query head, split) to a workspace the
+// wrapper allocates; a second, small kernel, launched by the same C entry
+// on the same stream, merges the splits of each (b, query head): rescale
+// by exp(m_s - m_max), divide by the merged l, zeros where it is 0.  Empty
+// partials carry the finite NEG_INF, so an all-empty row merges to
+// exp(0)·0 = 0 (a true -inf would give exp(-inf + inf) = NaN).  Masks
+// select before the exponent.  Softmax statistics are in log2 units.
+//
+// Query heads: a block takes GT of its kv head's G query heads (each
+// lane keeps its slice of q and of the accumulator for each in
+// registers); G = 1 runs the GT = 1 instantiation, larger groups
+// GT = min(4, 32 / values per lane) in ceil(G / GT) tiles, whose blocks
+// read the same K/V rows (the later ones mostly from L2).  Head dims 64
+// and 128, G up to 8; the wrapper refuses others.
+//
+// Launches: one C entry launches the two kernels; the Python wrapper
+// counts it as one launch of `paged_attn` / `paged_attn_q8`.  No dynamic
+// shared memory, so no attribute to set.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,15 +77,68 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr int THREADS = 128;
 constexpr int NWARPS = THREADS / 32;
-constexpr int KT = 64;  // keys per tile of the page loop
+constexpr int CHUNK = 256;  // keys per split (kernels/paged_attn/ops.py)
+constexpr int STEPS = 2;    // warp steps per stage of the register ring
+constexpr int MAX_GROUP = 8;
+constexpr int MERGE_THREADS = 128;
+constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// How 16 bytes of a type become floats.
+template <typename T>
+struct Pack;
+template <>
+struct Pack<float> {
+  static constexpr int N = 4;
+  __device__ static void to_f(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+};
+template <>
+struct Pack<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void to_f(const uint4& u, float* f) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+// int8: 0x4B000000 | (b ^ 0x80) is the float 2^23 + b + 128, exactly, so
+// subtracting 2^23 + 128 leaves the signed byte b: a byte permute and an
+// add per value instead of a quarter-rate integer-to-float conversion.
+template <>
+struct Pack<int8_t> {
+  static constexpr int N = 16;
+  __device__ static void to_f(const uint4& u, float* f) {
+    const unsigned w[4] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u,
+                           u.z ^ 0x80808080u, u.w ^ 0x80808080u};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        f[4 * i + j] =
+            __uint_as_float(__byte_perm(w[i], 0x4B000000u, 0x7650 + j)) -
+            8388736.f;
+  }
+};
+
+// `E` values of type T at `p` (16-byte aligned) as floats.
+template <typename T, int E>
+__device__ __forceinline__ void load_f(const T* p, float (&f)[E]) {
+  static_assert(E % Pack<T>::N == 0, "a lane's slice is whole 16-byte words");
+#pragma unroll
+  for (int i = 0; i < E / Pack<T>::N; ++i)
+    Pack<T>::to_f(__ldg(reinterpret_cast<const uint4*>(p) + i),
+                  f + i * Pack<T>::N);
 }
-__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -58,161 +151,405 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// Lane geometry of a key row: E values (16 bytes) per lane, LPR lanes per
+// row, R rows per warp step, BATCH keys per warp per stage.
+template <typename KV, int DH>
+struct Rows {
+  static constexpr int E = 16 / sizeof(KV);
+  static constexpr int LPR = DH / E;
+  static constexpr int R = 32 / LPR;
+  static constexpr int BATCH = STEPS * R;
+  static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "row fits a warp");
+};
+
+// query heads a block takes when the group is larger than one: at most 4,
+// and at most 32 accumulator values per lane (16 / sizeof(KV) a head)
+template <typename KV>
+constexpr int WIDE_TILE = 2 * sizeof(KV) < 4 ? 2 * (int)sizeof(KV) : 4;
+
+// One stage of the register ring: K and V of STEPS keys per row group, and
+// each key's page in the block's page list (-1: no key).
+struct Stage {
+  uint4 k[STEPS], v[STEPS];
+  int jp[STEPS];
+};
+
+// partial (m, l, acc) of one (b, query head, split) in the workspace
+struct Workspace {
+  float* acc;  // (B, Hq, S, DH)
+  float* ml;   // (B, Hq, S, 2)
+  __device__ size_t row(int b, int hq, int Hq, int n_splits, int s) const {
+    return ((size_t)b * Hq + hq) * n_splits + s;
+  }
+};
+
+__device__ __forceinline__ Workspace workspace(float* ws, int B, int Hq,
+                                               int n_splits, int dh) {
+  return {ws, ws + (size_t)B * Hq * n_splits * dh};
 }
 
-// grid (Hkv, B), block THREADS.  Shared: row offsets of the tile's keys, then
-// q (G x Dh), acc (G x Dh), probabilities (G x KT), m, l, alpha (G), and the
-// V scales of the tile's keys (KT).
-template <typename T, bool Q8>
-__global__ void __launch_bounds__(THREADS) paged_attn_kernel(
-    const T* __restrict__ q,
-    const typename std::conditional<Q8, int8_t, T>::type* __restrict__ k_pool,
-    const typename std::conditional<Q8, int8_t, T>::type* __restrict__ v_pool,
-    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
-    const int* __restrict__ page_table, const int* __restrict__ lengths,
-    T* __restrict__ out, int Hq, int Hkv, int Dh, int ps, int mp, int window,
-    float scale) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
+// grid (n_splits, Hkv * n_tiles, B), block THREADS.
+template <typename T, typename KV, int DH, int GT, bool Q8>
+__global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(
+    const T* __restrict__ q, const KV* __restrict__ k_pool,
+    const KV* __restrict__ v_pool, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ page_table,
+    const int* __restrict__ lengths, float* __restrict__ ws, int Hq, int Hkv,
+    int ps, int mp, int window, int n_splits, float scale_log2) {
+  using L = Rows<KV, DH>;
+  constexpr int E = L::E, LPR = L::LPR, R = L::R;
+  const int s = blockIdx.x;
+  const int n_tiles = gridDim.y / Hkv;
+  const int h = blockIdx.y / n_tiles, tile = blockIdx.y % n_tiles;
+  const int b = blockIdx.z, B = gridDim.z;
   const int G = Hq / Hkv;
+  const int hq0 = h * G + tile * GT;               // first query head
+  const int ng = min(GT, G - tile * GT);           // query heads here
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int li = lane % LPR, rg = lane / LPR;      // lane in row, row group
+  const Workspace w = workspace(ws, B, Hq, n_splits, DH);
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  size_t* row_s = reinterpret_cast<size_t*>(smem_raw);
-  float* q_s = reinterpret_cast<float*>(row_s + KT);
-  float* acc_s = q_s + G * Dh;
-  float* p_s = acc_s + G * Dh;
-  float* m_s = p_s + G * KT;
-  float* l_s = m_s + G;
-  float* a_s = l_s + G;
-  float* vsc_s = a_s + G;
-
-  const T* qb = q + ((size_t)b * Hq + (size_t)h * G) * Dh;
-  for (int i = tid; i < G * Dh; i += THREADS) {
-    q_s[i] = to_f(qb[i]);
-    acc_s[i] = 0.f;
-  }
-  if (tid < G) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
   const int length = lengths[b];
-  // every key in [lo, hi) is valid, every other key is masked; keys past
-  // the page table's width are out of reach, as in the plain version
   const int lo = window > 0 ? max(0, length - window) : 0;
   const int hi = min(length, mp * ps);
-  const int* pt = page_table + (size_t)b * mp;
-  __syncthreads();
-
-  for (int t0 = lo; t0 < hi; t0 += KT) {
-    const int nt = min(KT, hi - t0);
-    // logits: one warp per key, lanes over Dh
-    for (int t = warp; t < nt; t += NWARPS) {
-      const int idx = t0 + t;
-      const int page = pt[idx / ps];
-      const size_t row = (((size_t)page * ps + idx % ps) * Hkv + h) * Dh;
-      const float ks = Q8 ? k_scale[(size_t)page * Hkv + h] : 1.f;
-      for (int g = 0; g < G; ++g) {
-        float dot = 0.f;
-        for (int d = lane; d < Dh; d += 32)
-          dot += q_s[g * Dh + d] * to_f(k_pool[row + d]);
-        dot = warp_sum(dot);
-        if (lane == 0) p_s[g * KT + t] = dot * (scale * ks);
-      }
-      if (lane == 0) {
-        row_s[t] = row;
-        if (Q8) vsc_s[t] = v_scale[(size_t)page * Hkv + h];
-      }
+  const int c0 = lo + s * CHUNK;
+  const int c1 = min(c0 + CHUNK, hi);
+  if (c0 >= c1) {  // nothing here: an empty partial
+    for (int i = tid; i < ng * DH; i += THREADS)
+      w.acc[w.row(b, hq0 + i / DH, Hq, n_splits, s) * DH + i % DH] = 0.f;
+    if (tid < ng) {
+      const size_t r = w.row(b, hq0 + tid, Hq, n_splits, s);
+      w.ml[2 * r] = NEG_INF;
+      w.ml[2 * r + 1] = 0.f;
     }
-    __syncthreads();
-    // online-softmax statistics: one warp per query of the group
-    for (int g = warp; g < G; g += NWARPS) {
-      float mx = NEG_INF;
-      for (int t = lane; t < nt; t += 32) mx = fmaxf(mx, p_s[g * KT + t]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < nt; t += 32) {
-        const float p = expf(p_s[g * KT + t] - m_new);
-        p_s[g * KT + t] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[g] = alpha;
-        l_s[g] = alpha * l_s[g] + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-    // acc = acc * alpha + sum_t p_t * (v scale) * v_t
-    for (int i = tid; i < G * Dh; i += THREADS) {
-      const int g = i / Dh, d = i - g * Dh;
-      float a = acc_s[i] * a_s[g];
-      for (int t = 0; t < nt; ++t) {
-        float p = p_s[g * KT + t];
-        if (Q8) p *= vsc_s[t];
-        a += p * to_f(v_pool[row_s[t] + d]);
-      }
-      acc_s[i] = a;
-    }
-    __syncthreads();
+    return;
   }
 
-  T* ob = out + ((size_t)b * Hq + (size_t)h * G) * Dh;
-  for (int i = tid; i < G * Dh; i += THREADS) {
-    const float l = l_s[i / Dh];
-    ob[i] = from_f<T>(acc_s[i] / (l == 0.f ? 1.f : l));
+  // the chunk's pages (and int8 scales), once per page
+  __shared__ int pg_s[CHUNK];
+  __shared__ float sc_s[Q8 ? 2 * CHUNK : 1];
+  const int* pt = page_table + (size_t)b * mp;
+  const int p0 = c0 / ps;
+  const int np = (c1 - 1) / ps - p0 + 1;
+  for (int i = tid; i < np; i += THREADS) {
+    const int page = pt[p0 + i];
+    pg_s[i] = page;
+    if constexpr (Q8) {
+      sc_s[i] = k_scale[(size_t)page * Hkv + h] * scale_log2;
+      sc_s[CHUNK + i] = v_scale[(size_t)page * Hkv + h];
+    }
+  }
+
+  float qf[GT][E], acc[GT][E], m[GT], l[GT];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) qf[g][e] = acc[g][e] = 0.f;
+    if (g < ng)
+      load_f<T, E>(q + ((size_t)b * Hq + hq0 + g) * DH + li * E, qf[g]);
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+  }
+  __syncthreads();
+
+  const int n_batches = (c1 - c0 + L::BATCH - 1) / L::BATCH;
+  const size_t head_off = (size_t)h * DH + li * E;
+
+  auto load = [&](Stage& st, int bi) {
+#pragma unroll
+    for (int j = 0; j < STEPS; ++j) {
+      const int idx = c0 + bi * L::BATCH + j * R + rg;
+      if (bi < n_batches && idx < c1) {
+        const int jp = idx / ps - p0;
+        const size_t row =
+            ((size_t)pg_s[jp] * ps + (idx - (p0 + jp) * ps)) * Hkv * DH +
+            head_off;
+        st.k[j] = __ldg(reinterpret_cast<const uint4*>(k_pool + row));
+        st.v[j] = __ldg(reinterpret_cast<const uint4*>(v_pool + row));
+        st.jp[j] = jp;
+      } else {
+        st.k[j] = st.v[j] = make_uint4(0u, 0u, 0u, 0u);
+        st.jp[j] = -1;
+      }
+    }
+  };
+
+  // what a key's dot product and its probability are multiplied by
+  auto k_mul = [&](int jp) {
+    if constexpr (Q8) return sc_s[jp];
+    else return scale_log2;
+  };
+  auto v_mul = [&](int jp) {
+    if constexpr (Q8) return sc_s[CHUNK + jp];
+    else return 1.f;
+  };
+
+  auto compute = [&](const Stage& st) {
+    float x[GT][STEPS];  // logits in log2 units, NEG_INF where no key
+#pragma unroll
+    for (int j = 0; j < STEPS; ++j) {
+      float kf[E];
+      Pack<KV>::to_f(st.k[j], kf);
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) d = fmaf(qf[g][e], kf[e], d);
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1)
+          d += __shfl_xor_sync(FULL, d, o);
+        x[g][j] = st.jp[j] >= 0 ? d * k_mul(st.jp[j]) : NEG_INF;
+      }
+    }
+    float p[GT][STEPS];
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      if (g >= ng) continue;
+      float mx = m[g];
+#pragma unroll
+      for (int j = 0; j < STEPS; ++j) mx = fmaxf(mx, x[g][j]);
+      const float alpha = exp2f(m[g] - mx);
+      m[g] = mx;
+      l[g] *= alpha;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
+#pragma unroll
+      for (int j = 0; j < STEPS; ++j) {
+        p[g][j] = st.jp[j] >= 0 ? exp2f(x[g][j] - mx) : 0.f;
+        l[g] += p[g][j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < STEPS; ++j) {
+      float vf[E];
+      Pack<KV>::to_f(st.v[j], vf);
+      const float vsc = st.jp[j] >= 0 ? v_mul(st.jp[j]) : 0.f;
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        if (g >= ng) continue;
+        const float pv = p[g][j] * vsc;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[g][e] = fmaf(pv, vf[e], acc[g][e]);
+      }
+    }
+  };
+
+  // warp `warp` takes stages warp, warp + NWARPS, ...; the next one's
+  // loads are in flight while the current one is computed
+  Stage sa, sb;
+  load(sa, warp);
+  for (int bi = warp; bi < n_batches; bi += 2 * NWARPS) {
+    load(sb, bi + NWARPS);
+    compute(sa);
+    load(sa, bi + 2 * NWARPS);
+    if (bi + NWARPS < n_batches) compute(sb);
+  }
+
+  // merge the warp's row groups (lanes li, li + LPR, ...)
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    float mw = m[g];
+#pragma unroll
+    for (int o = LPR; o < 32; o <<= 1)
+      mw = fmaxf(mw, __shfl_xor_sync(FULL, mw, o));
+    const float f = exp2f(m[g] - mw);
+    l[g] *= f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[g][e] *= f;
+#pragma unroll
+    for (int o = LPR; o < 32; o <<= 1) {
+      l[g] += __shfl_xor_sync(FULL, l[g], o);
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        acc[g][e] += __shfl_xor_sync(FULL, acc[g][e], o);
+    }
+    m[g] = mw;
+  }
+
+  // then the block's warps, into one partial per query head
+  __shared__ float acc_s[NWARPS][GT][DH];
+  __shared__ float m_s[NWARPS][GT], l_s[NWARPS][GT];
+  if (rg == 0) {
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc_s[warp][g][li * E + e] = acc[g][e];
+      if (li == 0) {
+        m_s[warp][g] = m[g];
+        l_s[warp][g] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < ng * DH; i += THREADS) {
+    const int g = i / DH, d = i % DH;
+    float mx = NEG_INF;
+#pragma unroll
+    for (int v = 0; v < NWARPS; ++v) mx = fmaxf(mx, m_s[v][g]);
+    float a = 0.f, lsum = 0.f;
+#pragma unroll
+    for (int v = 0; v < NWARPS; ++v) {
+      const float f = exp2f(m_s[v][g] - mx);
+      a = fmaf(acc_s[v][g][d], f, a);
+      lsum = fmaf(l_s[v][g], f, lsum);
+    }
+    const size_t r = w.row(b, hq0 + g, Hq, n_splits, s);
+    w.acc[r * DH + d] = a;
+    if (d == 0) {
+      w.ml[2 * r] = mx;
+      w.ml[2 * r + 1] = lsum;
+    }
   }
 }
 
-template <typename T, bool Q8>
+// grid ceil(B * Hq / warps), block MERGE_THREADS: one warp per
+// (b, query head), lanes over the head dim.
+template <typename T, int DH>
+__global__ void __launch_bounds__(MERGE_THREADS) paged_decode_merge_kernel(
+    float* __restrict__ ws, T* __restrict__ out, int B, int Hq,
+    int n_splits) {
+  constexpr int PER = DH / 32;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (MERGE_THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= B * Hq) return;
+  const Workspace w = workspace(ws, B, Hq, n_splits, DH);
+  const float* ml = w.ml + (size_t)row * n_splits * 2;
+  const float* acc = w.acc + (size_t)row * n_splits * DH;
+  float mx = NEG_INF;
+  for (int s = lane; s < n_splits; s += 32) mx = fmaxf(mx, ml[2 * s]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+  float o_[PER] = {}, lsum = 0.f;
+  for (int s = 0; s < n_splits; ++s) {
+    const float f = exp2f(ml[2 * s] - mx);
+    lsum = fmaf(ml[2 * s + 1], f, lsum);
+#pragma unroll
+    for (int i = 0; i < PER; ++i)
+      o_[i] = fmaf(acc[(size_t)s * DH + lane + 32 * i], f, o_[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i)
+    out[(size_t)row * DH + lane + 32 * i] =
+        from_f<T>(lsum == 0.f ? 0.f : o_[i] / lsum);
+}
+
+template <typename T, typename KV, int DH, int GT>
+constexpr auto split_kernel() {
+  return paged_decode_split_kernel<T, KV, DH, GT,
+                                   std::is_same<KV, int8_t>::value>;
+}
+
+// Calls `fn.template run<DH, GT>()` for the instantiation that serves head
+// dim `dh` and group `group`; cudaErrorInvalidValue for any other.
+template <typename KV, typename F>
+int dispatch(int dh, int group, const F& fn) {
+  if (group < 1 || group > MAX_GROUP) return (int)cudaErrorInvalidValue;
+  constexpr int WIDE = WIDE_TILE<KV>;
+  if (dh == 64)
+    return group == 1 ? fn.template run<64, 1>()
+                      : fn.template run<64, WIDE>();
+  if (dh == 128)
+    return group == 1 ? fn.template run<128, 1>()
+                      : fn.template run<128, WIDE>();
+  return (int)cudaErrorInvalidValue;
+}
+
+// One call: both kernels on `stream`, each launch checked.
+template <typename T, typename KV>
+struct Launch {
+  const void *q, *k_pool, *v_pool, *k_scale, *v_scale, *page_table,
+      *lengths;
+  void *ws, *out;
+  int B, Hq, Hkv, ps, mp, window, n_splits;
+  cudaStream_t stream;
+
+  template <int DH, int GT>
+  int run() const {
+    const int n_tiles = (Hq / Hkv + GT - 1) / GT;
+    const dim3 grid(n_splits, Hkv * n_tiles, B);
+    split_kernel<T, KV, DH, GT>()<<<grid, THREADS, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const KV*>(k_pool),
+        static_cast<const KV*>(v_pool), static_cast<const float*>(k_scale),
+        static_cast<const float*>(v_scale),
+        static_cast<const int*>(page_table), static_cast<const int*>(lengths),
+        static_cast<float*>(ws), Hq, Hkv, ps, mp, window, n_splits,
+        LOG2E / sqrtf((float)DH));
+    if (const cudaError_t err = cudaGetLastError()) return (int)err;
+    const int warps = MERGE_THREADS / 32;
+    paged_decode_merge_kernel<T, DH>
+        <<<(B * Hq + warps - 1) / warps, MERGE_THREADS, 0, stream>>>(
+            static_cast<float*>(ws), static_cast<T*>(out), B, Hq, n_splits);
+    return (int)cudaGetLastError();
+  }
+};
+
+// What the card says of the split kernel that serves (T, KV, dh, group):
+// registers per thread, local memory per thread in bytes (spills and
+// stack; 0 when nothing spills), static and dynamic shared memory per block
+// in bytes, resident blocks per SM, threads per block, query heads per
+// block (GT).
+template <typename T, typename KV>
+struct Info {
+  int* out;
+
+  template <int DH, int GT>
+  int run() const {
+    auto kern = split_kernel<T, KV, DH, GT>();
+    cudaFuncAttributes attr;
+    if (const cudaError_t err = cudaFuncGetAttributes(&attr, kern))
+      return (int)err;
+    int blocks = 0;
+    if (const cudaError_t err =
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
+                                                          THREADS, 0))
+      return (int)err;
+    const int vals[7] = {attr.numRegs, (int)attr.localSizeBytes,
+                         (int)attr.sharedSizeBytes, 0, blocks, THREADS, GT};
+    for (int i = 0; i < 7; ++i) out[i] = vals[i];
+    return 0;
+  }
+};
+
+template <typename T, typename KV>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* k_scale, const void* v_scale, const void* page_table,
-           const void* lengths, void* out, int B, int Hq, int Hkv, int Dh,
-           int ps, int mp, int window, void* stream) {
-  using KV = typename std::conditional<Q8, int8_t, T>::type;
-  const int G = Hq / Hkv;
-  const size_t smem =
-      KT * sizeof(size_t) + sizeof(float) * (2 * G * Dh + G * KT + 3 * G + KT);
-  auto kern = paged_attn_kernel<T, Q8>;
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  const dim3 grid(Hkv, B);
-  kern<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(k_pool),
-      static_cast<const KV*>(v_pool), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const int*>(page_table),
-      static_cast<const int*>(lengths), static_cast<T*>(out), Hq, Hkv, Dh, ps,
-      mp, window, 1.0f / sqrtf((float)Dh));
-  return (int)cudaGetLastError();
+           const void* lengths, void* ws, void* out, int B, int Hq, int Hkv,
+           int Dh, int ps, int mp, int window, int n_splits, void* stream) {
+  if (Hkv < 1 || Hq % Hkv != 0 || n_splits < 1)
+    return (int)cudaErrorInvalidValue;
+  const Launch<T, KV> call{q,   k_pool, v_pool, k_scale, v_scale,
+                           page_table, lengths, ws, out, B, Hq, Hkv, ps,
+                           mp,  window, n_splits,
+                           static_cast<cudaStream_t>(stream)};
+  return dispatch<KV>(Dh, Hq / Hkv, call);
 }
 
 }  // namespace
 
-#define PAGED_ATTN_ENTRY(NAME, T, Q8)                                        \
-  extern "C" int NAME(const void* q, const void* k_pool, const void* v_pool, \
-                      const void* k_scale, const void* v_scale,              \
-                      const void* page_table, const void* lengths, void* out, \
-                      int B, int Hq, int Hkv, int Dh, int ps, int mp,        \
-                      int window, void* stream) {                            \
-    return launch<T, Q8>(q, k_pool, v_pool, k_scale, v_scale, page_table,    \
-                         lengths, out, B, Hq, Hkv, Dh, ps, mp, window,       \
-                         stream);                                            \
+#define PAGED_ATTN_ENTRY(NAME, T, KV)                                          \
+  extern "C" int NAME(const void* q, const void* k_pool, const void* v_pool,   \
+                      const void* k_scale, const void* v_scale,                \
+                      const void* page_table, const void* lengths, void* ws,   \
+                      void* out, int B, int Hq, int Hkv, int Dh, int ps,       \
+                      int mp, int window, int n_splits, void* stream) {        \
+    return launch<T, KV>(q, k_pool, v_pool, k_scale, v_scale, page_table,      \
+                         lengths, ws, out, B, Hq, Hkv, Dh, ps, mp, window,     \
+                         n_splits, stream);                                    \
   }
 
-PAGED_ATTN_ENTRY(paged_attn_f32, float, false)
-PAGED_ATTN_ENTRY(paged_attn_bf16, __nv_bfloat16, false)
-PAGED_ATTN_ENTRY(paged_attn_q8_f32, float, true)
-PAGED_ATTN_ENTRY(paged_attn_q8_bf16, __nv_bfloat16, true)
+PAGED_ATTN_ENTRY(paged_attn_f32, float, float)
+PAGED_ATTN_ENTRY(paged_attn_bf16, __nv_bfloat16, __nv_bfloat16)
+PAGED_ATTN_ENTRY(paged_attn_q8_f32, float, int8_t)
+PAGED_ATTN_ENTRY(paged_attn_q8_bf16, __nv_bfloat16, int8_t)
+
+// pool: 0 the q-typed pool, 1 int8; bf16: q is bf16 (else fp32)
+extern "C" int paged_attn_info(int pool, int bf16, int dh, int group,
+                               int* out) {
+  if (pool)
+    return bf16 ? dispatch<int8_t>(dh, group, Info<__nv_bfloat16, int8_t>{out})
+                : dispatch<int8_t>(dh, group, Info<float, int8_t>{out});
+  return bf16 ? dispatch<__nv_bfloat16>(
+                    dh, group, Info<__nv_bfloat16, __nv_bfloat16>{out})
+              : dispatch<float>(dh, group, Info<float, float>{out});
+}

@@ -20,6 +20,12 @@ P.V: at the main path's shape (224 sorted queries among 1312 keys, Dh 128,
 bf16 and int8 pools) P rounded once to bf16 breaks the limit ~20-26x, P
 split into hi = bf16(p) and lo = bf16(p - hi) stays within it (0.96).
 
+Why the split-key decode kernel merges its partials as it does: at the
+same decode shape, partials per 256-key split in fp32 merged with the
+``exp(m_s - m_max)`` rescale and rounded once pass the limit; a merge that
+skips the rescale fails it; with the finite ``NEG_INF`` an idle row (every
+split empty) merges to exact zeros, while a true ``-inf`` gives NaN there.
+
 The SSD chunk limit (``1e-4 + 1e-4 * |ref|``) at mamba2's chunk shape: a
 float64 evaluation of the same sums passes at 0.03 of the limit; a kernel
 that drops the diagonal or key 0, decays one step short or leaves the last
@@ -290,3 +296,84 @@ def test_bf16_limit_needs_p_split_in_two(pool, split):
         assert res["worst"] <= 1.0, res
     else:
         assert res["worst"] > 4.0, res
+
+
+# The split-key decode kernel (csrc/paged_attn.cu) in fp32 on the CPU: one
+# partial (m, l, acc) per (row, query head, split of 256 keys counted from
+# the row's first valid key), empty splits carrying (neg_inf, 0, 0), merged
+# by the rescale exp(m_s - m_max), divided by the merged l (zeros where it
+# is 0) and rounded once to q's dtype.
+def _split_decode(q, k, v, ks, vs, pt, lens, window=0, neg_inf=-1e30,
+                  rescale=True):
+    from repro_torch.kernels.paged_attn.ops import plan_splits
+
+    b, hq, dh = q.shape
+    _, ps, hkv, _ = k.shape
+    plan = plan_splits(b, hq, dh, pt.shape[1], ps, window)
+    out = torch.zeros((b, hq, dh))
+    for i in range(b):
+        qi = q[i].float().reshape(hkv, hq // hkv, dh)
+        m, l, acc = [], [], []
+        for s in range(plan.n_splits):
+            keys = torch.tensor(plan.split_keys(int(lens[i]), s),
+                                dtype=torch.long)
+            if len(keys) == 0:
+                m.append(torch.full((hq,), neg_inf))
+                l.append(torch.zeros(hq))
+                acc.append(torch.zeros((hq, dh)))
+                continue
+            page = pt[i, keys // ps].long()
+            kk = k[page, keys % ps].float()               # (n, Hkv, Dh)
+            vv = v[page, keys % ps].float()
+            x = torch.einsum("hgd,nhd->hgn", qi, kk) / math.sqrt(dh)
+            if ks is not None:
+                x = x * ks[page].T[:, None, :]
+            ms = x.amax(-1)
+            p = torch.exp(x - ms[..., None])
+            l.append(p.sum(-1).reshape(hq))
+            if vs is not None:                  # the V scale joins P, not l
+                p = p * vs[page].T[:, None, :]
+            acc.append(torch.einsum("hgn,nhd->hgd", p, vv).reshape(hq, dh))
+            m.append(ms.reshape(hq))
+        m, l, acc = torch.stack(m), torch.stack(l), torch.stack(acc)
+        w = torch.exp(m - m.amax(0)) if rescale else torch.ones_like(m)
+        lsum = (w * l).sum(0)
+        o = (w[..., None] * acc).sum(0)
+        out[i] = torch.where(lsum[:, None] == 0, 0.0, o / lsum[:, None])
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("rescale", [True, False],
+                         ids=["rescaled", "no_rescale"])
+def test_split_key_merge_needs_the_rescale(pool, rescale):
+    q, k, v, ks, vs, pt, lens = _decode_inputs(pool)
+    ref = paged_attention_ref(q, k, v, pt, lens, ks, vs)
+    out = _split_decode(q, k, v, ks, vs, pt, lens, rescale=rescale)
+    res = compare(out, ref, v_absmax(v, vs))
+    assert math.isfinite(res["worst"])
+    if rescale:
+        assert res["worst"] <= 1.0, res
+    else:
+        assert res["worst"] > 10.0, res
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_split_key_empty_splits(pool):
+    """An idle row (length 0: every split empty) merges to exact zeros with
+    the finite NEG_INF and to NaN with a true -inf; a window of 600 that
+    leaves a 300-key row's third split empty, and the longer rows' splits
+    starting mid-page, still pass."""
+    q, k, v, ks, vs, pt, lens = _decode_inputs(pool)
+    lens = lens.clone()
+    lens[0], lens[1] = 0, 300
+    live = lens > 0
+    for window in (0, 600):
+        ref = paged_attention_ref(q, k, v, pt, lens, ks, vs, window=window)
+        out = _split_decode(q, k, v, ks, vs, pt, lens, window=window)
+        assert torch.all(out[0] == 0)
+        res = compare(out, ref, v_absmax(v, vs), rows=live)
+        assert res["worst"] <= 1.0, res
+    out = _split_decode(q, k, v, ks, vs, pt, lens, neg_inf=-math.inf)
+    assert torch.isnan(out[0].float()).all()
+    assert not torch.isnan(out[live].float()).any()

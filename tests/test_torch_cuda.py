@@ -7,7 +7,11 @@ Skips without a card.  On a machine with one (and no JAX), run::
 Shapes: MHA and GQA (group 4), window 0 and 64, Dh 128, page size 16, a
 page table padded with a scratch page, a ragged query count and an idle
 row (``lengths == 0``, whose decode output must be zeros; the plain version
-gives the uniform mean there, so the comparison skips it).  Tolerance, per
+gives the uniform mean there, so the comparison skips it).  The split-key
+decode kernel also runs ``test_paged_decode_kernel_splits``: one row of
+2048 keys (8 splits of 256), rows at exact multiples of the split, a page
+table much wider than the live pages, a window starting mid-split, Dh 64,
+group 8.  Tolerance, per
 element (``repro_torch.kernels.check``): fp32 outputs 1e-4 (sum order);
 bf16 outputs one bf16 ulp of the larger of the two values plus
 ``2**-17 * max|V|`` (two roundings of fp32 sums taken in another order).
@@ -62,29 +66,30 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(dev, hkv, pool, seed, dh=DH):
+def _inputs(dev, hkv, pool, seed, dh=DH, lengths=LENGTHS, width=48):
     g = torch.Generator(device=dev).manual_seed(seed)
-    shape = (P, PS, hkv, dh)
+    npg = [-(-n // PS) for n in lengths]
+    p = max(P, 1 + sum(npg))
+    shape = (p, PS, hkv, dh)
     if pool == "int8":
         k = torch.randint(-127, 128, shape, generator=g, device=dev,
                           dtype=torch.int8)
         v = torch.randint(-127, 128, shape, generator=g, device=dev,
                           dtype=torch.int8)
-        ks = torch.rand((P, hkv), generator=g, device=dev) * 0.02 + 1e-3
-        vs = torch.rand((P, hkv), generator=g, device=dev) * 0.02 + 1e-3
+        ks = torch.rand((p, hkv), generator=g, device=dev) * 0.02 + 1e-3
+        vs = torch.rand((p, hkv), generator=g, device=dev) * 0.02 + 1e-3
     else:
         dt = getattr(torch, pool)
         k = torch.randn(shape, generator=g, device=dev).to(dt)
         v = torch.randn(shape, generator=g, device=dev).to(dt)
         ks = vs = None
-    perm = torch.randperm(P - 1, generator=g, device=dev) + 1
-    pt = torch.zeros((len(LENGTHS), 48), dtype=torch.int32, device=dev)
+    perm = torch.randperm(p - 1, generator=g, device=dev) + 1
+    pt = torch.zeros((len(lengths), width), dtype=torch.int32, device=dev)
     used = 0
-    for i, n in enumerate(LENGTHS):
-        npg = -(-n // PS)
-        pt[i, :npg] = perm[used:used + npg]
-        used += npg
-    lens = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
+    for i, n in enumerate(npg):
+        pt[i, :n] = perm[used:used + n]
+        used += n
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     return k, v, ks, vs, pt, lens, g
 
 
@@ -111,6 +116,42 @@ def test_paged_decode_kernel(dev, pool, qdt, hq, hkv, window):
     ref = paged_attention_ref(q, k, v, pt, lens, ks, vs, window=window)
     assert torch.all(out[0] == 0)
     res = compare(out, ref, v_absmax(v, vs), rows=lens > 0)
+    assert res["worst"] <= 1.0, res
+
+
+# Split-key edges: (lengths, page-table width in pages, window).  Splits
+# are 256 keys counted from a row's first valid key.
+SPLIT_SHAPES = {
+    "b1_2048": ([2048], 128, 0),                # one row, 8 full splits
+    "chunk_multiple": ([0, 512, 256, 300], 32, 0),   # idle, 2 and 1 whole
+    "wide_table": ([0, 40, 1000], 128, 0),      # 8 splits, most empty
+    "window_mid_chunk": ([1000, 77, 2000], 128, 300),  # lo = 700, 1700
+}
+
+
+@CASES
+@pytest.mark.parametrize("dh,hq,hkv", [(128, 8, 1), (64, 8, 2), (64, 4, 4)],
+                         ids=["dh128_g8", "dh64_g4", "dh64_mha"])
+@pytest.mark.parametrize("shape", list(SPLIT_SHAPES))
+def test_paged_decode_kernel_splits(dev, pool, qdt, dh, hq, hkv, shape):
+    """The split-key kernel across its edges: a single row of 2048 keys, rows
+    at exact multiples of the chunk, a table far wider than the live pages
+    (empty splits), a window that starts mid-chunk; Dh 64 and 128, group 8
+    (two or four blocks of query heads per kv head) and MHA."""
+    lengths, width, window = SPLIT_SHAPES[shape]
+    k, v, ks, vs, pt, lens, g = _inputs(dev, hkv, pool, seed=13, dh=dh,
+                                        lengths=lengths, width=width)
+    q = torch.randn((len(lengths), hq, dh), generator=g, device=dev).to(qdt)
+    kern = KERNELS["paged_attn_q8" if ks is not None else "paged_attn"]
+    before = kern.launches
+    out = paged_attention(q, k, v, pt, lens, k_scale=ks, v_scale=vs,
+                          window=window)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    ref = paged_attention_ref(q, k, v, pt, lens, ks, vs, window=window)
+    idle = lens == 0
+    assert torch.all(out[idle] == 0)
+    res = compare(out, ref, v_absmax(v, vs), rows=~idle)
     assert res["worst"] <= 1.0, res
 
 
@@ -182,6 +223,22 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         paged_attention(q, k, v, pt.long(), lens)                # index dtype
     with pytest.raises(ValueError):
         paged_attention(q, k.transpose(0, 1), v, pt, lens)       # layout
+    # the decode kernel: head dims 64 and 128, groups up to 8, 16-byte
+    # aligned q and pools
+    for dh in (32, 96):
+        kd, vd, _, _, ptd, lensd, _ = _inputs(dev, 8, "float32", seed=3,
+                                              dh=dh)
+        with pytest.raises(ValueError, match="head dim"):
+            paged_attention(torch.randn((len(LENGTHS), 8, dh), device=dev),
+                            kd, vd, ptd, lensd)
+    k1, v1, _, _, pt1, lens1, _ = _inputs(dev, 1, "float32", seed=3)
+    with pytest.raises(ValueError, match="group"):
+        paged_attention(torch.randn((len(LENGTHS), 16, DH), device=dev),
+                        k1, v1, pt1, lens1)
+    for args in ((_misaligned(q), k, v), (q, _misaligned(k), v),
+                 (q, k, _misaligned(v))):
+        with pytest.raises(ValueError, match="aligned"):
+            paged_attention(*args, pt, lens)
     # the bf16 paged prefill: head dims 64 and 128 only, 16-byte aligned
     q_pos = torch.zeros((len(LENGTHS), 5), dtype=torch.int32, device=dev)
     for dh in (32, 96):
