@@ -38,12 +38,17 @@ timed on its own line:
    left (layer 0 of the live pool or the captured dense-attention and SSD
    inputs) and on synthetic shapes (32 query heads on 8 kv heads, window
    64; the paged prefill and decode on both pools in fp32 and in bf16 (the
-   prefill's bf16 calls run its tensor-core kernel); the registers, shared
-   memory, spills and resident blocks per SM of the bf16 prefill kernel and
-   of every decode kernel instantiation are printed, and a spill fails; the SSD
-   chunk at the JAX package's test shapes, Q = 128, pad rows
-   and a large dt), then timed beside its plain version, a PyTorch
-   yardstick where one exists and its bound; the limit is per element
+   prefill's bf16 calls run its tensor-core kernel); the dense selective
+   attention in bf16 through its tensor-core route (Sq 101) and its
+   split-key route (Sq 1), and in fp32 through the CUDA cores; the registers,
+   shared memory, spills and resident blocks per SM of the bf16 prefill
+   kernel, of every decode kernel instantiation and of every bf16 dense
+   instantiation are printed, and a spill fails; the SSD chunk at the JAX
+   package's test shapes, Q = 128, pad rows and a large dt), then timed
+   beside its plain version, a PyTorch yardstick where one exists and its
+   bound; the dense attention prints the route each of its four main-path
+   shapes took and, beside the CUDA-event times, its and SDPA's device time
+   a call from ``torch.profiler``; the limit is per element
    (``repro_torch/kernels/check.py``): one bf16 ulp of the value for bf16
    outputs, 1e-4 for fp32 ones, 1e-4 + 1e-4 |ref| for the SSD chunk;
 7. a small fp32 model served by the same engine on the card and on the CPU
@@ -52,8 +57,10 @@ timed on its own line:
    tokens, first-token logits within 1e-3.
 
 During the serving phases the plain versions and ``layers.attend`` raise
-if called.  Each serving run resets the kernels' launch counts before its
-uploads and reads them after its last request.  It prints one JSON line
+if called.  Each serving run resets the kernels' launch counts (and the
+dense attention's count per route) before its uploads and reads them after
+its last request; a llava run whose dense attention took the CUDA cores
+fails.  It prints one JSON line
 ``{"kernels": [...]}``, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before the last line.  Without a card it exits 2.
@@ -340,6 +347,7 @@ def main() -> int:
             torch.cuda.synchronize()
             serve_s = time.perf_counter() - t_serve
             launches = {k: v.launches for k, v in KERNELS.items()}
+            routes = dict(sel_ops.SEL_ATTN.route_launches)
 
         if nonfinite:
             raise RuntimeError(f"{label}: non-finite logits: {nonfinite}")
@@ -347,6 +355,11 @@ def main() -> int:
             if not r.done or len(r.output_tokens) != MAX_NEW:
                 raise RuntimeError(f"{label}: {r.req_id} did not finish: "
                                    f"{r.state} {r.error}")
+        # llava is bf16 at head dim 128: every dense pass takes one of the
+        # two bf16 routes, never the CUDA cores
+        if routes.get(sel_ops.CUDA_CORES):
+            raise RuntimeError(f"{label}: sel_attn took the CUDA cores: "
+                               f"{routes}")
         if "rag-0" not in reqs[-1].linked_media:
             raise RuntimeError(f"{label}: MRAG did not link its image")
         if snap_paged and snap is None:
@@ -367,7 +380,8 @@ def main() -> int:
         prefills = [(r.t_first_token - r.t_admitted) * 1e3 for r in reqs]
         print(f"  prefill alone per request, in submission order: "
               f"{[round(t, 2) for t in prefills]} ms")
-        print(f"  launches {launches}", flush=True)
+        print(f"  launches {launches}; sel_attn by route {routes}",
+              flush=True)
         runs[label] = {
             "policy": policy, "pool": pool_dtype or "bf16", "paged": paged,
             "prefill_ms": prefills,
@@ -376,7 +390,8 @@ def main() -> int:
             "mean_prefill_ms": rep["mean_prefill_s"] * 1e3,
             "mean_decode_step_ms": rep["mean_decode_step_s"] * 1e3,
             "mean_recomputed": float(np.mean(n_rec)),
-            "upload_s": upload_s, "launches": launches}
+            "upload_s": upload_s, "launches": launches,
+            "sel_attn_routes": routes}
         # the wrapped methods make a cycle through the engine and its pool
         del eng, finalize, decode_step, checked_finalize, checked_decode
         gc.collect()
@@ -665,10 +680,12 @@ def main() -> int:
         kernels_ms, busy = device_kernels(prof)
         wall = float(np.median(walls))
         # one paged_attention call is its split kernel and its merge kernel
+        # (split_kv.cuh's; the paged step runs no other)
         calls = max((n for name, _, n in kernels_ms
                      if "paged_decode_split" in name), default=0)
         per_call = (sum(ms for name, ms, _ in kernels_ms
-                        if "paged_decode_" in name) / calls
+                        if "paged_decode_split" in name
+                        or "split_merge_kernel" in name) / calls
                     if calls else None)
         print(f"  {pool_dtype or 'bf16'} pool, one decode step, 4 slots at "
               f"{lengths} tokens: {wall:.2f} ms on the host clock (median "
@@ -952,7 +969,7 @@ def main() -> int:
                         row["resources"] = {"kernel": fn, **res}
 
     # dense selective attention: the main-path inputs phases 3-5 captured,
-    # then a synthetic GQA shape
+    # then synthetic GQA shapes
     def dense_ref(q, k, v, q_pos, kv_pos, window):
         return selective_attention_ref(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), q_pos,
@@ -967,10 +984,28 @@ def main() -> int:
             m &= kp > qp - window
         return m
 
+    def device_ms(fn, iters):
+        """Device time of one call: every device activity of ``iters``
+        back-to-back calls under torch.profiler, summed, over ``iters``
+        (None when the profiler saw none)."""
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        _, busy = device_kernels(prof)
+        return busy / iters if busy > 0 else None
+
     def dense_case(q, k, v, q_pos, kv_pos, window, timed=True):
+        before = dict(sel_ops.SEL_ATTN.route_launches)
         out = selective_attention(q, k, v, q_pos, kv_pos, window=window)
+        route, = [r for r, n in sel_ops.SEL_ATTN.route_launches.items()
+                  if n != before.get(r, 0)]
         res = {**compare(out, dense_ref(q, k, v, q_pos, kv_pos, window),
-                         v_absmax(v)), "out": out}
+                         v_absmax(v)), "out": out, "route": route}
         if not timed:
             return res
         b, sq, hq_, dh_ = q.shape
@@ -987,14 +1022,21 @@ def main() -> int:
         kt = k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
         vt = v.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
         m4 = mask[:, None]
+
+        def kernel():
+            return selective_attention(q, k, v, q_pos, kv_pos, window=window)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4)
+
         res.update(
             bound_ms=bound_ms, bound_by=bound_by,
-            ms=events_ms(lambda: selective_attention(
-                q, k, v, q_pos, kv_pos, window=window), 20),
+            ms=events_ms(kernel, 20),
             plain_ms=events_ms(lambda: dense_ref(
                 q, k, v, q_pos, kv_pos, window), 5),
-            library_ms=events_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=m4), 20),
+            library_ms=events_ms(library, 20),
+            device_ms=device_ms(kernel, 20),
+            library_device_ms=device_ms(library, 20),
             shape=f"q {tuple(q.shape)} {str(q.dtype)[6:]}, k/v "
                   f"{tuple(k.shape)}, {keys} of {b * skv} key slots kept, "
                   f"{pairs} (query, key) pairs, window {window}")
@@ -1006,16 +1048,22 @@ def main() -> int:
         res.pop("out")
         if not res["worst"] <= 1.0:
             raise RuntimeError(f"sel_attn: main-path error at {name}: {res}")
+        if res["route"] == sel_ops.CUDA_CORES:
+            raise RuntimeError(f"sel_attn: {name} took the CUDA cores")
         dense[name] = res
     del captured
     syn = {}
-    b, sq, skv = 2, 101, 300
-    for dtype in (torch.bfloat16, torch.float32):
+    # (name, dtype, Sq, Skv): GQA 32/8 with a window of 64, positions in a
+    # random order, ~10% of the slots empty; query 0 of sequence 0 at
+    # position 2 sees no key at all.  Sq 101 runs the tensor cores (bf16),
+    # Sq 1 the split keys; fp32 the CUDA cores
+    for name, dtype, sq, skv in (("bf16", torch.bfloat16, 101, 300),
+                                 ("bf16_decode", torch.bfloat16, 1, 2048),
+                                 ("fp32", torch.float32, 101, 300)):
+        b = 2
         q = randn(b, sq, syn_hq, dh, dtype=dtype)
         k = randn(b, skv, syn_hkv, dh, dtype=dtype)
         v = randn(b, skv, syn_hkv, dh, dtype=dtype)
-        # positions 5..304 in a random order, ~10% of the slots empty;
-        # query 0 of sequence 0 at position 2 sees no key at all
         kv_pos = torch.stack([torch.randperm(skv, generator=gen, device=dev)
                               + 5 for _ in range(b)]).to(torch.int32)
         kv_pos[torch.rand((b, skv), generator=gen, device=dev) < 0.1] = \
@@ -1025,27 +1073,63 @@ def main() -> int:
                              for _ in range(b)]).to(torch.int32)
         q_pos[0, 0] = 2
         res = dense_case(q, k, v, q_pos, kv_pos, syn_win,
-                         timed=dtype == torch.bfloat16)
+                         timed=name == "bf16")
         if not torch.all(res.pop("out")[0, 0] == 0):
             raise RuntimeError("sel_attn: fully masked row is not zero")
         if not res["worst"] <= 1.0:
-            raise RuntimeError(f"sel_attn: synthetic error ({dtype}): {res}")
-        syn["bf16" if dtype == torch.bfloat16 else "fp32"] = res
+            raise RuntimeError(f"sel_attn: synthetic error ({name}): {res}")
+        if dtype == torch.bfloat16 and res["route"] == sel_ops.CUDA_CORES:
+            raise RuntimeError(f"sel_attn: synthetic {name} took the CUDA "
+                               "cores")
+        syn[name] = res
     head = dense["dense_mpic"]
     results["sel_attn"] = {
         **{key: head[key] for key in ("ms", "plain_ms", "library_ms",
-                                      "bound_ms", "bound_by", "shape")},
+                                      "bound_ms", "bound_by", "shape",
+                                      "device_ms")},
         "max_abs_err": max(r["max_abs_err"] for r in dense.values()),
         "max_abs_ref": max(r["max_abs_ref"] for r in dense.values()),
         "worst": max(r["worst"] for r in [*dense.values(), *syn.values()]),
         "synthetic_err": max(r["max_abs_err"] for r in syn.values()),
+        "device_ms_by_shape": {n: r["device_ms"] for n, r in dense.items()},
+        "library_device_ms_by_shape": {n: r["library_device_ms"]
+                                       for n, r in dense.items()},
+        "route_by_shape": {n: r["route"] for n, r in dense.items()},
         "cases": {**dense, **{f"synthetic_{n}": r for n, r in syn.items()}}}
     for name, r in results["sel_attn"]["cases"].items():
-        timing = (f"; {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, SDPA "
-                  f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+        timing = (f"; {r['ms']:.4f} ms (device {r['device_ms']}, plain "
+                  f"{r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}, device "
+                  f"{r['library_device_ms']}, bound {r['bound_ms']:.4f} by "
                   f"{r['bound_by']})" if "ms" in r else "")
-        print(f"  sel_attn {name}: max |err| {r['max_abs_err']:.3e}, err/limit "
-              f"{r['worst']:.3f}{timing}; {r.get('shape', '')}")
+        print(f"  sel_attn {name} via {r['route']}: max |err| "
+              f"{r['max_abs_err']:.3e}, err/limit {r['worst']:.3f}{timing}; "
+              f"{r.get('shape', '')}")
+    # the dense bf16 instantiations, as the card reports them (local memory
+    # is what spills, 0 when nothing does): the tensor-core kernel with
+    # 128- and 64-row blocks at the main path's 2048 slots, the split-key
+    # kernel at one row and at the wide tile
+    dense_instances = ([(sel_ops.TENSOR_CORES, d, 2048, rows)
+                        for d in (64, 128) for rows in (128, 64)]
+                       + [(sel_ops.SPLIT_KEYS, d, rows, 0) for d in (64, 128)
+                          for rows in (1, 16)])
+    for route, d, arg, block_rows in dense_instances:
+        if route == sel_ops.TENSOR_CORES:
+            res = sel_ops.dense_resources(route, d, arg, block_rows)
+            fn = f"sel_attn_mma_kernel<{d}, {block_rows} rows> (Skv {arg})"
+        else:
+            res = sel_ops.dense_resources(route, d, arg)
+            fn = f"sel_attn_split_kernel<{d}, {res['rows_per_block']}>"
+        print(f"  {fn}: {res['registers']} registers, "
+              f"{res['local_bytes']} bytes local memory, "
+              f"{res['static_smem_bytes']} + {res['smem_bytes']} bytes "
+              f"static + dynamic smem, {res['blocks_per_sm']} blocks of "
+              f"{res['threads']} threads per SM")
+        if res["local_bytes"] != 0:
+            raise RuntimeError(f"{fn} spills: {res}")
+        results["sel_attn"].setdefault("instantiations", []).append(
+            {"kernel": fn, **res})
+        if d == dh and arg in (2048, 1):
+            results["sel_attn"].setdefault("resources", {})[fn] = res
 
     # SSD chunk: the layer-0 inputs captured from a live mamba2 prefill,
     # then synthetic shapes
@@ -1249,7 +1333,10 @@ def main() -> int:
             **{key: r[key] for key in ("synthetic_bf16_err",
                                        "synthetic_err_over_limit",
                                        "resources", "instantiations",
-                                       "device_ms", "profiled_decode_step")
+                                       "device_ms", "device_ms_by_shape",
+                                       "library_device_ms_by_shape",
+                                       "route_by_shape",
+                                       "profiled_decode_step")
                if key in r},
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

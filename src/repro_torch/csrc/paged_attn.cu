@@ -56,7 +56,9 @@
 // by exp(m_s - m_max), divide by the merged l, zeros where it is 0.  Empty
 // partials carry the finite NEG_INF, so an all-empty row merges to
 // exp(0)·0 = 0 (a true -inf would give exp(-inf + inf) = NaN).  Masks
-// select before the exponent.  Softmax statistics are in log2 units.
+// select before the exponent.  Softmax statistics are in log2 units.  The
+// partials' layout, the merge kernel and the 16-byte unpacking live in
+// split_kv.cuh, shared with the dense decode route of selective_attn.cu.
 //
 // Query heads: a block takes GT of its kv head's G query heads (each
 // lane keeps its slice of q and of the accumulator for each in
@@ -74,82 +76,14 @@
 
 #include <type_traits>
 
+#include "split_kv.cuh"
+
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr int THREADS = 128;
 constexpr int NWARPS = THREADS / 32;
-constexpr int CHUNK = 256;  // keys per split (kernels/paged_attn/ops.py)
 constexpr int STEPS = 2;    // warp steps per stage of the register ring
 constexpr int MAX_GROUP = 8;
-constexpr int MERGE_THREADS = 128;
-constexpr unsigned FULL = 0xffffffffu;
-
-// How 16 bytes of a type become floats.
-template <typename T>
-struct Pack;
-template <>
-struct Pack<float> {
-  static constexpr int N = 4;
-  __device__ static void to_f(const uint4& u, float* f) {
-    f[0] = __uint_as_float(u.x);
-    f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z);
-    f[3] = __uint_as_float(u.w);
-  }
-};
-template <>
-struct Pack<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void to_f(const uint4& u, float* f) {
-    const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
-// int8: 0x4B000000 | (b ^ 0x80) is the float 2^23 + b + 128, exactly, so
-// subtracting 2^23 + 128 leaves the signed byte b: a byte permute and an
-// add per value instead of a quarter-rate integer-to-float conversion.
-template <>
-struct Pack<int8_t> {
-  static constexpr int N = 16;
-  __device__ static void to_f(const uint4& u, float* f) {
-    const unsigned w[4] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u,
-                           u.z ^ 0x80808080u, u.w ^ 0x80808080u};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        f[4 * i + j] =
-            __uint_as_float(__byte_perm(w[i], 0x4B000000u, 0x7650 + j)) -
-            8388736.f;
-  }
-};
-
-// `E` values of type T at `p` (16-byte aligned) as floats.
-template <typename T, int E>
-__device__ __forceinline__ void load_f(const T* p, float (&f)[E]) {
-  static_assert(E % Pack<T>::N == 0, "a lane's slice is whole 16-byte words");
-#pragma unroll
-  for (int i = 0; i < E / Pack<T>::N; ++i)
-    Pack<T>::to_f(__ldg(reinterpret_cast<const uint4*>(p) + i),
-                  f + i * Pack<T>::N);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Lane geometry of a key row: E values (16 bytes) per lane, LPR lanes per
 // row, R rows per warp step, BATCH keys per warp per stage.
@@ -173,20 +107,6 @@ struct Stage {
   uint4 k[STEPS], v[STEPS];
   int jp[STEPS];
 };
-
-// partial (m, l, acc) of one (b, query head, split) in the workspace
-struct Workspace {
-  float* acc;  // (B, Hq, S, DH)
-  float* ml;   // (B, Hq, S, 2)
-  __device__ size_t row(int b, int hq, int Hq, int n_splits, int s) const {
-    return ((size_t)b * Hq + hq) * n_splits + s;
-  }
-};
-
-__device__ __forceinline__ Workspace workspace(float* ws, int B, int Hq,
-                                               int n_splits, int dh) {
-  return {ws, ws + (size_t)B * Hq * n_splits * dh};
-}
 
 // grid (n_splits, Hkv * n_tiles, B), block THREADS.
 template <typename T, typename KV, int DH, int GT, bool Q8>
@@ -214,11 +134,14 @@ __global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(
   const int hi = min(length, mp * ps);
   const int c0 = lo + s * CHUNK;
   const int c1 = min(c0 + CHUNK, hi);
+  const auto row_of = [&](int g) {
+    return w.row(b, hq0 + g, Hq, n_splits, s);
+  };
   if (c0 >= c1) {  // nothing here: an empty partial
     for (int i = tid; i < ng * DH; i += THREADS)
-      w.acc[w.row(b, hq0 + i / DH, Hq, n_splits, s) * DH + i % DH] = 0.f;
+      w.acc[row_of(i / DH) * DH + i % DH] = 0.f;
     if (tid < ng) {
-      const size_t r = w.row(b, hq0 + tid, Hq, n_splits, s);
+      const size_t r = row_of(tid);
       w.ml[2 * r] = NEG_INF;
       w.ml[2 * r + 1] = 0.f;
     }
@@ -345,93 +268,9 @@ __global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(
     if (bi + NWARPS < n_batches) compute(sb);
   }
 
-  // merge the warp's row groups (lanes li, li + LPR, ...)
-#pragma unroll
-  for (int g = 0; g < GT; ++g) {
-    float mw = m[g];
-#pragma unroll
-    for (int o = LPR; o < 32; o <<= 1)
-      mw = fmaxf(mw, __shfl_xor_sync(FULL, mw, o));
-    const float f = exp2f(m[g] - mw);
-    l[g] *= f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[g][e] *= f;
-#pragma unroll
-    for (int o = LPR; o < 32; o <<= 1) {
-      l[g] += __shfl_xor_sync(FULL, l[g], o);
-#pragma unroll
-      for (int e = 0; e < E; ++e)
-        acc[g][e] += __shfl_xor_sync(FULL, acc[g][e], o);
-    }
-    m[g] = mw;
-  }
-
-  // then the block's warps, into one partial per query head
-  __shared__ float acc_s[NWARPS][GT][DH];
-  __shared__ float m_s[NWARPS][GT], l_s[NWARPS][GT];
-  if (rg == 0) {
-#pragma unroll
-    for (int g = 0; g < GT; ++g) {
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc_s[warp][g][li * E + e] = acc[g][e];
-      if (li == 0) {
-        m_s[warp][g] = m[g];
-        l_s[warp][g] = l[g];
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < ng * DH; i += THREADS) {
-    const int g = i / DH, d = i % DH;
-    float mx = NEG_INF;
-#pragma unroll
-    for (int v = 0; v < NWARPS; ++v) mx = fmaxf(mx, m_s[v][g]);
-    float a = 0.f, lsum = 0.f;
-#pragma unroll
-    for (int v = 0; v < NWARPS; ++v) {
-      const float f = exp2f(m_s[v][g] - mx);
-      a = fmaf(acc_s[v][g][d], f, a);
-      lsum = fmaf(l_s[v][g], f, lsum);
-    }
-    const size_t r = w.row(b, hq0 + g, Hq, n_splits, s);
-    w.acc[r * DH + d] = a;
-    if (d == 0) {
-      w.ml[2 * r] = mx;
-      w.ml[2 * r + 1] = lsum;
-    }
-  }
-}
-
-// grid ceil(B * Hq / warps), block MERGE_THREADS: one warp per
-// (b, query head), lanes over the head dim.
-template <typename T, int DH>
-__global__ void __launch_bounds__(MERGE_THREADS) paged_decode_merge_kernel(
-    float* __restrict__ ws, T* __restrict__ out, int B, int Hq,
-    int n_splits) {
-  constexpr int PER = DH / 32;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (MERGE_THREADS / 32) + (threadIdx.x >> 5);
-  if (row >= B * Hq) return;
-  const Workspace w = workspace(ws, B, Hq, n_splits, DH);
-  const float* ml = w.ml + (size_t)row * n_splits * 2;
-  const float* acc = w.acc + (size_t)row * n_splits * DH;
-  float mx = NEG_INF;
-  for (int s = lane; s < n_splits; s += 32) mx = fmaxf(mx, ml[2 * s]);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
-  float o_[PER] = {}, lsum = 0.f;
-  for (int s = 0; s < n_splits; ++s) {
-    const float f = exp2f(ml[2 * s] - mx);
-    lsum = fmaf(ml[2 * s + 1], f, lsum);
-#pragma unroll
-    for (int i = 0; i < PER; ++i)
-      o_[i] = fmaf(acc[(size_t)s * DH + lane + 32 * i], f, o_[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < PER; ++i)
-    out[(size_t)row * DH + lane + 32 * i] =
-        from_f<T>(lsum == 0.f ? 0.f : o_[i] / lsum);
+  // the warp's row groups, then the block's warps, into one partial per
+  // query head
+  store_partials<DH, GT, E, LPR, NWARPS>(w, acc, m, l, ng, row_of);
 }
 
 template <typename T, typename KV, int DH, int GT>
@@ -476,11 +315,8 @@ struct Launch {
         static_cast<float*>(ws), Hq, Hkv, ps, mp, window, n_splits,
         LOG2E / sqrtf((float)DH));
     if (const cudaError_t err = cudaGetLastError()) return (int)err;
-    const int warps = MERGE_THREADS / 32;
-    paged_decode_merge_kernel<T, DH>
-        <<<(B * Hq + warps - 1) / warps, MERGE_THREADS, 0, stream>>>(
-            static_cast<float*>(ws), static_cast<T*>(out), B, Hq, n_splits);
-    return (int)cudaGetLastError();
+    return launch_merge<T, DH>(static_cast<float*>(ws), static_cast<T*>(out),
+                               B, Hq, n_splits, stream);
   }
 };
 

@@ -67,9 +67,10 @@
 
 #include <type_traits>
 
+#include "split_kv.cuh"
+
 namespace {
 
-constexpr float NEG_INF = -1e30f;
 constexpr int THREADS = 128;
 constexpr int NWARPS = THREADS / 32;
 constexpr int KT = 32;    // keys per tile of the page loop
@@ -80,17 +81,6 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -287,7 +277,6 @@ constexpr int MMA_ROWS = 64;          // (query, head) rows per block
 constexpr int MMA_KT = 64;            // keys per warp per step
 constexpr int MMA_KEYS = 2 * MMA_KT;  // keys per step: two key parts
 constexpr int MMA_THREADS = 32 * 8;   // 4 row groups x 2 key parts
-constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -325,6 +314,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(smem_u32(p)));
 }
 
+// 2^x on the special-function unit, denormal results flushed to 0 (a
+// probability below 2^-126 is far under any output's rounding); exp2f
+// without fast math adds a denormal fix-up around the same instruction,
+// which timed measurably slower in the tensor-core kernels on the card
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // d += a (16x16, row) . b (16x8, col), bf16 in, fp32 sums
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -350,6 +349,230 @@ __device__ __forceinline__ void split2(float p0, float p1, uint32_t& hi,
   hi = pack_bf16(h0, h1);
   lo = pack_bf16(__float2bfloat16(p0 - __bfloat162float(h0)),
                  __float2bfloat16(p1 - __bfloat162float(h1)));
+}
+
+// The block's ROWS (query, head) rows r = r0 .. r0 + ROWS - 1 of kv head h,
+// r = qi * G + g over q (B, Sq, Hq, DH), into q_s (rows padded to DH + 8;
+// zeros past the last row), and this thread's two rows (gid and gid + 8 of
+// its warp's row group, warp % (ROWS / 16)): their query positions qp (-1
+// for a row past the end, which sees no key) and the range [wmin, wmax] of
+// the warp's valid rows (wmax = -1 when it has none).
+template <int DH, int ROWS>
+__device__ __forceinline__ void stage_rows(const __nv_bfloat16* __restrict__ q,
+                                           const int* __restrict__ q_pos,
+                                           __nv_bfloat16* q_s, int b, int Sq,
+                                           int Hq, int h, int G, int r0,
+                                           int rows, int (&qp)[2], int& wmin,
+                                           int& wmax) {
+  constexpr int SD = DH + 8;
+  constexpr int QCH = DH / 8;  // 16-byte chunks of a bf16 row
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int rg = (tid >> 5) % (ROWS / 16);
+  for (int i = tid; i < ROWS * QCH; i += MMA_THREADS) {
+    const int rr = i / QCH, c = i - rr * QCH;
+    const int r = r0 + rr;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r < rows) {
+      const int qi = r / G, g = r - qi * G;
+      v = *reinterpret_cast<const uint4*>(
+          q + (((size_t)b * Sq + qi) * Hq + h * G + g) * DH + c * 8);
+    }
+    *reinterpret_cast<uint4*>(q_s + rr * SD + c * 8) = v;
+  }
+  wmin = 0x7fffffff;
+  wmax = -1;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + rg * 16 + (lane >> 2) + 8 * i;
+    qp[i] = r < rows ? q_pos[(size_t)b * Sq + r / G] : -1;
+    if (qp[i] >= 0) {
+      wmin = min(wmin, qp[i]);
+      wmax = max(wmax, qp[i]);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    wmin = min(wmin, __shfl_xor_sync(FULL, wmin, o));
+    wmax = max(wmax, __shfl_xor_sync(FULL, wmax, o));
+  }
+}
+
+// One warp's part of a key step on the tensor cores: MMA_KT keys, rows
+// k_t[col] and v_t[col] of DH + 8 bf16; q_frag(kk, a) gives the A fragment
+// of k-step kk.  S = Q.K^T in fp32; a logit is
+// kept where keep(col, row) holds (row 0: the thread's row gid, 1: gid + 8)
+// and multiplied by k_mul(col) (the softmax scale in log2 units, times the
+// K scale on the int8 pool), else NEG_INF; the online softmax updates m
+// (running max, log2 units) and l (this thread's part of each row's sum);
+// the probabilities, times v_mul(col) (the V scale, or 1), split into
+// hi = bf16(p) and lo = bf16(p - hi), are multiplied by the same V
+// fragments (ldmatrix.trans) into o.
+template <int DH, typename QFrag, typename Keep, typename KMul, typename VMul>
+__device__ __forceinline__ void mma_key_step(
+    const QFrag& q_frag, const __nv_bfloat16* k_t,
+    const __nv_bfloat16* v_t, int lane, const Keep& keep, const KMul& k_mul,
+    const VMul& v_mul, float (&o)[DH / 8][4], float (&m)[2], float (&l)[2]) {
+  constexpr int SD = DH + 8;
+  constexpr int KSTEPS = DH / 16;  // k-steps of Q.K^T
+  constexpr int DTILES = DH / 8;   // n-tiles of P.V
+  const int tig = lane & 3;
+  // S = Q.K^T: 8 fragments of 8 keys; all 8 K fragments of a k-step pair
+  // are loaded first, so the 16 products that follow are independent of
+  // each other and of the loads
+  float s[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; kk += 2) {
+    uint32_t kb[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      ldmatrix_x4(kb[j],
+                  k_t + (8 * j + (lane & 7)) * SD + kk * 16 + (lane >> 3) * 8);
+    uint32_t a0[4], a1[4];
+    q_frag(kk, a0);
+    q_frag(kk + 1, a1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mma_bf16(s[j], a0, kb[j][0], kb[j][1]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mma_bf16(s[j], a1, kb[j][2], kb[j][3]);
+  }
+  // scale, mask, online softmax (rows gid and gid + 8)
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * tig + (e & 1);
+      const int row = e >> 1;
+      s[j][e] = keep(col, row) ? s[j][e] * k_mul(col) : NEG_INF;
+      mx[row] = fmaxf(mx[row], s[j][e]);
+    }
+  }
+  float alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);
+    alpha[i] = exp2f(m[i] - m_new);
+    m[i] = m_new;
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = e >> 1;
+      const float p = s[j][e] <= NEG_INF ? 0.f : fast_exp2(s[j][e] - m[row]);
+      l[row] += p;
+      s[j][e] = p * v_mul(8 * j + 2 * tig + (e & 1));
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < DTILES; ++j) {
+    o[j][0] *= alpha[0];
+    o[j][1] *= alpha[0];
+    o[j][2] *= alpha[1];
+    o[j][3] *= alpha[1];
+  }
+  // O += P.V over 4 steps of 16 keys; P = hi + lo.  Four n-tiles at a
+  // time: their hi products, then their lo products, so no product waits
+  // on the one before it
+#pragma unroll
+  for (int ks = 0; ks < MMA_KT / 16; ++ks) {
+    uint32_t ph[4], pl[4];
+    split2(s[2 * ks][0], s[2 * ks][1], ph[0], pl[0]);
+    split2(s[2 * ks][2], s[2 * ks][3], ph[1], pl[1]);
+    split2(s[2 * ks + 1][0], s[2 * ks + 1][1], ph[2], pl[2]);
+    split2(s[2 * ks + 1][2], s[2 * ks + 1][3], ph[3], pl[3]);
+#pragma unroll
+    for (int dp = 0; dp < DTILES / 2; dp += 2) {
+      uint32_t vb[2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        ldmatrix_x4_trans(vb[u], v_t + (16 * ks + (lane & 15)) * SD +
+                                     16 * (dp + u) + (lane >> 4) * 8);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        mma_bf16(o[2 * (dp + u)], ph, vb[u][0], vb[u][1]);
+        mma_bf16(o[2 * (dp + u) + 1], ph, vb[u][2], vb[u][3]);
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        mma_bf16(o[2 * (dp + u)], pl, vb[u][0], vb[u][1]);
+        mma_bf16(o[2 * (dp + u) + 1], pl, vb[u][2], vb[u][3]);
+      }
+    }
+  }
+}
+
+// After the key loop (every thread, no copy in flight), with the block's
+// 8 warps as 8 / KP row groups (warp % (8 / KP)) of KP key parts: merge
+// the two key parts of each row group through `xch` when KP is 2 (the
+// ring, lane by lane: the parts' fragments have one layout; part 1 writes
+// m, l and O, part 0 rescales both to the larger max and adds), then part
+// 0 writes out = O / l, rounded once, for its rows r = r0 + 16 rg + gid
+// (+ 8) below `rows` (out (B, Sq, Hq, DH), r = qi * G + g); a row with no
+// kept key has l == 0: zeros.
+template <int DH, int KP>
+__device__ __forceinline__ void merge_parts_store(
+    unsigned char* xch_raw, float (&o)[DH / 8][4], float (&m)[2],
+    float (&l)[2], __nv_bfloat16* __restrict__ out, int b, int Sq, int Hq,
+    int h, int G, int r0, int rows) {
+  static_assert(KP == 1 || KP == 2, "one or two key parts");
+  constexpr int DTILES = DH / 8;
+  constexpr int NV = DTILES * 4 + 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = warp % (8 / KP), kp = warp / (8 / KP);
+  const int gid = lane >> 2, tig = lane & 3;
+  if constexpr (KP == 2) {
+    float* xch = reinterpret_cast<float*>(xch_raw) + rg * NV * 32 + lane;
+    __syncthreads();
+    if (kp == 1) {
+#pragma unroll
+      for (int j = 0; j < DTILES; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xch[(4 * j + e) * 32] = o[j][e];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        xch[(DTILES * 4 + i) * 32] = m[i];
+        xch[(DTILES * 4 + 2 + i) * 32] = l[i];
+      }
+    }
+    __syncthreads();
+    if (kp == 1) return;
+    float ca[2], cb[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float mb = xch[(DTILES * 4 + i) * 32];
+      const float m_new = fmaxf(m[i], mb);
+      ca[i] = exp2f(m[i] - m_new);
+      cb[i] = exp2f(mb - m_new);
+      l[i] = ca[i] * l[i] + cb[i] * xch[(DTILES * 4 + 2 + i) * 32];
+    }
+#pragma unroll
+    for (int j = 0; j < DTILES; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[j][e] = ca[e >> 1] * o[j][e] + cb[e >> 1] * xch[(4 * j + e) * 32];
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(FULL, l[i], 1);
+    l[i] += __shfl_xor_sync(FULL, l[i], 2);
+    const int r = r0 + rg * 16 + gid + 8 * i;
+    if (r >= rows) continue;
+    const int qi = r / G, g = r - qi * G;
+    const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+    __nv_bfloat16* dst =
+        out + (((size_t)b * Sq + qi) * Hq + h * G + g) * DH + 2 * tig;
+#pragma unroll
+    for (int j = 0; j < DTILES; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
+          o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
+  }
 }
 
 template <int DH, bool Q8>
@@ -390,7 +613,6 @@ __global__ void __launch_bounds__(MMA_THREADS) sel_attn_paged_mma_kernel(
   using S = MmaSmem<DH, Q8>;
   using KV = typename S::KV;
   constexpr int SD = S::SD;
-  constexpr int KSTEPS = DH / 16;  // k-steps of Q.K^T
   constexpr int DTILES = DH / 8;   // n-tiles of P.V
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -399,7 +621,6 @@ __global__ void __launch_bounds__(MMA_THREADS) sel_attn_paged_mma_kernel(
   const int r0 = blockIdx.x * MMA_ROWS;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rg = warp & 3, kp = warp >> 2;
-  const int gid = lane >> 2, tig = lane & 3;
   const float scale2 = scale * LOG2E;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -409,49 +630,22 @@ __global__ void __launch_bounds__(MMA_THREADS) sel_attn_paged_mma_kernel(
   float* scales = reinterpret_cast<float*>(ring + S::RING + S::WIDE);
   __shared__ int range_s[2];
 
-  // q rows -> shared (zeros past the last row), then A fragments
-  constexpr int QCH = DH / 8;  // 16-byte chunks of a bf16 row
-  for (int i = tid; i < MMA_ROWS * QCH; i += MMA_THREADS) {
-    const int rr = i / QCH, c = i - rr * QCH;
-    const int r = r0 + rr;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r < rows) {
-      const int qi = r / G, g = r - qi * G;
-      v = *reinterpret_cast<const uint4*>(
-          q + (((size_t)b * Sq + qi) * Hq + h * G + g) * DH + c * 8);
-    }
-    *reinterpret_cast<uint4*>(q_s + rr * SD + c * 8) = v;
-  }
+  int qp[2], wmin, wmax;
+  stage_rows<DH, MMA_ROWS>(q, q_pos, q_s, b, Sq, Hq, h, G, r0, rows, qp, wmin,
+                           wmax);
   if (tid == 0) {
     range_s[0] = 0x7fffffff;
     range_s[1] = -1;
-  }
-  // this thread's two rows: query positions (-1: a row past the end, which
-  // sees no key)
-  int qp[2];
-  int wmin = 0x7fffffff, wmax = -1;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + rg * 16 + gid + 8 * i;
-    qp[i] = r < rows ? q_pos[(size_t)b * Sq + r / G] : -1;
-    if (qp[i] >= 0) {
-      wmin = min(wmin, qp[i]);
-      wmax = max(wmax, qp[i]);
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    wmin = min(wmin, __shfl_xor_sync(0xffffffffu, wmin, o));
-    wmax = max(wmax, __shfl_xor_sync(0xffffffffu, wmax, o));
   }
   __syncthreads();
   if (lane == 0 && kp == 0 && wmax >= 0) {
     atomicMin(&range_s[0], wmin);
     atomicMax(&range_s[1], wmax);
   }
-  uint32_t qf[KSTEPS][4];
+  // q's A fragments, held in registers for the walk
+  uint32_t qf[DH / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk)
+  for (int kk = 0; kk < DH / 16; ++kk)
     ldmatrix_x4(qf[kk],
                 q_s + (rg * 16 + (lane & 15)) * SD + kk * 16 + (lane >> 4) * 8);
   __syncthreads();
@@ -555,153 +749,25 @@ __global__ void __launch_bounds__(MMA_THREADS) sel_attn_paged_mma_kernel(
 
     // does any row of this warp see a key of its part of the step?
     if (wmax >= 0 && t0 < hi && t0 <= wmax && t0 + MMA_KT - 1 >= wlo) {
-      // S = Q.K^T: 8 fragments of 8 keys; all 8 K fragments of a k-step
-      // pair are loaded first, so the 16 products that follow are
-      // independent of each other and of the loads
-      float s[8][4];
+      const auto keep = [&](int col, int row) {
+        const int idx = t0 + col;
+        return idx < hi && idx <= qp[row] &&
+               (window <= 0 || idx > qp[row] - window);
+      };
+      const auto k_mul = [&](int col) {
+        return Q8 ? scale2 * ks_t[col] : scale2;
+      };
+      const auto v_mul = [&](int col) { return Q8 ? vs_t[col] : 1.f; };
+      const auto q_frag = [&](int kk, uint32_t(&a)[4]) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; kk += 2) {
-        uint32_t kb[8][4];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          ldmatrix_x4(kb[j], k_t + (8 * j + (lane & 7)) * SD + kk * 16 +
-                                 (lane >> 3) * 8);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mma_bf16(s[j], qf[kk], kb[j][0], kb[j][1]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          mma_bf16(s[j], qf[kk + 1], kb[j][2], kb[j][3]);
-      }
-      // scale, mask, online softmax (rows gid and gid + 8)
-      float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * j + 2 * tig + (e & 1);
-          const int idx = t0 + col;
-          const int row = e >> 1;
-          const bool ok = idx < hi && idx <= qp[row] &&
-                          (window <= 0 || idx > qp[row] - window);
-          const float sc = Q8 ? scale2 * ks_t[col] : scale2;
-          s[j][e] = ok ? s[j][e] * sc : NEG_INF;
-          mx[row] = fmaxf(mx[row], s[j][e]);
-        }
-      }
-      float alpha[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        const float m_new = fmaxf(m[i], mx[i]);
-        alpha[i] = exp2f(m[i] - m_new);
-        m[i] = m_new;
-        l[i] *= alpha[i];
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = e >> 1;
-          const float p =
-              s[j][e] <= NEG_INF ? 0.f : exp2f(s[j][e] - m[row]);
-          l[row] += p;
-          s[j][e] = Q8 ? p * vs_t[8 * j + 2 * tig + (e & 1)] : p;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < DTILES; ++j) {
-        o[j][0] *= alpha[0];
-        o[j][1] *= alpha[0];
-        o[j][2] *= alpha[1];
-        o[j][3] *= alpha[1];
-      }
-      // O += P.V over 4 steps of 16 keys; P = hi + lo.  Four n-tiles at a
-      // time: their hi products, then their lo products, so no product
-      // waits on the one before it
-#pragma unroll
-      for (int ks = 0; ks < MMA_KT / 16; ++ks) {
-        uint32_t ph[4], pl[4];
-        split2(s[2 * ks][0], s[2 * ks][1], ph[0], pl[0]);
-        split2(s[2 * ks][2], s[2 * ks][3], ph[1], pl[1]);
-        split2(s[2 * ks + 1][0], s[2 * ks + 1][1], ph[2], pl[2]);
-        split2(s[2 * ks + 1][2], s[2 * ks + 1][3], ph[3], pl[3]);
-#pragma unroll
-        for (int dp = 0; dp < DTILES / 2; dp += 2) {
-          uint32_t vb[2][4];
-#pragma unroll
-          for (int u = 0; u < 2; ++u)
-            ldmatrix_x4_trans(vb[u], v_t + (16 * ks + (lane & 15)) * SD +
-                                         16 * (dp + u) + (lane >> 4) * 8);
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            mma_bf16(o[2 * (dp + u)], ph, vb[u][0], vb[u][1]);
-            mma_bf16(o[2 * (dp + u) + 1], ph, vb[u][2], vb[u][3]);
-          }
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            mma_bf16(o[2 * (dp + u)], pl, vb[u][0], vb[u][1]);
-            mma_bf16(o[2 * (dp + u) + 1], pl, vb[u][2], vb[u][3]);
-          }
-        }
-      }
+        for (int i = 0; i < 4; ++i) a[i] = qf[kk][i];
+      };
+      mma_key_step<DH>(q_frag, k_t, v_t, lane, keep, k_mul, v_mul, o, m, l);
     }
     __syncthreads();  // the stage (and the widened step) may be overwritten
   }
   cp_async_wait<0>();
-
-  // merge the key parts of each row group through the ring, lane by lane
-  // (the parts' fragments have one layout): part 1 writes m, l and O, part
-  // 0 rescales both to the larger max and adds
-  constexpr int NV = DTILES * 4 + 4;
-  float* xch = reinterpret_cast<float*>(ring) + rg * NV * 32 + lane;
-  __syncthreads();
-  if (kp == 1) {
-#pragma unroll
-    for (int j = 0; j < DTILES; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) xch[(4 * j + e) * 32] = o[j][e];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      xch[(DTILES * 4 + i) * 32] = m[i];
-      xch[(DTILES * 4 + 2 + i) * 32] = l[i];
-    }
-  }
-  __syncthreads();
-  if (kp == 1) return;
-  float ca[2], cb[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float mb = xch[(DTILES * 4 + i) * 32];
-    const float m_new = fmaxf(m[i], mb);
-    ca[i] = exp2f(m[i] - m_new);
-    cb[i] = exp2f(mb - m_new);
-    l[i] = ca[i] * l[i] + cb[i] * xch[(DTILES * 4 + 2 + i) * 32];
-  }
-#pragma unroll
-  for (int j = 0; j < DTILES; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      o[j][e] = ca[e >> 1] * o[j][e] + cb[e >> 1] * xch[(4 * j + e) * 32];
-
-  // out = O / l, rounded once; a row with no kept key has l == 0: zeros
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const int r = r0 + rg * 16 + gid + 8 * i;
-    if (r >= rows) continue;
-    const int qi = r / G, g = r - qi * G;
-    const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
-    __nv_bfloat16* dst =
-        out + (((size_t)b * Sq + qi) * Hq + h * G + g) * DH + 2 * tig;
-#pragma unroll
-    for (int j = 0; j < DTILES; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
-          o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
-  }
+  merge_parts_store<DH, 2>(ring, o, m, l, out, b, Sq, Hq, h, G, r0, rows);
 }
 
 constexpr int MAX_DEVICES = 64;
@@ -821,12 +887,14 @@ SEL_ATTN_ENTRY(sel_attn_paged_q8_f32, float, true)
 SEL_ATTN_ENTRY(sel_attn_paged_q8_bf16, __nv_bfloat16, true)
 
 // ---------------------------------------------------------------------------
-// Dense selective attention over an explicit kv_pos.
+// Dense selective attention over an explicit kv_pos: three routes behind
+// four C entries, chosen by the Python wrapper from host shapes alone
+// (kernels/selective_attn/ops.py, `dense_route`).
 //
 // Replaces the Pallas TPU kernel `_sel_attn_kernel` of
 // src/repro/kernels/selective_attn/selective_attn.py: every dense attention
-// pass of the serving path (the baselines' prefills, dense mpic/cacheblend,
-// the media upload and the dense-cache decode step).  Queries sit at
+// pass of the serving path (the media upload, the baselines' prefills,
+// dense mpic/cacheblend and the dense-cache decode step).  Queries sit at
 // positions `q_pos`; key slot `i` holds the token at position `kv_pos[i]`,
 // in any order, with INVALID_POS (int32 max) for an empty slot.  A key is
 // kept iff `kv_pos != INVALID_POS && kv_pos <= q_pos` and, with a window,
@@ -837,32 +905,463 @@ SEL_ATTN_ENTRY(sel_attn_paged_q8_bf16, __nv_bfloat16, true)
 // (B, Skv, Hkv, Dh), q_pos (B, Sq), kv_pos (B, Skv).  Both ragged edges (Sq
 // and Skv) are masked here; nothing is padded.
 //
-// What bounds it on an H100: at the prefill shapes (hundreds to ~1.3k
-// queries against a 2048-slot cache, Dh 128) the ~4 * Dh FLOPs per kept
-// (query, key) pair outweigh the bytes, so a kernel at its limit would be
-// bound by tensor-core operations; the decode step (one query per sequence)
-// is bound by the bytes of the kept keys.  This kernel does its math in fp32
-// on the CUDA cores.  What the design does:
-//   * one block per (sequence, kv head, tile of queries) holds up to 16
-//     (query, head) rows of one GQA group, so each K/V tile it loads serves
-//     the whole group;
-//   * a K/V tile is loaded only if one of its keys is visible to one of the
-//     block's rows, judged from each key's own kv_pos (no order is assumed:
-//     the loop visits every tile and skips the ones with no visible key);
-//   * a logit is computed by a whole warp: each lane holds Dh/32 of the
-//     row's q in registers and forms partial dots with 32 keys, and a
-//     transposing butterfly (31 shuffles for 32 sums) leaves lane t with the
-//     logit of key t, so the softmax statistics are warp reductions;
-//   * P.V reads each V row once per warp from shared memory as a vector and
-//     updates every row the warp owns.
-// Moving both products onto `mma.sync` / `wgmma` tensor-core tiles is later
-// work.
+// What bounds it on an H100.  A kept (query, key) pair costs 4 Dh FLOPs
+// (its logit and its share of P.V).  At the prefill shapes (an upload: 576
+// queries over their own keys, causal; a full recompute: ~1.3k queries
+// against a 2048-slot cache; dense mpic: ~200 selected queries) each K/V
+// row that is loaded serves hundreds of queries, far above the card's ~295
+// FLOP per byte: operations bound it, and only the tensor cores reach
+// them.  The decode step (one query per sequence, ~1.3k kept keys each)
+// does G FLOPs per byte of bf16 K/V (1 for MHA): bytes bound it, and the
+// design's task is to keep enough of them moving.
+//
+// 1. bf16, many rows (`sel_attn_mma_kernel`, entry sel_attn_mma_bf16): the
+//    paged prefill's tensor-core design, through the same helpers
+//    (stage_rows, mma_key_step, merge_parts_store): S = Q.K^T and
+//    O += P.V on `mma.sync.m16n8k16` with fp32 sums and P split into two
+//    bf16 halves; 16-byte `cp.async` into a two-stage ring, rows padded by
+//    16 bytes for `ldmatrix`.  What differs:
+//    * 128 (query, head) rows of one kv head a block, 8 warps of 16 rows,
+//      each over all 64 keys of a step, when that fills every SM at least
+//      once (the uploads, a full recompute): a K/V byte copied into shared
+//      memory serves twice the rows of the paged kernel's 64-row blocks,
+//      which timed slower there.  Below a wave (dense mpic's ~200 rows)
+//      the longest walk sets the time, and the paged kernel's layout (64
+//      rows, two warps a row group over the two halves of a 128-key step,
+//      merged at the end) timed faster: the launcher picks the layout from
+//      the grid and the card's SM count;
+//    * q stays in shared memory and its fragments are reloaded every
+//      step: 32 registers a thread fewer, and faster on the card;
+//    * the grid puts kv heads first and the row tiles in reverse, so the
+//      tiles at the latest positions (with sorted queries, the ones that
+//      see the most keys) start first, which shortens the last wave at
+//      the causal shapes;
+//    * slot t of sequence b is row (b Skv + t) Hkv + h, and the mask comes
+//      from each key's own kv_pos, copied into shared memory beside its
+//      step.  The slot order proves nothing, so the paged kernel's [first,
+//      last visible key] range does not carry over; instead the block
+//      first judges every 64-slot step by its kv positions and leaves out
+//      a step with no key that a row of the block may see (no valid
+//      position in (min q_pos - window, max q_pos]), then walks the others
+//      in order with the next one's copies in flight.  A cache filled in
+//      slot order (an upload, a full recompute) so skips the causal upper
+//      triangle and the empty tail; any other order stays correct.  A warp
+//      skips the products of a step that none of its rows sees.
+//    At the served shapes the walk is bound by latency at one block (8
+//    warps, 173 registers a thread) per SM, not by the tensor cores' rate.
+//    Head dims 64 and 128.
+// 2. bf16, few rows per (sequence, kv head) (`sel_attn_split_kernel` and
+//    split_kv.cuh's merge kernel, entry sel_attn_split_bf16; the decode
+//    step): the paged decode's split-key design.  Slots are cut into
+//    chunks of CHUNK; n_splits = ceil(Skv / CHUNK) comes from the host's
+//    shapes (a window bounds positions, not slots, so it narrows nothing).
+//    A block of 4 warps takes one chunk for up to SPLIT_WIDE rows.  It
+//    packs the chunk's slots that one of its rows may see, in slot order
+//    (ballots over their kv_pos), so an empty slot costs neither bytes nor
+//    work and a chunk with none writes an empty partial without touching
+//    K/V (through the same end as the others: an early exit there made
+//    ptxas spill); then each lane loads 16 bytes of a K and a V row at a
+//    time and keeps the next stage in flight in registers, as
+//    paged_attn.cu does.  One fp32 partial per (row, split) goes to a
+//    workspace the wrapper allocates; the merge kernel rescales, divides
+//    and rounds once.  Head dims 64 and 128.
+// 3. fp32, or bf16 at another head dim (`sel_attn_kernel`, entries
+//    sel_attn_f32 / sel_attn_bf16): the first port, on the CUDA cores:
+//    * one block per (sequence, kv head, tile of queries) holds up to 16
+//      (query, head) rows of one GQA group, so each K/V tile it loads
+//      serves the whole group;
+//    * a K/V tile is loaded only if one of its keys is visible to one of
+//      the block's rows, judged from each key's own kv_pos;
+//    * a logit is computed by a whole warp: each lane holds Dh/32 of the
+//      row's q in registers and forms partial dots with 32 keys, and a
+//      transposing butterfly (31 shuffles for 32 sums) leaves lane t with
+//      the logit of key t, so the softmax statistics are warp reductions;
+//    * P.V reads each V row once per warp from shared memory as a vector
+//      and updates every row the warp owns.
+//
+// All four entries share one signature (the workspace and n_splits serve
+// the split route only), and the wrapper counts each call as one launch of
+// `sel_attn`, whichever route ran.
 
 namespace {
 
 constexpr int DENSE_ROWS = 16;                // (query, head) rows per block
 constexpr int ROWS_PER_WARP = DENSE_ROWS / NWARPS;
 constexpr int INVALID_POS = 0x7fffffff;
+constexpr int SPLIT_STEPS = 2;  // warp steps per stage of the register ring
+constexpr int SPLIT_WIDE = 4;   // rows a split block takes, beyond one
+
+// Is a key at position p kept by a row at position qp?
+__device__ __forceinline__ bool kept(int p, int qp, int window) {
+  return p != INVALID_POS && p <= qp && (window <= 0 || p > qp - window);
+}
+// May a key at position p be kept by a row at a position in [qmin, qmax]?
+// (Nothing when qmax < 0: no row.)
+__device__ __forceinline__ bool maybe_kept(int p, int qmin, int qmax,
+                                           int window) {
+  return p != INVALID_POS && p <= qmax && (window <= 0 || p > qmin - window);
+}
+
+// 4 bytes global -> shared, asynchronously (cp.async.ca)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// -- route 1: tensor cores ---------------------------------------------------
+
+// A block of the tensor-core route: 8 warps as RG row groups of 16
+// (query, head) rows times KP = 8 / RG key parts of MMA_KT keys.  RG 8
+// (128 rows, every warp over all 64 keys of a step) copies each K/V byte
+// into shared memory for twice the rows of RG 4 (64 rows, two key halves
+// of a 128-key step merged at the end, the paged kernel's layout), but
+// makes half the blocks, each walking twice as many steps.
+template <int DH, int RG>
+struct DenseMma {
+  static constexpr int KP = 8 / RG;
+  static constexpr int ROWS = 16 * RG;
+  static constexpr int KEYS = MMA_KT * KP;
+  static constexpr int SD = DH + 8;              // padded bf16 row
+  static constexpr int TILE = KEYS * SD * 2;     // one step's K (or V)
+  static constexpr int RING = 2 * 2 * TILE;      // 2 stages of K and V
+  static constexpr int POS = 2 * KEYS * 4;       // the stages' kv_pos
+  static constexpr int Q_BYTES = ROWS * SD * 2;  // q, kept for the walk
+  // fixed bytes; the list of steps to walk takes 4 more per step of Skv
+  static constexpr int BYTES = RING + POS + Q_BYTES;
+  static_assert(KP == 1 || RING >= 4 * 32 * (DH / 2 + 4) * (int)sizeof(float),
+                "no room to merge the key parts");
+  static int bytes(int skv) { return BYTES + 4 * ((skv + KEYS - 1) / KEYS); }
+};
+
+// grid (Hkv, ceil(Sq * G / ROWS), B), block MMA_THREADS: tile y takes the
+// rows from (gridDim.y - 1 - y) ROWS on, so the blocks that start first
+// hold the rows at the latest positions (with sorted queries, as every
+// dense pass has them, the ones that see the most keys: the longest walks
+// start first).  Warp w holds rows
+// [16 (w % RG), 16 (w % RG) + 16) of the block over key part w / RG;
+// fragments as in sel_attn_paged_mma_kernel.  Step n covers slots
+// [KEYS st, KEYS st + KEYS) of the n-th step st that holds a key some row
+// of the block may see.
+template <int DH, int RG>
+__global__ void __launch_bounds__(MMA_THREADS) sel_attn_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_pos,
+    const int* __restrict__ kv_pos, __nv_bfloat16* __restrict__ out, int Sq,
+    int Skv, int Hq, int Hkv, int window, float scale) {
+  using S = DenseMma<DH, RG>;
+  constexpr int SD = S::SD, KEYS = S::KEYS, ROWS = S::ROWS;
+  constexpr int DTILES = DH / 8;
+  const int b = blockIdx.z;
+  const int h = blockIdx.x;
+  const int G = Hq / Hkv;
+  const int rows = Sq * G;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * ROWS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = warp % RG, kp = warp / RG;
+  const float scale2 = scale * LOG2E;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw;
+  int* pos_s = reinterpret_cast<int*>(smem_raw + S::RING);  // 2 stages
+  __nv_bfloat16* q_s =
+      reinterpret_cast<__nv_bfloat16*>(smem_raw + S::RING + S::POS);
+  // the steps to walk, in order
+  int* steps_s = reinterpret_cast<int*>(smem_raw + S::RING + S::POS +
+                                        S::Q_BYTES);
+  __shared__ int range_s[2];
+  __shared__ int nsteps_s;
+
+  int qp[2], wmin, wmax;
+  stage_rows<DH, ROWS>(q, q_pos, q_s, b, Sq, Hq, h, G, r0, rows, qp, wmin,
+                       wmax);
+  if (tid == 0) {
+    range_s[0] = 0x7fffffff;
+    range_s[1] = -1;
+  }
+  __syncthreads();
+  if (lane == 0 && kp == 0 && wmax >= 0) {
+    atomicMin(&range_s[0], wmin);
+    atomicMax(&range_s[1], wmax);
+  }
+  __syncthreads();
+  const int bq_min = range_s[0], bq_max = range_s[1];
+
+  // the steps to walk: warp w judges steps w, w + 8, ... by their slots'
+  // kv_pos (a flag each), then warp 0 packs the flagged ones in order
+  const int* kvp = kv_pos + (size_t)b * Skv;
+  const int n_all = (Skv + KEYS - 1) / KEYS;
+  for (int st = warp; st < n_all; st += MMA_THREADS / 32) {
+    bool vis = false;
+#pragma unroll
+    for (int i = 0; i < KEYS / 32; ++i) {
+      const int idx = st * KEYS + 32 * i + lane;
+      vis |= idx < Skv && maybe_kept(kvp[idx], bq_min, bq_max, window);
+    }
+    vis = __any_sync(FULL, vis);
+    if (lane == 0) steps_s[st] = vis;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // in place: a step's flag is read before any lane writes at or past it
+    int n = 0;
+    for (int s0 = 0; s0 < n_all; s0 += 32) {
+      const int st = s0 + lane;
+      const bool vis = st < n_all && steps_s[st];
+      const unsigned ball = __ballot_sync(FULL, vis);
+      if (vis) steps_s[n + __popc(ball & ((1u << lane) - 1))] = st;
+      n += __popc(ball);
+    }
+    if (lane == 0) nsteps_s = n;
+  }
+  __syncthreads();
+  const int nsteps = nsteps_s;
+
+  // step n -> ring stage n & 1: K and V rows (zeros past Skv) and their
+  // kv_pos (INVALID_POS past Skv)
+  auto load_step = [&](int n) {
+    const int t0 = steps_s[n] * KEYS;
+    unsigned char* kd = ring + (n & 1) * 2 * S::TILE;
+    unsigned char* vd = kd + S::TILE;
+    constexpr int CH = DH / 8;  // 16-byte chunks a row
+    for (int i = tid; i < KEYS * CH; i += MMA_THREADS) {
+      const int t = i / CH, c = i - t * CH;
+      const int idx = t0 + t;
+      const bool in = idx < Skv;
+      const size_t off = in ? (((size_t)b * Skv + idx) * Hkv + h) * DH : 0;
+      cp_async16(kd + t * SD * 2 + c * 16, k + off + c * 8, in);
+      cp_async16(vd + t * SD * 2 + c * 16, v + off + c * 8, in);
+    }
+    if (tid < KEYS) {
+      int* dst = pos_s + (n & 1) * KEYS + tid;
+      if (t0 + tid < Skv)
+        cp_async4(dst, kvp + t0 + tid);
+      else
+        *dst = INVALID_POS;
+    }
+  };
+
+  float o[DTILES][4];
+#pragma unroll
+  for (int j = 0; j < DTILES; ++j)
+    o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};  // running max, log2 units
+  float l[2] = {0.f, 0.f};          // this thread's part of each row's sum
+
+  if (nsteps > 0) load_step(0);
+  cp_async_commit();
+  for (int n = 0; n < nsteps; ++n) {
+    if (n + 1 < nsteps) load_step(n + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // step n has landed (this thread's copies)
+    __syncthreads();     // ... and every thread's
+    const __nv_bfloat16* st =
+        reinterpret_cast<const __nv_bfloat16*>(ring + (n & 1) * 2 * S::TILE);
+    const __nv_bfloat16* k_t = st + kp * MMA_KT * SD;
+    const __nv_bfloat16* v_t = st + (KEYS + kp * MMA_KT) * SD;
+    const int* p_t = pos_s + (n & 1) * KEYS + kp * MMA_KT;
+    // does any row of this warp see a key of its part of the step?
+    const bool any = __any_sync(
+        FULL, maybe_kept(p_t[lane], wmin, wmax, window) ||
+                  maybe_kept(p_t[lane + 32], wmin, wmax, window));
+    if (any) {
+      const auto keep = [&](int col, int row) {
+        return kept(p_t[col], qp[row], window);
+      };
+      const auto k_mul = [&](int) { return scale2; };
+      const auto v_mul = [&](int) { return 1.f; };
+      // q's A fragments from shared memory, step by step: holding all
+      // of them in registers costs 32 a thread and timed slower
+      const auto q_frag = [&](int kk, uint32_t(&a)[4]) {
+        ldmatrix_x4(a, q_s + (rg * 16 + (lane & 15)) * SD + kk * 16 +
+                           (lane >> 4) * 8);
+      };
+      mma_key_step<DH>(q_frag, k_t, v_t, lane, keep, k_mul, v_mul, o, m, l);
+    }
+    __syncthreads();  // the stage may be overwritten
+  }
+  cp_async_wait<0>();
+  merge_parts_store<DH, S::KP>(ring, o, m, l, out, b, Sq, Hq, h, G, r0,
+                               rows);
+}
+
+// -- route 2: split keys -------------------------------------------------------
+
+// grid (n_splits, Hkv * n_tiles, B), block THREADS.  The rows of kv head h
+// are r = qi * G + g (query qi, head h * G + g); tile `tile` takes rows
+// [RT tile, RT tile + RT), and split s the slots [CHUNK s, CHUNK s + CHUNK).
+// Lane geometry as in paged_attn.cu: E = 8 values (16 bytes) a lane, LPR
+// lanes a key row, R keys a warp step.  Workspace rows are
+// (b Sq + qi) Hq + h G + g.
+template <int DH, int RT>
+__global__ void __launch_bounds__(THREADS) sel_attn_split_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_pos,
+    const int* __restrict__ kv_pos, float* __restrict__ ws, int Sq, int Skv,
+    int Hq, int Hkv, int window, int n_splits, float scale_log2) {
+  constexpr int E = 8, LPR = DH / E, R = 32 / LPR, BATCH = SPLIT_STEPS * R;
+  static_assert(CHUNK == 2 * THREADS, "two slots a thread");
+  const int s = blockIdx.x;
+  const int n_tiles = gridDim.y / Hkv;
+  const int h = blockIdx.y / n_tiles, tile = blockIdx.y % n_tiles;
+  const int b = blockIdx.z, B = gridDim.z;
+  const int G = Hq / Hkv;
+  const int rt0 = tile * RT;                   // the tile's first row
+  const int nr = min(RT, Sq * G - rt0);        // its rows
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int li = lane % LPR, rg = lane / LPR;  // lane in row, row group
+  const Workspace w = workspace(ws, B * Sq, Hq, n_splits, DH);
+  const auto row_of = [&](int i) {
+    const int r = rt0 + i, qi = r / G;
+    return w.row(b * Sq + qi, h * G + r - qi * G, Hq, n_splits, s);
+  };
+
+  int qp[RT];
+  int qmin = 0x7fffffff, qmax = -1;
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    qp[i] = i < nr ? q_pos[(size_t)b * Sq + (rt0 + i) / G] : -1;
+    if (qp[i] >= 0) {
+      qmin = min(qmin, qp[i]);
+      qmax = max(qmax, qp[i]);
+    }
+  }
+
+  // the chunk's slots that a row of the tile may see, packed in slot order
+  __shared__ int slot_s[CHUNK], pos_s[CHUNK];
+  __shared__ int count_s[2 * NWARPS];
+  const int c0 = s * CHUNK;
+  int pos[2];
+  bool vis[2];
+  unsigned ball[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int idx = c0 + i * THREADS + tid;
+    pos[i] = idx < Skv ? kv_pos[(size_t)b * Skv + idx] : INVALID_POS;
+    vis[i] = maybe_kept(pos[i], qmin, qmax, window);
+    ball[i] = __ballot_sync(FULL, vis[i]);
+    if (lane == 0) count_s[i * NWARPS + warp] = __popc(ball[i]);
+  }
+  __syncthreads();
+  int n = 0, base[2] = {0, 0};
+#pragma unroll
+  for (int j = 0; j < 2 * NWARPS; ++j) {
+    const int c = count_s[j];
+    base[0] += j < warp ? c : 0;
+    base[1] += j < NWARPS + warp ? c : 0;
+    n += c;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!vis[i]) continue;
+    const int at = base[i] + __popc(ball[i] & ((1u << lane) - 1));
+    slot_s[at] = c0 + i * THREADS + tid;
+    pos_s[at] = pos[i];
+  }
+
+  float qf[RT][E], acc[RT][E], m[RT], l[RT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) qf[i][e] = acc[i][e] = 0.f;
+    if (i < nr) {
+      const int r = rt0 + i, qi = r / G;
+      load_f<__nv_bfloat16, E>(
+          q + (((size_t)b * Sq + qi) * Hq + h * G + r - qi * G) * DH + li * E,
+          qf[i]);
+    }
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+  }
+  __syncthreads();
+
+  const int n_batches = (n + BATCH - 1) / BATCH;
+  // one stage of the register ring: K and V of SPLIT_STEPS keys a row
+  // group, and their positions (INVALID_POS: no key)
+  struct Stage {
+    uint4 k[SPLIT_STEPS], v[SPLIT_STEPS];
+    int p[SPLIT_STEPS];
+  };
+  auto load = [&](Stage& st, int bi) {
+#pragma unroll
+    for (int j = 0; j < SPLIT_STEPS; ++j) {
+      const int at = bi * BATCH + j * R + rg;
+      if (bi < n_batches && at < n) {
+        const size_t row =
+            (((size_t)b * Skv + slot_s[at]) * Hkv + h) * DH + li * E;
+        st.k[j] = __ldg(reinterpret_cast<const uint4*>(k + row));
+        st.v[j] = __ldg(reinterpret_cast<const uint4*>(v + row));
+        st.p[j] = pos_s[at];
+      } else {
+        st.k[j] = st.v[j] = make_uint4(0u, 0u, 0u, 0u);
+        st.p[j] = INVALID_POS;
+      }
+    }
+  };
+  auto compute = [&](const Stage& st) {
+    float x[RT][SPLIT_STEPS];  // logits in log2 units, NEG_INF: not kept
+#pragma unroll
+    for (int j = 0; j < SPLIT_STEPS; ++j) {
+      float kf[E];
+      Pack<__nv_bfloat16>::to_f(st.k[j], kf);
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) d = fmaf(qf[i][e], kf[e], d);
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1)
+          d += __shfl_xor_sync(FULL, d, o);
+        x[i][j] = kept(st.p[j], qp[i], window) ? d * scale_log2 : NEG_INF;
+      }
+    }
+    float p[RT][SPLIT_STEPS];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      if (i >= nr) continue;
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < SPLIT_STEPS; ++j) mx = fmaxf(mx, x[i][j]);
+      const float alpha = exp2f(m[i] - mx);
+      m[i] = mx;
+      l[i] *= alpha;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[i][e] *= alpha;
+#pragma unroll
+      for (int j = 0; j < SPLIT_STEPS; ++j) {
+        p[i][j] = x[i][j] <= NEG_INF ? 0.f : exp2f(x[i][j] - mx);
+        l[i] += p[i][j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < SPLIT_STEPS; ++j) {
+      float vf[E];
+      Pack<__nv_bfloat16>::to_f(st.v[j], vf);
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        if (i >= nr) continue;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[i][e] = fmaf(p[i][j], vf[e], acc[i][e]);
+      }
+    }
+  };
+
+  // warp `warp` takes stages warp, warp + NWARPS, ...; the next one's
+  // loads are in flight while the current one is computed.  A chunk with
+  // no slot to read has no stage: its partials stay (NEG_INF, 0, 0).
+  Stage sa, sb;
+  load(sa, warp);
+  for (int bi = warp; bi < n_batches; bi += 2 * NWARPS) {
+    load(sb, bi + NWARPS);
+    compute(sa);
+    load(sa, bi + 2 * NWARPS);
+    if (bi + NWARPS < n_batches) compute(sb);
+  }
+  store_partials<DH, RT, E, LPR, NWARPS>(w, acc, m, l, nr, row_of);
+}
+
+// -- route 3: CUDA cores -------------------------------------------------------
 
 template <int OFF>
 __device__ __forceinline__ void butterfly_step(float (&v)[32], int lane) {
@@ -884,30 +1383,6 @@ __device__ __forceinline__ float transpose_sum(float (&v)[32], int lane) {
   butterfly_step<1>(v, lane);
   return v[0];
 }
-
-template <typename T>
-struct Vec16;  // 16 bytes of T
-template <>
-struct Vec16<float> {
-  static constexpr int N = 4;
-  __device__ static void to_f(const void* p, float* out) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    out[0] = x.x, out[1] = x.y, out[2] = x.z, out[3] = x.w;
-  }
-};
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void to_f(const void* p, float* out) {
-    const uint4 x = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x, out[2 * i + 1] = f.y;
-    }
-  }
-};
 
 // DPL consecutive floats of shared memory (16-byte aligned when DPL >= 4).
 template <int DPL>
@@ -937,7 +1412,7 @@ __global__ void __launch_bounds__(THREADS) sel_attn_kernel(
     T* __restrict__ out, int Sq, int Skv, int Hq, int Hkv, int window, int QT,
     int GB, float scale) {
   constexpr int Dh = DPL * 32;
-  constexpr int VN = Vec16<T>::N;
+  constexpr int VN = Pack<T>::N;
   const int b = blockIdx.z;
   const int G = Hq / Hkv;
   const int parts = G / GB;
@@ -1009,8 +1484,10 @@ __global__ void __launch_bounds__(THREADS) sel_attn_kernel(
     for (int i = tid; i < nt * (Dh / VN); i += THREADS) {
       const int t = i / (Dh / VN), c = i - t * (Dh / VN);
       const size_t g = (((size_t)b * Skv + t0 + t) * Hkv + h) * Dh + c * VN;
-      Vec16<T>::to_f(k + g, k_s + t * Dh + c * VN);
-      Vec16<T>::to_f(v + g, v_s + t * Dh + c * VN);
+      Pack<T>::to_f(*reinterpret_cast<const uint4*>(k + g),
+                    k_s + t * Dh + c * VN);
+      Pack<T>::to_f(*reinterpret_cast<const uint4*>(v + g),
+                    v_s + t * Dh + c * VN);
     }
     __syncthreads();
     // rows are live in order, so live[0] says whether the warp has any
@@ -1118,16 +1595,215 @@ int dispatch_dense(const void* q, const void* k, const void* v,
   }
 }
 
+// Lets a tensor-core instantiation ask for `bytes` of dynamic shared
+// memory.  The attribute belongs to the current device, so it is raised
+// only when a call needs more than the last value set there.
+template <int DH, int RG>
+int allow_dense_mma_smem(int bytes) {
+  static int set[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < MAX_DEVICES && set[dev] >= bytes) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      sel_attn_mma_kernel<DH, RG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err == cudaSuccess && dev < MAX_DEVICES) set[dev] = bytes;
+  return (int)err;
+}
+
+template <int DH, int RG>
+int launch_dense_mma_rg(const void* q, const void* k, const void* v,
+                        const void* q_pos, const void* kv_pos, void* out,
+                        int B, int Sq, int Skv, int Hq, int Hkv, int window,
+                        cudaStream_t stream) {
+  using S = DenseMma<DH, RG>;
+  const int smem = S::bytes(Skv);
+  if (const int err = allow_dense_mma_smem<DH, RG>(smem)) return err;
+  const int rows = Sq * (Hq / Hkv);
+  const dim3 grid(Hkv, (rows + S::ROWS - 1) / S::ROWS, B);
+  sel_attn_mma_kernel<DH, RG><<<grid, MMA_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(q_pos),
+      static_cast<const int*>(kv_pos), static_cast<__nv_bfloat16*>(out), Sq,
+      Skv, Hq, Hkv, window, 1.0f / sqrtf((float)DH));
+  return (int)cudaGetLastError();
+}
+
+// The streaming multiprocessors of the current device, asked once per
+// device.
+int sm_count() {
+  static int count[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < MAX_DEVICES && count[dev]) return count[dev];
+  int n = 0;
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  if (dev < MAX_DEVICES) count[dev] = n;
+  return n;
+}
+
+// 128-row blocks when they fill every SM at least once, else 64-row
+// blocks (twice the blocks, each walking half the steps): below a wave
+// the longest walk, not the bytes copied, sets the time.
+int dense_mma_rg(int B, int Sq, int Hq, int Hkv) {
+  const int tiles = (Sq * (Hq / Hkv) + 127) / 128;
+  return (long long)tiles * Hkv * B >= sm_count() ? 8 : 4;
+}
+
+template <int DH>
+int launch_dense_mma(const void* q, const void* k, const void* v,
+                     const void* q_pos, const void* kv_pos, void* out, int B,
+                     int Sq, int Skv, int Hq, int Hkv, int window,
+                     cudaStream_t stream) {
+  return dense_mma_rg(B, Sq, Hq, Hkv) == 8
+             ? launch_dense_mma_rg<DH, 8>(q, k, v, q_pos, kv_pos, out, B, Sq,
+                                          Skv, Hq, Hkv, window, stream)
+             : launch_dense_mma_rg<DH, 4>(q, k, v, q_pos, kv_pos, out, B, Sq,
+                                          Skv, Hq, Hkv, window, stream);
+}
+
+template <int DH, int RT>
+int launch_dense_split(const void* q, const void* k, const void* v,
+                       const void* q_pos, const void* kv_pos, void* ws,
+                       void* out, int B, int Sq, int Skv, int Hq, int Hkv,
+                       int window, int n_splits, cudaStream_t stream) {
+  const int n_tiles = (Sq * (Hq / Hkv) + RT - 1) / RT;
+  const dim3 grid(n_splits, Hkv * n_tiles, B);
+  sel_attn_split_kernel<DH, RT><<<grid, THREADS, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(q_pos),
+      static_cast<const int*>(kv_pos), static_cast<float*>(ws), Sq, Skv, Hq,
+      Hkv, window, n_splits, LOG2E / sqrtf((float)DH));
+  if (const cudaError_t err = cudaGetLastError()) return (int)err;
+  return launch_merge<__nv_bfloat16, DH>(static_cast<float*>(ws),
+                                         static_cast<__nv_bfloat16*>(out),
+                                         B * Sq, Hq, n_splits, stream);
+}
+
+// Calls `fn.template run<DH, RT>()` for the split instantiation that
+// serves head dim `dh` and `rows` rows per (sequence, kv head): one row a
+// block, or SPLIT_WIDE.
+template <typename F>
+int split_dispatch(int dh, int rows, const F& fn) {
+  if (dh == 64)
+    return rows == 1 ? fn.template run<64, 1>()
+                     : fn.template run<64, SPLIT_WIDE>();
+  if (dh == 128)
+    return rows == 1 ? fn.template run<128, 1>()
+                     : fn.template run<128, SPLIT_WIDE>();
+  return (int)cudaErrorInvalidValue;
+}
+
+struct SplitLaunch {
+  const void *q, *k, *v, *q_pos, *kv_pos;
+  void *ws, *out;
+  int B, Sq, Skv, Hq, Hkv, window, n_splits;
+  cudaStream_t stream;
+  template <int DH, int RT>
+  int run() const {
+    return launch_dense_split<DH, RT>(q, k, v, q_pos, kv_pos, ws, out, B, Sq,
+                                      Skv, Hq, Hkv, window, n_splits, stream);
+  }
+};
+
+// registers, local memory per thread (spills and stack; 0 when nothing
+// spills), static and dynamic shared memory per block, resident blocks per
+// SM, threads per block and rows per block of one instantiation
+template <typename K>
+int kernel_info(K kern, int threads, int smem, int rows, int* info) {
+  cudaFuncAttributes attr;
+  if (const cudaError_t err = cudaFuncGetAttributes(&attr, kern))
+    return (int)err;
+  int blocks = 0;
+  if (const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kern, threads, smem))
+    return (int)err;
+  const int vals[7] = {attr.numRegs, (int)attr.localSizeBytes,
+                       (int)attr.sharedSizeBytes, smem, blocks, threads, rows};
+  for (int i = 0; i < 7; ++i) info[i] = vals[i];
+  return 0;
+}
+
+struct SplitInfo {
+  int* info;
+  template <int DH, int RT>
+  int run() const {
+    return kernel_info(sel_attn_split_kernel<DH, RT>, THREADS, 0, RT, info);
+  }
+};
+
+template <int DH, int RG>
+int dense_mma_info(int skv, int* info) {
+  const int smem = DenseMma<DH, RG>::bytes(skv);
+  if (const int err = allow_dense_mma_smem<DH, RG>(smem)) return err;
+  return kernel_info(sel_attn_mma_kernel<DH, RG>, MMA_THREADS, smem,
+                     DenseMma<DH, RG>::ROWS, info);
+}
+
+enum class Route { CORES, MMA, SPLIT };
+
+// One signature for every route (ws and n_splits serve the split route).
+template <Route ROUTE, typename T>
+int dense_entry(const void* q, const void* k, const void* v,
+                const void* q_pos, const void* kv_pos, void* ws, void* out,
+                int B, int Sq, int Skv, int Hq, int Hkv, int Dh, int window,
+                int n_splits, void* stream) {
+  if (Hkv < 1 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (ROUTE == Route::CORES) {
+    return dispatch_dense<T>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, Hq, Hkv,
+                             Dh, window, stream);
+  } else if constexpr (ROUTE == Route::MMA) {
+    if (Dh == 64)
+      return launch_dense_mma<64>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, Hq,
+                                  Hkv, window, st);
+    if (Dh == 128)
+      return launch_dense_mma<128>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv,
+                                   Hq, Hkv, window, st);
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (n_splits < 1) return (int)cudaErrorInvalidValue;
+    return split_dispatch(Dh, Sq * (Hq / Hkv),
+                          SplitLaunch{q, k, v, q_pos, kv_pos, ws, out, B, Sq,
+                                      Skv, Hq, Hkv, window, n_splits, st});
+  }
+}
+
 }  // namespace
 
-#define SEL_ATTN_DENSE_ENTRY(NAME, T)                                        \
+#define SEL_ATTN_DENSE_ENTRY(NAME, ROUTE, T)                                 \
   extern "C" int NAME(const void* q, const void* k, const void* v,           \
-                      const void* q_pos, const void* kv_pos, void* out,      \
-                      int B, int Sq, int Skv, int Hq, int Hkv, int Dh,       \
-                      int window, void* stream) {                            \
-    return dispatch_dense<T>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, Hq,    \
-                             Hkv, Dh, window, stream);                       \
+                      const void* q_pos, const void* kv_pos, void* ws,       \
+                      void* out, int B, int Sq, int Skv, int Hq, int Hkv,    \
+                      int Dh, int window, int n_splits, void* stream) {      \
+    return dense_entry<ROUTE, T>(q, k, v, q_pos, kv_pos, ws, out, B, Sq,     \
+                                 Skv, Hq, Hkv, Dh, window, n_splits,         \
+                                 stream);                                    \
   }
 
-SEL_ATTN_DENSE_ENTRY(sel_attn_f32, float)
-SEL_ATTN_DENSE_ENTRY(sel_attn_bf16, __nv_bfloat16)
+SEL_ATTN_DENSE_ENTRY(sel_attn_f32, Route::CORES, float)
+SEL_ATTN_DENSE_ENTRY(sel_attn_bf16, Route::CORES, __nv_bfloat16)
+SEL_ATTN_DENSE_ENTRY(sel_attn_mma_bf16, Route::MMA, __nv_bfloat16)
+SEL_ATTN_DENSE_ENTRY(sel_attn_split_bf16, Route::SPLIT, __nv_bfloat16)
+
+// What the card says of a dense bf16 instantiation (7 ints, see
+// kernel_info): routes 0 and 2 the tensor-core kernel with 128- and
+// 64-row blocks for head dim `dh` with `arg` = Skv (its dynamic shared
+// memory grows with it), route 1 the split kernel for `arg` rows per
+// (sequence, kv head).
+extern "C" int sel_attn_dense_info(int route, int dh, int arg, int* info) {
+  if (route == 0 || route == 2) {
+    const bool wide = route == 0;
+    if (dh == 64)
+      return wide ? dense_mma_info<64, 8>(arg, info)
+                  : dense_mma_info<64, 4>(arg, info);
+    if (dh == 128)
+      return wide ? dense_mma_info<128, 8>(arg, info)
+                  : dense_mma_info<128, 4>(arg, info);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (route == 1) return split_dispatch(dh, arg, SplitInfo{info});
+  return (int)cudaErrorInvalidValue;
+}

@@ -7,8 +7,9 @@ is compiled at first use, in-process, with::
          -Xcompiler -fPIC -Xptxas -v -o build/<name>-<hash>.so csrc/<name>.cu
 
 into ``kernels/build/`` (git-ignored), then loaded with ``ctypes``.  The
-library name carries the hash of its source, so an edited source is rebuilt
-and a stale library is never loaded.  Pointers and the CUDA stream pass as
+library name carries the hash of its source and of the shared headers
+(``csrc/*.cuh``), so an edited source or header is rebuilt and a stale
+library is never loaded.  Pointers and the CUDA stream pass as
 ``c_void_p``; every C entry returns ``cudaGetLastError()`` and
 :meth:`Kernel.launch` raises when it is not 0.
 
@@ -51,9 +52,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by the hash of the source,
+    of every header under ``csrc/`` (a source may include any of them) and
+    of the flags."""
+    data = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        data += header.read_bytes()
+    digest = hashlib.sha1(data + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
 def build(names=SOURCES) -> Dict[str, float]:
@@ -104,17 +110,20 @@ class Kernel:
 
     ``launches`` grows by one in :meth:`launch`, right where the kernel is
     launched, and nowhere else; a run resets it to 0 before the work it
-    wants to attribute."""
+    wants to attribute.  A kernel with several routes (one C entry each)
+    also counts each call under its route in ``route_launches``."""
 
     def __init__(self, name: str, source: str, argtypes: list):
         self.name = name
         self.source = source
         self.argtypes = argtypes + [ctypes.c_void_p]    # ..., stream
         self.launches = 0
+        self.route_launches: Dict[str, int] = {}
         self._entries = {}      # suffix -> bound C entry
 
-    def launch(self, suffix: str, *args) -> None:
-        """Launch the entry ``<name>_<suffix>`` on the current stream."""
+    def launch(self, suffix: str, *args, route: str = "") -> None:
+        """Launch the entry ``<name>_<suffix>`` on the current stream;
+        ``route`` names the route it takes, if the kernel has several."""
         import torch
 
         fn = self._entries.get(suffix)
@@ -129,6 +138,8 @@ class Kernel:
                 f"CUDA kernel {self.name}_{suffix} failed to launch "
                 f"(cudaError {err})")
         self.launches += 1
+        if route:
+            self.route_launches[route] = self.route_launches.get(route, 0) + 1
 
 
 def ptr(t) -> ctypes.c_void_p:
@@ -138,3 +149,4 @@ def ptr(t) -> ctypes.c_void_p:
 def reset_launches(kernels) -> None:
     for k in kernels:
         k.launches = 0
+        k.route_launches = {}

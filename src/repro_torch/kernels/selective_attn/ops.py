@@ -3,12 +3,32 @@ versions on the CPU.
 
 ``selective_attention`` (dense, over an explicit ``kv_pos``) takes the
 model's layout: q (B, Sq, Hq, Dh); k/v (B, Skv, Hkv, Dh); q_pos (B, Sq)
-int32; kv_pos (B, Skv) int32 with ``INVALID_POS`` for an empty slot.  It
-returns (B, Sq, Hq, Dh) in q's dtype.  A CPU tensor goes to
+int32; kv_pos (B, Skv) int32 with ``INVALID_POS`` for an empty slot, in any
+order.  It returns (B, Sq, Hq, Dh) in q's dtype.  A CPU tensor goes to
 :func:`selective_attention_ref` (layout (B, H, S, Dh)); a CUDA tensor
 launches ``sel_attn`` of ``csrc/selective_attn.cu``, which reads every
 operand in place and masks both ragged edges itself (the JAX wrapper pads
-to block multiples), or raises.
+to block multiples), or raises.  :func:`dense_route` picks one of three
+routes from the host's shapes alone (never from the positions, which live
+on the card):
+
+- ``"tensor_cores"``: bf16 at head dim 64 or 128 with more than
+  :data:`SPLIT_MAX_ROWS` (query, head) rows per (sequence, kv head): the
+  uploads and every dense prefill.  Both products on ``mma.sync``, 128 rows
+  of one kv head a block (64 when that makes less than a wave of blocks);
+  steps of slots that no row of the block can see (by their ``kv_pos``)
+  are never loaded.
+- ``"split_keys"``: bf16 at head dim 64 or 128 with at most
+  :data:`SPLIT_MAX_ROWS` such rows: the dense decode step.  The slots are
+  cut into chunks of :data:`CHUNK` (:func:`plan_dense_splits`), one fp32
+  partial per (row, chunk) goes to a workspace allocated here, and a second
+  kernel that the same C call launches merges them.
+- ``"cuda_cores"``: fp32, and bf16 at head dim 32: the first port, fp32
+  math on the CUDA cores.
+
+The bf16 routes copy 16-byte vectors, so q, k and v must be 16-byte
+aligned (the wrapper raises otherwise).  Every call counts as one launch of
+``SEL_ATTN`` and, in ``SEL_ATTN.route_launches``, one of its route.
 
 ``selective_attention_paged`` takes the model's layout: q (B, Sq, Hq, Dh);
 pools (P, page_size, Hkv, Dh) of one layer; page_table (B, mp) int32; q_pos
@@ -29,10 +49,12 @@ kernel, any head dim.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels._build import Kernel, library, ptr
+from repro_torch.kernels.paged_attn.ops import CHUNK
 from repro_torch.kernels.selective_attn.ref import (
     selective_attention_paged_ref,
     selective_attention_ref,
@@ -42,10 +64,52 @@ _ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
 SEL_ATTN_PAGED = Kernel("sel_attn_paged", "selective_attn", _ARGS)
 SEL_ATTN_PAGED_Q8 = Kernel("sel_attn_paged_q8", "selective_attn", _ARGS)
 SEL_ATTN = Kernel("sel_attn", "selective_attn",
-                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7)
+                  [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8)
 KERNELS = (SEL_ATTN_PAGED, SEL_ATTN_PAGED_Q8, SEL_ATTN)
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+TENSOR_CORES, SPLIT_KEYS, CUDA_CORES = ("tensor_cores", "split_keys",
+                                        "cuda_cores")
+# the C entry of each bf16 route (the CUDA cores take sel_attn_<dtype>)
+_ROUTE_ENTRY = {TENSOR_CORES: "mma_bf16", SPLIT_KEYS: "split_bf16"}
+SPLIT_MAX_ROWS = 16     # (query, head) rows per (sequence, kv head)
+MMA_HEAD_DIMS = (64, 128)
+
+
+def dense_route(dtype, dh: int, sq: int, hq: int, hkv: int) -> str:
+    """The route of a dense call, from shapes the host knows: bf16 at head
+    dim 64 or 128 takes the split-key kernel when it has at most
+    :data:`SPLIT_MAX_ROWS` (query, head) rows per (sequence, kv head), else
+    the tensor-core kernel; anything else the CUDA-core kernel."""
+    if dtype == torch.bfloat16 and dh in MMA_HEAD_DIMS:
+        few = sq * (hq // hkv) <= SPLIT_MAX_ROWS
+        return SPLIT_KEYS if few else TENSOR_CORES
+    return CUDA_CORES
+
+
+@dataclass(frozen=True)
+class DenseSplitPlan:
+    """How the split-key route cuts the slots: ``n_splits`` chunks of
+    :data:`CHUNK` slots from slot 0, and the fp32 workspace of
+    ``workspace_numel`` values that holds one partial ``(acc[Dh], m, l)``
+    per (sequence, query, query head, split)."""
+    n_splits: int
+    workspace_numel: int
+    skv: int
+
+    def chunk_slots(self, split: int) -> range:
+        """The slots split ``split`` reads, as the kernel computes them."""
+        start = split * CHUNK
+        return range(start, min(start + CHUNK, self.skv))
+
+
+def plan_dense_splits(b: int, sq: int, hq: int, dh: int,
+                      skv: int) -> DenseSplitPlan:
+    """The split plan of a dense call, from its shapes alone (never from
+    ``kv_pos``, which lives on the card).  Slots may hold positions in any
+    order, so a window, which bounds positions, does not narrow it."""
+    n_splits = max(1, -(-skv // CHUNK))
+    return DenseSplitPlan(n_splits, b * sq * hq * n_splits * (dh + 2), skv)
 
 
 def _check(cond: bool, what: str, name="selective_attention_paged") -> None:
@@ -83,15 +147,23 @@ def selective_attention(q, k, v, q_pos, kv_pos, *, window: int = 0):
           "q_pos must be int32 (B, Sq)")
     check(kv_pos.dtype == torch.int32 and kv_pos.shape == (b, skv),
           "kv_pos must be int32 (B, Skv)")
-    # the kernel reads K/V rows as 16-byte vectors
+    # the kernels read q, K and V rows as 16-byte vectors
     check(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
           "q, k and v must be 16-byte aligned")
     out = torch.empty_like(q)
     if sq == 0:
         return out
-    SEL_ATTN.launch(_SUFFIX[q.dtype], ptr(q), ptr(k), ptr(v), ptr(q_pos),
-                    ptr(kv_pos), ptr(out), b, sq, skv, hq, hkv, dh,
-                    int(window))
+    route = dense_route(q.dtype, dh, sq, hq, hkv)
+    ws, n_splits = None, 0
+    if route == SPLIT_KEYS:
+        plan = plan_dense_splits(b, sq, hq, dh, skv)
+        n_splits = plan.n_splits
+        ws = torch.empty(plan.workspace_numel, dtype=torch.float32,
+                         device=q.device)
+    SEL_ATTN.launch(_ROUTE_ENTRY.get(route, _SUFFIX[q.dtype]), ptr(q),
+                    ptr(k), ptr(v), ptr(q_pos), ptr(kv_pos),
+                    None if ws is None else ptr(ws), ptr(out), b, sq, skv,
+                    hq, hkv, dh, int(window), n_splits, route=route)
     return out
 
 
@@ -167,4 +239,27 @@ def paged_mma_resources(dh: int, quantized: bool) -> dict:
         raise RuntimeError(f"sel_attn_paged_mma_info failed (cudaError {err})")
     keys = ("registers", "local_bytes", "static_smem_bytes", "smem_bytes",
             "blocks_per_sm", "threads")
+    return dict(zip(keys, info))
+
+
+def dense_resources(route: str, dh: int, arg: int,
+                    block_rows: int = 128) -> dict:
+    """Registers, local memory per thread (bytes: spills and stack, 0 when
+    nothing spills), static and dynamic shared memory (bytes), resident
+    blocks per SM, threads and (query, head) rows per block of a bf16 dense
+    instantiation, as the card reports them (``cudaFuncGetAttributes`` and
+    the occupancy calculator): the tensor-core kernel with ``block_rows``
+    (128 or 64) rows a block for head dim ``dh`` and ``arg`` key slots (its
+    shared memory grows with them), or the split-key kernel for ``arg``
+    rows per (sequence, kv head)."""
+    fn = library("selective_attn").sel_attn_dense_info
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 7)()
+    code = 1 if route == SPLIT_KEYS else {128: 0, 64: 2}[block_rows]
+    err = fn(code, dh, arg, info)
+    if err != 0:
+        raise RuntimeError(f"sel_attn_dense_info failed (cudaError {err})")
+    keys = ("registers", "local_bytes", "static_smem_bytes", "smem_bytes",
+            "blocks_per_sm", "threads", "rows_per_block")
     return dict(zip(keys, info))

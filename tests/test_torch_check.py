@@ -18,13 +18,18 @@ one, fails.
 Why the bf16 paged prefill kernel splits P in two for its tensor-core
 P.V: at the main path's shape (224 sorted queries among 1312 keys, Dh 128,
 bf16 and int8 pools) P rounded once to bf16 breaks the limit ~20-26x, P
-split into hi = bf16(p) and lo = bf16(p - hi) stays within it (0.96).
+split into hi = bf16(p) and lo = bf16(p - hi) stays within it (0.96).  The
+dense tensor-core route needs the split as much: the same 224 queries
+against 1312 tokens at permuted slots of a 2048-slot dense cache.
 
 Why the split-key decode kernel merges its partials as it does: at the
 same decode shape, partials per 256-key split in fp32 merged with the
 ``exp(m_s - m_max)`` rescale and rounded once pass the limit; a merge that
 skips the rescale fails it; with the finite ``NEG_INF`` an idle row (every
 split empty) merges to exact zeros, while a true ``-inf`` gives NaN there.
+The same holds for the dense decode route, whose splits are 256-slot
+chunks of a dense cache with positions in any order
+(``selective_attn.ops.plan_dense_splits``).
 
 The SSD chunk limit (``1e-4 + 1e-4 * |ref|``) at mamba2's chunk shape: a
 float64 evaluation of the same sums passes at 0.03 of the limit; a kernel
@@ -251,6 +256,24 @@ def _selective_inputs(pool):
     return q, k, v, ks, vs, pt, q_pos, lens
 
 
+def _dense_selective_inputs():
+    """The same 224 sorted queries against 1312 tokens, held at permuted
+    slots of a 2048-slot dense cache (the rest empty), bf16."""
+    rng = np.random.default_rng(8)
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(torch.bfloat16)
+
+    q = bf16(1, SEL_H, SEL_N, DH)
+    k, v = bf16(1, SEL_H, SKV, DH), bf16(1, SEL_H, SKV, DH)
+    kv_pos = np.full((1, SKV), INVALID_POS, np.int32)
+    kv_pos[0, rng.permutation(SKV)[:SEL_LEN]] = np.arange(SEL_LEN)
+    q_pos = np.sort(rng.choice(SEL_LEN, SEL_N, replace=False))[None]
+    return (q, k, v, torch.from_numpy(q_pos.astype(np.int32)),
+            torch.from_numpy(kv_pos))
+
+
 def _pv_in_16_bits(split, q, k, v, ks, vs, pt, q_pos, lens):
     """The paged prefill with fp32 logits and softmax, and P.V fed bf16 P
     (once, or split into two bf16 halves) against bf16 V, summed in fp32,
@@ -259,19 +282,39 @@ def _pv_in_16_bits(split, q, k, v, ks, vs, pt, q_pos, lens):
     n = pt.shape[1] * PS
     kg = k[pt.long()].reshape(b, n, -1, dh).float().transpose(1, 2)
     vg = v[pt.long()].reshape(b, n, -1, dh).float().transpose(1, 2)
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kg) / math.sqrt(dh)
-    if ks is not None:
-        logits = logits * torch.repeat_interleave(
-            ks[pt.long()], PS, dim=1).transpose(1, 2)[:, :, None, :]
     idx = torch.arange(n)
     keep = (idx < lens[:, None, None, None]) & (idx <= q_pos[:, None, :, None])
+    k_mul = v_mul = None
+    if ks is not None:
+        k_mul = torch.repeat_interleave(
+            ks[pt.long()], PS, dim=1).transpose(1, 2)[:, :, None, :]
+        v_mul = torch.repeat_interleave(
+            vs[pt.long()], PS, dim=1).transpose(1, 2)[:, :, None, :]
+    return _p_split_pv(split, q, kg, vg, keep, k_mul, v_mul)
+
+
+def _dense_pv_in_16_bits(split, q, k, v, q_pos, kv_pos):
+    """The same for the dense tensor-core route: keys kept by their own
+    kv_pos."""
+    kp = kv_pos.long()[:, None, None, :]
+    keep = (kp != INVALID_POS) & (kp <= q_pos.long()[:, None, :, None])
+    return _p_split_pv(split, q, k.float(), v.float(), keep)
+
+
+def _p_split_pv(split, q, kg, vg, keep, k_mul=None, v_mul=None):
+    """fp32 logits (times ``k_mul``, the K scales) and softmax over the kept
+    keys; P (times ``v_mul``, the V scales, which join P and not the
+    normaliser) fed to P.V as bf16, once or split in two, against bf16 V."""
+    dh = q.shape[-1]
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kg) / math.sqrt(dh)
+    if k_mul is not None:
+        logits = logits * k_mul
     logits = torch.where(keep, logits, -1e30)
     p = torch.where(keep, torch.exp(logits - logits.amax(-1, keepdim=True)),
                     0.0)
     l_sum = p.sum(-1, keepdim=True)
-    if vs is not None:                        # the V scale joins P, not l
-        p = p * torch.repeat_interleave(
-            vs[pt.long()], PS, dim=1).transpose(1, 2)[:, :, None, :]
+    if v_mul is not None:
+        p = p * v_mul
     hi = p.to(torch.bfloat16).float()
     out = torch.einsum("bhqk,bhkd->bhqd", hi, vg)
     if split:
@@ -280,17 +323,23 @@ def _pv_in_16_bits(split, q, k, v, ks, vs, pt, q_pos, lens):
     return (out / l_sum).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("pool", ["bf16", "int8", "dense"])
 @pytest.mark.parametrize("split", [False, True], ids=["p_once", "p_split"])
 def test_bf16_limit_needs_p_split_in_two(pool, split):
     from repro_torch.kernels.selective_attn.ref import (
         selective_attention_paged_ref,
     )
 
-    args = _selective_inputs(pool)
-    q, k, v, ks, vs, pt, q_pos, lens = args
-    ref = selective_attention_paged_ref(q, k, v, pt, q_pos, lens, ks, vs)
-    out = _pv_in_16_bits(split, *args)
+    if pool == "dense":
+        q, k, v, q_pos, kv_pos = _dense_selective_inputs()
+        ref = selective_attention_ref(q, k, v, q_pos, kv_pos)
+        out = _dense_pv_in_16_bits(split, q, k, v, q_pos, kv_pos)
+        vs = None
+    else:
+        args = _selective_inputs(pool)
+        q, k, v, ks, vs, pt, q_pos, lens = args
+        ref = selective_attention_paged_ref(q, k, v, pt, q_pos, lens, ks, vs)
+        out = _pv_in_16_bits(split, *args)
     res = compare(out, ref, v_absmax(v, vs))
     if split:
         assert res["worst"] <= 1.0, res
@@ -343,10 +392,59 @@ def _split_decode(q, k, v, ks, vs, pt, lens, window=0, neg_inf=-1e30,
     return out.to(q.dtype)
 
 
-@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def _split_dense(q, k, v, q_pos, kv_pos, window=0, neg_inf=-1e30,
+                 rescale=True):
+    """The dense decode route (csrc/selective_attn.cu) in fp32 on the CPU:
+    one partial per (row, chunk of 256 slots from slot 0) over the slots
+    the row keeps by their kv_pos, (neg_inf, 0, 0) where it keeps none,
+    merged as the paged decode merges.  q (B, Hq, Sq, Dh), k/v
+    (B, Hkv, Skv, Dh)."""
+    from repro_torch.kernels.selective_attn.ops import plan_dense_splits
+
+    b, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    plan = plan_dense_splits(b, sq, hq, dh, skv)
+    kk = k.float().repeat_interleave(hq // hkv, dim=1)
+    vv = v.float().repeat_interleave(hq // hkv, dim=1)
+    kp = kv_pos.long()[:, None, None, :]
+    qp = q_pos.long()[:, None, :, None]
+    keep = (kp != INVALID_POS) & (kp <= qp)
+    if window > 0:
+        keep &= kp > qp - window
+    keep = keep.expand(b, hq, sq, skv)
+    m, l, acc = [], [], []
+    for s in range(plan.n_splits):
+        slots = torch.tensor(plan.chunk_slots(s), dtype=torch.long)
+        x = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                         kk[:, :, slots]) / math.sqrt(dh)
+        kept = keep[..., slots]
+        ms = torch.where(kept, x, -math.inf).amax(-1)
+        any_kept = kept.any(-1)
+        ms = torch.where(any_kept, ms, neg_inf)
+        p = torch.where(kept, torch.exp(x - ms[..., None]), 0.0)
+        m.append(ms)
+        l.append(p.sum(-1))
+        acc.append(torch.einsum("bhqk,bhkd->bhqd", p, vv[:, :, slots]))
+    m, l, acc = torch.stack(m), torch.stack(l), torch.stack(acc)
+    w = torch.exp(m - m.amax(0)) if rescale else torch.ones_like(m)
+    lsum = (w * l).sum(0)
+    o = (w[..., None] * acc).sum(0)
+    out = torch.where(lsum[..., None] == 0, 0.0, o / lsum[..., None])
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8", "dense"])
 @pytest.mark.parametrize("rescale", [True, False],
                          ids=["rescaled", "no_rescale"])
 def test_split_key_merge_needs_the_rescale(pool, rescale):
+    if pool == "dense":
+        q, k, v, q_pos, kv_pos = _dense_decode_inputs()
+        ref = selective_attention_ref(q, k, v, q_pos, kv_pos)
+        out = _split_dense(q, k, v, q_pos, kv_pos, rescale=rescale)
+        res = compare(out, ref, v_absmax(v))
+        assert math.isfinite(res["worst"])
+        assert (res["worst"] <= 1.0) == rescale, res
+        return
     q, k, v, ks, vs, pt, lens = _decode_inputs(pool)
     ref = paged_attention_ref(q, k, v, pt, lens, ks, vs)
     out = _split_decode(q, k, v, ks, vs, pt, lens, rescale=rescale)
@@ -377,3 +475,27 @@ def test_split_key_empty_splits(pool):
     out = _split_decode(q, k, v, ks, vs, pt, lens, neg_inf=-math.inf)
     assert torch.isnan(out[0].float()).all()
     assert not torch.isnan(out[live].float()).any()
+
+
+def test_dense_split_empty_chunks():
+    """The dense decode route's emulation: a sequence with no valid slot
+    (every chunk empty) merges to exact zeros with the finite NEG_INF and
+    to NaN with a true -inf; a 300-token sequence in slots 0-299 (six of
+    eight chunks empty) and windows of 600 and 64 still pass against the
+    plain version."""
+    q, k, v, q_pos, kv_pos = _dense_decode_inputs()
+    kv_pos = kv_pos.clone()
+    kv_pos[0] = INVALID_POS
+    kv_pos[1] = INVALID_POS
+    kv_pos[1, :300] = torch.arange(300, dtype=torch.int32)
+    q_pos = q_pos.clone()
+    q_pos[1] = 299
+    for window in (0, 600, 64):
+        ref = selective_attention_ref(q, k, v, q_pos, kv_pos, window=window)
+        out = _split_dense(q, k, v, q_pos, kv_pos, window=window)
+        assert torch.all(out[0] == 0)
+        res = compare(out, ref, v_absmax(v))
+        assert res["worst"] <= 1.0, res
+    out = _split_dense(q, k, v, q_pos, kv_pos, neg_inf=-math.inf)
+    assert torch.isnan(out[0].float()).all()
+    assert not torch.isnan(out[1:].float()).any()

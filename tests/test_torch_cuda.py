@@ -27,6 +27,15 @@ The dense selective attention (``sel_attn``) runs on its own synthetic
 shape: 32 query heads on 8 kv heads (and MHA), window 64 (and none), Sq 101
 and Skv 300 (neither a multiple of a tile), kv positions permuted with
 ``INVALID_POS`` holes, and one query whose every key is masked (zeros).
+Its two bf16 routes (``selective_attn.ops.dense_route``) run across their
+edges, each call checked to have counted one launch of its route: the
+tensor-core route and the split-key route at head dims 64 and 128, groups
+1, 4 and 8, windows 0, 64 and 100, Sq and Skv off every tile multiple (1,
+15, 17, 63, 65, 129), slots shuffled with ~10 % ``INVALID_POS``; the
+split-key route at the dense decode step's shape (B 4, Sq 1, Skv 2048)
+with an idle sequence, a 40-token one (most splits empty), 1302 and 2048
+tokens, in slot order and shuffled; the route boundary (16 and 17 rows per
+kv head) from both sides; and slot-order invariance on every route.
 
 The SSD chunk kernel (``ssd_chunk``) runs at the four shapes of
 ``tests/test_ssd_kernel.py``, at Q = ds = 128 (its largest chunk), with
@@ -43,6 +52,10 @@ from repro_torch.kernels.check import compare, ssd_limit, v_absmax
 from repro_torch.kernels.paged_attn.ops import paged_attention
 from repro_torch.kernels.paged_attn.ref import paged_attention_ref
 from repro_torch.kernels.selective_attn.ops import (
+    CUDA_CORES,
+    SPLIT_KEYS,
+    TENSOR_CORES,
+    dense_route,
     selective_attention,
     selective_attention_paged,
 )
@@ -279,23 +292,121 @@ def _dense_inputs(dev, dtype, hq, hkv, seed, b=2, sq=101, skv=300):
 @WINDOWS
 def test_dense_selective_kernel(dev, dtype, hq, hkv, window):
     q, k, v, q_pos, kv_pos = _dense_inputs(dev, dtype, hq, hkv, seed=4)
+    out = _dense_check(q, k, v, q_pos, kv_pos, window)
+    assert torch.all(out[0, 0] == 0)           # no visible key: zeros
+
+
+def _dense_check(q, k, v, q_pos, kv_pos, window, route=None):
+    """One launch, counted under ``route`` (the one ``dense_route`` picks
+    when None), held per element to the plain version."""
+    b, sq, hq, dh = q.shape
+    want = dense_route(q.dtype, dh, sq, hq, k.shape[2])
+    assert route is None or route == want
     kern = KERNELS["sel_attn"]
-    before = kern.launches
+    before, before_route = kern.launches, kern.route_launches.get(want, 0)
     out = selective_attention(q, k, v, q_pos, kv_pos, window=window)
     torch.cuda.synchronize()
     assert kern.launches == before + 1
+    assert kern.route_launches.get(want, 0) == before_route + 1
     ref = selective_attention_ref(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), q_pos,
         kv_pos, window=window).transpose(1, 2)
-    assert torch.all(out[0, 0] == 0)           # no visible key: zeros
     res = compare(out, ref, v_absmax(v))
     assert res["worst"] <= 1.0, res
+    return out
 
 
-def test_dense_kernel_ignores_slot_order(dev):
+def _dense_case(dev, b, sq, skv, hq, hkv, dh, seed):
+    """bf16 inputs at any Sq and Skv: positions 5..Skv+4 at shuffled slots,
+    ~10 % of the slots empty, queries at random positions below Skv + 10;
+    query 0 of sequence 0 sits at position 2, below every key."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).bfloat16()
+
+    kv_pos = torch.stack([torch.randperm(skv, generator=g, device=dev) + 5
+                          for _ in range(b)]).to(torch.int32)
+    kv_pos[torch.rand((b, skv), generator=g, device=dev) < 0.1] = INVALID_POS
+    q_pos = torch.randint(0, skv + 10, (b, sq), generator=g, device=dev,
+                          dtype=torch.int32)
+    q_pos[0, 0] = 2
+    return (randn(b, sq, hq, dh), randn(b, skv, hkv, dh),
+            randn(b, skv, hkv, dh), q_pos, kv_pos)
+
+
+DENSE_DH = pytest.mark.parametrize("dh", [64, 128])
+DENSE_WINDOWS = pytest.mark.parametrize("window", [0, 64, 100])
+
+
+@DENSE_DH
+@pytest.mark.parametrize("group", [1, 4, 8])
+@DENSE_WINDOWS
+@pytest.mark.parametrize("sq,skv", [(17, 1), (63, 15), (65, 17), (129, 63),
+                                    (17, 65), (129, 129), (101, 300)])
+def test_dense_tensor_core_route(dev, dh, group, window, sq, skv):
+    q, k, v, q_pos, kv_pos = _dense_case(dev, 2, sq, skv, 8 * group, 8, dh,
+                                         seed=20)
+    out = _dense_check(q, k, v, q_pos, kv_pos, window, TENSOR_CORES)
+    assert torch.all(out[0, 0] == 0)
+
+
+@DENSE_DH
+@DENSE_WINDOWS
+@pytest.mark.parametrize("group,sq", [(1, 1), (1, 15), (4, 1), (4, 4),
+                                      (8, 1), (8, 2)])
+@pytest.mark.parametrize("skv", [1, 17, 65, 129, 257])
+def test_dense_split_route(dev, dh, window, group, sq, skv):
+    q, k, v, q_pos, kv_pos = _dense_case(dev, 2, sq, skv, 8 * group, 8, dh,
+                                         seed=21)
+    out = _dense_check(q, k, v, q_pos, kv_pos, window, SPLIT_KEYS)
+    assert torch.all(out[0, 0] == 0)
+
+
+@DENSE_DH
+@pytest.mark.parametrize("hq,hkv", [(32, 32), (32, 8), (32, 4)],
+                         ids=["mha", "gqa4", "gqa8"])
+@DENSE_WINDOWS
+@pytest.mark.parametrize("order", ["in_order", "shuffled"])
+def test_dense_decode_route_b4_2048(dev, dh, hq, hkv, window, order):
+    """The dense decode step's shape: four slots of 2048, holding 0 (idle:
+    every split empty, zeros), 40 (seven of eight splits empty when in
+    order), 1302 and 2048 tokens; the query is each slot's newest token."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    b, skv = 4, 2048
+    kv_pos = torch.full((b, skv), INVALID_POS, dtype=torch.int32, device=dev)
+    q_pos = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+    for i, n in enumerate([0, 40, 1302, 2048]):
+        slots = (torch.arange(n, device=dev) if order == "in_order" else
+                 torch.randperm(skv, generator=g, device=dev)[:n])
+        kv_pos[i, slots] = torch.arange(n, dtype=torch.int32, device=dev)
+        q_pos[i] = max(n - 1, 0)
+    q = torch.randn((b, 1, hq, dh), generator=g, device=dev).bfloat16()
+    k = torch.randn((b, skv, hkv, dh), generator=g, device=dev).bfloat16()
+    v = torch.randn((b, skv, hkv, dh), generator=g, device=dev).bfloat16()
+    out = _dense_check(q, k, v, q_pos, kv_pos, window, SPLIT_KEYS)
+    assert torch.all(out[0] == 0)
+
+
+@pytest.mark.parametrize("sq,hq,hkv,route", [
+    (16, 8, 8, SPLIT_KEYS), (17, 8, 8, TENSOR_CORES),
+    (4, 32, 8, SPLIT_KEYS), (5, 32, 8, TENSOR_CORES),
+    (2, 32, 4, SPLIT_KEYS), (3, 32, 4, TENSOR_CORES)])
+def test_dense_route_boundary(dev, sq, hq, hkv, route):
+    q, k, v, q_pos, kv_pos = _dense_case(dev, 2, sq, 300, hq, hkv, DH,
+                                         seed=23)
+    _dense_check(q, k, v, q_pos, kv_pos, 64, route)
+
+
+@pytest.mark.parametrize("dtype,sq,route", [
+    (torch.float32, 101, CUDA_CORES), (torch.bfloat16, 101, TENSOR_CORES),
+    (torch.bfloat16, 1, SPLIT_KEYS)], ids=["fp32", "bf16_mma", "bf16_split"])
+def test_dense_kernel_ignores_slot_order(dev, dtype, sq, route):
     """Permuting the KV slots together with kv_pos leaves the output as it
-    was, up to the sum order (the position-independence property)."""
-    q, k, v, q_pos, kv_pos = _dense_inputs(dev, torch.float32, 32, 8, seed=5)
+    was, up to the sum order (the position-independence property), on
+    every route."""
+    q, k, v, q_pos, kv_pos = _dense_inputs(dev, dtype, 32, 8, seed=5, sq=sq)
+    assert dense_route(dtype, DH, sq, 32, 8) == route
     perm = torch.randperm(k.shape[1], device=dev)
     a = selective_attention(q, k, v, q_pos, kv_pos, window=64)
     b = selective_attention(q, k[:, perm].contiguous(), v[:, perm].contiguous(),
@@ -311,6 +422,11 @@ def test_dense_wrapper_rejects_what_the_kernel_does_not_take(dev):
         selective_attention(q, k, v, q_pos, kv_pos.long())          # index
     with pytest.raises(ValueError):
         selective_attention(q, k.transpose(1, 2), v, q_pos, kv_pos)  # layout
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    for args in ((_misaligned(qb), kb, vb), (qb, _misaligned(kb), vb),
+                 (qb, kb, _misaligned(vb))):
+        with pytest.raises(ValueError, match="aligned"):
+            selective_attention(*args, q_pos, kv_pos)
 
 
 def _ssd_inputs(dev, b, nc, h, q, hd, ds, seed, dt_hi=0.2):
