@@ -29,8 +29,9 @@ timed on its own line:
    four dialogues with their images inlined (no upload) plus one text-only
    request, once under ``full_recompute`` and once under ``mpic`` k=32
    (rewritten to ``full_recompute``); the SSD chunk kernel must have
-   launched once per layer of every prefill; one mamba2 prefill under
-   ``torch.profiler``; then one warm llava paged decode step per pool
+   launched once per layer of every prefill, every launch on its
+   tensor-core route; one mamba2 prefill under ``torch.profiler``; then
+   one warm llava paged decode step per pool
    (phase 3's dialogues on a fresh engine, all four slots decoding): three
    on the host clock, one under the profiler (device busy time, the
    decode kernels' device time per call, the top kernels);
@@ -44,11 +45,16 @@ timed on its own line:
    shared memory, spills and resident blocks per SM of the bf16 prefill
    kernel, of every decode kernel instantiation and of every bf16 dense
    instantiation are printed, and a spill fails; the SSD chunk at the JAX
-   package's test shapes, Q = 128, pad rows and a large dt), then timed
-   beside its plain version, a PyTorch yardstick where one exists and its
-   bound; the dense attention prints the route each of its four main-path
-   shapes took and, beside the CUDA-event times, its and SDPA's device time
-   a call from ``torch.profiler``; the limit is per element
+   package's test shapes, Q = 128, pad rows and a large dt, on the captured
+   live inputs of the dialogues (21 chunks) and of the text request (6),
+   with the registers, shared memory, spills and blocks per SM of every
+   SSD instantiation), then timed beside its plain version, a PyTorch
+   yardstick where one exists and its bound; the dense attention prints the
+   route each of its four main-path shapes took; every kernel's device time
+   a call comes from ``torch.profiler`` beside the CUDA-event times (the
+   paged prefill's and the dense attention's beside SDPA's, the SSD chunk's
+   at both live shapes beside its CUDA-core route, the first port's
+   kernel); the limit is per element
    (``repro_torch/kernels/check.py``): one bf16 ulp of the value for bf16
    outputs, 1e-4 for fp32 ones, 1e-4 + 1e-4 |ref| for the SSD chunk;
 7. a small fp32 model served by the same engine on the card and on the CPU
@@ -59,8 +65,8 @@ timed on its own line:
 During the serving phases the plain versions and ``layers.attend`` raise
 if called.  Each serving run resets the kernels' launch counts (and the
 dense attention's count per route) before its uploads and reads them after
-its last request; a llava run whose dense attention took the CUDA cores
-fails.  It prints one JSON line
+its last request; a llava run whose dense attention took the CUDA cores,
+or a mamba2 run whose SSD chunk did, fails.  It prints one JSON line
 ``{"kernels": [...]}``, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before the last line.  Without a card it exits 2.
@@ -482,13 +488,15 @@ def main() -> int:
 
     @contextlib.contextmanager
     def capture_ssd():
-        """Keep a copy of the inputs of the first SSD chunk call (layer 0
-        of the first prefill), strides and all."""
+        """Keep a copy of the inputs of the first SSD chunk call at each
+        chunk count (layer 0 of the first prefill of that length), strides
+        and all: the dialogues' 21 chunks and the text request's 6."""
         real = ssm_mod.ssd_chunk
 
         def recording(*args):
-            if not ssd_live:
-                ssd_live["args"] = tuple(t.clone() for t in args)
+            nc = args[0].shape[1]
+            if nc not in ssd_live:
+                ssd_live[nc] = tuple(t.clone() for t in args)
             return real(*args)
 
         ssm_mod.ssd_chunk = recording
@@ -541,6 +549,7 @@ def main() -> int:
             torch.cuda.synchronize()
             serve_s = time.perf_counter() - t_serve
             launches = {k: v.launches for k, v in KERNELS.items()}
+            routes = dict(ssd_ops.SSD_CHUNK.route_launches)
         if nonfinite:
             raise RuntimeError(f"{label}: non-finite logits: {nonfinite}")
         for r in reqs:
@@ -555,6 +564,10 @@ def main() -> int:
                 n for k, n in launches.items() if k != "ssd_chunk"):
             raise RuntimeError(f"{label}: launches {launches}, want "
                                f"ssd_chunk {want} and nothing else")
+        # mamba2-130m's chunks (Q 64, hd 64, ds 128) are the tensor cores'
+        if routes != {ssd_ops.TENSOR_CORES: want}:
+            raise RuntimeError(f"{label}: ssd_chunk routes {routes}, want "
+                               f"all {want} on the tensor cores")
         rep = eng.report()
         lens = [r.prompt.total_len for r in reqs]
         chunks = [-(-n // mcfg.ssm_chunk) for n in lens]
@@ -569,7 +582,8 @@ def main() -> int:
               f"{rep['mean_decode_step_s'] * 1e3:.2f} ms over "
               f"{rep['decode_steps']} steps; "
               f"{rep['total_tokens'] / serve_s:.1f} tokens/s")
-        print(f"  launches {launches}", flush=True)
+        print(f"  launches {launches}; ssd_chunk by route {routes}",
+              flush=True)
         runs[label] = {
             "model": mcfg.name, "policy": policy, "pool": None,
             "paged": False, "mean_ttft_ms": rep["mean_ttft_s"] * 1e3,
@@ -578,7 +592,7 @@ def main() -> int:
             "mean_decode_step_ms": rep["mean_decode_step_s"] * 1e3,
             "mean_recomputed": float(np.mean(
                 [r.prefill_stats["n_recomputed"] for r in reqs])),
-            "launches": launches}
+            "launches": launches, "ssd_chunk_routes": routes}
         del eng, finalize, decode_step, checked_finalize, checked_decode
         gc.collect()
 
@@ -597,6 +611,21 @@ def main() -> int:
              if e.device_type == torch.autograd.DeviceType.CUDA),
             key=lambda k: -k[1])
         return kernels, sum(ms for _, ms, _ in kernels)
+
+    def device_ms(fn, iters):
+        """Device time of one call: every device activity of ``iters``
+        back-to-back calls under torch.profiler, summed, over ``iters``
+        (None when the profiler saw none)."""
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        _, busy = device_kernels(prof)
+        return busy / iters if busy > 0 else None
 
     # where a mamba2 prefill's time goes: device busy time of one profiled
     # prefill against the median host time of three unprofiled ones
@@ -619,16 +648,22 @@ def main() -> int:
             ssm_prefill()
     kernels_ms, busy = device_kernels(prof)
     wall = float(np.median(walls))
+    ssd_in_prefill = [(ms, n) for name, ms, n in kernels_ms
+                      if "ssd_chunk" in name]
+    ssd_prefill_ms = sum(ms for ms, _ in ssd_in_prefill)
     print(f"  one prefill of {prompt.total_len} tokens: {wall:.2f} ms on the "
           f"host clock (median of {[round(w, 2) for w in walls]}), device "
           + (f"busy {busy:.2f} ms ({100 * busy / wall:.1f} %) under the "
-             "profiler" if busy > 0 else "time not measured (the profiler "
-             "saw no device activity)"))
+             f"profiler, ssd_chunk {ssd_prefill_ms:.3f} ms of it in "
+             f"{sum(n for _, n in ssd_in_prefill)} launches" if busy > 0
+             else "time not measured (the profiler saw no device "
+             "activity)"))
     for name, ms, n in kernels_ms[:8]:
         print(f"    {ms:8.3f} ms  {n:5d}x  {name[:90]}")
     runs["ssm_full_recompute"]["profiled_prefill"] = {
         "tokens": prompt.total_len, "wall_ms": wall,
         "device_busy_ms": busy if busy > 0 else None,
+        "ssd_chunk_device_ms": ssd_prefill_ms if busy > 0 else None,
         "top_kernels": [[name[:90], ms, n] for name, ms, n in kernels_ms[:8]]}
     del prof
     torch.cuda.empty_cache()
@@ -847,15 +882,23 @@ def main() -> int:
                      if ks is not None else 0))
         flops = 4 * dh * hq * int(n_keys.sum())
         bound_ms, bound_by = bound(nbytes, flops, q.dtype)
+        def kernel():
+            return selective_attention_paged(q, k, v, pt, q_pos, lens,
+                                             k_scale=ks, v_scale=vs,
+                                             window=window)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kg, vg,
+                                                  attn_mask=mask[:, None])
+
         results[name] = {
             **check, "bound_ms": bound_ms, "bound_by": bound_by,
-            "ms": events_ms(lambda: selective_attention_paged(
-                q, k, v, pt, q_pos, lens, k_scale=ks, v_scale=vs,
-                window=window), 20),
+            "ms": events_ms(kernel, 20),
             "plain_ms": events_ms(lambda: selective_attention_paged_ref(
                 qt, k, v, pt, q_pos, lens, ks, vs, window=window), 5),
-            "library_ms": events_ms(lambda: F.scaled_dot_product_attention(
-                qt, kg, vg, attn_mask=mask[:, None]), 20),
+            "library_ms": events_ms(library, 20),
+            "device_ms": device_ms(kernel, 20),
+            "library_device_ms": device_ms(library, 20),
             "shape": f"q {tuple(q.shape)} bf16 ({n_sel} selected), "
                      f"pool layer 0 "
                      f"{k.dtype}, page table {tuple(pt.shape)}, length "
@@ -864,7 +907,9 @@ def main() -> int:
     for name, r in results.items():
         print(f"  {name}: main path max |err| {r['max_abs_err']:.3e}, "
               f"max |ref| {r['max_abs_ref']:.3e}, err/limit "
-              f"{r['worst']:.3f}")
+              f"{r['worst']:.3f}; device {r['device_ms']} ms a call"
+              + (f" (SDPA {r['library_device_ms']})"
+                 if "library_device_ms" in r else ""))
 
     # synthetic shape: GQA group 4 with a window that bites, a ragged query
     # count, an idle row and scratch-padded page tables; fp32 q (the
@@ -983,21 +1028,6 @@ def main() -> int:
         if window > 0:
             m &= kp > qp - window
         return m
-
-    def device_ms(fn, iters):
-        """Device time of one call: every device activity of ``iters``
-        back-to-back calls under torch.profiler, summed, over ``iters``
-        (None when the profiler saw none)."""
-        fn()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        _, busy = device_kernels(prof)
-        return busy / iters if busy > 0 else None
 
     def dense_case(q, k, v, q_pos, kv_pos, window, timed=True):
         before = dict(sel_ops.SEL_ATTN.route_launches)
@@ -1131,15 +1161,18 @@ def main() -> int:
         if d == dh and arg in (2048, 1):
             results["sel_attn"].setdefault("resources", {})[fn] = res
 
-    # SSD chunk: the layer-0 inputs captured from a live mamba2 prefill,
-    # then synthetic shapes
+    # SSD chunk: the layer-0 inputs captured from live mamba2 prefills (the
+    # dialogues' 21 chunks, the text request's 6), then synthetic shapes
     def ssd_case(args, timed=False):
+        before = dict(ssd_ops.SSD_CHUNK.route_launches)
         out = ssd_chunk(*args)
+        route, = [r for r, n in ssd_ops.SSD_CHUNK.route_launches.items()
+                  if n != before.get(r, 0)]
         checks = [compare(o, r, limit=ssd_limit)
                   for o, r in zip(out, ssd_chunk_ref(*args))]
         res = {"max_abs_err": max(c["max_abs_err"] for c in checks),
                "max_abs_ref": max(c["max_abs_ref"] for c in checks),
-               "worst": max(c["worst"] for c in checks)}
+               "worst": max(c["worst"] for c in checks), "route": route}
         if not all(bool(torch.isfinite(o).all()) for o in out):
             res["worst"] = float("inf")
         if not timed:
@@ -1157,16 +1190,33 @@ def main() -> int:
         flops = b * nc * (2 * ds * pairs
                           + h * (2 * hd * pairs + 4 * pairs + 2 * ds * q * hd))
         bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+
+        def kernel():
+            return ssd_chunk(*args)
+
+        def cuda_cores():   # the first port's kernel
+            return ssd_ops.launch_route(ssd_ops.CUDA_CORES, *args)
+
         res.update(
             bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
-            ms=events_ms(lambda: ssd_chunk(*args), 50),
+            heads_per_block=ssd_ops.plan_head_groups(
+                b, nc, h, torch.cuda.get_device_properties(
+                    dev).multi_processor_count)
+            if route == ssd_ops.TENSOR_CORES else 1,
+            ms=events_ms(kernel, 50),
             plain_ms=events_ms(lambda: ssd_chunk_ref(*args), 10),
             library_ms=None,
+            device_ms=device_ms(kernel, 20),
+            cuda_cores_ms=events_ms(cuda_cores, 50),
+            cuda_cores_device_ms=device_ms(cuda_cores, 20),
             shape=f"x {tuple(x.shape)} (B, NC, H, Q, hd) read through the "
                   f"model's layout, bm/cm {tuple(bm.shape)}, fp32")
         return res
 
-    ssd = {"live": ssd_case(ssd_live.pop("args"), timed=True)}
+    live_nc, text_nc = max(ssd_live), min(ssd_live)
+    ssd = {"live": ssd_case(ssd_live[live_nc], timed=True),
+           "text": ssd_case(ssd_live[text_nc], timed=True)}
+    del ssd_live
 
     def ssd_inputs(b, nc, h, q, hd, ds, dt_hi=0.2):
         return (randn(b, nc, h, q, hd, dtype=torch.float32),
@@ -1190,21 +1240,57 @@ def main() -> int:
     for name, r in ssd.items():
         if not r["worst"] <= 1.0:
             raise RuntimeError(f"ssd_chunk: error at {name}: {r}")
-        timing = (f"; {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
-                  f"{r['bound_ms']:.4f} by {r['bound_by']})"
+        timing = (f"; {r['ms']:.4f} ms (device {r['device_ms']}, G "
+                  f"{r['heads_per_block']}; the CUDA-core route: "
+                  f"{r['cuda_cores_ms']:.4f}, device "
+                  f"{r['cuda_cores_device_ms']}; plain {r['plain_ms']:.4f}, "
+                  f"bound {r['bound_ms']:.4f} by {r['bound_by']})"
                   if "ms" in r else "")
-        print(f"  ssd_chunk {name}: max |err| {r['max_abs_err']:.3e}, max "
-              f"|ref| {r['max_abs_ref']:.3e}, err/limit "
-              f"{r['worst']:.3f}{timing}; {r.get('shape', '')}")
-    live = ssd["live"]
+        print(f"  ssd_chunk {name} via {r['route']}: max |err| "
+              f"{r['max_abs_err']:.3e}, max |ref| {r['max_abs_ref']:.3e}, "
+              f"err/limit {r['worst']:.3f}{timing}; {r.get('shape', '')}")
+    for name in ("live", "text"):
+        if ssd[name]["route"] != ssd_ops.TENSOR_CORES:
+            raise RuntimeError(f"ssd_chunk: the {name} shape took "
+                               f"{ssd[name]['route']}")
+    # every SSD instantiation, as the card reports it (local memory is what
+    # spills, 0 when nothing does): the tensor-core kernel at Q 32, 64 and
+    # 128, the CUDA-core kernel at each of its register tiles
+    ssd_instances = ([(ssd_ops.TENSOR_CORES, q, 64, 128, f"ssd_chunk_mma_"
+                       f"kernel<{q}>") for q in ssd_ops.MMA_Q]
+                     + [(ssd_ops.CUDA_CORES, q, d, st, f"ssd_chunk_kernel<"
+                         f"{uv}> (Q {q}, hd {d}, ds {st})")
+                        for uv, q, d, st in ((1, 8, 16, 8), (2, 64, 64, 128),
+                                             (4, 128, 128, 128))])
+    for route, q, d, st, fn in ssd_instances:
+        res = ssd_ops.ssd_resources(route, q, d, st)
+        print(f"  {fn}: {res['registers']} registers, {res['local_bytes']} "
+              f"bytes local memory, {res['static_smem_bytes']} + "
+              f"{res['smem_bytes']} bytes static + dynamic smem, "
+              f"{res['blocks_per_sm']} blocks of {res['threads']} threads "
+              "per SM")
+        if res["local_bytes"] != 0:
+            raise RuntimeError(f"{fn} spills: {res}")
+        ssd.setdefault("instantiations", []).append({"kernel": fn, **res})
+    instances = ssd.pop("instantiations")
+    live, text = ssd["live"], ssd["text"]
     results["ssd_chunk"] = {
         **{key: live[key] for key in ("ms", "plain_ms", "library_ms",
-                                      "bound_ms", "bound_by", "shape")},
-        "max_abs_err": live["max_abs_err"],
-        "max_abs_ref": live["max_abs_ref"],
+                                      "bound_ms", "bound_by", "shape",
+                                      "device_ms", "cuda_cores_ms",
+                                      "cuda_cores_device_ms",
+                                      "heads_per_block")},
+        "max_abs_err": max(live["max_abs_err"], text["max_abs_err"]),
+        "max_abs_ref": max(live["max_abs_ref"], text["max_abs_ref"]),
         "worst": max(r["worst"] for r in ssd.values()),
         "synthetic_err": max(r["max_abs_err"] for n, r in ssd.items()
-                             if n != "live"),
+                             if n.startswith("synthetic")),
+        "device_ms_by_shape": {n: ssd[n]["device_ms"]
+                               for n in ("live", "text")},
+        "route_by_shape": {n: r["route"] for n, r in ssd.items()},
+        "resources": next(i for i in instances
+                          if i["kernel"] == "ssd_chunk_mma_kernel<64>"),
+        "instantiations": instances,
         "cases": ssd}
     torch.cuda.synchronize()
     phase("kernels", t0)
@@ -1334,8 +1420,11 @@ def main() -> int:
                                        "synthetic_err_over_limit",
                                        "resources", "instantiations",
                                        "device_ms", "device_ms_by_shape",
+                                       "library_device_ms",
                                        "library_device_ms_by_shape",
-                                       "route_by_shape",
+                                       "route_by_shape", "heads_per_block",
+                                       "cuda_cores_ms",
+                                       "cuda_cores_device_ms",
                                        "profiled_decode_step")
                if key in r},
             "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -34,7 +34,9 @@ chunks of a dense cache with positions in any order
 The SSD chunk limit (``1e-4 + 1e-4 * |ref|``) at mamba2's chunk shape: a
 float64 evaluation of the same sums passes at 0.03 of the limit; a kernel
 that drops the diagonal or key 0, decays one step short or leaves the last
-step out of the chunk state fails by more than 1000x.
+step out of the chunk state fails by more than 1000x.  Why its tensor-core
+route runs three TF32 products per fp32 product: TF32 rounding emulated on
+the CPU, one product misses the limit ~45x, three stay at ~0.04 of it.
 """
 import math
 
@@ -204,22 +206,85 @@ def test_ssd_limit_separates_faults_from_rounding(fault):
     """At mamba2's chunk shape (Q 64, hd 64, ds 128) and the JAX package's
     test distributions, a float64 evaluation of the same sums passes the
     SSD limit; each fault fails it on some output by a wide margin."""
-    from repro_torch.kernels.check import ssd_limit
-    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
-
-    g = torch.Generator().manual_seed(3)
-    b, nc, h, q, hd, ds = 1, 4, 4, 64, 64, 128
-    args = (torch.randn((b, nc, h, q, hd), generator=g),
-            torch.randn((b, nc, q, ds), generator=g),
-            torch.randn((b, nc, q, ds), generator=g),
-            -(0.01 + 0.39 * torch.rand((b, nc, h, q), generator=g)),
-            0.01 + 0.19 * torch.rand((b, nc, h, q), generator=g))
-    worst = max(compare(o, r, limit=ssd_limit)["worst"]
-                for o, r in zip(_ssd_f64(*args, fault), ssd_chunk_ref(*args)))
+    args = _ssd_limit_inputs()
+    worst = _ssd_worst(_ssd_f64(*args, fault), args)
     if fault is None:
         assert worst <= 0.5
     else:
         assert worst > 100.0
+
+
+def _ssd_limit_inputs():
+    """mamba2's chunk shape (Q 64, hd 64, ds 128), four chunks of four
+    heads, the JAX package's test distributions."""
+    g = torch.Generator().manual_seed(3)
+    b, nc, h, q, hd, ds = 1, 4, 4, 64, 64, 128
+    return (torch.randn((b, nc, h, q, hd), generator=g),
+            torch.randn((b, nc, q, ds), generator=g),
+            torch.randn((b, nc, q, ds), generator=g),
+            -(0.01 + 0.39 * torch.rand((b, nc, h, q), generator=g)),
+            0.01 + 0.19 * torch.rand((b, nc, h, q), generator=g))
+
+
+def _ssd_worst(outs, args):
+    """The largest err/limit of ``outs`` against the plain version."""
+    from repro_torch.kernels.check import ssd_limit
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
+
+    return max(compare(o, r, limit=ssd_limit)["worst"]
+               for o, r in zip(outs, ssd_chunk_ref(*args)))
+
+
+# The tensor-core route of the SSD chunk kernel runs its three products on
+# TF32 operands (10 mantissa bits).  Emulated here on the int32 view
+# (cvt.rna: round to nearest, ties away from zero): one TF32 product per
+# fp32 product misses the SSD limit many times over; three (hi.hi + hi.lo
+# + lo.hi with hi = tf32(a), lo = tf32(a - hi), the small terms summed
+# apart and added last) stay far inside it.  It guards the kernel's three
+# passes, and the limit against being loosened to fit one.
+def _tf32(t):
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    """a @ b with each operand rounded to TF32 (one pass) or split in two
+    TF32 halves (three passes); products exact, sums in fp32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    big = a_hi @ b_hi
+    if passes == 1:
+        return big
+    small = a_hi @ _tf32(b - b_hi) + _tf32(a - a_hi) @ b_hi
+    return big + small
+
+
+def _ssd_tf32(x, bm, cm, la, dt, passes):
+    """The SSD chunk step as the tensor-core route computes it: C.B^T, then
+    S = C.B^T exp(cum_q - cum_k) dt_k (k > q selected away) and the weights
+    B w in fp32, each product on TF32 operands."""
+    q = x.shape[-2]
+    cum = torch.cumsum(la, dim=-1)
+    keep = torch.ones((q, q), dtype=torch.bool).tril()
+    cb = _tf32_matmul(cm, bm.transpose(-1, -2), passes)      # (B,NC,Q,Q)
+    diff = torch.where(keep, cum[..., :, None] - cum[..., None, :], 0.0)
+    scores = torch.where(keep, cb[:, :, None] * torch.exp(diff)
+                         * dt[..., None, :], 0.0)
+    y = _tf32_matmul(scores, x, passes)
+    total = cum[..., -1]
+    wgt = torch.exp(total[..., None] - cum) * dt              # (B,NC,H,Q)
+    bw = (bm[:, :, None] * wgt[..., None]).transpose(-1, -2)  # (B,NC,H,ds,Q)
+    s = _tf32_matmul(bw, x, passes)
+    return y, s, torch.exp(total)
+
+
+@pytest.mark.parametrize("passes", [1, 3], ids=["one_pass", "three_pass"])
+def test_ssd_limit_needs_three_tf32_products(passes):
+    args = _ssd_limit_inputs()
+    worst = _ssd_worst(_ssd_tf32(*args, passes), args)
+    if passes == 1:
+        assert worst > 4.0, worst
+    else:
+        assert worst <= 0.5, worst
 
 
 # The bf16 paged prefill kernel's P.V on the tensor cores takes P in 16

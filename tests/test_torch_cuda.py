@@ -38,11 +38,15 @@ tokens, in slot order and shuffled; the route boundary (16 and 17 rows per
 kv head) from both sides; and slot-order invariance on every route.
 
 The SSD chunk kernel (``ssd_chunk``) runs at the four shapes of
-``tests/test_ssd_kernel.py``, at Q = ds = 128 (its largest chunk), with
+``tests/test_ssd_kernel.py``, at mamba2-130m's live prefill (21 chunks of
+24 heads) and 333-token request (6 chunks), at Q = ds = 128 (its largest
+chunk), with 7 heads in groups of 3 (the last block holds one head), with
 ``dt = 0`` pad rows, with a large ``dt`` (its masked exponents overflow:
 no NaN may leak) and on the model's layout read through permuted views;
-fp32, held per element to ``1e-4 + 1e-4 * |ref|``
-(``repro_torch.kernels.check.ssd_limit``).
+each on both routes where the tensor cores take the shape (Q 32/64/128,
+hd 64, ds 128; ``ssd_chunk.ops.ssd_route``), each call checked to have
+counted one launch of its route.  fp32, held per element to ``1e-4 + 1e-4
+* |ref|`` (``repro_torch.kernels.check.ssd_limit``).
 """
 import pytest
 import torch
@@ -64,6 +68,7 @@ from repro_torch.kernels.selective_attn.ref import (
     selective_attention_paged_ref,
     selective_attention_ref,
 )
+from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 from repro_torch.kernels.ssd_chunk.ops import ssd_chunk
 from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
 
@@ -442,14 +447,22 @@ def _ssd_inputs(dev, b, nc, h, q, hd, ds, seed, dt_hi=0.2):
             0.01 + (dt_hi - 0.01) * rand(b, nc, h, q))
 
 
-def _ssd_check(args, views=None):
-    """One launch on ``views`` (default ``args``), held per element to the
-    plain version on ``args``."""
+def _ssd_check(args, route, views=None):
+    """One launch of ``route`` on ``views`` (default ``args``): through the
+    wrapper where the route is its choice for the shape, else launched by
+    name; held per element to the plain version on ``args``."""
+    ins = views or args
     kern = KERNELS["ssd_chunk"]
     before = kern.launches
-    out = ssd_chunk(*(views or args))
+    before_route = kern.route_launches.get(route, 0)
+    if ssd_ops.ssd_route(ins[0].shape[3], ins[0].shape[4],
+                         ins[1].shape[3]) == route:
+        out = ssd_chunk(*ins)
+    else:
+        out = ssd_ops.launch_route(route, *ins)
     torch.cuda.synchronize()
     assert kern.launches == before + 1
+    assert kern.route_launches.get(route, 0) == before_route + 1
     for o, r in zip(out, ssd_chunk_ref(*args)):
         assert bool(torch.isfinite(o).all())
         res = compare(o, r, limit=ssd_limit)
@@ -458,29 +471,50 @@ def _ssd_check(args, views=None):
 
 SSD_SHAPES = [(1, 2, 2, 8, 16, 8), (2, 3, 4, 16, 32, 16),
               (1, 4, 3, 32, 64, 128), (2, 2, 5, 64, 64, 16),
-              (1, 21, 24, 64, 64, 128), (1, 3, 2, 128, 64, 128)]
+              (1, 21, 24, 64, 64, 128), (1, 6, 24, 64, 64, 128),
+              (1, 3, 2, 128, 64, 128)]
+SSD_ROUTES = (ssd_ops.TENSOR_CORES, ssd_ops.CUDA_CORES)
+# every shape on the CUDA cores, and on the tensor cores where they take it
+SSD_CASES = [(route, shape) for shape in SSD_SHAPES for route in SSD_ROUTES
+             if route == ssd_ops.CUDA_CORES
+             or ssd_ops.ssd_route(*shape[3:]) == route]
 
 
-@pytest.mark.parametrize("shape", SSD_SHAPES, ids=[str(s) for s in SSD_SHAPES])
-def test_ssd_chunk_kernel(dev, shape):
-    _ssd_check(_ssd_inputs(dev, *shape, seed=7))
+@pytest.mark.parametrize("route,shape", SSD_CASES,
+                         ids=[f"{r}-{s}" for r, s in SSD_CASES])
+def test_ssd_chunk_kernel(dev, route, shape):
+    _ssd_check(_ssd_inputs(dev, *shape, seed=7), route)
 
 
-def test_ssd_chunk_kernel_pad_rows_and_large_dt(dev):
+def test_ssd_chunk_kernel_heads_not_divisible_by_group(dev):
+    """(1, 40, 7): the planner groups the 7 heads of a chunk in threes on an
+    H100 (120 blocks), so the last block of each chunk holds one head."""
+    b, nc, h = 1, 40, 7
+    g = ssd_ops.plan_head_groups(
+        b, nc, h, torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert h % g != 0
+    _ssd_check(_ssd_inputs(dev, b, nc, h, 64, 64, 128, seed=12),
+               ssd_ops.TENSOR_CORES)
+
+
+@pytest.mark.parametrize("route", SSD_ROUTES)
+def test_ssd_chunk_kernel_pad_rows_and_large_dt(dev, route):
     x, bm, cm, la, dt = _ssd_inputs(dev, 1, 3, 4, 64, 64, 128, seed=8)
     la[:, -1, :, 29:] = 0.0                 # the last chunk's pad steps
     dt[:, -1, :, 29:] = 0.0
-    _ssd_check((x, bm, cm, la, dt))
+    _ssd_check((x, bm, cm, la, dt), route)
     # masked exponents overflow here (exp(60 * 63)); only a select keeps
     # them out of the sums
     _ssd_check((x, bm, cm, torch.full_like(la, -60.0),
-                torch.full_like(dt, 4.0)))
+                torch.full_like(dt, 4.0)), route)
 
 
-def test_ssd_chunk_kernel_reads_the_model_layout(dev):
+@pytest.mark.parametrize("route,ds", [(ssd_ops.TENSOR_CORES, 128),
+                                      (ssd_ops.CUDA_CORES, 32)])
+def test_ssd_chunk_kernel_reads_the_model_layout(dev, route, ds):
     """x (B, NC, Q, H, hd), la/dt (B, NC, Q, H) and bm/cm cut from one
     (B, T, 2 ds) projection, passed as views, as ``ssd_chunked`` does."""
-    b, nc, h, q, hd, ds = 2, 3, 4, 64, 64, 32
+    b, nc, h, q, hd = 2, 3, 4, 64, 64
     g = torch.Generator(device=dev).manual_seed(9)
     x = torch.randn((b, nc, q, h, hd), generator=g, device=dev)
     bc = torch.randn((b, nc * q, 2 * ds), generator=g, device=dev)
@@ -490,7 +524,8 @@ def test_ssd_chunk_kernel_reads_the_model_layout(dev):
     views = (x.permute(0, 1, 3, 2, 4), bm, cm, la.permute(0, 1, 3, 2),
              dt.permute(0, 1, 3, 2))
     assert not views[0].is_contiguous() and not bm.is_contiguous()
-    _ssd_check(tuple(t.contiguous() for t in views), views=views)
+    assert ssd_ops.ssd_route(q, hd, ds) == route
+    _ssd_check(tuple(t.contiguous() for t in views), route, views=views)
 
 
 def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(dev):
@@ -502,3 +537,8 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(dev):
     big = _ssd_inputs(dev, 1, 1, 1, 256, 32, 16, seed=11)
     with pytest.raises(ValueError, match="chunk length"):
         ssd_chunk(*big)                                           # Q > 128
+    # the tensor cores copy 16-byte vectors: a row 4 bytes off raises
+    x, bm, cm, la, dt = _ssd_inputs(dev, 1, 2, 2, 64, 64, 128, seed=13)
+    xm = torch.randn((1, 2, 2, 64, 65), device=dev)[..., 1:]
+    with pytest.raises(ValueError, match="aligned"):
+        ssd_chunk(xm, bm, cm, la, dt)
