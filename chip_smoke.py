@@ -35,6 +35,22 @@ timed on its own line:
    (phase 3's dialogues on a fresh engine, all four slots decoding): three
    on the host clock, one under the profiler (device busy time, the
    decode kernels' device time per call, the top kernels);
+5c. phase 3's traffic with its media KV on local disk: the static and
+   dynamic libraries spool every block to a temporary directory (removed
+   at the end; its free space is printed first) right after its upload,
+   so every request's media comes back through the parallel loader.  Four
+   runs: a memory-only control on a bf16 pool, then from disk a bf16 pool
+   pipelined, the same sequential (``pipelined=False``), and an int8 pool
+   fed from a ``quantize=True`` library.  Gates: the disk runs' every
+   media lookup is a verified disk hit and the bytes on the card hash to
+   their keys; the int8 run links every block from its int8 bytes
+   (``direct_links``, no dequantization); the bf16 disk runs give the
+   control's greedy tokens and first-token logits within 1e-3; the
+   prefill, decode and dense kernels of each pool launched.  Printed per
+   run: the upload time (spooling included), each request's load busy,
+   blocked, compute and overlap ms, TTFT, prefill alone, the decode step
+   (and over the steps with a load in flight), and the disk's bytes read
+   and the share of read time spent on SHA-1;
 6. each kernel against its plain PyTorch version on the state phases 3-5b
    left (layer 0 of the live pool or the captured dense-attention and SSD
    inputs) and on synthetic shapes (32 query heads on 8 kv heads, window
@@ -58,9 +74,11 @@ timed on its own line:
    (``repro_torch/kernels/check.py``): one bf16 ulp of the value for bf16
    outputs, 1e-4 for fp32 ones, 1e-4 + 1e-4 |ref| for the SSD chunk;
 7. a small fp32 model served by the same engine on the card and on the CPU
-   (plain versions) under every policy and on the dense cache, and the
-   small fp32 mamba2 under ``full_recompute`` and ``mpic``: same greedy
-   tokens, first-token logits within 1e-3.
+   (plain versions) under every policy and on the dense cache, and under
+   ``mpic`` with its media on disk and pipelined admission on both pools,
+   and the small fp32 mamba2 under ``full_recompute`` and ``mpic``: same
+   greedy tokens, first-token logits within 1e-3 (the int8 pool with its
+   media in memory: within 5e-2, tokens printed).
 
 During the serving phases the plain versions and ``layers.attend`` raise
 if called.  Each serving run resets the kernels' launch counts (and the
@@ -78,8 +96,11 @@ import copy
 import dataclasses
 import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -128,6 +149,14 @@ POLICY_RUNS = [
     ("cacheblend_int8", "cacheblend", {"r": 0.15}, "int8", True),
     ("full_recompute_int8", "full_recompute", {}, "int8", True),
 ]
+# (name, pool dtype, library quantize, pipelined, media spooled to disk) of
+# the phase-5c runs; the memory-only control first
+DISK_RUNS = [
+    ("memory_bf16", "", False, True, False),
+    ("disk_bf16", "", False, True, True),
+    ("disk_bf16_sequential", "", False, False, True),
+    ("disk_int8", "int8", True, True, True),
+]
 
 
 def phase(name: str, t0: float) -> None:
@@ -155,6 +184,7 @@ def main() -> int:
     import repro_torch.models.layers as layers
     import repro_torch.models.ssm as ssm_mod
     import repro_torch.models.transformer as tf
+    from repro_torch.cache import KVLibrary, content_key
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import Prompt, text_segment
     from repro_torch.core.policies import full_recompute
@@ -306,10 +336,10 @@ def main() -> int:
         step_name = "_decode_paged_step" if paged else "_decode_dense_step"
         decode_step = getattr(eng, step_name)
 
-        def checked_finalize(req, result):
+        def checked_finalize(req, result, *rest):
             if not np.isfinite(result.first_logits).all():
                 nonfinite.append(f"first logits of {req.req_id}")
-            return finalize(req, result)
+            return finalize(req, result, *rest)
 
         def checked_decode(live):
             out = decode_step(live)
@@ -399,6 +429,7 @@ def main() -> int:
             "upload_s": upload_s, "launches": launches,
             "sel_attn_routes": routes}
         # the wrapped methods make a cycle through the engine and its pool
+        eng.close()
         del eng, finalize, decode_step, checked_finalize, checked_decode
         gc.collect()
         torch.cuda.empty_cache()
@@ -520,10 +551,10 @@ def main() -> int:
         nonfinite = []
         finalize, decode_step = eng._finalize_prefill, eng._decode_dense_step
 
-        def checked_finalize(req, result):
+        def checked_finalize(req, result, *rest):
             if not np.isfinite(result.first_logits).all():
                 nonfinite.append(f"first logits of {req.req_id}")
-            return finalize(req, result)
+            return finalize(req, result, *rest)
 
         def checked_decode(live):
             logits = decode_step(live)
@@ -593,6 +624,7 @@ def main() -> int:
             "mean_recomputed": float(np.mean(
                 [r.prefill_stats["n_recomputed"] for r in reqs])),
             "launches": launches, "ssd_chunk_routes": routes}
+        eng.close()
         del eng, finalize, decode_step, checked_finalize, checked_decode
         gc.collect()
 
@@ -710,6 +742,7 @@ def main() -> int:
                 eng.step()
                 torch.cuda.synchronize()
             eng.run()
+        eng.close()
         if not all(r.done for r in reqs):
             raise RuntimeError(f"decode profile: {[r.error for r in reqs]}")
         kernels_ms, busy = device_kernels(prof)
@@ -743,6 +776,191 @@ def main() -> int:
     decode_profiles = {"paged_attn": profile_decode(""),
                        "paged_attn_q8": profile_decode("int8")}
     phase("decode_profile", t0)
+
+    # -- 5c. media KV on local disk, loaded in parallel with recompute -----
+    # phase 3's traffic once more, with the static and dynamic libraries
+    # spooling every block to a temporary directory right after its upload,
+    # so that each request's media comes back from disk through the loader
+    t0 = time.perf_counter()
+    spool_root = tempfile.mkdtemp(prefix="mpic_smoke_spool_")
+    print(f"spool directory {spool_root}: "
+          f"{shutil.disk_usage(spool_root).free / 2**30:.1f} GiB free")
+
+    def serve_disk(label, pool_dtype, quantize, pipelined, on_disk):
+        def library(name, **kw):
+            where = os.path.join(spool_root, label, name) if on_disk else None
+            return KVLibrary(spool_dir=where, quantize=quantize, **kw)
+
+        static, dynamic = library("static"), library("dynamic", shared=True)
+        eng = MPICEngine(model, params, EngineConfig(
+            max_seq_len=2048, decode_slots=4, page_size=16,
+            pool_dtype=pool_dtype, pipelined=pipelined),
+            static_library=static, dynamic_library=dynamic)
+        samples = make_dialogues(n=4, n_images=2, d_model=cfg.d_model,
+                                 media_len=cfg.media_token_len, style="mmdu")
+        rag = image_embeds("rag-0", cfg.media_token_len, cfg.d_model)
+        firsts, decode_windows = {}, []
+        finalize, decode_step = eng._finalize_prefill, eng._decode_paged_step
+
+        def recording_finalize(req, result, *rest):
+            firsts[req.req_id] = result.first_logits
+            return finalize(req, result, *rest)
+
+        def timed_decode(live):
+            t = time.perf_counter()
+            out = decode_step(live)
+            decode_windows.append((t, time.perf_counter()))
+            return out
+
+        eng._finalize_prefill = recording_finalize
+        eng._decode_paged_step = timed_decode
+        with no_plain_versions():
+            _build.reset_launches(KERNELS.values())     # the main path only
+            t_up = time.perf_counter()
+            for s in samples:
+                for _, seg in s.prompt.media_segments():
+                    eng.upload(s.prompt.user_id, seg.media_id, seg.embeds)
+                    if on_disk and not static.spool_now(s.prompt.user_id,
+                                                        seg.media_id):
+                        raise RuntimeError(f"{label}: {seg.media_id} did "
+                                           "not spool")
+            eng.upload("*", "rag-0", rag, dynamic=True)
+            if on_disk and not dynamic.spool_now("*", "rag-0"):
+                raise RuntimeError(f"{label}: rag-0 did not spool")
+            torch.cuda.synchronize()
+            upload_s = time.perf_counter() - t_up
+            reqs = [Request(prompt=s.prompt, max_new_tokens=MAX_NEW,
+                            policy="mpic", policy_kwargs={"k": K_MPIC})
+                    for s in samples]
+            reqs[-1].retrieval_query = rag.mean(0)
+            t_serve = time.perf_counter()
+            for r in reqs:
+                eng.submit(r)
+            steps = 0
+            while eng.queue or any(eng.running):
+                eng.step()
+                steps += 1
+                if steps > 10 * MAX_NEW * len(reqs):
+                    raise RuntimeError("engine made no progress")
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t_serve
+            launches = {k: v.launches for k, v in KERNELS.items()}
+            loads = [iv for h in eng.scheduler._recent_handles
+                     for iv in h.intervals()]
+        eng.close()
+        for r in reqs:
+            if not r.done or len(r.output_tokens) != MAX_NEW:
+                raise RuntimeError(f"{label}: {r.req_id} did not finish: "
+                                   f"{r.state} {r.error}")
+            if not np.isfinite(firsts[r.req_id]).all():
+                raise RuntimeError(f"{label}: non-finite first logits")
+        if "rag-0" not in reqs[-1].linked_media:
+            raise RuntimeError(f"{label}: MRAG did not link its image")
+        placed = sum(len(r.prompt.media_segments()) for r in reqs)
+        st, dst = static.stats(), dynamic.stats()
+        disk = st["tiers"]["disk"]
+        if on_disk:
+            # every media lookup was a verified disk read, and the bytes on
+            # the card hash to the keys they were stored under
+            if (disk["hits"], disk["corrupt"], st["misses"]) != (placed, 0, 0):
+                raise RuntimeError(f"{label}: disk hits {disk['hits']} of "
+                                   f"{placed} placed, corrupt "
+                                   f"{disk['corrupt']}, misses {st['misses']}")
+            if dst["tiers"]["disk"]["hits"] != 1:
+                raise RuntimeError(f"{label}: rag-0 not read from disk")
+            for key, e in static._entries.items():
+                if content_key(e.payload, key) != e.meta.key:
+                    raise RuntimeError(f"{label}: {key} changed on its way "
+                                       "back from disk")
+        if quantize and (st["direct_links"], st["dequants"],
+                         dst["direct_links"]) != (placed, 0, 1):
+            raise RuntimeError(f"{label}: direct links {st['direct_links']} "
+                               f"of {placed}, dequants {st['dequants']}, "
+                               f"MRAG {dst['direct_links']}")
+        if eng.loader.load_failures:
+            raise RuntimeError(f"{label}: {eng.loader.load_failures} failed "
+                               "loads")
+        prefill_name = "sel_attn_paged_q8" if pool_dtype else "sel_attn_paged"
+        decode_name = "paged_attn_q8" if pool_dtype else "paged_attn"
+        for name in ("sel_attn", prefill_name, decode_name):
+            if launches[name] <= 0:
+                raise RuntimeError(f"{label}: {name} never launched")
+        rep = eng.report()
+        sched = rep["scheduler"]
+        busy = [any(a < d and c < b for c, d in loads)
+                for a, b in decode_windows]
+        steps_ms = np.asarray([(b - a) * 1e3 for a, b in decode_windows])
+        in_flight = steps_ms[np.asarray(busy, bool)]
+        per_req = {key: [round(getattr(r, key) * 1e3, 2) for r in reqs]
+                   for key in ("load_s", "load_blocked_s", "compute_s",
+                               "overlap_s")}
+        verify_share = (disk["verify_s"] / disk["fetch_s"]
+                        if disk["fetch_s"] else None)
+        print(f"  {label}: uploads {upload_s * 1e3:.1f} ms for 9 images"
+              f"{' (spool included)' if on_disk else ''}; served in "
+              f"{serve_s:.3f} s ({steps} steps)")
+        print(f"    per request, ms: load busy {per_req['load_s']}, "
+              f"blocked {per_req['load_blocked_s']}, compute "
+              f"{per_req['compute_s']}, overlap {per_req['overlap_s']}")
+        print(f"    TTFT mean {rep['mean_ttft_s'] * 1e3:.2f} ms (p90 "
+              f"{rep['p90_ttft_s'] * 1e3:.2f}), prefill alone "
+              f"{rep['mean_prefill_s'] * 1e3:.2f} ms; decode step mean "
+              f"{steps_ms.mean():.2f} ms over {len(steps_ms)} steps, "
+              + (f"{in_flight.mean():.2f} ms over the {len(in_flight)} with "
+                 "a load in flight" if len(in_flight) else
+                 "none with a load in flight"))
+        print(f"    disk: {disk['bytes_read'] / 2**20:.1f} MiB read in "
+              f"{disk['fetches']} blocks, {disk['fetch_s'] * 1e3:.1f} ms of "
+              f"reads, SHA-1 {disk['verify_s'] * 1e3:.1f} ms of them "
+              f"({'-' if verify_share is None else f'{verify_share:.1%}'})"
+              f", then {disk['copy_s'] * 1e3:.1f} ms staging and copying "
+              f"to the card; direct links {st['direct_links']}, dequants "
+              f"{st['dequants']}; launches {launches}", flush=True)
+        runs[label] = {
+            "policy": "mpic", "pool": pool_dtype or "bf16", "paged": True,
+            "library": ("disk" if on_disk else "memory")
+            + (", int8" if quantize else ""), "pipelined": pipelined,
+            "upload_ms": upload_s * 1e3,
+            "mean_ttft_ms": rep["mean_ttft_s"] * 1e3,
+            "p90_ttft_ms": rep["p90_ttft_s"] * 1e3,
+            "mean_prefill_ms": rep["mean_prefill_s"] * 1e3,
+            "mean_decode_step_ms": float(steps_ms.mean()),
+            "decode_step_ms_loads_in_flight": (
+                float(in_flight.mean()) if len(in_flight) else None),
+            "decode_steps_loads_in_flight": int(len(in_flight)),
+            "per_request_ms": per_req,
+            "scheduler": sched, "disk": disk,
+            "disk_verify_share": verify_share,
+            "direct_links": st["direct_links"], "dequants": st["dequants"],
+            "launches": launches}
+        tokens = [r.output_tokens for r in reqs]
+        first = np.stack([firsts[r.req_id] for r in reqs])
+        del eng, finalize, decode_step, recording_finalize, timed_decode
+        del static, dynamic
+        gc.collect()
+        torch.cuda.empty_cache()
+        return tokens, first
+
+    try:
+        disk_out = {}
+        for label, pool_dtype, quantize, pipelined, on_disk in DISK_RUNS:
+            print(f"serve from disk: {label} ({pool_dtype or 'bf16'} pool, "
+                  f"{'disk' if on_disk else 'memory'} library"
+                  f"{', int8' if quantize else ''}, "
+                  f"pipelined={pipelined}):")
+            disk_out[label] = serve_disk(label, pool_dtype, quantize,
+                                         pipelined, on_disk)
+    finally:
+        shutil.rmtree(spool_root, ignore_errors=True)
+    control_tokens, control_first = disk_out["memory_bf16"]
+    for label in ("disk_bf16", "disk_bf16_sequential"):
+        tokens, first = disk_out[label]
+        diff = float(np.abs(first - control_first).max())
+        print(f"  {label} against the memory-only control: tokens identical "
+              f"{tokens == control_tokens}, first-logit max diff {diff:.2e}")
+        if tokens != control_tokens or not diff <= 1e-3:
+            raise RuntimeError(f"{label} disagrees with the memory-only run")
+    phase("serve_disk", t0)
 
     # -- 6. kernels against their plain versions ----------------------------
     t0 = time.perf_counter()
@@ -1302,54 +1520,86 @@ def main() -> int:
     smodel = build_model(small)
     p_cpu = smodel.init(seed=1, device="cpu")
     p_gpu = copy.deepcopy(p_cpu).to(dev)
-    small_runs = [("mpic", {"k": 8}, "", True, 1e-3),
-                  ("mpic", {"k": 8}, "int8", True, 5e-2),
-                  ("cacheblend", {"r": 0.15}, "", True, 1e-3),
-                  ("full_recompute", {}, "", True, 1e-3),
-                  ("prefix_caching", {}, "", True, 1e-3),
-                  ("full_reuse", {}, "", True, 1e-3),
-                  ("mpic", {"k": 8}, "", False, 1e-3)]
-    for policy, kwargs, pool_dtype, paged, logit_tol in small_runs:
-        outs = {}
-        for where, p in (("cpu", p_cpu), (None, p_gpu)):
-            eng = MPICEngine(smodel, p, EngineConfig(
-                max_seq_len=320, decode_slots=2, pool_dtype=pool_dtype,
-                paged=paged), device=where)
-            n_sys = len(sys_toks)
-            sc = smodel.make_cache(1, n_sys + 1, device=eng.device)
-            _, sc = smodel.prefill(p, torch.as_tensor(
-                sys_toks[None], dtype=torch.int32, device=eng.device), sc)
-            eng.prefix_store.put(sys_toks, sc["k"][:, 0, :n_sys],
-                                 sc["v"][:, 0, :n_sys])
-            firsts = {}
-            finalize = eng._finalize_prefill
+    # (policy, kwargs, pool dtype, paged, first-logit limit, media on disk):
+    # the disk runs spool every block after its upload and admit pipelined,
+    # the int8 one from a quantize=True library (the direct int8 link)
+    small_runs = [("mpic", {"k": 8}, "", True, 1e-3, False),
+                  ("mpic", {"k": 8}, "int8", True, 5e-2, False),
+                  ("cacheblend", {"r": 0.15}, "", True, 1e-3, False),
+                  ("full_recompute", {}, "", True, 1e-3, False),
+                  ("prefix_caching", {}, "", True, 1e-3, False),
+                  ("full_reuse", {}, "", True, 1e-3, False),
+                  ("mpic", {"k": 8}, "", False, 1e-3, False),
+                  ("mpic", {"k": 8}, "", True, 1e-3, True),
+                  ("mpic", {"k": 8}, "int8", True, 1e-3, True)]
+    small_spool = tempfile.mkdtemp(prefix="mpic_smoke_small_")
+    try:
+        for run, (policy, kwargs, pool_dtype, paged, logit_tol,
+                  on_disk) in enumerate(small_runs):
+            outs = {}
+            for where, p in (("cpu", p_cpu), (None, p_gpu)):
+                lib = KVLibrary(spool_dir=os.path.join(
+                    small_spool, f"{run}-{where}") if on_disk else None,
+                    quantize=on_disk and pool_dtype == "int8")
+                eng = MPICEngine(smodel, p, EngineConfig(
+                    max_seq_len=320, decode_slots=2, pool_dtype=pool_dtype,
+                    paged=paged), static_library=lib, device=where)
+                n_sys = len(sys_toks)
+                sc = smodel.make_cache(1, n_sys + 1, device=eng.device)
+                _, sc = smodel.prefill(p, torch.as_tensor(
+                    sys_toks[None], dtype=torch.int32, device=eng.device), sc)
+                eng.prefix_store.put(sys_toks, sc["k"][:, 0, :n_sys],
+                                     sc["v"][:, 0, :n_sys])
+                firsts = {}
+                finalize = eng._finalize_prefill
 
-            def record(req, result, firsts=firsts, finalize=finalize):
-                firsts[req.req_id] = result.first_logits
-                return finalize(req, result)
+                def record(req, result, *rest, firsts=firsts,
+                           finalize=finalize):
+                    firsts[req.req_id] = result.first_logits
+                    return finalize(req, result, *rest)
 
-            eng._finalize_prefill = record
-            samples = make_dialogues(n=3, n_images=2, d_model=small.d_model,
-                                     media_len=small.media_token_len, seed=3)
-            for s in samples:
-                for _, seg in s.prompt.media_segments():
-                    eng.upload(s.prompt.user_id, seg.media_id, seg.embeds)
-            rs = [eng.submit(Request(prompt=s.prompt, max_new_tokens=MAX_NEW,
-                                     policy=policy, policy_kwargs=kwargs))
-                  for s in samples]
-            eng.run()
-            if not all(r.done for r in rs):
-                raise RuntimeError(f"small model, {policy}: unfinished "
-                                   f"{[r.error for r in rs]}")
-            outs[where] = ([r.output_tokens for r in rs],
-                           np.stack([firsts[r.req_id] for r in rs]))
-        diff = float(np.abs(outs["cpu"][1] - outs[None][1]).max())
-        same = outs["cpu"][0] == outs[None][0]
-        where = "dense cache" if not paged else f"{pool_dtype or 'fp32'} pool"
-        print(f"small fp32 model, {policy} on the {where}: card vs CPU "
-              f"first-logit max diff {diff:.2e}, tokens identical {same}")
-        if not diff <= logit_tol or (pool_dtype == "" and not same):
-            raise RuntimeError("the card's engine disagrees with the CPU's")
+                eng._finalize_prefill = record
+                samples = make_dialogues(n=3, n_images=2,
+                                         d_model=small.d_model,
+                                         media_len=small.media_token_len,
+                                         seed=3)
+                for s in samples:
+                    for _, seg in s.prompt.media_segments():
+                        eng.upload(s.prompt.user_id, seg.media_id,
+                                   seg.embeds)
+                        if on_disk:
+                            lib.spool_now(s.prompt.user_id, seg.media_id)
+                rs = [eng.submit(Request(prompt=s.prompt,
+                                         max_new_tokens=MAX_NEW,
+                                         policy=policy,
+                                         policy_kwargs=kwargs))
+                      for s in samples]
+                eng.run()
+                eng.close()
+                if not all(r.done for r in rs):
+                    raise RuntimeError(f"small model, {policy}: unfinished "
+                                       f"{[r.error for r in rs]}")
+                st = lib.stats()
+                if on_disk and (st["tiers"]["disk"]["hits"], st["direct_links"]
+                                ) != (6, 6 if pool_dtype else 0):
+                    raise RuntimeError(f"small model, {policy} from disk: "
+                                       f"{st['tiers']['disk']} {st}")
+                outs[where] = ([r.output_tokens for r in rs],
+                               np.stack([firsts[r.req_id] for r in rs]))
+            diff = float(np.abs(outs["cpu"][1] - outs[None][1]).max())
+            same = outs["cpu"][0] == outs[None][0]
+            where = ("dense cache" if not paged
+                     else f"{pool_dtype or 'fp32'} pool")
+            print(f"small fp32 model, {policy} on the {where}"
+                  f"{', media from disk, pipelined' if on_disk else ''}: "
+                  f"card vs CPU first-logit max diff {diff:.2e}, tokens "
+                  f"identical {same}")
+            if not diff <= logit_tol or ((pool_dtype == "" or on_disk)
+                                         and not same):
+                raise RuntimeError("the card's engine disagrees with the "
+                                   "CPU's")
+    finally:
+        shutil.rmtree(small_spool, ignore_errors=True)
     # the small fp32 mamba2 on the dense fallback cache: images inlined
     ssm_small = dataclasses.replace(get_smoke_config("mamba2-130m"),
                                     param_dtype="float32",
@@ -1365,9 +1615,9 @@ def main() -> int:
             firsts = {}
             finalize = eng._finalize_prefill
 
-            def record(req, result, firsts=firsts, finalize=finalize):
+            def record(req, result, *rest, firsts=firsts, finalize=finalize):
                 firsts[req.req_id] = result.first_logits
-                return finalize(req, result)
+                return finalize(req, result, *rest)
 
             eng._finalize_prefill = record
             samples = make_dialogues(n=3, n_images=2,

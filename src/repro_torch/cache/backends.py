@@ -1,0 +1,392 @@
+"""Storage backends of the tiered KV library (port of the JAX package's
+``cache/backends.py``, its memory and disk tiers).
+
+Every tier implements one :class:`StorageBackend` contract (``put`` /
+``get`` / ``delete`` / ``contains`` / ``stats``) over content-hash block
+keys, and :class:`~repro_torch.cache.library.KVLibrary` orchestrates them:
+it owns promotion, demotion, pins, TTLs and locking, and no backend holds
+policy.
+
+* :class:`MemoryBackend`: resident blocks (tensors on the engine's device)
+  and the HBM / host byte budgets.
+* :class:`DiskBackend`: the npz spool directory (wire format in
+  ``cache/quant.py``, so an int8 block spools as int8).  Writes are atomic
+  (a unique ``mkstemp`` file, flushed, then ``os.replace``); reads are
+  verified against the content hash in the key, and a corrupt or truncated
+  file is unlinked and counted as a miss, never handed out.
+
+**Keys.**  ``sha1(stored arrays)[:32] + "-" + sha1(repr(scope))[:8]``: the
+content half lets a reader verify the bytes it loaded, the scope half
+keeps two users' identical media apart.  The hash covers, per stored array,
+its numpy dtype name (``"bfloat16"`` for bf16), ``str`` of its shape tuple
+and its C-ordered bytes, exactly as the JAX package hashes its numpy
+arrays, so both packages give one block the same key.
+
+Not ported: the network tier and per-replica HBM accounting.
+"""
+from __future__ import annotations
+
+import abc
+import dataclasses
+import hashlib
+import os
+import tempfile
+import threading
+import time
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.cache.quant import (
+    QuantizedKV,
+    dtype_name,
+    host_array,
+    spool_payload,
+    unspool_payload,
+)
+
+TIER_HBM = "hbm"
+TIER_HOST = "host"
+TIER_DISK = "disk"
+
+
+# ---------------------------------------------------------------------------
+# payload and metadata
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class KVPayload:
+    """The movable bytes of one KV block: the fp tensors (``k``/``v``),
+    the int8 storage (``qk``/``qv``), or both (an int8 block dequantized
+    for an fp consumer holds both)."""
+    k: Optional[torch.Tensor] = None       # (L, S, Hkv, Dh)
+    v: Optional[torch.Tensor] = None
+    qk: Optional[QuantizedKV] = None
+    qv: Optional[QuantizedKV] = None
+
+    @property
+    def nbytes(self) -> int:
+        """Resident bytes: both copies count."""
+        total = 0
+        if self.qk is not None:
+            total += self.qk.nbytes + self.qv.nbytes
+        if self.k is not None:
+            total += self.k.nbytes + self.v.nbytes
+        return total
+
+    @property
+    def stored_nbytes(self) -> int:
+        """Bytes a backend persists: the int8 storage when present."""
+        if self.qk is not None:
+            return self.qk.nbytes + self.qv.nbytes
+        if self.k is not None:
+            return self.k.nbytes + self.v.nbytes
+        return 0
+
+    def stored_arrays(self) -> Tuple[torch.Tensor, ...]:
+        """The tensors that reach the medium, in hash order."""
+        if self.qk is not None:
+            return (self.qk.q, self.qk.scale, self.qv.q, self.qv.scale)
+        return (self.k, self.v)
+
+    def tensors(self):
+        """Every resident tensor."""
+        out = [t for t in (self.k, self.v) if t is not None]
+        for qkv in (self.qk, self.qv):
+            if qkv is not None:
+                out += [qkv.q, qkv.scale]
+        return out
+
+    @property
+    def dtype(self) -> Optional[str]:
+        if self.k is not None:
+            return dtype_name(self.k)
+        if self.qk is not None:
+            return dtype_name(self.qk.q)
+        return None
+
+    @property
+    def shape(self) -> Optional[Tuple[int, ...]]:
+        if self.k is not None:
+            return tuple(self.k.shape)
+        if self.qk is not None:
+            return tuple(self.qk.q.shape)
+        return None
+
+
+@dataclasses.dataclass
+class BlockMetadata:
+    """Per-block bookkeeping the library keeps without the payload; every
+    field is written under the library lock."""
+    media_id: str
+    key: Optional[str] = None          # content-hash block key
+    ident: Optional[str] = None        # scope digest
+    scope_user: Optional[str] = None
+    nbytes: int = 0                    # stored bytes (survives a spool)
+    dtype: Optional[str] = None
+    shape: Optional[Tuple[int, ...]] = None
+    tier: str = TIER_HBM
+    pins: int = 0                      # > 0: a consumer reads the tensors
+    created: float = 0.0
+    last_used: float = 0.0
+    expires: float = float("inf")
+
+
+def _digest(payload: KVPayload) -> str:
+    h = hashlib.sha1()
+    for t in payload.stored_arrays():
+        h.update(dtype_name(t).encode())
+        h.update(str(tuple(t.shape)).encode())
+        h.update(host_array(t))
+    return h.hexdigest()[:32]
+
+
+def content_key(payload: KVPayload, scope, salt: Optional[str] = None) -> str:
+    """``sha1(stored arrays)[:32]-sha1(scope)[:8]``, the JAX package's key
+    for the same bytes and scope.  ``salt`` mixes into the scope half."""
+    return f"{_digest(payload)}-{scope_digest(scope, salt)[:8]}"
+
+
+def scope_digest(scope, salt: Optional[str] = None) -> str:
+    """Stable digest of a library scope (``(user_id, media_id)``), not
+    ``hash()``, which changes with PYTHONHASHSEED."""
+    h = hashlib.sha1(repr(scope).encode())
+    if salt:
+        h.update(b"\x00" + str(salt).encode())
+    return h.hexdigest()[:24]
+
+
+def verify_payload(payload: KVPayload, key: str) -> bool:
+    """True iff the bytes read back hash to the content half of ``key``."""
+    return key.split("-")[0] == _digest(payload)
+
+
+# ---------------------------------------------------------------------------
+# the backend contract
+# ---------------------------------------------------------------------------
+
+class StorageBackend(abc.ABC):
+    """One storage tier behind the KV library.
+
+    * ``put(key, payload, meta=None)``: persist; overwriting is idempotent.
+    * ``get(key)``: a :class:`KVPayload` or None.  A corrupt, truncated or
+      unreadable block is a counted miss, never a raise.
+    * ``delete(key)``: idempotent.  ``contains(key)``: existence probe.
+    * ``stats()``: ``hits``/``misses``/``puts``/``deletes``/``bytes_read``/
+      ``bytes_written``/``fetch_s`` plus the backend's own counters.
+
+    Thread-safe; a backend locks only its own counters and index.
+    """
+
+    name: str = "?"
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.counters: Dict[str, float] = {
+            "hits": 0, "misses": 0, "puts": 0, "deletes": 0,
+            "bytes_read": 0, "bytes_written": 0, "fetch_s": 0.0,
+        }
+
+    def _count(self, **kv) -> None:
+        with self._lock:
+            for k, n in kv.items():
+                self.counters[k] = self.counters.get(k, 0) + n
+
+    @abc.abstractmethod
+    def put(self, key: str, payload: KVPayload,
+            meta: Optional[BlockMetadata] = None) -> None: ...
+
+    @abc.abstractmethod
+    def get(self, key: str) -> Optional[KVPayload]: ...
+
+    @abc.abstractmethod
+    def delete(self, key: str) -> None: ...
+
+    @abc.abstractmethod
+    def contains(self, key: str) -> bool: ...
+
+    def stats(self) -> dict:
+        with self._lock:
+            out = dict(self.counters)
+        out["backend"] = self.name
+        return out
+
+
+class MemoryBackend(StorageBackend):
+    """Resident tier: payloads by key (the library's scope digest), plus
+    the byte budgets the library rebalances against (``hbm_capacity``,
+    ``host_capacity``)."""
+
+    name = TIER_HBM
+
+    def __init__(self, *, hbm_capacity: int = 2 << 30,
+                 host_capacity: int = 16 << 30):
+        super().__init__()
+        self.hbm_capacity = hbm_capacity
+        self.host_capacity = host_capacity
+        self._store: Dict[str, KVPayload] = {}
+
+    def put(self, key: str, payload: KVPayload,
+            meta: Optional[BlockMetadata] = None) -> None:
+        with self._lock:
+            self._store[key] = payload
+        self._count(puts=1, bytes_written=payload.nbytes)
+
+    def get(self, key: str) -> Optional[KVPayload]:
+        with self._lock:
+            hit = self._store.get(key)
+        if hit is None:
+            self._count(misses=1)
+            return None
+        self._count(hits=1, bytes_read=hit.nbytes)
+        return hit
+
+    def delete(self, key: str) -> None:
+        with self._lock:
+            existed = self._store.pop(key, None) is not None
+        if existed:
+            self._count(deletes=1)
+
+    def contains(self, key: str) -> bool:
+        with self._lock:
+            return key in self._store
+
+    def stats(self) -> dict:
+        out = super().stats()
+        with self._lock:
+            out["blocks"] = len(self._store)
+            out["resident_bytes"] = sum(p.nbytes
+                                        for p in self._store.values())
+        out["hbm_capacity"] = self.hbm_capacity
+        out["host_capacity"] = self.host_capacity
+        return out
+
+
+class DiskBackend(StorageBackend):
+    """Spool-directory tier: one npz file per block, named by its key.
+
+    ``spool_dir=None`` makes a private directory under the temp dir at the
+    first write.  A read returns CPU tensors; ``verify_s`` counts the
+    seconds spent re-hashing what was read (inside ``fetch_s``).
+    """
+
+    name = TIER_DISK
+
+    def __init__(self, spool_dir: Optional[str] = None):
+        super().__init__()
+        self.spool_dir = spool_dir
+        self.counters.update(corrupt=0, io_errors=0, tmp_swept=0,
+                             verify_s=0.0)
+        if spool_dir is None:
+            return
+        os.makedirs(spool_dir, exist_ok=True)
+        # a crash mid-put leaves `<key>.*.npz.tmp` behind (a final name is
+        # only ever made by os.replace, so it is always whole): sweep them
+        for fname in os.listdir(spool_dir):
+            if fname.endswith(".tmp"):
+                try:
+                    os.unlink(os.path.join(spool_dir, fname))
+                    self.counters["tmp_swept"] += 1
+                except OSError:
+                    pass
+
+    def path_for(self, key: str) -> Optional[str]:
+        if self.spool_dir is None:
+            return None
+        return os.path.join(self.spool_dir, f"{key}.npz")
+
+    @staticmethod
+    def _sidecar(meta: Optional[BlockMetadata]) -> Optional[dict]:
+        """The JAX package's ``__meta__`` fields, so its rehydration scan
+        can index a file this backend wrote."""
+        if meta is None:
+            return None
+        return {"media_id": meta.media_id, "user_id": meta.scope_user,
+                "key": meta.key, "ident": meta.ident, "salt": None,
+                "nbytes": meta.nbytes, "dtype": meta.dtype,
+                "shape": list(meta.shape) if meta.shape else None,
+                "created": meta.created, "expires": meta.expires}
+
+    def put(self, key: str, payload: KVPayload,
+            meta: Optional[BlockMetadata] = None) -> None:
+        """Write atomically; an ``OSError`` is counted and raised, so that
+        the library keeps the entry resident."""
+        with self._lock:
+            if self.spool_dir is None:
+                self.spool_dir = tempfile.mkdtemp(prefix="mpic_spool_")
+        path = self.path_for(key)
+        tmp = None
+        try:
+            fd, tmp = tempfile.mkstemp(dir=self.spool_dir, prefix=f"{key}.",
+                                       suffix=".npz.tmp")
+            with os.fdopen(fd, "wb") as f:
+                spool_payload(f, payload, meta=self._sidecar(meta))
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+        except BaseException as exc:
+            if tmp is not None:
+                try:
+                    os.unlink(tmp)
+                except OSError:
+                    pass
+            if isinstance(exc, OSError):
+                self._count(io_errors=1)
+            raise
+        self._count(puts=1, bytes_written=payload.stored_nbytes)
+
+    def get(self, key: str) -> Optional[KVPayload]:
+        path = self.path_for(key)
+        if path is None:
+            self._count(misses=1)
+            return None
+        t0 = time.perf_counter()
+        try:
+            fields = unspool_payload(path)
+        except FileNotFoundError:
+            self._count(misses=1)
+            return None
+        except OSError:
+            # a device-level read failure: the file may be whole, so it
+            # stays; the caller falls back to recompute
+            self._count(misses=1, io_errors=1)
+            return None
+        except Exception:
+            # truncated zip, bad magic, short read: unlink the junk
+            self._corrupt(path)
+            return None
+        payload = KVPayload(**fields)
+        t1 = time.perf_counter()
+        if not verify_payload(payload, key):
+            self._corrupt(path)
+            return None
+        t2 = time.perf_counter()
+        self._count(hits=1, bytes_read=payload.stored_nbytes,
+                    fetch_s=t2 - t0, verify_s=t2 - t1)
+        return payload
+
+    def _corrupt(self, path: str) -> None:
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+        self._count(misses=1, corrupt=1)
+
+    def delete(self, key: str) -> None:
+        path = self.path_for(key)
+        if path is None:
+            return
+        try:
+            os.unlink(path)
+        except FileNotFoundError:
+            return
+        self._count(deletes=1)
+
+    def contains(self, key: str) -> bool:
+        path = self.path_for(key)
+        return path is not None and os.path.exists(path)
+
+    def stats(self) -> dict:
+        out = super().stats()
+        out["spool_dir"] = self.spool_dir
+        return out

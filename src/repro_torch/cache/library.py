@@ -1,70 +1,490 @@
-"""Static and dynamic KV libraries, memory tier only (port of the JAX
-package's ``cache/library.py``).
+"""Static and dynamic KV libraries, a tier orchestrator over memory and
+disk (port of the JAX package's ``cache/library.py``).
 
 The **static library** holds the KV of user-uploaded files, scoped per user
 (user A cannot link user B's cache).  The **dynamic library** holds the
-MRAG corpus, shared by every user under the ``"*"`` scope.  Entries expire
-after their TTL; an expired entry is dropped at lookup and the caller
-recomputes.  Entries hold tensors on the engine's device.
+MRAG corpus, shared under the ``"*"`` scope.  The bytes live in
+:mod:`~repro_torch.cache.backends` tiers,
 
-Not ported yet: the disk and network tiers, the int8 spool, pins and the
-per-replica accounting of the JAX library.
+    memory (hbm / host)  <->  disk (npz spool)
+
+and the library owns the policy: content-hash block keys, promotion on a
+hit, demotion under pressure, pins, TTL expiry, and the per-tier hit,
+promote and demote counters of :meth:`KVLibrary.stats`.  The memory tier
+holds an entry under its scope digest; the content key, which names and
+verifies a spool file, is computed at the entry's first spool, so a
+library that never spools never copies its blocks to the host to hash
+them.
+
+**Where the tensors are.**  A resident entry's tensors live where ``put``
+got them: on the engine's device (the card, or the CPU when the engine was
+asked for it).  ``hbm`` and ``host`` are byte budgets over resident
+entries, as in the JAX package, and moving between them moves no bytes;
+only a spool to disk frees an entry's tensors.  A disk read brings the
+block back to its entry's device: on the card through pinned host memory
+on the library's own copy stream, waited on by the reading thread, so the
+copy never queues behind the engine's kernels on the default stream.  A
+consumer calls :meth:`Entry.wait_loaded` on its own thread before it reads
+the tensors (the linker does): the tensors are recorded on its stream, so
+the caching allocator cannot hand their blocks back to the copy stream
+while the consumer's kernels read them.
+
+``quantize=True`` stores int8 (``cache/quant.py``): half the bytes of
+bf16, on the device and on disk.  An fp consumer dequantizes lazily
+through ``Entry.k``/``Entry.v`` (counted in ``dequants``); the int8 pool
+links the int8 bytes directly (``note_direct_link``).
+
+**Locking** (the JAX package's model):
+
+* ``KVLibrary._lock`` (RLock) guards the entry map, all metadata and the
+  pin counts.
+* ``Entry._mlock`` serializes materialization of one entry, so that N
+  loader workers fetching one block do one disk read.
+* Code may take ``_lock`` while holding ``_mlock``; nothing **blocks** on
+  ``_mlock`` while holding ``_lock`` (``_spool`` and ``_evict`` do not
+  wait for it).  A disk read therefore never holds the library lock.
+
+Not ported: peers and the network tier, per-replica accounting, spool
+rehydration, block export, the fault plan, disk quarantine and sessions.
 """
 from __future__ import annotations
 
-import dataclasses
+import errno
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.cache.backends import (
+    TIER_DISK,
+    TIER_HBM,
+    TIER_HOST,
+    BlockMetadata,
+    DiskBackend,
+    KVPayload,
+    MemoryBackend,
+    content_key,
+    scope_digest,
+)
+from repro_torch.cache.quant import QuantizedKV, dequantize_kv, quantize_kv
 
-@dataclasses.dataclass(eq=False)
+__all__ = ["TIER_HBM", "TIER_HOST", "TIER_DISK", "Entry", "KVLibrary"]
+
+
 class Entry:
-    media_id: str
-    k: torch.Tensor            # (L, length, Hkv, Dh), position 0 based
-    v: torch.Tensor
-    expires: float = float("inf")
+    """One KV block: metadata, and its payload while resident.
+
+    ``payload.k is None and payload.qk is None`` means the block lives
+    only on disk.  Residency checks read the payload fields: the ``k``/``v``
+    getters dequantize int8 storage as a side effect.  Reading the tensors
+    across a release of the library lock needs a pin (``get(pin=True)`` /
+    ``try_pin``), or a spool may free them.
+    """
+
+    def __init__(self, media_id: str, *, created: float, expires: float,
+                 device: torch.device):
+        self.payload = KVPayload()
+        self.meta = BlockMetadata(media_id=media_id, created=created,
+                                  last_used=created, expires=expires)
+        self.device = device          # where a disk read brings the block
+        self._owner: Optional["KVLibrary"] = None
+        self._mlock = threading.Lock()
+        # set by a disk read onto the card: the tensors were allocated on
+        # the library's copy stream
+        self._on_copy_stream = False
+
+    qk = property(lambda s: s.payload.qk)
+    qv = property(lambda s: s.payload.qv)
+    tier = property(lambda s: s.meta.tier,
+                    lambda s, x: setattr(s.meta, "tier", x))
+    last_used = property(lambda s: s.meta.last_used,
+                         lambda s, x: setattr(s.meta, "last_used", x))
+    expires = property(lambda s: s.meta.expires)
+    pins = property(lambda s: s.meta.pins)
+
+    @property
+    def nbytes(self) -> int:
+        """Resident bytes (both copies of a dequantized int8 block), or the
+        stored size once spooled."""
+        return self.payload.nbytes or self.meta.nbytes
+
+    def _lazy_kv(self) -> KVPayload:
+        """Dequantize the int8 payload into the fp copy at the first
+        ``.k``/``.v`` read, so that int8 consumers never pay for it."""
+        with self._mlock:
+            if self.payload.k is None and self.payload.qk is not None:
+                self.wait_loaded()
+                self.payload.k = dequantize_kv(self.payload.qk)
+                self.payload.v = dequantize_kv(self.payload.qv)
+                if self._owner is not None:
+                    self._owner._note_dequant()
+        return self.payload
+
+    @property
+    def k(self) -> torch.Tensor:
+        """The fp KV (dequantized lazily from int8 storage)."""
+        if self.payload.k is None and self.payload.qk is not None:
+            return self._lazy_kv().k
+        return self.payload.k
+
+    @property
+    def v(self) -> torch.Tensor:
+        if self.payload.v is None and self.payload.qv is not None:
+            return self._lazy_kv().v
+        return self.payload.v
+
+    def wait_loaded(self) -> None:
+        """Record a disk read's tensors on the calling thread's current
+        stream, so that a spool cannot free them to the copy stream while
+        that stream's kernels read them.  The reading thread already waited
+        for the copy.  A no-op for blocks that never came from disk, and on
+        the CPU."""
+        if not self._on_copy_stream:
+            return
+        stream = torch.cuda.current_stream(self.device)
+        for t in self.payload.tensors():
+            t.record_stream(stream)
+
+    def materialize(self) -> "Entry":
+        """Make the tensors resident, reading the disk tier if needed
+        (int8 stays int8).  Concurrent callers serialize on ``_mlock``, so
+        one read serves them all.  Raises ``FileNotFoundError`` when the
+        disk misses: the caller recomputes."""
+        with self._mlock:
+            self._materialize_locked()
+        return self
+
+    def _materialize_locked(self) -> None:
+        if (self.tier == TIER_DISK and self.payload.k is None
+                and self.payload.qk is None):
+            self._owner._fetch_into(self)
+            # resident again: the host budget sees it, and a rebalance may
+            # spool it once more under pressure
+            self.tier = TIER_HOST
 
 
 class KVLibrary:
-    def __init__(self, *, shared: bool = False,
-                 default_ttl: float = float("inf")):
-        self.shared = shared
+    """Tiered, scoped KV store: memory <-> disk behind one policy.
+
+    ``spool_dir`` None gives a private spool directory made at the first
+    spool.  The backends are public (``memory``, ``disk``) for their
+    counters; every change goes through the library.
+    """
+
+    def __init__(self, *, hbm_capacity: int = 2 << 30,
+                 host_capacity: int = 16 << 30,
+                 spool_dir: Optional[str] = None,
+                 default_ttl: float = float("inf"),
+                 shared: bool = False, quantize: bool = False):
+        self.quantize = quantize
         self.default_ttl = default_ttl
+        self.shared = shared
+        self.memory = MemoryBackend(hbm_capacity=hbm_capacity,
+                                    host_capacity=host_capacity)
+        self.disk = DiskBackend(spool_dir)
+        self._lock = threading.RLock()
         self._entries: Dict[Tuple[str, str], Entry] = {}
-        self._lock = threading.Lock()
-        self._hits = 0
+        self._listeners: List[Callable] = []
+        self._clock = threading.Lock()          # counters only
+        self._tiers = {t: {"hits": 0, "promotes": 0, "demotes": 0}
+                       for t in (TIER_HBM, TIER_HOST, TIER_DISK)}
         self._misses = 0
+        self._dequants = 0          # lazy int8 -> fp expansions
+        self._direct_links = 0      # blocks linked from their int8 bytes
+        self._spool_failures = 0
+        self._enospc = 0
+        self._copy_s = 0.0          # disk reads' staging and copy to the card
+        self._copy_streams: Dict[torch.device, torch.cuda.Stream] = {}
+
+    def add_invalidation_listener(self, fn: Callable) -> None:
+        """Call ``fn(user_id, media_id)`` (outside the lock) whenever
+        :meth:`put` replaces an entry: the loader drops its in-flight
+        fetch of the old block."""
+        with self._lock:
+            self._listeners.append(fn)
+
+    def _count(self, tier: str, what: str, n: int = 1) -> None:
+        with self._clock:
+            self._tiers[tier][what] += n
+
+    def _note_dequant(self) -> None:
+        with self._clock:
+            self._dequants += 1
+
+    def note_direct_link(self, n: int = 1) -> None:
+        """Consumers report blocks linked straight from their int8 bytes
+        (``PagedKVPool.link_write_q8``)."""
+        with self._clock:
+            self._direct_links += n
 
     def _key(self, user_id: str, media_id: str) -> Tuple[str, str]:
         return ("*", media_id) if self.shared else (user_id, media_id)
 
-    def put(self, user_id: str, media_id: str, k: torch.Tensor,
-            v: torch.Tensor, *, ttl: Optional[float] = None) -> Entry:
-        """Store one media KV block, replacing any block under the scope."""
-        ttl = self.default_ttl if ttl is None else ttl
-        e = Entry(media_id=media_id, k=k, v=v, expires=time.time() + ttl)
+    # -- the API ---------------------------------------------------------------
+    def put(self, user_id: str, media_id: str, k, v, *,
+            ttl: Optional[float] = None) -> Entry:
+        """Store one media KV block (L, S, Hkv, Dh), replacing any block
+        under the scope; ``quantize=True`` stores int8.  Quantizing runs
+        outside the lock, the swap and rebalance inside it, the invalidation
+        listeners after it.  No bytes are hashed here: the content key waits
+        for the first spool.  The returned entry is not pinned."""
+        now = time.time()
+        k, v = torch.as_tensor(k), torch.as_tensor(v)
+        e = Entry(media_id, created=now, device=k.device,
+                  expires=now + (self.default_ttl if ttl is None else ttl))
+        if self.quantize:
+            e.payload.qk, e.payload.qv = quantize_kv(k), quantize_kv(v)
+        else:
+            e.payload.k, e.payload.v = k, v
+        key = self._key(user_id, media_id)
+        m = e.meta
+        m.ident = scope_digest(key)
+        m.scope_user = key[0]
+        m.dtype, m.shape = e.payload.dtype, e.payload.shape
+        e._owner = self
         with self._lock:
-            self._entries[self._key(user_id, media_id)] = e
+            # a put over a live key evicts the old entry, or its spool file
+            # would be orphaned
+            replaced = key in self._entries
+            if replaced:
+                self._evict(key)
+            self._entries[key] = e
+            self.memory.put(m.ident, e.payload, m)
+            self._rebalance()
+        if replaced:
+            for fn in list(self._listeners):
+                fn(user_id, media_id)
         return e
 
-    def get(self, user_id: str, media_id: str) -> Optional[Entry]:
-        """Lookup honouring user scoping and expiry."""
+    def get(self, user_id: str, media_id: str, *,
+            pin: bool = False) -> Optional[Entry]:
+        """Lookup honouring scope and expiry.  The lock covers the lookup
+        only; a disk read runs outside it, so loader workers read different
+        entries at once.  ``pin`` holds the tensors against a spool until
+        :meth:`unpin`.  A disk miss (file gone, corrupt or unreadable)
+        drops the entry and returns None: the caller recomputes."""
         key = self._key(user_id, media_id)
         with self._lock:
             e = self._entries.get(key)
             if e is not None and time.time() > e.expires:
-                del self._entries[key]
+                self._evict(key)
                 e = None
             if e is None:
-                self._misses += 1
-            else:
-                self._hits += 1
-            return e
+                with self._clock:
+                    self._misses += 1
+                return None
+            e.last_used = time.time()
+            hit_tier = e.tier
+        self._count(hit_tier, "hits")
+        was_slow = hit_tier == TIER_DISK
+        try:
+            e.materialize()
+            if was_slow or pin:
+                # holding _mlock keeps the non-blocking _spool off the entry
+                # we hand out; a spool in the gap after materialize is
+                # undone by the reload
+                with e._mlock:
+                    e._materialize_locked()
+                    with self._lock:
+                        if pin:
+                            e.meta.pins += 1
+                        if was_slow:
+                            self._rebalance()
+        except FileNotFoundError:
+            with self._lock:
+                if self._entries.get(key) is e:
+                    self._entries.pop(key)
+            return None
+        return e
 
-    def stats(self) -> dict:
+    # -- the disk tier ------------------------------------------------------------
+    def _fetch_into(self, e: Entry) -> None:
+        """Fill ``e.payload`` from disk; the caller holds ``e._mlock``,
+        never the library lock.  Raises ``FileNotFoundError`` on a miss."""
+        p = self.disk.get(e.meta.key)
+        if p is None:
+            raise FileNotFoundError(e.meta.key)
+        self._to_device(e, p)
+        e.payload.k, e.payload.v = p.k, p.v
+        e.payload.qk, e.payload.qv = p.qk, p.qv
+        self.memory.put(e.meta.ident, e.payload, e.meta)
+        self._count(TIER_DISK, "promotes")
+
+    def _copy_stream(self, device: torch.device) -> torch.cuda.Stream:
+        with self._clock:
+            s = self._copy_streams.get(device)
+            if s is None:
+                s = self._copy_streams[device] = torch.cuda.Stream(device)
+            return s
+
+    def _to_device(self, e: Entry, p: KVPayload) -> None:
+        """Move a payload read from disk (CPU tensors) to ``e.device``.  On
+        the card: staged through pinned memory, copied on the library's
+        copy stream, and waited for here, so that the read ends when the
+        bytes are on the card."""
+        dev = e.device
+        if dev is None or dev.type == "cpu":
+            return
+        t0 = time.perf_counter()
+        stream = self._copy_stream(dev)
+        with torch.cuda.stream(stream):
+            def up(t):
+                return t.pin_memory().to(dev, non_blocking=True)
+            if p.k is not None:
+                p.k, p.v = up(p.k), up(p.v)
+            for name in ("qk", "qv"):
+                qkv = getattr(p, name)
+                if qkv is not None:
+                    setattr(p, name, QuantizedKV(up(qkv.q), up(qkv.scale),
+                                                 qkv.block_tokens))
+        stream.synchronize()
+        e._on_copy_stream = True
+        with self._clock:
+            self._copy_s += time.perf_counter() - t0
+
+    # -- pins -------------------------------------------------------------------
+    def try_pin(self, entry: Entry) -> bool:
+        """Pin ``entry`` if its tensors are still resident; False if a
+        spool freed them since it was handed out (re-``get(pin=True)``)."""
         with self._lock:
-            return {"entries": len(self._entries), "hits": self._hits,
-                    "misses": self._misses}
+            if entry.payload.k is None and entry.payload.qk is None:
+                return False
+            entry.meta.pins += 1
+            return True
+
+    def unpin(self, entry: Entry) -> None:
+        """Drop one pin; the last one lets deferred demotions run."""
+        with self._lock:
+            entry.meta.pins = max(0, entry.meta.pins - 1)
+            if entry.meta.pins == 0:
+                self._rebalance()
+
+    def peek_tier(self, user_id: str, media_id: str) -> Optional[str]:
+        """The tier of a block, without touching its LRU state."""
+        with self._lock:
+            e = self._entries.get(self._key(user_id, media_id))
+            if e is None or time.time() > e.expires:
+                return None
+            return e.tier
+
+    def delete(self, user_id: str, media_id: str) -> None:
+        """Remove a block from every tier (idempotent)."""
+        with self._lock:
+            self._evict(self._key(user_id, media_id))
+
+    def spool_now(self, user_id: str, media_id: str) -> bool:
+        """Demote one entry to disk regardless of pressure.  False when the
+        entry is missing, pinned, being read, or the write failed (it
+        then stays resident)."""
+        with self._lock:
+            key = self._key(user_id, media_id)
+            e = self._entries.get(key)
+            if e is None:
+                return False
+            if e.payload.k is None and e.payload.qk is None:
+                return e.tier == TIER_DISK
+            return self._spool(key, e)
+
+    def expire_now(self) -> int:
+        """Delete expired entries; returns how many."""
+        now = time.time()
+        with self._lock:
+            dead = [k for k, e in self._entries.items() if now > e.expires]
+            for k in dead:
+                self._evict(k)
+        return len(dead)
+
+    # -- tier management -----------------------------------------------------------
+    def _evict(self, key) -> None:
+        """Drop one entry from the map and every backend; the caller holds
+        the lock.  A concurrent disk read either has the file open (an
+        unlink is safe) or misses."""
+        e = self._entries.pop(key, None)
+        if e is not None:
+            self.memory.delete(e.meta.ident)
+            if e.meta.key:
+                self.disk.delete(e.meta.key)
+
+    def _spool(self, key, e: Entry) -> bool:
+        """Demote one entry to disk, hashing its bytes into the content
+        key at its first spool; False if pinned or being read (the caller
+        holds the lock and must not wait for ``_mlock``) or if the write
+        failed."""
+        if e.meta.pins > 0:
+            return False
+        if not e._mlock.acquire(blocking=False):
+            return False
+        try:
+            m = e.meta
+            if m.key is None:
+                m.key = content_key(e.payload, key)
+            m.nbytes = e.payload.stored_nbytes
+            try:
+                self.disk.put(m.key, e.payload, m)
+            except OSError as exc:
+                # counted; the entry keeps its tensors
+                self._spool_failures += 1
+                if exc.errno == errno.ENOSPC:
+                    self._enospc += 1
+                return False
+            self.memory.delete(m.ident)
+            e.payload.k = e.payload.v = None
+            e.payload.qk = e.payload.qv = None
+            e._on_copy_stream = False
+            e.tier = TIER_DISK
+            self._count(TIER_HOST, "demotes")
+        finally:
+            e._mlock.release()
+        return True
+
+    def _rebalance(self) -> None:
+        """Demote LRU entries while a tier is over its budget: hbm -> host
+        (a label), host -> disk (a spool).  The caller holds the lock."""
+        for tier, cap, demote in (
+                (TIER_HBM, self.memory.hbm_capacity, TIER_HOST),
+                (TIER_HOST, self.memory.host_capacity, TIER_DISK)):
+            cands = [(k, e) for k, e in self._entries.items()
+                     if e.tier == tier]
+            used = sum(e.nbytes for _, e in cands)
+            cands.sort(key=lambda kv: kv[1].last_used)
+            for k, e in cands:
+                if used <= cap:
+                    break
+                freed = e.nbytes
+                if demote == TIER_DISK:
+                    if not self._spool(k, e):
+                        continue        # pinned or being read: next victim
+                else:
+                    e.tier = TIER_HOST
+                    self._count(TIER_HBM, "demotes")
+                used -= freed
+
+    # -- introspection -------------------------------------------------------------
+    def stats(self) -> dict:
+        """Entry and byte census by tier, the per-tier hit / promote /
+        demote counters, and the disk tier's read counters: the backend's
+        ``fetches``, ``fetch_misses``, ``fetch_s`` (read and verify),
+        ``verify_s`` (SHA-1), ``bytes_read``, ``corrupt``, ``io_errors``,
+        and ``copy_s``, the staging and copy of those reads to the card."""
+        with self._lock:
+            by_tier: Dict[str, int] = {}
+            for e in self._entries.values():
+                by_tier[e.tier] = by_tier.get(e.tier, 0) + e.nbytes
+            out = {"entries": len(self._entries), "bytes_by_tier": by_tier}
+        with self._clock:
+            tiers = {t: dict(c) for t, c in self._tiers.items()}
+            out.update(misses=self._misses, dequants=self._dequants,
+                       direct_links=self._direct_links)
+            copy_s = self._copy_s
+        b = self.disk.stats()
+        tiers[TIER_DISK].update(
+            fetches=b["hits"], fetch_misses=b["misses"],
+            fetch_s=round(b["fetch_s"], 6), verify_s=round(b["verify_s"], 6),
+            bytes_read=b["bytes_read"], bytes_written=b["bytes_written"],
+            corrupt=b["corrupt"], io_errors=b["io_errors"],
+            copy_s=round(copy_s, 6))
+        out["tiers"] = tiers
+        out["degraded"] = {"spool_failures": self._spool_failures,
+                           "enospc": self._enospc}
+        return out

@@ -153,6 +153,24 @@ class PagedKVPool:
             self.k[:, pages, offs] = k_seg.to(self.k.dtype)
             self.v[:, pages, offs] = v_seg.to(self.v.dtype)
 
+    def link_write_q8(self, pages, offs, qk_seg, qk_scale, qv_seg, qv_scale,
+                      seg_ids, delta, *, theta: float, relink: bool) -> None:
+        """The spool-to-pool link: place int8 segments from the library
+        (``qk_seg``/``qv_seg`` (L, S, H, Dh) int8 with their spool scales
+        ``qk_scale``/``qv_scale`` (L, rows, H, Dh) fp32; ``seg_ids`` (S,)
+        maps each token to its scale row) onto the page grid, in place:
+        dequantized in fp32, K RoPE-relinked by ``delta``, then quantized
+        at the pages' running scales.  An int8 pool only."""
+        if not self.quantized:
+            raise ValueError("link_write_q8 requires an int8 pool")
+        rows = seg_ids.long()
+        k_seg = qk_seg.float() * qk_scale[:, rows]
+        v_seg = qv_seg.float() * qv_scale[:, rows]
+        if relink:
+            k_seg = rope_relink(k_seg, delta, theta)
+        quant_scatter(self.k, self.v, self.k_scale, self.v_scale, pages, offs,
+                      k_seg, v_seg)
+
     def write_tokens(self, page_table: np.ndarray, slot0: int,
                      k_new: torch.Tensor, v_new: torch.Tensor) -> None:
         """Write (L, S, H, Dh) tokens into the pool starting at ``slot0``."""

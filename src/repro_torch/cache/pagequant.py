@@ -23,8 +23,8 @@ from __future__ import annotations
 
 import torch
 
-# symmetric int8 grid shared with the JAX package's cache/quant.py
-QMAX = 127.0
+# the library's int8 grid: a spooled block rescales onto the pages
+from repro_torch.cache.quant import QMAX, grid_scale
 
 
 def _quant(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -53,7 +53,7 @@ def quant_scatter(pool_k, pool_v, k_scale, v_scale, pages, offs,
     touched = torch.unique(pages)
     for pool, scale, new in ((pool_k, k_scale, k_new), (pool_v, v_scale, v_new)):
         new = new.float()
-        amax = new.abs().amax(dim=-1) / QMAX        # (L, N, H)
+        amax = grid_scale(new.abs().amax(dim=-1))   # (L, N, H)
         s_old = scale[:, touched]                   # gathered before the max
         scale.scatter_reduce_(1, pages[None, :, None].expand_as(amax), amax,
                               "amax", include_self=True)

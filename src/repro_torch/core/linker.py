@@ -11,8 +11,13 @@ the offset) and placed into the request's KV cache.  Two targets:
 * :func:`link_paged` writes the same segments straight into the request's
   reserved pool pages; the selected tokens' K/V are written into their
   pages by the paged selective prefill, so no dense blended cache exists.
+  On an int8 pool, when every placed entry is stored int8 (a
+  ``quantize=True`` library), the int8 bytes go straight onto the page grid
+  (``PagedKVPool.link_write_q8``), with no fp copy of any block.
 
-Not ported yet: the spool-to-pool int8 direct link.
+Both take ``entries=``, a per-media source of library entries (a
+:class:`~repro_torch.cache.transfer.PrefetchHandle`): each entry is then
+gathered at link time, blocking only on a fetch still running.
 """
 from __future__ import annotations
 
@@ -80,26 +85,43 @@ def precompute_media_kv(model, params, embeds: torch.Tensor):
     return cache["k"][:, 0], cache["v"][:, 0]
 
 
-def _gather_placements(prompt: Prompt, library, selection: np.ndarray):
-    """Resolve each media segment to a library entry, or force its
-    recompute.  Returns (selection grown by misses, [(offset, entry,
-    length)], miss ids)."""
+def scale_row_ids(n: int, qkv) -> np.ndarray:
+    """Token -> scale-row map of one int8 segment: row 0 for whole-sequence
+    scales, a step every ``block_tokens`` tokens for block scales."""
+    if qkv.block_tokens is None:
+        return np.zeros(n, np.int32)
+    return (np.arange(n) // qkv.block_tokens).astype(np.int32)
+
+
+def _gather_placements(prompt: Prompt, library, selection: np.ndarray,
+                       entries=None):
+    """Resolve each media segment to a library entry (from ``entries`` when
+    given), or force its recompute.  Returns (selection grown by misses,
+    [(offset, entry, length)], miss ids).  Each placed entry is made ready
+    for this thread's stream (``Entry.wait_loaded``); none is dequantized
+    here."""
     sel = selection.copy()
     misses = []
     placed = []
     for off, seg in prompt.media_segments():
-        entry = library.get(prompt.user_id, seg.media_id) if library else None
+        if entries is not None:
+            entry = entries.get(seg.media_id)
+        else:
+            entry = library.get(prompt.user_id, seg.media_id) if library \
+                else None
         if entry is None:
             # expired or missing: recompute the whole segment
             sel[off:off + seg.length] = True
             misses.append(seg.media_id)
         else:
+            entry.wait_loaded()
             placed.append((off, entry, seg.length))
     return sel, placed, misses
 
 
 def link_prompt(model, prompt: Prompt, library, selection: np.ndarray, *,
-                kv_len: Optional[int] = None, device=None) -> LinkResult:
+                kv_len: Optional[int] = None, device=None,
+                entries=None) -> LinkResult:
     """Build the dense blended cache of one request on ``device`` (None
     means the card).
 
@@ -115,7 +137,8 @@ def link_prompt(model, prompt: Prompt, library, selection: np.ndarray, *,
     kv_len = kv_len or total + 1
     if kv_len < total + 1:
         raise ValueError(f"kv_len {kv_len} < prompt {total} + 1")
-    sel, placed, misses = _gather_placements(prompt, library, selection)
+    sel, placed, misses = _gather_placements(prompt, library, selection,
+                                             entries)
     sel_idx = selection_indices(sel)
     cache = model.make_cache(1, kv_len, device=device)
     k_buf, v_buf, pos = cache["k"][:, 0], cache["v"][:, 0], cache["pos"][0]
@@ -165,19 +188,24 @@ def bucket(n: int, lo: int = 8) -> int:
 
 
 def link_paged(model, prompt: Prompt, library, selection: np.ndarray, pool,
-               page_row: np.ndarray, *, scratch_page: int) -> PagedLinkResult:
+               page_row: np.ndarray, *, scratch_page: int,
+               entries=None) -> PagedLinkResult:
     """Link a prompt's reused segments directly into its reserved pages.
 
     All placed segments are relinked with one ``rope_relink`` and written
-    with one :meth:`~repro_torch.cache.paged.PagedKVPool.link_write`.  The
-    placed-token axis pads to a power-of-two bucket whose pad rows land on
-    ``scratch_page``.  Selected slots are not zeroed: the prefill writes
-    them before any layer's attention reads the pool.
+    with one :meth:`~repro_torch.cache.paged.PagedKVPool.link_write`, or,
+    on an int8 pool whose placed entries are all stored int8, with one
+    :meth:`~repro_torch.cache.paged.PagedKVPool.link_write_q8` (counted in
+    the library's ``direct_links``).  The placed-token axis pads to a
+    power-of-two bucket whose pad rows land on ``scratch_page``.  Selected
+    slots are not zeroed: the prefill writes them before any layer's
+    attention reads the pool.
     """
     cfg = model.cfg
     total = prompt.total_len
     ps = pool.cfg.page_size
-    sel, placed, misses = _gather_placements(prompt, library, selection)
+    sel, placed, misses = _gather_placements(prompt, library, selection,
+                                             entries)
     forced = sel & ~selection                   # miss-driven recomputes
     sel_idx = selection_indices(sel)
 
@@ -193,19 +221,45 @@ def link_paged(model, prompt: Prompt, library, selection: np.ndarray, pool,
         offs = np.zeros((b,), np.int32)
         pages[:n_placed] = np.asarray(page_row)[idx // ps]
         offs[:n_placed] = idx % ps
-        k_cat = torch.cat([e.k for _, e, _ in placed], dim=1)
-        v_cat = torch.cat([e.v for _, e, _ in placed], dim=1)
-        if pad > 0:
-            delta = np.concatenate([delta, np.zeros(pad, np.int32)])
-            zeros = k_cat.new_zeros(
-                (k_cat.shape[0], pad) + tuple(k_cat.shape[2:]))
-            k_cat = torch.cat([k_cat, zeros], dim=1)
-            v_cat = torch.cat([v_cat, zeros], dim=1)
+        delta = np.concatenate([delta, np.zeros(pad, np.int32)])
         dev = pool.device
-        pool.link_write(torch.as_tensor(pages, device=dev),
-                        torch.as_tensor(offs, device=dev), k_cat, v_cat,
-                        torch.as_tensor(delta, device=dev),
-                        theta=cfg.rope_theta, relink=bool(cfg.rope_theta))
+        args = [torch.as_tensor(a, device=dev) for a in (pages, offs)]
+        direct = pool.quantized and all(
+            e.qk is not None and e.qk.block_tokens == e.qv.block_tokens
+            for _, e, _ in placed)
+        if direct:
+            # every placed entry is int8-resident: its bytes rescale onto
+            # the page grid.  The segments' scale rows stack into one
+            # (L, rows, H, Dh) operand, seg_ids maps each token to its row
+            qks, qvs, ksr, vsr, sids = [], [], [], [], []
+            base = 0
+            for _, e, n in placed:
+                qks.append(e.qk.q[:, :n])
+                qvs.append(e.qv.q[:, :n])
+                ksr.append(e.qk.scale)
+                vsr.append(e.qv.scale)
+                sids.append(base + scale_row_ids(n, e.qk))
+                base += e.qk.scale.shape[1]
+            # pad rows (never referenced) bucket the scale-row axis too
+            rpad = bucket(base, 1) - base
+            ks_cat, vs_cat = (_pad_rows(torch.cat(r, dim=1), rpad, 1.0)
+                              for r in (ksr, vsr))
+            sid = np.concatenate(sids + [np.zeros(pad, np.int32)])
+            pool.link_write_q8(
+                *args, _pad_rows(torch.cat(qks, dim=1), pad, 0), ks_cat,
+                _pad_rows(torch.cat(qvs, dim=1), pad, 0), vs_cat,
+                torch.as_tensor(sid, device=dev),
+                torch.as_tensor(delta, device=dev),
+                theta=cfg.rope_theta, relink=bool(cfg.rope_theta))
+            if library is not None:
+                library.note_direct_link(len(placed))
+        else:
+            k_cat = torch.cat([e.k for _, e, _ in placed], dim=1)
+            v_cat = torch.cat([e.v for _, e, _ in placed], dim=1)
+            pool.link_write(*args, _pad_rows(k_cat, pad, 0),
+                            _pad_rows(v_cat, pad, 0),
+                            torch.as_tensor(delta, device=dev),
+                            theta=cfg.rope_theta, relink=bool(cfg.rope_theta))
 
     sel_tokens, sel_media_embeds, sel_media_mask = selection_arrays(
         prompt, cfg.d_model, sel_idx)
@@ -220,6 +274,14 @@ def link_paged(model, prompt: Prompt, library, selection: np.ndarray, pool,
         total=total,
         forced=forced,
     )
+
+
+def _pad_rows(x: torch.Tensor, n: int, value) -> torch.Tensor:
+    """``x`` (L, S, ...) with ``n`` rows of ``value`` appended on axis 1."""
+    if n <= 0:
+        return x
+    fill = x.new_full((x.shape[0], n) + tuple(x.shape[2:]), value)
+    return torch.cat([x, fill], dim=1)
 
 
 def reselect_paged(model, prompt: Prompt, link: PagedLinkResult,

@@ -89,11 +89,12 @@ class BoundPagedPrefill:
     def pool(self):
         return self.prefiller.pool
 
-    def link(self, model, prompt: Prompt, library,
-             selection: np.ndarray) -> PagedLinkResult:
+    def link(self, model, prompt: Prompt, library, selection: np.ndarray,
+             *, entries=None) -> PagedLinkResult:
         return link_paged(model, prompt, library, selection,
                           self.prefiller.pool, self.page_row,
-                          scratch_page=self.prefiller.scratch_page)
+                          scratch_page=self.prefiller.scratch_page,
+                          entries=entries)
 
     def reselect(self, model, prompt: Prompt, link: PagedLinkResult,
                  selection: np.ndarray) -> PagedLinkResult:

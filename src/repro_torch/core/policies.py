@@ -172,13 +172,13 @@ def prefix_caching(model, params, prompt: Prompt, library=None, *,
 
 
 def full_reuse(model, params, prompt: Prompt, library, *, kv_len=None,
-               **kw) -> PolicyResult:
+               entries=None, **kw) -> PolicyResult:
     """Two-step Prompt-Cache-style reuse (paper section 3.2)."""
     t0 = time.perf_counter()
     dev = _device(params)
     selection = sel_mod.full_reuse_selection(prompt)
     link = link_prompt(model, prompt, library, selection, kv_len=kv_len,
-                       device=dev)
+                       device=dev, entries=entries)
 
     # step 1: the text KV on its own (text attends only to text, at its
     # original positions), a separate engine invocation
@@ -234,7 +234,7 @@ def _probe_k_deviation(model, params, prompt: Prompt, k_cached0) -> np.ndarray:
 
 
 def cacheblend(model, params, prompt: Prompt, library, *, r: float = 0.15,
-               kv_len=None, paged=None, **kw) -> PolicyResult:
+               kv_len=None, entries=None, paged=None, **kw) -> PolicyResult:
     """CacheBlend-r [Yao et al. 2024]: KV-deviation-driven selection.
 
     Step 1 (probe): recompute layer-0 K of every token and rank the media
@@ -254,7 +254,7 @@ def cacheblend(model, params, prompt: Prompt, library, *, r: float = 0.15,
     base_sel = sel_mod.full_reuse_selection(prompt)
     name = f"cacheblend-{int(r * 100)}"
     if paged is not None:
-        link0 = paged.link(model, prompt, library, base_sel)
+        link0 = paged.link(model, prompt, library, base_sel, entries=entries)
         # the probe reads the pool before the prefill has written the
         # selected slots: blank them, as the dense dummy cache does, so a
         # previous tenant's K cannot steer the ranking
@@ -271,13 +271,14 @@ def cacheblend(model, params, prompt: Prompt, library, *, r: float = 0.15,
              "n_reused": link.n_reused, "engine_steps": 2,
              "paged_prefill": True, "wall_s": time.perf_counter() - t0,
              "misses": link.misses})
-    link0 = link_prompt(model, prompt, library, base_sel, device=dev)
+    link0 = link_prompt(model, prompt, library, base_sel, device=dev,
+                        entries=entries)
     dev_scores = _probe_k_deviation(model, params, prompt,
                                     link0.cache["k"][0, 0, :prompt.total_len])
     del link0
     selection = sel_mod.cacheblend_selection(prompt, dev_scores, r)
     link = link_prompt(model, prompt, library, selection, kv_len=kv_len,
-                       device=dev)
+                       device=dev, entries=entries)
     logits, cache = _selective_step(model, params, link)
     return PolicyResult(
         _first_logits(logits), cache,
@@ -287,7 +288,7 @@ def cacheblend(model, params, prompt: Prompt, library, *, r: float = 0.15,
 
 
 def mpic(model, params, prompt: Prompt, library, *, k: int = 32,
-         kv_len=None, paged=None, **kw) -> PolicyResult:
+         kv_len=None, entries=None, paged=None, **kw) -> PolicyResult:
     """MPIC-k: single-step selective attention (the paper's algorithm).
 
     With ``paged``, link and selective prefill both write straight into the
@@ -297,7 +298,7 @@ def mpic(model, params, prompt: Prompt, library, *, k: int = 32,
     t0 = time.perf_counter()
     selection = sel_mod.mpic_selection(prompt, k)
     if paged is not None:
-        link = paged.link(model, prompt, library, selection)
+        link = paged.link(model, prompt, library, selection, entries=entries)
         first = paged.prefill(params, link)
         return PolicyResult(
             first, None,
@@ -306,7 +307,7 @@ def mpic(model, params, prompt: Prompt, library, *, k: int = 32,
              "paged_prefill": True, "wall_s": time.perf_counter() - t0,
              "misses": link.misses})
     link = link_prompt(model, prompt, library, selection, kv_len=kv_len,
-                       device=_device(params))
+                       device=_device(params), entries=entries)
     logits, cache = _selective_step(model, params, link)
     return PolicyResult(
         _first_logits(logits), cache,

@@ -5,10 +5,15 @@ The paper's request flow, with continuous batching over fixed slots:
   1. ``upload``   user file -> ``precompute_media_kv`` -> static library
                   (``dynamic=True``: the shared MRAG library + retriever)
   2. ``submit``   a query with media references joins the waiting queue
-  3. admission    one request per step into a free slot; its policy
-                  (``mpic``, ``cacheblend``, ``full_reuse``,
-                  ``prefix_caching`` or ``full_recompute``) links the stored
-                  media KV and runs the prefill, which gives the first token
+                  of the pipelined scheduler, which starts loading the
+                  media KV of the next ``PREFETCH_DEPTH`` queued requests
+                  on the loader's threads while the engine computes
+  3. admission    up to ``max_prefills_per_step`` requests a step into free
+                  slots; each request's policy (``mpic``, ``cacheblend``,
+                  ``full_reuse``, ``prefix_caching`` or ``full_recompute``)
+                  links the stored media KV, gathered per media id from its
+                  prefetch handle, and runs the prefill, which gives the
+                  first token
   4. MRAG         retrieved dynamic-library KV is relinked after the prompt
   5. decode       every step advances all running slots by one token
 
@@ -38,9 +43,15 @@ port's CUDA kernels: the paged prefill and decode kernels on the pool, the
 dense selective attention everywhere else (uploads, the dense prefills,
 the dense decode step).
 
-Not ported yet: the pipelined scheduler and its loader, chunked prefill,
-sessions, deadlines and faults, sampling other than greedy, and mesh
-sharding.
+The static library (``KVLibrary``) may keep media KV on disk
+(``spool_dir``) and store it int8 (``quantize=True``, which the int8 pool
+links straight from the int8 bytes).  ``pipelined=False`` loads a
+request's media when it is admitted, before its compute: the sequential
+baseline.  ``report()["scheduler"]`` gives each request's load, blocked,
+compute and overlap seconds.
+
+Not ported yet: chunked prefill, sessions, deadlines and faults, sampling
+other than greedy, and mesh sharding.
 """
 from __future__ import annotations
 
@@ -53,14 +64,15 @@ import torch
 
 from repro_torch.cache.library import KVLibrary
 from repro_torch.cache.paged import PagedConfig, PagedKVPool
-from repro_torch.core.linker import bucket, precompute_media_kv
+from repro_torch.cache.transfer import ParallelLoader, PrefetchHandle
+from repro_torch.core.linker import bucket, precompute_media_kv, scale_row_ids
 from repro_torch.core.paged_prefill import PagedPrefiller
 from repro_torch.core.policies import POLICIES, PolicyResult, PrefixStore
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import INVALID_POS, rope_relink
 from repro_torch.serving.request import Request, State
 from repro_torch.serving.retriever import Retriever
-from repro_torch.serving.scheduler import WaitingQueue
+from repro_torch.serving.scheduler import PipelinedScheduler
 
 
 @dataclasses.dataclass
@@ -71,6 +83,8 @@ class EngineConfig:
     pool_dtype: str = ""            # "" -> model compute dtype; "int8"
                                     # (paged engines only)
     paged: bool = True              # page pool; False -> dense batch cache
+    max_prefills_per_step: int = 1  # admissions per engine step
+    pipelined: bool = True          # False -> sequential admission baseline
 
 
 class MPICEngine:
@@ -91,7 +105,10 @@ class MPICEngine:
         self.static_lib = static_library or KVLibrary()
         self.dynamic_lib = dynamic_library or KVLibrary(shared=True)
         self.retriever = retriever if retriever is not None else Retriever()
-        self.queue = WaitingQueue()
+        self.loader = ParallelLoader(self.static_lib)
+        self.scheduler = PipelinedScheduler(
+            self.loader, pipelined=self.cfg.pipelined,
+            prefetch_filter=self._policy_consumes_entries)
         self.running: List[Optional[Request]] = [None] * self.cfg.decode_slots
         self.finished: List[Request] = []
         self.failed: List[Request] = []
@@ -138,6 +155,15 @@ class MPICEngine:
         self._prefiller = PagedPrefiller(self.model, self.pool,
                                          self._scratch_page)
 
+    @property
+    def queue(self):
+        """The scheduler's waiting queue."""
+        return self.scheduler.queue
+
+    def close(self) -> None:
+        """Stop the loader's worker threads."""
+        self.loader.close()
+
     # ------------------------------------------------------------------
     # workflow 1: upload -> precompute KV -> store
     # ------------------------------------------------------------------
@@ -161,7 +187,7 @@ class MPICEngine:
         if total + 1 >= self.cfg.max_seq_len:
             raise ValueError(f"prompt of {total} tokens exceeds the slot's "
                              f"kv region ({self.cfg.max_seq_len})")
-        self.queue.push(request)
+        self.scheduler.enqueue(request)
         return request
 
     # ------------------------------------------------------------------
@@ -186,10 +212,14 @@ class MPICEngine:
         return -1
 
     def _admit(self) -> None:
-        """Admit at most one request per step (sequential admission)."""
-        slot = self._free_slot()
-        if self.queue and slot >= 0:
-            self._begin_prefill(self.queue.pop(), slot)
+        """Admit up to ``max_prefills_per_step`` requests into free slots
+        (a free slot owns its whole page region, so it always has room)."""
+        for _ in range(self.cfg.max_prefills_per_step):
+            slot = self._free_slot()
+            if not self.queue or slot < 0:
+                return
+            req, handle = self.scheduler.pop()
+            self._begin_prefill(req, slot, handle)
 
     def _resolve_policy(self, req: Request) -> str:
         """The policy a request runs: an SSM has no attention KV, so the
@@ -199,8 +229,14 @@ class MPICEngine:
             return "full_recompute"
         return req.policy
 
-    def _begin_prefill(self, req: Request, slot: int) -> None:
-        req.t_admitted = time.perf_counter()
+    def _policy_consumes_entries(self, req: Request) -> bool:
+        """Does the request's resolved policy link library entries?  Only
+        those requests get their media prefetched."""
+        return self._resolve_policy(req) in ("mpic", "cacheblend",
+                                             "full_reuse")
+
+    def _begin_prefill(self, req: Request, slot: int,
+                       handle: Optional[PrefetchHandle]) -> None:
         policy_name = self._resolve_policy(req)
         policy = POLICIES.get(policy_name)
         if policy is None:
@@ -209,6 +245,8 @@ class MPICEngine:
             req.error = (f"unknown policy {req.policy!r} "
                          f"(ported: {sorted(POLICIES)})")
             self.failed.append(req)
+            if handle is not None:
+                handle.release()
             return
         req.slot = slot
         req.state = State.PREFILLING
@@ -222,20 +260,29 @@ class MPICEngine:
             if policy_name in ("mpic", "cacheblend"):
                 paged_ctx = self._prefiller.bind(self._page_tables[slot])
         try:
-            result = policy(self.model, self.params, req.prompt,
-                            self.static_lib, kv_len=self.cfg.max_seq_len,
-                            prefix_store=self.prefix_store, paged=paged_ctx,
-                            **req.policy_kwargs)
-            self._finalize_prefill(req, result)
+            # one compute window; the linker gathers the request's entries
+            # from its handle at link time.  It closes after the first
+            # token's logits reach the host, i.e. after the device work
+            with self.scheduler.compute_window():
+                result = policy(self.model, self.params, req.prompt,
+                                self.static_lib, kv_len=self.cfg.max_seq_len,
+                                prefix_store=self.prefix_store,
+                                entries=handle, paged=paged_ctx,
+                                **req.policy_kwargs)
+            self._finalize_prefill(req, result, handle)
         except BaseException as exc:
-            # free the slot and its pages, then let the caller see the error
+            # free the slot, its pages and its pins, then let the caller
+            # see the error
+            if handle is not None:
+                handle.release()
             req.state = State.FAILED
             req.error = repr(exc)
             self.failed.append(req)
             self._release(req)
             raise
 
-    def _finalize_prefill(self, req: Request, result: PolicyResult) -> None:
+    def _finalize_prefill(self, req: Request, result: PolicyResult,
+                          handle: Optional[PrefetchHandle] = None) -> None:
         req.prefill_stats = result.stats
         req.linked_media = [seg.media_id
                             for _, seg in req.prompt.media_segments()]
@@ -243,6 +290,10 @@ class MPICEngine:
         req.t_first_token = time.perf_counter()
         req.cur_len = req.prompt.total_len
         req.state = State.RUNNING
+        self.scheduler.account(req, handle, result.stats.get("wall_s", 0.0))
+        if handle is not None:
+            # the entries are linked: the library may demote them again
+            handle.release()
         # a dense result cache goes into the slot's pages or its row of the
         # dense batch cache; a paged prefill left nothing to splice
         if result.cache is not None:
@@ -297,36 +348,55 @@ class MPICEngine:
 
     def _mrag_link(self, req: Request) -> None:
         hits = self.retriever.query(req.retrieval_query, req.retrieval_top_k)
-        cfg = self.model.cfg
-        ps = self.cfg.page_size
         for media_id, _score in hits:
-            entry = self.dynamic_lib.get(req.prompt.user_id, media_id)
+            # pinned while linked: a spool must not free the tensors
+            entry = self.dynamic_lib.get(req.prompt.user_id, media_id,
+                                         pin=True)
             if entry is None:
                 continue
-            length = entry.k.shape[1]
-            off = req.cur_len
-            if off + length + 1 >= self.cfg.max_seq_len:
-                break
-            if not self._paged:
-                self._dense_link(req.slot, entry.k, entry.v, off)
-                req.cur_len += length
-                req.linked_media.append(media_id)
-                continue
-            pages = self.pool.extend(req.req_id, length, off)
-            if pages is None:           # pool full: stop linking
-                break
-            self._set_page_row(req.slot, pages)
-            t = off + np.arange(length)
-            dev = self.device
-            self.pool.link_write(
-                torch.as_tensor(self._page_tables[req.slot][t // ps],
-                                device=dev),
-                torch.as_tensor((t % ps).astype(np.int32), device=dev),
-                entry.k, entry.v,
-                torch.full((length,), off, dtype=torch.int32, device=dev),
-                theta=cfg.rope_theta, relink=bool(cfg.rope_theta))
+            try:
+                entry.wait_loaded()
+                length = (entry.qk.q if entry.qk is not None
+                          else entry.payload.k).shape[1]
+                off = req.cur_len
+                if off + length + 1 >= self.cfg.max_seq_len:
+                    break
+                if not self._paged:
+                    self._dense_link(req.slot, entry.k, entry.v, off)
+                elif not self._paged_link(req, entry, length, off):
+                    break                   # pool full: stop linking
+            finally:
+                self.dynamic_lib.unpin(entry)
             req.cur_len += length
             req.linked_media.append(media_id)
+
+    def _paged_link(self, req: Request, entry, length: int, off: int) -> bool:
+        """Link one MRAG segment at positions ``off ..`` of the request's
+        pages; False when the pool cannot extend it."""
+        pages = self.pool.extend(req.req_id, length, off)
+        if pages is None:
+            return False
+        self._set_page_row(req.slot, pages)
+        ps = self.cfg.page_size
+        t = off + np.arange(length)
+        dev, cfg = self.device, self.model.cfg
+        args = (torch.as_tensor(self._page_tables[req.slot][t // ps],
+                                device=dev),
+                torch.as_tensor((t % ps).astype(np.int32), device=dev))
+        delta = torch.full((length,), off, dtype=torch.int32, device=dev)
+        kw = dict(theta=cfg.rope_theta, relink=bool(cfg.rope_theta))
+        qk, qv = entry.qk, entry.qv
+        if (self.pool.quantized and qk is not None
+                and qk.block_tokens == qv.block_tokens):
+            # the library's int8 bytes rescale onto the page grid
+            self.pool.link_write_q8(
+                *args, qk.q, qk.scale, qv.q, qv.scale,
+                torch.as_tensor(scale_row_ids(length, qk), device=dev),
+                delta, **kw)
+            self.dynamic_lib.note_direct_link(1)
+        else:
+            self.pool.link_write(*args, entry.k, entry.v, delta, **kw)
+        return True
 
     # ------------------------------------------------------------------
     # decode
@@ -336,10 +406,12 @@ class MPICEngine:
                 if r is not None and r.state is State.RUNNING]
         if not live:
             return
-        if self._paged:
-            live, logits = self._decode_paged_step(live)
-        else:
-            logits = self._decode_dense_step(live)
+        # the window closes after the logits reach the host
+        with self.scheduler.compute_window():
+            if self._paged:
+                live, logits = self._decode_paged_step(live)
+            else:
+                logits = self._decode_dense_step(live)
         for r in live:
             r.output_tokens.append(int(np.argmax(logits[r.slot])))
             r.cur_len += 1
@@ -450,5 +522,6 @@ class MPICEngine:
             "mean_decode_step_s": float(np.mean(steps)) if steps else 0.0,
             "total_tokens": sum(len(r.output_tokens) for r in done),
             "paged": self._paged,
+            "scheduler": self.scheduler.stats(done),
             "library": self.static_lib.stats(),
         }

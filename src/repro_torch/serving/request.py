@@ -1,5 +1,5 @@
-"""Request lifecycle (port of the JAX package's ``serving/request.py``, the
-fields the paged engine uses)."""
+"""Request lifecycle (port of the JAX package's ``serving/request.py``,
+without sampling seeds, deadlines and sessions)."""
 from __future__ import annotations
 
 import dataclasses
@@ -49,10 +49,29 @@ class Request:
     t_done: float = 0.0
     prefill_stats: dict = dataclasses.field(default_factory=dict)
     linked_media: List[str] = dataclasses.field(default_factory=list)
+    # TTFT breakdown and overlap, filled by the scheduler at the first token
+    load_s: float = 0.0              # loader-worker busy time for its media
+    load_blocked_s: float = 0.0      # time the engine waited on those loads
+    compute_s: float = 0.0           # prefill wall minus that waiting
+    overlap_s: float = 0.0           # load time hidden under engine compute
 
     @property
     def ttft(self) -> float:
         return self.t_first_token - self.t_arrival
+
+    @property
+    def queue_wait(self) -> float:
+        return max(0.0, self.t_admitted - self.t_arrival)
+
+    @property
+    def prefill_wall_s(self) -> float:
+        """Admission to first token."""
+        return max(0.0, self.t_first_token - self.t_admitted)
+
+    @property
+    def load_overlap_ratio(self) -> float:
+        """Share of this request's load time hidden under compute."""
+        return self.overlap_s / self.load_s if self.load_s > 0 else 0.0
 
     @property
     def done(self) -> bool:

@@ -1,18 +1,51 @@
-"""Waiting queue of the engine (port of ``WaitingQueue`` in the JAX
-package's ``serving/scheduler.py``, without priority aging).
+"""Pipelined admission: media loads overlap recompute (port of the JAX
+package's ``serving/scheduler.py``, its queue and pipeline).
 
-Admission is sequential: the engine pops one request at a time and links
-it with blocking library lookups, as the JAX engine does with
-``pipelined=False``.  The pipelined scheduler and its parallel loader are
-not ported yet.
+Two streams run at once:
+
+* the **load stream**: whenever a request enters the front
+  ``PREFETCH_DEPTH`` of the waiting queue, its media fetches are issued on
+  the :class:`~repro_torch.cache.transfer.ParallelLoader`, slowest tier
+  first; the linker gathers each entry at link time through the request's
+  :class:`~repro_torch.cache.transfer.PrefetchHandle`, so a request blocks
+  only on fetches not finished when its link needs them;
+* the **compute stream**: the engine's prefills and decode steps, each
+  recorded as a wall-clock window (:meth:`PipelinedScheduler.compute_window`)
+  so that the overlap is measured, not modelled:
+  ``overlap_s = sum |load intersect compute|`` minus the spans in which the
+  engine sat blocked on a load.
+
+On the card, the engine's windows close after a host read of the step's
+logits, which waits for the device work the window issued; a load's
+interval ends when its bytes are on the card.  Both are device-complete
+host intervals.
+
+``pipelined=False`` is the sequential baseline: a request's fetches are
+issued and waited for when it is popped, before its compute starts.
+
+Not ported: chunked prefill (``ChunkedPrefillTask``).
 """
 from __future__ import annotations
 
+import contextlib
 import heapq
 import itertools
-from typing import List, Tuple
+import time
+from collections import deque
+from typing import Dict, Iterable, List, Optional, Tuple
 
-from repro_torch.serving.request import Request
+import numpy as np
+
+from repro_torch.cache.transfer import (
+    _TIER_RANK,
+    ParallelLoader,
+    PrefetchHandle,
+)
+from repro_torch.serving.request import Request, State
+
+# queued requests whose media loads are kept in flight (the JAX engine's
+# default ``prefetch_depth``)
+PREFETCH_DEPTH = 2
 
 
 class WaitingQueue:
@@ -28,8 +61,173 @@ class WaitingQueue:
     def pop(self) -> Request:
         return heapq.heappop(self._heap)[2]
 
+    def peek(self, n: int) -> List[Request]:
+        """The next ``n`` requests in admission order, not popped."""
+        return [item[2] for item in heapq.nsmallest(n, self._heap)]
+
+    def remove(self, req: Request) -> bool:
+        """Drop one queued request by identity."""
+        for i, item in enumerate(self._heap):
+            if item[2] is req:
+                self._heap.pop(i)
+                heapq.heapify(self._heap)
+                return True
+        return False
+
     def __len__(self) -> int:
         return len(self._heap)
 
     def __bool__(self) -> bool:
         return bool(self._heap)
+
+    def __iter__(self):
+        return iter(item[2] for item in sorted(self._heap))
+
+
+def _media_ids(req: Request) -> List[str]:
+    return [seg.media_id for _, seg in req.prompt.media_segments()]
+
+
+class PipelinedScheduler:
+    """Admission pipeline over a :class:`WaitingQueue` and a loader.
+
+    ``prefetch_filter(req)`` says whether a request's policy will gather
+    library entries at all (the engine's ``_policy_consumes_entries``), so
+    that requests that never link media occupy no loader worker.
+    """
+
+    def __init__(self, loader: ParallelLoader, *, pipelined: bool = True,
+                 max_intervals: int = 1024, prefetch_filter=None):
+        self.loader = loader
+        self.pipelined = pipelined
+        self.prefetch_filter = prefetch_filter
+        self.queue = WaitingQueue()
+        self._handles: Dict[str, PrefetchHandle] = {}
+        # the engine's compute windows; old ones cannot meet new loads
+        self._compute_intervals: deque = deque(maxlen=max_intervals)
+        # recent handles: the engine computes nothing while blocked on any
+        # of them, so their blocked spans leave every request's overlap
+        self._recent_handles: deque = deque(maxlen=64)
+        self.admitted = 0
+
+    # -- the queue -------------------------------------------------------------
+    def enqueue(self, req: Request) -> None:
+        req.state = State.WAITING
+        self.queue.push(req)
+        self._top_up()
+
+    def pop(self) -> Tuple[Request, Optional[PrefetchHandle]]:
+        """The next request to admit and its (maybe still loading) handle."""
+        req = self.queue.pop()
+        req.t_admitted = time.perf_counter()
+        handle = self._handles.pop(req.req_id, None)
+        if handle is None and self._should_prefetch(req):
+            # pipelined: it passed through the window between top-ups.  The
+            # sequential baseline: load everything now, before compute
+            handle = self._issue(req)
+            if not self.pipelined:
+                handle.wait()
+        self._top_up()
+        self.admitted += 1
+        return req, handle
+
+    def _issue(self, req: Request) -> PrefetchHandle:
+        handle = self.loader.prefetch_handle(req.prompt.user_id,
+                                             _media_ids(req))
+        self._recent_handles.append(handle)
+        return handle
+
+    def _should_prefetch(self, req: Request) -> bool:
+        return bool(_media_ids(req)) and (self.prefetch_filter is None
+                                          or self.prefetch_filter(req))
+
+    def _slowest_tier_rank(self, req: Request) -> int:
+        lib = self.loader.library
+        return min(_TIER_RANK[lib.peek_tier(req.prompt.user_id, mid)]
+                   for mid in _media_ids(req))
+
+    def _top_up(self) -> None:
+        """Keep the front ``PREFETCH_DEPTH`` requests' loads in flight,
+        issuing the window's slowest tier first (admission order stays)."""
+        if not self.pipelined:
+            return
+        window = [req for req in self.queue.peek(PREFETCH_DEPTH)
+                  if req.req_id not in self._handles
+                  and self._should_prefetch(req)]
+        window.sort(key=self._slowest_tier_rank)
+        for req in window:
+            self._handles[req.req_id] = self._issue(req)
+
+    # -- the compute stream ------------------------------------------------------
+    @contextlib.contextmanager
+    def compute_window(self):
+        """Record one compute interval (a prefill or a decode step)."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._compute_intervals.append((t0, time.perf_counter()))
+
+    @staticmethod
+    def _intersection_s(a_intervals: Iterable[Tuple[float, float]],
+                        b_intervals: Iterable[Tuple[float, float]]) -> float:
+        total = 0.0
+        for a, b in a_intervals:
+            for c, d in b_intervals:
+                total += max(0.0, min(b, d) - max(a, c))
+        return total
+
+    def measure_overlap(self,
+                        load_intervals: Iterable[Tuple[float, float]]) -> float:
+        """Seconds during which a worker loaded these intervals while the
+        engine was inside a compute window, minus the spans in which the
+        engine was blocked on any request's load (no compute then)."""
+        load_intervals = list(load_intervals)
+        raw = self._intersection_s(load_intervals, self._compute_intervals)
+        # the engine thread's blocked spans never overlap each other
+        blocked = sum(self._intersection_s(load_intervals,
+                                           h.blocked_intervals)
+                      for h in self._recent_handles)
+        return max(0.0, raw - blocked)
+
+    def account(self, req: Request, handle: Optional[PrefetchHandle],
+                policy_wall_s: float) -> None:
+        """Fill the request's TTFT breakdown and overlap."""
+        blocked_in_compute = 0.0
+        if handle is not None:
+            req.load_s = handle.load_busy_s
+            req.load_blocked_s = handle.blocked_s
+            req.overlap_s = self.measure_overlap(handle.intervals())
+            # only blocking inside a compute window (a gather at link time)
+            # dilutes the policy's wall time; the baseline's gather at pop
+            # precedes it
+            blocked_in_compute = self._intersection_s(
+                handle.blocked_intervals, self._compute_intervals)
+        req.compute_s = max(0.0, policy_wall_s - blocked_in_compute)
+
+    def stats(self, finished: List[Request]) -> dict:
+        """Aggregates for the engine's ``report()``."""
+        if not finished:
+            return {"admitted": self.admitted, "waiting": len(self.queue)}
+        loaded = [r for r in finished if r.load_s > 0]
+
+        def mean(attr):
+            return float(np.mean([getattr(r, attr) for r in finished]))
+
+        return {
+            "admitted": self.admitted,
+            "waiting": len(self.queue),
+            "pipelined": self.pipelined,
+            "prefetch_depth": PREFETCH_DEPTH,
+            "mean_queue_wait_s": mean("queue_wait"),
+            "mean_prefill_wall_s": mean("prefill_wall_s"),
+            "mean_load_s": mean("load_s"),
+            "mean_load_blocked_s": mean("load_blocked_s"),
+            "mean_compute_s": mean("compute_s"),
+            "mean_overlap_s": mean("overlap_s"),
+            "mean_load_overlap_ratio": float(np.mean(
+                [r.load_overlap_ratio for r in loaded])) if loaded else 0.0,
+            "ttft_breakdown_s": {"queue": mean("queue_wait"),
+                                 "load_blocked": mean("load_blocked_s"),
+                                 "compute": mean("compute_s")},
+        }

@@ -47,10 +47,20 @@ each on both routes where the tensor cores take the shape (Q 32/64/128,
 hd 64, ds 128; ``ssd_chunk.ops.ssd_route``), each call checked to have
 counted one launch of its route.  fp32, held per element to ``1e-4 + 1e-4
 * |ref|`` (``repro_torch.kernels.check.ssd_limit``).
+
+The spool-to-pool int8 link (``PagedKVPool.link_write_q8``, plain PyTorch)
+runs on the card against the same call on the CPU
+(``test_link_write_q8_matches_cpu``; its tolerance is in its docstring).
 """
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.cache import PagedConfig, PagedKVPool
+from repro_torch.cache.quant import quantize_kv
+from repro_torch.core.linker import scale_row_ids
 from repro_torch.kernels import KERNELS
 from repro_torch.kernels.check import compare, ssd_limit, v_absmax
 from repro_torch.kernels.paged_attn.ops import paged_attention
@@ -542,3 +552,66 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(dev):
     xm = torch.randn((1, 2, 2, 64, 65), device=dev)[..., 1:]
     with pytest.raises(ValueError, match="aligned"):
         ssd_chunk(xm, bm, cm, la, dt)
+
+
+# -- the spool-to-pool int8 link (plain PyTorch, no kernel of its own) -------
+
+@pytest.mark.parametrize("block_tokens", [None, 16])
+def test_link_write_q8_matches_cpu(dev, block_tokens):
+    """``PagedKVPool.link_write_q8`` on the card against the same call on
+    the CPU: two int8 segments (whole-sequence or 16-token block scales)
+    relinked onto a pool whose pages already hold int8 rows and scales, with
+    the scratch page absorbing the pad rows.  V is bit-identical (dequantize,
+    amax, divide and round are exact); K goes through the RoPE rotation,
+    whose cos/sin may differ by an ulp between the devices, so K's scales
+    are held to 1e-6 relative and its bytes to one quantization step."""
+    cfg = PagedConfig(num_pages=24, page_size=PS, num_layers=2,
+                      num_kv_heads=4, head_dim=DH, dtype="int8")
+    g = torch.Generator().manual_seed(21)
+    seg_len, n_pad = (120, 77), 59                  # 197 placed + 59 = 256
+    segs = [[quantize_kv(torch.randn((2, n, 4, DH), generator=g) * 3,
+                         block_tokens) for _ in "kv"] for n in seg_len]
+    q_k = torch.cat([k.q for k, _ in segs]
+                    + [torch.zeros((2, n_pad, 4, DH), dtype=torch.int8)], 1)
+    q_v = torch.cat([v.q for _, v in segs]
+                    + [torch.zeros((2, n_pad, 4, DH), dtype=torch.int8)], 1)
+    s_k = torch.cat([k.scale for k, _ in segs], 1)
+    s_v = torch.cat([v.scale for _, v in segs], 1)
+    rows, base = [], 0
+    for (k, _), n in zip(segs, seg_len):
+        rows.append(base + scale_row_ids(n, k))
+        base += k.scale.shape[1]
+    seg_ids = torch.as_tensor(np.concatenate(rows + [np.zeros(n_pad,
+                                                               np.int32)]))
+    slots = np.concatenate([np.arange(5, 125), np.arange(140, 217)])
+    pages = np.concatenate([1 + slots // PS, np.zeros(n_pad, np.int64)])
+    offs = np.concatenate([slots % PS, np.zeros(n_pad, np.int64)])
+    delta = np.concatenate([np.full(120, 5), np.full(77, 140),
+                            np.zeros(n_pad)]).astype(np.int32)
+    pools = {}
+    for where in ("cpu", dev):
+        pool = PagedKVPool(cfg, device=where)
+        gp = torch.Generator().manual_seed(22)      # same resident rows
+        for buf in (pool.k, pool.v):
+            buf.copy_(torch.randint(-127, 128, buf.shape, generator=gp,
+                                    dtype=torch.int8))
+        for sc in (pool.k_scale, pool.v_scale):
+            sc.copy_(torch.rand(sc.shape, generator=gp) * 0.05)
+        to = {"device": pool.device}
+        pool.link_write_q8(
+            torch.as_tensor(pages, **to), torch.as_tensor(offs, **to),
+            q_k.to(**to), s_k.to(**to), q_v.to(**to), s_v.to(**to),
+            seg_ids.to(**to), torch.as_tensor(delta, **to), theta=10000.0,
+            relink=True)
+        pools[str(where)] = pool
+    cpu, card = pools["cpu"], pools[str(dev)]
+    assert torch.equal(card.v.cpu(), cpu.v)
+    assert torch.equal(card.v_scale.cpu(), cpu.v_scale)
+    torch.testing.assert_close(card.k_scale.cpu(), cpu.k_scale, rtol=1e-6,
+                               atol=0)
+    assert int((card.k.cpu().int() - cpu.k.int()).abs().max()) <= 1
+    with pytest.raises(ValueError, match="int8 pool"):
+        PagedKVPool(dataclasses.replace(cfg, dtype="bfloat16"),
+                    device=dev).link_write_q8(
+            torch.as_tensor(pages, device=dev), None, None, None, None,
+            None, None, None, theta=1.0, relink=False)
