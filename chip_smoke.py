@@ -46,11 +46,36 @@ timed on its own line:
    their keys; the int8 run links every block from its int8 bytes
    (``direct_links``, no dequantization); the bf16 disk runs give the
    control's greedy tokens and first-token logits within 1e-3; the
-   prefill, decode and dense kernels of each pool launched.  Printed per
+   prefill, decode and dense kernels of each pool launched.  A fifth run
+   starts cold: fresh libraries rehydrate the bf16 pipelined run's spool
+   directories (``KVLibrary(rehydrate=True)``; every spooled block must
+   come back, 8 static and 1 dynamic) and serve its traffic with no
+   upload, every lookup a verified disk hit, tokens and first-token
+   logits equal to the control's exactly.  Printed per
    run: the upload time (spooling included), each request's load busy,
    blocked, compute and overlap ms, TTFT, prefill alone, the decode step
    (and over the steps with a load in flight), and the disk's bytes read
    and the share of read time spent on SHA-1;
+5d. llava's weights freed, serve the GQA decoders at full width (seeded
+   random weights, bf16, one model at a time, each freed before the next;
+   phase 3's traffic with 576-token images): qwen2.5-14b (G 5, QKV bias)
+   under ``mpic`` on both pools, ``mpic`` on the dense cache,
+   ``full_recompute``, both chunked (``prefill_chunk_tokens=64``), both
+   chunked again with a planted fault (each chunk blind to the K/V of the
+   chunk before it), ``mpic`` in one chunk (``prefill_chunk_tokens=512``),
+   sampled twice (temperature 0.8, top-k 8, one seed per request) and at
+   top-k 1; yi-9b (G 8), phi3-medium-14b (G 4) and stablelm-1.6b (MHA,
+   head dim 64) under ``mpic`` on both pools.  Gates: each run's kernels
+   launched (the prefill kernel of its pool for monolithic paged ``mpic``,
+   the decode kernel of its pool, the dense kernel in the uploads and, more
+   often, in the chunked runs); every prefill of a chunked run went
+   through ``ChunkedPrefillTask``, in more than one chunk at 64 and in one
+   at 512; the one-chunk run's first-token logits equal the dense
+   monolithic run's bit for bit; the chunked runs' differ from the
+   monolithic run's by at most 10 % relative RMS per request (bf16
+   rounding; see ``CHUNK_REL_RMS``), and the faulty runs' by more in every
+   request; the two sampled runs give the same tokens and top-k 1 the
+   greedy ones.  The peak device memory of each model is printed;
 6. each kernel against its plain PyTorch version on the state phases 3-5b
    left (layer 0 of the live pool or the captured dense-attention and SSD
    inputs) and on synthetic shapes (32 query heads on 8 kv heads, window
@@ -73,12 +98,21 @@ timed on its own line:
    kernel); the limit is per element
    (``repro_torch/kernels/check.py``): one bf16 ulp of the value for bf16
    outputs, 1e-4 for fp32 ones, 1e-4 + 1e-4 |ref| for the SSD chunk;
+   kernels 1-5 also at each GQA model's layer-0 shapes from phase 5d
+   (qwen2.5-14b G 5, yi-9b G 8, phi3-medium-14b G 4, stablelm-1.6b G 1 at
+   head dim 64: both pools' prefill and decode and the upload on the
+   tensor cores; qwen's dense mpic prefill and 64-token chunk on the
+   tensor cores and its dense decode step on the split keys), each with
+   its device time, bound and SDPA's time;
 7. a small fp32 model served by the same engine on the card and on the CPU
    (plain versions) under every policy and on the dense cache, and under
    ``mpic`` with its media on disk and pipelined admission on both pools,
    and the small fp32 mamba2 under ``full_recompute`` and ``mpic``: same
    greedy tokens, first-token logits within 1e-3 (the int8 pool with its
-   media in memory: within 5e-2, tokens printed).
+   media in memory: within 5e-2, tokens printed); then qwen2.5-14b's
+   smoke config at G 5 (10 query heads on 2 kv heads) with nonzero QKV
+   biases under ``mpic`` on both pools, chunked ``mpic`` and
+   ``full_recompute`` and seeded sampling, card against CPU alike.
 
 During the serving phases the plain versions and ``layers.attend`` raise
 if called.  Each serving run resets the kernels' launch counts (and the
@@ -139,6 +173,75 @@ SSD_TOLERANCE = ("per element: fp32 1e-4 + 1e-4 |ref| "
 SSD_LIBRARY_CALL = ("none: no single PyTorch call computes this function "
                     "(the plain version is five einsums and a cumsum)")
 MEDIA_LEN = 576                           # llava's tokens per image
+GQA_ARCHS = ("qwen2.5-14b", "yi-9b", "phi3-medium-14b", "stablelm-1.6b")
+GQA_CHUNK = 64                            # prefill_chunk_tokens of 5d
+# a chunk larger than every mpic selection (210-233 tokens) but not than
+# the prompts (1298-1321): each mpic prefill runs as one chunk of
+# ChunkedPrefillTask, which must equal the monolithic dense run bit for bit
+GQA_ONE_CHUNK = 512
+SAMPLED = {"greedy": False, "temperature": 0.8, "top_k": 8}
+SEEDS = [11, 12, 13, 14]
+# chunked against monolithic first-token logits, as the RMS of their
+# difference over the RMS of the logits, per request.  Chunking changes
+# which rows share a matrix product and an attention tile, so only the
+# bf16 rounding of the activations, which 48 layers of random weights
+# amplify to a few per cent (2.0-2.9 %); the one-chunk run shows that the
+# chunked path adds nothing else.  A planted fault, each chunk blind to
+# the K/V of the chunk before it (see hide_previous_chunk), must read
+# above the limit in every request: both sides are printed
+CHUNK_REL_RMS = 0.1
+# runs served with that planted fault, and the sound run each is held to
+BLIND_RUNS = {"qwen2.5-14b:mpic_chunked_blind": "qwen2.5-14b:mpic",
+              "qwen2.5-14b:full_recompute_chunked_blind":
+                  "qwen2.5-14b:full_recompute"}
+
+
+def _gqa_runs(arch: str) -> list:
+    """(label, policy, kwargs, pool dtype, paged, engine kwargs, seeds) of
+    the phase-5d runs of one model: qwen2.5-14b under mpic on both pools,
+    mpic on the dense cache (its dense prefill and decode are phase 6's
+    G-5 inputs of the dense kernel, and its first logits the one-chunk
+    run's reference), full_recompute, both chunked, both chunked with the
+    planted fault, mpic in one chunk, sampled twice and at top_k 1; the
+    other three under mpic on both pools."""
+    mpic = {"k": K_MPIC}
+    runs = [(f"{arch}:mpic", "mpic", mpic, "", True, None, None),
+            (f"{arch}:mpic_int8", "mpic", mpic, "int8", True, None, None)]
+    if arch != "qwen2.5-14b":
+        return runs
+    chunk = {"prefill_chunk_tokens": GQA_CHUNK}
+    return runs + [
+        (f"{arch}:mpic_dense", "mpic", mpic, "", False, None, None),
+        (f"{arch}:full_recompute", "full_recompute", {}, "", True, None,
+         None),
+        (f"{arch}:mpic_chunked", "mpic", mpic, "", True, chunk, None),
+        (f"{arch}:full_recompute_chunked", "full_recompute", {}, "", True,
+         chunk, None),
+        (f"{arch}:mpic_chunked_blind", "mpic", mpic, "", True, chunk, None),
+        (f"{arch}:full_recompute_chunked_blind", "full_recompute", {}, "",
+         True, chunk, None),
+        (f"{arch}:mpic_one_chunk", "mpic", mpic, "", True,
+         {"prefill_chunk_tokens": GQA_ONE_CHUNK}, None),
+        (f"{arch}:sampled_a", "mpic", mpic, "", True, SAMPLED, SEEDS),
+        (f"{arch}:sampled_b", "mpic", mpic, "", True, SAMPLED, SEEDS),
+        (f"{arch}:top_k1", "mpic", mpic, "", True, {**SAMPLED, "top_k": 1},
+         SEEDS)]
+
+
+# layer 0's dense-attention inputs that phase 6 holds against the plain
+# version at each model's own shapes: run label -> {kind of call: name}
+# (see capture_dense); every model's upload, and qwen2.5-14b's dense
+# prefill and decode and a 64-token chunk
+GQA_CAPTURES = {
+    **{f"{arch}:mpic": {"upload": f"{arch}:upload"} for arch in GQA_ARCHS},
+    "qwen2.5-14b:mpic_dense": {"prefill": "qwen2.5-14b:dense_mpic",
+                               "decode": "qwen2.5-14b:dense_decode"},
+    "qwen2.5-14b:mpic_chunked": {"prefill": "qwen2.5-14b:chunk"},
+}
+
+GQA_KEYS = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+            "bound_ms", "bound_by", "max_abs_err", "worst", "route", "shape")
+GQA_RUNS = [(arch, _gqa_runs(arch)) for arch in GQA_ARCHS]
 # (name, policy, policy kwargs, pool dtype, paged) of the phase-5 runs
 POLICY_RUNS = [
     ("full_recompute", "full_recompute", {}, "", True),
@@ -149,13 +252,15 @@ POLICY_RUNS = [
     ("cacheblend_int8", "cacheblend", {"r": 0.15}, "int8", True),
     ("full_recompute_int8", "full_recompute", {}, "int8", True),
 ]
-# (name, pool dtype, library quantize, pipelined, media spooled to disk) of
-# the phase-5c runs; the memory-only control first
+# (name, pool dtype, library quantize, pipelined, media spooled to disk,
+# run whose spool directory a cold library rehydrates instead of uploading)
+# of the phase-5c runs; the memory-only control first
 DISK_RUNS = [
-    ("memory_bf16", "", False, True, False),
-    ("disk_bf16", "", False, True, True),
-    ("disk_bf16_sequential", "", False, False, True),
-    ("disk_int8", "int8", True, True, True),
+    ("memory_bf16", "", False, True, False, None),
+    ("disk_bf16", "", False, True, True, None),
+    ("disk_bf16_sequential", "", False, False, True, None),
+    ("disk_int8", "int8", True, True, True, None),
+    ("disk_bf16_rehydrated", "", False, True, True, "disk_bf16"),
 ]
 
 
@@ -310,28 +415,73 @@ def main() -> int:
         finally:
             tf.selective_attention = real
 
+    @contextlib.contextmanager
+    def hide_previous_chunk(mdl):
+        """The chunked gate's planted fault: while a chunked prefill runs
+        a chunk, the slots that the chunk before it wrote read invalid, so
+        it attends as if that chunk had written no K/V; they are restored
+        after it, so the cache the engine splices is whole."""
+        previous = {}       # id of a dense cache's pos -> (pos, its rows)
+
+        def blind(real, cache_at):
+            def call(*args, **kwargs):
+                cache, write_idx = cache_at(args, kwargs)
+                if write_idx is None:           # a plain prefill from 0
+                    return real(*args, **kwargs)
+                pos = cache["pos"]
+                pos_rows = previous.get(id(pos), (None, None))[1]
+                if pos_rows is not None:
+                    saved = pos[0, pos_rows].clone()
+                    pos[0, pos_rows] = INVALID_POS
+                out = real(*args, **kwargs)
+                if pos_rows is not None:
+                    pos[0, pos_rows] = saved
+                previous[id(pos)] = (pos, write_idx[0].long())
+                return out
+            return call
+
+        # the model is a frozen dataclass: patch its class for the run
+        # (args[0] is the model)
+        cls = type(mdl)
+        real = cls.prefill, cls.selective_prefill
+        cls.prefill = blind(real[0], lambda a, kw: (
+            a[3], kw.get("write_idx")))
+        cls.selective_prefill = blind(real[1], lambda a, kw: (a[4], a[5]))
+        try:
+            yield
+        finally:
+            cls.prefill, cls.selective_prefill = real
+
     captured = {}
+    first_logits = {}       # label -> (requests, V) first-token logits
     sys_toks = ByteTokenizer().encode(SYSTEM_PROMPT, bos=True)
 
     def serve(label, policy="mpic", kwargs=None, pool_dtype="", paged=True,
-              snap_paged=False, cases=None):
-        eng = MPICEngine(model, params, EngineConfig(
+              snap_paged=False, cases=None, served=None, engine_kw=None,
+              seeds=None):
+        """Phase 3's traffic under one policy and cache; ``served`` is the
+        (model, params) pair (llava's by default), ``engine_kw`` more
+        ``EngineConfig`` fields, ``seeds`` the requests' sampling seeds."""
+        mdl, prm = served or (model, params)
+        scfg = mdl.cfg
+        eng = MPICEngine(mdl, prm, EngineConfig(
             max_seq_len=2048, decode_slots=4, page_size=16,
-            pool_dtype=pool_dtype, paged=paged))
+            pool_dtype=pool_dtype, paged=paged, **(engine_kw or {})))
         # set-up: the system prompt's KV in the prefix store, built as the
         # JAX package's benchmarks build it
         n_sys = len(sys_toks)
-        sc = model.make_cache(1, n_sys + 1)
-        _, sc = model.prefill(params, torch.as_tensor(
+        sc = mdl.make_cache(1, n_sys + 1)
+        _, sc = mdl.prefill(prm, torch.as_tensor(
             sys_toks[None], dtype=torch.int32, device=dev), sc)
         eng.prefix_store.put(sys_toks, sc["k"][:, 0, :n_sys].clone(),
                              sc["v"][:, 0, :n_sys].clone())
         del sc
-        samples = make_dialogues(n=4, n_images=2, d_model=cfg.d_model,
-                                 media_len=cfg.media_token_len, style="mmdu")
-        rag = image_embeds("rag-0", cfg.media_token_len, cfg.d_model)
+        samples = make_dialogues(n=4, n_images=2, d_model=scfg.d_model,
+                                 media_len=MEDIA_LEN, style="mmdu")
+        rag = image_embeds("rag-0", MEDIA_LEN, scfg.d_model)
 
         nonfinite = []
+        firsts = {}
         finalize = eng._finalize_prefill
         step_name = "_decode_paged_step" if paged else "_decode_dense_step"
         decode_step = getattr(eng, step_name)
@@ -339,6 +489,7 @@ def main() -> int:
         def checked_finalize(req, result, *rest):
             if not np.isfinite(result.first_logits).all():
                 nonfinite.append(f"first logits of {req.req_id}")
+            firsts[req.req_id] = result.first_logits
             return finalize(req, result, *rest)
 
         def checked_decode(live):
@@ -367,6 +518,8 @@ def main() -> int:
                             policy=policy, policy_kwargs=dict(kwargs or {}))
                     for s in samples]
             reqs[-1].retrieval_query = rag.mean(0)
+            for r, seed in zip(reqs, seeds or ()):
+                r.seed = seed
             t_serve = time.perf_counter()
             for r in reqs:
                 eng.submit(r)
@@ -391,8 +544,8 @@ def main() -> int:
             if not r.done or len(r.output_tokens) != MAX_NEW:
                 raise RuntimeError(f"{label}: {r.req_id} did not finish: "
                                    f"{r.state} {r.error}")
-        # llava is bf16 at head dim 128: every dense pass takes one of the
-        # two bf16 routes, never the CUDA cores
+        # the served models are bf16 at head dim 128 or 64: every dense
+        # pass takes one of the two bf16 routes, never the CUDA cores
         if routes.get(sel_ops.CUDA_CORES):
             raise RuntimeError(f"{label}: sel_attn took the CUDA cores: "
                                f"{routes}")
@@ -403,9 +556,11 @@ def main() -> int:
         rep = eng.report()
         tokens = rep["total_tokens"]
         n_rec = [r.prefill_stats["n_recomputed"] for r in reqs]
+        chunks = [r.prefill_stats.get("chunks", 1) for r in reqs]
         print(f"  prompts {[r.prompt.total_len for r in reqs]} tokens, "
               f"recomputed {n_rec} (mean {np.mean(n_rec):.1f}), "
-              f"linked {reqs[-1].linked_media}")
+              f"linked {reqs[-1].linked_media}"
+              + (f", chunks {chunks}" if max(chunks) > 1 else ""))
         print(f"  uploads {upload_s:.3f} s for 9 images; served {len(reqs)} "
               f"requests in {serve_s:.3f} s ({steps} steps)")
         print(f"  TTFT mean {rep['mean_ttft_s'] * 1e3:.2f} ms (p90 "
@@ -425,9 +580,12 @@ def main() -> int:
             "p90_ttft_ms": rep["p90_ttft_s"] * 1e3,
             "mean_prefill_ms": rep["mean_prefill_s"] * 1e3,
             "mean_decode_step_ms": rep["mean_decode_step_s"] * 1e3,
-            "mean_recomputed": float(np.mean(n_rec)),
+            "mean_recomputed": float(np.mean(n_rec)), "chunks": chunks,
+            # whether each prefill went through ChunkedPrefillTask
+            "chunked_prefill": ["chunks" in r.prefill_stats for r in reqs],
             "upload_s": upload_s, "launches": launches,
             "sel_attn_routes": routes}
+        first_logits[label] = np.stack([firsts[r.req_id] for r in reqs])
         # the wrapped methods make a cycle through the engine and its pool
         eng.close()
         del eng, finalize, decode_step, checked_finalize, checked_decode
@@ -786,8 +944,13 @@ def main() -> int:
     print(f"spool directory {spool_root}: "
           f"{shutil.disk_usage(spool_root).free / 2**30:.1f} GiB free")
 
-    def serve_disk(label, pool_dtype, quantize, pipelined, on_disk):
+    def serve_disk(label, pool_dtype, quantize, pipelined, on_disk, source):
         def library(name, **kw):
+            if source is not None:
+                # a cold start: the blocks another run spooled, re-indexed
+                return KVLibrary(spool_dir=os.path.join(spool_root, source,
+                                                        name),
+                                 quantize=quantize, rehydrate=True, **kw)
             where = os.path.join(spool_root, label, name) if on_disk else None
             return KVLibrary(spool_dir=where, quantize=quantize, **kw)
 
@@ -819,13 +982,20 @@ def main() -> int:
             t_up = time.perf_counter()
             for s in samples:
                 for _, seg in s.prompt.media_segments():
+                    if source is not None:
+                        continue            # rehydrated, not uploaded
                     eng.upload(s.prompt.user_id, seg.media_id, seg.embeds)
                     if on_disk and not static.spool_now(s.prompt.user_id,
                                                         seg.media_id):
                         raise RuntimeError(f"{label}: {seg.media_id} did "
                                            "not spool")
-            eng.upload("*", "rag-0", rag, dynamic=True)
-            if on_disk and not dynamic.spool_now("*", "rag-0"):
+            if source is None:
+                eng.upload("*", "rag-0", rag, dynamic=True)
+            else:
+                # the retriever's index is not part of the spool
+                eng.retriever.add("rag-0", rag)
+            if on_disk and source is None and not dynamic.spool_now(
+                    "*", "rag-0"):
                 raise RuntimeError(f"{label}: rag-0 did not spool")
             torch.cuda.synchronize()
             upload_s = time.perf_counter() - t_up
@@ -857,6 +1027,17 @@ def main() -> int:
         if "rag-0" not in reqs[-1].linked_media:
             raise RuntimeError(f"{label}: MRAG did not link its image")
         placed = sum(len(r.prompt.media_segments()) for r in reqs)
+        if source is not None:
+            got = (static.rehydrate_stats, dynamic.rehydrate_stats)
+            want = ({"rehydrated": placed, "skipped": 0, "corrupt": 0,
+                     "expired": 0},
+                    {"rehydrated": 1, "skipped": 0, "corrupt": 0,
+                     "expired": 0})
+            print(f"    rehydrated from {source}'s spool: static "
+                  f"{got[0]}, dynamic {got[1]}")
+            if got != want:
+                raise RuntimeError(f"{label}: rehydrated {got}, expected "
+                                   f"{want}")
         st, dst = static.stats(), dynamic.stats()
         disk = st["tiers"]["disk"]
         if on_disk:
@@ -882,7 +1063,9 @@ def main() -> int:
                                "loads")
         prefill_name = "sel_attn_paged_q8" if pool_dtype else "sel_attn_paged"
         decode_name = "paged_attn_q8" if pool_dtype else "paged_attn"
-        for name in ("sel_attn", prefill_name, decode_name):
+        # the dense kernel runs in the uploads, which a cold start skips
+        for name in (prefill_name, decode_name) + (
+                ("sel_attn",) if source is None else ()):
             if launches[name] <= 0:
                 raise RuntimeError(f"{label}: {name} never launched")
         rep = eng.report()
@@ -932,6 +1115,7 @@ def main() -> int:
             "scheduler": sched, "disk": disk,
             "disk_verify_share": verify_share,
             "direct_links": st["direct_links"], "dequants": st["dequants"],
+            "rehydrated": static.rehydrate_stats.get("rehydrated"),
             "launches": launches}
         tokens = [r.output_tokens for r in reqs]
         first = np.stack([firsts[r.req_id] for r in reqs])
@@ -943,24 +1127,169 @@ def main() -> int:
 
     try:
         disk_out = {}
-        for label, pool_dtype, quantize, pipelined, on_disk in DISK_RUNS:
+        for (label, pool_dtype, quantize, pipelined, on_disk,
+             source) in DISK_RUNS:
             print(f"serve from disk: {label} ({pool_dtype or 'bf16'} pool, "
                   f"{'disk' if on_disk else 'memory'} library"
                   f"{', int8' if quantize else ''}, "
-                  f"pipelined={pipelined}):")
+                  f"pipelined={pipelined}"
+                  f"{f', rehydrated from {source}' if source else ''}):")
             disk_out[label] = serve_disk(label, pool_dtype, quantize,
-                                         pipelined, on_disk)
+                                         pipelined, on_disk, source)
     finally:
         shutil.rmtree(spool_root, ignore_errors=True)
     control_tokens, control_first = disk_out["memory_bf16"]
-    for label in ("disk_bf16", "disk_bf16_sequential"):
+    for label in ("disk_bf16", "disk_bf16_sequential",
+                  "disk_bf16_rehydrated"):
         tokens, first = disk_out[label]
         diff = float(np.abs(first - control_first).max())
         print(f"  {label} against the memory-only control: tokens identical "
               f"{tokens == control_tokens}, first-logit max diff {diff:.2e}")
-        if tokens != control_tokens or not diff <= 1e-3:
+        # the rehydrated run reads the very bytes the control computed
+        limit = 0.0 if label == "disk_bf16_rehydrated" else 1e-3
+        if tokens != control_tokens or not diff <= limit:
             raise RuntimeError(f"{label} disagrees with the memory-only run")
     phase("serve_disk", t0)
+
+    # -- 5d. serve the GQA decoders at full width -----------------------------
+    # llava's weights go first: each model is freed before the next is built
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gqa_snaps, gqa_peaks = {}, {}
+    for arch, gqa_runs in GQA_RUNS:
+        gcfg = get_config(arch)
+        gmodel = build_model(gcfg)
+        torch.cuda.reset_peak_memory_stats()
+        gparams = gmodel.init(seed=0)
+        torch.cuda.synchronize()
+        nbytes = sum(p.numel() * p.element_size()
+                     for p in gparams.parameters())
+        print(f"{gcfg.name}: {gcfg.num_layers} layers, d_model "
+              f"{gcfg.d_model}, {gcfg.num_heads} query heads on "
+              f"{gcfg.num_kv_heads} kv heads (G "
+              f"{gcfg.num_heads // gcfg.num_kv_heads}), head dim "
+              f"{gcfg.head_dim}, qkv_bias {gcfg.qkv_bias}, "
+              f"{nbytes / 2**30:.2f} GiB of seeded weights", flush=True)
+        uploads = 9 * gcfg.num_layers       # kernel 5 in the uploads alone
+        for (label, policy, kwargs, pool_dtype, paged, engine_kw,
+             seeds) in gqa_runs:
+            snap_paged = label in (f"{arch}:mpic", f"{arch}:mpic_int8")
+            print(f"serve {label}, "
+                  f"{pool_dtype or 'bf16'} {'pool' if paged else 'dense'}, "
+                  f"{policy} {kwargs} {engine_kw or ''}"
+                  + (" (planted fault: each chunk blind to the one before)"
+                     if label in BLIND_RUNS else "") + ":")
+            with (hide_previous_chunk(gmodel) if label in BLIND_RUNS
+                  else contextlib.nullcontext()):
+                reqs, launches, snap = serve(
+                    label, policy, kwargs, pool_dtype, paged,
+                    snap_paged=snap_paged, cases=GQA_CAPTURES.get(label),
+                    served=(gmodel, gparams), engine_kw=engine_kw,
+                    seeds=seeds)
+            runs[label]["model"] = arch
+            runs[label]["tokens"] = [r.output_tokens for r in reqs]
+            if snap is not None:
+                gqa_snaps[arch, pool_dtype or "bf16"] = snap
+            q8 = pool_dtype == "int8"
+            want = ["sel_attn"]
+            if paged:
+                want.append("paged_attn_q8" if q8 else "paged_attn")
+            if paged and policy == "mpic" and not (engine_kw or {}).get(
+                    "prefill_chunk_tokens"):
+                want.append("sel_attn_paged_q8" if q8 else "sel_attn_paged")
+            for name in want:
+                if launches[name] <= 0:
+                    raise RuntimeError(f"{label}: {name} never launched")
+            chunk = (engine_kw or {}).get("prefill_chunk_tokens")
+            if chunk:
+                chunks = runs[label]["chunks"]
+                if not all(runs[label]["chunked_prefill"]) or (
+                        chunks != [1] * len(chunks) if chunk == GQA_ONE_CHUNK
+                        else min(chunks) <= 1):
+                    raise RuntimeError(f"{label}: chunks {chunks}, through "
+                                       "ChunkedPrefillTask "
+                                       f"{runs[label]['chunked_prefill']}")
+                if launches["sel_attn"] <= uploads:
+                    raise RuntimeError(f"{label}: sel_attn launched only in "
+                                       "the uploads")
+        gqa_peaks[arch] = torch.cuda.max_memory_allocated()
+        for label, *_ in gqa_runs:
+            runs[label]["model_peak_gib"] = gqa_peaks[arch] / 2**30
+        print(f"  {gcfg.name}: peak device memory "
+              f"{gqa_peaks[arch] / 2**30:.2f} GiB "
+              "(torch.cuda.max_memory_allocated)", flush=True)
+        del gparams, gmodel
+        gc.collect()
+        torch.cuda.empty_cache()
+    # qwen's gates: chunked against monolithic first-token logits; seeded
+    # sampling reproducible, top-k 1 greedy
+    q = "qwen2.5-14b"
+
+    def rel_rms(a, b):
+        """Per request: RMS of a - b over the RMS of b."""
+        return np.sqrt(np.mean((a - b) ** 2, axis=1)
+                       / np.mean(b ** 2, axis=1))
+
+    def compared(a, b):
+        fa, fb = first_logits[a], first_logits[b]
+        return (float(np.abs(fa - fb).max()), float(rel_rms(fa, fb).max()),
+                bool((fa.argmax(1) == fb.argmax(1)).all()))
+
+    for a, b in ((f"{q}:mpic_dense", f"{q}:mpic"),
+                 (f"{q}:mpic", f"{q}:full_recompute"),
+                 (f"{q}:mpic_int8", f"{q}:mpic")):
+        diff, rel, same = compared(a, b)
+        print(f"  {a} against {b}: first-logit max diff {diff:.3e}, "
+              f"relative RMS {rel:.3e}, first tokens equal {same} "
+              "(information)")
+    for chunked, mono in ((f"{q}:mpic_chunked", f"{q}:mpic"),
+                          (f"{q}:full_recompute_chunked",
+                           f"{q}:full_recompute"), *BLIND_RUNS.items()):
+        diff, rel, same = compared(chunked, mono)
+        per_request = rel_rms(first_logits[chunked], first_logits[mono])
+        tokens_same = runs[chunked]["tokens"] == runs[mono]["tokens"]
+        runs[chunked].update(first_logit_max_diff=diff,
+                             first_logit_rel=per_request.tolist(),
+                             limit=CHUNK_REL_RMS,
+                             tokens_equal_monolithic=tokens_same)
+        print(f"  {chunked} against {mono}: first-logit max diff "
+              f"{diff:.3e}, relative RMS per request "
+              f"{[f'{x:.3e}' for x in per_request]} (limit "
+              f"{CHUNK_REL_RMS}), first tokens equal {same}, all tokens "
+              f"equal {tokens_same}")
+        if chunked in BLIND_RUNS:
+            # the gate must catch the planted fault in every request
+            if not per_request.min() > CHUNK_REL_RMS:
+                raise RuntimeError(f"the chunked gate cannot tell {chunked} "
+                                   f"from {mono}")
+        elif not rel <= CHUNK_REL_RMS:
+            raise RuntimeError(f"{chunked} disagrees with {mono}")
+    # one chunk through ChunkedPrefillTask: the same products as the
+    # monolithic dense run, so the same bits
+    one, ref = f"{q}:mpic_one_chunk", f"{q}:mpic_dense"
+    diff, rel, same = compared(one, ref)
+    tokens_same = runs[one]["tokens"] == runs[f"{q}:mpic"]["tokens"]
+    runs[one].update(first_logit_max_diff=diff,
+                     tokens_equal_monolithic=tokens_same)
+    print(f"  {one} against {ref}: first-logit max diff {diff:.3e} (must "
+          f"be 0); all tokens equal to {q}:mpic's {tokens_same}")
+    if diff != 0.0:
+        raise RuntimeError(f"{one} differs from {ref}")
+    sampled = [runs[f"{q}:sampled_{x}"]["tokens"] for x in "ab"]
+    top1, greedy = runs[f"{q}:top_k1"]["tokens"], runs[f"{q}:mpic"]["tokens"]
+    print(f"  {q} sampled twice (temperature 0.8, top_k 8): tokens "
+          f"identical {sampled[0] == sampled[1]}; differ from greedy "
+          f"{sampled[0] != greedy}; top_k 1 equals greedy {top1 == greedy}")
+    if sampled[0] != sampled[1] or top1 != greedy:
+        raise RuntimeError("seeded sampling is not reproducible or top_k 1 "
+                           "is not greedy")
+    missing = {n for c in GQA_CAPTURES.values() for n in c.values()} \
+        - set(captured)
+    if missing:
+        raise RuntimeError(f"dense attention inputs never seen: {missing}")
+    phase("serve_gqa", t0)
 
     # -- 6. kernels against their plain versions ----------------------------
     t0 = time.perf_counter()
@@ -1023,17 +1352,15 @@ def main() -> int:
             window=window).transpose(1, 2)
         return compare(out, ref, v_absmax(v, vs)), out
 
-    results = {}
-    window = cfg.sliding_window
-    for name, snap in (("paged_attn", snap16), ("paged_attn_q8", snap8)):
+    def decode_main(snap, hq, dh, window):
+        """Kernels 3-4 on a pool snapshot at its live decode shape: the
+        check, the bound and the events times; and the kernel's call."""
         k, v, ks, vs, ps = snap["k"], snap["v"], snap["ks"], snap["vs"], \
             snap["ps"]
         pt, lens = snap["decode_pt"], snap["decode_len"]
         b, mp = pt.shape
         q = randn(b, hq, dh, dtype=torch.bfloat16)
         check, _ = decode_case(q, k, v, ks, vs, pt, lens, window)
-        if not check["worst"] <= 1.0:
-            raise RuntimeError(f"{name}: main-path error {check}")
         kg = gather(k, ks, pt, ps, q.dtype).repeat_interleave(
             hq // k.shape[2], dim=2).transpose(1, 2).contiguous()
         vg = gather(v, vs, pt, ps, q.dtype).repeat_interleave(
@@ -1052,22 +1379,27 @@ def main() -> int:
                      if ks is not None else 0))
         flops = 4 * dh * hq * int(n_keys.sum())
         bound_ms, bound_by = bound(nbytes, flops, q.dtype)
-        results[name] = {
+
+        def kernel():
+            return paged_attention(q, k, v, pt, lens, k_scale=ks, v_scale=vs,
+                                   window=window)
+
+        return {
             **check, "bound_ms": bound_ms, "bound_by": bound_by,
-            "device_ms": decode_profiles[name]["paged_attn_device_ms"],
-            "profiled_decode_step": decode_profiles[name],
-            "ms": events_ms(lambda: paged_attention(
-                q, k, v, pt, lens, k_scale=ks, v_scale=vs, window=window), 50),
+            "ms": events_ms(kernel, 50),
             "plain_ms": events_ms(lambda: paged_attention_ref(
                 q, k, v, pt, lens, ks, vs, window=window), 10),
             "library_ms": events_ms(lambda: F.scaled_dot_product_attention(
                 q4, kg, vg, attn_mask=mask[:, None, None, :]), 50),
-            "shape": f"q {tuple(q.shape)} bf16, pool layer 0 {k.dtype}, "
-                     f"page table {tuple(pt.shape)}, lengths "
-                     f"{lens.tolist()}, window {window}"}
+            "shape": f"q {tuple(q.shape)} bf16, pool layer 0 {k.dtype} "
+                     f"({k.shape[2]} kv heads), page table "
+                     f"{tuple(pt.shape)}, lengths {lens.tolist()}, window "
+                     f"{window}"}, kernel
 
-    for name, snap in (("sel_attn_paged", snap16),
-                       ("sel_attn_paged_q8", snap8)):
+    def prefill_main(snap, hq, dh, window):
+        """Kernels 1-2 on a pool snapshot at its newest request's
+        selective prefill: the check, the bound, the events and device
+        times beside SDPA's."""
         k, v, ks, vs, ps = snap["k"], snap["v"], snap["ks"], snap["vs"], \
             snap["ps"]
         pt, q_pos, lens = snap["prefill_pt"], snap["q_pos"], \
@@ -1077,8 +1409,6 @@ def main() -> int:
         mp = pt.shape[1]
         q = randn(b, sq, hq, dh, dtype=torch.bfloat16)
         check, _ = prefill_case(q, k, v, ks, vs, pt, q_pos, lens, window)
-        if not check["worst"] <= 1.0:
-            raise RuntimeError(f"{name}: main-path error {check}")
         kg = gather(k, ks, pt, ps, q.dtype).repeat_interleave(
             hq // k.shape[2], dim=2).transpose(1, 2).contiguous()
         vg = gather(v, vs, pt, ps, q.dtype).repeat_interleave(
@@ -1100,6 +1430,7 @@ def main() -> int:
                      if ks is not None else 0))
         flops = 4 * dh * hq * int(n_keys.sum())
         bound_ms, bound_by = bound(nbytes, flops, q.dtype)
+
         def kernel():
             return selective_attention_paged(q, k, v, pt, q_pos, lens,
                                              k_scale=ks, v_scale=vs,
@@ -1109,7 +1440,7 @@ def main() -> int:
             return F.scaled_dot_product_attention(qt, kg, vg,
                                                   attn_mask=mask[:, None])
 
-        results[name] = {
+        return {
             **check, "bound_ms": bound_ms, "bound_by": bound_by,
             "ms": events_ms(kernel, 20),
             "plain_ms": events_ms(lambda: selective_attention_paged_ref(
@@ -1118,16 +1449,46 @@ def main() -> int:
             "device_ms": device_ms(kernel, 20),
             "library_device_ms": device_ms(library, 20),
             "shape": f"q {tuple(q.shape)} bf16 ({n_sel} selected), "
-                     f"pool layer 0 "
-                     f"{k.dtype}, page table {tuple(pt.shape)}, length "
-                     f"{length}, window {window}"}
-    del snap16, snap8
-    for name, r in results.items():
+                     f"pool layer 0 {k.dtype} ({k.shape[2]} kv heads), page "
+                     f"table {tuple(pt.shape)}, length {length}, window "
+                     f"{window}"}
+
+    results = {}
+    window = cfg.sliding_window
+    for name, snap in (("paged_attn", snap16), ("paged_attn_q8", snap8)):
+        res, _ = decode_main(snap, hq, dh, window)
+        results[name] = {
+            **res, "device_ms": decode_profiles[name]["paged_attn_device_ms"],
+            "profiled_decode_step": decode_profiles[name]}
+    for name, snap in (("sel_attn_paged", snap16),
+                       ("sel_attn_paged_q8", snap8)):
+        results[name] = prefill_main(snap, hq, dh, window)
+    # the same at each GQA model's layer 0, from its served runs
+    gqa_results, gqa_paged = {}, []
+    for arch in GQA_ARCHS:
+        acfg = get_config(arch)
+        by_kernel = gqa_results[arch] = {}
+        for pool_name, suffix in (("bf16", ""), ("int8", "_q8")):
+            args = (gqa_snaps.pop((arch, pool_name)), acfg.num_heads,
+                    acfg.head_dim, acfg.sliding_window)
+            res, kernel = decode_main(*args)
+            by_kernel["paged_attn" + suffix] = {
+                **res, "device_ms": device_ms(kernel, 20)}
+            by_kernel["sel_attn_paged" + suffix] = prefill_main(*args)
+        gqa_paged += [(f"{name} at {arch} G "
+                       f"{acfg.num_heads // acfg.num_kv_heads}", r)
+                      for name, r in by_kernel.items()]
+    for name, r in [*results.items(), *gqa_paged]:
+        if not r["worst"] <= 1.0:
+            raise RuntimeError(f"{name}: main-path error {r}")
+    del snap16, snap8, gqa_snaps
+    for name, r in [*results.items(), *gqa_paged]:
         print(f"  {name}: main path max |err| {r['max_abs_err']:.3e}, "
               f"max |ref| {r['max_abs_ref']:.3e}, err/limit "
               f"{r['worst']:.3f}; device {r['device_ms']} ms a call"
               + (f" (SDPA {r['library_device_ms']})"
-                 if "library_device_ms" in r else ""))
+                 if "library_device_ms" in r else "")
+              + f"; bound {r['bound_ms']:.4f} ms; {r['shape']}")
 
     # synthetic shape: GQA group 4 with a window that bites, a ragged query
     # count, an idle row and scratch-padded page tables; fp32 q (the
@@ -1291,14 +1652,27 @@ def main() -> int:
         return res
 
     dense = {}
-    for name in ("dense_mpic", "full_recompute", "dense_decode", "upload"):
+    # llava's four main-path shapes, then each GQA model's upload and
+    # qwen2.5-14b's dense mpic prefill and 64-token chunk on the tensor
+    # cores, its dense decode step (5 rows a kv head) on the split keys
+    gqa_routes = {"upload": sel_ops.TENSOR_CORES,
+                  "dense_mpic": sel_ops.TENSOR_CORES,
+                  "chunk": sel_ops.TENSOR_CORES,
+                  "dense_decode": sel_ops.SPLIT_KEYS}
+    gqa_dense = [n for c in GQA_CAPTURES.values() for n in c.values()]
+    for name in ("dense_mpic", "full_recompute", "dense_decode", "upload",
+                 *gqa_dense):
         res = dense_case(*captured[name])
         res.pop("out")
         if not res["worst"] <= 1.0:
             raise RuntimeError(f"sel_attn: main-path error at {name}: {res}")
-        if res["route"] == sel_ops.CUDA_CORES:
-            raise RuntimeError(f"sel_attn: {name} took the CUDA cores")
+        arch, _, case = name.rpartition(":")
+        if res["route"] == sel_ops.CUDA_CORES or (
+                arch and res["route"] != gqa_routes[case]):
+            raise RuntimeError(f"sel_attn: {name} took {res['route']}")
         dense[name] = res
+        if arch:
+            gqa_results[arch].setdefault("sel_attn", {})[case] = res
     del captured
     syn = {}
     # (name, dtype, Sq, Skv): GQA 32/8 with a window of 64, positions in a
@@ -1515,91 +1889,128 @@ def main() -> int:
 
     # -- 7. small reference: the engine on the card against the CPU ---------
     t0 = time.perf_counter()
+    def small_reference(name, smodel, p_cpu, small_runs):
+        """Each run on the card and on the CPU: the same greedy (or seeded)
+        tokens, first-token logits within the run's limit."""
+        small = smodel.cfg
+        p_gpu = copy.deepcopy(p_cpu).to(dev)
+        small_spool = tempfile.mkdtemp(prefix="mpic_smoke_small_")
+        try:
+            for run, (policy, kwargs, pool_dtype, paged, logit_tol, on_disk,
+                      engine_kw) in enumerate(small_runs):
+                outs = {}
+                for where, p in (("cpu", p_cpu), (None, p_gpu)):
+                    lib = KVLibrary(spool_dir=os.path.join(
+                        small_spool, f"{run}-{where}") if on_disk else None,
+                        quantize=on_disk and pool_dtype == "int8")
+                    eng = MPICEngine(smodel, p, EngineConfig(
+                        max_seq_len=320, decode_slots=2,
+                        pool_dtype=pool_dtype, paged=paged,
+                        **(engine_kw or {})), static_library=lib,
+                        device=where)
+                    n_sys = len(sys_toks)
+                    sc = smodel.make_cache(1, n_sys + 1, device=eng.device)
+                    _, sc = smodel.prefill(p, torch.as_tensor(
+                        sys_toks[None], dtype=torch.int32,
+                        device=eng.device), sc)
+                    eng.prefix_store.put(sys_toks, sc["k"][:, 0, :n_sys],
+                                         sc["v"][:, 0, :n_sys])
+                    firsts = {}
+                    finalize = eng._finalize_prefill
+
+                    def record(req, result, *rest, firsts=firsts,
+                               finalize=finalize):
+                        firsts[req.req_id] = result.first_logits
+                        return finalize(req, result, *rest)
+
+                    eng._finalize_prefill = record
+                    samples = make_dialogues(n=3, n_images=2,
+                                             d_model=small.d_model,
+                                             media_len=small.media_token_len,
+                                             seed=3)
+                    for s in samples:
+                        for _, seg in s.prompt.media_segments():
+                            eng.upload(s.prompt.user_id, seg.media_id,
+                                       seg.embeds)
+                            if on_disk:
+                                lib.spool_now(s.prompt.user_id, seg.media_id)
+                    rs = [eng.submit(Request(prompt=s.prompt,
+                                             max_new_tokens=MAX_NEW,
+                                             policy=policy,
+                                             policy_kwargs=kwargs,
+                                             seed=i))
+                          for i, s in enumerate(samples)]
+                    eng.run()
+                    eng.close()
+                    if not all(r.done for r in rs):
+                        raise RuntimeError(f"{name}, {policy}: unfinished "
+                                           f"{[r.error for r in rs]}")
+                    st = lib.stats()
+                    if on_disk and (st["tiers"]["disk"]["hits"],
+                                    st["direct_links"]
+                                    ) != (6, 6 if pool_dtype else 0):
+                        raise RuntimeError(f"{name}, {policy} from disk: "
+                                           f"{st['tiers']['disk']} {st}")
+                    if (engine_kw or {}).get("prefill_chunk_tokens") and \
+                            min(r.prefill_stats.get("chunks", 1)
+                                for r in rs) <= 1:
+                        raise RuntimeError(f"{name}, {policy}: not chunked")
+                    outs[where] = ([r.output_tokens for r in rs],
+                                   np.stack([firsts[r.req_id] for r in rs]))
+                diff = float(np.abs(outs["cpu"][1] - outs[None][1]).max())
+                same = outs["cpu"][0] == outs[None][0]
+                where = ("dense cache" if not paged
+                         else f"{pool_dtype or 'fp32'} pool")
+                print(f"{name}, {policy} on the {where}"
+                      f"{', media from disk, pipelined' if on_disk else ''}"
+                      f"{f', {engine_kw}' if engine_kw else ''}: "
+                      f"card vs CPU first-logit max diff {diff:.2e}, tokens "
+                      f"identical {same}")
+                if not diff <= logit_tol or ((pool_dtype == "" or on_disk)
+                                             and not same):
+                    raise RuntimeError("the card's engine disagrees with "
+                                       "the CPU's")
+        finally:
+            shutil.rmtree(small_spool, ignore_errors=True)
+
     small = dataclasses.replace(get_smoke_config("llava-1.6-7b"),
                                 param_dtype="float32", compute_dtype="float32")
     smodel = build_model(small)
+    # (policy, kwargs, pool dtype, paged, first-logit limit, media on disk,
+    # engine kwargs): the disk runs spool every block after its upload and
+    # admit pipelined, the int8 one from a quantize=True library (the
+    # direct int8 link)
+    small_reference("small fp32 model", smodel, smodel.init(
+        seed=1, device="cpu"), [
+        ("mpic", {"k": 8}, "", True, 1e-3, False, None),
+        ("mpic", {"k": 8}, "int8", True, 5e-2, False, None),
+        ("cacheblend", {"r": 0.15}, "", True, 1e-3, False, None),
+        ("full_recompute", {}, "", True, 1e-3, False, None),
+        ("prefix_caching", {}, "", True, 1e-3, False, None),
+        ("full_reuse", {}, "", True, 1e-3, False, None),
+        ("mpic", {"k": 8}, "", False, 1e-3, False, None),
+        ("mpic", {"k": 8}, "", True, 1e-3, True, None),
+        ("mpic", {"k": 8}, "int8", True, 1e-3, True, None)])
+    # qwen2.5-14b's smoke config at its own G 5 (10 query heads on 2 kv
+    # heads) with nonzero QKV biases: mpic on both pools, chunked mpic and
+    # full_recompute (chunks of 32), seeded sampling
+    small = dataclasses.replace(get_smoke_config("qwen2.5-14b"),
+                                num_heads=10, num_kv_heads=2,
+                                param_dtype="float32", compute_dtype="float32")
+    smodel = build_model(small)
     p_cpu = smodel.init(seed=1, device="cpu")
-    p_gpu = copy.deepcopy(p_cpu).to(dev)
-    # (policy, kwargs, pool dtype, paged, first-logit limit, media on disk):
-    # the disk runs spool every block after its upload and admit pipelined,
-    # the int8 one from a quantize=True library (the direct int8 link)
-    small_runs = [("mpic", {"k": 8}, "", True, 1e-3, False),
-                  ("mpic", {"k": 8}, "int8", True, 5e-2, False),
-                  ("cacheblend", {"r": 0.15}, "", True, 1e-3, False),
-                  ("full_recompute", {}, "", True, 1e-3, False),
-                  ("prefix_caching", {}, "", True, 1e-3, False),
-                  ("full_reuse", {}, "", True, 1e-3, False),
-                  ("mpic", {"k": 8}, "", False, 1e-3, False),
-                  ("mpic", {"k": 8}, "", True, 1e-3, True),
-                  ("mpic", {"k": 8}, "int8", True, 1e-3, True)]
-    small_spool = tempfile.mkdtemp(prefix="mpic_smoke_small_")
-    try:
-        for run, (policy, kwargs, pool_dtype, paged, logit_tol,
-                  on_disk) in enumerate(small_runs):
-            outs = {}
-            for where, p in (("cpu", p_cpu), (None, p_gpu)):
-                lib = KVLibrary(spool_dir=os.path.join(
-                    small_spool, f"{run}-{where}") if on_disk else None,
-                    quantize=on_disk and pool_dtype == "int8")
-                eng = MPICEngine(smodel, p, EngineConfig(
-                    max_seq_len=320, decode_slots=2, pool_dtype=pool_dtype,
-                    paged=paged), static_library=lib, device=where)
-                n_sys = len(sys_toks)
-                sc = smodel.make_cache(1, n_sys + 1, device=eng.device)
-                _, sc = smodel.prefill(p, torch.as_tensor(
-                    sys_toks[None], dtype=torch.int32, device=eng.device), sc)
-                eng.prefix_store.put(sys_toks, sc["k"][:, 0, :n_sys],
-                                     sc["v"][:, 0, :n_sys])
-                firsts = {}
-                finalize = eng._finalize_prefill
-
-                def record(req, result, *rest, firsts=firsts,
-                           finalize=finalize):
-                    firsts[req.req_id] = result.first_logits
-                    return finalize(req, result, *rest)
-
-                eng._finalize_prefill = record
-                samples = make_dialogues(n=3, n_images=2,
-                                         d_model=small.d_model,
-                                         media_len=small.media_token_len,
-                                         seed=3)
-                for s in samples:
-                    for _, seg in s.prompt.media_segments():
-                        eng.upload(s.prompt.user_id, seg.media_id,
-                                   seg.embeds)
-                        if on_disk:
-                            lib.spool_now(s.prompt.user_id, seg.media_id)
-                rs = [eng.submit(Request(prompt=s.prompt,
-                                         max_new_tokens=MAX_NEW,
-                                         policy=policy,
-                                         policy_kwargs=kwargs))
-                      for s in samples]
-                eng.run()
-                eng.close()
-                if not all(r.done for r in rs):
-                    raise RuntimeError(f"small model, {policy}: unfinished "
-                                       f"{[r.error for r in rs]}")
-                st = lib.stats()
-                if on_disk and (st["tiers"]["disk"]["hits"], st["direct_links"]
-                                ) != (6, 6 if pool_dtype else 0):
-                    raise RuntimeError(f"small model, {policy} from disk: "
-                                       f"{st['tiers']['disk']} {st}")
-                outs[where] = ([r.output_tokens for r in rs],
-                               np.stack([firsts[r.req_id] for r in rs]))
-            diff = float(np.abs(outs["cpu"][1] - outs[None][1]).max())
-            same = outs["cpu"][0] == outs[None][0]
-            where = ("dense cache" if not paged
-                     else f"{pool_dtype or 'fp32'} pool")
-            print(f"small fp32 model, {policy} on the {where}"
-                  f"{', media from disk, pipelined' if on_disk else ''}: "
-                  f"card vs CPU first-logit max diff {diff:.2e}, tokens "
-                  f"identical {same}")
-            if not diff <= logit_tol or ((pool_dtype == "" or on_disk)
-                                         and not same):
-                raise RuntimeError("the card's engine disagrees with the "
-                                   "CPU's")
-    finally:
-        shutil.rmtree(small_spool, ignore_errors=True)
+    bias_gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for lp in p_cpu.layers:
+            for b in (lp.attn.bq, lp.attn.bk, lp.attn.bv):
+                b.copy_(torch.randn(b.shape, generator=bias_gen) * 0.5)
+    chunk = {"prefill_chunk_tokens": 32}
+    small_reference("small fp32 qwen2.5-14b (G 5, QKV bias)", smodel, p_cpu, [
+        ("mpic", {"k": 8}, "", True, 1e-3, False, None),
+        ("mpic", {"k": 8}, "int8", True, 5e-2, False, None),
+        ("mpic", {"k": 8}, "", True, 1e-3, False, chunk),
+        ("full_recompute", {}, "", True, 1e-3, False, chunk),
+        ("mpic", {"k": 8}, "", True, 1e-3, False, SAMPLED)])
     # the small fp32 mamba2 on the dense fallback cache: images inlined
     ssm_small = dataclasses.replace(get_smoke_config("mamba2-130m"),
                                     param_dtype="float32",
@@ -1686,6 +2097,18 @@ def main() -> int:
             "shape": r["shape"], "card": card}
         if "cases" in r:
             row["cases"] = r["cases"]
+        for arch, by_kernel in gqa_results.items():
+            # each GQA model's layer-0 shapes (the dense attention's under
+            # "cases" too) and its runs' launches
+            if name not in by_kernel:
+                continue
+            row[arch] = {
+                "launches": sum(run["launches"][name] for run in runs.values()
+                                if run.get("model") == arch),
+                **{case: {key: g[key] for key in GQA_KEYS if key in g}
+                   for case, g in (by_kernel[name].items()
+                                   if name == "sel_attn"
+                                   else [("main_path", by_kernel[name])])}}
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card_line())

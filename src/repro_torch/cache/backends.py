@@ -41,6 +41,7 @@ from repro_torch.cache.quant import (
     QuantizedKV,
     dtype_name,
     host_array,
+    read_spool_meta,
     spool_payload,
     unspool_payload,
 )
@@ -294,6 +295,23 @@ class DiskBackend(StorageBackend):
         if self.spool_dir is None:
             return None
         return os.path.join(self.spool_dir, f"{key}.npz")
+
+    def scan(self):
+        """Yield ``(key, path)`` for every whole block file in the spool
+        directory, sorted; ``.tmp`` orphans were swept at construction.
+        The library's cold-start rehydration reads it."""
+        if self.spool_dir is None:
+            return
+        for fname in sorted(os.listdir(self.spool_dir)):
+            if fname.endswith(".npz"):
+                yield fname[:-4], os.path.join(self.spool_dir, fname)
+
+    @staticmethod
+    def read_meta(path: str) -> Optional[dict]:
+        """A block file's ``__meta__`` sidecar, None for a file without
+        one; raises on corrupt bytes, so that the rehydration scan can
+        unlink the file and go on."""
+        return read_spool_meta(path)
 
     @staticmethod
     def _sidecar(meta: Optional[BlockMetadata]) -> Optional[dict]:

@@ -44,12 +44,19 @@ links the int8 bytes directly (``note_direct_link``).
   ``_mlock`` while holding ``_lock`` (``_spool`` and ``_evict`` do not
   wait for it).  A disk read therefore never holds the library lock.
 
-Not ported: peers and the network tier, per-replica accounting, spool
-rehydration, block export, the fault plan, disk quarantine and sessions.
+**Cold start.**  ``rehydrate=True`` re-indexes the spool directory at
+construction (:meth:`KVLibrary.rehydrate_spool`): every block file with a
+``__meta__`` sidecar comes back as a disk-tier entry without its payload,
+whose first lookup is a verified disk read.  Files written by the JAX
+package's library rehydrate too, and the other way round.
+
+Not ported: peers and the network tier, per-replica accounting, block
+export, the fault plan, disk quarantine and sessions.
 """
 from __future__ import annotations
 
 import errno
+import os
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -68,6 +75,7 @@ from repro_torch.cache.backends import (
     scope_digest,
 )
 from repro_torch.cache.quant import QuantizedKV, dequantize_kv, quantize_kv
+from repro_torch.device import resolve_device
 
 __all__ = ["TIER_HBM", "TIER_HOST", "TIER_DISK", "Entry", "KVLibrary"]
 
@@ -169,14 +177,19 @@ class KVLibrary:
 
     ``spool_dir`` None gives a private spool directory made at the first
     spool.  The backends are public (``memory``, ``disk``) for their
-    counters; every change goes through the library.
+    counters; every change goes through the library.  ``rehydrate=True``
+    re-indexes ``spool_dir`` now (``rehydrate_stats`` holds the counts);
+    a rehydrated block's disk read lands on ``device`` (None means the
+    card), where the blocks that ``put`` stores live on their tensors'
+    device.
     """
 
     def __init__(self, *, hbm_capacity: int = 2 << 30,
                  host_capacity: int = 16 << 30,
                  spool_dir: Optional[str] = None,
                  default_ttl: float = float("inf"),
-                 shared: bool = False, quantize: bool = False):
+                 shared: bool = False, quantize: bool = False,
+                 rehydrate: bool = False, device=None):
         self.quantize = quantize
         self.default_ttl = default_ttl
         self.shared = shared
@@ -196,6 +209,9 @@ class KVLibrary:
         self._enospc = 0
         self._copy_s = 0.0          # disk reads' staging and copy to the card
         self._copy_streams: Dict[torch.device, torch.cuda.Stream] = {}
+        self.rehydrate_stats: Dict[str, int] = {}
+        if rehydrate:
+            self.rehydrate_stats = self.rehydrate_spool(device)
 
     def add_invalidation_listener(self, fn: Callable) -> None:
         """Call ``fn(user_id, media_id)`` (outside the lock) whenever
@@ -395,6 +411,60 @@ class KVLibrary:
                 self._evict(k)
         return len(dead)
 
+    # -- cold start ---------------------------------------------------------------
+    def rehydrate_spool(self, device=None) -> Dict[str, int]:
+        """Rebuild the entry index from the spool directory after a
+        restart: each whole block file's ``__meta__`` sidecar becomes a
+        payload-less disk-tier entry under its recorded scope, read
+        (verified against its content key) at its first lookup onto
+        ``device`` (None means the card).
+
+        The JAX package's scan rules: corrupt or unreadable files are
+        unlinked and counted, expired blocks unlinked and counted, files
+        without a sidecar (or without a scope in it) skipped, and so are
+        scopes that already hold a live entry.  Returns the counts
+        ``rehydrated`` / ``skipped`` / ``corrupt`` / ``expired``."""
+        dev = resolve_device(device)
+        stats = {"rehydrated": 0, "skipped": 0, "corrupt": 0, "expired": 0}
+        now = time.time()
+        for key, path in self.disk.scan():
+            try:
+                meta = self.disk.read_meta(path)
+            except Exception:
+                # a truncated zip or bad magic: unlink it, keep scanning
+                _unlink(path)
+                stats["corrupt"] += 1
+                continue
+            if meta is None or not meta.get("media_id") \
+                    or meta.get("user_id") is None:
+                stats["skipped"] += 1       # no scope recorded
+                continue
+            expires = float(meta.get("expires", float("inf")))
+            if now > expires:
+                _unlink(path)
+                stats["expired"] += 1
+                continue
+            scope = (meta["user_id"], meta["media_id"])
+            e = Entry(meta["media_id"], created=float(meta.get("created", now)),
+                      expires=expires, device=dev)
+            m = e.meta
+            m.tier, m.last_used = TIER_DISK, now
+            m.key = meta.get("key") or key
+            m.ident = meta.get("ident") or scope_digest(scope,
+                                                        meta.get("salt"))
+            m.scope_user = meta["user_id"]
+            m.nbytes = int(meta.get("nbytes", 0))
+            m.dtype = meta.get("dtype")
+            m.shape = tuple(meta["shape"]) if meta.get("shape") else None
+            e._owner = self
+            with self._lock:
+                if scope in self._entries:
+                    stats["skipped"] += 1   # the live entry wins
+                    continue
+                self._entries[scope] = e
+            stats["rehydrated"] += 1
+        return stats
+
     # -- tier management -----------------------------------------------------------
     def _evict(self, key) -> None:
         """Drop one entry from the map and every backend; the caller holds
@@ -488,3 +558,10 @@ class KVLibrary:
         out["degraded"] = {"spool_failures": self._spool_failures,
                            "enospc": self._enospc}
         return out
+
+
+def _unlink(path: str) -> None:
+    try:
+        os.unlink(path)
+    except OSError:
+        pass

@@ -107,18 +107,23 @@ def _first_logits(logits) -> np.ndarray:
     return logits[0, -1].float().cpu().numpy()
 
 
-def _selective_step(model, params, link: LinkResult):
-    """One selective-attention prefill over the linked dense cache."""
+def _selective_step(model, params, link: LinkResult, rows=slice(None)):
+    """One selective-attention prefill of the selected tokens ``rows`` (all
+    of them by default; a chunked prefill passes one chunk) over the
+    linked dense cache, which it writes in place."""
     dev = _device(params)
-    sel_pos = torch.as_tensor(link.sel_idx[None], dtype=torch.int32,
+    sel_pos = torch.as_tensor(link.sel_idx[rows][None], dtype=torch.int32,
                               device=dev)
     return model.selective_prefill(
         params,
-        torch.as_tensor(link.sel_tokens[None], dtype=torch.int32, device=dev),
+        torch.as_tensor(link.sel_tokens[rows][None], dtype=torch.int32,
+                        device=dev),
         sel_pos, link.cache,
         sel_pos,  # write into the slots of the original positions
-        media_embeds=torch.as_tensor(link.sel_media_embeds[None], device=dev),
-        media_mask=torch.as_tensor(link.sel_media_mask[None], device=dev))
+        media_embeds=torch.as_tensor(link.sel_media_embeds[rows][None],
+                                     device=dev),
+        media_mask=torch.as_tensor(link.sel_media_mask[rows][None],
+                                   device=dev))
 
 
 # ---------------------------------------------------------------------------

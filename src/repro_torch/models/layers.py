@@ -109,11 +109,16 @@ def attend(q, k, v, q_pos, kv_pos, *, window: int = 0):
 def attention_qkv(attn, cfg, x: torch.Tensor, positions: torch.Tensor):
     """x (B,S,D), positions (B,S) -> q (B,S,Hq,Dh), k/v (B,S,Hkv,Dh).
 
-    ``attn`` holds ``wq``/``wk``/``wv`` (in, out)."""
+    ``attn`` holds ``wq``/``wk``/``wv`` (in, out) and, with
+    ``cfg.qkv_bias``, ``bq``/``bk``/``bv``, added before RoPE (so a relink
+    rotates the biased K exactly)."""
     b, s, _ = x.shape
-    q = (x @ attn.wq).reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = (x @ attn.wk).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ attn.wv).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q, k, v = x @ attn.wq, x @ attn.wk, x @ attn.wv
+    if cfg.qkv_bias:
+        q, k, v = q + attn.bq, k + attn.bk, v + attn.bv
+    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

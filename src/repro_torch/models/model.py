@@ -20,8 +20,6 @@ def _check_supported(cfg: ModelConfig) -> None:
         unsupported.append(f"arch_type={cfg.arch_type!r}")
     if cfg.is_encoder_decoder:
         unsupported.append("encoder-decoder")
-    if cfg.qkv_bias:
-        unsupported.append("qkv_bias")
     if cfg.learned_pos_emb:
         unsupported.append("learned_pos_emb")
     if unsupported:

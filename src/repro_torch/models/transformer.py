@@ -60,7 +60,15 @@ def _ones(d, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+def _zeros(d, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(d, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
 class Attention(nn.Module):
+    """``wq``/``wk``/``wv``/``wo``, and with ``cfg.qkv_bias`` the biases
+    ``bq``/``bk``/``bv`` (zeros, as ``init_attention`` makes them)."""
+
     def __init__(self, cfg, dtype, device):
         super().__init__()
         d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
@@ -68,6 +76,10 @@ class Attention(nn.Module):
         self.wk = _weight((d, kvd), dtype, device)
         self.wv = _weight((d, kvd), dtype, device)
         self.wo = _weight((qd, d), dtype, device)
+        if cfg.qkv_bias:
+            self.bq = _zeros(qd, dtype, device)
+            self.bk = _zeros(kvd, dtype, device)
+            self.bv = _zeros(kvd, dtype, device)
 
 
 class SwiGLU(nn.Module):
@@ -118,7 +130,8 @@ def init_params(cfg, *, seed: int = 0, device=None) -> Transformer:
     """Seeded random weights on ``device``, drawn as the JAX package's
     ``dense_init`` draws them: N(0, 1) in fp32 scaled by 1/sqrt(fan_in)
     (0.02 for the embedding and the LM head, 0.5 for the SSM conv), then
-    cast to the parameter dtype; norm scales are ones.  The SSM's other
+    cast to the parameter dtype; norm scales are ones and QKV biases
+    zeros.  The SSM's other
     leaves are set as ``init_ssm`` sets them: ``dt_bias`` -4.6, ``A_log``
     log(linspace(1, 16)), ``D`` ones, ``conv_b`` zeros.  The numbers
     differ from the JAX ones (a ``torch.Generator`` is not ``jax.random``);

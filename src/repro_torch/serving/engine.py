@@ -50,14 +50,21 @@ request's media when it is admitted, before its compute: the sequential
 baseline.  ``report()["scheduler"]`` gives each request's load, blocked,
 compute and overlap seconds.
 
-Not ported yet: chunked prefill, sessions, deadlines and faults, sampling
-other than greedy, and mesh sharding.
+``prefill_chunk_tokens > 0`` splits an ``mpic`` or ``full_recompute``
+prefill longer than that into chunks, one per engine step
+(:class:`~repro_torch.serving.scheduler.ChunkedPrefillTask`), so that the
+running slots decode between them; the result is spliced as a monolithic
+dense result is.  ``greedy=False`` samples each token from the
+temperature-scaled top-k softmax with a numpy generator seeded by
+``Request.seed``, one per request, as the JAX engine does.
+
+Not ported yet: sessions, deadlines and faults, and mesh sharding.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -72,7 +79,11 @@ from repro_torch.device import resolve_device
 from repro_torch.models.layers import INVALID_POS, rope_relink
 from repro_torch.serving.request import Request, State
 from repro_torch.serving.retriever import Retriever
-from repro_torch.serving.scheduler import PipelinedScheduler
+from repro_torch.serving.scheduler import (
+    CHUNKABLE_POLICIES,
+    ChunkedPrefillTask,
+    PipelinedScheduler,
+)
 
 
 @dataclasses.dataclass
@@ -85,6 +96,10 @@ class EngineConfig:
     paged: bool = True              # page pool; False -> dense batch cache
     max_prefills_per_step: int = 1  # admissions per engine step
     pipelined: bool = True          # False -> sequential admission baseline
+    prefill_chunk_tokens: int = 0   # > 0: chunk long prefills across steps
+    greedy: bool = True             # False -> temperature / top-k sampling
+    temperature: float = 1.0        # sampling temperature (greedy=False)
+    top_k: int = 0                  # sample from the top k logits (0: all)
 
 
 class MPICEngine:
@@ -113,6 +128,10 @@ class MPICEngine:
         self.finished: List[Request] = []
         self.failed: List[Request] = []
         self.decode_step_s: List[float] = []    # wall time of each decode step
+        # slot -> its chunked prefill in progress
+        self._prefill_tasks: Dict[int, ChunkedPrefillTask] = {}
+        # request id -> its sampling generator (greedy=False)
+        self._rngs: Dict[str, np.random.Generator] = {}
         # token prefix -> KV, read by ``prefix_caching``; empty until the
         # caller stores a prefix (the system prompt, say)
         self.prefix_store = PrefixStore()
@@ -191,10 +210,11 @@ class MPICEngine:
         return request
 
     # ------------------------------------------------------------------
-    # engine step: admit, then decode every running slot
+    # engine step: advance chunked prefills, admit, decode running slots
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def step(self) -> None:
+        self._advance_prefills()
         self._admit()
         self._decode()
 
@@ -235,6 +255,12 @@ class MPICEngine:
         return self._resolve_policy(req) in ("mpic", "cacheblend",
                                              "full_reuse")
 
+    def _chunkable(self, req: Request, policy_name: str) -> bool:
+        chunk = self.cfg.prefill_chunk_tokens
+        return (chunk > 0 and policy_name in CHUNKABLE_POLICIES
+                and not self.model.cfg.attn_free
+                and req.prompt.total_len > chunk)
+
     def _begin_prefill(self, req: Request, slot: int,
                        handle: Optional[PrefetchHandle]) -> None:
         policy_name = self._resolve_policy(req)
@@ -251,15 +277,29 @@ class MPICEngine:
         req.slot = slot
         req.state = State.PREFILLING
         self.running[slot] = req
-        paged_ctx = None
         if self._paged:
+            # the prompt's pages now: a chunked prefill holds its slot for
+            # several steps
             pages = self.pool.alloc(req.req_id, req.prompt.total_len + 1)
             self._set_page_row(slot, pages)
+        try:
+            if self._chunkable(req, policy_name):
+                task = ChunkedPrefillTask(
+                    self.model, self.params, req, self.static_lib,
+                    kv_len=self.cfg.max_seq_len,
+                    chunk_tokens=self.cfg.prefill_chunk_tokens,
+                    policy_name=policy_name, scheduler=self.scheduler,
+                    entries=handle)
+                self._prefill_tasks[slot] = task
+                if task.advance():          # the first chunk runs now
+                    del self._prefill_tasks[slot]
+                    self._finalize_prefill(req, task.result, handle)
+                return
             # mpic / cacheblend link and prefill straight into the pages;
             # the other policies build a dense cache that is spliced in
-            if policy_name in ("mpic", "cacheblend"):
+            paged_ctx = None
+            if self._paged and policy_name in ("mpic", "cacheblend"):
                 paged_ctx = self._prefiller.bind(self._page_tables[slot])
-        try:
             # one compute window; the linker gathers the request's entries
             # from its handle at link time.  It closes after the first
             # token's logits reach the host, i.e. after the device work
@@ -271,22 +311,44 @@ class MPICEngine:
                                 **req.policy_kwargs)
             self._finalize_prefill(req, result, handle)
         except BaseException as exc:
-            # free the slot, its pages and its pins, then let the caller
-            # see the error
-            if handle is not None:
-                handle.release()
+            self._abort_prefill(slot, handle, repr(exc))
+            raise
+
+    def _advance_prefills(self) -> None:
+        """Run the next chunk of every chunked prefill in progress."""
+        for slot, task in list(self._prefill_tasks.items()):
+            try:
+                if task.advance():
+                    del self._prefill_tasks[slot]
+                    self._finalize_prefill(task.req, task.result, task.handle)
+            except BaseException as exc:
+                self._abort_prefill(slot, task.handle, repr(exc))
+                raise
+
+    def _abort_prefill(self, slot: int, handle: Optional[PrefetchHandle],
+                       error: str) -> None:
+        """Fail the request whose prefill raised in ``slot`` and free what
+        it held: its handle's pins, its chunked task, its pages and its
+        sampling generator.  The caller sees the error; the request does
+        not go back into the queue."""
+        if handle is not None:
+            handle.release()
+        self._prefill_tasks.pop(slot, None)
+        req = self.running[slot]
+        if req is not None:
             req.state = State.FAILED
-            req.error = repr(exc)
+            req.error = error
+            req.t_done = time.perf_counter()
             self.failed.append(req)
             self._release(req)
-            raise
 
     def _finalize_prefill(self, req: Request, result: PolicyResult,
                           handle: Optional[PrefetchHandle] = None) -> None:
         req.prefill_stats = result.stats
         req.linked_media = [seg.media_id
                             for _, seg in req.prompt.media_segments()]
-        req.output_tokens.append(int(np.argmax(result.first_logits)))
+        req.output_tokens.append(self._select_token(
+            req, np.asarray(result.first_logits, np.float32)))
         req.t_first_token = time.perf_counter()
         req.cur_len = req.prompt.total_len
         req.state = State.RUNNING
@@ -401,6 +463,25 @@ class MPICEngine:
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
+    def _select_token(self, req: Request, logits_row: np.ndarray) -> int:
+        """Greedy argmax, or a draw from the temperature-scaled softmax
+        over the top ``top_k`` logits (ties at the k-th value kept), in
+        float64 with the request's own generator seeded by
+        ``Request.seed``: the JAX engine's draw, bit for bit."""
+        if self.cfg.greedy:
+            return int(np.argmax(logits_row))
+        rng = self._rngs.setdefault(req.req_id,
+                                    np.random.default_rng(req.seed))
+        z = logits_row.astype(np.float64)
+        if 0 < self.cfg.top_k < z.size:
+            kth = np.partition(z, -self.cfg.top_k)[-self.cfg.top_k]
+            z = np.where(z < kth, -np.inf, z)
+        z = z / max(self.cfg.temperature, 1e-6)
+        z = z - z.max()
+        p = np.exp(z)
+        p /= p.sum()
+        return int(rng.choice(z.size, p=p))
+
     def _decode(self) -> None:
         live = [r for r in self.running
                 if r is not None and r.state is State.RUNNING]
@@ -413,7 +494,7 @@ class MPICEngine:
             else:
                 logits = self._decode_dense_step(live)
         for r in live:
-            r.output_tokens.append(int(np.argmax(logits[r.slot])))
+            r.output_tokens.append(self._select_token(r, logits[r.slot]))
             r.cur_len += 1
             if len(r.output_tokens) >= r.max_new_tokens or \
                     r.cur_len + 1 >= self.cfg.max_seq_len:
@@ -489,6 +570,7 @@ class MPICEngine:
 
     def _release(self, r: Request) -> None:
         self.running[r.slot] = None
+        self._rngs.pop(r.req_id, None)
         if self._paged:
             self.pool.free(r.req_id)
             self._page_tables[r.slot] = self._scratch_page

@@ -1,5 +1,5 @@
 """Request lifecycle (port of the JAX package's ``serving/request.py``,
-without sampling seeds, deadlines and sessions)."""
+without deadlines and sessions)."""
 from __future__ import annotations
 
 import dataclasses
@@ -30,6 +30,7 @@ class Request:
     policy: str = "mpic"
     policy_kwargs: dict = dataclasses.field(default_factory=dict)
     priority: int = 0                # higher admits sooner (FIFO within ties)
+    seed: int = 0                    # sampling generator seed (greedy=False)
     # MRAG: if set, the retriever runs after the prefill
     retrieval_query: Optional[np.ndarray] = None
     retrieval_top_k: int = 1

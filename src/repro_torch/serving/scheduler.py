@@ -23,7 +23,9 @@ host intervals.
 ``pipelined=False`` is the sequential baseline: a request's fetches are
 issued and waited for when it is popped, before its compute starts.
 
-Not ported: chunked prefill (``ChunkedPrefillTask``).
+A :class:`ChunkedPrefillTask` splits one request's prefill (``mpic`` or
+``full_recompute``) into chunks, one per engine step, each inside a
+compute window, so that the running slots decode between them.
 """
 from __future__ import annotations
 
@@ -35,11 +37,21 @@ from collections import deque
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.cache.transfer import (
     _TIER_RANK,
     ParallelLoader,
     PrefetchHandle,
+)
+from repro_torch.core import select as sel_mod
+from repro_torch.core.linker import link_prompt
+from repro_torch.core.policies import (
+    POLICIES,
+    PolicyResult,
+    _first_logits,
+    _full_prompt_arrays,
+    _selective_step,
 )
 from repro_torch.serving.request import Request, State
 
@@ -219,6 +231,8 @@ class PipelinedScheduler:
             "waiting": len(self.queue),
             "pipelined": self.pipelined,
             "prefetch_depth": PREFETCH_DEPTH,
+            "chunked_prefills": sum(
+                1 for r in finished if r.prefill_stats.get("chunks", 1) > 1),
             "mean_queue_wait_s": mean("queue_wait"),
             "mean_prefill_wall_s": mean("prefill_wall_s"),
             "mean_load_s": mean("load_s"),
@@ -231,3 +245,122 @@ class PipelinedScheduler:
                                  "load_blocked": mean("load_blocked_s"),
                                  "compute": mean("compute_s")},
         }
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill
+# ---------------------------------------------------------------------------
+
+#: policies whose prefill is one pass over position-ordered tokens, which
+#: causal masking lets split: chunk j sees only the KV of chunks < j and
+#: the linked slots
+CHUNKABLE_POLICIES = ("mpic", "full_recompute")
+
+
+class ChunkedPrefillTask:
+    """The prefill of one request, one chunk per engine step.
+
+    The engine calls :meth:`advance` each step (inside a compute window of
+    the scheduler) and decodes the other slots between chunks.  After the
+    last chunk ``result`` holds a :class:`PolicyResult` of the monolithic
+    policies' shape, with the dense cache that the engine splices into its
+    pool or batch cache as it does theirs.  ``mpic`` links the prompt into
+    a dense cache once (``link_prompt``) and runs its selected tokens
+    through ``selective_prefill`` in chunks; ``full_recompute`` runs
+    ``Model.prefill`` over each chunk's positions.
+    """
+
+    def __init__(self, model, params, req: Request, library, *,
+                 kv_len: int, chunk_tokens: int, policy_name: str,
+                 scheduler: PipelinedScheduler,
+                 entries: Optional[PrefetchHandle] = None):
+        self.req = req
+        self.handle = entries
+        self.result: Optional[PolicyResult] = None
+        self.failed = False
+        self.chunks_run = 0
+        self._wall = 0.0
+        self._scheduler = scheduler
+        if policy_name == "mpic":
+            self._gen = self._run_mpic(model, params, req, library, kv_len,
+                                       chunk_tokens, entries)
+        else:
+            self._gen = self._run_full_recompute(model, params, req, kv_len,
+                                                 chunk_tokens)
+
+    @property
+    def done(self) -> bool:
+        return self.result is not None
+
+    def advance(self) -> bool:
+        """Run one chunk; True when the prefill is complete.  A chunk's
+        exception propagates (the engine frees the slot) and marks the task
+        failed, so that its dead generator is never advanced again."""
+        if self.failed:
+            raise RuntimeError(
+                f"prefill task for {self.req.req_id} already failed")
+        t0 = time.perf_counter()
+        with self._scheduler.compute_window():
+            try:
+                next(self._gen)
+            except StopIteration:
+                pass
+            except BaseException:
+                self.failed = True
+                raise
+            finally:
+                self._wall += time.perf_counter() - t0
+        if self.result is not None:
+            self.result.stats["wall_s"] = self._wall
+        return self.done
+
+    def _finish(self, logits, cache, stats: dict) -> None:
+        # the host read waits for the chunk's device work
+        self.result = PolicyResult(
+            _first_logits(logits), cache,
+            {**stats, "engine_steps": self.chunks_run,
+             "chunks": self.chunks_run, "wall_s": 0.0})
+
+    def _run_mpic(self, model, params, req, library, kv_len, chunk, entries):
+        k = req.policy_kwargs.get("k", 32)
+        prompt = req.prompt
+        selection = sel_mod.mpic_selection(prompt, k)
+        if int(selection.sum()) == 0:
+            # nothing selected (an all-media prompt at k = 0): the
+            # monolithic policy, before any link, so nothing links twice
+            self.result = POLICIES["mpic"](model, params, prompt, library,
+                                           k=k, kv_len=kv_len,
+                                           entries=entries)
+            return
+        link = link_prompt(model, prompt, library, selection, kv_len=kv_len,
+                           device=params.embed.device, entries=entries)
+        n = len(link.sel_idx)
+        for a in range(0, n, chunk):
+            # each chunk writes its K/V into link.cache for the next ones
+            logits, cache = _selective_step(model, params, link,
+                                            slice(a, a + chunk))
+            self.chunks_run += 1
+            if a + chunk < n:
+                yield       # an engine step: the running slots decode
+        self._finish(logits, cache, {
+            "policy": f"mpic-{k}", "n_recomputed": link.n_recomputed,
+            "n_reused": link.n_reused, "misses": link.misses})
+
+    def _run_full_recompute(self, model, params, req, kv_len, chunk):
+        prompt = req.prompt
+        total = prompt.total_len
+        dev = params.embed.device
+        toks, mask, emb = _full_prompt_arrays(model, prompt, dev)
+        cache = model.make_cache(1, kv_len, device=dev)
+        for a in range(0, total, chunk):
+            b = min(a + chunk, total)
+            pos = torch.arange(a, b, dtype=torch.int32, device=dev)[None]
+            logits, cache = model.prefill(
+                params, toks[:, a:b], cache, media_embeds=emb[:, a:b],
+                media_mask=mask[:, a:b], positions=pos, write_idx=pos)
+            self.chunks_run += 1
+            if b < total:
+                yield
+        self._finish(logits, cache, {
+            "policy": "full_recompute", "n_recomputed": total,
+            "n_reused": 0})

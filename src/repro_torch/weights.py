@@ -52,7 +52,8 @@ def params_from_numpy(tree: dict, cfg, device=None, dtype=None) -> Transformer:
                 continue
             put(lp.attn_norm, layers["attn_norm"]["scale"][i])
             put(lp.mlp_norm, layers["mlp_norm"]["scale"][i])
-            for name in ("wq", "wk", "wv", "wo"):
+            for name in ("wq", "wk", "wv", "wo") + (
+                    ("bq", "bk", "bv") if cfg.qkv_bias else ()):
                 put(getattr(lp.attn, name), layers["attn"][name][i])
             for name in ("w_gate", "w_up", "w_down"):
                 put(getattr(lp.mlp, name), layers["mlp"][name][i])

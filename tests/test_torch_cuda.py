@@ -48,6 +48,18 @@ hd 64, ds 128; ``ssd_chunk.ops.ssd_route``), each call checked to have
 counted one launch of its route.  fp32, held per element to ``1e-4 + 1e-4
 * |ref|`` (``repro_torch.kernels.check.ssd_limit``).
 
+The served models' head shapes (``test_*_served_heads``): kernels 1-4 at
+qwen2.5-14b's 40 query heads on 8 kv heads (G 5, so the decode kernel's
+second tile of a group holds one head and the tensor-core prefill's
+64-row blocks split a query's group), yi-9b's 32 on 4 (G 8, the decode
+kernel's largest group), phi3-medium-14b's 40 on 10 (G 4) and
+stablelm-1.6b's 32 on 32 at head dim 64, on every pool and query dtype,
+with the decode step's lengths (up to 1889) and a window that bites and
+one that does not; kernel 5 at G 5 on its tensor-core route (the upload,
+a 64-token chunk, a selective prefill) and its split-key route (the
+dense decode step, up to three queries: 15 rows), each call's route
+checked.
+
 The spool-to-pool int8 link (``PagedKVPool.link_write_q8``, plain PyTorch)
 runs on the card against the same call on the CPU
 (``test_link_write_q8_matches_cpu``; its tolerance is in its docstring).
@@ -427,6 +439,78 @@ def test_dense_kernel_ignores_slot_order(dev, dtype, sq, route):
     b = selective_attention(q, k[:, perm].contiguous(), v[:, perm].contiguous(),
                             q_pos, kv_pos[:, perm].contiguous(), window=64)
     assert compare(b, a, v_absmax(v))["worst"] <= 1.0
+
+
+# (Hq, Hkv, Dh) of the GQA/MHA models the engine serves
+SERVED = pytest.mark.parametrize("hq,hkv,dh", [
+    (40, 8, 128), (32, 4, 128), (40, 10, 128), (32, 32, 64)],
+    ids=["qwen_g5", "yi_g8", "phi3_g4", "stablelm_mha64"])
+SERVED_LENGTHS = [0, 77, 1302, 1889]
+SERVED_WINDOWS = pytest.mark.parametrize("window", [0, 300])
+
+
+@CASES
+@SERVED
+@SERVED_WINDOWS
+def test_paged_decode_served_heads(dev, pool, qdt, hq, hkv, dh, window):
+    k, v, ks, vs, pt, lens, g = _inputs(dev, hkv, pool, seed=31, dh=dh,
+                                        lengths=SERVED_LENGTHS, width=128)
+    q = torch.randn((len(SERVED_LENGTHS), hq, dh), generator=g,
+                    device=dev).to(qdt)
+    kern = KERNELS["paged_attn_q8" if ks is not None else "paged_attn"]
+    before = kern.launches
+    out = paged_attention(q, k, v, pt, lens, k_scale=ks, v_scale=vs,
+                          window=window)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    ref = paged_attention_ref(q, k, v, pt, lens, ks, vs, window=window)
+    assert torch.all(out[0] == 0)
+    res = compare(out, ref, v_absmax(v, vs), rows=lens > 0)
+    assert res["worst"] <= 1.0, res
+
+
+@CASES
+@SERVED
+@SERVED_WINDOWS
+def test_selective_prefill_served_heads(dev, pool, qdt, hq, hkv, dh, window):
+    """Sq 221 (an mpic selection: at G 5, 1105 rows, so 64-row blocks end
+    inside a query's group) against the decode step's lengths."""
+    k, v, ks, vs, pt, lens, g = _inputs(dev, hkv, pool, seed=32, dh=dh,
+                                        lengths=SERVED_LENGTHS, width=128)
+    sq = 221
+    q = torch.randn((len(SERVED_LENGTHS), sq, hq, dh), generator=g,
+                    device=dev).to(qdt)
+    q_pos = torch.stack([
+        torch.sort(torch.randperm(max(n, sq), generator=g, device=dev)[:sq])[0]
+        for n in SERVED_LENGTHS]).to(torch.int32)
+    kern = KERNELS["sel_attn_paged_q8" if ks is not None else "sel_attn_paged"]
+    before = kern.launches
+    out = selective_attention_paged(q, k, v, pt, q_pos, lens, k_scale=ks,
+                                    v_scale=vs, window=window)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    ref = selective_attention_paged_ref(q.transpose(1, 2), k, v, pt, q_pos,
+                                        lens, ks, vs,
+                                        window=window).transpose(1, 2)
+    assert torch.all(out[0] == 0)              # length 0: no key, zeros
+    res = compare(out, ref, v_absmax(v, vs))
+    assert res["worst"] <= 1.0, res
+
+
+@pytest.mark.parametrize("b,sq,skv,route", [
+    (1, 576, 576, TENSOR_CORES), (1, 64, 2048, TENSOR_CORES),
+    (1, 221, 2048, TENSOR_CORES), (2, 4, 300, TENSOR_CORES),
+    (4, 1, 2048, SPLIT_KEYS), (2, 3, 300, SPLIT_KEYS)],
+    ids=["upload", "chunk", "mpic", "g5_20_rows", "decode", "g5_15_rows"])
+@DENSE_WINDOWS
+def test_dense_served_g5(dev, b, sq, skv, route, window):
+    """Kernel 5 at qwen2.5-14b's G 5 (40 query heads on 8 kv heads, Dh
+    128) on both bf16 routes: 5 rows a query, so at most 3 queries take
+    the split keys."""
+    q, k, v, q_pos, kv_pos = _dense_case(dev, b, sq, skv, 40, 8, DH,
+                                         seed=33)
+    out = _dense_check(q, k, v, q_pos, kv_pos, window, route)
+    assert torch.all(out[0, 0] == 0)
 
 
 def test_dense_wrapper_rejects_what_the_kernel_does_not_take(dev):
