@@ -76,6 +76,22 @@ timed on its own line:
    rounding; see ``CHUNK_REL_RMS``), and the faulty runs' by more in every
    request; the two sampled runs give the same tokens and top-k 1 the
    greedy ones.  The peak device memory of each model is printed;
+5e. the GQA models freed, serve full-width hymba-1.5b (seeded random bf16
+   weights; attention at G 5, head dim 64, a 2048-token window, beside 25
+   SSD heads of state 16 in every layer) with ``paged=True``, which lands
+   on the dense cache, ``max_seq_len`` 8192: a 6,000-token text request
+   first, then phase 3's traffic, under ``mpic`` k=32 (rewritten to
+   ``full_recompute``) and under ``full_recompute``.  Gates: every request
+   served as ``full_recompute``; kernel 5 launched once a layer in every
+   upload, prefill and decode step, kernel 6 once a layer in every upload
+   and prefill, every launch on its CUDA-core route, nothing else; the two
+   runs' tokens equal.  Then a contiguous prefill of 2w and of 4w tokens
+   into exactly that many slots takes ``banded_attend`` in every layer,
+   into one slot more the windowed dense attention: last-token logits
+   within 10 % relative RMS (``BANDED_REL_RMS``), and a planted fault,
+   the band without its window, above it; kernel 5's time for the
+   banded call is printed beside the same call with window 0.  The peak
+   device memory is printed;
 6. each kernel against its plain PyTorch version on the state phases 3-5b
    left (layer 0 of the live pool or the captured dense-attention and SSD
    inputs) and on synthetic shapes (32 query heads on 8 kv heads, window
@@ -103,7 +119,11 @@ timed on its own line:
    head dim 64: both pools' prefill and decode and the upload on the
    tensor cores; qwen's dense mpic prefill and 64-token chunk on the
    tensor cores and its dense decode step on the split keys), each with
-   its device time, bound and SDPA's time;
+   its device time, bound and SDPA's time; kernel 5 at hymba-1.5b's
+   upload, long prefill and decode step (the window biting in the last
+   two), kernel 6 on the CUDA-core route at hymba's captured dialogue and
+   long-request inputs, with the resources of its (Q 64, hd 64, ds 16)
+   instantiation;
 7. a small fp32 model served by the same engine on the card and on the CPU
    (plain versions) under every policy and on the dense cache, and under
    ``mpic`` with its media on disk and pipelined admission on both pools,
@@ -112,13 +132,17 @@ timed on its own line:
    media in memory: within 5e-2, tokens printed); then qwen2.5-14b's
    smoke config at G 5 (10 query heads on 2 kv heads) with nonzero QKV
    biases under ``mpic`` on both pools, chunked ``mpic`` and
-   ``full_recompute`` and seeded sampling, card against CPU alike.
+   ``full_recompute`` and seeded sampling, and hymba-1.5b's smoke config
+   at G 5 under ``full_recompute`` and ``mpic`` (rewritten) with an MRAG
+   image of two windows uploaded through ``banded_attend``, card against
+   CPU alike.
 
 During the serving phases the plain versions and ``layers.attend`` raise
 if called.  Each serving run resets the kernels' launch counts (and the
 dense attention's count per route) before its uploads and reads them after
-its last request; a llava run whose dense attention took the CUDA cores,
-or a mamba2 run whose SSD chunk did, fails.  It prints one JSON line
+its last request; a run whose dense attention took the CUDA cores, a
+mamba2 run whose SSD chunk did, or a hymba run whose SSD chunk did not,
+fails.  It prints one JSON line
 ``{"kernels": [...]}``, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before the last line.  Without a card it exits 2.
@@ -190,6 +214,17 @@ SEEDS = [11, 12, 13, 14]
 # the K/V of the chunk before it (see hide_previous_chunk), must read
 # above the limit in every request: both sides are printed
 CHUNK_REL_RMS = 0.1
+HYMBA = "hymba-1.5b"
+HYMBA_SEQ = 8192                          # max_seq_len of phase 5e
+HYMBA_LONG = 6000                         # text tokens of its long request
+# banded against windowed last-token logits (phase 5e), as the RMS of their
+# difference over the RMS of the windowed ones: one function of the same
+# inputs through one kernel, the banded call over the fresh K/V and the
+# windowed one over the cache's slots (one empty slot more), so at most the
+# sum order inside the kernel may differ, which 32 layers of bf16
+# activations amplify as they amplify chunking's (CHUNK_REL_RMS); a band
+# that drops keys a query sees moves the logits by far more
+BANDED_REL_RMS = 0.1
 # runs served with that planted fault, and the sound run each is held to
 BLIND_RUNS = {"qwen2.5-14b:mpic_chunked_blind": "qwen2.5-14b:mpic",
               "qwen2.5-14b:full_recompute_chunked_blind":
@@ -240,7 +275,14 @@ GQA_CAPTURES = {
 }
 
 GQA_KEYS = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
-            "bound_ms", "bound_by", "max_abs_err", "worst", "route", "shape")
+            "bound_ms", "bound_by", "max_abs_err", "worst", "route", "shape",
+            "window0_ms", "window0_device_ms", "rel_rms",
+            "rel_rms_unbanded_fault")
+# layer 0's dense-attention inputs of hymba's first run (mpic, served as
+# full_recompute; its long request first): kind of call -> name
+HYMBA_CAPTURES = {"upload": f"{HYMBA}:upload",
+                  "prefill": f"{HYMBA}:long_prefill",
+                  "decode": f"{HYMBA}:dense_decode"}
 GQA_RUNS = [(arch, _gqa_runs(arch)) for arch in GQA_ARCHS]
 # (name, policy, policy kwargs, pool dtype, paged) of the phase-5 runs
 POLICY_RUNS = [
@@ -458,15 +500,18 @@ def main() -> int:
 
     def serve(label, policy="mpic", kwargs=None, pool_dtype="", paged=True,
               snap_paged=False, cases=None, served=None, engine_kw=None,
-              seeds=None):
+              seeds=None, max_seq_len=2048, ahead=()):
         """Phase 3's traffic under one policy and cache; ``served`` is the
         (model, params) pair (llava's by default), ``engine_kw`` more
-        ``EngineConfig`` fields, ``seeds`` the requests' sampling seeds."""
+        ``EngineConfig`` fields, ``seeds`` the requests' sampling seeds,
+        ``ahead`` prompts submitted before the dialogues."""
         mdl, prm = served or (model, params)
         scfg = mdl.cfg
         eng = MPICEngine(mdl, prm, EngineConfig(
-            max_seq_len=2048, decode_slots=4, page_size=16,
+            max_seq_len=max_seq_len, decode_slots=4, page_size=16,
             pool_dtype=pool_dtype, paged=paged, **(engine_kw or {})))
+        # a model without paged decode lands on the dense cache
+        paged = eng._paged
         # set-up: the system prompt's KV in the prefix store, built as the
         # JAX package's benchmarks build it
         n_sys = len(sys_toks)
@@ -514,9 +559,9 @@ def main() -> int:
             upload_s = time.perf_counter() - t_up
             # the requests arrive once their images are stored: TTFT counts
             # queueing and prefill, not the uploads
-            reqs = [Request(prompt=s.prompt, max_new_tokens=MAX_NEW,
+            reqs = [Request(prompt=p, max_new_tokens=MAX_NEW,
                             policy=policy, policy_kwargs=dict(kwargs or {}))
-                    for s in samples]
+                    for p in [*ahead, *(s.prompt for s in samples)]]
             reqs[-1].retrieval_query = rag.mean(0)
             for r, seed in zip(reqs, seeds or ()):
                 r.seed = seed
@@ -537,6 +582,7 @@ def main() -> int:
             serve_s = time.perf_counter() - t_serve
             launches = {k: v.launches for k, v in KERNELS.items()}
             routes = dict(sel_ops.SEL_ATTN.route_launches)
+            ssd_routes = dict(ssd_ops.SSD_CHUNK.route_launches)
 
         if nonfinite:
             raise RuntimeError(f"{label}: non-finite logits: {nonfinite}")
@@ -562,7 +608,8 @@ def main() -> int:
               f"linked {reqs[-1].linked_media}"
               + (f", chunks {chunks}" if max(chunks) > 1 else ""))
         print(f"  uploads {upload_s:.3f} s for 9 images; served {len(reqs)} "
-              f"requests in {serve_s:.3f} s ({steps} steps)")
+              f"requests in {serve_s:.3f} s ({steps} steps)"
+              + ("" if paged else ", dense cache"))
         print(f"  TTFT mean {rep['mean_ttft_s'] * 1e3:.2f} ms (p90 "
               f"{rep['p90_ttft_s'] * 1e3:.2f} ms, prefill alone "
               f"{rep['mean_prefill_s'] * 1e3:.2f} ms); decode step mean "
@@ -571,7 +618,8 @@ def main() -> int:
         prefills = [(r.t_first_token - r.t_admitted) * 1e3 for r in reqs]
         print(f"  prefill alone per request, in submission order: "
               f"{[round(t, 2) for t in prefills]} ms")
-        print(f"  launches {launches}; sel_attn by route {routes}",
+        print(f"  launches {launches}; sel_attn by route {routes}"
+              + (f"; ssd_chunk by route {ssd_routes}" if ssd_routes else ""),
               flush=True)
         runs[label] = {
             "policy": policy, "pool": pool_dtype or "bf16", "paged": paged,
@@ -584,7 +632,10 @@ def main() -> int:
             # whether each prefill went through ChunkedPrefillTask
             "chunked_prefill": ["chunks" in r.prefill_stats for r in reqs],
             "upload_s": upload_s, "launches": launches,
-            "sel_attn_routes": routes}
+            "decode_steps": rep["decode_steps"],
+            "prompt_tokens": [r.prompt.total_len for r in reqs],
+            "policies": [r.prefill_stats["policy"] for r in reqs],
+            "sel_attn_routes": routes, "ssd_chunk_routes": ssd_routes}
         first_logits[label] = np.stack([firsts[r.req_id] for r in reqs])
         # the wrapped methods make a cycle through the engine and its pool
         eng.close()
@@ -676,16 +727,18 @@ def main() -> int:
     ssd_live = {}
 
     @contextlib.contextmanager
-    def capture_ssd():
-        """Keep a copy of the inputs of the first SSD chunk call at each
-        chunk count (layer 0 of the first prefill of that length), strides
-        and all: the dialogues' 21 chunks and the text request's 6."""
+    def capture_ssd(into):
+        """Keep in ``into`` a copy of the inputs of the first SSD chunk
+        call at each chunk count (layer 0 of the first prefill of that
+        length), strides and all: mamba2's dialogues' 21 chunks and its
+        text request's 6; hymba's uploads' 9, dialogues' 21 and long
+        request's."""
         real = ssm_mod.ssd_chunk
 
         def recording(*args):
             nc = args[0].shape[1]
-            if nc not in ssd_live:
-                ssd_live[nc] = tuple(t.clone() for t in args)
+            if nc not in into:
+                into[nc] = tuple(t.clone() for t in args)
             return real(*args)
 
         ssm_mod.ssd_chunk = recording
@@ -722,7 +775,7 @@ def main() -> int:
 
         eng._finalize_prefill = checked_finalize
         eng._decode_dense_step = checked_decode
-        with no_plain_versions(), capture_ssd():
+        with no_plain_versions(), capture_ssd(ssd_live):
             _build.reset_launches(KERNELS.values())     # the main path only
             reqs = [Request(prompt=p, max_new_tokens=MAX_NEW, policy=policy,
                             policy_kwargs=dict(kwargs)) for p in prompts]
@@ -805,17 +858,36 @@ def main() -> int:
     def device_ms(fn, iters):
         """Device time of one call: every device activity of ``iters``
         back-to-back calls under torch.profiler, summed, over ``iters``
-        (None when the profiler saw none)."""
+        (None when the profiler saw none in two tries: it sometimes
+        records no device activity for a whole profile)."""
         fn()
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        _, busy = device_kernels(prof)
-        return busy / iters if busy > 0 else None
+        for _ in range(2):
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            _, busy = device_kernels(prof)
+            if busy > 0:
+                return busy / iters
+        return None
+
+    def events_ms(fn, iters: int) -> float:
+        """Time of one call: CUDA events around ``iters`` back-to-back
+        calls after three warm ones."""
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / iters
 
     # where a mamba2 prefill's time goes: device busy time of one profiled
     # prefill against the median host time of three unprofiled ones
@@ -1291,6 +1363,165 @@ def main() -> int:
         raise RuntimeError(f"dense attention inputs never seen: {missing}")
     phase("serve_gqa", t0)
 
+    # -- 5e. serve full-width hymba-1.5b on the dense cache ------------------
+    # the hybrid: attention (G 5, Dh 64, a 2048-token window) and SSD heads
+    # (25 of 64, state 16) in every layer; paged=True lands on the dense
+    # cache.  Its attention runs kernel 5 in every upload, prefill and
+    # decode step, its SSD heads kernel 6 on the CUDA-core route in every
+    # upload and prefill.  A ~6,000-token request, submitted first, makes
+    # the window mask keys in its prefill and in every decode step.
+    t0 = time.perf_counter()
+    hcfg = get_config(HYMBA)
+    hmodel = build_model(hcfg)
+    torch.cuda.reset_peak_memory_stats()
+    hparams = hmodel.init(seed=0)
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in hparams.parameters())
+    hw, hl = hcfg.sliding_window, hcfg.num_layers
+    print(f"{hcfg.name}: {hl} layers, d_model {hcfg.d_model}, "
+          f"{hcfg.num_heads} query heads on {hcfg.num_kv_heads} kv heads (G "
+          f"{hcfg.num_heads // hcfg.num_kv_heads}), head dim "
+          f"{hcfg.head_dim}, window {hw}; {hcfg.ssm_num_heads} SSM heads "
+          f"of {hcfg.ssm_head_dim}, state {hcfg.ssm_state}, chunk "
+          f"{hcfg.ssm_chunk}; {nbytes / 2**30:.2f} GiB of seeded weights",
+          flush=True)
+    long_prompt = Prompt([text_segment(np.random.default_rng(7).integers(
+        8, 200, HYMBA_LONG))], user_id="u0")
+    hymba_ssd = {}
+    for label, policy, kwargs in ((f"{HYMBA}:mpic", "mpic", {"k": K_MPIC}),
+                                  (f"{HYMBA}:full_recompute",
+                                   "full_recompute", {})):
+        print(f"serve {label}, paged=True (dense fallback), {policy} "
+              f"{kwargs}, max_seq_len {HYMBA_SEQ}, a {HYMBA_LONG}-token "
+              "request first:")
+        with capture_ssd(hymba_ssd):
+            reqs, launches, _ = serve(
+                label, policy, kwargs, served=(hmodel, hparams),
+                cases=HYMBA_CAPTURES if policy == "mpic" else None,
+                max_seq_len=HYMBA_SEQ, ahead=[long_prompt])
+        run = runs[label]
+        run["model"] = HYMBA
+        run["tokens"] = [r.output_tokens for r in reqs]
+        if run["paged"] or set(run["policies"]) != {"full_recompute"}:
+            raise RuntimeError(f"{label}: paged {run['paged']}, policies "
+                               f"{run['policies']}")
+        if not max(run["prompt_tokens"]) > 2 * hw:
+            raise RuntimeError(f"{label}: no prompt reaches past two windows")
+        # one launch a layer of every upload (9 images) and prefill, and of
+        # kernel 5 in every decode step; nothing else
+        passes = 9 + len(reqs)
+        want = {"sel_attn": hl * (passes + run["decode_steps"]),
+                "ssd_chunk": hl * passes}
+        got = {k: n for k, n in launches.items() if n or k in want}
+        if got != want:
+            raise RuntimeError(f"{label}: launches {got}, want {want}")
+        if run["ssd_chunk_routes"] != {ssd_ops.CUDA_CORES: want["ssd_chunk"]}:
+            raise RuntimeError(f"{label}: ssd_chunk routes "
+                               f"{run['ssd_chunk_routes']}, want all on the "
+                               "CUDA cores")
+    hymba_peak = torch.cuda.max_memory_allocated()
+    for label in (f"{HYMBA}:mpic", f"{HYMBA}:full_recompute"):
+        runs[label]["model_peak_gib"] = hymba_peak / 2**30
+    tokens_same = (runs[f"{HYMBA}:mpic"]["tokens"]
+                   == runs[f"{HYMBA}:full_recompute"]["tokens"])
+    print(f"  mpic (as full_recompute) against full_recompute: tokens "
+          f"identical {tokens_same}; peak device memory "
+          f"{hymba_peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)",
+          flush=True)
+    if not tokens_same:
+        raise RuntimeError(f"{HYMBA}: the rewritten mpic run differs from "
+                           "full_recompute")
+    missing = set(HYMBA_CAPTURES.values()) - set(captured)
+    if missing:
+        raise RuntimeError(f"dense attention inputs never seen: {missing}")
+
+    # banded_attend at full width: a contiguous prefill of 2w (4w) tokens
+    # into exactly 2w (4w) slots takes the banded branch in every layer,
+    # into one slot more the windowed dense attention over the cache
+    band_toks = torch.randint(
+        8, hcfg.vocab_size, (1, 4 * hw), device=dev, dtype=torch.int32,
+        generator=torch.Generator(device=dev).manual_seed(0))
+
+    def banded_prefill(n, slots, unbanded=False):
+        """Last-token logits of the first ``n`` tokens prefilled into
+        ``slots`` slots, the sequence lengths of the banded calls, and layer
+        0's inputs to the first one.  ``unbanded`` plants a fault: the
+        banded calls attend over every earlier key, the window ignored."""
+        calls, first = [], []
+        real = tf.banded_attend
+
+        def counting(q, k, v, positions, window):
+            if not first:
+                first.append((q.clone(), k.clone(), v.clone(),
+                              positions.clone(), window))
+            calls.append(q.shape[1])
+            if unbanded:
+                return selective_attention(q, k, v, positions, positions)
+            return real(q, k, v, positions, window)
+
+        tf.banded_attend = counting
+        try:
+            with no_plain_versions():
+                logits, cache = hmodel.prefill(
+                    hparams, band_toks[:, :n], hmodel.make_cache(1, slots))
+                last = logits[0, -1].float().cpu().numpy()
+        finally:
+            tf.banded_attend = real
+        del logits, cache
+        return last, calls, first
+
+    banded = {}
+    for n in (2 * hw, 4 * hw):
+        name = f"banded_{n // hw}w"
+        lb, calls_b, first = banded_prefill(n, n)
+        lw, calls_w, _ = banded_prefill(n, n + 1)
+        lf, _, _ = banded_prefill(n, n, unbanded=True)
+
+        def rel_rms(a):
+            return float(np.sqrt(np.mean((a - lw) ** 2) / np.mean(lw ** 2)))
+
+        rel, rel_fault = rel_rms(lb), rel_rms(lf)
+        if calls_b != [n] * hl or calls_w:
+            raise RuntimeError(f"{name}: banded calls {calls_b} into {n} "
+                               f"slots, {calls_w} into {n + 1}")
+        if not (np.isfinite(lb).all() and rel <= BANDED_REL_RMS):
+            raise RuntimeError(f"{name}: banded against windowed relative "
+                               f"RMS {rel}")
+        # the gate must catch the planted fault
+        if not rel_fault > BANDED_REL_RMS:
+            raise RuntimeError(f"{name}: the banded gate cannot tell a band "
+                               f"without its window ({rel_fault})")
+        q, k, v, pos, win = first[0]
+
+        def band(window):
+            return lambda: selective_attention(q, k, v, pos, pos,
+                                               window=window)
+
+        banded[name] = {
+            "rel_rms": rel, "rel_rms_unbanded_fault": rel_fault,
+            "route": sel_ops.dense_route(
+                q.dtype, q.shape[3], q.shape[1], q.shape[2], k.shape[2]),
+            "ms": events_ms(band(win), 10),
+            "device_ms": device_ms(band(win), 10),
+            "window0_ms": events_ms(band(0), 10),
+            "window0_device_ms": device_ms(band(0), 10),
+            "shape": f"q {tuple(q.shape)} bf16, k/v {tuple(k.shape)}, "
+                     f"kv_pos = the queries' positions, window {win}"}
+        b = banded[name]
+        print(f"  {name}: {n} tokens into {n} slots (banded in all {hl} "
+              f"layers) against {n + 1} (windowed): last-token logits "
+              f"relative RMS {rel:.3e} (limit {BANDED_REL_RMS}; the band "
+              f"without its window, a planted fault: {rel_fault:.3e}); "
+              f"kernel 5 "
+              f"at layer 0 via {b['route']}: {b['ms']:.4f} ms (device "
+              f"{b['device_ms']}) with the window, {b['window0_ms']:.4f} ms "
+              f"(device {b['window0_device_ms']}) with window 0", flush=True)
+        del first, q, k, v, pos
+    del hparams, hmodel, band_toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("serve_hymba", t0)
+
     # -- 6. kernels against their plain versions ----------------------------
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1298,19 +1529,6 @@ def main() -> int:
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
-
-    def events_ms(fn, iters: int) -> float:
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(iters):
-            fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / iters
 
     def gather(pool, scale, pt, ps, dtype):
         """(B, mp*ps, Hkv, Dh) in ``dtype``: the pages of ``pt`` in order."""
@@ -1658,8 +1876,14 @@ def main() -> int:
     gqa_routes = {"upload": sel_ops.TENSOR_CORES,
                   "dense_mpic": sel_ops.TENSOR_CORES,
                   "chunk": sel_ops.TENSOR_CORES,
+                  "long_prefill": sel_ops.TENSOR_CORES,
                   "dense_decode": sel_ops.SPLIT_KEYS}
-    gqa_dense = [n for c in GQA_CAPTURES.values() for n in c.values()]
+    gqa_dense = [n for c in GQA_CAPTURES.values() for n in c.values()] + \
+        list(HYMBA_CAPTURES.values())
+    # hymba's layer-0 shapes: kernel 5 at the upload, the long request's
+    # prefill and a decode step with it (the window biting in both), the
+    # banded calls of phase 5e; kernel 6 below
+    gqa_results[HYMBA] = {"sel_attn": dict(banded)}
     for name in ("dense_mpic", "full_recompute", "dense_decode", "upload",
                  *gqa_dense):
         res = dense_case(*captured[name])
@@ -1809,6 +2033,22 @@ def main() -> int:
     ssd = {"live": ssd_case(ssd_live[live_nc], timed=True),
            "text": ssd_case(ssd_live[text_nc], timed=True)}
     del ssd_live
+    # hymba's SSD heads (25 of 64, state 16) on the CUDA-core route: the
+    # captured layer-0 inputs of a dialogue's prefill and the long one's
+    hymba_ssd_cases = {}
+    for name, n in (("dialogue", runs[f"{HYMBA}:mpic"]["prompt_tokens"][1]),
+                    ("long", HYMBA_LONG)):
+        nc = -(-n // hcfg.ssm_chunk)
+        res = hymba_ssd_cases[name] = ssd_case(hymba_ssd[nc], timed=True)
+        if res["route"] != ssd_ops.CUDA_CORES or not res["worst"] <= 1.0:
+            raise RuntimeError(f"ssd_chunk: hymba's {name} shape: {res}")
+        print(f"  ssd_chunk at {HYMBA}'s {name} ({nc} chunks) via "
+              f"{res['route']}: max |err| {res['max_abs_err']:.3e}, "
+              f"err/limit {res['worst']:.3f}; {res['ms']:.4f} ms (device "
+              f"{res['device_ms']}; plain {res['plain_ms']:.4f}, bound "
+              f"{res['bound_ms']:.4f} by {res['bound_by']}); {res['shape']}")
+    gqa_results[HYMBA]["ssd_chunk"] = hymba_ssd_cases
+    del hymba_ssd
 
     def ssd_inputs(b, nc, h, q, hd, ds, dt_hi=0.2):
         return (randn(b, nc, h, q, hd, dtype=torch.float32),
@@ -1853,6 +2093,7 @@ def main() -> int:
                      + [(ssd_ops.CUDA_CORES, q, d, st, f"ssd_chunk_kernel<"
                          f"{uv}> (Q {q}, hd {d}, ds {st})")
                         for uv, q, d, st in ((1, 8, 16, 8), (2, 64, 64, 128),
+                                             (2, 64, 64, 16),
                                              (4, 128, 128, 128))])
     for route, q, d, st, fn in ssd_instances:
         res = ssd_ops.ssd_resources(route, q, d, st)
@@ -1882,6 +2123,9 @@ def main() -> int:
         "route_by_shape": {n: r["route"] for n, r in ssd.items()},
         "resources": next(i for i in instances
                           if i["kernel"] == "ssd_chunk_mma_kernel<64>"),
+        # the CUDA-core instantiation hymba's SSD heads run
+        "resources_ds16": next(i for i in instances if i["kernel"].endswith(
+            "(Q 64, hd 64, ds 16)")),
         "instantiations": instances,
         "cases": ssd}
     torch.cuda.synchronize()
@@ -1889,9 +2133,12 @@ def main() -> int:
 
     # -- 7. small reference: the engine on the card against the CPU ---------
     t0 = time.perf_counter()
-    def small_reference(name, smodel, p_cpu, small_runs):
+    def small_reference(name, smodel, p_cpu, small_runs, rag_len=None):
         """Each run on the card and on the CPU: the same greedy (or seeded)
-        tokens, first-token logits within the run's limit."""
+        tokens, first-token logits within the run's limit.  With
+        ``rag_len`` the last request also links a retrieved image of that
+        many tokens (MRAG); its upload must take the banded branch in every
+        layer when it spans two windows or more."""
         small = smodel.cfg
         p_gpu = copy.deepcopy(p_cpu).to(dev)
         small_spool = tempfile.mkdtemp(prefix="mpic_smoke_small_")
@@ -1934,17 +2181,42 @@ def main() -> int:
                                        seg.embeds)
                             if on_disk:
                                 lib.spool_now(s.prompt.user_id, seg.media_id)
-                    rs = [eng.submit(Request(prompt=s.prompt,
-                                             max_new_tokens=MAX_NEW,
-                                             policy=policy,
-                                             policy_kwargs=kwargs,
-                                             seed=i))
+                    rs = [Request(prompt=s.prompt, max_new_tokens=MAX_NEW,
+                                  policy=policy, policy_kwargs=kwargs, seed=i)
                           for i, s in enumerate(samples)]
+                    bands = []
+                    if rag_len:
+                        rag = image_embeds("rag-0", rag_len, small.d_model)
+                        real_band = tf.banded_attend
+
+                        def band(*args, real_band=real_band, bands=bands):
+                            bands.append(args[0].shape[1])
+                            return real_band(*args)
+
+                        tf.banded_attend = band
+                        try:
+                            eng.upload("*", "rag-0", rag, dynamic=True)
+                        finally:
+                            tf.banded_attend = real_band
+                        rs[-1].retrieval_query = rag.mean(0)
+                    for r in rs:
+                        eng.submit(r)
                     eng.run()
                     eng.close()
                     if not all(r.done for r in rs):
                         raise RuntimeError(f"{name}, {policy}: unfinished "
                                            f"{[r.error for r in rs]}")
+                    if rag_len and ("rag-0" not in rs[-1].linked_media or (
+                            rag_len >= 2 * small.sliding_window
+                            and bands != [rag_len] * small.num_layers)):
+                        raise RuntimeError(f"{name}, {policy}: MRAG linked "
+                                           f"{rs[-1].linked_media}, banded "
+                                           f"calls {bands}")
+                    if smodel.cfg.hybrid and {r.prefill_stats["policy"]
+                                              for r in rs} != {
+                                                  "full_recompute"}:
+                        raise RuntimeError(f"{name}, {policy}: not served "
+                                           "as full_recompute")
                     st = lib.stats()
                     if on_disk and (st["tiers"]["disk"]["hits"],
                                     st["direct_links"]
@@ -1959,7 +2231,7 @@ def main() -> int:
                                    np.stack([firsts[r.req_id] for r in rs]))
                 diff = float(np.abs(outs["cpu"][1] - outs[None][1]).max())
                 same = outs["cpu"][0] == outs[None][0]
-                where = ("dense cache" if not paged
+                where = ("dense cache" if eng.pool is None
                          else f"{pool_dtype or 'fp32'} pool")
                 print(f"{name}, {policy} on the {where}"
                       f"{', media from disk, pipelined' if on_disk else ''}"
@@ -2011,6 +2283,19 @@ def main() -> int:
         ("mpic", {"k": 8}, "", True, 1e-3, False, chunk),
         ("full_recompute", {}, "", True, 1e-3, False, chunk),
         ("mpic", {"k": 8}, "", True, 1e-3, False, SAMPLED)])
+    # hymba's smoke config at its own G 5 (10 query heads on 2 kv heads)
+    # on the dense fallback cache, a window of 64: the dialogues' prompts
+    # (178-201 tokens) run past two windows, and the MRAG image of two
+    # windows is uploaded through the banded branch
+    small = dataclasses.replace(get_smoke_config(HYMBA), num_heads=10,
+                                num_kv_heads=2, param_dtype="float32",
+                                compute_dtype="float32")
+    smodel = build_model(small)
+    small_reference("small fp32 hymba-1.5b (G 5, window 64)", smodel,
+                    smodel.init(seed=1, device="cpu"), [
+                        ("full_recompute", {}, "", True, 1e-3, False, None),
+                        ("mpic", {"k": 8}, "", True, 1e-3, False, None)],
+                    rag_len=2 * small.sliding_window)
     # the small fp32 mamba2 on the dense fallback cache: images inlined
     ssm_small = dataclasses.replace(get_smoke_config("mamba2-130m"),
                                     param_dtype="float32",
@@ -2079,7 +2364,8 @@ def main() -> int:
             "synthetic_err": r["synthetic_err"],
             **{key: r[key] for key in ("synthetic_bf16_err",
                                        "synthetic_err_over_limit",
-                                       "resources", "instantiations",
+                                       "resources", "resources_ds16",
+                                       "instantiations",
                                        "device_ms", "device_ms_by_shape",
                                        "library_device_ms",
                                        "library_device_ms_by_shape",
@@ -2102,13 +2388,13 @@ def main() -> int:
             # "cases" too) and its runs' launches
             if name not in by_kernel:
                 continue
+            cases = (by_kernel[name] if name in ("sel_attn", "ssd_chunk")
+                     else {"main_path": by_kernel[name]})
             row[arch] = {
                 "launches": sum(run["launches"][name] for run in runs.values()
                                 if run.get("model") == arch),
                 **{case: {key: g[key] for key in GQA_KEYS if key in g}
-                   for case, g in (by_kernel[name].items()
-                                   if name == "sel_attn"
-                                   else [("main_path", by_kernel[name])])}}
+                   for case, g in cases.items()}}
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -2,12 +2,14 @@
 
 The port serves the paper's model (llava-1.6-7b, MHA), four dense GQA or
 MHA decoders (qwen2.5-14b with QKV bias, G 5; yi-9b, G 8;
-phi3-medium-14b, G 4; stablelm-1.6b, MHA at head dim 64) and
-mamba2-130m; the other architectures of the JAX package are not ported
-yet."""
+phi3-medium-14b, G 4; stablelm-1.6b, MHA at head dim 64),
+mamba2-130m and the hybrid hymba-1.5b (attention and SSD heads in every
+layer, G 5, a 2048-token window); the other architectures of the JAX
+package are not ported yet."""
 from __future__ import annotations
 
 from repro_torch.configs import (
+    hymba_1_5b,
     llava_mpic,
     mamba2_130m,
     phi3_medium_14b,
@@ -20,7 +22,7 @@ from repro_torch.configs.base import ModelConfig, reduced
 _REGISTRY = {"llava-1.6-7b": llava_mpic, "mamba2-130m": mamba2_130m,
              "qwen2.5-14b": qwen2_5_14b, "yi-9b": yi_9b,
              "phi3-medium-14b": phi3_medium_14b,
-             "stablelm-1.6b": stablelm_1_6b}
+             "stablelm-1.6b": stablelm_1_6b, "hymba-1.5b": hymba_1_5b}
 
 
 def _module(arch_id: str):

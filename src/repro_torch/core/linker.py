@@ -75,13 +75,23 @@ def precompute_media_kv(model, params, embeds: torch.Tensor):
 
     embeds (length, D) on the model's device -> (k, v), each
     (L, length, Hkv, Dh) in the compute dtype.  This is what the library
-    stores when a user uploads a file."""
+    stores when a user uploads a file.
+
+    A hybrid stores its K/V only (the SSM state depends on the whole
+    prefix).  Its prefill pads the segment to ``ssm_chunk`` and parks the
+    pads' K/V in the cache's last slot, so when it pads, the cache gets one
+    slot past the segment for them.  (The JAX package's cache of exactly
+    ``length`` slots parks them on the last token's K/V.)"""
     length = embeds.shape[0]
-    cache = model.make_cache(1, length, device=embeds.device)
+    scratch = 1 if model.chunk_pad(length) else 0
+    cache = model.make_cache(1, length + scratch, device=embeds.device)
     tokens = torch.zeros((1, length), dtype=torch.int32, device=embeds.device)
     mask = torch.ones((1, length), dtype=torch.bool, device=embeds.device)
     _, cache = model.prefill(params, tokens, cache, media_embeds=embeds[None],
                              media_mask=mask)
+    if scratch:
+        return (cache["k"][:, 0, :length].contiguous(),
+                cache["v"][:, 0, :length].contiguous())
     return cache["k"][:, 0], cache["v"][:, 0]
 
 

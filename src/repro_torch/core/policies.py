@@ -151,11 +151,19 @@ def prefix_caching(model, params, prompt: Prompt, library=None, *,
     """Reuse the longest stored token prefix.  Media slots carry token id 0
     and match only if the whole flattened region does; the engine's store
     holds the system prompt only, the paper's "prefix caching reuses the
-    system prompt"."""
+    system prompt".
+
+    The store holds K/V, no SSM state, so a model with SSM heads (an SSM,
+    a hybrid) takes every hit as a miss and recomputes the whole prompt:
+    its SSD heads must run over the prefix too.  (The JAX package reuses a
+    hybrid's prefix K/V and starts its SSD heads from a zero state at the
+    suffix.)"""
     t0 = time.perf_counter()
     dev = _device(params)
     n_hit, k_hit, v_hit = (prefix_store.longest_match(prompt.flat_tokens())
                            if prefix_store else (0, None, None))
+    if model.cfg.attn_free or model.cfg.hybrid:
+        n_hit = 0
     total = prompt.total_len
     cache = model.make_cache(1, kv_len or total + 1, device=dev)
     if n_hit:

@@ -12,6 +12,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.selective_attn.ops import selective_attention
+
 # Sentinel position for cache slots that hold no token yet (masked out).
 INVALID_POS = torch.iinfo(torch.int32).max
 
@@ -61,13 +63,26 @@ def rope_relink(k: torch.Tensor, delta: torch.Tensor, theta: float):
 # attention core: position-masked, cache-agnostic
 # ---------------------------------------------------------------------------
 
-def banded_attend(*args, **kwargs):
-    """The JAX package's S x 2w band attention for contiguous prefills of
-    at least two windows.  Not ported yet: the served model's 8192-token
-    window is never reached by a media upload."""
-    raise NotImplementedError(
-        "banded_attend (contiguous prefill of >= 2 sliding windows) is not "
-        "ported yet")
+def banded_attend(q, k, v, positions, window: int):
+    """Sliding-window attention of a contiguous sequence over its S x 2w
+    band: each query sees at most the previous ``window`` keys, so only
+    the keys of its own w-block and the one before count.
+
+    q (B, S, Hq, Dh); k, v (B, S, Hkv, Dh), the sequence's fresh K/V;
+    positions (B, S) int32 (``INVALID_POS`` on padding rows).  Requires
+    S % window == 0 and S >= 2 * window, as the JAX package's callers
+    check.  The function is ``attend(q, k, v, positions, positions,
+    window=window)``; it runs as one call of the dense selective-attention
+    dispatcher with ``kv_pos = positions``, whose kernel leaves out every
+    tile of keys that no query of a block can see, so the work is the
+    band's."""
+    s = q.shape[1]
+    if not (window > 0 and s % window == 0 and s >= 2 * window
+            and k.shape[1] == s and v.shape[1] == s):
+        raise ValueError(
+            f"banded_attend: needs S % w == 0 and S >= 2w over the "
+            f"sequence's own K/V; got S {s}, w {window}, Skv {k.shape[1]}")
+    return selective_attention(q, k, v, positions, positions, window=window)
 
 
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:

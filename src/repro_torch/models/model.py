@@ -12,12 +12,16 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tf
+from repro_torch.models.layers import INVALID_POS
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = []
-    if cfg.arch_type in ("hybrid", "moe", "audio") or cfg.hybrid:
+    if cfg.arch_type in ("moe", "audio"):
         unsupported.append(f"arch_type={cfg.arch_type!r}")
+    if cfg.hybrid != (cfg.arch_type == "hybrid"):
+        unsupported.append(f"hybrid={cfg.hybrid} with "
+                           f"arch_type={cfg.arch_type!r}")
     if cfg.is_encoder_decoder:
         unsupported.append("encoder-decoder")
     if cfg.learned_pos_emb:
@@ -25,7 +29,8 @@ def _check_supported(cfg: ModelConfig) -> None:
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet ({', '.join(unsupported)}); the "
-            "port serves attention-only models with RoPE and the pure SSM")
+            "port serves attention-only models with RoPE, the pure SSM and "
+            "the attention + SSM hybrid")
 
 
 def _pad_right(t: torch.Tensor, pad: int) -> torch.Tensor:
@@ -47,6 +52,28 @@ class Model:
         return tf.embed_tokens(params, self.cfg, tokens, media_embeds,
                                media_mask)
 
+    def chunk_pad(self, s: int) -> int:
+        """Steps that pad ``s`` tokens to a multiple of ``ssm_chunk`` for
+        a model with SSM heads (0 for one without)."""
+        if self.cfg.attn_free or self.cfg.hybrid:
+            return (-s) % self.cfg.ssm_chunk
+        return 0
+
+    def forward(self, params, tokens, media_embeds=None, media_mask=None):
+        """Logits (B, S, V) fp32 of a contiguous sequence from position 0,
+        with no cache (the JAX package's ``Model.forward`` without the
+        loss): an SSM or a hybrid pads to ``ssm_chunk`` with token 0, whose
+        rows come after every real one and are cut off."""
+        s = tokens.shape[1]
+        pad = self.chunk_pad(s)
+        if pad:
+            tokens = _pad_right(tokens, pad)
+            if media_embeds is not None:
+                media_embeds = _pad_right(media_embeds, pad)
+                media_mask = _pad_right(media_mask, pad)
+        x = self.embed(params, tokens, media_embeds, media_mask)
+        return tf.forward(params, self.cfg, x)[:, :s]
+
     # -- serving ------------------------------------------------------------
     def make_cache(self, batch: int, kv_len: int, *, device=None) -> dict:
         """Empty dense cache on ``device`` (None means the card); see
@@ -59,11 +86,15 @@ class Model:
         from position 0 unless ``positions``/``write_idx`` (B, S) int32 say
         otherwise.  Returns (logits (B, S, V), cache).
 
-        An SSM needs S to be a multiple of ``ssm_chunk``: the tokens are
-        right-padded with steps that ``ssm_mask`` (0 on the pads) makes
-        no-ops (dt = 0: the state neither decays nor absorbs input), the
-        conv state's tail starts at S - (W-1), and the logits are cut back
-        to S."""
+        An SSM or a hybrid needs S to be a multiple of ``ssm_chunk``: the
+        tokens are right-padded with steps that ``ssm_mask`` (0 on the
+        pads) makes no-ops (dt = 0: the state neither decays nor absorbs
+        input), the conv state's tail starts at S - (W-1), and the logits
+        are cut back to S.  A hybrid's pads carry ``INVALID_POS``, so no
+        query sees their K/V, which go to the scratch slot ``kv_len - 1``
+        as in the JAX package; a contiguous prefill whose scratch slot
+        would be one of its own tokens' raises (give the cache a slot
+        more)."""
         b, s = tokens.shape
         contiguous = positions is None and write_idx is None
         if positions is None:
@@ -72,14 +103,24 @@ class Model:
         if write_idx is None:
             write_idx = positions
         ssm_mask = ssm_tail = None
-        pad = 0
-        if self.cfg.arch_type == "ssm":
-            pad = (-s) % self.cfg.ssm_chunk
-            if pad:
-                tokens = _pad_right(tokens, pad)
-                if media_embeds is not None:
-                    media_embeds = _pad_right(media_embeds, pad)
-                    media_mask = _pad_right(media_mask, pad)
+        pad = self.chunk_pad(s)
+        if pad:
+            tokens = _pad_right(tokens, pad)
+            if media_embeds is not None:
+                media_embeds = _pad_right(media_embeds, pad)
+                media_mask = _pad_right(media_mask, pad)
+            if "pos" in cache:
+                kv_len = cache["pos"].shape[1]
+                if contiguous and kv_len <= s:
+                    raise ValueError(
+                        f"{self.cfg.name}: a prefill of {s} tokens padded to "
+                        f"the SSD chunk needs a scratch slot past them; the "
+                        f"cache has {kv_len}")
+                positions = torch.cat([positions, positions.new_full(
+                    (b, pad), INVALID_POS)], 1)
+                write_idx = torch.cat([write_idx, write_idx.new_full(
+                    (b, pad), kv_len - 1)], 1)
+        if self.cfg.attn_free or self.cfg.hybrid:
             ssm_mask = (torch.arange(s + pad, device=tokens.device)
                         < s).float()[None].expand(b, s + pad)
             ssm_tail = torch.full((b,), s - (self.cfg.ssm_conv_width - 1),
@@ -118,11 +159,11 @@ class Model:
         return self.supports_paged_decode()
 
     def supports_paged_decode(self) -> bool:
-        """Paged decode covers pure-attention KV caches; an SSM keeps the
-        dense decode path (its state is no KV).  The JAX predicate also
-        excludes hybrid and encoder-decoder models, which the port does
+        """Paged decode covers pure-attention KV caches; an SSM and a
+        hybrid keep the dense decode path (their state is no KV).  The JAX
+        predicate also excludes encoder-decoder models, which the port does
         not accept."""
-        return not self.cfg.attn_free
+        return not (self.cfg.attn_free or self.cfg.hybrid)
 
     def selective_prefill_paged(self, params, sel_tokens, sel_positions,
                                 pool_k, pool_v, page_table, lengths,

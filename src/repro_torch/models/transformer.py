@@ -1,19 +1,24 @@
-"""Decoder-only model for the attention architectures and the pure SSM
-(port of the JAX package's ``models/transformer.py``, the parts the serving
-paths run).
+"""Decoder-only model for the attention architectures, the pure SSM and the
+attention + SSM hybrid (port of the JAX package's ``models/transformer.py``,
+the parts the serving paths and the inference forward run).
 
 The weights are ``nn.Module``s: a :class:`Transformer` holds the embedding,
 an ``nn.ModuleList`` of :class:`DecoderLayer` (or, for an SSM, of
 :class:`SSMLayer`; run in a Python loop where the JAX package scans over a
 stacked layer axis), the final norm and the LM head (none when the
-embeddings are tied: the head is then ``embed.T``).  Weights keep the JAX
-layout ``(in, out)`` and apply as ``x @ W``.  The serving passes are plain
+embeddings are tied: the head is then ``embed.T``).  A hybrid's
+:class:`DecoderLayer` also holds an :class:`~repro_torch.models.ssm.SSM`
+and the two norms that mix its output with the attention's.  Weights keep
+the JAX layout ``(in, out)`` and apply as ``x @ W``.  The passes are plain
 functions on tensors:
 
 * :func:`forward_with_cache`: any tokens at any positions against a dense
   cache (:func:`make_cache`): the media upload, the baselines' prefills,
   the dense selective prefill and the dense decode step; for an SSM, a
   contiguous prefill (the SSD chunk kernel) or one recurrent decode step;
+  a hybrid runs both in every layer;
+* :func:`forward`: a contiguous sequence from position 0 with no cache
+  (the inference half of the JAX package's ``forward_train``);
 * :func:`decode_paged`: one decode step for every slot against the page
   pool;
 * :func:`selective_prefill_paged`: the MPIC selective prefill against the
@@ -95,12 +100,20 @@ class SwiGLU(nn.Module):
 
 
 class DecoderLayer(nn.Module):
+    """Attention and MLP; with ``cfg.hybrid`` also the SSM heads, which run
+    beside the attention on the same normed input, and the norms
+    ``attn_mix_norm``/``ssm_mix_norm`` of the two outputs they mix."""
+
     def __init__(self, cfg, dtype, device):
         super().__init__()
         self.attn_norm = _ones(cfg.d_model, dtype, device)
         self.attn = Attention(cfg, dtype, device)
         self.mlp_norm = _ones(cfg.d_model, dtype, device)
         self.mlp = SwiGLU(cfg, dtype, device)
+        if cfg.hybrid:
+            self.ssm = SSM(cfg, dtype, device)
+            self.attn_mix_norm = _ones(cfg.d_model, dtype, device)
+            self.ssm_mix_norm = _ones(cfg.d_model, dtype, device)
 
 
 class SSMLayer(nn.Module):
@@ -145,22 +158,26 @@ def init_params(cfg, *, seed: int = 0, device=None) -> Transformer:
         w.copy_(torch.randn(w.shape, generator=gen, dtype=torch.float32,
                             device=w.device) * s)
 
+    def fill_ssm(p: SSM) -> None:
+        for w in (p.in_proj, p.bc_proj, p.dt_proj, p.out_proj):
+            fill(w)
+        fill(p.conv_w, 0.5)
+        p.dt_bias.fill_(-4.6)
+        p.A_log.copy_(torch.log(torch.linspace(
+            1.0, 16.0, p.A_log.shape[0], dtype=torch.float32)))
+        p.D.fill_(1.0)
+
     with torch.no_grad():
         fill(params.embed, 0.02)
         for lp in params.layers:
             if isinstance(lp, SSMLayer):
-                p = lp.ssm
-                for w in (p.in_proj, p.bc_proj, p.dt_proj, p.out_proj):
-                    fill(w)
-                fill(p.conv_w, 0.5)
-                p.dt_bias.fill_(-4.6)
-                p.A_log.copy_(torch.log(torch.linspace(
-                    1.0, 16.0, p.A_log.shape[0], dtype=torch.float32)))
-                p.D.fill_(1.0)
+                fill_ssm(lp.ssm)
                 continue
             for w in (lp.attn.wq, lp.attn.wk, lp.attn.wv, lp.attn.wo,
                       lp.mlp.w_gate, lp.mlp.w_up, lp.mlp.w_down):
                 fill(w)
+            if cfg.hybrid:
+                fill_ssm(lp.ssm)
         if params.lm_head is not None:
             fill(params.lm_head, 0.02)
     return params
@@ -198,18 +215,22 @@ def make_cache(cfg, batch: int, kv_len: int, *, device=None) -> dict:
     Hkv, Dh) zeros in the compute dtype, ``pos`` (B, kv_len) int32
     ``INVALID_POS``.  An SSM's cache is its recurrent state instead, zeros:
     ``ssm_h`` (L, B, H, ds, hd) fp32 and ``ssm_conv`` (L, B, W-1, di) in
-    the compute dtype (``kv_len`` unused)."""
+    the compute dtype (``kv_len`` unused).  A hybrid's holds both."""
     dev = resolve_device(device)
     dt = torch_dtype(cfg.compute_dtype)
-    if cfg.arch_type == "ssm":
+    cache = {}
+    if not cfg.attn_free:
+        shape = (cfg.num_layers, batch, kv_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        cache = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                 "v": torch.zeros(shape, dtype=dt, device=dev),
+                 "pos": torch.full((batch, kv_len), INVALID_POS,
+                                   dtype=torch.int32, device=dev)}
+    if cfg.attn_free or cfg.hybrid:
         st = init_ssm_state(cfg, cfg.num_layers * batch, dt, dev)
-        return {"ssm_h": st["h"].unflatten(0, (cfg.num_layers, batch)),
-                "ssm_conv": st["conv"].unflatten(0, (cfg.num_layers, batch))}
-    shape = (cfg.num_layers, batch, kv_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev),
-            "pos": torch.full((batch, kv_len), INVALID_POS,
-                              dtype=torch.int32, device=dev)}
+        cache["ssm_h"] = st["h"].unflatten(0, (cfg.num_layers, batch))
+        cache["ssm_conv"] = st["conv"].unflatten(0, (cfg.num_layers, batch))
+    return cache
 
 
 def _scatter_rows(buf, vals, idx):
@@ -220,23 +241,36 @@ def _scatter_rows(buf, vals, idx):
     return buf
 
 
+def _ssm_step(ssm: SSM, cfg, h, cache, l: int, ssm_mask, ssm_tail_start):
+    """Layer ``l``'s SSM heads on ``h``: a prefill (``Sq > 1``, from an
+    empty state, Sq a multiple of ``cfg.ssm_chunk``) or one decode step
+    from the cached state; the new state is written into ``cache`` in
+    place.  Returns the heads' output."""
+    if h.shape[1] == 1:
+        out, st = ssm_decode(ssm, cfg, h, {
+            "h": cache["ssm_h"][l], "conv": cache["ssm_conv"][l]})
+    else:
+        out, st = ssm_forward(ssm, cfg, h, dt_mask=ssm_mask,
+                              tail_start=ssm_tail_start)
+    cache["ssm_h"][l] = st["h"]
+    cache["ssm_conv"][l] = st["conv"]
+    return out
+
+
+def _mix(lp: DecoderLayer, cfg, attn_out, ssm_out):
+    """A hybrid layer's two branches: the mean of their normed outputs."""
+    eps = cfg.rms_norm_eps
+    return 0.5 * (rmsnorm(lp.attn_mix_norm, attn_out, eps)
+                  + rmsnorm(lp.ssm_mix_norm, ssm_out, eps))
+
+
 def _forward_ssm(params: Transformer, cfg, embeds, cache, ssm_mask,
                  ssm_tail_start):
-    """The SSM layers: a prefill (``Sq > 1``, from an empty state, Sq a
-    multiple of ``cfg.ssm_chunk``) or one decode step from the cached
-    state; each layer's new state is written into ``cache`` in place."""
+    """The SSM layers, each through :func:`_ssm_step`."""
     x = embeds
     for l, lp in enumerate(params.layers):
         h = rmsnorm(lp.norm, x, cfg.rms_norm_eps)
-        if x.shape[1] == 1:
-            out, st = ssm_decode(lp.ssm, cfg, h, {
-                "h": cache["ssm_h"][l], "conv": cache["ssm_conv"][l]})
-        else:
-            out, st = ssm_forward(lp.ssm, cfg, h, dt_mask=ssm_mask,
-                                  tail_start=ssm_tail_start)
-        cache["ssm_h"][l] = st["h"]
-        cache["ssm_conv"][l] = st["conv"]
-        x = x + out
+        x = x + _ssm_step(lp.ssm, cfg, h, cache, l, ssm_mask, ssm_tail_start)
     return _logits(params, cfg, x), cache
 
 
@@ -259,6 +293,12 @@ def forward_with_cache(params: Transformer, cfg, embeds, positions, cache,
     starts from an empty state (``ssm_mask`` (B, Sq) 0 on padding steps,
     ``ssm_tail_start`` (B,) the start of the conv state's tail; see
     :func:`repro_torch.models.ssm.ssm_forward`), Sq == 1 is a decode step.
+    A hybrid runs its SSM heads so beside the attention in every layer.
+
+    A contiguous prefill that fills the cache exactly (``Sq == kv_len``)
+    with a window it spans at least twice, in whole windows, attends over
+    the fresh K/V with :func:`~repro_torch.models.layers.banded_attend`,
+    as the JAX package does.
     """
     if cfg.arch_type == "ssm":
         return _forward_ssm(params, cfg, embeds, cache, ssm_mask,
@@ -266,8 +306,8 @@ def forward_with_cache(params: Transformer, cfg, embeds, positions, cache,
     w = cfg.sliding_window if window is None else window
     s_q = embeds.shape[1]
     kv_len = cache["k"].shape[2]
-    if contiguous and w and s_q == kv_len and s_q % w == 0 and s_q >= 2 * w:
-        banded_attend()
+    banded = (contiguous and w and s_q == kv_len and s_q % w == 0
+              and s_q >= 2 * w)
     kv_pos = _scatter_rows(cache["pos"], positions, write_idx)
     x = embeds
     for l, lp in enumerate(params.layers):
@@ -275,10 +315,51 @@ def forward_with_cache(params: Transformer, cfg, embeds, positions, cache,
         q, k_new, v_new = attention_qkv(lp.attn, cfg, h, positions)
         k_full = _scatter_rows(cache["k"][l], k_new, write_idx)
         v_full = _scatter_rows(cache["v"][l], v_new, write_idx)
-        o = selective_attention(q.contiguous(), k_full, v_full, positions,
-                                kv_pos, window=w)
-        x = _mlp(lp, cfg, x + attention_out(lp.attn.wo, o))
+        if banded:
+            o = banded_attend(q.contiguous(), k_new, v_new, positions, w)
+        else:
+            o = selective_attention(q.contiguous(), k_full, v_full,
+                                    positions, kv_pos, window=w)
+        a = attention_out(lp.attn.wo, o)
+        if cfg.hybrid:
+            a = _mix(lp, cfg, a, _ssm_step(lp.ssm, cfg, h, cache, l,
+                                           ssm_mask, ssm_tail_start))
+        x = _mlp(lp, cfg, x + a)
     return _logits(params, cfg, x), cache
+
+
+def forward(params: Transformer, cfg, embeds) -> torch.Tensor:
+    """Plain causal pass over a contiguous sequence from position 0, with
+    no cache: the inference half of the JAX package's ``forward_train``.
+
+    embeds (B, S, D); an SSM or a hybrid needs S to be a multiple of
+    ``cfg.ssm_chunk`` (``Model.forward`` pads).  Attention runs through
+    :func:`~repro_torch.models.layers.banded_attend` when the window fits
+    the sequence at least twice, in whole windows, else the dense
+    selective attention over the sequence itself.  Returns logits
+    (B, S, V) fp32."""
+    b, s, _ = embeds.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=embeds.device).repeat(b, 1)
+    w = cfg.sliding_window
+    x = embeds
+    for lp in params.layers:
+        if cfg.attn_free:
+            h = rmsnorm(lp.norm, x, cfg.rms_norm_eps)
+            x = x + ssm_forward(lp.ssm, cfg, h)[0]
+            continue
+        h = rmsnorm(lp.attn_norm, x, cfg.rms_norm_eps)
+        q, k, v = attention_qkv(lp.attn, cfg, h, positions)
+        if w and s % w == 0 and s >= 2 * w:
+            o = banded_attend(q.contiguous(), k, v, positions, w)
+        else:
+            o = selective_attention(q.contiguous(), k, v, positions,
+                                    positions, window=w)
+        a = attention_out(lp.attn.wo, o)
+        if cfg.hybrid:
+            a = _mix(lp, cfg, a, ssm_forward(lp.ssm, cfg, h)[0])
+        x = _mlp(lp, cfg, x + a)
+    return _logits(params, cfg, x)
 
 
 # ---------------------------------------------------------------------------

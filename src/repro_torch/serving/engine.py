@@ -28,15 +28,19 @@ Two batch caches:
   build a dense per-request cache, which is spliced into the pages
   (``_splice_paged``, quantized on an int8 pool).  Decode is one paged step
   over the pool.
-* **dense** (``paged=False``, or a model without paged decode: the SSM):
-  one ``(L, slots, max_seq_len, Hkv, Dh)`` cache plus ``pos``, or the
-  SSM's per-slot recurrent state; every policy builds a dense per-request
-  cache, which is spliced into its slot's row, and decode is
-  ``Model.decode_step`` over the whole batch.  It has no int8 form.
+* **dense** (``paged=False``, or a model without paged decode: the SSM
+  and the hybrid): one ``(L, slots, max_seq_len, Hkv, Dh)`` cache plus
+  ``pos``, the SSM's per-slot recurrent state, or, for a hybrid, both;
+  every policy builds a dense per-request cache, which is spliced into its
+  slot's row, every key of it, and decode is ``Model.decode_step`` over
+  the whole batch.  It has no int8 form.
 
-An SSM has no attention KV to reuse: ``mpic``, ``cacheblend`` and
-``full_reuse`` requests are served as ``full_recompute`` (the JAX engine's
-``_resolve_policy``), and the prefill runs the SSD chunk kernel.
+An SSM's state, and a hybrid's SSM half, depend on the whole prefix, so
+their K/V cannot be reused position-independently: ``mpic``,
+``cacheblend`` and ``full_reuse`` requests are served as
+``full_recompute`` and never chunked (the JAX engine's
+``_resolve_policy`` and ``_chunkable``), and the prefill runs the SSD
+chunk kernel.
 
 Every cache is written in place.  On the card, attention runs in the
 port's CUDA kernels: the paged prefill and decode kernels on the pool, the
@@ -242,12 +246,17 @@ class MPICEngine:
             self._begin_prefill(req, slot, handle)
 
     def _resolve_policy(self, req: Request) -> str:
-        """The policy a request runs: an SSM has no attention KV, so the
-        policies that reuse media KV become ``full_recompute``."""
-        if self.model.cfg.attn_free and req.policy in (
+        """The policy a request runs: an SSM or a hybrid needs its whole
+        prefix, so the policies that reuse media KV become
+        ``full_recompute``."""
+        if self._prefix_only and req.policy in (
                 "mpic", "cacheblend", "full_reuse"):
             return "full_recompute"
         return req.policy
+
+    @property
+    def _prefix_only(self) -> bool:
+        return self.model.cfg.arch_type in ("ssm", "hybrid")
 
     def _policy_consumes_entries(self, req: Request) -> bool:
         """Does the request's resolved policy link library entries?  Only
@@ -258,7 +267,7 @@ class MPICEngine:
     def _chunkable(self, req: Request, policy_name: str) -> bool:
         chunk = self.cfg.prefill_chunk_tokens
         return (chunk > 0 and policy_name in CHUNKABLE_POLICIES
-                and not self.model.cfg.attn_free
+                and not self._prefix_only
                 and req.prompt.total_len > chunk)
 
     def _begin_prefill(self, req: Request, slot: int,
@@ -385,7 +394,8 @@ class MPICEngine:
 
     def _dense_splice(self, slot: int, rc: dict) -> None:
         """Copy every key of a per-request cache (batch 1) into row
-        ``slot`` of the dense batch cache: K/V and ``pos``, or an SSM's
+        ``slot`` of the dense batch cache: K/V and ``pos``, an SSM's
+        state, or both for a hybrid, so no row keeps a previous tenant's
         state."""
         bc = self._batch_cache
         for key, buf in bc.items():
@@ -396,7 +406,9 @@ class MPICEngine:
 
     def _dense_link(self, slot: int, k_seg, v_seg, off: int) -> None:
         """Link one MRAG segment (L, n, Hkv, Dh), stored at position 0, at
-        positions ``off ..`` of row ``slot`` of the dense batch cache."""
+        positions ``off ..`` of row ``slot`` of the dense batch cache.  A
+        hybrid's SSM state stays as the prompt left it (the JAX engine's
+        link writes K/V and positions only)."""
         bc = self._batch_cache
         n = k_seg.shape[1]
         theta = self.model.cfg.rope_theta
@@ -576,7 +588,8 @@ class MPICEngine:
             self._page_tables[r.slot] = self._scratch_page
         elif r.slot >= 0 and "pos" in self._batch_cache:
             # the row's K/V stay; marking every slot invalid empties it (an
-            # SSM's state stays too: the next splice overwrites it)
+            # SSM's or a hybrid's state stays too: the next splice, which
+            # copies every key, overwrites it)
             self._batch_cache["pos"][r.slot] = INVALID_POS
         r.slot = -1
 

@@ -24,7 +24,9 @@ SSM_FP32 = ("dt_bias", "A_log", "D")
 def params_from_numpy(tree: dict, cfg, device=None, dtype=None) -> Transformer:
     """``dtype`` (a torch dtype) defaults to ``cfg.param_dtype``; the SSM
     leaves the JAX package keeps in fp32 (``dt_bias``, ``A_log``, ``D``)
-    stay fp32.  A model with tied embeddings has no ``lm_head`` leaf."""
+    stay fp32.  A model with tied embeddings has no ``lm_head`` leaf.  A
+    hybrid's layers carry the ``ssm`` leaves and the ``attn_mix_norm`` /
+    ``ssm_mix_norm`` scales beside the attention's."""
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.param_dtype)
     params = Transformer(cfg, device=dev)
@@ -41,14 +43,17 @@ def params_from_numpy(tree: dict, cfg, device=None, dtype=None) -> Transformer:
         put(params.final_norm, tree["final_norm"]["scale"])
         if params.lm_head is not None:
             put(params.lm_head, tree["lm_head"])
+        def put_ssm(ssm_mod, i: int) -> None:
+            ssm = layers["ssm"]
+            for name, p in ssm_mod.named_parameters():
+                leaf = ssm[name]["scale"] if name == "out_norm" \
+                    else ssm[name]
+                put(p, leaf[i], torch.float32 if name in SSM_FP32 else None)
+
         for i, lp in enumerate(params.layers):
             if cfg.arch_type == "ssm":
                 put(lp.norm, layers["norm"]["scale"][i])
-                ssm = layers["ssm"]
-                for name, p in lp.ssm.named_parameters():
-                    leaf = ssm[name]["scale"] if name == "out_norm" \
-                        else ssm[name]
-                    put(p, leaf[i], torch.float32 if name in SSM_FP32 else None)
+                put_ssm(lp.ssm, i)
                 continue
             put(lp.attn_norm, layers["attn_norm"]["scale"][i])
             put(lp.mlp_norm, layers["mlp_norm"]["scale"][i])
@@ -57,4 +62,8 @@ def params_from_numpy(tree: dict, cfg, device=None, dtype=None) -> Transformer:
                 put(getattr(lp.attn, name), layers["attn"][name][i])
             for name in ("w_gate", "w_up", "w_down"):
                 put(getattr(lp.mlp, name), layers["mlp"][name][i])
+            if cfg.hybrid:
+                put_ssm(lp.ssm, i)
+                for name in ("attn_mix_norm", "ssm_mix_norm"):
+                    put(getattr(lp, name), layers[name]["scale"][i])
     return params

@@ -77,10 +77,13 @@ def _store_system_prompt(pkg, eng, model, params):
 
 
 def serve(pkg, model, params, policy, pool_dtype="", paged=True, *,
-          max_new=6, seeds=None, mrag=True, on_step=None, **engine_kw):
-    """Three two-image dialogues and (``mrag``) one MRAG request under one
-    policy through one package's engine, two decode slots.  ``engine_kw``
-    go to both ``EngineConfig``s (``prefill_chunk_tokens``, ``greedy``,
+          max_new=6, seeds=None, mrag=True, on_step=None, rag_len=12,
+          store_prefix=True, **engine_kw):
+    """Three two-image dialogues and (``mrag``) one MRAG request, whose
+    retrieved image has ``rag_len`` tokens, under one policy through one
+    package's engine, two decode slots; with ``store_prefix`` the system
+    prompt's KV sits in the engine's prefix store.  ``engine_kw`` go to
+    both ``EngineConfig``s (``prefill_chunk_tokens``, ``greedy``,
     ``temperature``, ``top_k``); ``seeds`` are the requests' sampling
     seeds; ``on_step(eng)`` runs after every engine step.  Returns
     (requests, first-token logits per request, engine)."""
@@ -96,7 +99,8 @@ def serve(pkg, model, params, policy, pool_dtype="", paged=True, *,
             paged=paged, **engine_kw), device="cpu")
         dialogues, embeds, text, mk_prompt, mk_req = (
             make_dialogues, image_embeds, text_segment, Prompt, Request)
-    _store_system_prompt(pkg, eng, model, params)
+    if store_prefix:
+        _store_system_prompt(pkg, eng, model, params)
     cfg = model.cfg
     firsts = {}
     finalize = eng._finalize_prefill
@@ -115,7 +119,7 @@ def serve(pkg, model, params, policy, pool_dtype="", paged=True, *,
     reqs = [mk_req(prompt=s.prompt, max_new_tokens=max_new, policy=policy,
                    policy_kwargs=kw) for s in samples]
     if mrag:
-        rag = embeds("RAG1", 12, cfg.d_model)
+        rag = embeds("RAG1", rag_len, cfg.d_model)
         eng.upload("*", "RAG1", rag, dynamic=True)
         req = mk_req(prompt=mk_prompt([text(np.arange(20, 60))],
                                       user_id="u0"),

@@ -58,7 +58,13 @@ with the decode step's lengths (up to 1889) and a window that bites and
 one that does not; kernel 5 at G 5 on its tensor-core route (the upload,
 a 64-token chunk, a selective prefill) and its split-key route (the
 dense decode step, up to three queries: 15 rows), each call's route
-checked.
+checked.  Kernel 5 at hymba-1.5b's 25 query heads on 5 kv heads (G 5,
+Dh 64) with its 2048-token window over slots filled in order: an upload,
+a long prompt's last 1024 queries in 8192 slots, the banded prefill of 2
+windows, and the dense decode step over four 8192-slot rows (the window
+biting in the last two); kernel 6 at hymba's SSD heads (25 of 64, state
+16) on the CUDA-core route through the model's layout, at 9, 21 and 95
+chunks.
 
 The spool-to-pool int8 link (``PagedKVPool.link_write_q8``, plain PyTorch)
 runs on the card against the same call on the CPU
@@ -513,6 +519,55 @@ def test_dense_served_g5(dev, b, sq, skv, route, window):
     assert torch.all(out[0, 0] == 0)
 
 
+# hymba-1.5b's attention: 25 query heads on 5 kv heads (G 5), Dh 64, a
+# 2048-token window; (B, Sq, Skv, first query position, route)
+HYMBA_DENSE = {
+    "upload": (1, 576, 576, 0, TENSOR_CORES),
+    "long_prefill": (1, 1024, 8192, 5000, TENSOR_CORES),
+    "banded_4096": (1, 4096, 4096, 0, TENSOR_CORES),
+}
+
+
+@pytest.mark.parametrize("case", list(HYMBA_DENSE))
+def test_dense_served_hymba(dev, case):
+    """Kernel 5 at hymba's shapes, slots filled in order from position 0
+    as its prefills fill them: an upload; the last 1024 queries of a
+    6024-token prompt in an 8192-slot cache (the window masks keys below
+    every query's position - 2047, and slots past the prompt are empty);
+    the banded prefill of 2 windows (``kv_pos`` = the queries'
+    positions).  Each with the window, held to the plain version."""
+    b, sq, skv, q0, route = HYMBA_DENSE[case]
+    g = torch.Generator(device=dev).manual_seed(34)
+    n = q0 + sq
+    kv_pos = torch.full((b, skv), INVALID_POS, dtype=torch.int32, device=dev)
+    kv_pos[:, :n] = torch.arange(n, dtype=torch.int32, device=dev)
+    q_pos = torch.arange(q0, n, dtype=torch.int32, device=dev).repeat(b, 1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).bfloat16()
+
+    _dense_check(randn(b, sq, 25, 64), randn(b, skv, 5, 64),
+                 randn(b, skv, 5, 64), q_pos, kv_pos, 2048, route)
+
+
+def test_dense_decode_hymba(dev):
+    """Kernel 5's split keys at hymba's dense decode step: four slots of
+    8192, an idle one (zeros), 40, 2100 and 6000 tokens; the window of
+    2048 masks the keys below each newest query's position - 2047."""
+    g = torch.Generator(device=dev).manual_seed(35)
+    b, skv = 4, 8192
+    kv_pos = torch.full((b, skv), INVALID_POS, dtype=torch.int32, device=dev)
+    q_pos = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+    for i, n in enumerate([0, 40, 2100, 6000]):
+        kv_pos[i, :n] = torch.arange(n, dtype=torch.int32, device=dev)
+        q_pos[i] = max(n - 1, 0)
+    q = torch.randn((b, 1, 25, 64), generator=g, device=dev).bfloat16()
+    k = torch.randn((b, skv, 5, 64), generator=g, device=dev).bfloat16()
+    v = torch.randn((b, skv, 5, 64), generator=g, device=dev).bfloat16()
+    out = _dense_check(q, k, v, q_pos, kv_pos, 2048, SPLIT_KEYS)
+    assert torch.all(out[0] == 0)
+
+
 def test_dense_wrapper_rejects_what_the_kernel_does_not_take(dev):
     q, k, v, q_pos, kv_pos = _dense_inputs(dev, torch.float32, 8, 8, seed=6)
     with pytest.raises(ValueError):
@@ -620,6 +675,27 @@ def test_ssd_chunk_kernel_reads_the_model_layout(dev, route, ds):
     assert not views[0].is_contiguous() and not bm.is_contiguous()
     assert ssd_ops.ssd_route(q, hd, ds) == route
     _ssd_check(tuple(t.contiguous() for t in views), route, views=views)
+
+
+@pytest.mark.parametrize("nc", [9, 21, 95])
+def test_ssd_chunk_hymba(dev, nc):
+    """Kernel 6 at hymba's SSD heads (25 heads of 64, state 16, chunks of
+    64) on the CUDA-core route, its route for ds 16, through the model's
+    layout (bm/cm cut from one (B, T, 32) projection: 64-byte rows): an
+    upload (9 chunks), a dialogue (21) and the ~6,000-token request
+    (95)."""
+    b, h, q, hd, ds = 1, 25, 64, 64, 16
+    assert ssd_ops.ssd_route(q, hd, ds) == ssd_ops.CUDA_CORES
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn((b, nc, q, h, hd), generator=g, device=dev)
+    bc = torch.randn((b, nc * q, 2 * ds), generator=g, device=dev)
+    la = -0.3 * torch.rand((b, nc, q, h), generator=g, device=dev)
+    dt = 0.2 * torch.rand((b, nc, q, h), generator=g, device=dev)
+    bm, cm = (t.reshape(b, nc, q, ds) for t in bc.chunk(2, dim=-1))
+    views = (x.permute(0, 1, 3, 2, 4), bm, cm, la.permute(0, 1, 3, 2),
+             dt.permute(0, 1, 3, 2))
+    _ssd_check(tuple(t.contiguous() for t in views), ssd_ops.CUDA_CORES,
+               views=views)
 
 
 def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(dev):

@@ -103,11 +103,6 @@ def test_rmsnorm_and_swiglu_match():
     np.testing.assert_allclose(out.numpy(), ref, **TOL)
 
 
-def test_banded_attend_not_reached_silently():
-    with pytest.raises(NotImplementedError):
-        tl.banded_attend()
-
-
 def test_quant_scatter_matches_jax():
     """Three successive writes into int8 pages, with several tokens per
     page, duplicate targets on a scratch page, and growing amax (so pages

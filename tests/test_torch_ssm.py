@@ -295,9 +295,8 @@ def test_attention_paths_refuse_the_ssm(pair):
     prompt = Prompt([text_segment(np.arange(10, 40))], user_id="u")
     with pytest.raises(ValueError, match="attention KV"):
         cacheblend(tmodel, tparams, prompt, KVLibrary(), kv_len=64)
-    for arch in ("hybrid", "moe"):
-        with pytest.raises(NotImplementedError):
-            build_model(dataclasses.replace(cfg, arch_type=arch))
+    with pytest.raises(NotImplementedError):
+        build_model(dataclasses.replace(cfg, arch_type="moe"))
 
 
 def test_paged_engine_falls_back_to_the_dense_cache(pair):
