@@ -56,8 +56,37 @@ timed on its own line:
    blocked, compute and overlap ms, TTFT, prefill alone, the decode step
    (and over the steps with a load in flight), and the disk's bytes read
    and the share of read time spent on SHA-1;
-5d. llava's weights freed, serve the GQA decoders at full width (seeded
-   random weights, bf16, one model at a time, each freed before the next;
+5f. phase 3's traffic with its media KV pulled from a peer over the
+   network tier, in one process: a serving host uploads the eight static
+   images into a bf16 library and an int8 one (``quantize=True``), each
+   behind a ``KVPeerServer`` on loopback; a receiving host whose static
+   library is empty and peered with one of them (``KVLibrary(peers=...)``,
+   transports with a 60 s timeout: a 302 MB bf16 block is serialized
+   before the answer) serves the traffic on a bf16 pool from the bf16 host
+   and on an int8 pool from the int8 host, uploading only the MRAG image.
+   Gates: every static lookup a verified network pull (promotes 8, misses
+   0), the bytes on the card hash to their keys, no request recomputes an
+   image, the int8 run links every block from its int8 bytes, tokens and
+   first-token logits (within 1e-3) equal phase 5c's memory control (bf16)
+   and int8 library (int8), the pool's prefill and decode kernels and the
+   dense kernel launched.  Then the receiving host with no peer (every
+   image recomputed), under ``peer.request:blackhole`` (the breaker must
+   open and skip) and under ``peer.body:corrupt``: every request finishes,
+   every pull is a counted miss, and the tokens equal the no-peer run's.
+   Printed per run: TTFT, load, blocked, compute and overlap per request,
+   the decode step with pulls in flight, the bytes pulled, the fetch
+   seconds and their SHA-1 share, and the network tier's counters;
+5g. llava's weights freed, the serving CLI as a user starts it, in a
+   subprocess: ``python -m repro_torch.launch.serve --arch llava-1.6-7b
+   --requests 4 --policy mpic,full_recompute --max-seq-len 2048
+   --serve-blocks 0``, once paged and once ``--no-paged``.  Gates: exit 0,
+   the peer server's address printed, four requests of 8 tokens,
+   ``reused`` above 0 under ``mpic`` and 0 under ``full_recompute``.
+   Printed: its wall time, and sampled every half second the card's
+   memory in use at most (nvidia-smi) and the process's resident memory
+   at most;
+5d. serve the GQA decoders at full width (seeded random weights, bf16,
+   one model at a time, each freed before the next;
    phase 3's traffic with 576-token images): qwen2.5-14b (G 5, QKV bias)
    under ``mpic`` on both pools, ``mpic`` on the dense cache,
    ``full_recompute``, both chunked (``prefill_chunk_tokens=64``), both
@@ -155,6 +184,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -304,6 +334,24 @@ DISK_RUNS = [
     ("disk_int8", "int8", True, True, True, None),
     ("disk_bf16_rehydrated", "", False, True, True, "disk_bf16"),
 ]
+# (name, pool dtype, the serving host pulled from, fault plan) of the
+# phase-5f runs: the fault runs after the no-peer run they are held to
+NET_RUNS = [
+    ("net_bf16", "", "bf16", ""),
+    ("net_int8", "int8", "int8", ""),
+    ("net_none", "", None, ""),
+    ("net_blackhole", "", "bf16", "peer.request:blackhole:delay=0.05"),
+    ("net_corrupt", "", "bf16", "peer.body:corrupt"),
+]
+# the transports' timeout: it runs per socket operation, and the serving
+# host answers only once it has serialized a 302 MB bf16 block (the
+# reference's 2 s default was set for 24-token blocks); a blackhole waits
+# its rule's delay instead
+NET_TIMEOUT_S = 60.0
+# phase 5g's command line, run once paged and once with --no-paged
+CLI_ARGS = ["--arch", "llava-1.6-7b", "--requests", "4", "--policy",
+            "mpic,full_recompute", "--max-seq-len", "2048",
+            "--serve-blocks", "0"]
 
 
 def phase(name: str, t0: float) -> None:
@@ -315,6 +363,56 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def card_memory_mib() -> int:
+    """Device memory in use on the card, every process's (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return int(out.stdout.split()[0])
+
+
+def rss_mib(pid: int) -> float:
+    """A live process's resident memory (``/proc/<pid>/statm``), 0 once it
+    is gone."""
+    try:
+        with open(f"/proc/{pid}/statm") as f:
+            pages = int(f.read().split()[1])
+    except (OSError, IndexError, ValueError):
+        return 0.0
+    return pages * os.sysconf("SC_PAGE_SIZE") / 2**20
+
+
+def run_watched(cmd, env, timeout_s: float):
+    """Run ``cmd`` from the checkout's root, sampling the card's memory in
+    use and the process's resident memory every half second.  Returns the
+    exit code, stdout, stderr, wall seconds and the two sampled maxima
+    (MiB); kills the process and raises past ``timeout_s``."""
+    with tempfile.TemporaryFile("w+") as fo, \
+            tempfile.TemporaryFile("w+") as fe:
+        t = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdout=fo, stderr=fe, env=env,
+                                cwd=ROOT, text=True)
+        card_mib, rss_max, sampled = 0, 0.0, 0.0
+        try:
+            while proc.poll() is None:
+                now = time.perf_counter()
+                if now - t > timeout_s:
+                    raise RuntimeError(f"{cmd} ran over {timeout_s} s")
+                if now - sampled >= 0.5:
+                    card_mib = max(card_mib, card_memory_mib())
+                    rss_max, sampled = max(rss_max, rss_mib(proc.pid)), now
+                time.sleep(0.02)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        wall = time.perf_counter() - t
+        fo.seek(0)
+        fe.seek(0)
+        return proc.returncode, fo.read(), fe.read(), wall, card_mib, rss_max
 
 
 def main() -> int:
@@ -331,7 +429,13 @@ def main() -> int:
     import repro_torch.models.layers as layers
     import repro_torch.models.ssm as ssm_mod
     import repro_torch.models.transformer as tf
-    from repro_torch.cache import KVLibrary, content_key
+    from repro_torch.cache import (
+        FaultPlan,
+        KVLibrary,
+        KVPeerServer,
+        PeerTransport,
+        content_key,
+    )
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import Prompt, text_segment
     from repro_torch.core.policies import full_recompute
@@ -671,6 +775,7 @@ def main() -> int:
         }
 
     runs = {}
+    runs_cli = {}           # phase 5g: the CLI's runs, in subprocesses
     t0 = time.perf_counter()
     print("serve, bf16 pool, mpic:")
     reqs16, launches16, snap16 = serve(
@@ -1016,17 +1121,15 @@ def main() -> int:
     print(f"spool directory {spool_root}: "
           f"{shutil.disk_usage(spool_root).free / 2**30:.1f} GiB free")
 
-    def serve_disk(label, pool_dtype, quantize, pipelined, on_disk, source):
-        def library(name, **kw):
-            if source is not None:
-                # a cold start: the blocks another run spooled, re-indexed
-                return KVLibrary(spool_dir=os.path.join(spool_root, source,
-                                                        name),
-                                 quantize=quantize, rehydrate=True, **kw)
-            where = os.path.join(spool_root, label, name) if on_disk else None
-            return KVLibrary(spool_dir=where, quantize=quantize, **kw)
-
-        static, dynamic = library("static"), library("dynamic", shared=True)
+    def serve_tiered(label, static, dynamic, pool_dtype, pipelined=True, *,
+                     upload_static=True, spool=False, rehydrated=False):
+        """Phase 3's traffic (mpic k=32) through an engine over ``static``
+        and ``dynamic``.  ``upload_static`` uploads the dialogues' images
+        (else they come from a rehydrated spool or from a peer), ``spool``
+        spools every block right after its upload, ``rehydrated`` says
+        the dynamic library's block came from a spool too.  Every request
+        must finish with finite first logits and the MRAG image linked.
+        Returns what the run measured."""
         eng = MPICEngine(model, params, EngineConfig(
             max_seq_len=2048, decode_slots=4, page_size=16,
             pool_dtype=pool_dtype, pipelined=pipelined),
@@ -1054,21 +1157,20 @@ def main() -> int:
             t_up = time.perf_counter()
             for s in samples:
                 for _, seg in s.prompt.media_segments():
-                    if source is not None:
-                        continue            # rehydrated, not uploaded
+                    if not upload_static:
+                        continue
                     eng.upload(s.prompt.user_id, seg.media_id, seg.embeds)
-                    if on_disk and not static.spool_now(s.prompt.user_id,
-                                                        seg.media_id):
+                    if spool and not static.spool_now(s.prompt.user_id,
+                                                      seg.media_id):
                         raise RuntimeError(f"{label}: {seg.media_id} did "
                                            "not spool")
-            if source is None:
-                eng.upload("*", "rag-0", rag, dynamic=True)
-            else:
+            if rehydrated:
                 # the retriever's index is not part of the spool
                 eng.retriever.add("rag-0", rag)
-            if on_disk and source is None and not dynamic.spool_now(
-                    "*", "rag-0"):
-                raise RuntimeError(f"{label}: rag-0 did not spool")
+            else:
+                eng.upload("*", "rag-0", rag, dynamic=True)
+                if spool and not dynamic.spool_now("*", "rag-0"):
+                    raise RuntimeError(f"{label}: rag-0 did not spool")
             torch.cuda.synchronize()
             upload_s = time.perf_counter() - t_up
             reqs = [Request(prompt=s.prompt, max_new_tokens=MAX_NEW,
@@ -1098,7 +1200,92 @@ def main() -> int:
                 raise RuntimeError(f"{label}: non-finite first logits")
         if "rag-0" not in reqs[-1].linked_media:
             raise RuntimeError(f"{label}: MRAG did not link its image")
-        placed = sum(len(r.prompt.media_segments()) for r in reqs)
+        out = {"reqs": reqs, "tokens": [r.output_tokens for r in reqs],
+               "first": np.stack([firsts[r.req_id] for r in reqs]),
+               "recomputed": [r.prefill_stats["n_recomputed"] for r in reqs],
+               # per request, the media it recomputed for want of a block
+               "misses": [r.prefill_stats["misses"] for r in reqs],
+               "placed": sum(len(r.prompt.media_segments()) for r in reqs),
+               "launches": launches, "loads": loads,
+               "decode_windows": decode_windows, "upload_s": upload_s,
+               "serve_s": serve_s, "steps": steps, "report": eng.report(),
+               "load_failures": eng.loader.load_failures}
+        del eng, finalize, decode_step, recording_finalize, timed_decode
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    def report_tiered(label, out, tier, st, **extra):
+        """Print a tiered run's loads, TTFT and decode steps and the lower
+        tier's bytes, fetch seconds and SHA-1 share, and record the run."""
+        reqs, rep = out["reqs"], out["report"]
+        busy = [any(a < d and c < b for c, d in out["loads"])
+                for a, b in out["decode_windows"]]
+        steps_ms = np.asarray([(b - a) * 1e3
+                               for a, b in out["decode_windows"]])
+        in_flight = steps_ms[np.asarray(busy, bool)]
+        per_req = {key: [round(getattr(r, key) * 1e3, 2) for r in reqs]
+                   for key in ("load_s", "load_blocked_s", "compute_s",
+                               "overlap_s")}
+        t = st["tiers"].get(tier)           # None: a library without peers
+        verify_share = (t["verify_s"] / t["fetch_s"] if t and t["fetch_s"]
+                        else None)
+        verb = "read" if tier == "disk" else "pulled"
+        print(f"  {label}: uploads {out['upload_s'] * 1e3:.1f} ms; served "
+              f"in {out['serve_s']:.3f} s ({out['steps']} steps)")
+        print(f"    per request, ms: TTFT "
+              f"{[round(r.ttft * 1e3, 2) for r in reqs]}, load busy "
+              f"{per_req['load_s']}, blocked {per_req['load_blocked_s']}, "
+              f"compute {per_req['compute_s']}, overlap "
+              f"{per_req['overlap_s']}")
+        print(f"    TTFT mean {rep['mean_ttft_s'] * 1e3:.2f} ms (p90 "
+              f"{rep['p90_ttft_s'] * 1e3:.2f}), prefill alone "
+              f"{rep['mean_prefill_s'] * 1e3:.2f} ms; decode step mean "
+              f"{steps_ms.mean():.2f} ms over {len(steps_ms)} steps, "
+              + (f"{in_flight.mean():.2f} ms over the {len(in_flight)} with "
+                 "a load in flight" if len(in_flight) else
+                 "none with a load in flight"))
+        print(f"    {tier}: " + (
+            f"{t['bytes_read'] / 2**20:.1f} MiB {verb} in {t['fetches']} "
+            f"blocks ({t['fetch_misses']} missed), {t['fetch_s'] * 1e3:.1f} "
+            f"ms of fetches, SHA-1 {t['verify_s'] * 1e3:.1f} ms of them "
+            f"({'-' if verify_share is None else f'{verify_share:.1%}'}), "
+            f"then {t['copy_s'] * 1e3:.1f} ms staging and copying to the "
+            "card" if t else "none") + f"; direct links "
+              f"{st['direct_links']}, dequants {st['dequants']}; launches "
+              f"{out['launches']}", flush=True)
+        runs[label] = {
+            "policy": "mpic", "paged": True,
+            "upload_ms": out["upload_s"] * 1e3,
+            "ttft_ms": [r.ttft * 1e3 for r in reqs],
+            "mean_ttft_ms": rep["mean_ttft_s"] * 1e3,
+            "p90_ttft_ms": rep["p90_ttft_s"] * 1e3,
+            "mean_prefill_ms": rep["mean_prefill_s"] * 1e3,
+            "mean_decode_step_ms": float(steps_ms.mean()),
+            "decode_step_ms_loads_in_flight": (
+                float(in_flight.mean()) if len(in_flight) else None),
+            "decode_steps_loads_in_flight": int(len(in_flight)),
+            "per_request_ms": per_req, "recomputed": out["recomputed"],
+            "scheduler": rep["scheduler"], tier: t,
+            f"{tier}_verify_share": verify_share,
+            "direct_links": st["direct_links"], "dequants": st["dequants"],
+            "launches": out["launches"], **extra}
+
+    def serve_disk(label, pool_dtype, quantize, pipelined, on_disk, source):
+        def library(name, **kw):
+            if source is not None:
+                # a cold start: the blocks another run spooled, re-indexed
+                return KVLibrary(spool_dir=os.path.join(spool_root, source,
+                                                        name),
+                                 quantize=quantize, rehydrate=True, **kw)
+            where = os.path.join(spool_root, label, name) if on_disk else None
+            return KVLibrary(spool_dir=where, quantize=quantize, **kw)
+
+        static, dynamic = library("static"), library("dynamic", shared=True)
+        out = serve_tiered(label, static, dynamic, pool_dtype, pipelined,
+                           upload_static=source is None, spool=on_disk,
+                           rehydrated=source is not None)
+        placed = out["placed"]
         if source is not None:
             got = (static.rehydrate_stats, dynamic.rehydrate_stats)
             want = ({"rehydrated": placed, "skipped": 0, "corrupt": 0,
@@ -1130,72 +1317,22 @@ def main() -> int:
             raise RuntimeError(f"{label}: direct links {st['direct_links']} "
                                f"of {placed}, dequants {st['dequants']}, "
                                f"MRAG {dst['direct_links']}")
-        if eng.loader.load_failures:
-            raise RuntimeError(f"{label}: {eng.loader.load_failures} failed "
+        if out["load_failures"]:
+            raise RuntimeError(f"{label}: {out['load_failures']} failed "
                                "loads")
         prefill_name = "sel_attn_paged_q8" if pool_dtype else "sel_attn_paged"
         decode_name = "paged_attn_q8" if pool_dtype else "paged_attn"
         # the dense kernel runs in the uploads, which a cold start skips
         for name in (prefill_name, decode_name) + (
                 ("sel_attn",) if source is None else ()):
-            if launches[name] <= 0:
+            if out["launches"][name] <= 0:
                 raise RuntimeError(f"{label}: {name} never launched")
-        rep = eng.report()
-        sched = rep["scheduler"]
-        busy = [any(a < d and c < b for c, d in loads)
-                for a, b in decode_windows]
-        steps_ms = np.asarray([(b - a) * 1e3 for a, b in decode_windows])
-        in_flight = steps_ms[np.asarray(busy, bool)]
-        per_req = {key: [round(getattr(r, key) * 1e3, 2) for r in reqs]
-                   for key in ("load_s", "load_blocked_s", "compute_s",
-                               "overlap_s")}
-        verify_share = (disk["verify_s"] / disk["fetch_s"]
-                        if disk["fetch_s"] else None)
-        print(f"  {label}: uploads {upload_s * 1e3:.1f} ms for 9 images"
-              f"{' (spool included)' if on_disk else ''}; served in "
-              f"{serve_s:.3f} s ({steps} steps)")
-        print(f"    per request, ms: load busy {per_req['load_s']}, "
-              f"blocked {per_req['load_blocked_s']}, compute "
-              f"{per_req['compute_s']}, overlap {per_req['overlap_s']}")
-        print(f"    TTFT mean {rep['mean_ttft_s'] * 1e3:.2f} ms (p90 "
-              f"{rep['p90_ttft_s'] * 1e3:.2f}), prefill alone "
-              f"{rep['mean_prefill_s'] * 1e3:.2f} ms; decode step mean "
-              f"{steps_ms.mean():.2f} ms over {len(steps_ms)} steps, "
-              + (f"{in_flight.mean():.2f} ms over the {len(in_flight)} with "
-                 "a load in flight" if len(in_flight) else
-                 "none with a load in flight"))
-        print(f"    disk: {disk['bytes_read'] / 2**20:.1f} MiB read in "
-              f"{disk['fetches']} blocks, {disk['fetch_s'] * 1e3:.1f} ms of "
-              f"reads, SHA-1 {disk['verify_s'] * 1e3:.1f} ms of them "
-              f"({'-' if verify_share is None else f'{verify_share:.1%}'})"
-              f", then {disk['copy_s'] * 1e3:.1f} ms staging and copying "
-              f"to the card; direct links {st['direct_links']}, dequants "
-              f"{st['dequants']}; launches {launches}", flush=True)
-        runs[label] = {
-            "policy": "mpic", "pool": pool_dtype or "bf16", "paged": True,
-            "library": ("disk" if on_disk else "memory")
-            + (", int8" if quantize else ""), "pipelined": pipelined,
-            "upload_ms": upload_s * 1e3,
-            "mean_ttft_ms": rep["mean_ttft_s"] * 1e3,
-            "p90_ttft_ms": rep["p90_ttft_s"] * 1e3,
-            "mean_prefill_ms": rep["mean_prefill_s"] * 1e3,
-            "mean_decode_step_ms": float(steps_ms.mean()),
-            "decode_step_ms_loads_in_flight": (
-                float(in_flight.mean()) if len(in_flight) else None),
-            "decode_steps_loads_in_flight": int(len(in_flight)),
-            "per_request_ms": per_req,
-            "scheduler": sched, "disk": disk,
-            "disk_verify_share": verify_share,
-            "direct_links": st["direct_links"], "dequants": st["dequants"],
-            "rehydrated": static.rehydrate_stats.get("rehydrated"),
-            "launches": launches}
-        tokens = [r.output_tokens for r in reqs]
-        first = np.stack([firsts[r.req_id] for r in reqs])
-        del eng, finalize, decode_step, recording_finalize, timed_decode
+        report_tiered(label, out, "disk", st, pool=pool_dtype or "bf16",
+                      library=("disk" if on_disk else "memory")
+                      + (", int8" if quantize else ""), pipelined=pipelined,
+                      rehydrated=static.rehydrate_stats.get("rehydrated"))
         del static, dynamic
-        gc.collect()
-        torch.cuda.empty_cache()
-        return tokens, first
+        return out
 
     try:
         disk_out = {}
@@ -1210,10 +1347,11 @@ def main() -> int:
                                          pipelined, on_disk, source)
     finally:
         shutil.rmtree(spool_root, ignore_errors=True)
-    control_tokens, control_first = disk_out["memory_bf16"]
+    control_tokens = disk_out["memory_bf16"]["tokens"]
+    control_first = disk_out["memory_bf16"]["first"]
     for label in ("disk_bf16", "disk_bf16_sequential",
                   "disk_bf16_rehydrated"):
-        tokens, first = disk_out[label]
+        tokens, first = disk_out[label]["tokens"], disk_out[label]["first"]
         diff = float(np.abs(first - control_first).max())
         print(f"  {label} against the memory-only control: tokens identical "
               f"{tokens == control_tokens}, first-logit max diff {diff:.2e}")
@@ -1223,11 +1361,187 @@ def main() -> int:
             raise RuntimeError(f"{label} disagrees with the memory-only run")
     phase("serve_disk", t0)
 
+    # -- 5f. media KV pulled from a peer over the network tier ---------------
+    # a serving host uploads phase 3's eight static images into a bf16
+    # library and an int8 one, each behind a KVPeerServer on loopback; a
+    # receiving host with an empty static library peered with one of them
+    # serves phase 3's traffic, so that every static lookup is a pull from
+    # the serving host's card, through the wire format, onto this card.
+    # Then the receiving host with no peer (every image recomputed), and
+    # under a blackholed and a corrupting peer, which must give the no-peer
+    # run's tokens
+    t0 = time.perf_counter()
+    host = MPICEngine(model, params, EngineConfig(
+        max_seq_len=2048, decode_slots=4, page_size=16))
+    host8 = KVLibrary(quantize=True)
+    with no_plain_versions():
+        t_up = time.perf_counter()
+        for s in make_dialogues(n=4, n_images=2, d_model=cfg.d_model,
+                                media_len=cfg.media_token_len, style="mmdu"):
+            for _, seg in s.prompt.media_segments():
+                host.upload(s.prompt.user_id, seg.media_id, seg.embeds)
+                e = host.static_lib.get(s.prompt.user_id, seg.media_id)
+                host8.put(s.prompt.user_id, seg.media_id, e.k, e.v)
+        torch.cuda.synchronize()
+    servers = {"bf16": KVPeerServer(host.static_lib),
+               "int8": KVPeerServer(host8)}
+    print(f"serving host: 8 images into a bf16 and an int8 library in "
+          f"{time.perf_counter() - t_up:.3f} s, served at "
+          f"{servers['bf16'].address} and {servers['int8'].address}")
+    net_out = {}
+    try:
+        for label, pool_dtype, source, spec in NET_RUNS:
+            plan = FaultPlan.parse(spec) if spec else None
+            peers = ([PeerTransport(servers[source].address,
+                                    timeout_s=NET_TIMEOUT_S)]
+                     if source else None)
+            static = KVLibrary(peers=peers, faults=plan)
+            dynamic = KVLibrary(shared=True, quantize=pool_dtype == "int8")
+            print(f"serve from a peer: {label} ({pool_dtype or 'bf16'} pool, "
+                  + (f"pulling from the {source} host" if source
+                     else "no peer") + (f", fault plan {spec!r}" if spec
+                                        else "") + "):")
+            out = net_out[label] = serve_tiered(label, static, dynamic,
+                                                pool_dtype,
+                                                upload_static=False)
+            st = static.stats()
+            net = st["tiers"].get("network")
+            placed = out["placed"]
+            report_tiered(label, out, "network", st,
+                          pool=pool_dtype or "bf16", peer=source,
+                          fault_plan=spec or None)
+            if net is not None:
+                print(f"    network tier: promotes {net['promotes']}, "
+                      f"timeouts {net['timeouts']}, retries "
+                      f"{net['retries']}, breaker skips "
+                      f"{net['breaker_skips']}, breakers {net['breakers']}; "
+                      f"misses {st['misses']}"
+                      + (f"; fault plan {plan.stats()}" if plan else ""))
+            prefill_name = ("sel_attn_paged_q8" if pool_dtype
+                            else "sel_attn_paged")
+            decode_name = "paged_attn_q8" if pool_dtype else "paged_attn"
+            for name in (prefill_name, decode_name, "sel_attn"):
+                if out["launches"][name] <= 0:
+                    raise RuntimeError(f"{label}: {name} never launched")
+            if out["load_failures"]:
+                raise RuntimeError(f"{label}: {out['load_failures']} failed "
+                                   "loads")
+            media = [[seg.media_id for _, seg in r.prompt.media_segments()]
+                     for r in out["reqs"]]
+            if spec or not source:
+                # every lookup missed: a counted miss, the image recomputed
+                pulled = 0 if net is None else net["promotes"]
+                if (st["misses"], pulled) != (placed, 0) or (
+                        net is not None and net["fetch_misses"] != placed) \
+                        or out["misses"] != media:
+                    raise RuntimeError(f"{label}: misses {st['misses']} of "
+                                       f"{placed}, network {net}, "
+                                       f"recomputed {out['misses']}")
+                # a blackholed peer trips its breaker; a corrupting one
+                # answers, so its breaker stays closed
+                opened = net and net["breakers"][peers[0].address]["opened"]
+                if spec and (opened > 0) != spec.startswith(
+                        "peer.request:blackhole") or (
+                        opened and not net["breaker_skips"]):
+                    raise RuntimeError(f"{label}: breaker opened {opened} "
+                                       f"times, skipped "
+                                       f"{net['breaker_skips']}")
+                continue
+            # every static lookup a verified pull; the bytes on the card
+            # hash to their keys; no image recomputed, and the int8 blocks
+            # linked from their int8 bytes
+            if (net["promotes"], net["fetch_misses"], st["misses"],
+                    net["breaker_skips"]) != (placed, 0, 0, 0) \
+                    or any(out["misses"]):
+                raise RuntimeError(f"{label}: network {net}, misses "
+                                   f"{st['misses']} of {placed}, recomputed "
+                                   f"{out['misses']}")
+            for key, e in static._entries.items():
+                if content_key(e.payload, key) != e.meta.key:
+                    raise RuntimeError(f"{label}: {key} changed on the wire")
+            if pool_dtype and (st["direct_links"], st["dequants"]) != (
+                    placed, 0):
+                raise RuntimeError(f"{label}: direct links "
+                                   f"{st['direct_links']} of {placed}, "
+                                   f"dequants {st['dequants']}")
+            del static, dynamic
+        for label, srv in servers.items():
+            print(f"  the {label} host served {srv.stats()}")
+    finally:
+        for srv in servers.values():
+            srv.close()
+        host.close()
+    del host, host8, servers
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the pulls against the same pool served from a local library (phase
+    # 5c's memory control and its int8 library); the faulty peers against
+    # no peer at all
+    for label, control in (("net_bf16", disk_out["memory_bf16"]),
+                           ("net_int8", disk_out["disk_int8"]),
+                           ("net_blackhole", net_out["net_none"]),
+                           ("net_corrupt", net_out["net_none"])):
+        out = net_out[label]
+        diff = float(np.abs(out["first"] - control["first"]).max())
+        same = out["tokens"] == control["tokens"]
+        print(f"  {label} against its control: tokens identical {same}, "
+              f"first-logit max diff {diff:.2e}, recomputed "
+              f"{out['recomputed']} against {control['recomputed']}")
+        runs[label].update(tokens_equal_control=same,
+                           first_logit_max_diff=diff)
+        if not same or not diff <= 1e-3 or (
+                out["recomputed"] != control["recomputed"]):
+            raise RuntimeError(f"{label} disagrees with its control")
+    phase("serve_network", t0)
+
     # -- 5d. serve the GQA decoders at full width -----------------------------
     # llava's weights go first: each model is freed before the next is built
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- 5g. the serving CLI, as a user starts it -----------------------------
+    # llava's weights are freed: each run builds its own in a subprocess
+    t0 = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT / "src"), env.get("PYTHONPATH")) if p)
+    for extra in ([], ["--no-paged"]):
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", *CLI_ARGS,
+               *extra]
+        baseline = card_memory_mib()
+        rc, out, err, wall, card_mib, rss = run_watched(cmd, env, 600)
+        print(f"$ {' '.join(cmd[1:])}\n  exit {rc} in {wall:.3f} s; "
+              "sampled every half second: the card's memory in use at most "
+              f"{card_mib} MiB (nvidia-smi, {baseline} MiB before it "
+              "started), its resident memory at most "
+              + (f"{rss:.0f} MiB" if rss else "not readable here"))
+        if rc != 0:
+            raise RuntimeError(f"the CLI exited {rc}: {err[-3000:]}")
+        lines = re.findall(r"^  req(\d+): ttft=\s*(\d+) ms\s+reused=\s*(\d+)"
+                           r"\s+tokens=(\d+)$", out, re.M)
+        for line in out.splitlines():
+            if line.startswith(("serving KV blocks", "arch=", "  req",
+                                "  mean_ttft_s", "  p90_ttft_s",
+                                "  mean_decode_step_s")):
+                print(f"  | {line}")
+        # requests alternate mpic and full_recompute in submission order
+        reused = {int(n) % 2: [] for n, *_ in lines}
+        for n, _, r, _ in lines:
+            reused[int(n) % 2].append(int(r))
+        if ("serving KV blocks to peers at 127.0.0.1:" not in out
+                or len(lines) != 4 or "FAILED" in out
+                or any(int(t) != MAX_NEW for *_, t in lines)
+                or not min(reused[0]) > 0 or any(reused[1])):
+            raise RuntimeError(f"the CLI's output is wrong:\n{out}")
+        runs_cli[" ".join(extra) or "paged"] = {
+            "wall_s": wall, "card_mib_max": card_mib,
+            "card_mib_before": baseline, "rss_mib_max": rss,
+            "ttft_ms": [int(t) for _, t, _, _ in lines],
+            "reused": [int(r) for _, _, r, _ in lines]}
+    print(f"cli runs: {json.dumps(runs_cli)}")
+    phase("serve_cli", t0)
+
     t0 = time.perf_counter()
     gqa_snaps, gqa_peaks = {}, {}
     for arch, gqa_runs in GQA_RUNS:

@@ -3,17 +3,28 @@ from repro_torch.cache.backends import (
     DiskBackend,
     KVPayload,
     MemoryBackend,
+    NetworkBackend,
     StorageBackend,
     content_key,
+    payload_from_bytes,
+    payload_to_bytes,
     scope_digest,
     verify_payload,
 )
+from repro_torch.cache.faults import FaultPlan, FaultRule, ReplicaCrash
 from repro_torch.cache.library import (
     TIER_DISK,
     TIER_HBM,
     TIER_HOST,
+    TIER_NETWORK,
     Entry,
     KVLibrary,
+)
+from repro_torch.cache.net import (
+    DictBlockStore,
+    KVPeerServer,
+    PeerBreaker,
+    PeerTransport,
 )
 from repro_torch.cache.paged import PagedConfig, PagedKVPool
 from repro_torch.cache.quant import QuantizedKV, dequantize_kv, quantize_kv
@@ -24,9 +35,12 @@ from repro_torch.cache.transfer import (
 )
 
 __all__ = [
-    "BlockMetadata", "DiskBackend", "Entry", "KVLibrary", "KVPayload",
-    "LoadRecord", "MemoryBackend", "PagedConfig", "PagedKVPool",
-    "ParallelLoader", "PrefetchHandle", "QuantizedKV", "StorageBackend",
-    "TIER_DISK", "TIER_HBM", "TIER_HOST", "content_key", "dequantize_kv",
-    "quantize_kv", "scope_digest", "verify_payload",
+    "BlockMetadata", "DictBlockStore", "DiskBackend", "Entry", "FaultPlan",
+    "FaultRule", "KVLibrary", "KVPayload", "KVPeerServer", "LoadRecord",
+    "MemoryBackend", "NetworkBackend", "PagedConfig", "PagedKVPool",
+    "ParallelLoader", "PeerBreaker", "PeerTransport", "PrefetchHandle",
+    "QuantizedKV", "ReplicaCrash", "StorageBackend", "TIER_DISK", "TIER_HBM",
+    "TIER_HOST", "TIER_NETWORK", "content_key", "dequantize_kv",
+    "payload_from_bytes", "payload_to_bytes", "quantize_kv", "scope_digest",
+    "verify_payload",
 ]

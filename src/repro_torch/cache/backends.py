@@ -1,5 +1,5 @@
 """Storage backends of the tiered KV library (port of the JAX package's
-``cache/backends.py``, its memory and disk tiers).
+``cache/backends.py``).
 
 Every tier implements one :class:`StorageBackend` contract (``put`` /
 ``get`` / ``delete`` / ``contains`` / ``stats``) over content-hash block
@@ -13,7 +13,15 @@ policy.
   ``cache/quant.py``, so an int8 block spools as int8).  Writes are atomic
   (a unique ``mkstemp`` file, flushed, then ``os.replace``); reads are
   verified against the content hash in the key, and a corrupt or truncated
-  file is unlinked and counted as a miss, never handed out.
+  file is unlinked and counted as a miss, never handed out.  After
+  ``disk_fail_threshold`` consecutive device-level failures the library
+  quarantines the tier (``failure_streak``); a full disk (ENOSPC) is
+  counted but never feeds the streak.
+* :class:`NetworkBackend`: blocks pulled from peers' libraries over the
+  HTTP transport of ``cache/net.py`` (timeout, one retry, checksummed
+  bodies, a circuit breaker per peer), so that a host that misses memory
+  and disk pulls a peer's block instead of recomputing it.  The body is
+  the spool wire format (:func:`payload_to_bytes`).
 
 **Keys.**  ``sha1(stored arrays)[:32] + "-" + sha1(repr(scope))[:8]``: the
 content half lets a reader verify the bytes it loaded, the scope half
@@ -22,18 +30,23 @@ its numpy dtype name (``"bfloat16"`` for bf16), ``str`` of its shape tuple
 and its C-ordered bytes, exactly as the JAX package hashes its numpy
 arrays, so both packages give one block the same key.
 
-Not ported: the network tier and per-replica HBM accounting.
+Fault sites (``cache/faults.py``): ``disk.read`` and ``disk.write`` in
+:class:`DiskBackend`, ``peer.request`` and ``peer.body`` in the transport.
+
+Not ported: per-replica HBM accounting (it comes with the router).
 """
 from __future__ import annotations
 
 import abc
 import dataclasses
+import errno
 import hashlib
+import io
 import os
 import tempfile
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -45,10 +58,12 @@ from repro_torch.cache.quant import (
     spool_payload,
     unspool_payload,
 )
+from repro_torch.cache.net import PeerBreaker, PeerTransport
 
 TIER_HBM = "hbm"
 TIER_HOST = "host"
 TIER_DISK = "disk"
+TIER_NETWORK = "network"
 
 
 # ---------------------------------------------------------------------------
@@ -162,6 +177,20 @@ def verify_payload(payload: KVPayload, key: str) -> bool:
     return key.split("-")[0] == _digest(payload)
 
 
+def payload_to_bytes(payload: KVPayload) -> bytes:
+    """The spool wire format of a payload, in memory (a network body); a
+    payload on the card is copied to the host once, tensor by tensor."""
+    buf = io.BytesIO()
+    spool_payload(buf, payload)
+    return buf.getvalue()
+
+
+def payload_from_bytes(data: bytes) -> KVPayload:
+    """Parse wire bytes into a payload of CPU tensors.  Raises on truncated
+    or non-npz input, which callers count as a tier miss."""
+    return KVPayload(**unspool_payload(io.BytesIO(data)))
+
+
 # ---------------------------------------------------------------------------
 # the backend contract
 # ---------------------------------------------------------------------------
@@ -269,13 +298,17 @@ class DiskBackend(StorageBackend):
     ``spool_dir=None`` makes a private directory under the temp dir at the
     first write.  A read returns CPU tensors; ``verify_s`` counts the
     seconds spent re-hashing what was read (inside ``fetch_s``).
+    ``failure_streak`` counts consecutive device-level failures (reads and
+    writes; a clean one resets it), which the library's quarantine reads.
     """
 
     name = TIER_DISK
 
-    def __init__(self, spool_dir: Optional[str] = None):
+    def __init__(self, spool_dir: Optional[str] = None, *, faults=None):
         super().__init__()
         self.spool_dir = spool_dir
+        self.faults = faults          # FaultPlan (disk.read / disk.write)
+        self.failure_streak = 0
         self.counters.update(corrupt=0, io_errors=0, tmp_swept=0,
                              verify_s=0.0)
         if spool_dir is None:
@@ -325,16 +358,32 @@ class DiskBackend(StorageBackend):
                 "shape": list(meta.shape) if meta.shape else None,
                 "created": meta.created, "expires": meta.expires}
 
+    def _io_failure(self) -> None:
+        with self._lock:
+            self.counters["io_errors"] += 1
+            self.failure_streak += 1
+
+    def _io_success(self) -> None:
+        with self._lock:
+            self.failure_streak = 0
+
     def put(self, key: str, payload: KVPayload,
             meta: Optional[BlockMetadata] = None) -> None:
         """Write atomically; an ``OSError`` is counted and raised, so that
-        the library keeps the entry resident."""
+        the library keeps the entry resident.  ENOSPC is counted but kept
+        out of the failure streak: a full disk is not a dying one."""
         with self._lock:
             if self.spool_dir is None:
                 self.spool_dir = tempfile.mkdtemp(prefix="mpic_spool_")
         path = self.path_for(key)
         tmp = None
         try:
+            if self.faults is not None:
+                rule = self.faults.check("disk.write", path)
+                if rule is not None:
+                    code = (errno.ENOSPC if rule.kind == "enospc"
+                            else errno.EIO)
+                    raise OSError(code, f"injected {rule.kind}", path)
             fd, tmp = tempfile.mkstemp(dir=self.spool_dir, prefix=f"{key}.",
                                        suffix=".npz.tmp")
             with os.fdopen(fd, "wb") as f:
@@ -349,8 +398,12 @@ class DiskBackend(StorageBackend):
                 except OSError:
                     pass
             if isinstance(exc, OSError):
-                self._count(io_errors=1)
+                if exc.errno == errno.ENOSPC:
+                    self._count(io_errors=1)
+                else:
+                    self._io_failure()
             raise
+        self._io_success()
         self._count(puts=1, bytes_written=payload.stored_nbytes)
 
     def get(self, key: str) -> Optional[KVPayload]:
@@ -360,14 +413,19 @@ class DiskBackend(StorageBackend):
             return None
         t0 = time.perf_counter()
         try:
+            if self.faults is not None:
+                rule = self.faults.check("disk.read", path)
+                if rule is not None and rule.kind == "io_error":
+                    raise OSError(errno.EIO, "injected io_error", path)
             fields = unspool_payload(path)
         except FileNotFoundError:
             self._count(misses=1)
             return None
         except OSError:
             # a device-level read failure: the file may be whole, so it
-            # stays; the caller falls back to recompute
-            self._count(misses=1, io_errors=1)
+            # stays; the caller falls back to the next tier or recompute
+            self._io_failure()
+            self._count(misses=1)
             return None
         except Exception:
             # truncated zip, bad magic, short read: unlink the junk
@@ -379,6 +437,7 @@ class DiskBackend(StorageBackend):
             self._corrupt(path)
             return None
         t2 = time.perf_counter()
+        self._io_success()
         self._count(hits=1, bytes_read=payload.stored_nbytes,
                     fetch_s=t2 - t0, verify_s=t2 - t1)
         return payload
@@ -407,4 +466,137 @@ class DiskBackend(StorageBackend):
     def stats(self) -> dict:
         out = super().stats()
         out["spool_dir"] = self.spool_dir
+        return out
+
+
+class NetworkBackend(StorageBackend):
+    """Peer tier: pull blocks from other hosts' libraries over HTTP.
+
+    One :class:`~repro_torch.cache.net.PeerTransport` per peer, tried in
+    order.  The transport bounds every request (timeout, retries under
+    seeded backoff, no retry on a 404, checksummed bodies), so the worst
+    case is one bounded stall a peer and then a miss: the caller
+    recomputes.  Each peer sits behind a
+    :class:`~repro_torch.cache.net.PeerBreaker`: ``breaker_threshold``
+    consecutive no-responses open it and the peer is skipped
+    (``breaker_skips``) until its cooldown lets one probe through.  A 404
+    is a response from a live peer and resets the streak.
+
+    Blocks are addressed by scope ``ident``; the content key travels in
+    ``X-Block-Key`` and the parsed payload is re-verified against it.
+    ``verify_s`` counts the receiving side's SHA-1 seconds (the body's
+    checksum and the content hash), inside ``fetch_s``.
+    """
+
+    name = TIER_NETWORK
+
+    def __init__(self, peers: Iterable = (), *, faults=None,
+                 breaker_threshold: int = 3, breaker_cooldown_s: float = 5.0):
+        super().__init__()
+        self.transports: List = []
+        for p in peers:
+            t = p if hasattr(p, "fetch") else PeerTransport(p, faults=faults)
+            if faults is not None and getattr(t, "faults", None) is None:
+                t.faults = faults
+            self.transports.append(t)
+        self.breakers: Dict[str, PeerBreaker] = {
+            t.address: PeerBreaker(threshold=breaker_threshold,
+                                   cooldown_s=breaker_cooldown_s)
+            for t in self.transports}
+        self.counters.update(timeouts=0, retries=0, breaker_skips=0,
+                             verify_s=0.0)
+
+    def _admit(self, t) -> bool:
+        """May a request go to this peer now?  Counts the skip when not."""
+        br = self.breakers.get(t.address)
+        if br is None or br.allow():
+            return True
+        self._count(breaker_skips=1)
+        return False
+
+    def _record(self, t) -> None:
+        """Feed the transport's outcome to the peer's breaker: any HTTP
+        response is health, only a transport-level failure is not."""
+        self._count(retries=t.last_retries, timeouts=t.last_timeouts)
+        br = self.breakers.get(t.address)
+        if br is None:
+            return
+        if getattr(t, "last_status", None) is not None:
+            br.record_success()
+        else:
+            br.record_failure()
+
+    def put(self, key: str, payload: KVPayload,
+            meta: Optional[BlockMetadata] = None) -> None:
+        """Push to the first reachable peer (explicit export; serving
+        publishes by answering peers' GETs from its own library)."""
+        data = payload_to_bytes(payload)
+        ttl = (meta.expires - time.time()) if meta is not None else None
+        for t in self.transports:
+            if not self._admit(t):
+                continue
+            ok = t.push(key, data, block_key=key, ttl=ttl)
+            self._record(t)
+            if ok:
+                self._count(puts=1, bytes_written=len(data))
+                return
+
+    def get(self, key: str) -> Optional[KVPayload]:
+        return self.get_with_headers(key, require_key=key)[0]
+
+    def get_with_headers(self, key: str, *, require_key: Optional[str] = None):
+        """``(payload, the peer's response headers)``, or ``(None, {})``.
+        The payload is verified against ``X-Block-Key`` (or
+        ``require_key`` when the peer sends none); an undecodable or
+        mismatching body counts against that peer and the next is tried."""
+        t0 = time.perf_counter()
+        for t in self.transports:
+            if not self._admit(t):
+                continue
+            data, hdrs = t.fetch(key)
+            self._record(t)
+            self._count(verify_s=getattr(t, "last_sha1_s", 0.0))
+            if data is None:
+                continue
+            try:
+                payload = payload_from_bytes(data)
+            except Exception:
+                continue        # undecodable body: a miss at this peer
+            claimed = hdrs.get("X-Block-Key") or require_key
+            if claimed:
+                t1 = time.perf_counter()
+                ok = verify_payload(payload, claimed)
+                self._count(verify_s=time.perf_counter() - t1)
+                if not ok:
+                    continue    # never link bytes that fail their key
+            self._count(hits=1, bytes_read=len(data),
+                        fetch_s=time.perf_counter() - t0)
+            return payload, hdrs
+        self._count(misses=1, fetch_s=time.perf_counter() - t0)
+        return None, {}
+
+    def delete(self, key: str) -> None:
+        for t in self.transports:
+            if not self._admit(t):
+                continue
+            ok = t.remove(key)
+            self._record(t)
+            if ok:
+                self._count(deletes=1)
+
+    def contains(self, key: str) -> bool:
+        for t in self.transports:
+            if not self._admit(t):
+                continue
+            ok = t.probe(key)
+            self._record(t)
+            if ok:
+                return True
+        return False
+
+    def stats(self) -> dict:
+        out = super().stats()
+        out["peers"] = [t.address for t in self.transports]
+        out["breakers"] = {addr: br.snapshot()
+                           for addr, br in self.breakers.items()}
         return out

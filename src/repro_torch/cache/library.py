@@ -1,12 +1,12 @@
-"""Static and dynamic KV libraries, a tier orchestrator over memory and
-disk (port of the JAX package's ``cache/library.py``).
+"""Static and dynamic KV libraries, a tier orchestrator over memory, disk
+and peers (port of the JAX package's ``cache/library.py``).
 
 The **static library** holds the KV of user-uploaded files, scoped per user
 (user A cannot link user B's cache).  The **dynamic library** holds the
 MRAG corpus, shared under the ``"*"`` scope.  The bytes live in
 :mod:`~repro_torch.cache.backends` tiers,
 
-    memory (hbm / host)  <->  disk (npz spool)
+    memory (hbm / host)  <->  disk (npz spool)  <->  network (peer pull)
 
 and the library owns the policy: content-hash block keys, promotion on a
 hit, demotion under pressure, pins, TTL expiry, and the per-tier hit,
@@ -50,8 +50,27 @@ construction (:meth:`KVLibrary.rehydrate_spool`): every block file with a
 whose first lookup is a verified disk read.  Files written by the JAX
 package's library rehydrate too, and the other way round.
 
-Not ported: peers and the network tier, per-replica accounting, block
-export, the fault plan, disk quarantine and sessions.
+**Peers.**  ``peers=`` (or :meth:`KVLibrary.connect_peers`) adds the
+network tier: a scope with no local entry is asked of the peers'
+:class:`~repro_torch.cache.net.KVPeerServer` instances, and a verified pull
+becomes a local entry (``_network_admit``), copied to ``device`` (None
+means the card) through the copy stream a disk read takes.
+:meth:`KVLibrary.register_remote` plants a payload-less network-tier entry
+that the loader pulls like a disk block.  The library is itself a peer
+server's block source (``export_block`` / ``admit_block`` /
+``delete_block`` / ``has_block``): a resident block is serialized from
+wherever it lives, hashing its content key first if it never spooled, and
+a spooled one is served from its file.
+
+**Faults.**  ``faults=`` threads a ``FaultPlan`` (``cache/faults.py``)
+into the disk and network tiers and the loader.  ``disk_fail_threshold``
+consecutive device-level disk failures quarantine the disk tier: spooling
+stops, reads skip it, and the library serves from memory and peers until
+:meth:`KVLibrary.reinstate_disk`.
+
+Not ported: per-replica HBM warmth (``touch``, ``warmth``,
+``get(replica=)``, ``ident_tiers``), which comes with the router and the
+fleet, and sessions.
 """
 from __future__ import annotations
 
@@ -67,27 +86,31 @@ from repro_torch.cache.backends import (
     TIER_DISK,
     TIER_HBM,
     TIER_HOST,
+    TIER_NETWORK,
     BlockMetadata,
     DiskBackend,
     KVPayload,
     MemoryBackend,
+    NetworkBackend,
     content_key,
+    payload_to_bytes,
     scope_digest,
 )
 from repro_torch.cache.quant import QuantizedKV, dequantize_kv, quantize_kv
 from repro_torch.device import resolve_device
 
-__all__ = ["TIER_HBM", "TIER_HOST", "TIER_DISK", "Entry", "KVLibrary"]
+__all__ = ["TIER_HBM", "TIER_HOST", "TIER_DISK", "TIER_NETWORK", "Entry",
+           "KVLibrary"]
 
 
 class Entry:
     """One KV block: metadata, and its payload while resident.
 
     ``payload.k is None and payload.qk is None`` means the block lives
-    only on disk.  Residency checks read the payload fields: the ``k``/``v``
-    getters dequantize int8 storage as a side effect.  Reading the tensors
-    across a release of the library lock needs a pin (``get(pin=True)`` /
-    ``try_pin``), or a spool may free them.
+    only on disk or on a peer.  Residency checks read the payload fields:
+    the ``k``/``v`` getters dequantize int8 storage as a side effect.
+    Reading the tensors across a release of the library lock needs a pin
+    (``get(pin=True)`` / ``try_pin``), or a spool may free them.
     """
 
     def __init__(self, media_id: str, *, created: float, expires: float,
@@ -95,11 +118,11 @@ class Entry:
         self.payload = KVPayload()
         self.meta = BlockMetadata(media_id=media_id, created=created,
                                   last_used=created, expires=expires)
-        self.device = device          # where a disk read brings the block
+        self.device = device          # where a tier read brings the block
         self._owner: Optional["KVLibrary"] = None
         self._mlock = threading.Lock()
-        # set by a disk read onto the card: the tensors were allocated on
-        # the library's copy stream
+        # set by a disk or peer read onto the card: the tensors were
+        # allocated on the library's copy stream
         self._on_copy_stream = False
 
     qk = property(lambda s: s.payload.qk)
@@ -143,11 +166,11 @@ class Entry:
         return self.payload.v
 
     def wait_loaded(self) -> None:
-        """Record a disk read's tensors on the calling thread's current
-        stream, so that a spool cannot free them to the copy stream while
-        that stream's kernels read them.  The reading thread already waited
-        for the copy.  A no-op for blocks that never came from disk, and on
-        the CPU."""
+        """Record a disk or peer read's tensors on the calling thread's
+        current stream, so that a spool cannot free them to the copy stream
+        while that stream's kernels read them.  The reading thread already
+        waited for the copy.  A no-op for blocks that never came from disk
+        or a peer, and on the CPU."""
         if not self._on_copy_stream:
             return
         stream = torch.cuda.current_stream(self.device)
@@ -155,17 +178,18 @@ class Entry:
             t.record_stream(stream)
 
     def materialize(self) -> "Entry":
-        """Make the tensors resident, reading the disk tier if needed
-        (int8 stays int8).  Concurrent callers serialize on ``_mlock``, so
-        one read serves them all.  Raises ``FileNotFoundError`` when the
-        disk misses: the caller recomputes."""
+        """Make the tensors resident, reading the disk or network tier if
+        needed (int8 stays int8).  Concurrent callers serialize on
+        ``_mlock``, so one read serves them all.  Raises
+        ``FileNotFoundError`` when every lower tier misses: the caller
+        recomputes."""
         with self._mlock:
             self._materialize_locked()
         return self
 
     def _materialize_locked(self) -> None:
-        if (self.tier == TIER_DISK and self.payload.k is None
-                and self.payload.qk is None):
+        if (self.tier in (TIER_DISK, TIER_NETWORK)
+                and self.payload.k is None and self.payload.qk is None):
             self._owner._fetch_into(self)
             # resident again: the host budget sees it, and a rebalance may
             # spool it once more under pressure
@@ -173,15 +197,16 @@ class Entry:
 
 
 class KVLibrary:
-    """Tiered, scoped KV store: memory <-> disk behind one policy.
+    """Tiered, scoped KV store: memory <-> disk <-> peers behind one
+    policy.
 
     ``spool_dir`` None gives a private spool directory made at the first
-    spool.  The backends are public (``memory``, ``disk``) for their
-    counters; every change goes through the library.  ``rehydrate=True``
-    re-indexes ``spool_dir`` now (``rehydrate_stats`` holds the counts);
-    a rehydrated block's disk read lands on ``device`` (None means the
-    card), where the blocks that ``put`` stores live on their tensors'
-    device.
+    spool.  The backends are public (``memory``, ``disk``, ``network``)
+    for their counters; every change goes through the library.
+    ``rehydrate=True`` re-indexes ``spool_dir`` now (``rehydrate_stats``
+    holds the counts).  Blocks that ``put`` stores live on their tensors'
+    device; a rehydrated block's disk read and a block pulled from a peer
+    land on ``device`` (None means the card).
     """
 
     def __init__(self, *, hbm_capacity: int = 2 << 30,
@@ -189,29 +214,68 @@ class KVLibrary:
                  spool_dir: Optional[str] = None,
                  default_ttl: float = float("inf"),
                  shared: bool = False, quantize: bool = False,
+                 peers: Optional[List] = None, faults=None,
+                 disk_fail_threshold: int = 3,
                  rehydrate: bool = False, device=None):
         self.quantize = quantize
         self.default_ttl = default_ttl
         self.shared = shared
+        self.faults = faults          # FaultPlan, threaded into every tier
+        self.device = device          # where pulled and rehydrated blocks go
         self.memory = MemoryBackend(hbm_capacity=hbm_capacity,
                                     host_capacity=host_capacity)
-        self.disk = DiskBackend(spool_dir)
+        self.disk = DiskBackend(spool_dir, faults=faults)
+        self.disk_fail_threshold = disk_fail_threshold
+        self._disk_quarantined = False  # sticky until reinstate_disk
+        self.network: Optional[NetworkBackend] = None
+        if peers:
+            self.connect_peers(peers)
         self._lock = threading.RLock()
         self._entries: Dict[Tuple[str, str], Entry] = {}
+        self._by_ident: Dict[str, Tuple[str, str]] = {}
+        self._pushed: Dict[str, Tuple[bytes, dict]] = {}  # peers' PUTs
         self._listeners: List[Callable] = []
         self._clock = threading.Lock()          # counters only
         self._tiers = {t: {"hits": 0, "promotes": 0, "demotes": 0}
-                       for t in (TIER_HBM, TIER_HOST, TIER_DISK)}
+                       for t in (TIER_HBM, TIER_HOST, TIER_DISK,
+                                 TIER_NETWORK)}
         self._misses = 0
         self._dequants = 0          # lazy int8 -> fp expansions
         self._direct_links = 0      # blocks linked from their int8 bytes
         self._spool_failures = 0
         self._enospc = 0
-        self._copy_s = 0.0          # disk reads' staging and copy to the card
+        # disk and peer reads' staging and copy to the card, by tier
+        self._copy_s = {TIER_DISK: 0.0, TIER_NETWORK: 0.0}
         self._copy_streams: Dict[torch.device, torch.cuda.Stream] = {}
         self.rehydrate_stats: Dict[str, int] = {}
         if rehydrate:
             self.rehydrate_stats = self.rehydrate_spool(device)
+
+    def connect_peers(self, peers: List, **net_kwargs) -> None:
+        """Enable the network tier over ``peers``: ``host:port`` addresses
+        of other hosts' ``KVPeerServer`` instances, or ready transports;
+        replaces the current peer set.  ``net_kwargs`` go to :class:`NetworkBackend`
+        (breaker threshold and cooldown); the library's fault plan rides
+        along."""
+        net_kwargs.setdefault("faults", self.faults)
+        self.network = NetworkBackend(peers, **net_kwargs)
+
+    def _disk_ok(self) -> bool:
+        """Is the disk tier usable?  ``disk_fail_threshold`` consecutive
+        device-level failures quarantine it, and the flag stays until
+        :meth:`reinstate_disk`, so that a flapping disk cannot
+        oscillate."""
+        if self._disk_quarantined:
+            return False
+        if self.disk.failure_streak >= self.disk_fail_threshold:
+            self._disk_quarantined = True
+            return False
+        return True
+
+    def reinstate_disk(self) -> None:
+        """Clear the disk quarantine (after the disk was repaired)."""
+        self._disk_quarantined = False
+        self.disk.failure_streak = 0
 
     def add_invalidation_listener(self, fn: Callable) -> None:
         """Call ``fn(user_id, media_id)`` (outside the lock) whenever
@@ -266,6 +330,7 @@ class KVLibrary:
             if replaced:
                 self._evict(key)
             self._entries[key] = e
+            self._by_ident[m.ident] = key
             self.memory.put(m.ident, e.payload, m)
             self._rebalance()
         if replaced:
@@ -276,24 +341,31 @@ class KVLibrary:
     def get(self, user_id: str, media_id: str, *,
             pin: bool = False) -> Optional[Entry]:
         """Lookup honouring scope and expiry.  The lock covers the lookup
-        only; a disk read runs outside it, so loader workers read different
-        entries at once.  ``pin`` holds the tensors against a spool until
-        :meth:`unpin`.  A disk miss (file gone, corrupt or unreadable)
-        drops the entry and returns None: the caller recomputes."""
+        only; a disk read or a peer pull runs outside it, so loader workers
+        fetch different entries at once.  A scope with no local entry is
+        asked of the peers when there are any (a verified pull becomes a
+        local entry).  ``pin`` holds the tensors against a spool until
+        :meth:`unpin`.  A miss on every lower tier (file gone, corrupt or
+        unreadable; peers missing or down) drops the entry and returns
+        None: the caller recomputes."""
         key = self._key(user_id, media_id)
         with self._lock:
             e = self._entries.get(key)
             if e is not None and time.time() > e.expires:
                 self._evict(key)
                 e = None
+            if e is not None:
+                e.last_used = time.time()
+                hit_tier = e.tier
+        if e is None:
+            e = self._network_admit(user_id, media_id)
             if e is None:
                 with self._clock:
                     self._misses += 1
                 return None
-            e.last_used = time.time()
-            hit_tier = e.tier
+            hit_tier = TIER_NETWORK
         self._count(hit_tier, "hits")
-        was_slow = hit_tier == TIER_DISK
+        was_slow = hit_tier in (TIER_DISK, TIER_NETWORK)
         try:
             e.materialize()
             if was_slow or pin:
@@ -314,18 +386,104 @@ class KVLibrary:
             return None
         return e
 
-    # -- the disk tier ------------------------------------------------------------
+    # -- the lower tiers: disk, then peers ---------------------------------
     def _fetch_into(self, e: Entry) -> None:
-        """Fill ``e.payload`` from disk; the caller holds ``e._mlock``,
-        never the library lock.  Raises ``FileNotFoundError`` on a miss."""
-        p = self.disk.get(e.meta.key)
-        if p is None:
-            raise FileNotFoundError(e.meta.key)
-        self._to_device(e, p)
+        """Fill ``e.payload`` from the fastest lower tier that has the
+        block; the caller holds ``e._mlock``, never the library lock (a
+        pull can take seconds).  Raises ``FileNotFoundError`` when every
+        tier misses; the backends count corruption and timeouts as
+        misses."""
+        m = e.meta
+        if m.key is not None and self._disk_ok():
+            p = self.disk.get(m.key)
+            if p is not None:
+                self._adopt(e, p, TIER_DISK)
+                return
+        if self.network is not None and m.ident:
+            p, hdrs = self.network.get_with_headers(m.ident)
+            claimed = hdrs.get("X-Block-Key")
+            if p is not None and (m.key is None or claimed is None
+                                  or claimed == m.key):
+                if m.key is None:
+                    m.key = claimed or content_key(
+                        p, (m.scope_user, m.media_id))
+                self._adopt(e, p, TIER_NETWORK)
+                return
+        raise FileNotFoundError(m.key or m.ident or m.media_id)
+
+    def _adopt(self, e: Entry, p: KVPayload, tier: str) -> None:
+        """Move a payload read from ``tier`` onto ``e.device`` and into
+        ``e`` (the caller holds ``e._mlock``)."""
+        self._to_device(e, p, tier)
         e.payload.k, e.payload.v = p.k, p.v
         e.payload.qk, e.payload.qv = p.qk, p.qv
+        e.meta.dtype = e.meta.dtype or e.payload.dtype
+        e.meta.shape = e.meta.shape or e.payload.shape
         self.memory.put(e.meta.ident, e.payload, e.meta)
-        self._count(TIER_DISK, "promotes")
+        self._count(tier, "promotes")
+
+    def register_remote(self, user_id: str, media_id: str, *,
+                        nbytes: int = 0,
+                        ttl: Optional[float] = None) -> Optional[Entry]:
+        """Register a block that lives on a peer without pulling it: a
+        payload-less network-tier entry, which the loader prefetches and
+        the first ``get`` pulls onto ``device``.  None if the scope already
+        has an entry (the local block wins)."""
+        if self.network is None:
+            raise RuntimeError("register_remote requires connect_peers()")
+        now = time.time()
+        key = self._key(user_id, media_id)
+        e = Entry(media_id, created=now, device=resolve_device(self.device),
+                  expires=now + (self.default_ttl if ttl is None else ttl))
+        m = e.meta
+        m.tier, m.nbytes = TIER_NETWORK, nbytes
+        m.ident, m.scope_user = scope_digest(key), key[0]
+        e._owner = self
+        with self._lock:
+            if key in self._entries:
+                return None
+            self._entries[key] = e
+            self._by_ident[m.ident] = key
+        return e
+
+    def _network_admit(self, user_id: str,
+                       media_id: str) -> Optional[Entry]:
+        """A scope miss, asked of the peers.  A verified pull becomes a
+        host-tier entry with the peer's content key and remaining TTL, its
+        tensors copied to ``device``; a miss (404, timeouts after the
+        retry, a failed checksum, open breakers) returns None."""
+        if self.network is None:
+            return None
+        key = self._key(user_id, media_id)
+        ident = scope_digest(key)
+        p, hdrs = self.network.get_with_headers(ident)
+        if p is None:
+            return None
+        now = time.time()
+        try:
+            ttl = float(hdrs.get("X-TTL-Remaining", "inf"))
+        except ValueError:
+            ttl = float("inf")
+        e = Entry(media_id, created=now, expires=now + ttl,
+                  device=resolve_device(self.device))
+        m = e.meta
+        m.tier = TIER_HOST
+        m.key = hdrs.get("X-Block-Key") or content_key(p, key)
+        self._to_device(e, p, TIER_NETWORK)
+        e.payload.k, e.payload.v = p.k, p.v
+        e.payload.qk, e.payload.qv = p.qk, p.qv
+        m.ident, m.scope_user = ident, key[0]
+        m.dtype, m.shape = e.payload.dtype, e.payload.shape
+        e._owner = self
+        with self._lock:
+            if key in self._entries:        # a concurrent put or pull won
+                return self._entries[key]
+            self._entries[key] = e
+            self._by_ident[ident] = key
+            self.memory.put(ident, e.payload, m)
+            self._count(TIER_NETWORK, "promotes")
+            self._rebalance()
+        return e
 
     def _copy_stream(self, device: torch.device) -> torch.cuda.Stream:
         with self._clock:
@@ -334,11 +492,11 @@ class KVLibrary:
                 s = self._copy_streams[device] = torch.cuda.Stream(device)
             return s
 
-    def _to_device(self, e: Entry, p: KVPayload) -> None:
-        """Move a payload read from disk (CPU tensors) to ``e.device``.  On
-        the card: staged through pinned memory, copied on the library's
-        copy stream, and waited for here, so that the read ends when the
-        bytes are on the card."""
+    def _to_device(self, e: Entry, p: KVPayload, tier: str) -> None:
+        """Move a payload read from disk or a peer (CPU tensors) to
+        ``e.device``.  On the card: staged through pinned memory, copied
+        on the library's copy stream, and waited for here, so that the
+        read ends when the bytes are on the card."""
         dev = e.device
         if dev is None or dev.type == "cpu":
             return
@@ -357,7 +515,7 @@ class KVLibrary:
         stream.synchronize()
         e._on_copy_stream = True
         with self._clock:
-            self._copy_s += time.perf_counter() - t0
+            self._copy_s[tier] += time.perf_counter() - t0
 
     # -- pins -------------------------------------------------------------------
     def try_pin(self, entry: Entry) -> bool:
@@ -462,8 +620,74 @@ class KVLibrary:
                     stats["skipped"] += 1   # the live entry wins
                     continue
                 self._entries[scope] = e
+                self._by_ident[m.ident] = scope
             stats["rehydrated"] += 1
         return stats
+
+    # -- the peer server's block source ------------------------------------
+    def export_block(self, ident: str):
+        """One block for a peer: ``(npz bytes, headers)`` or None.  A
+        resident block is pinned, copied to the host once, hashed into its
+        content key if it never spooled, and serialized; a spooled block is
+        served from its file, whose format is the wire format.  The lookup
+        and pin hold the lock, the byte work does not."""
+        with self._lock:
+            key = self._by_ident.get(ident)
+            e = self._entries.get(key) if key is not None else None
+            if e is None or time.time() > e.expires:
+                pushed = self._pushed.get(ident)
+                return (pushed[0], dict(pushed[1])) if pushed else None
+            headers = {"X-Media-Id": e.meta.media_id,
+                       "X-TTL-Remaining": repr(max(0.0,
+                                                   e.expires - time.time()))}
+            resident = (e.payload.k is not None
+                        or e.payload.qk is not None)
+            if resident:
+                e.meta.pins += 1
+            block_key = e.meta.key
+        if not resident:
+            if block_key is None:
+                return None
+            headers["X-Block-Key"] = block_key
+            try:
+                with open(self.disk.path_for(block_key), "rb") as f:
+                    return f.read(), headers
+            except FileNotFoundError:
+                return None
+        try:
+            e.wait_loaded()
+            host = _on_host(e.payload)
+            if block_key is None:
+                block_key = content_key(host, key)
+                with self._lock:
+                    e.meta.key = e.meta.key or block_key
+            headers["X-Block-Key"] = block_key
+            return payload_to_bytes(host), headers
+        finally:
+            self.unpin(e)
+
+    def admit_block(self, ident: str, data: bytes, headers: dict) -> None:
+        """Accept a peer's PUT.  Kept out of the entry map (an ident does
+        not give back its scope) but served back by :meth:`export_block`."""
+        with self._lock:
+            self._pushed[ident] = (data, dict(headers))
+
+    def delete_block(self, ident: str) -> None:
+        """A peer's DELETE: evict the addressed entry from every tier."""
+        with self._lock:
+            self._pushed.pop(ident, None)
+            key = self._by_ident.get(ident)
+            if key is not None:
+                self._evict(key)
+
+    def has_block(self, ident: str) -> bool:
+        """A peer's HEAD: an unexpired entry or a pushed block."""
+        with self._lock:
+            if ident in self._pushed:
+                return True
+            key = self._by_ident.get(ident)
+            e = self._entries.get(key) if key is not None else None
+            return e is not None and time.time() <= e.expires
 
     # -- tier management -----------------------------------------------------------
     def _evict(self, key) -> None:
@@ -472,6 +696,8 @@ class KVLibrary:
         unlink is safe) or misses."""
         e = self._entries.pop(key, None)
         if e is not None:
+            if self._by_ident.get(e.meta.ident) == key:
+                del self._by_ident[e.meta.ident]
             self.memory.delete(e.meta.ident)
             if e.meta.key:
                 self.disk.delete(e.meta.key)
@@ -481,7 +707,7 @@ class KVLibrary:
         key at its first spool; False if pinned or being read (the caller
         holds the lock and must not wait for ``_mlock``) or if the write
         failed."""
-        if e.meta.pins > 0:
+        if e.meta.pins > 0 or not self._disk_ok():
             return False
         if not e._mlock.acquire(blocking=False):
             return False
@@ -533,31 +759,59 @@ class KVLibrary:
     # -- introspection -------------------------------------------------------------
     def stats(self) -> dict:
         """Entry and byte census by tier, the per-tier hit / promote /
-        demote counters, and the disk tier's read counters: the backend's
-        ``fetches``, ``fetch_misses``, ``fetch_s`` (read and verify),
-        ``verify_s`` (SHA-1), ``bytes_read``, ``corrupt``, ``io_errors``,
-        and ``copy_s``, the staging and copy of those reads to the card."""
+        demote counters, and the lower tiers' read counters: ``fetches``,
+        ``fetch_misses``, ``fetch_s`` (read or pull, and verify),
+        ``verify_s`` (SHA-1), ``bytes_read``, and ``copy_s``, the staging
+        and copy of those reads to the card; the disk's ``corrupt``,
+        ``io_errors`` and ``quarantined``, the network's ``timeouts``,
+        ``retries``, ``breaker_skips`` and ``breakers``.  The network tier
+        appears only with peers."""
         with self._lock:
             by_tier: Dict[str, int] = {}
             for e in self._entries.values():
                 by_tier[e.tier] = by_tier.get(e.tier, 0) + e.nbytes
             out = {"entries": len(self._entries), "bytes_by_tier": by_tier}
         with self._clock:
-            tiers = {t: dict(c) for t, c in self._tiers.items()}
+            tiers = {t: dict(c) for t, c in self._tiers.items()
+                     if t != TIER_NETWORK or self.network is not None}
             out.update(misses=self._misses, dequants=self._dequants,
                        direct_links=self._direct_links)
-            copy_s = self._copy_s
+            copy_s = dict(self._copy_s)
         b = self.disk.stats()
+        # evaluated, not read: a streak past the threshold reads degraded
+        # before the next disk access sets the flag
+        quarantined = not self._disk_ok()
         tiers[TIER_DISK].update(
             fetches=b["hits"], fetch_misses=b["misses"],
             fetch_s=round(b["fetch_s"], 6), verify_s=round(b["verify_s"], 6),
             bytes_read=b["bytes_read"], bytes_written=b["bytes_written"],
             corrupt=b["corrupt"], io_errors=b["io_errors"],
-            copy_s=round(copy_s, 6))
+            copy_s=round(copy_s[TIER_DISK], 6), quarantined=quarantined)
+        if self.network is not None:
+            n = self.network.stats()
+            tiers[TIER_NETWORK].update(
+                fetches=n["hits"], fetch_misses=n["misses"],
+                fetch_s=round(n["fetch_s"], 6),
+                verify_s=round(n["verify_s"], 6), bytes_read=n["bytes_read"],
+                timeouts=n["timeouts"], retries=n["retries"],
+                breaker_skips=n["breaker_skips"], breakers=n["breakers"],
+                copy_s=round(copy_s[TIER_NETWORK], 6))
         out["tiers"] = tiers
-        out["degraded"] = {"spool_failures": self._spool_failures,
+        out["degraded"] = {"disk_quarantined": quarantined,
+                           "disk_failure_streak": self.disk.failure_streak,
+                           "spool_failures": self._spool_failures,
                            "enospc": self._enospc}
         return out
+
+
+def _on_host(p: KVPayload) -> KVPayload:
+    """The stored form of a payload (int8 when present) on the host."""
+    if p.qk is not None:
+        return KVPayload(qk=QuantizedKV(p.qk.q.cpu(), p.qk.scale.cpu(),
+                                        p.qk.block_tokens),
+                         qv=QuantizedKV(p.qv.q.cpu(), p.qv.scale.cpu(),
+                                        p.qv.block_tokens))
+    return KVPayload(k=p.k.cpu(), v=p.v.cpu())
 
 
 def _unlink(path: str) -> None:

@@ -8,9 +8,11 @@ runs library fetches on a thread pool; :class:`PrefetchHandle` bundles one
 request's fetches and hands each entry out, pinned, when the linker asks
 for it (blocking only on fetches that are still running).
 
-A fetch from disk ends when its bytes are on the engine's device
-(:meth:`KVLibrary.get` waits for its copy), so a load interval covers the
-copy to the card too.
+A fetch from disk or from a peer ends when its bytes are on the engine's
+device (:meth:`KVLibrary.get` waits for its copy), so a load interval
+covers the copy to the card too.  The ``loader.fetch`` fault site
+(``cache/faults.py``) stalls a worker or fails its fetch, which counts as
+a miss.
 
 Not ported: ``TransferPlan`` / ``plan_transfers`` (the analytic model of
 the JAX package's Fig. 6 benchmark) and the per-replica tags.
@@ -27,13 +29,16 @@ from repro_torch.cache.library import (
     TIER_DISK,
     TIER_HBM,
     TIER_HOST,
+    TIER_NETWORK,
     Entry,
     KVLibrary,
 )
 
 # issue order: the slowest tier first, so the long reads get a head start
-# on the worker pool (misses are near-free lookups: last)
-_TIER_RANK = {TIER_DISK: 1, TIER_HOST: 2, TIER_HBM: 3, None: 4}
+# on the worker pool; misses last, as in the JAX package (with peers a
+# miss is a pull)
+_TIER_RANK = {TIER_NETWORK: 0, TIER_DISK: 1, TIER_HOST: 2, TIER_HBM: 3,
+              None: 4}
 
 
 @dataclasses.dataclass
@@ -214,9 +219,18 @@ class ParallelLoader:
         """Worker body.  A failed fetch is a counted miss, never a raise:
         the handle's result feeds the link step, where a miss means
         recompute.  A ``RuntimeError`` (torch's, from the copy to the card)
-        is not a miss: it reaches the consumer through the future."""
+        is not a miss: it reaches the consumer through the future.  Fault
+        site ``loader.fetch``: ``stall`` sleeps, then fetches; ``error`` is
+        a counted miss."""
         rec.t_start = time.perf_counter()
         try:
+            faults = self.library.faults
+            rule = (faults.check("loader.fetch", rec.media_id)
+                    if faults is not None else None)
+            if rule is not None and rule.kind == "stall":
+                faults.sleep(rule)
+            elif rule is not None and rule.kind == "error":
+                raise OSError(f"injected loader error for {rec.media_id}")
             return self.library.get(user_id, rec.media_id)
         except RuntimeError:
             raise

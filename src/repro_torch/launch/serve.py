@@ -1,0 +1,182 @@
+"""Serving launcher: ``python -m repro_torch.launch.serve --arch <id> [...]``
+(port of the JAX package's ``launch/serve.py``, its single-engine path).
+
+Boots an MPIC engine for the chosen architecture, uploads every image of
+a synthetic MMDU-style request stream (user ``u1``), submits the requests,
+runs the engine to the end, and prints one line per request and the
+engine's report.
+
+By default it runs on the card and serves the full-width config
+(``configs.get_config``) with seeded random weights and images of the
+config's ``media_token_len`` tokens, and it raises without a card.
+``--device cpu`` serves the smoke config (``get_smoke_config``) with the
+JAX launcher's 24-token images on the kernels' plain versions.  A prompt
+longer than ``--max-seq-len`` stops the run at its submit, as in the JAX
+launcher: full-width llava's prompts take 1,298-1,321 tokens, so a card
+run passes ``--max-seq-len 2048``.
+
+``--no-paged`` / ``--no-pipelined`` select the dense-cache and sequential
+baselines, ``--prefill-chunk`` chunks long prefills across engine steps.
+The network KV tier spans processes: ``--serve-blocks PORT`` exports this
+server's static library to peers, and ``--peers host:port[,...]`` pulls
+locally missing media KV from theirs before falling back to recompute.
+``--fault-plan`` injects seeded faults (``cache/faults.py``).
+
+``--policy`` takes a comma-separated trace cycled over the requests; an
+unknown policy name fails that request, and the server keeps serving.
+
+Not ported: ``--freeze-idle-s``, ``--mesh``, ``--replicas``, ``--fleet``,
+``--router`` and ``--deadline-s``, each of which needs a module the port
+does not have yet (sessions, mesh sharding, the cluster, the fleet,
+deadlines).
+"""
+from __future__ import annotations
+
+import argparse
+from typing import List, Optional, Tuple
+
+from repro_torch.cache import FaultPlan, KVLibrary, KVPeerServer
+from repro_torch.configs import ModelConfig, get_config, get_smoke_config
+from repro_torch.data import image_embeds, make_dialogues
+from repro_torch.device import resolve_device
+from repro_torch.models import build_model
+from repro_torch.serving import EngineConfig, MPICEngine, Request
+
+SMOKE_MEDIA_LEN = 24        # the JAX launcher's image length on the CPU
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.serve",
+        description="Serve a synthetic multimodal request stream through "
+                    "the port's MPIC engine.")
+    ap.add_argument("--arch", default="llava-1.6-7b")
+    ap.add_argument("--device", default=None,
+                    help="'cpu' serves the smoke config on the plain "
+                         "PyTorch path; default: the card, at full width")
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--policy", default="mpic",
+                    help="policy per request, comma-separated trace cycled "
+                         "over the stream (mpic, prefix_caching, full_reuse,"
+                         " cacheblend, full_recompute); unknown names fail "
+                         "per-request, not the server")
+    ap.add_argument("--mpic-k", type=int, default=8)
+    ap.add_argument("--max-new-tokens", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-seq-len", type=int, default=512)
+    ap.add_argument("--paged", dest="paged", action="store_true",
+                    default=True, help="pool-backed decode path (default)")
+    ap.add_argument("--no-paged", dest="paged", action="store_false",
+                    help="dense batch-cache baseline")
+    ap.add_argument("--pipelined", dest="pipelined", action="store_true",
+                    default=True, help="pipelined admission (default)")
+    ap.add_argument("--no-pipelined", dest="pipelined",
+                    action="store_false",
+                    help="sequential admission baseline")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help=">0: chunk long prefills across engine steps")
+    ap.add_argument("--peers", default="",
+                    help="comma-separated host:port peer block servers — "
+                         "enables the network KV tier (a local cache miss "
+                         "pulls the peer's spooled entry instead of "
+                         "recomputing)")
+    ap.add_argument("--serve-blocks", type=int, default=None,
+                    metavar="PORT",
+                    help="export this server's static KV library to peers "
+                         "on PORT (0 = pick a free port)")
+    ap.add_argument("--fault-plan", default="",
+                    help="chaos testing: ';'-separated fault rules "
+                         "site:kind[:k=v,...] (see cache/faults.py), e.g. "
+                         "'peer.request:blackhole;loader.fetch:stall:"
+                         "delay=0.5,stop=1'")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed for fault-plan probability draws")
+    return ap
+
+
+def engine_config(args: argparse.Namespace) -> EngineConfig:
+    return EngineConfig(
+        max_seq_len=args.max_seq_len, decode_slots=args.slots,
+        paged=args.paged, pipelined=args.pipelined,
+        prefill_chunk_tokens=args.prefill_chunk)
+
+
+def build(args: argparse.Namespace, params=None
+          ) -> Tuple[ModelConfig, MPICEngine, Optional[FaultPlan]]:
+    """The model config, the engine and the fault plan that ``args`` ask
+    for.  ``params`` (on the engine's device) replace the seeded weights;
+    the static library gets the peers and the plan, when given."""
+    device = resolve_device(args.device)
+    cfg = (get_config(args.arch) if device.type == "cuda"
+           else get_smoke_config(args.arch))
+    peers = [p.strip() for p in args.peers.split(",") if p.strip()]
+    faults = (FaultPlan.parse(args.fault_plan, seed=args.fault_seed)
+              if args.fault_plan else None)
+    model = build_model(cfg)
+    if params is None:
+        params = model.init(seed=0, device=device)
+    static_lib = (KVLibrary(peers=peers, faults=faults, device=device)
+                  if peers or faults else None)
+    eng = MPICEngine(model, params, engine_config(args),
+                     static_library=static_lib, device=device, faults=faults)
+    return cfg, eng, faults
+
+
+def serve(args: argparse.Namespace, cfg: ModelConfig, eng: MPICEngine,
+          policies: List[str], faults: Optional[FaultPlan]) -> None:
+    """Upload the stream's images, submit its requests under the cycled
+    policies, run the engine, and print the results."""
+    media_len = (cfg.media_token_len if eng.device.type == "cuda"
+                 else SMOKE_MEDIA_LEN)
+    dialogues = make_dialogues(n=args.requests, n_images=2,
+                               d_model=cfg.d_model, media_len=media_len,
+                               style="mmdu", user_id="u1")
+    seen = set()
+    for d in dialogues:
+        for mid in d.media_ids:
+            if mid not in seen:
+                eng.upload("u1", mid, image_embeds(mid, media_len,
+                                                   cfg.d_model))
+                seen.add(mid)
+    for i, d in enumerate(dialogues):
+        policy = policies[i % len(policies)]
+        kw = {"k": args.mpic_k} if policy == "mpic" else {}
+        eng.submit(Request(prompt=d.prompt,
+                           max_new_tokens=args.max_new_tokens,
+                           policy=policy, policy_kwargs=kw))
+    done = eng.run()
+    print(f"\narch={cfg.name} policy={args.policy} paged={args.paged} "
+          f"pipelined={args.pipelined} device={eng.device.type}")
+    for r in done:
+        print(f"  {r.req_id}: ttft={r.ttft * 1e3:7.0f} ms  "
+              f"reused={r.prefill_stats.get('n_reused', 0):4d}  "
+              f"tokens={len(r.output_tokens)}")
+    for r in eng.failed:
+        print(f"  {r.req_id}: FAILED — {r.error}")
+    if faults is not None:
+        print(f"  fault_plan: {faults.stats()}")
+    for k, v in eng.report().items():
+        print(f"  {k}: {v}")
+
+
+def main(argv: Optional[List[str]] = None, *, params=None) -> None:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    policies = [p.strip() for p in args.policy.split(",") if p.strip()]
+    if not policies:
+        ap.error("--policy needs at least one policy name")
+    cfg, eng, faults = build(args, params)
+    peer_server = None
+    try:
+        if args.serve_blocks is not None:
+            peer_server = KVPeerServer(eng.static_lib, port=args.serve_blocks)
+            print(f"serving KV blocks to peers at {peer_server.address}")
+        serve(args, cfg, eng, policies, faults)
+    finally:
+        if peer_server is not None:
+            peer_server.close()
+        eng.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -62,7 +62,13 @@ dense result is.  ``greedy=False`` samples each token from the
 temperature-scaled top-k softmax with a numpy generator seeded by
 ``Request.seed``, one per request, as the JAX engine does.
 
-Not ported yet: sessions, deadlines and faults, and mesh sharding.
+``faults`` (a :class:`~repro_torch.cache.faults.FaultPlan`) reaches the
+default static library's tiers and loader, and the ``engine.step`` site:
+``crash`` raises :class:`~repro_torch.cache.faults.ReplicaCrash` at the
+top of :meth:`MPICEngine.step`, before any per-request work, so the
+engine's state stays as the last whole step left it.
+
+Not ported yet: sessions, deadlines and mesh sharding.
 """
 from __future__ import annotations
 
@@ -73,6 +79,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.cache.faults import ReplicaCrash
 from repro_torch.cache.library import KVLibrary
 from repro_torch.cache.paged import PagedConfig, PagedKVPool
 from repro_torch.cache.transfer import ParallelLoader, PrefetchHandle
@@ -110,7 +117,8 @@ class MPICEngine:
     def __init__(self, model, params, engine_cfg: Optional[EngineConfig] = None,
                  *, static_library: Optional[KVLibrary] = None,
                  dynamic_library: Optional[KVLibrary] = None,
-                 retriever: Optional[Retriever] = None, device=None):
+                 retriever: Optional[Retriever] = None, device=None,
+                 faults=None):
         """``device`` None means the card, and raises without one; pass
         ``"cpu"`` to serve with the kernels' plain versions.  ``params``
         must already live on that device."""
@@ -121,7 +129,8 @@ class MPICEngine:
         if self.cfg.pool_dtype not in ("", "int8"):
             raise ValueError(f"pool_dtype {self.cfg.pool_dtype!r}: "
                              "use '' (compute dtype) or 'int8'")
-        self.static_lib = static_library or KVLibrary()
+        self.faults = faults
+        self.static_lib = static_library or KVLibrary(faults=faults)
         self.dynamic_lib = dynamic_library or KVLibrary(shared=True)
         self.retriever = retriever if retriever is not None else Retriever()
         self.loader = ParallelLoader(self.static_lib)
@@ -218,6 +227,12 @@ class MPICEngine:
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def step(self) -> None:
+        if self.faults is not None:
+            # "replicaNone" is the JAX engine's target outside a cluster,
+            # so that one plan fires alike in both packages
+            rule = self.faults.check("engine.step", "replicaNone")
+            if rule is not None and rule.kind == "crash":
+                raise ReplicaCrash(f"injected crash ({rule.describe()})")
         self._advance_prefills()
         self._admit()
         self._decode()

@@ -1,0 +1,156 @@
+"""The port's serving CLI (``python -m repro_torch.launch.serve``) against
+the JAX package's (``python -m repro.launch.serve``).
+
+``--help`` lists exactly the ported flags; for a set of command lines both
+CLIs build equal ``EngineConfig`` fields, and the same static library
+(peers, fault plan); a ``--device cpu`` run under ``mpic,full_recompute,
+bogus`` fails only the bogus request and prints the JAX CLI's ``reused``
+and ``tokens`` per request when it serves the JAX CLI's weights; without
+``--device cpu`` and without a card the run exits non-zero.
+"""
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import repro.launch.serve as jax_serve
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.models import build_model as jax_build_model
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch import serve
+from repro_torch.weights import params_from_numpy
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORTED = {"--arch", "--device", "--requests", "--policy", "--mpic-k",
+          "--max-new-tokens", "--slots", "--max-seq-len", "--paged",
+          "--no-paged", "--pipelined", "--no-pipelined", "--prefill-chunk",
+          "--peers", "--serve-blocks", "--fault-plan", "--fault-seed",
+          "--help"}
+ARGVS = [
+    [],
+    ["--no-paged", "--slots", "2", "--max-seq-len", "1024"],
+    ["--no-pipelined", "--prefill-chunk", "64", "--policy",
+     "mpic,cacheblend", "--mpic-k", "16", "--requests", "2"],
+    ["--peers", "127.0.0.1:1, 127.0.0.1:2", "--fault-plan",
+     "peer.request:blackhole;engine.step:crash:start=3", "--fault-seed", "5"],
+    ["--fault-plan", "loader.fetch:stall:delay=0.1", "--paged",
+     "--pipelined", "--max-new-tokens", "3", "--serve-blocks", "0"],
+]
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    return env
+
+
+def test_help_lists_exactly_the_ported_flags():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--help"],
+        capture_output=True, text=True, env=_env(), timeout=120, check=True)
+    assert set(re.findall(r"(?<![\w-])--[a-z][a-z0-9-]*", out.stdout)) \
+        == PORTED
+
+
+class _Built(Exception):
+    pass
+
+
+def _reference_build(argv, monkeypatch):
+    """What the JAX CLI hands its engine for ``argv``: the engine config,
+    the static library and the fault plan (the engine is never built)."""
+    seen = {}
+
+    class Model:
+        def init(self, key):
+            return None
+
+    def engine(model, params, cfg, *, mesh, static_library, faults):
+        seen.update(cfg=cfg, lib=static_library, faults=faults)
+        raise _Built
+
+    monkeypatch.setattr(jax_serve, "build_model", lambda cfg: Model())
+    monkeypatch.setattr(jax_serve, "MPICEngine", engine)
+    monkeypatch.setattr(sys, "argv", ["serve.py", *argv])
+    with pytest.raises(_Built):
+        jax_serve.main()
+    return seen
+
+
+def _library(lib):
+    if lib is None:
+        return None
+    peers = [t.address for t in lib.network.transports] if lib.network \
+        else None
+    return peers, lib.faults.stats() if lib.faults else None
+
+
+@pytest.mark.parametrize("argv", ARGVS, ids=range(len(ARGVS)))
+def test_engine_config_and_library_match_the_reference(argv, monkeypatch):
+    ref = _reference_build(argv, monkeypatch)
+    args = serve.build_parser().parse_args([*argv, "--device", "cpu"])
+    cfg = serve.engine_config(args)
+    shared = ({f.name for f in dataclasses.fields(cfg)}
+              & {f.name for f in dataclasses.fields(ref["cfg"])})
+    assert {"max_seq_len", "decode_slots", "paged", "pipelined",
+            "prefill_chunk_tokens"} <= shared
+    assert {n: getattr(cfg, n) for n in shared} \
+        == {n: getattr(ref["cfg"], n) for n in shared}
+    _, eng, faults = serve.build(args)
+    try:
+        assert eng.cfg == cfg
+        want = _library(ref["lib"])
+        if want is None:
+            # the engine's own library, with the plan when there is one
+            assert eng.static_lib.network is None and ref["faults"] is None
+        else:
+            assert _library(eng.static_lib) == want
+        assert (faults.stats() if faults else None) == \
+            (ref["faults"].stats() if ref["faults"] else None)
+        assert eng.faults is faults
+    finally:
+        eng.close()
+
+
+def _requests(text):
+    """(reused, tokens) of each served request, and the failed lines."""
+    served = [(int(a), int(b)) for a, b in re.findall(
+        r"^  req\d+: ttft=.*reused=\s*(\d+)\s+tokens=(\d+)$", text, re.M)]
+    failed = re.findall(r"^  req\d+: FAILED — (.*)$", text, re.M)
+    return served, failed
+
+
+def test_cpu_run_fails_only_the_bogus_request_as_the_reference(
+        monkeypatch, capsys):
+    argv = ["--requests", "3", "--policy", "mpic,full_recompute,bogus",
+            "--max-new-tokens", "4"]
+    jcfg = jax_smoke_config("llava-1.6-7b")
+    tree = jax.tree_util.tree_map(
+        np.asarray, jax_build_model(jcfg).init(jax.random.PRNGKey(0)))
+    serve.main([*argv, "--device", "cpu"], params=params_from_numpy(
+        tree, get_smoke_config("llava-1.6-7b"), "cpu"))
+    port = _requests(capsys.readouterr().out)
+    monkeypatch.setattr(sys, "argv", ["serve.py", *argv])
+    jax_serve.main()
+    ref = _requests(capsys.readouterr().out)
+    assert port[0] == ref[0]
+    assert [r > 0 for r, _ in port[0]] == [True, False]
+    assert [t for _, t in port[0]] == [4, 4]
+    assert len(port[1]) == len(ref[1]) == 1
+    assert port[1][0].startswith("unknown policy 'bogus'")
+
+
+def test_default_device_without_a_card_exits_non_zero():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--requests", "1"],
+        capture_output=True, text=True, env=_env(), timeout=120)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
