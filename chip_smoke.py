@@ -76,10 +76,33 @@ timed on its own line:
    Printed per run: TTFT, load, blocked, compute and overlap per request,
    the decode step with pulls in flight, the bytes pulled, the fetch
    seconds and their SHA-1 share, and the network tier's counters;
+5h. sessions (``serve_sessions``), on a bf16 and an int8 pool of 4 slots
+   of 2048 tokens, phase 3's first dialogue with its images in a library
+   that spools to a temporary directory: served uninterrupted, then with
+   ``freeze_after=4`` (frozen, spooled at once) and thawed: gates
+   ``frozen[:-1] + thawed == uninterrupted`` and the adopted pages (on
+   int8 also the scale rows) byte-equal on the card to the pool at
+   freeze; a ``full_recompute`` session frozen in memory and thawed with a
+   64-token suffix, against a cold ``full_recompute`` of the whole
+   history: the same first token and first-token logits within 10 %
+   relative RMS (``SESSION_REL_RMS``; the max diff is printed beside
+   1e-3); ``fork(handle, 3)``: no page beyond the parent's footprint,
+   ``pages_shared`` 3x its pages, ``cow_copies`` 2 after the first decode
+   step, greedy children identical, sampled ones (``seed + i``) diverging;
+   a second engine whose library peers with the first's ``KVPeerServer``
+   (and an empty one) thaws by pulling the salted block, to the first
+   thaw's tokens, and a wrong salt raises ``LookupError`` with a 404 from
+   every peer; an engine with ``freeze_idle_s`` spools an idle snapshot
+   and thaws it from the file.  Printed: freeze (with and without its
+   spool), spool, thaw from disk, from memory with the suffix and pulled,
+   the suffix's prefill alone beside the cold prefill alone, the
+   snapshot's MiB, ``cow_copies`` and ``pages_shared``;
 5g. llava's weights freed, the serving CLI as a user starts it, in a
    subprocess: ``python -m repro_torch.launch.serve --arch llava-1.6-7b
    --requests 4 --policy mpic,full_recompute --max-seq-len 2048
-   --serve-blocks 0``, once paged and once ``--no-paged``.  Gates: exit 0,
+   --serve-blocks 0``, once paged and once ``--no-paged``, and the MoE
+   ``--arch granite-moe-1b-a400m`` at full width with ``--freeze-idle-s
+   30`` (``MOE_CLI_ARGS``).  Gates: exit 0,
    the peer server's address printed, four requests of 8 tokens,
    ``reused`` above 0 under ``mpic`` and 0 under ``full_recompute``.
    Printed: its wall time, and sampled every half second the card's
@@ -121,6 +144,17 @@ timed on its own line:
    the band without its window, above it; kernel 5's time for the
    banded call is printed beside the same call with window 0.  The peak
    device memory is printed;
+5i. the MoE decoders at full width (``serve_moe``, after 5d's models are
+   freed), phase 3's traffic: deepseek-moe-16b (28 layers, MHA at Dh 128,
+   64 experts top-6 and 2 shared; ~31 GiB of seeded bf16 weights) under
+   ``mpic`` on both pools and ``full_recompute``, then
+   granite-moe-1b-a400m (24 layers, G 2 at Dh 64, 32 experts top-8) under
+   ``mpic`` on both pools; each run's kernels gated as in 5d, the peak
+   device memory printed; after each model one untimed upload and full
+   prefill count the (token, choice) pairs capacity dropped in every
+   layer (deepseek's upload must drop some, ``MOE_DROP_GATES``); the decode
+   step printed beside the device floor of reading every expert's weights
+   and of the routed ones alone;
 6. each kernel against its plain PyTorch version on the state phases 3-5b
    left (layer 0 of the live pool or the captured dense-attention and SSD
    inputs) and on synthetic shapes (32 query heads on 8 kv heads, window
@@ -152,7 +186,9 @@ timed on its own line:
    upload, long prefill and decode step (the window biting in the last
    two), kernel 6 on the CUDA-core route at hymba's captured dialogue and
    long-request inputs, with the resources of its (Q 64, hd 64, ds 16)
-   instantiation;
+   instantiation; kernels 1-5 at deepseek-moe-16b's and
+   granite-moe-1b-a400m's layer-0 shapes (both pools' prefill and decode,
+   the upload);
 7. a small fp32 model served by the same engine on the card and on the CPU
    (plain versions) under every policy and on the dense cache, and under
    ``mpic`` with its media on disk and pipelined admission on both pools,
@@ -164,7 +200,11 @@ timed on its own line:
    ``full_recompute`` and seeded sampling, and hymba-1.5b's smoke config
    at G 5 under ``full_recompute`` and ``mpic`` (rewritten) with an MRAG
    image of two windows uploaded through ``banded_attend``, card against
-   CPU alike.
+   CPU alike; the smoke deepseek-moe-16b in fp32 under ``mpic`` on both
+   pools and ``full_recompute`` (its prompts pass T = 64: the card's runs
+   must drop pairs); and a freeze / thaw / suffix thaw / fork round on the
+   smoke llava in fp32 (same tokens, suffix first-token logits within
+   1e-3, ``cow_copies`` 1).
 
 During the serving phases the plain versions and ``layers.attend`` raise
 if called.  Each serving run resets the kernels' launch counts (and the
@@ -293,6 +333,37 @@ def _gqa_runs(arch: str) -> list:
          SEEDS)]
 
 
+MOE_ARCHS = ("deepseek-moe-16b", "granite-moe-1b-a400m")
+
+
+def _moe_runs(arch: str) -> list:
+    """The phase-5i runs of one MoE model, in ``_gqa_runs``'s form: mpic on
+    both pools, and for deepseek-moe-16b full_recompute too."""
+    mpic = {"k": K_MPIC}
+    runs = [(f"{arch}:mpic", "mpic", mpic, "", True, None, None),
+            (f"{arch}:mpic_int8", "mpic", mpic, "int8", True, None, None)]
+    if arch == "deepseek-moe-16b":
+        runs.append((f"{arch}:full_recompute", "full_recompute", {}, "",
+                     True, None, None))
+    return runs
+
+
+# phase 5h: a session frozen after this many tokens, and the next turn's
+# suffix its thaw prefills
+SESSION_FREEZE_AFTER = 4
+SESSION_SUFFIX = 64
+# the suffix thaw against a cold recompute of the whole history: the same
+# first greedy token and first-token logits within 10 % relative RMS (the
+# chunked gate's limit) on both pools.  The snapshot's last tokens were
+# written by decode steps and its suffix attends through the paged kernel,
+# the cold pass computes all of them in one dense prefill, so on bf16 the
+# two differ by bf16 rounding, which layers of random weights amplify
+# (smoke llava on the CPU: 4.0e-3 max, 3.6e-3 relative RMS; in fp32 both
+# agree within 1e-3, phase 7 and tests/test_torch_sessions.py); on int8
+# the thawed pages and the cold pass's were also requantized at different
+# writes.  Both sides are printed beside 1e-3
+SESSION_REL_RMS = 0.1
+
 # layer 0's dense-attention inputs that phase 6 holds against the plain
 # version at each model's own shapes: run label -> {kind of call: name}
 # (see capture_dense); every model's upload, and qwen2.5-14b's dense
@@ -314,6 +385,13 @@ HYMBA_CAPTURES = {"upload": f"{HYMBA}:upload",
                   "prefill": f"{HYMBA}:long_prefill",
                   "decode": f"{HYMBA}:dense_decode"}
 GQA_RUNS = [(arch, _gqa_runs(arch)) for arch in GQA_ARCHS]
+MOE_RUNS = [(arch, _moe_runs(arch)) for arch in MOE_ARCHS]
+MOE_CAPTURES = {f"{arch}:mpic": {"upload": f"{arch}:upload"}
+                for arch in MOE_ARCHS}
+# (model, pass) whose capacity must drop pairs: deepseek's upload routes
+# 576 rows into 67 slots an expert for a mean load of 54; the other
+# counts are printed
+MOE_DROP_GATES = {("deepseek-moe-16b", "upload")}
 # (name, policy, policy kwargs, pool dtype, paged) of the phase-5 runs
 POLICY_RUNS = [
     ("full_recompute", "full_recompute", {}, "", True),
@@ -348,10 +426,14 @@ NET_RUNS = [
 # reference's 2 s default was set for 24-token blocks); a blackhole waits
 # its rule's delay instead
 NET_TIMEOUT_S = 60.0
-# phase 5g's command line, run once paged and once with --no-paged
+# phase 5g's command line, run once paged and once with --no-paged, and
+# the MoE granite-moe-1b-a400m's, with the idle sweep on
 CLI_ARGS = ["--arch", "llava-1.6-7b", "--requests", "4", "--policy",
             "mpic,full_recompute", "--max-seq-len", "2048",
             "--serve-blocks", "0"]
+MOE_CLI_ARGS = ["--arch", "granite-moe-1b-a400m", "--requests", "4",
+                "--policy", "mpic,full_recompute", "--max-seq-len", "2048",
+                "--serve-blocks", "0", "--freeze-idle-s", "30"]
 
 
 def phase(name: str, t0: float) -> None:
@@ -427,9 +509,11 @@ def main() -> int:
     import repro_torch.kernels.selective_attn.ops as sel_ops
     import repro_torch.kernels.ssd_chunk.ops as ssd_ops
     import repro_torch.models.layers as layers
+    import repro_torch.models.moe as moe_mod
     import repro_torch.models.ssm as ssm_mod
     import repro_torch.models.transformer as tf
     from repro_torch.cache import (
+        TIER_DISK,
         FaultPlan,
         KVLibrary,
         KVPeerServer,
@@ -439,7 +523,7 @@ def main() -> int:
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import Prompt, text_segment
     from repro_torch.core.policies import full_recompute
-    from repro_torch.core.linker import bucket
+    from repro_torch.core.linker import bucket, precompute_media_kv
     from repro_torch.core.select import mpic_selection, selection_indices
     from repro_torch.data import (
         SYSTEM_PROMPT,
@@ -1494,6 +1578,299 @@ def main() -> int:
             raise RuntimeError(f"{label} disagrees with its control")
     phase("serve_network", t0)
 
+    # -- 5h. sessions: freeze, thaw and fork of llava's decode state --------
+    # phase 3's first dialogue on a pool of 4 slots of 2048 tokens, its
+    # images uploaded into a library that spools to a temporary directory:
+    # uninterrupted, then frozen at 4 tokens (spooled at once) and thawed
+    # (resume parity; on int8 the adopted pages and scale rows byte-equal to
+    # the pool at freeze); a full_recompute session frozen in memory and
+    # thawed with a 64-token suffix (against a cold full_recompute of the
+    # whole history); the first session forked
+    # into 3 greedy and 3 sampled children (copy-on-write), thawed by a
+    # second engine that pulls the salted block from the first's
+    # KVPeerServer (and a wrong salt missing on every peer), and spooled by
+    # the idle sweep and thawed from the file
+    t0 = time.perf_counter()
+
+    def timed(fn, into, key):
+        """``fn`` whose wall seconds (the card synchronized at both ends)
+        go to ``into[key]``."""
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            into[key] = time.perf_counter() - t
+            return out
+        return call
+
+    def serve_sessions(pool_dtype, spool):
+        label = f"sessions_{pool_dtype or 'bf16'}"
+        q8 = pool_dtype == "int8"
+        prompt = make_dialogues(n=4, n_images=2, d_model=cfg.d_model,
+                                media_len=MEDIA_LEN,
+                                style="mmdu")[0].prompt
+        lib = KVLibrary(spool_dir=spool)
+        out, secs = {}, {}
+
+        def engine(library=lib, **kw):
+            return MPICEngine(model, params, EngineConfig(
+                max_seq_len=2048, decode_slots=4, page_size=16,
+                pool_dtype=pool_dtype, **kw), static_library=library)
+
+        def request(policy="mpic", **kw):
+            return Request(prompt=prompt, max_new_tokens=MAX_NEW,
+                           policy=policy, policy_kwargs={"k": K_MPIC}
+                           if policy == "mpic" else {}, **kw)
+
+        def decode_until(eng, req, n):
+            for _ in range(10 * MAX_NEW):
+                if len(req.output_tokens) >= n:
+                    return
+                eng.step()
+            raise RuntimeError(f"{label}: {req.req_id} made no progress")
+
+        def disk_written():
+            return lib.stats()["tiers"]["disk"]["bytes_written"]
+
+        with no_plain_versions():
+            _build.reset_launches(KERNELS.values())
+            eng = engine()
+            for _, seg in prompt.media_segments():
+                eng.upload(prompt.user_id, seg.media_id, seg.embeds)
+            base = eng.submit(request())
+            eng.run()
+            # -- resume parity: frozen at 4 tokens, spooled, thawed
+            exported = {}
+            export = eng.pool.export_session
+
+            def keeping(page_table, n_tokens):
+                snap = export(page_table, n_tokens)
+                exported.update(snap)       # the pool's bytes at freeze
+                return snap
+
+            eng.pool.export_session = keeping
+            freeze, spool_now = eng.sessions.freeze, lib.spool_now
+            eng.sessions.freeze = timed(freeze, secs, "freeze_spooled")
+            lib.spool_now = timed(spool_now, secs, "spool")
+            written = disk_written()
+            fz = eng.submit(request(freeze_after=SESSION_FREEZE_AFTER))
+            eng.run()
+            eng.pool.export_session = export
+            eng.sessions.freeze, lib.spool_now = freeze, spool_now
+            if fz.state is not State.FROZEN:
+                raise RuntimeError(f"{label}: {fz.req_id} is {fz.state}")
+            h = eng.sessions.handles[fz.session_id]
+            snapshot_mib = (disk_written() - written) / 2**20
+            if lib.peek_tier(h.user_id, h.media_id,
+                             salt=h.cache_salt) != TIER_DISK:
+                raise RuntimeError(f"{label}: the snapshot was not spooled")
+            th = timed(eng.thaw, secs, "thaw_from_disk")(h)
+            pages = torch.as_tensor(eng._page_tables[th.slot][
+                :eng.pool.pages_for(h.n_ctx)], device=dev).long()
+            n = h.n_ctx
+            pool = eng.pool
+            if q8:
+                adopted = all(torch.equal(
+                    buf[:, pages].flatten(1, 2)[:, :n], exported[name][:, :n])
+                    for buf, name in ((pool.k, "qk"), (pool.v, "qv"))) and \
+                    torch.equal(pool.k_scale[:, pages], exported["k_scale"]) \
+                    and torch.equal(pool.v_scale[:, pages],
+                                    exported["v_scale"])
+            else:
+                adopted = all(torch.equal(
+                    buf[:, pages].flatten(1, 2)[:, :n], exported[name])
+                    for buf, name in ((pool.k, "k"), (pool.v, "v")))
+            eng.run()
+            resumed = fz.output_tokens[:-1] + th.output_tokens
+            print(f"  resume: frozen after {SESSION_FREEZE_AFTER} tokens "
+                  f"(n_ctx {n}), snapshot {snapshot_mib:.1f} MiB; freeze "
+                  f"with its spool {secs['freeze_spooled'] * 1e3:.2f} ms "
+                  f"(spool {secs['spool'] * 1e3:.2f}), thaw from disk "
+                  f"{secs['thaw_from_disk'] * 1e3:.2f} ms; adopted pages "
+                  f"{'and scale rows ' if q8 else ''}equal to the pool at "
+                  f"freeze: {adopted}; frozen[:-1] + thawed == "
+                  f"uninterrupted: {resumed == base.output_tokens}",
+                  flush=True)
+            if not adopted or resumed != base.output_tokens:
+                raise RuntimeError(f"{label}: resume parity failed: "
+                                   f"{resumed} against {base.output_tokens}")
+            # -- a suffix thaw from memory against a cold recompute: the
+            # session's own prefill recomputes every token too (an mpic
+            # prefill's KV approximates full attention's by design)
+            r2 = eng.submit(request("full_recompute"))
+            decode_until(eng, r2, SESSION_FREEZE_AFTER)
+            h2 = timed(eng.freeze, secs, "freeze_in_memory")(r2.req_id)
+            suffix = [int(t) for t in np.random.default_rng(21).integers(
+                8, 200, SESSION_SUFFIX)]
+            firsts = []
+            prefill = eng._prefiller.prefill
+
+            def suffix_prefill(*args):
+                torch.cuda.synchronize()        # the adopt's copies first
+                t = time.perf_counter()
+                logits = prefill(*args)
+                key = "suffix_prefill_again" if firsts else "suffix_prefill"
+                secs[key] = time.perf_counter() - t
+                firsts.append(logits)
+                return logits
+
+            # the same thaw twice: the first call at a new prefill shape
+            # may load kernels, the second is the warm cost
+            eng._prefiller.prefill = suffix_prefill
+            th2 = timed(eng.thaw, secs, "thaw_with_suffix")(
+                h2, suffix, max_new_tokens=MAX_NEW)
+            eng.run()
+            timed(eng.thaw, secs, "thaw_with_suffix_again")(
+                h2, suffix, max_new_tokens=MAX_NEW)
+            eng._prefiller.prefill = prefill
+            eng.run()
+            firsts.pop()
+            cold = Request(prompt=Prompt(list(prompt.segments) + [
+                text_segment(r2.output_tokens + suffix)],
+                user_id=prompt.user_id), max_new_tokens=MAX_NEW,
+                policy="full_recompute")
+            finalize = eng._finalize_prefill
+
+            def record(req, result, *rest):
+                firsts.append(np.asarray(result.first_logits, np.float32))
+                return finalize(req, result, *rest)
+
+            eng._finalize_prefill = record
+            eng.submit(cold)
+            eng.run()
+            eng._finalize_prefill = finalize
+            diff = float(np.abs(firsts[0] - firsts[1]).max())
+            rel = float(np.sqrt(np.mean((firsts[0] - firsts[1]) ** 2)
+                                / np.mean(firsts[1] ** 2)))
+            same = th2.output_tokens == cold.output_tokens
+            cold_ms = (cold.t_first_token - cold.t_admitted) * 1e3
+            print(f"  suffix thaw ({SESSION_SUFFIX} tokens after n_ctx "
+                  f"{h2.n_ctx}) against a cold full_recompute of "
+                  f"{cold.prompt.total_len} tokens: first-logit max diff "
+                  f"{diff:.3e} (1e-3: {diff <= 1e-3}), relative RMS "
+                  f"{rel:.3e} (limit {SESSION_REL_RMS}), greedy tokens "
+                  f"equal {same}; the suffix's prefill alone "
+                  f"{secs['suffix_prefill'] * 1e3:.2f} ms, again "
+                  f"{secs['suffix_prefill_again'] * 1e3:.2f} ms (the whole "
+                  f"thaw from memory {secs['thaw_with_suffix'] * 1e3:.2f} "
+                  f"ms, again {secs['thaw_with_suffix_again'] * 1e3:.2f}; "
+                  f"its freeze {secs['freeze_in_memory'] * 1e3:.2f} ms) "
+                  f"against the cold prefill alone {cold_ms:.2f} ms",
+                  flush=True)
+            first_same = th2.output_tokens[0] == cold.output_tokens[0]
+            if not (rel <= SESSION_REL_RMS and first_same):
+                raise RuntimeError(f"{label}: suffix thaw differs from the "
+                                   f"cold recompute (relative RMS {rel}, "
+                                   f"first tokens equal {first_same})")
+            # -- fork: copy-on-write children
+            pool = eng.pool
+            free0, shared0, cow0 = (pool.free_pages, pool.pages_shared,
+                                    pool.cow_copies)
+            kids = eng.fork(h, 3)
+            parent = pool.pages_for(h.n_ctx + 1)
+            allocated = free0 - pool.free_pages
+            shared = pool.pages_shared - shared0
+            eng.step()
+            cow = pool.cow_copies - cow0
+            eng.run()
+            greedy_same = len({tuple(k.output_tokens) for k in kids}) == 1
+            sampler = engine(greedy=False, temperature=0.8, top_k=8)
+            sampled = sampler.fork(h, 3)
+            sampler.run()
+            sampler.close()
+            diverged = len({tuple(k.output_tokens) for k in sampled}) > 1
+            print(f"  fork(handle, 3): {allocated} pages allocated for a "
+                  f"parent of {parent}, pages_shared {shared} (want "
+                  f"{parent * 3}), cow_copies after the first decode step "
+                  f"{cow} (want 2); greedy children identical "
+                  f"{greedy_same}; sampled children (seeds {h.seed}..) "
+                  f"diverge {diverged}", flush=True)
+            if (allocated, shared, cow) != (parent, parent * 3, 2) or \
+                    not greedy_same or not diverged:
+                raise RuntimeError(f"{label}: fork gates failed")
+            eng.close()
+            # -- resume anywhere: a second host pulls the salted block
+            servers = [KVPeerServer(lib), KVPeerServer(KVLibrary())]
+            try:
+                remote = KVLibrary(peers=[PeerTransport(
+                    srv.address, timeout_s=NET_TIMEOUT_S)
+                    for srv in servers])
+                other = engine(remote)
+                wrong = type(h).from_json({**h.to_json(),
+                                           "cache_salt": "0" * 16})
+                try:
+                    other.thaw(wrong)
+                    raise RuntimeError(f"{label}: a wrong salt thawed")
+                except LookupError:
+                    pass
+                statuses = [t.last_status for t in remote.network.transports]
+                misses = remote.stats()["misses"]
+                th3 = timed(other.thaw, secs, "thaw_pulled")(h)
+                other.run()
+                other.close()
+                pulled = remote.stats()["tiers"]["network"]
+            finally:
+                for srv in servers:
+                    srv.close()
+            print(f"  resume anywhere: the wrong salt missed on every peer "
+                  f"({statuses}, library misses {misses}); the right one "
+                  f"pulled in {secs['thaw_pulled'] * 1e3:.2f} ms (promotes "
+                  f"{pulled['promotes']}), tokens equal to the first host's "
+                  f"thaw {th3.output_tokens == th.output_tokens}", flush=True)
+            if statuses != [404, 404] or misses != 1 or \
+                    pulled["promotes"] != 1 or \
+                    th3.output_tokens != th.output_tokens:
+                raise RuntimeError(f"{label}: resume anywhere failed")
+            # -- the idle sweep spools a snapshot; its thaw reads it back
+            idle = engine(freeze_idle_s=30.0)
+            r4 = idle.submit(request())
+            decode_until(idle, r4, SESSION_FREEZE_AFTER)
+            h4 = idle.freeze(r4.req_id)
+            h4.frozen_at -= 60.0
+            reads = lib.stats()["tiers"]["disk"]["fetches"]
+            idle.step()
+            swept = lib.peek_tier(h4.user_id, h4.media_id,
+                                  salt=h4.cache_salt) == TIER_DISK
+            th4 = idle.thaw(h4)
+            idle.run()
+            read_back = lib.stats()["tiers"]["disk"]["fetches"] - reads
+            idle.close()
+            print(f"  idle sweep: spooled {swept}, thaw read the file back "
+                  f"({read_back} disk read), resumed with "
+                  f"{th4.output_tokens[:1]} == [{h4.next_token}]", flush=True)
+            if not swept or read_back != 1 or \
+                    th4.output_tokens[0] != h4.next_token:
+                raise RuntimeError(f"{label}: idle sweep failed")
+            launches = {k: v.launches for k, v in KERNELS.items()}
+        want = (("sel_attn_paged_q8", "paged_attn_q8") if q8
+                else ("sel_attn_paged", "paged_attn")) + ("sel_attn",)
+        if any(launches[name] <= 0 for name in want):
+            raise RuntimeError(f"{label}: launches {launches}")
+        print(f"  launches {launches}", flush=True)
+        out.update(
+            pool=pool_dtype or "bf16", n_ctx=n, snapshot_mib=snapshot_mib,
+            **{f"{k}_ms": v * 1e3 for k, v in secs.items()},
+            cold_prefill_ms=cold_ms, suffix_first_logit_max_diff=diff,
+            suffix_first_logit_rel_rms=rel, suffix_tokens_equal=same,
+            pages_allocated=allocated, pages_shared=shared,
+            cow_copies=cow, parent_pages=parent,
+            sessions=lib.stats()["sessions"], launches=launches)
+        runs[label] = out
+        del lib, exported
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    sessions_root = tempfile.mkdtemp(prefix="mpic_smoke_sessions_")
+    try:
+        for pool_dtype in ("", "int8"):
+            print(f"sessions, {pool_dtype or 'bf16'} pool:")
+            serve_sessions(pool_dtype, os.path.join(sessions_root,
+                                                    pool_dtype or "bf16"))
+    finally:
+        shutil.rmtree(sessions_root, ignore_errors=True)
+    phase("serve_sessions", t0)
+
     # -- 5d. serve the GQA decoders at full width -----------------------------
     # llava's weights go first: each model is freed before the next is built
     del model, params
@@ -1506,9 +1883,10 @@ def main() -> int:
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (str(ROOT / "src"), env.get("PYTHONPATH")) if p)
-    for extra in ([], ["--no-paged"]):
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve", *CLI_ARGS,
-               *extra]
+    for key, args in (("paged", CLI_ARGS),
+                      ("--no-paged", [*CLI_ARGS, "--no-paged"]),
+                      ("granite-moe-1b-a400m", MOE_CLI_ARGS)):
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", *args]
         baseline = card_memory_mib()
         rc, out, err, wall, card_mib, rss = run_watched(cmd, env, 600)
         print(f"$ {' '.join(cmd[1:])}\n  exit {rc} in {wall:.3f} s; "
@@ -1534,7 +1912,7 @@ def main() -> int:
                 or any(int(t) != MAX_NEW for *_, t in lines)
                 or not min(reused[0]) > 0 or any(reused[1])):
             raise RuntimeError(f"the CLI's output is wrong:\n{out}")
-        runs_cli[" ".join(extra) or "paged"] = {
+        runs_cli[key] = {
             "wall_s": wall, "card_mib_max": card_mib,
             "card_mib_before": baseline, "rss_mib_max": rss,
             "ttft_ms": [int(t) for _, t, _, _ in lines],
@@ -1544,7 +1922,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     gqa_snaps, gqa_peaks = {}, {}
-    for arch, gqa_runs in GQA_RUNS:
+
+    def serve_models(model_runs, captures, after=None):
+        """Each model of ``model_runs`` in turn: built with seeded weights,
+        served under its runs (phase 3's traffic; each run's kernels
+        gated), its two pools snapshotted for phase 6, its peak device
+        memory printed, ``after(arch, model, params)`` called, then
+        freed."""
+        for arch, arch_runs in model_runs:
+            serve_model(arch, arch_runs, captures, after)
+
+    def serve_model(arch, gqa_runs, captures, after):
         gcfg = get_config(arch)
         gmodel = build_model(gcfg)
         torch.cuda.reset_peak_memory_stats()
@@ -1557,7 +1945,10 @@ def main() -> int:
               f"{gcfg.num_kv_heads} kv heads (G "
               f"{gcfg.num_heads // gcfg.num_kv_heads}), head dim "
               f"{gcfg.head_dim}, qkv_bias {gcfg.qkv_bias}, "
-              f"{nbytes / 2**30:.2f} GiB of seeded weights", flush=True)
+              + (f"{gcfg.num_experts} experts of {gcfg.d_ff} top-"
+                 f"{gcfg.experts_per_token} + {gcfg.num_shared_experts} "
+                 "shared, " if gcfg.arch_type == "moe" else "")
+              + f"{nbytes / 2**30:.2f} GiB of seeded weights", flush=True)
         uploads = 9 * gcfg.num_layers       # kernel 5 in the uploads alone
         for (label, policy, kwargs, pool_dtype, paged, engine_kw,
              seeds) in gqa_runs:
@@ -1571,7 +1962,7 @@ def main() -> int:
                   else contextlib.nullcontext()):
                 reqs, launches, snap = serve(
                     label, policy, kwargs, pool_dtype, paged,
-                    snap_paged=snap_paged, cases=GQA_CAPTURES.get(label),
+                    snap_paged=snap_paged, cases=captures.get(label),
                     served=(gmodel, gparams), engine_kw=engine_kw,
                     seeds=seeds)
             runs[label]["model"] = arch
@@ -1606,9 +1997,13 @@ def main() -> int:
         print(f"  {gcfg.name}: peak device memory "
               f"{gqa_peaks[arch] / 2**30:.2f} GiB "
               "(torch.cuda.max_memory_allocated)", flush=True)
+        if after is not None:
+            after(arch, gmodel, gparams)
         del gparams, gmodel
         gc.collect()
         torch.cuda.empty_cache()
+
+    serve_models(GQA_RUNS, GQA_CAPTURES)
     # qwen's gates: chunked against monolithic first-token logits; seeded
     # sampling reproducible, top-k 1 greedy
     q = "qwen2.5-14b"
@@ -1676,6 +2071,97 @@ def main() -> int:
     if missing:
         raise RuntimeError(f"dense attention inputs never seen: {missing}")
     phase("serve_gqa", t0)
+
+    # -- 5i. serve the MoE decoders at full width ----------------------------
+    # deepseek-moe-16b (MHA at Dh 128; 64 experts top-6 and 2 shared; ~31
+    # GiB of seeded bf16 weights) under mpic on both pools and
+    # full_recompute, then granite-moe-1b-a400m (G 2 at Dh 64; 32 experts
+    # top-8) under mpic on both pools, phase 3's traffic.  After a model's
+    # runs, one upload and one full prefill count the (token, choice) pairs
+    # that capacity dropped in every layer (an untimed pass: the count
+    # reads the card)
+    t0 = time.perf_counter()
+    moe_drops = {}
+
+    def count_drops(arch, mdl, prm):
+        mc = mdl.cfg
+        counts = []
+        route = moe_mod.route
+
+        def counting(router, rcfg, xt, *args, **kwargs):
+            out = route(router, rcfg, xt, *args, **kwargs)
+            counts.append((xt.shape[0], out[5], int((~out[4]).sum())))
+            return out
+
+        p0 = make_dialogues(n=1, n_images=2, d_model=mc.d_model,
+                            media_len=MEDIA_LEN, style="mmdu")[0].prompt
+        emb = p0.media_segments()[0][1].embeds
+        n = p0.total_len
+        moe_mod.route = counting
+        try:
+            with no_plain_versions():
+                precompute_media_kv(mdl, prm, torch.as_tensor(
+                    np.asarray(emb, np.float32), device=dev))
+                upload, counts[:] = list(counts), []
+                mdl.prefill(prm, torch.as_tensor(
+                    p0.flat_tokens()[None], device=dev),
+                    mdl.make_cache(1, n + 1), media_embeds=torch.as_tensor(
+                        p0.flat_media_embeds(mc.d_model)[None], device=dev),
+                    media_mask=torch.as_tensor(p0.media_mask()[None],
+                                               device=dev))
+                prefill = list(counts)
+        finally:
+            moe_mod.route = route
+        moe_drops[arch] = {}
+        for name, calls in (("upload", upload), ("full_prefill", prefill)):
+            rows, cap = calls[0][0], calls[0][1]
+            by_layer = [d for _, _, d in calls]
+            moe_drops[arch][name] = {
+                "rows": rows, "capacity": cap,
+                "mean_load": rows * mc.experts_per_token / mc.num_experts,
+                "pairs_per_layer": rows * mc.experts_per_token,
+                "dropped_by_layer": by_layer}
+            print(f"  {arch} {name}: T {rows}, capacity {cap} against a "
+                  f"mean load of "
+                  f"{rows * mc.experts_per_token / mc.num_experts:.1f}; "
+                  f"pairs dropped {sum(by_layer)} of "
+                  f"{rows * mc.experts_per_token * len(calls)} over "
+                  f"{len(calls)} layers ({by_layer})", flush=True)
+            if len(calls) != mc.num_layers or (
+                    (arch, name) in MOE_DROP_GATES and not sum(by_layer)):
+                raise RuntimeError(f"{arch} {name}: capacity never bit "
+                                   f"({calls})")
+
+    serve_models(MOE_RUNS, MOE_CAPTURES, after=count_drops)
+    for arch in MOE_ARCHS:
+        mc = get_config(arch)
+        # the capacity layout multiplies every expert's weights each pass;
+        # four decode slots route at most 4·k of them
+        per_expert = 3 * mc.d_model * mc.d_ff * 2
+        floor_all = mc.num_layers * mc.num_experts * per_expert
+        floor_routed = mc.num_layers * min(
+            mc.num_experts, 4 * mc.experts_per_token) * per_expert
+        step = runs[f"{arch}:mpic"]["mean_decode_step_ms"]
+        print(f"  {arch}: decode step {step:.2f} ms against a device floor "
+              f"of {floor_all / HBM_BYTES_PER_S * 1e3:.2f} ms for every "
+              f"expert's weights ({floor_all / 1e9:.2f} GB a step) and "
+              f"{floor_routed / HBM_BYTES_PER_S * 1e3:.2f} ms for the "
+              "routed experts alone", flush=True)
+        for label, *_ in dict(MOE_RUNS)[arch]:
+            runs[label].update(all_experts_floor_ms=floor_all
+                               / HBM_BYTES_PER_S * 1e3,
+                               routed_experts_floor_ms=floor_routed
+                               / HBM_BYTES_PER_S * 1e3,
+                               capacity_drops=moe_drops[arch])
+    d = "deepseek-moe-16b"
+    same = runs[f"{d}:mpic"]["tokens"] == runs[f"{d}:full_recompute"]["tokens"]
+    print(f"  {d} mpic against full_recompute: tokens identical {same} "
+          "(information)")
+    missing = {n for c in MOE_CAPTURES.values() for n in c.values()} \
+        - set(captured)
+    if missing:
+        raise RuntimeError(f"dense attention inputs never seen: {missing}")
+    phase("serve_moe", t0)
 
     # -- 5e. serve full-width hymba-1.5b on the dense cache ------------------
     # the hybrid: attention (G 5, Dh 64, a 2048-token window) and SSD heads
@@ -1997,7 +2483,7 @@ def main() -> int:
         results[name] = prefill_main(snap, hq, dh, window)
     # the same at each GQA model's layer 0, from its served runs
     gqa_results, gqa_paged = {}, []
-    for arch in GQA_ARCHS:
+    for arch in (*GQA_ARCHS, *MOE_ARCHS):
         acfg = get_config(arch)
         by_kernel = gqa_results[arch] = {}
         for pool_name, suffix in (("bf16", ""), ("int8", "_q8")):
@@ -2192,7 +2678,8 @@ def main() -> int:
                   "chunk": sel_ops.TENSOR_CORES,
                   "long_prefill": sel_ops.TENSOR_CORES,
                   "dense_decode": sel_ops.SPLIT_KEYS}
-    gqa_dense = [n for c in GQA_CAPTURES.values() for n in c.values()] + \
+    gqa_dense = [n for caps in (GQA_CAPTURES, MOE_CAPTURES)
+                 for c in caps.values() for n in c.values()] + \
         list(HYMBA_CAPTURES.values())
     # hymba's layer-0 shapes: kernel 5 at the upload, the long request's
     # prefill and a decode step with it (the window biting in both), the
@@ -2652,6 +3139,96 @@ def main() -> int:
               f"{diff:.2e}, tokens identical {same}")
         if not diff <= 1e-3 or not same:
             raise RuntimeError("the card's engine disagrees with the CPU's")
+    # the smoke deepseek-moe-16b in fp32 (4 experts top-2 and a shared
+    # one): its prompts (190-208 tokens) pass T = 64, so capacity drops
+    # pairs in its full and paged prefills, on the card as on the CPU
+    small = dataclasses.replace(get_smoke_config("deepseek-moe-16b"),
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    smodel = build_model(small)
+    card_drops = []
+    route = moe_mod.route
+
+    def counting(*args, **kwargs):
+        out = route(*args, **kwargs)
+        if out[4].device.type == dev.type:
+            card_drops.append(int((~out[4]).sum()))
+        return out
+
+    moe_mod.route = counting
+    try:
+        small_reference("small fp32 deepseek-moe-16b (T > 64)", smodel,
+                        smodel.init(seed=1, device="cpu"), [
+                            ("mpic", {"k": 8}, "", True, 1e-3, False, None),
+                            ("full_recompute", {}, "", True, 1e-3, False,
+                             None),
+                            ("mpic", {"k": 8}, "int8", True, 5e-2, False,
+                             None)])
+    finally:
+        moe_mod.route = route
+    print(f"small fp32 deepseek-moe-16b: {sum(card_drops)} (token, choice) "
+          f"pairs dropped by capacity on the card over {len(card_drops)} "
+          "routed passes")
+    if not sum(card_drops) > 0:
+        raise RuntimeError("the small MoE never dropped a pair")
+    # a freeze / thaw / suffix thaw / fork round on the smoke llava (fp32),
+    # on the card and on the CPU
+    small = dataclasses.replace(get_smoke_config("llava-1.6-7b"),
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    smodel = build_model(small)
+    p_cpu = smodel.init(seed=1, device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to(dev)
+    toks = np.random.default_rng(22).integers(8, 200, 40)
+    suffix = [int(t) for t in np.random.default_rng(23).integers(8, 200, 9)]
+    small_spool = tempfile.mkdtemp(prefix="mpic_smoke_sessions_small_")
+    outs = {}
+    try:
+        for where, p in (("cpu", p_cpu), (None, p_gpu)):
+            lib = KVLibrary(spool_dir=os.path.join(small_spool, str(where)),
+                            device=where)
+            eng = MPICEngine(smodel, p, EngineConfig(
+                max_seq_len=320, decode_slots=4), static_library=lib,
+                device=where)
+            fz = eng.submit(Request(prompt=Prompt([text_segment(toks)],
+                                                  user_id="u0"),
+                                    max_new_tokens=MAX_NEW,
+                                    policy="full_recompute",
+                                    freeze_after=SESSION_FREEZE_AFTER))
+            eng.run()
+            h = eng.sessions.handles[fz.session_id]
+            th = eng.thaw(h)
+            eng.run()
+            firsts = []
+            prefill = eng._prefiller.prefill
+
+            def recording(*args, prefill=prefill, firsts=firsts):
+                firsts.append(prefill(*args))
+                return firsts[-1]
+
+            eng._prefiller.prefill = recording
+            th2 = eng.thaw(h, suffix, max_new_tokens=MAX_NEW)
+            eng._prefiller.prefill = prefill
+            eng.run()
+            kids = eng.fork(h, 2)
+            eng.run()
+            eng.close()
+            outs[where] = ([fz.output_tokens, th.output_tokens,
+                            th2.output_tokens]
+                           + [k.output_tokens for k in kids],
+                           firsts[0], eng.pool.cow_copies)
+    finally:
+        shutil.rmtree(small_spool, ignore_errors=True)
+    diff = float(np.abs(outs["cpu"][1] - outs[None][1]).max())
+    same = outs["cpu"][0] == outs[None][0]
+    resumed = outs[None][0][0][:-1] + outs[None][0][1]
+    print(f"small fp32 llava sessions (freeze at {SESSION_FREEZE_AFTER}, "
+          f"thaw, thaw with a {len(suffix)}-token suffix, fork 2): card vs "
+          f"CPU suffix first-logit max diff {diff:.2e}, tokens identical "
+          f"{same}, cow_copies {outs[None][2]} / {outs['cpu'][2]}")
+    if not diff <= 1e-3 or not same or outs[None][2] != 1 or \
+            len(resumed) != MAX_NEW:
+        raise RuntimeError("the card's sessions disagree with the CPU's")
     phase("small_reference", t0)
 
     # -- report ------------------------------------------------------------

@@ -138,6 +138,7 @@ class BlockMetadata:
     key: Optional[str] = None          # content-hash block key
     ident: Optional[str] = None        # scope digest
     scope_user: Optional[str] = None
+    salt: Optional[str] = None         # a session block's cache salt
     nbytes: int = 0                    # stored bytes (survives a spool)
     dtype: Optional[str] = None
     shape: Optional[Tuple[int, ...]] = None
@@ -349,11 +350,12 @@ class DiskBackend(StorageBackend):
     @staticmethod
     def _sidecar(meta: Optional[BlockMetadata]) -> Optional[dict]:
         """The JAX package's ``__meta__`` fields, so its rehydration scan
-        can index a file this backend wrote."""
+        can index a file this backend wrote; a session block keeps its salt,
+        without which a rehydrated entry answers only unsalted lookups."""
         if meta is None:
             return None
         return {"media_id": meta.media_id, "user_id": meta.scope_user,
-                "key": meta.key, "ident": meta.ident, "salt": None,
+                "key": meta.key, "ident": meta.ident, "salt": meta.salt,
                 "nbytes": meta.nbytes, "dtype": meta.dtype,
                 "shape": list(meta.shape) if meta.shape else None,
                 "created": meta.created, "expires": meta.expires}

@@ -68,9 +68,19 @@ consecutive device-level disk failures quarantine the disk tier: spooling
 stops, reads skip it, and the library serves from memory and peers until
 :meth:`KVLibrary.reinstate_disk`.
 
+**Sessions.**  A frozen session's snapshot (``serving/sessions.py``) is a
+block like any other, stored under a per-session ``salt`` that mixes into
+its content key and its scope digest, so the spool file's name and the
+peers' address both need the salt: a lookup with another salt (or none) is
+a miss, here and on every peer.  ``put(raw=True)`` keeps an fp snapshot's
+bytes in a ``quantize=True`` library, and ``put(qk=, qv=)`` stores an int8
+snapshot as it is.  ``stats()["sessions"]`` counts freezes, thaws and forks
+(:meth:`KVLibrary.note_session`) beside the live copy-on-write gauges of
+the engines' pools (:meth:`KVLibrary.add_session_source`).
+
 Not ported: per-replica HBM warmth (``touch``, ``warmth``,
 ``get(replica=)``, ``ident_tiers``), which comes with the router and the
-fleet, and sessions.
+fleet.
 """
 from __future__ import annotations
 
@@ -247,6 +257,8 @@ class KVLibrary:
         # disk and peer reads' staging and copy to the card, by tier
         self._copy_s = {TIER_DISK: 0.0, TIER_NETWORK: 0.0}
         self._copy_streams: Dict[torch.device, torch.cuda.Stream] = {}
+        self._session_ctr = {"freezes": 0, "thaws": 0, "forks": 0}
+        self._session_sources: List[Callable[[], Dict[str, int]]] = []
         self.rehydrate_stats: Dict[str, int] = {}
         if rehydrate:
             self.rehydrate_stats = self.rehydrate_spool(device)
@@ -298,28 +310,55 @@ class KVLibrary:
         with self._clock:
             self._direct_links += n
 
+    def note_session(self, **events: int) -> None:
+        """Count session events (``freezes``, ``thaws``, ``forks``) for
+        ``stats()["sessions"]``."""
+        with self._clock:
+            for name, n in events.items():
+                self._session_ctr[name] = self._session_ctr.get(name, 0) + n
+
+    def add_session_source(self, fn: Callable[[], Dict[str, int]]) -> None:
+        """Register a live gauge for ``stats()["sessions"]``: an engine's
+        pool gives its ``cow_copies`` and ``pages_shared``; several sources
+        sum by key."""
+        with self._clock:
+            self._session_sources.append(fn)
+
     def _key(self, user_id: str, media_id: str) -> Tuple[str, str]:
         return ("*", media_id) if self.shared else (user_id, media_id)
 
     # -- the API ---------------------------------------------------------------
-    def put(self, user_id: str, media_id: str, k, v, *,
-            ttl: Optional[float] = None) -> Entry:
+    def put(self, user_id: str, media_id: str, k=None, v=None, *,
+            ttl: Optional[float] = None, salt: Optional[str] = None,
+            raw: bool = False, qk: Optional[QuantizedKV] = None,
+            qv: Optional[QuantizedKV] = None) -> Entry:
         """Store one media KV block (L, S, Hkv, Dh), replacing any block
-        under the scope; ``quantize=True`` stores int8.  Quantizing runs
-        outside the lock, the swap and rebalance inside it, the invalidation
-        listeners after it.  No bytes are hashed here: the content key waits
-        for the first spool.  The returned entry is not pinned."""
+        under the scope; ``quantize=True`` stores int8, unless ``raw``.
+        ``qk``/``qv`` store an already-quantized payload as it is.
+        ``salt`` (a session's cache salt) mixes into the block's content key
+        and scope digest; only a lookup with the same salt finds it.
+        Quantizing runs outside the lock, the swap and rebalance inside it,
+        the invalidation listeners after it.  No bytes are hashed here: the
+        content key waits for the first spool.  The returned entry is not
+        pinned."""
         now = time.time()
-        k, v = torch.as_tensor(k), torch.as_tensor(v)
-        e = Entry(media_id, created=now, device=k.device,
-                  expires=now + (self.default_ttl if ttl is None else ttl))
-        if self.quantize:
-            e.payload.qk, e.payload.qv = quantize_kv(k), quantize_kv(v)
+        expires = now + (self.default_ttl if ttl is None else ttl)
+        if qk is not None:
+            e = Entry(media_id, created=now, device=qk.q.device,
+                      expires=expires)
+            e.payload.qk, e.payload.qv = qk, qv
         else:
-            e.payload.k, e.payload.v = k, v
+            k, v = torch.as_tensor(k), torch.as_tensor(v)
+            e = Entry(media_id, created=now, device=k.device,
+                      expires=expires)
+            if self.quantize and not raw:
+                e.payload.qk, e.payload.qv = quantize_kv(k), quantize_kv(v)
+            else:
+                e.payload.k, e.payload.v = k, v
         key = self._key(user_id, media_id)
         m = e.meta
-        m.ident = scope_digest(key)
+        m.ident = scope_digest(key, salt)
+        m.salt = salt
         m.scope_user = key[0]
         m.dtype, m.shape = e.payload.dtype, e.payload.shape
         e._owner = self
@@ -338,8 +377,8 @@ class KVLibrary:
                 fn(user_id, media_id)
         return e
 
-    def get(self, user_id: str, media_id: str, *,
-            pin: bool = False) -> Optional[Entry]:
+    def get(self, user_id: str, media_id: str, *, pin: bool = False,
+            salt: Optional[str] = None) -> Optional[Entry]:
         """Lookup honouring scope and expiry.  The lock covers the lookup
         only; a disk read or a peer pull runs outside it, so loader workers
         fetch different entries at once.  A scope with no local entry is
@@ -347,18 +386,22 @@ class KVLibrary:
         local entry).  ``pin`` holds the tensors against a spool until
         :meth:`unpin`.  A miss on every lower tier (file gone, corrupt or
         unreadable; peers missing or down) drops the entry and returns
-        None: the caller recomputes."""
+        None: the caller recomputes.  ``salt`` must be the stored block's
+        (None for a block stored without one); another is a miss, locally
+        and on the peers, whose address the salt is part of."""
         key = self._key(user_id, media_id)
         with self._lock:
             e = self._entries.get(key)
             if e is not None and time.time() > e.expires:
                 self._evict(key)
                 e = None
+            if e is not None and e.meta.salt != salt:
+                e = None            # another session's block: a miss
             if e is not None:
                 e.last_used = time.time()
                 hit_tier = e.tier
         if e is None:
-            e = self._network_admit(user_id, media_id)
+            e = self._network_admit(user_id, media_id, salt)
             if e is None:
                 with self._clock:
                     self._misses += 1
@@ -406,7 +449,7 @@ class KVLibrary:
                                   or claimed == m.key):
                 if m.key is None:
                     m.key = claimed or content_key(
-                        p, (m.scope_user, m.media_id))
+                        p, (m.scope_user, m.media_id), m.salt)
                 self._adopt(e, p, TIER_NETWORK)
                 return
         raise FileNotFoundError(m.key or m.ident or m.media_id)
@@ -423,12 +466,12 @@ class KVLibrary:
         self._count(tier, "promotes")
 
     def register_remote(self, user_id: str, media_id: str, *,
-                        nbytes: int = 0,
+                        nbytes: int = 0, salt: Optional[str] = None,
                         ttl: Optional[float] = None) -> Optional[Entry]:
         """Register a block that lives on a peer without pulling it: a
         payload-less network-tier entry, which the loader prefetches and
-        the first ``get`` pulls onto ``device``.  None if the scope already
-        has an entry (the local block wins)."""
+        the first ``get`` (with the same ``salt``) pulls onto ``device``.
+        None if the scope already has an entry (the local block wins)."""
         if self.network is None:
             raise RuntimeError("register_remote requires connect_peers()")
         now = time.time()
@@ -437,7 +480,8 @@ class KVLibrary:
                   expires=now + (self.default_ttl if ttl is None else ttl))
         m = e.meta
         m.tier, m.nbytes = TIER_NETWORK, nbytes
-        m.ident, m.scope_user = scope_digest(key), key[0]
+        m.ident, m.scope_user = scope_digest(key, salt), key[0]
+        m.salt = salt
         e._owner = self
         with self._lock:
             if key in self._entries:
@@ -446,16 +490,17 @@ class KVLibrary:
             self._by_ident[m.ident] = key
         return e
 
-    def _network_admit(self, user_id: str,
-                       media_id: str) -> Optional[Entry]:
-        """A scope miss, asked of the peers.  A verified pull becomes a
-        host-tier entry with the peer's content key and remaining TTL, its
-        tensors copied to ``device``; a miss (404, timeouts after the
-        retry, a failed checksum, open breakers) returns None."""
+    def _network_admit(self, user_id: str, media_id: str,
+                       salt: Optional[str] = None) -> Optional[Entry]:
+        """A scope miss, asked of the peers at the salted address.  A
+        verified pull becomes a host-tier entry with the peer's content key
+        and remaining TTL, its tensors copied to ``device``; a miss (404,
+        timeouts after the retry, a failed checksum, open breakers) returns
+        None."""
         if self.network is None:
             return None
         key = self._key(user_id, media_id)
-        ident = scope_digest(key)
+        ident = scope_digest(key, salt)
         p, hdrs = self.network.get_with_headers(ident)
         if p is None:
             return None
@@ -468,7 +513,8 @@ class KVLibrary:
                   device=resolve_device(self.device))
         m = e.meta
         m.tier = TIER_HOST
-        m.key = hdrs.get("X-Block-Key") or content_key(p, key)
+        m.key = hdrs.get("X-Block-Key") or content_key(p, key, salt)
+        m.salt = salt
         self._to_device(e, p, TIER_NETWORK)
         e.payload.k, e.payload.v = p.k, p.v
         e.payload.qk, e.payload.qv = p.qk, p.qv
@@ -534,11 +580,14 @@ class KVLibrary:
             if entry.meta.pins == 0:
                 self._rebalance()
 
-    def peek_tier(self, user_id: str, media_id: str) -> Optional[str]:
-        """The tier of a block, without touching its LRU state."""
+    def peek_tier(self, user_id: str, media_id: str, *,
+                  salt: Optional[str] = None) -> Optional[str]:
+        """The tier of a block, without touching its LRU state; a probe
+        with another ``salt`` than the block's sees nothing, as in
+        :meth:`get`."""
         with self._lock:
             e = self._entries.get(self._key(user_id, media_id))
-            if e is None or time.time() > e.expires:
+            if e is None or time.time() > e.expires or e.meta.salt != salt:
                 return None
             return e.tier
 
@@ -608,8 +657,8 @@ class KVLibrary:
             m = e.meta
             m.tier, m.last_used = TIER_DISK, now
             m.key = meta.get("key") or key
-            m.ident = meta.get("ident") or scope_digest(scope,
-                                                        meta.get("salt"))
+            m.salt = meta.get("salt")
+            m.ident = meta.get("ident") or scope_digest(scope, m.salt)
             m.scope_user = meta["user_id"]
             m.nbytes = int(meta.get("nbytes", 0))
             m.dtype = meta.get("dtype")
@@ -658,7 +707,7 @@ class KVLibrary:
             e.wait_loaded()
             host = _on_host(e.payload)
             if block_key is None:
-                block_key = content_key(host, key)
+                block_key = content_key(host, key, e.meta.salt)
                 with self._lock:
                     e.meta.key = e.meta.key or block_key
             headers["X-Block-Key"] = block_key
@@ -714,7 +763,7 @@ class KVLibrary:
         try:
             m = e.meta
             if m.key is None:
-                m.key = content_key(e.payload, key)
+                m.key = content_key(e.payload, key, m.salt)
             m.nbytes = e.payload.stored_nbytes
             try:
                 self.disk.put(m.key, e.payload, m)
@@ -765,7 +814,9 @@ class KVLibrary:
         and copy of those reads to the card; the disk's ``corrupt``,
         ``io_errors`` and ``quarantined``, the network's ``timeouts``,
         ``retries``, ``breaker_skips`` and ``breakers``.  The network tier
-        appears only with peers."""
+        appears only with peers.  ``sessions``: the freeze, thaw and fork
+        counts and the registered pools' ``cow_copies`` and
+        ``pages_shared``."""
         with self._lock:
             by_tier: Dict[str, int] = {}
             for e in self._entries.values():
@@ -777,6 +828,13 @@ class KVLibrary:
             out.update(misses=self._misses, dequants=self._dequants,
                        direct_links=self._direct_links)
             copy_s = dict(self._copy_s)
+            sessions = dict(self._session_ctr, cow_copies=0, pages_shared=0)
+            sources = list(self._session_sources)
+        # the pools' live gauges, read outside the counter lock
+        for fn in sources:
+            for name, n in fn().items():
+                sessions[name] = sessions.get(name, 0) + int(n)
+        out["sessions"] = sessions
         b = self.disk.stats()
         # evaluated, not read: a streak past the threshold reads degraded
         # before the next disk access sets the flag

@@ -2,13 +2,17 @@
 
 The port serves the paper's model (llava-1.6-7b, MHA), four dense GQA or
 MHA decoders (qwen2.5-14b with QKV bias, G 5; yi-9b, G 8;
-phi3-medium-14b, G 4; stablelm-1.6b, MHA at head dim 64),
+phi3-medium-14b, G 4; stablelm-1.6b, MHA at head dim 64), two MoE
+decoders (deepseek-moe-16b, MHA at head dim 128, 64 experts top-6 and 2
+shared; granite-moe-1b-a400m, G 2 at head dim 64, 32 experts top-8),
 mamba2-130m and the hybrid hymba-1.5b (attention and SSD heads in every
-layer, G 5, a 2048-token window); the other architectures of the JAX
-package are not ported yet."""
+layer, G 5, a 2048-token window); whisper and internvl2-76b are not ported
+yet."""
 from __future__ import annotations
 
 from repro_torch.configs import (
+    deepseek_moe_16b,
+    granite_moe_1b_a400m,
     hymba_1_5b,
     llava_mpic,
     mamba2_130m,
@@ -22,7 +26,9 @@ from repro_torch.configs.base import ModelConfig, reduced
 _REGISTRY = {"llava-1.6-7b": llava_mpic, "mamba2-130m": mamba2_130m,
              "qwen2.5-14b": qwen2_5_14b, "yi-9b": yi_9b,
              "phi3-medium-14b": phi3_medium_14b,
-             "stablelm-1.6b": stablelm_1_6b, "hymba-1.5b": hymba_1_5b}
+             "stablelm-1.6b": stablelm_1_6b, "hymba-1.5b": hymba_1_5b,
+             "deepseek-moe-16b": deepseek_moe_16b,
+             "granite-moe-1b-a400m": granite_moe_1b_a400m}
 
 
 def _module(arch_id: str):

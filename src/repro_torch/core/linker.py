@@ -310,3 +310,28 @@ def reselect_paged(model, prompt: Prompt, link: PagedLinkResult,
         sel_media_embeds=sel_media_embeds, sel_media_mask=sel_media_mask,
         n_reused=int(link.total - sel.sum()),
         n_recomputed=int(sel.sum()))
+
+
+def session_suffix_link(tokens, n_ctx: int, d_model: int) -> PagedLinkResult:
+    """The link of a thawed session's new turn.  The snapshot's KV was
+    written at its live positions, so thaw adopts its pages as they are:
+    no relink, no scatter, the whole prefix reused.  What is left is the
+    suffix: text tokens at positions ``n_ctx ..``, all selected and all
+    forced (the library holds nothing to reuse for them), for the paged
+    selective prefill."""
+    toks = np.asarray(tokens, np.int32).reshape(-1)
+    s = int(toks.shape[0])
+    total = n_ctx + s
+    forced = np.zeros(total, bool)
+    forced[n_ctx:] = True
+    return PagedLinkResult(
+        sel_idx=np.arange(n_ctx, total, dtype=np.int64),
+        sel_tokens=toks,
+        sel_media_embeds=np.zeros((s, d_model), np.float32),
+        sel_media_mask=np.zeros(s, bool),
+        n_reused=n_ctx,
+        n_recomputed=s,
+        misses=[],
+        total=total,
+        forced=forced,
+    )

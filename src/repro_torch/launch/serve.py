@@ -21,14 +21,15 @@ The network KV tier spans processes: ``--serve-blocks PORT`` exports this
 server's static library to peers, and ``--peers host:port[,...]`` pulls
 locally missing media KV from theirs before falling back to recompute.
 ``--fault-plan`` injects seeded faults (``cache/faults.py``).
+``--freeze-idle-s`` spools frozen session snapshots idle that long
+(``serving/sessions.py``).
 
 ``--policy`` takes a comma-separated trace cycled over the requests; an
 unknown policy name fails that request, and the server keeps serving.
 
-Not ported: ``--freeze-idle-s``, ``--mesh``, ``--replicas``, ``--fleet``,
-``--router`` and ``--deadline-s``, each of which needs a module the port
-does not have yet (sessions, mesh sharding, the cluster, the fleet,
-deadlines).
+Not ported: ``--mesh``, ``--replicas``, ``--fleet``, ``--router`` and
+``--deadline-s``, each of which needs a module the port does not have yet
+(mesh sharding, the cluster, the fleet, deadlines).
 """
 from __future__ import annotations
 
@@ -75,6 +76,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="sequential admission baseline")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help=">0: chunk long prefills across engine steps")
+    ap.add_argument("--freeze-idle-s", type=float, default=0.0,
+                    help=">0: frozen session snapshots idle this many "
+                         "seconds are spooled to the disk tier (freeze/"
+                         "thaw session store, see serving/sessions.py)")
     ap.add_argument("--peers", default="",
                     help="comma-separated host:port peer block servers — "
                          "enables the network KV tier (a local cache miss "
@@ -98,7 +103,8 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
     return EngineConfig(
         max_seq_len=args.max_seq_len, decode_slots=args.slots,
         paged=args.paged, pipelined=args.pipelined,
-        prefill_chunk_tokens=args.prefill_chunk)
+        prefill_chunk_tokens=args.prefill_chunk,
+        freeze_idle_s=args.freeze_idle_s)
 
 
 def build(args: argparse.Namespace, params=None

@@ -17,7 +17,7 @@ from repro_torch.models.layers import INVALID_POS
 
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = []
-    if cfg.arch_type in ("moe", "audio"):
+    if cfg.arch_type == "audio":
         unsupported.append(f"arch_type={cfg.arch_type!r}")
     if cfg.hybrid != (cfg.arch_type == "hybrid"):
         unsupported.append(f"hybrid={cfg.hybrid} with "
@@ -29,8 +29,8 @@ def _check_supported(cfg: ModelConfig) -> None:
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet ({', '.join(unsupported)}); the "
-            "port serves attention-only models with RoPE, the pure SSM and "
-            "the attention + SSM hybrid")
+            "port serves attention-only models with RoPE (dense or MoE "
+            "FFNs), the pure SSM and the attention + SSM hybrid")
 
 
 def _pad_right(t: torch.Tensor, pad: int) -> torch.Tensor:

@@ -8,7 +8,8 @@ an ``nn.ModuleList`` of :class:`DecoderLayer` (or, for an SSM, of
 stacked layer axis), the final norm and the LM head (none when the
 embeddings are tied: the head is then ``embed.T``).  A hybrid's
 :class:`DecoderLayer` also holds an :class:`~repro_torch.models.ssm.SSM`
-and the two norms that mix its output with the attention's.  Weights keep
+and the two norms that mix its output with the attention's; a MoE's holds
+a :class:`~repro_torch.models.moe.MoE` in place of the MLP.  Weights keep
 the JAX layout ``(in, out)`` and apply as ``x @ W``.  The passes are plain
 functions on tensors:
 
@@ -52,6 +53,7 @@ from repro_torch.models.layers import (
     rmsnorm,
     swiglu,
 )
+from repro_torch.models.moe import MoE, moe_ffn
 from repro_torch.models.ssm import SSM, init_ssm_state, ssm_decode, ssm_forward
 
 
@@ -100,16 +102,20 @@ class SwiGLU(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    """Attention and MLP; with ``cfg.hybrid`` also the SSM heads, which run
-    beside the attention on the same normed input, and the norms
-    ``attn_mix_norm``/``ssm_mix_norm`` of the two outputs they mix."""
+    """Attention and MLP (``moe`` in its place for ``arch_type="moe"``);
+    with ``cfg.hybrid`` also the SSM heads, which run beside the attention
+    on the same normed input, and the norms ``attn_mix_norm``/
+    ``ssm_mix_norm`` of the two outputs they mix."""
 
     def __init__(self, cfg, dtype, device):
         super().__init__()
         self.attn_norm = _ones(cfg.d_model, dtype, device)
         self.attn = Attention(cfg, dtype, device)
         self.mlp_norm = _ones(cfg.d_model, dtype, device)
-        self.mlp = SwiGLU(cfg, dtype, device)
+        if cfg.arch_type == "moe":
+            self.moe = MoE(cfg, dtype, device)
+        else:
+            self.mlp = SwiGLU(cfg, dtype, device)
         if cfg.hybrid:
             self.ssm = SSM(cfg, dtype, device)
             self.attn_mix_norm = _ones(cfg.d_model, dtype, device)
@@ -142,9 +148,10 @@ class Transformer(nn.Module):
 def init_params(cfg, *, seed: int = 0, device=None) -> Transformer:
     """Seeded random weights on ``device``, drawn as the JAX package's
     ``dense_init`` draws them: N(0, 1) in fp32 scaled by 1/sqrt(fan_in)
-    (0.02 for the embedding and the LM head, 0.5 for the SSM conv), then
-    cast to the parameter dtype; norm scales are ones and QKV biases
-    zeros.  The SSM's other
+    (0.02 for the embedding and the LM head, 0.5 for the SSM conv; a
+    stacked ``(E, in, out)`` expert weight counts ``E`` as its fan-in, as
+    ``dense_init`` does), then cast to the parameter dtype, the MoE router
+    kept fp32; norm scales are ones and QKV biases zeros.  The SSM's other
     leaves are set as ``init_ssm`` sets them: ``dt_bias`` -4.6, ``A_log``
     log(linspace(1, 16)), ``D`` ones, ``conv_b`` zeros.  The numbers
     differ from the JAX ones (a ``torch.Generator`` is not ``jax.random``);
@@ -173,8 +180,10 @@ def init_params(cfg, *, seed: int = 0, device=None) -> Transformer:
             if isinstance(lp, SSMLayer):
                 fill_ssm(lp.ssm)
                 continue
-            for w in (lp.attn.wq, lp.attn.wk, lp.attn.wv, lp.attn.wo,
-                      lp.mlp.w_gate, lp.mlp.w_up, lp.mlp.w_down):
+            for w in (lp.attn.wq, lp.attn.wk, lp.attn.wv, lp.attn.wo):
+                fill(w)
+            ffn = lp.moe if cfg.arch_type == "moe" else lp.mlp
+            for _, w in ffn.named_parameters():
                 fill(w)
             if cfg.hybrid:
                 fill_ssm(lp.ssm)
@@ -203,7 +212,11 @@ def _logits(params: Transformer, cfg, x) -> torch.Tensor:
 
 
 def _mlp(lp: DecoderLayer, cfg, x) -> torch.Tensor:
-    return x + lp.mlp(rmsnorm(lp.mlp_norm, x, cfg.rms_norm_eps))
+    """The residual FFN block; a MoE's aux loss is dropped (serving)."""
+    h = rmsnorm(lp.mlp_norm, x, cfg.rms_norm_eps)
+    if cfg.arch_type == "moe":
+        return x + moe_ffn(lp.moe, cfg, h)[0]
+    return x + lp.mlp(h)
 
 
 # ---------------------------------------------------------------------------

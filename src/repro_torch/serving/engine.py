@@ -68,12 +68,22 @@ default static library's tiers and loader, and the ``engine.step`` site:
 top of :meth:`MPICEngine.step`, before any per-request work, so the
 engine's state stays as the last whole step left it.
 
-Not ported yet: sessions, deadlines and mesh sharding.
+Sessions (``engine.sessions``, :mod:`repro_torch.serving.sessions`):
+``freeze`` snapshots a decoding request into the static library and frees
+its slot, ``thaw`` resumes it (with an optional next-turn suffix) and
+``fork`` thaws one snapshot into children that share its pages; a
+request's ``freeze_after`` freezes it (and spools the snapshot) once that
+many tokens are out, and ``freeze_idle_s > 0`` spools snapshots idle that
+long.  A write into a page that a fork still shares copies the page first
+(the MRAG link and the decode step).  Paged engines only.
+
+Not ported yet: deadlines and mesh sharding.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -90,6 +100,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.layers import INVALID_POS, rope_relink
 from repro_torch.serving.request import Request, State
 from repro_torch.serving.retriever import Retriever
+from repro_torch.serving.sessions import SessionHandle, SessionStore
 from repro_torch.serving.scheduler import (
     CHUNKABLE_POLICIES,
     ChunkedPrefillTask,
@@ -111,6 +122,8 @@ class EngineConfig:
     greedy: bool = True             # False -> temperature / top-k sampling
     temperature: float = 1.0        # sampling temperature (greedy=False)
     top_k: int = 0                  # sample from the top k logits (0: all)
+    freeze_idle_s: float = 0.0      # > 0: spool frozen sessions idle this
+                                    # long (seconds), checked every step
 
 
 class MPICEngine:
@@ -140,6 +153,7 @@ class MPICEngine:
         self.running: List[Optional[Request]] = [None] * self.cfg.decode_slots
         self.finished: List[Request] = []
         self.failed: List[Request] = []
+        self.frozen: List[Request] = []         # FROZEN by freeze()
         self.decode_step_s: List[float] = []    # wall time of each decode step
         # slot -> its chunked prefill in progress
         self._prefill_tasks: Dict[int, ChunkedPrefillTask] = {}
@@ -166,6 +180,20 @@ class MPICEngine:
             self._batch_cache = model.make_cache(
                 self.cfg.decode_slots, self.cfg.max_seq_len,
                 device=self.device)
+        self.sessions = SessionStore(self)
+        if self._paged:
+            # the pool's copy-on-write gauges in the library's stats, held
+            # weakly: a library that outlives this engine must not keep its
+            # pool (gigabytes on the card) alive
+            pool_ref = weakref.ref(self.pool)
+
+            def gauges():
+                pool = pool_ref()
+                return {} if pool is None else {
+                    "cow_copies": pool.cow_copies,
+                    "pages_shared": pool.pages_shared}
+
+            self.static_lib.add_session_source(gauges)
 
     def _init_pool(self) -> None:
         mcfg = self.model.cfg
@@ -236,6 +264,30 @@ class MPICEngine:
         self._advance_prefills()
         self._admit()
         self._decode()
+        if self.cfg.freeze_idle_s > 0:
+            self.sessions.sweep_idle(self.cfg.freeze_idle_s)
+
+    # -- session store delegates (serving/sessions.py) ---------------------
+    @torch.inference_mode()
+    def freeze(self, req_id: str, *, spool: bool = False) -> SessionHandle:
+        """Snapshot a decoding request into the static library and free its
+        slot: :meth:`SessionStore.freeze`."""
+        return self.sessions.freeze(req_id, spool=spool)
+
+    @torch.inference_mode()
+    def thaw(self, handle: SessionHandle, suffix_tokens=None, *,
+             max_new_tokens: Optional[int] = None) -> Request:
+        """Resume a frozen session in a free slot, optionally after the
+        next turn's suffix: :meth:`SessionStore.thaw`."""
+        return self.sessions.thaw(handle, suffix_tokens,
+                                  max_new_tokens=max_new_tokens)
+
+    @torch.inference_mode()
+    def fork(self, handle: SessionHandle, n: int, *,
+             max_new_tokens: Optional[int] = None) -> List[Request]:
+        """Thaw one snapshot into ``n`` children sharing its pages
+        (copy-on-write): :meth:`SessionStore.fork`."""
+        return self.sessions.fork(handle, n, max_new_tokens=max_new_tokens)
 
     def run(self, max_steps: int = 10_000) -> List[Request]:
         steps = 0
@@ -463,6 +515,10 @@ class MPICEngine:
         """Link one MRAG segment at positions ``off ..`` of the request's
         pages; False when the pool cannot extend it."""
         pages = self.pool.extend(req.req_id, length, off)
+        if pages is not None:
+            # copy-on-write: the link writes [off, off + length), which may
+            # hold a page a forked sibling still shares
+            pages = self.pool.make_exclusive(req.req_id, off, length)
         if pages is None:
             return False
         self._set_page_row(req.slot, pages)
@@ -523,6 +579,12 @@ class MPICEngine:
         for r in live:
             r.output_tokens.append(self._select_token(r, logits[r.slot]))
             r.cur_len += 1
+            if (r.freeze_after is not None and self._paged
+                    and len(r.output_tokens) >= r.freeze_after):
+                # a set freeze point: snapshot before this token is fed
+                # (the thaw emits it again) and spool at once
+                self.sessions.freeze(r.req_id, spool=True)
+                continue
             if len(r.output_tokens) >= r.max_new_tokens or \
                     r.cur_len + 1 >= self.cfg.max_seq_len:
                 self._finish(r)
@@ -573,6 +635,17 @@ class MPICEngine:
                     continue
                 self._set_page_row(r.slot, pages)
             row = self._page_tables[r.slot]
+            if self.pool.page_ref(int(row[r.cur_len // ps])) > 1:
+                # copy-on-write: this step writes into a page a forked
+                # sibling still shares; copy it first
+                pages = self.pool.make_exclusive(r.req_id, r.cur_len)
+                if pages is None:
+                    r.prefill_stats["truncated"] = True
+                    self._finish(r)
+                    live.remove(r)
+                    continue
+                self._set_page_row(r.slot, pages)
+                row = self._page_tables[r.slot]
             tokens[r.slot, 0] = r.output_tokens[-1]
             positions[r.slot, 0] = r.cur_len
             lengths[r.slot] = r.cur_len + 1

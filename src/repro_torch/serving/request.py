@@ -1,5 +1,5 @@
 """Request lifecycle (port of the JAX package's ``serving/request.py``,
-without deadlines and sessions)."""
+without deadlines)."""
 from __future__ import annotations
 
 import dataclasses
@@ -21,6 +21,8 @@ class State(enum.Enum):
     RUNNING = "running"         # decode phase (continuous batching slot)
     DONE = "done"
     FAILED = "failed"           # prefill raised or bad policy; slot freed
+    FROZEN = "frozen"           # decode snapshotted into the library; slot
+                                # freed (serving/sessions.py)
 
 
 @dataclasses.dataclass(eq=False)
@@ -34,6 +36,11 @@ class Request:
     # MRAG: if set, the retriever runs after the prefill
     retrieval_query: Optional[np.ndarray] = None
     retrieval_top_k: int = 1
+    # the session this request belongs to (set by thaw and fork, stamped by
+    # freeze), and an optional freeze point: once this many output tokens
+    # are out, the engine freezes the request instead of decoding further
+    session_id: Optional[str] = None
+    freeze_after: Optional[int] = None
 
     req_id: str = dataclasses.field(
         default_factory=lambda: f"req{next(_ids)}")

@@ -26,7 +26,9 @@ def params_from_numpy(tree: dict, cfg, device=None, dtype=None) -> Transformer:
     leaves the JAX package keeps in fp32 (``dt_bias``, ``A_log``, ``D``)
     stay fp32.  A model with tied embeddings has no ``lm_head`` leaf.  A
     hybrid's layers carry the ``ssm`` leaves and the ``attn_mix_norm`` /
-    ``ssm_mix_norm`` scales beside the attention's."""
+    ``ssm_mix_norm`` scales beside the attention's; a MoE's carry ``moe``
+    (``router``, fp32, the stacked ``w_gate``/``w_up``/``w_down`` and, with
+    shared experts, ``shared``) in place of ``mlp``."""
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.param_dtype)
     params = Transformer(cfg, device=dev)
@@ -60,8 +62,17 @@ def params_from_numpy(tree: dict, cfg, device=None, dtype=None) -> Transformer:
             for name in ("wq", "wk", "wv", "wo") + (
                     ("bq", "bk", "bv") if cfg.qkv_bias else ()):
                 put(getattr(lp.attn, name), layers["attn"][name][i])
-            for name in ("w_gate", "w_up", "w_down"):
-                put(getattr(lp.mlp, name), layers["mlp"][name][i])
+            if cfg.arch_type == "moe":
+                moe = layers["moe"]
+                put(lp.moe.router, moe["router"][i], torch.float32)
+                for name in ("w_gate", "w_up", "w_down"):
+                    put(getattr(lp.moe, name), moe[name][i])
+                    if lp.moe.shared is not None:
+                        put(getattr(lp.moe.shared, name),
+                            moe["shared"][name][i])
+            else:
+                for name in ("w_gate", "w_up", "w_down"):
+                    put(getattr(lp.mlp, name), layers["mlp"][name][i])
             if cfg.hybrid:
                 put_ssm(lp.ssm, i)
                 for name in ("attn_mix_norm", "ssm_mix_norm"):

@@ -53,12 +53,14 @@ qwen2.5-14b's 40 query heads on 8 kv heads (G 5, so the decode kernel's
 second tile of a group holds one head and the tensor-core prefill's
 64-row blocks split a query's group), yi-9b's 32 on 4 (G 8, the decode
 kernel's largest group), phi3-medium-14b's 40 on 10 (G 4) and
-stablelm-1.6b's 32 on 32 at head dim 64, on every pool and query dtype,
+stablelm-1.6b's 32 on 32 at head dim 64, granite-moe-1b-a400m's 16 on 8
+(G 2) at head dim 64 and deepseek-moe-16b's 16 on 16 at head dim 128, on
+every pool and query dtype,
 with the decode step's lengths (up to 1889) and a window that bites and
 one that does not; kernel 5 at G 5 on its tensor-core route (the upload,
 a 64-token chunk, a selective prefill) and its split-key route (the
 dense decode step, up to three queries: 15 rows), each call's route
-checked.  Kernel 5 at hymba-1.5b's 25 query heads on 5 kv heads (G 5,
+checked, and at the MoE models' heads in an upload and a decode step.  Kernel 5 at hymba-1.5b's 25 query heads on 5 kv heads (G 5,
 Dh 64) with its 2048-token window over slots filled in order: an upload,
 a long prompt's last 1024 queries in 8192 slots, the banded prefill of 2
 windows, and the dense decode step over four 8192-slot rows (the window
@@ -449,8 +451,10 @@ def test_dense_kernel_ignores_slot_order(dev, dtype, sq, route):
 
 # (Hq, Hkv, Dh) of the GQA/MHA models the engine serves
 SERVED = pytest.mark.parametrize("hq,hkv,dh", [
-    (40, 8, 128), (32, 4, 128), (40, 10, 128), (32, 32, 64)],
-    ids=["qwen_g5", "yi_g8", "phi3_g4", "stablelm_mha64"])
+    (40, 8, 128), (32, 4, 128), (40, 10, 128), (32, 32, 64), (16, 8, 64),
+    (16, 16, 128)],
+    ids=["qwen_g5", "yi_g8", "phi3_g4", "stablelm_mha64", "granite_g2_64",
+         "deepseek_mha16"])
 SERVED_LENGTHS = [0, 77, 1302, 1889]
 SERVED_WINDOWS = pytest.mark.parametrize("window", [0, 300])
 
@@ -517,6 +521,20 @@ def test_dense_served_g5(dev, b, sq, skv, route, window):
                                          seed=33)
     out = _dense_check(q, k, v, q_pos, kv_pos, window, route)
     assert torch.all(out[0, 0] == 0)
+
+
+@pytest.mark.parametrize("b,sq,skv,route", [
+    (1, 576, 576, TENSOR_CORES), (4, 1, 2048, SPLIT_KEYS)],
+    ids=["upload", "decode"])
+@pytest.mark.parametrize("hq,hkv,dh", [(16, 8, 64), (16, 16, 128)],
+                         ids=["granite_g2_64", "deepseek_mha16"])
+def test_dense_served_moe(dev, b, sq, skv, route, hq, hkv, dh):
+    """Kernel 5 at the MoE models' heads (granite-moe-1b-a400m's 16 on 8
+    at Dh 64, deepseek-moe-16b's 16 on 16 at Dh 128) in an upload and a
+    dense decode step, each on its route."""
+    q, k, v, q_pos, kv_pos = _dense_case(dev, b, sq, skv, hq, hkv, dh,
+                                         seed=36)
+    _dense_check(q, k, v, q_pos, kv_pos, 0, route)
 
 
 # hymba-1.5b's attention: 25 query heads on 5 kv heads (G 5), Dh 64, a

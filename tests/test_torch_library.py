@@ -174,7 +174,8 @@ def test_put_hashes_nothing_until_the_first_spool(tmp_path, monkeypatch):
     hashed = []
     real = tlib.content_key
     monkeypatch.setattr(tlib, "content_key",
-                        lambda p, scope: hashed.append(scope) or real(p, scope))
+                        lambda p, scope, salt=None: hashed.append(scope)
+                        or real(p, scope, salt))
     lib = KVLibrary(spool_dir=str(tmp_path))
     _put(lib, "a")
     _put(lib, "a")                       # a replacement evicts unhashed

@@ -36,9 +36,13 @@ def test_configs_match_field_for_field():
     jcfg, tcfg = smoke_configs()
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     from repro.configs import get_config as jax_get
-    from repro_torch.configs import get_config
-    assert dataclasses.asdict(get_config("llava-1.6-7b")) == \
-        dataclasses.asdict(jax_get("llava-1.6-7b"))
+    from repro.configs import get_smoke_config as jax_smoke
+    from repro_torch.configs import get_config, get_smoke_config
+    for arch in ("llava-1.6-7b", "deepseek-moe-16b", "granite-moe-1b-a400m"):
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(jax_get(arch))
+        assert dataclasses.asdict(get_smoke_config(arch)) == \
+            dataclasses.asdict(jax_smoke(arch))
 
 
 def test_weight_bridge_carries_every_weight(pair):

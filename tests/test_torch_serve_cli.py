@@ -5,8 +5,9 @@ the JAX package's (``python -m repro.launch.serve``).
 CLIs build equal ``EngineConfig`` fields, and the same static library
 (peers, fault plan); a ``--device cpu`` run under ``mpic,full_recompute,
 bogus`` fails only the bogus request and prints the JAX CLI's ``reused``
-and ``tokens`` per request when it serves the JAX CLI's weights; without
-``--device cpu`` and without a card the run exits non-zero.
+and ``tokens`` per request when it serves the JAX CLI's weights, and so
+does a run of the MoE granite-moe-1b-a400m with ``--freeze-idle-s``;
+without ``--device cpu`` and without a card the run exits non-zero.
 """
 import dataclasses
 import os
@@ -31,7 +32,7 @@ PORTED = {"--arch", "--device", "--requests", "--policy", "--mpic-k",
           "--max-new-tokens", "--slots", "--max-seq-len", "--paged",
           "--no-paged", "--pipelined", "--no-pipelined", "--prefill-chunk",
           "--peers", "--serve-blocks", "--fault-plan", "--fault-seed",
-          "--help"}
+          "--freeze-idle-s", "--help"}
 ARGVS = [
     [],
     ["--no-paged", "--slots", "2", "--max-seq-len", "1024"],
@@ -41,6 +42,7 @@ ARGVS = [
      "peer.request:blackhole;engine.step:crash:start=3", "--fault-seed", "5"],
     ["--fault-plan", "loader.fetch:stall:delay=0.1", "--paged",
      "--pipelined", "--max-new-tokens", "3", "--serve-blocks", "0"],
+    ["--arch", "granite-moe-1b-a400m", "--freeze-idle-s", "2.5"],
 ]
 
 
@@ -99,7 +101,7 @@ def test_engine_config_and_library_match_the_reference(argv, monkeypatch):
     shared = ({f.name for f in dataclasses.fields(cfg)}
               & {f.name for f in dataclasses.fields(ref["cfg"])})
     assert {"max_seq_len", "decode_slots", "paged", "pipelined",
-            "prefill_chunk_tokens"} <= shared
+            "prefill_chunk_tokens", "freeze_idle_s"} <= shared
     assert {n: getattr(cfg, n) for n in shared} \
         == {n: getattr(ref["cfg"], n) for n in shared}
     _, eng, faults = serve.build(args)
@@ -144,6 +146,28 @@ def test_cpu_run_fails_only_the_bogus_request_as_the_reference(
     assert [t for _, t in port[0]] == [4, 4]
     assert len(port[1]) == len(ref[1]) == 1
     assert port[1][0].startswith("unknown policy 'bogus'")
+
+
+def test_cpu_run_of_the_moe_granite_as_the_reference(monkeypatch, capsys):
+    """The smoke granite-moe-1b-a400m (G 2, 32 experts at smoke size 4,
+    top-2) through both CLIs on the JAX CLI's weights, with the idle
+    sweep on: the same ``reused`` and ``tokens`` per request."""
+    arch = "granite-moe-1b-a400m"
+    argv = ["--arch", arch, "--requests", "2", "--policy",
+            "mpic,full_recompute", "--max-new-tokens", "4",
+            "--freeze-idle-s", "5"]
+    tree = jax.tree_util.tree_map(
+        np.asarray,
+        jax_build_model(jax_smoke_config(arch)).init(jax.random.PRNGKey(0)))
+    serve.main([*argv, "--device", "cpu"], params=params_from_numpy(
+        tree, get_smoke_config(arch), "cpu"))
+    port = _requests(capsys.readouterr().out)
+    monkeypatch.setattr(sys, "argv", ["serve.py", *argv])
+    jax_serve.main()
+    ref = _requests(capsys.readouterr().out)
+    assert port == ref
+    assert [r > 0 for r, _ in port[0]] == [True, False]
+    assert [t for _, t in port[0]] == [4, 4] and not port[1]
 
 
 def test_default_device_without_a_card_exits_non_zero():

@@ -296,7 +296,7 @@ def test_attention_paths_refuse_the_ssm(pair):
     with pytest.raises(ValueError, match="attention KV"):
         cacheblend(tmodel, tparams, prompt, KVLibrary(), kv_len=64)
     with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(cfg, arch_type="moe"))
+        build_model(dataclasses.replace(cfg, arch_type="audio"))
 
 
 def test_paged_engine_falls_back_to_the_dense_cache(pair):
