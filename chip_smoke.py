@@ -97,6 +97,21 @@ timed on its own line:
    spool), spool, thaw from disk, from memory with the suffix and pulled,
    the suffix's prefill alone beside the cold prefill alone, the
    snapshot's MiB, ``cow_copies`` and ``pages_shared``;
+5j. the cluster (``serve_cluster``, after 5h, llava still loaded): an
+   ``MPICCluster`` of two replicas over the one llava module, each with a
+   pool of 4 slots of 2048 tokens, behind the affinity router, serving
+   phase 3's traffic twice (the second round once the first is served, so
+   that it finds its images warm), on a bf16 and an int8 pool: (a) clean;
+   (b) under ``engine.step:crash`` on ``replica1`` at its second step; (c)
+   both rounds at once, the second with a budget of 1 ms.  Gates: every
+   request of (a) and (b) (of (c)'s first round) gives phase 3's (phase
+   4's) greedy tokens and first-token logits within 1e-3; (b) quarantines
+   replica 1 with requeues; (c) reaps a request; after each run every page
+   of both pools is free and no pin is held; kernels 1, 3 and 5 (2 and 4 on
+   int8) launched.  Printed: routing per replica, warm hits in the second
+   round, TTFT and decode step per replica, peak memory.  Then one engine
+   with the fleet's slot layout (2 slots) serves the four dialogues without
+   the MRAG query: the tokens 5k is held to;
 5g. llava's weights freed, the serving CLI as a user starts it, in a
    subprocess: ``python -m repro_torch.launch.serve --arch llava-1.6-7b
    --requests 4 --policy mpic,full_recompute --max-seq-len 2048
@@ -107,7 +122,26 @@ timed on its own line:
    ``reused`` above 0 under ``mpic`` and 0 under ``full_recompute``.
    Printed: its wall time, and sampled every half second the card's
    memory in use at most (nvidia-smi) and the process's resident memory
-   at most;
+   at most.  Then the same command line through a cluster
+   (``CLUSTER_CLI_ARGS``: ``--replicas 2 --router affinity --deadline-s
+   60``), gated alike and to print each request's replica and no reaped
+   request;
+5k. the fleet (``serve_fleet``, after 5g; this process holds no model): a
+   ``FleetSupervisor`` of two engine host processes at full width on the
+   card (2 slots of 2048 tokens, the affinity router, a 60 s peer
+   timeout, every block spooled at once): each dialogue's images uploaded
+   to one host (the SHA-1 of its first image id), phase 3's dialogues
+   routed, the host serving one of them killed at once, its restart and
+   warm rejoin awaited (its spool rehydrated) before the requests go out
+   again, a second round, a session frozen (spooled) after 4 tokens on
+   host 0, host 0 killed and restarted, the handle thawed on host 1
+   (pulled from host 0), a drain.  Gates: every result and the resumed
+   session equal the tokens of 5j's 2-slot engine (which are phase 3's for
+   the first three dialogues; printed); deaths equal the two kills; the
+   killed host rehydrates every block it spooled; both hosts exit 0; each
+   host's log shows kernels 1, 3 and 5 launched.  Printed: start-up and
+   kill-to-rejoin seconds, each request's latency, the bytes pulled
+   between hosts, the card's memory in use at each step (nvidia-smi);
 5d. serve the GQA decoders at full width (seeded random weights, bf16,
    one model at a time, each freed before the next;
    phase 3's traffic with 576-token images): qwen2.5-14b (G 5, QKV bias)
@@ -222,6 +256,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import hashlib
 import json
 import os
 import re
@@ -434,6 +469,20 @@ CLI_ARGS = ["--arch", "llava-1.6-7b", "--requests", "4", "--policy",
 MOE_CLI_ARGS = ["--arch", "granite-moe-1b-a400m", "--requests", "4",
                 "--policy", "mpic,full_recompute", "--max-seq-len", "2048",
                 "--serve-blocks", "0", "--freeze-idle-s", "30"]
+# and through a cluster of two replicas, every request with a budget
+CLUSTER_CLI_ARGS = [*CLI_ARGS, "--replicas", "2", "--router", "affinity",
+                    "--deadline-s", "60"]
+# phase 5j: each replica's pool (phase 3's), the crash of run (b) (replica
+# 1 at its second step, after its first prefill), and the budget of run
+# (c)'s second round, which waits behind the first round's prefills
+CLUSTER_SLOTS = 4
+CLUSTER_CRASH = "engine.step:crash:target=replica1,start=1"
+CLUSTER_DEADLINE_S = 1e-3
+# phase 5k: each host's decode slots, the freeze point of its session, and
+# the seconds a host may take to start (a full-width model's weights)
+FLEET_SLOTS = 2
+FLEET_FREEZE_AFTER = 4
+FLEET_START_S = 600.0
 
 
 def phase(name: str, t0: float) -> None:
@@ -495,6 +544,395 @@ def run_watched(cmd, env, timeout_s: float):
         fo.seek(0)
         fe.seek(0)
         return proc.returncode, fo.read(), fe.read(), wall, card_mib, rss_max
+
+
+# -- phases 5j and 5k: the cluster and the fleet -------------------------
+# (module level, so that they can be driven on their own: the device, the
+# model and the plain-version guard are arguments)
+
+def phase3_requests(d_model, media_len, mrag=True, **request_kw):
+    """Phase 3's traffic: four two-image MMDU-style dialogues (``mpic``
+    k=32, 8 new tokens), the last with the MRAG query (``mrag``); returns
+    the dialogues, the MRAG image and a function that makes the requests
+    anew."""
+    from repro_torch.data import image_embeds, make_dialogues
+    from repro_torch.serving import Request
+
+    samples = make_dialogues(n=4, n_images=2, d_model=d_model,
+                             media_len=media_len, style="mmdu")
+    rag = image_embeds("rag-0", media_len, d_model)
+
+    def requests():
+        reqs = [Request(prompt=s.prompt, max_new_tokens=MAX_NEW,
+                        policy="mpic", policy_kwargs={"k": K_MPIC},
+                        **request_kw) for s in samples]
+        if mrag:
+            reqs[-1].retrieval_query = rag.mean(0)
+        return reqs
+
+    return samples, rag, requests
+
+
+def _free_and_unpinned(label, engines, libraries):
+    """Every page of every pool back (the scratch page aside) and no pin
+    held in any library, or raise."""
+    pages = [(e.pool.free_pages, e.pool.cfg.num_pages - 1) for e in engines]
+    pins = sum(e.meta.pins for lib in libraries
+               for e in lib._entries.values())
+    if any(free != total for free, total in pages) or pins:
+        raise RuntimeError(f"{label}: pages (free, total) {pages}, pins "
+                           f"{pins} after the run")
+    return pages
+
+
+def serve_fleet_reference(model, params, guard, runs, *, device=None,
+                          media_len=MEDIA_LEN):
+    """One engine with the fleet hosts' slot layout (2 slots of 2048
+    tokens, bf16 pool) serving phase 3's dialogues without the MRAG query
+    (a fleet request carries none): the tokens phase 5k is held to, and
+    the freeze reference of its first dialogue."""
+    from repro_torch.kernels import KERNELS, _build
+    from repro_torch.serving import EngineConfig, MPICEngine
+
+    samples, _, requests = phase3_requests(model.cfg.d_model, media_len,
+                                           mrag=False)
+    with guard():
+        _build.reset_launches(KERNELS.values())
+        eng = MPICEngine(model, params, EngineConfig(
+            max_seq_len=2048, decode_slots=FLEET_SLOTS), device=device)
+        for s in samples:
+            for _, seg in s.prompt.media_segments():
+                eng.upload(s.prompt.user_id, seg.media_id, seg.embeds)
+        reqs = requests()
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        launches = {k: v.launches for k, v in KERNELS.items()}
+        eng.close()
+    if not all(r.done and len(r.output_tokens) == MAX_NEW for r in reqs):
+        raise RuntimeError("fleet reference: a request did not finish")
+    runs["fleet_reference"] = {"launches": launches,
+                               "tokens": [r.output_tokens for r in reqs]}
+    print(f"  fleet reference (one engine, {FLEET_SLOTS} slots, no MRAG "
+          f"query): tokens {[r.output_tokens for r in reqs]}", flush=True)
+    return [list(r.output_tokens) for r in reqs]
+
+
+def serve_cluster(model, params, refs, guard, runs, *, device=None,
+                  media_len=MEDIA_LEN):
+    """Phase 5j: an ``MPICCluster`` of two replicas over one model, each
+    with a pool of 4 slots of 2048 tokens, behind the affinity router,
+    serving phase 3's traffic twice, on a bf16 and an int8 pool: (a)
+    clean, the second round after the first; (b) with ``replica1``
+    crashing at its second step; (c) both rounds at once, the second with
+    a budget of ``CLUSTER_DEADLINE_S``.  ``refs[pool]`` holds phase 3's
+    (phase 4's) tokens and first-token logits of each request."""
+    import torch
+
+    from repro_torch.cache import FaultPlan
+    from repro_torch.kernels import KERNELS, _build
+    from repro_torch.serving import (
+        ClusterConfig,
+        EngineConfig,
+        MPICCluster,
+        State,
+    )
+
+    samples, rag, requests = phase3_requests(model.cfg.d_model, media_len)
+    for pool_dtype in ("", "int8"):
+        pool = pool_dtype or "bf16"
+        want_tokens, want_firsts = refs[pool_dtype]
+        want = ["sel_attn", "sel_attn_paged_q8" if pool_dtype else
+                "sel_attn_paged", "paged_attn_q8" if pool_dtype else
+                "paged_attn"]
+        for mode in ("clean", "crash", "deadline"):
+            label = f"cluster_{pool}_{mode}"
+            if device is None:
+                torch.cuda.reset_peak_memory_stats()
+            plan = FaultPlan.parse(CLUSTER_CRASH) if mode == "crash" else None
+            with guard():
+                _build.reset_launches(KERNELS.values())
+                cl = MPICCluster(model, params, EngineConfig(
+                    max_seq_len=2048, decode_slots=CLUSTER_SLOTS,
+                    page_size=16, pool_dtype=pool_dtype), ClusterConfig(
+                        replicas=2, router="affinity", faults=plan),
+                    device=device)
+                firsts = {}
+                for e in cl.engines:
+                    def record(req, result, *rest, _fin=e._finalize_prefill):
+                        firsts[req.req_id] = np.asarray(result.first_logits,
+                                                        np.float32)
+                        return _fin(req, result, *rest)
+                    e._finalize_prefill = record
+                t_up = time.perf_counter()
+                for s in samples:
+                    for _, seg in s.prompt.media_segments():
+                        cl.upload(s.prompt.user_id, seg.media_id, seg.embeds)
+                cl.upload("*", "rag-0", rag, dynamic=True)
+                upload_s = time.perf_counter() - t_up
+                # a request's clock starts when it is made: each round is
+                # made when it is submitted
+                rounds = []
+                if mode == "deadline":
+                    rounds = [requests(), requests()]
+                    for r in rounds[1]:
+                        r.deadline_s = CLUSTER_DEADLINE_S
+                    for r in rounds[0] + rounds[1]:
+                        cl.submit(r)
+                    cl.run()
+                else:
+                    for _ in range(2):
+                        rounds.append(requests())
+                        for r in rounds[-1]:
+                            cl.submit(r)
+                        cl.run()
+                if device is None:
+                    torch.cuda.synchronize()
+                launches = {k: v.launches for k, v in KERNELS.items()}
+            rep = cl.report()
+            engines, libs = cl.engines, (cl.static_lib, cl.dynamic_lib)
+            pages = _free_and_unpinned(label, engines, libs)
+            round2 = {r.req_id for r in rounds[1]}
+            warm = sum(1 for d in cl.decisions if d.req_id in round2
+                       and d.warmth.get("hbm", 0) == 2)
+            reqs = rounds[0] + rounds[1]
+            per = {e.replica_id: e.report() for e in engines}
+            peak = (torch.cuda.max_memory_allocated() / 2**30
+                    if device is None else 0.0)
+            print(f"  {label}: routed per replica "
+                  f"{rep['routing']['per_replica']}, warm hits in round 2 "
+                  f"{warm}/{len(round2)}, requeued {rep['requeued']}, "
+                  f"quarantined {sorted(rep['quarantined'])}, expired "
+                  f"{len(cl.expired)}; uploads {upload_s:.3f} s; pages "
+                  f"(free, total) {pages}; peak "
+                  f"{peak:.2f} GiB", flush=True)
+            for rid, r in per.items():
+                if r:
+                    print(f"    replica {rid}: {r['requests']} requests, "
+                          f"TTFT mean {r['mean_ttft_s'] * 1e3:.2f} ms, "
+                          f"decode step mean "
+                          f"{r['mean_decode_step_s'] * 1e3:.2f} ms over "
+                          f"{r['decode_steps']} steps")
+            print(f"    launches {launches}", flush=True)
+            bad = []
+            for i, r in enumerate(reqs):
+                j = i % len(want_tokens)
+                if mode == "deadline" and r.req_id in round2:
+                    continue
+                if not r.done or r.output_tokens != want_tokens[j]:
+                    bad.append((r.req_id, r.state.value, r.output_tokens,
+                                want_tokens[j]))
+                    continue
+                diff = float(np.abs(firsts[r.req_id] - want_firsts[j]).max())
+                if not diff <= 1e-3:
+                    bad.append((r.req_id, "first logits", diff))
+            if bad:
+                raise RuntimeError(f"{label}: requests differ from phase "
+                                   f"3/4's: {bad}")
+            if mode == "crash" and (sorted(rep["quarantined"]) != [1]
+                                    or rep["requeued"] < 1):
+                raise RuntimeError(f"{label}: replica 1 not quarantined "
+                                   f"with requeues: {rep['quarantined']}, "
+                                   f"{rep['requeued']}")
+            if mode == "deadline" and not any(
+                    r.state is State.DEADLINE for r in reqs):
+                raise RuntimeError(f"{label}: no request reached its "
+                                   "deadline")
+            for name in want if device is None else ():
+                if launches[name] <= 0:
+                    raise RuntimeError(f"{label}: {name} never launched")
+            runs[label] = {
+                "launches": launches, "upload_s": upload_s,
+                "routed": rep["routing"]["per_replica"], "warm_hits": warm,
+                "requeued": rep["requeued"],
+                "quarantined": sorted(rep["quarantined"]),
+                "expired": len(cl.expired), "peak_gib": peak,
+                "per_replica": {rid: {
+                    "mean_ttft_ms": r["mean_ttft_s"] * 1e3,
+                    "mean_decode_step_ms": r["mean_decode_step_s"] * 1e3}
+                    for rid, r in per.items() if r}}
+            cl.close()
+            del cl, engines, libs, firsts
+            gc.collect()
+            if device is None:
+                torch.cuda.empty_cache()
+
+
+def _host_launches(log_text):
+    """The largest launch count of each kernel over a host log's
+    ``launches=`` lines (each process counts from 0)."""
+    best: dict = {}
+    for line in log_text.splitlines():
+        m = re.search(r"launches=(\{.*\})", line)
+        if m:
+            for name, n in json.loads(m.group(1)).items():
+                best[name] = max(best.get(name, 0), n)
+    return best
+
+
+def serve_fleet(reference, phase3_tokens, weight_bytes, *, device=None,
+                media_len=MEDIA_LEN, d_model=None):
+    """Phase 5k: a ``FleetSupervisor`` of two engine hosts at full width on
+    the card (2 slots of 2048 tokens, affinity router), this process
+    holding no model.  Each dialogue's images go to one host (by the SHA-1
+    of its first image id), every block spooled at once; the first round
+    of phase 3's dialogues is routed, the host serving one of them killed
+    at once, its restart awaited (its spool rehydrated) before the
+    requests go out again; a second round; a session frozen (spooled) on
+    host 0, host 0 killed and restarted, the handle thawed on host 1; a
+    drain.  ``reference`` holds the tokens of one engine with the hosts'
+    slot layout."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.fleet import FleetSupervisor
+
+    on_card = device is None
+    if on_card:
+        held = torch.cuda.memory_allocated()
+        print(f"  this process holds {held / 2**30:.2f} GiB "
+              "(torch.cuda.memory_allocated)", flush=True)
+        if not held < weight_bytes / 2:
+            raise RuntimeError("phase 5k: this process still holds a model")
+    d_model = d_model or get_config("llava-1.6-7b").d_model
+    samples, _, requests = phase3_requests(d_model, media_len, mrag=False)
+    owner = [int(hashlib.sha1(s.media_ids[0].encode()).hexdigest(), 16) % 2
+             for s in samples]
+    base = tempfile.mkdtemp(prefix="mpic_smoke_fleet_")
+    sup = FleetSupervisor(
+        2, arch="llava-1.6-7b", base_dir=base, router="affinity",
+        slots=FLEET_SLOTS, max_seq_len=2048, peer_timeout_s=NET_TIMEOUT_S,
+        hbm_bytes=1, host_bytes=1, linger_s=60.0,
+        start_grace_s=FLEET_START_S, device=device)
+    out, card = {}, []
+
+    def memory(note):
+        if on_card:
+            card.append((note, card_memory_mib()))
+            print(f"  card memory in use {card[-1][1]} MiB ({note}, "
+                  "nvidia-smi)", flush=True)
+
+    def restart(host_id):
+        """Kill a host, find its death, await its restart and rejoin."""
+        deaths = sup.deaths
+        t = time.perf_counter()
+        sup.kill_host(host_id)
+        sup.heartbeat()
+        if sup.deaths != deaths + 1:
+            raise RuntimeError(f"phase 5k: the death of host {host_id} was "
+                               "not seen")
+        memory(f"host {host_id} killed")
+        sup.wait_healthy([host_id], timeout_s=FLEET_START_S)
+        rejoin = time.perf_counter() - t
+        memory(f"host {host_id} rejoined")
+        return rejoin
+
+    try:
+        memory("before the hosts")
+        t = time.perf_counter()
+        sup.start(timeout_s=FLEET_START_S)
+        out["start_s"] = time.perf_counter() - t
+        memory("both hosts up")
+        t = time.perf_counter()
+        for s, host in zip(samples, owner):
+            for _, seg in s.prompt.media_segments():
+                sup.upload(s.prompt.user_id, seg.media_id, seg.embeds,
+                           host=host)
+        out["upload_s"] = time.perf_counter() - t
+        sup.heartbeat()                 # the media maps, for the router
+        victim = owner[1]
+        spooled = sorted(f for f in os.listdir(
+            sup.hosts[victim].spec.spool_dir) if f.endswith(".npz"))
+        round1 = requests()
+        for r in round1:
+            sup.submit(r)
+        in_flight = [r.req_id for r in round1
+                     if sup.inflight[r.req_id].host == victim]
+        out["rejoin_s"] = restart(victim)
+        rehydrated = sup.hosts[victim].health["rehydrate"]
+        print(f"  round 1 routed to hosts "
+              f"{[sup.inflight[r.req_id].host for r in round1]}; host "
+              f"{victim} killed with {in_flight} in flight, rejoined in "
+              f"{out['rejoin_s']:.3f} s, rehydrated {rehydrated} of "
+              f"{len(spooled)} spooled blocks", flush=True)
+        if not in_flight or rehydrated.get("rehydrated") != len(spooled):
+            raise RuntimeError(f"phase 5k: in flight {in_flight}, "
+                               f"rehydrated {rehydrated} of {spooled}")
+        sup.run_until_done(timeout_s=600)
+        round2 = requests()
+        for r in round2:
+            sup.submit(r)
+        sup.run_until_done(timeout_s=600)
+        memory("two rounds served")
+        # a session frozen (and spooled) on host 0 after 4 tokens, host 0
+        # killed, the handle thawed on host 1
+        fz = requests()[0]
+        fz.freeze_after = FLEET_FREEZE_AFTER
+        sup.submit(fz, host=0)
+        sup.run_until_done(timeout_s=600)
+        row = sup.results[fz.req_id]
+        if row["state"] != "frozen" or not row.get("session"):
+            raise RuntimeError(f"phase 5k: not frozen: {row}")
+        out["rejoin_0_s"] = restart(0)
+        t = time.perf_counter()
+        rid = sup.thaw(1, row["session"])
+        out["thaw_s"] = time.perf_counter() - t
+        sup.run_until_done(timeout_s=600)
+        thawed = sup.results[rid]
+        sup.heartbeat()
+        pulled = sum((h.health or {}).get("network", {}).get("bytes_read", 0)
+                     for h in sup.hosts)
+        rep = sup.report()
+        t = time.perf_counter()
+        sup.drain(timeout_s=600)
+        out["drain_s"] = time.perf_counter() - t
+        exits = [h.proc.returncode for h in sup.hosts]
+        logs = []
+        for i in range(2):
+            with open(sup.log_path(i)) as f:
+                logs.append(f.read())
+    finally:
+        sup.stop()
+        shutil.rmtree(base, ignore_errors=True)
+    bad = []
+    for r, want in zip(round1 + round2, reference + reference):
+        got = sup.results[r.req_id]
+        if got["state"] != "done" or got["tokens"] != want:
+            bad.append((r.req_id, got["state"], got["tokens"], want))
+    resumed = row["tokens"][:-1] + thawed["tokens"]
+    hosts = [_host_launches(text) for text in logs]
+    print(f"  results: {[(r.req_id, sup.results[r.req_id]['host']) for r in round1 + round2]}; "
+          f"deaths {rep['deaths']} for 2 kills, requeued {rep['requeued']}, "
+          f"restarts {rep['restarts']}; resumed session on host "
+          f"{thawed['host']} == uninterrupted: {resumed == reference[0]} "
+          f"(thaw call {out['thaw_s']:.3f} s); bytes pulled between hosts "
+          f"{pulled} (the restarted hosts' counters); host exit codes "
+          f"{exits}; host launches {hosts}", flush=True)
+    lat = {k: round(v, 3) for k, v in sup.latency_s.items()}
+    print(f"  start-up {out['start_s']:.3f} s (both hosts), kill to rejoin "
+          f"{out['rejoin_s']:.3f} s (host {victim}) and "
+          f"{out['rejoin_0_s']:.3f} s (host 0); uploads "
+          f"{out['upload_s']:.3f} s; drain {out['drain_s']:.3f} s; "
+          f"latency_s per request {lat}", flush=True)
+    same3 = [a == b for a, b in zip(reference[:3], phase3_tokens[:3])]
+    print(f"  the reference's tokens equal phase 3's (dialogues 1-3; the "
+          f"4th carries no MRAG query here): {same3}", flush=True)
+    want = ("sel_attn", "sel_attn_paged", "paged_attn")
+    if bad or resumed != reference[0] or rep["deaths"] != 2 \
+            or exits != [0, 0] or (on_card and not all(
+                h.get(k, 0) > 0 for h in hosts for k in want)):
+        raise RuntimeError(f"phase 5k failed: differing {bad}, resumed "
+                           f"{resumed} against {reference[0]}, deaths "
+                           f"{rep['deaths']}, exits {exits}, launches "
+                           f"{hosts}")
+    runs_fleet = {**{k: round(v, 6) for k, v in out.items()},
+                  "deaths": rep["deaths"], "requeued": rep["requeued"],
+                  "restarts": rep["restarts"], "pulled_bytes": pulled,
+                  "latency_s": lat, "card_mib": card,
+                  "host_launches": hosts, "rehydrated": rehydrated,
+                  "reference_equals_phase3": same3}
+    print(f"fleet: {json.dumps(runs_fleet)}", flush=True)
+    return runs_fleet
 
 
 def main() -> int:
@@ -579,6 +1017,7 @@ def main() -> int:
     params = model.init(seed=0)
     torch.cuda.synchronize()
     nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    llava_bytes = nbytes
     print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{nbytes / 2**30:.2f} GiB of seeded weights")
     phase("init", t0)
@@ -1871,6 +2310,18 @@ def main() -> int:
         shutil.rmtree(sessions_root, ignore_errors=True)
     phase("serve_sessions", t0)
 
+    # -- 5j. the cluster: two replicas over llava ------------------------------
+    t0 = time.perf_counter()
+    print("serve_cluster: two replicas, affinity router, phase 3's traffic "
+          "twice:")
+    serve_cluster(model, params, {
+        "": ([r.output_tokens for r in reqs16], first_logits["mpic"]),
+        "int8": ([r.output_tokens for r in reqs8], first_logits["mpic_int8"])},
+        no_plain_versions, runs)
+    fleet_reference = serve_fleet_reference(model, params, no_plain_versions,
+                                            runs)
+    phase("serve_cluster", t0)
+
     # -- 5d. serve the GQA decoders at full width -----------------------------
     # llava's weights go first: each model is freed before the next is built
     del model, params
@@ -1885,7 +2336,8 @@ def main() -> int:
         p for p in (str(ROOT / "src"), env.get("PYTHONPATH")) if p)
     for key, args in (("paged", CLI_ARGS),
                       ("--no-paged", [*CLI_ARGS, "--no-paged"]),
-                      ("granite-moe-1b-a400m", MOE_CLI_ARGS)):
+                      ("granite-moe-1b-a400m", MOE_CLI_ARGS),
+                      ("--replicas 2", CLUSTER_CLI_ARGS)):
         cmd = [sys.executable, "-m", "repro_torch.launch.serve", *args]
         baseline = card_memory_mib()
         rc, out, err, wall, card_mib, rss = run_watched(cmd, env, 600)
@@ -1897,7 +2349,7 @@ def main() -> int:
         if rc != 0:
             raise RuntimeError(f"the CLI exited {rc}: {err[-3000:]}")
         lines = re.findall(r"^  req(\d+): ttft=\s*(\d+) ms\s+reused=\s*(\d+)"
-                           r"\s+tokens=(\d+)$", out, re.M)
+                           r"\s+tokens=(\d+)( replica=\d+)?$", out, re.M)
         for line in out.splitlines():
             if line.startswith(("serving KV blocks", "arch=", "  req",
                                 "  mean_ttft_s", "  p90_ttft_s",
@@ -1905,20 +2357,33 @@ def main() -> int:
                 print(f"  | {line}")
         # requests alternate mpic and full_recompute in submission order
         reused = {int(n) % 2: [] for n, *_ in lines}
-        for n, _, r, _ in lines:
+        for n, _, r, _, _ in lines:
             reused[int(n) % 2].append(int(r))
+        # a cluster's lines carry their replica, the others' none
+        replicas = [rep for *_, rep in lines]
         if ("serving KV blocks to peers at 127.0.0.1:" not in out
-                or len(lines) != 4 or "FAILED" in out
-                or any(int(t) != MAX_NEW for *_, t in lines)
-                or not min(reused[0]) > 0 or any(reused[1])):
+                or len(lines) != 4 or "FAILED" in out or "DEADLINE" in out
+                or any(int(t) != MAX_NEW for *_, t, _ in lines)
+                or not min(reused[0]) > 0 or any(reused[1])
+                or not all(bool(r) == (args is CLUSTER_CLI_ARGS)
+                           for r in replicas)):
             raise RuntimeError(f"the CLI's output is wrong:\n{out}")
         runs_cli[key] = {
             "wall_s": wall, "card_mib_max": card_mib,
             "card_mib_before": baseline, "rss_mib_max": rss,
-            "ttft_ms": [int(t) for _, t, _, _ in lines],
-            "reused": [int(r) for _, _, r, _ in lines]}
+            "ttft_ms": [int(t) for _, t, _, _, _ in lines],
+            "reused": [int(r) for _, _, r, _, _ in lines],
+            "replica": [r.split("=")[1] if r else None
+                        for *_, r in lines]}
     print(f"cli runs: {json.dumps(runs_cli)}")
     phase("serve_cli", t0)
+
+    # -- 5k. the fleet: two engine host processes ------------------------------
+    t0 = time.perf_counter()
+    print("serve_fleet: two host processes at full width:")
+    serve_fleet(fleet_reference, [r.output_tokens for r in reqs16],
+                llava_bytes)
+    phase("serve_fleet", t0)
 
     t0 = time.perf_counter()
     gqa_snaps, gqa_peaks = {}, {}

@@ -33,7 +33,12 @@ arrays, so both packages give one block the same key.
 Fault sites (``cache/faults.py``): ``disk.read`` and ``disk.write`` in
 :class:`DiskBackend`, ``peer.request`` and ``peer.body`` in the transport.
 
-Not ported: per-replica HBM accounting (it comes with the router).
+**Per-replica HBM accounting.**  A library that a cluster's replicas share
+records, per block, which replicas hold it warm on their device
+(``BlockMetadata.hbm_replicas``, replica -> last use there), and
+:meth:`MemoryBackend.demote_replicas` holds each replica to its own
+``hbm_capacity``: demoting replica A's hold never evicts replica B's hot
+set.
 """
 from __future__ import annotations
 
@@ -144,6 +149,8 @@ class BlockMetadata:
     shape: Optional[Tuple[int, ...]] = None
     tier: str = TIER_HBM
     pins: int = 0                      # > 0: a consumer reads the tensors
+    # replica id -> last use on that replica (per-replica HBM warmth)
+    hbm_replicas: Dict = dataclasses.field(default_factory=dict)
     created: float = 0.0
     last_used: float = 0.0
     expires: float = float("inf")
@@ -281,6 +288,31 @@ class MemoryBackend(StorageBackend):
     def contains(self, key: str) -> bool:
         with self._lock:
             return key in self._store
+
+    def demote_replicas(self, metas: Iterable[BlockMetadata],
+                        nbytes_of) -> int:
+        """For every replica over ``hbm_capacity``, drop its hold on its
+        least recently used blocks until it fits; a block whose last hold
+        drops falls back to the host tier.  ``nbytes_of(meta)`` gives a
+        block's resident bytes.  Returns the holds dropped.  The caller
+        holds the library lock (the metadata's only writer)."""
+        holders: Dict = {}
+        for m in metas:
+            for r in m.hbm_replicas:
+                holders.setdefault(r, []).append(m)
+        dropped = 0
+        for r, held in holders.items():
+            used = sum(nbytes_of(m) for m in held)
+            held.sort(key=lambda m: m.hbm_replicas[r])
+            for m in held:
+                if used <= self.hbm_capacity:
+                    break
+                del m.hbm_replicas[r]
+                if not m.hbm_replicas:
+                    m.tier = TIER_HOST
+                used -= nbytes_of(m)
+                dropped += 1
+        return dropped
 
     def stats(self) -> dict:
         out = super().stats()

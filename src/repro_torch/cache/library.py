@@ -78,9 +78,16 @@ snapshot as it is.  ``stats()["sessions"]`` counts freezes, thaws and forks
 (:meth:`KVLibrary.note_session`) beside the live copy-on-write gauges of
 the engines' pools (:meth:`KVLibrary.add_session_source`).
 
-Not ported: per-replica HBM warmth (``touch``, ``warmth``,
-``get(replica=)``, ``ident_tiers``), which comes with the router and the
-fleet.
+**Replicas.**  A cluster's replicas share one library
+(``serving/cluster.py``), and each replica is its own device: a
+``get(..., replica=r)`` marks the entry warm on replica ``r``
+(``BlockMetadata.hbm_replicas``), each replica's holdings are held to
+``hbm_capacity`` on their own (:meth:`MemoryBackend.demote_replicas`), and
+:meth:`KVLibrary.touch` marks a block that another replica's fetch
+brought in.  The affinity router reads :meth:`KVLibrary.warmth` (and
+``peek_tier(..., replica=)``); a fleet host gossips
+:meth:`KVLibrary.ident_tiers` in its heartbeat.  Without ``replica`` every
+call keeps the single-engine accounting.
 """
 from __future__ import annotations
 
@@ -377,14 +384,17 @@ class KVLibrary:
                 fn(user_id, media_id)
         return e
 
-    def get(self, user_id: str, media_id: str, *, pin: bool = False,
+    def get(self, user_id: str, media_id: str, *, replica=None,
+            pin: bool = False,
             salt: Optional[str] = None) -> Optional[Entry]:
         """Lookup honouring scope and expiry.  The lock covers the lookup
         only; a disk read or a peer pull runs outside it, so loader workers
         fetch different entries at once.  A scope with no local entry is
         asked of the peers when there are any (a verified pull becomes a
         local entry).  ``pin`` holds the tensors against a spool until
-        :meth:`unpin`.  A miss on every lower tier (file gone, corrupt or
+        :meth:`unpin`.  ``replica`` marks the entry warm on that cluster
+        replica (its link copies the KV to that replica's device).  A miss
+        on every lower tier (file gone, corrupt or
         unreadable; peers missing or down) drops the entry and returns
         None: the caller recomputes.  ``salt`` must be the stored block's
         (None for a block stored without one); another is a miss, locally
@@ -411,7 +421,7 @@ class KVLibrary:
         was_slow = hit_tier in (TIER_DISK, TIER_NETWORK)
         try:
             e.materialize()
-            if was_slow or pin:
+            if was_slow or replica is not None or pin:
                 # holding _mlock keeps the non-blocking _spool off the entry
                 # we hand out; a spool in the gap after materialize is
                 # undone by the reload
@@ -420,7 +430,17 @@ class KVLibrary:
                     with self._lock:
                         if pin:
                             e.meta.pins += 1
-                        if was_slow:
+                        changed = was_slow
+                        if replica is not None:
+                            fresh = (replica not in e.meta.hbm_replicas
+                                     or e.tier != TIER_HBM)
+                            if fresh:
+                                self._count(TIER_HOST, "promotes")
+                            changed |= fresh
+                            e.meta.hbm_replicas[replica] = time.time()
+                            e.tier = TIER_HBM
+                        # a pin alone moves no bytes
+                        if changed:
                             self._rebalance()
         except FileNotFoundError:
             with self._lock:
@@ -580,16 +600,64 @@ class KVLibrary:
             if entry.meta.pins == 0:
                 self._rebalance()
 
-    def peek_tier(self, user_id: str, media_id: str, *,
+    def peek_tier(self, user_id: str, media_id: str, *, replica=None,
                   salt: Optional[str] = None) -> Optional[str]:
         """The tier of a block, without touching its LRU state; a probe
         with another ``salt`` than the block's sees nothing, as in
-        :meth:`get`."""
+        :meth:`get`.  ``replica`` gives that replica's view: hbm only if
+        it holds the block, host for a resident block another replica
+        holds."""
         with self._lock:
             e = self._entries.get(self._key(user_id, media_id))
             if e is None or time.time() > e.expires or e.meta.salt != salt:
                 return None
-            return e.tier
+            if replica is None:
+                return e.tier
+            if replica in e.meta.hbm_replicas:
+                return TIER_HBM
+            if e.payload.k is not None or e.payload.qk is not None:
+                return TIER_HOST
+            return (e.tier if e.tier in (TIER_DISK, TIER_NETWORK)
+                    else TIER_HOST)
+
+    # -- replicas -------------------------------------------------------------
+    def touch(self, user_id: str, media_id: str, replica) -> None:
+        """Mark an entry warm on ``replica`` without a ``get``: a fetch
+        deduplicated onto another replica's load was consumed by this one.
+        A block spooled since is left alone (the claim would be false)."""
+        with self._lock:
+            e = self._entries.get(self._key(user_id, media_id))
+            if e is None or time.time() > e.expires:
+                return
+            if e.payload.k is None and e.payload.qk is None:
+                return
+            e.last_used = time.time()
+            fresh = replica not in e.meta.hbm_replicas or e.tier != TIER_HBM
+            e.meta.hbm_replicas[replica] = e.last_used
+            e.tier = TIER_HBM
+            if fresh:
+                self._rebalance()
+
+    def warmth(self, user_id: str, media_ids, replica) -> Dict[str, int]:
+        """``{"hbm": n, "host": n, "disk": n, "miss": n}`` over
+        ``media_ids`` as ``replica`` sees them (and ``"network"`` with
+        peers): the affinity router's input.  Peers are not asked; only
+        blocks already registered count as network."""
+        counts = {TIER_HBM: 0, TIER_HOST: 0, TIER_DISK: 0, "miss": 0}
+        if self.network is not None:
+            counts[TIER_NETWORK] = 0
+        for mid in media_ids:
+            tier = self.peek_tier(user_id, mid, replica=replica)
+            counts[tier if tier in counts else "miss"] += 1
+        return counts
+
+    def ident_tiers(self) -> Dict[str, str]:
+        """``{scope digest: tier}`` of every unexpired entry: the warmth a
+        fleet host gossips in its heartbeat."""
+        now = time.time()
+        with self._lock:
+            return {e.meta.ident: e.tier for e in self._entries.values()
+                    if e.meta.ident and now <= e.expires}
 
     def delete(self, user_id: str, media_id: str) -> None:
         """Remove a block from every tier (idempotent)."""
@@ -784,13 +852,22 @@ class KVLibrary:
         return True
 
     def _rebalance(self) -> None:
-        """Demote LRU entries while a tier is over its budget: hbm -> host
-        (a label), host -> disk (a spool).  The caller holds the lock."""
+        """Demote LRU entries while a tier is over its budget.  First each
+        replica's holds against its own budget
+        (:meth:`MemoryBackend.demote_replicas`), then the entries no
+        replica holds: hbm -> host (a label), host -> disk (a spool).  The
+        caller holds the lock."""
+        live = list(self._entries.values())
+        nb = {id(e.meta): e.nbytes for e in live}
+        dropped = self.memory.demote_replicas(
+            (e.meta for e in live), lambda m: nb[id(m)])
+        if dropped:
+            self._count(TIER_HBM, "demotes", dropped)
         for tier, cap, demote in (
                 (TIER_HBM, self.memory.hbm_capacity, TIER_HOST),
                 (TIER_HOST, self.memory.host_capacity, TIER_DISK)):
             cands = [(k, e) for k, e in self._entries.items()
-                     if e.tier == tier]
+                     if e.tier == tier and not e.meta.hbm_replicas]
             used = sum(e.nbytes for _, e in cands)
             cands.sort(key=lambda kv: kv[1].last_used)
             for k, e in cands:
@@ -814,14 +891,20 @@ class KVLibrary:
         and copy of those reads to the card; the disk's ``corrupt``,
         ``io_errors`` and ``quarantined``, the network's ``timeouts``,
         ``retries``, ``breaker_skips`` and ``breakers``.  The network tier
-        appears only with peers.  ``sessions``: the freeze, thaw and fork
+        appears only with peers; ``hbm_bytes_by_replica`` only once a
+        replica holds a block.  ``sessions``: the freeze, thaw and fork
         counts and the registered pools' ``cow_copies`` and
         ``pages_shared``."""
         with self._lock:
             by_tier: Dict[str, int] = {}
+            by_replica: Dict = {}
             for e in self._entries.values():
                 by_tier[e.tier] = by_tier.get(e.tier, 0) + e.nbytes
+                for r in e.meta.hbm_replicas:
+                    by_replica[r] = by_replica.get(r, 0) + e.nbytes
             out = {"entries": len(self._entries), "bytes_by_tier": by_tier}
+            if by_replica:
+                out["hbm_bytes_by_replica"] = by_replica
         with self._clock:
             tiers = {t: dict(c) for t, c in self._tiers.items()
                      if t != TIER_NETWORK or self.network is not None}

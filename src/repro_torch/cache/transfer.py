@@ -14,8 +14,13 @@ covers the copy to the card too.  The ``loader.fetch`` fault site
 (``cache/faults.py``) stalls a worker or fails its fetch, which counts as
 a miss.
 
+One loader may serve a cluster's replicas: each replica's prefetches
+carry its id (``replica=``), a fetch of one ``(user, media)`` already in
+flight for another replica is shared, and the consuming handle marks the
+entry warm on its own replica at gather time (``KVLibrary.touch``).
+
 Not ported: ``TransferPlan`` / ``plan_transfers`` (the analytic model of
-the JAX package's Fig. 6 benchmark) and the per-replica tags.
+the JAX package's Fig. 6 benchmark).
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ class LoadRecord:
     future: Optional[cf.Future] = None
     t_start: float = 0.0                  # the worker began the fetch
     t_end: float = 0.0                    # the worker finished (hit or miss)
+    replica: Optional[int] = None         # the replica whose prefetch issued it
 
     @property
     def busy_s(self) -> float:
@@ -61,14 +67,16 @@ class PrefetchHandle:
     **pinned** (one pin per media id), revalidated against the library, and
     records the time the caller spent blocked on a fetch still running.
     The engine calls :meth:`release` when the prefill is finalized or
-    aborted.
+    aborted.  ``replica`` is the cluster replica that consumes the entries:
+    its lookups mark them warm there.
     """
 
     def __init__(self, loader: "ParallelLoader", user_id: str,
-                 records: Dict[str, LoadRecord]):
+                 records: Dict[str, LoadRecord], *, replica=None):
         self._loader = loader
         self.user_id = user_id
         self.records = records
+        self.replica = replica
         self.blocked_s = 0.0      # wall time a consumer waited in get()
         self.blocked_intervals: List[Tuple[float, float]] = []
         self._pinned: Dict[str, Entry] = {}
@@ -87,17 +95,19 @@ class PrefetchHandle:
         if resident and time.time() <= entry.expires:
             if lib._entries.get(lib._key(self.user_id, media_id)) is entry:
                 return entry
-        return lib.get(self.user_id, media_id)
+        return lib.get(self.user_id, media_id, replica=self.replica)
 
     def get(self, media_id: str, timeout: float = 60.0) -> Optional[Entry]:
         """The entry for ``media_id`` (None on a miss), pinned, blocking if
         its fetch is still running.  An id that was never prefetched falls
-        back to one synchronous ``library.get``."""
+        back to one synchronous ``library.get``.  A fetch that another
+        replica's prefetch issued marks the entry warm on this handle's
+        replica."""
         lib = self._loader.library
         rec = self.records.get(media_id)
         if rec is None:
-            return self._adopt(media_id, lib.get(self.user_id, media_id,
-                                                 pin=True))
+            return self._adopt(media_id, lib.get(
+                self.user_id, media_id, replica=self.replica, pin=True))
         # only a gather that actually waits counts as blocked
         was_pending = not rec.future.done()
         t0 = time.perf_counter()
@@ -110,10 +120,12 @@ class PrefetchHandle:
         if entry is None:
             return None
         if lib.try_pin(entry):
+            if self.replica is not None and rec.replica != self.replica:
+                lib.touch(self.user_id, media_id, self.replica)
             return self._adopt(media_id, entry)
         # spooled between the fetch and the gather: reload and pin at once
-        return self._adopt(media_id, lib.get(self.user_id, media_id,
-                                             pin=True))
+        return self._adopt(media_id, lib.get(
+            self.user_id, media_id, replica=self.replica, pin=True))
 
     def _adopt(self, media_id: str,
                entry: Optional[Entry]) -> Optional[Entry]:
@@ -160,11 +172,14 @@ class ParallelLoader:
     (``dedup_hits``); a ``put`` that replaces an entry drops its in-flight
     slot (``invalidations``), so the next prefetch reads the new block.  A
     fetch that raises is counted in ``load_failures`` and becomes a miss:
-    the request recomputes that media.
+    the request recomputes that media.  ``replica`` is the default tag of
+    the fetches it issues.
     """
 
-    def __init__(self, library: KVLibrary, max_workers: int = 4):
+    def __init__(self, library: KVLibrary, max_workers: int = 4, *,
+                 replica=None):
         self.library = library
+        self.replica = replica
         self.pool = cf.ThreadPoolExecutor(max_workers=max_workers,
                                           thread_name_prefix="kv-loader")
         self._inflight: Dict[Tuple[str, str], LoadRecord] = {}
@@ -181,10 +196,12 @@ class ParallelLoader:
             if self._inflight.pop((user_id, media_id), None) is not None:
                 self.invalidations += 1
 
-    def prefetch_handle(self, user_id: str,
-                        media_ids: Sequence[str]) -> PrefetchHandle:
-        """Issue the fetches (slowest tier first) and return their handle."""
-        tiers = {mid: self.library.peek_tier(user_id, mid)
+    def prefetch_handle(self, user_id: str, media_ids: Sequence[str], *,
+                        replica=None) -> PrefetchHandle:
+        """Issue the fetches (slowest tier first, as ``replica`` sees the
+        tiers) and return their handle."""
+        replica = self.replica if replica is None else replica
+        tiers = {mid: self.library.peek_tier(user_id, mid, replica=replica)
                  for mid in media_ids}
         ordered = sorted(dict.fromkeys(media_ids),
                          key=lambda m: _TIER_RANK[tiers[m]])
@@ -198,7 +215,7 @@ class ParallelLoader:
                 else:
                     # submitted under the lock: nobody sees a record
                     # without its future
-                    rec = LoadRecord(mid)
+                    rec = LoadRecord(mid, replica=replica)
                     rec.future = self.pool.submit(self._timed_get, user_id,
                                                   rec)
                     self._inflight[(user_id, mid)] = rec
@@ -208,7 +225,7 @@ class ParallelLoader:
         for mid, rec in fresh:
             rec.future.add_done_callback(
                 lambda _f, key=(user_id, mid), r=rec: self._retire(key, r))
-        return PrefetchHandle(self, user_id, records)
+        return PrefetchHandle(self, user_id, records, replica=replica)
 
     def _retire(self, key, rec: LoadRecord) -> None:
         with self._ilock:
@@ -231,7 +248,8 @@ class ParallelLoader:
                 faults.sleep(rule)
             elif rule is not None and rule.kind == "error":
                 raise OSError(f"injected loader error for {rec.media_id}")
-            return self.library.get(user_id, rec.media_id)
+            return self.library.get(user_id, rec.media_id,
+                                    replica=rec.replica)
         except RuntimeError:
             raise
         except Exception:

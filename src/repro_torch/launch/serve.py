@@ -1,10 +1,14 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id> [...]``
-(port of the JAX package's ``launch/serve.py``, its single-engine path).
+(port of the JAX package's ``launch/serve.py``).
 
-Boots an MPIC engine for the chosen architecture, uploads every image of
-a synthetic MMDU-style request stream (user ``u1``), submits the requests,
-runs the engine to the end, and prints one line per request and the
-engine's report.
+Boots an MPIC engine for the chosen architecture (or, with ``--replicas
+N``, an :class:`~repro_torch.serving.cluster.MPICCluster` of N replicas
+behind ``--router``), uploads every image of a synthetic MMDU-style
+request stream (user ``u1``), submits the requests, runs to the end, and
+prints one line per request (its replica on a cluster) and the report.
+``--fleet N`` serves the stream through a supervised fleet of N engine
+host processes instead (``launch/fleet.py``).  ``--deadline-s`` gives
+every request a wall-clock budget; a request past it is reaped.
 
 By default it runs on the card and serves the full-width config
 (``configs.get_config``) with seeded random weights and images of the
@@ -27,21 +31,25 @@ locally missing media KV from theirs before falling back to recompute.
 ``--policy`` takes a comma-separated trace cycled over the requests; an
 unknown policy name fails that request, and the server keeps serving.
 
-Not ported: ``--mesh``, ``--replicas``, ``--fleet``, ``--router`` and
-``--deadline-s``, each of which needs a module the port does not have yet
-(mesh sharding, the cluster, the fleet, deadlines).
+Not ported: ``--mesh`` (mesh sharding).
 """
 from __future__ import annotations
 
 import argparse
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 from repro_torch.cache import FaultPlan, KVLibrary, KVPeerServer
 from repro_torch.configs import ModelConfig, get_config, get_smoke_config
 from repro_torch.data import image_embeds, make_dialogues
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
-from repro_torch.serving import EngineConfig, MPICEngine, Request
+from repro_torch.serving import (
+    ClusterConfig,
+    EngineConfig,
+    MPICCluster,
+    MPICEngine,
+    Request,
+)
 
 SMOKE_MEDIA_LEN = 24        # the JAX launcher's image length on the CPU
 
@@ -80,6 +88,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help=">0: frozen session snapshots idle this many "
                          "seconds are spooled to the disk tier (freeze/"
                          "thaw session store, see serving/sessions.py)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help=">1: serve through an MPICCluster of N "
+                         "data-parallel engine replicas")
+    ap.add_argument("--fleet", type=int, default=0,
+                    help=">0: serve through a supervised MULTI-PROCESS "
+                         "fleet of N engine hosts (one process + spool "
+                         "dir + peer block server each) behind the "
+                         "heartbeat router — see launch/fleet.py")
+    ap.add_argument("--router", default="affinity",
+                    choices=["random", "least_loaded", "affinity"],
+                    help="cluster routing policy (with --replicas > 1)")
     ap.add_argument("--peers", default="",
                     help="comma-separated host:port peer block servers — "
                          "enables the network KV tier (a local cache miss "
@@ -89,6 +108,10 @@ def build_parser() -> argparse.ArgumentParser:
                     metavar="PORT",
                     help="export this server's static KV library to peers "
                          "on PORT (0 = pick a free port)")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request wall-clock budget from arrival; "
+                         "requests not finished in time are reaped "
+                         "(terminal DEADLINE state, resources freed)")
     ap.add_argument("--fault-plan", default="",
                     help="chaos testing: ';'-separated fault rules "
                          "site:kind[:k=v,...] (see cache/faults.py), e.g. "
@@ -108,10 +131,12 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
 
 
 def build(args: argparse.Namespace, params=None
-          ) -> Tuple[ModelConfig, MPICEngine, Optional[FaultPlan]]:
-    """The model config, the engine and the fault plan that ``args`` ask
-    for.  ``params`` (on the engine's device) replace the seeded weights;
-    the static library gets the peers and the plan, when given."""
+          ) -> Tuple[ModelConfig, Union[MPICEngine, MPICCluster],
+                     Optional[FaultPlan]]:
+    """The model config, the engine (a cluster with ``--replicas`` > 1)
+    and the fault plan that ``args`` ask for.  ``params`` (on the
+    engine's device) replace the seeded weights; the static library gets
+    the peers and the plan, when given."""
     device = resolve_device(args.device)
     cfg = (get_config(args.arch) if device.type == "cuda"
            else get_smoke_config(args.arch))
@@ -121,6 +146,16 @@ def build(args: argparse.Namespace, params=None
     model = build_model(cfg)
     if params is None:
         params = model.init(seed=0, device=device)
+    if args.replicas > 1:
+        return cfg, MPICCluster(model, params, engine_config(args),
+                                ClusterConfig(replicas=args.replicas,
+                                              router=args.router,
+                                              peers=peers or None,
+                                              serve_port=args.serve_blocks,
+                                              deadline_s=args.deadline_s,
+                                              faults=faults,
+                                              on_stuck="report"),
+                                device=device), faults
     static_lib = (KVLibrary(peers=peers, faults=faults, device=device)
                   if peers or faults else None)
     eng = MPICEngine(model, params, engine_config(args),
@@ -128,10 +163,11 @@ def build(args: argparse.Namespace, params=None
     return cfg, eng, faults
 
 
-def serve(args: argparse.Namespace, cfg: ModelConfig, eng: MPICEngine,
-          policies: List[str], faults: Optional[FaultPlan]) -> None:
+def serve(args: argparse.Namespace, cfg: ModelConfig,
+          eng: Union[MPICEngine, MPICCluster], policies: List[str],
+          faults: Optional[FaultPlan]) -> None:
     """Upload the stream's images, submit its requests under the cycled
-    policies, run the engine, and print the results."""
+    policies, run the engine or cluster, and print the results."""
     media_len = (cfg.media_token_len if eng.device.type == "cuda"
                  else SMOKE_MEDIA_LEN)
     dialogues = make_dialogues(n=args.requests, n_images=2,
@@ -149,16 +185,22 @@ def serve(args: argparse.Namespace, cfg: ModelConfig, eng: MPICEngine,
         kw = {"k": args.mpic_k} if policy == "mpic" else {}
         eng.submit(Request(prompt=d.prompt,
                            max_new_tokens=args.max_new_tokens,
-                           policy=policy, policy_kwargs=kw))
+                           policy=policy, policy_kwargs=kw,
+                           deadline_s=args.deadline_s))
     done = eng.run()
     print(f"\narch={cfg.name} policy={args.policy} paged={args.paged} "
-          f"pipelined={args.pipelined} device={eng.device.type}")
+          f"pipelined={args.pipelined} device={eng.device.type} "
+          f"replicas={args.replicas}"
+          + (f" router={args.router}" if args.replicas > 1 else ""))
     for r in done:
+        rep = f" replica={r.replica}" if args.replicas > 1 else ""
         print(f"  {r.req_id}: ttft={r.ttft * 1e3:7.0f} ms  "
               f"reused={r.prefill_stats.get('n_reused', 0):4d}  "
-              f"tokens={len(r.output_tokens)}")
+              f"tokens={len(r.output_tokens)}{rep}")
     for r in eng.failed:
         print(f"  {r.req_id}: FAILED — {r.error}")
+    for r in eng.expired:
+        print(f"  {r.req_id}: DEADLINE — {r.error}")
     if faults is not None:
         print(f"  fault_plan: {faults.stats()}")
     for k, v in eng.report().items():
@@ -171,11 +213,22 @@ def main(argv: Optional[List[str]] = None, *, params=None) -> None:
     policies = [p.strip() for p in args.policy.split(",") if p.strip()]
     if not policies:
         ap.error("--policy needs at least one policy name")
+    if args.fleet > 0:
+        # the supervisor builds the hosts, uploads and submits
+        from repro_torch.launch.fleet import run_fleet
+        run_fleet(hosts=args.fleet, requests=args.requests, arch=args.arch,
+                  policy=args.policy, max_new_tokens=args.max_new_tokens,
+                  mpic_k=args.mpic_k, router=args.router,
+                  deadline_s=args.deadline_s,
+                  freeze_idle_s=args.freeze_idle_s,
+                  max_seq_len=args.max_seq_len, device=args.device)
+        return
     cfg, eng, faults = build(args, params)
-    peer_server = None
+    peer_server = None if args.replicas <= 1 else eng.peer_server
     try:
-        if args.serve_blocks is not None:
+        if args.serve_blocks is not None and args.replicas <= 1:
             peer_server = KVPeerServer(eng.static_lib, port=args.serve_blocks)
+        if peer_server is not None:
             print(f"serving KV blocks to peers at {peer_server.address}")
         serve(args, cfg, eng, policies, faults)
     finally:

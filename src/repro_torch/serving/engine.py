@@ -63,10 +63,24 @@ temperature-scaled top-k softmax with a numpy generator seeded by
 ``Request.seed``, one per request, as the JAX engine does.
 
 ``faults`` (a :class:`~repro_torch.cache.faults.FaultPlan`) reaches the
-default static library's tiers and loader, and the ``engine.step`` site:
-``crash`` raises :class:`~repro_torch.cache.faults.ReplicaCrash` at the
-top of :meth:`MPICEngine.step`, before any per-request work, so the
-engine's state stays as the last whole step left it.
+default static library's tiers and loader, and the ``engine.step`` site
+(target ``f"replica{replica_id}"``): ``crash`` raises
+:class:`~repro_torch.cache.faults.ReplicaCrash` at the top of
+:meth:`MPICEngine.step`, before any per-request work, so the engine's
+state stays as the last whole step left it.
+
+**Deadlines and replicas.**  A request's ``deadline_s`` is reaped at the
+top of every step and at admission (terminal ``DEADLINE``, in
+``expired``): a waiting request leaves the queue with its prefetch pins
+released, a chunked prefill and a decoding slot free their pages.  A
+cluster (``serving/cluster.py``) runs several engines as replicas over
+one static library, one dynamic library, one retriever and one loader
+(``replica_id=``, ``loader=``; fetches and warmth are tagged with the
+replica); it routes by ``load_info`` and ``has_work``, and after a crash
+:meth:`MPICEngine.drain_for_failover` hands back every request the
+replica held, reset to ``WAITING`` with its pages and pins freed.  The
+replicas share one model module and its weights (eager PyTorch compiles
+nothing per replica, so there is nothing else to share).
 
 Sessions (``engine.sessions``, :mod:`repro_torch.serving.sessions`):
 ``freeze`` snapshots a decoding request into the static library and frees
@@ -77,7 +91,7 @@ many tokens are out, and ``freeze_idle_s > 0`` spools snapshots idle that
 long.  A write into a page that a fork still shares copies the page first
 (the MRAG link and the decode step).  Paged engines only.
 
-Not ported yet: deadlines and mesh sharding.
+Not ported yet: mesh sharding.
 """
 from __future__ import annotations
 
@@ -124,6 +138,8 @@ class EngineConfig:
     top_k: int = 0                  # sample from the top k logits (0: all)
     freeze_idle_s: float = 0.0      # > 0: spool frozen sessions idle this
                                     # long (seconds), checked every step
+    queue_aging_s: float = 0.0      # > 0: priority aging of the waiting
+                                    # queue (one level per this many seconds)
 
 
 class MPICEngine:
@@ -131,11 +147,16 @@ class MPICEngine:
                  *, static_library: Optional[KVLibrary] = None,
                  dynamic_library: Optional[KVLibrary] = None,
                  retriever: Optional[Retriever] = None, device=None,
-                 faults=None):
+                 faults=None, replica_id: Optional[int] = None,
+                 loader: Optional[ParallelLoader] = None):
         """``device`` None means the card, and raises without one; pass
         ``"cpu"`` to serve with the kernels' plain versions.  ``params``
-        must already live on that device."""
+        must already live on that device.  A cluster passes its shared
+        libraries, ``retriever`` and ``loader`` and a distinct
+        ``replica_id`` to each replica; ``replica_id=None`` keeps the
+        single-engine accounting."""
         self.device = resolve_device(device)
+        self.replica_id = replica_id
         self.model = model
         self.params = params
         self.cfg = engine_cfg or EngineConfig()
@@ -146,13 +167,16 @@ class MPICEngine:
         self.static_lib = static_library or KVLibrary(faults=faults)
         self.dynamic_lib = dynamic_library or KVLibrary(shared=True)
         self.retriever = retriever if retriever is not None else Retriever()
-        self.loader = ParallelLoader(self.static_lib)
+        self.loader = loader if loader is not None else ParallelLoader(
+            self.static_lib, replica=replica_id)
         self.scheduler = PipelinedScheduler(
             self.loader, pipelined=self.cfg.pipelined,
-            prefetch_filter=self._policy_consumes_entries)
+            prefetch_filter=self._policy_consumes_entries,
+            replica=replica_id, aging_s=self.cfg.queue_aging_s)
         self.running: List[Optional[Request]] = [None] * self.cfg.decode_slots
         self.finished: List[Request] = []
         self.failed: List[Request] = []
+        self.expired: List[Request] = []        # DEADLINE: reaped
         self.frozen: List[Request] = []         # FROZEN by freeze()
         self.decode_step_s: List[float] = []    # wall time of each decode step
         # slot -> its chunked prefill in progress
@@ -220,6 +244,8 @@ class MPICEngine:
         """The scheduler's waiting queue."""
         return self.scheduler.queue
 
+    waiting = queue         # the JAX engine's name for it
+
     def close(self) -> None:
         """Stop the loader's worker threads."""
         self.loader.close()
@@ -256,11 +282,15 @@ class MPICEngine:
     @torch.inference_mode()
     def step(self) -> None:
         if self.faults is not None:
-            # "replicaNone" is the JAX engine's target outside a cluster,
-            # so that one plan fires alike in both packages
-            rule = self.faults.check("engine.step", "replicaNone")
+            # "replicaNone" outside a cluster, as in the JAX engine, so that
+            # one plan fires alike in both packages
+            rule = self.faults.check("engine.step",
+                                     f"replica{self.replica_id}")
             if rule is not None and rule.kind == "crash":
-                raise ReplicaCrash(f"injected crash ({rule.describe()})")
+                raise ReplicaCrash(
+                    f"injected crash on replica {self.replica_id} "
+                    f"({rule.describe()})")
+        self._reap_deadlines()
         self._advance_prefills()
         self._admit()
         self._decode()
@@ -304,13 +334,21 @@ class MPICEngine:
 
     def _admit(self) -> None:
         """Admit up to ``max_prefills_per_step`` requests into free slots
-        (a free slot owns its whole page region, so it always has room)."""
-        for _ in range(self.cfg.max_prefills_per_step):
+        (a free slot owns its whole page region, so it always has room).
+        A request past its deadline is reaped instead, without a slot."""
+        admitted = 0
+        while self.queue and admitted < self.cfg.max_prefills_per_step:
             slot = self._free_slot()
-            if not self.queue or slot < 0:
+            if slot < 0:
                 return
             req, handle = self.scheduler.pop()
+            if req.past_deadline():
+                if handle is not None:
+                    handle.release()
+                self._expire(req)
+                continue
             self._begin_prefill(req, slot, handle)
+            admitted += 1
 
     def _resolve_policy(self, req: Request) -> str:
         """The policy a request runs: an SSM or a hybrid needs its whole
@@ -402,21 +440,92 @@ class MPICEngine:
                 raise
 
     def _abort_prefill(self, slot: int, handle: Optional[PrefetchHandle],
-                       error: str) -> None:
-        """Fail the request whose prefill raised in ``slot`` and free what
-        it held: its handle's pins, its chunked task, its pages and its
-        sampling generator.  The caller sees the error; the request does
-        not go back into the queue."""
+                       error: str, *, state: State = State.FAILED,
+                       sink: Optional[List[Request]] = None) -> None:
+        """Take the request in ``slot`` off it and free what it held: its
+        handle's pins, its chunked task, its pages and its sampling
+        generator (a resubmit replays from ``Request.seed``).  By default
+        it fails (in ``failed``), its error the caller's to see; deadline
+        reaping and the failover drain pass another ``state`` and
+        ``sink``."""
         if handle is not None:
             handle.release()
         self._prefill_tasks.pop(slot, None)
         req = self.running[slot]
         if req is not None:
-            req.state = State.FAILED
+            req.state = state
             req.error = error
             req.t_done = time.perf_counter()
-            self.failed.append(req)
+            (self.failed if sink is None else sink).append(req)
             self._release(req)
+
+    # -- deadlines and failover ----------------------------------------------
+    def _expire(self, req: Request) -> None:
+        """The terminal ``DEADLINE`` transition (resources already free)."""
+        req.state = State.DEADLINE
+        req.error = f"deadline exceeded ({req.deadline_s:.3f}s)"
+        req.t_done = time.perf_counter()
+        self.expired.append(req)
+
+    def _reap_deadlines(self) -> None:
+        """Expire every request past its deadline: waiting ones leave the
+        queue with their prefetch pins released, a chunked prefill aborts
+        through :meth:`_abort_prefill`, a decoding slot frees its pages and
+        keeps its partial output on the request."""
+        now = time.perf_counter()
+        for req in [r for r in self.queue if r.past_deadline(now)]:
+            self.scheduler.discard(req)
+            self._expire(req)
+        for slot, r in enumerate(self.running):
+            if r is None or not r.past_deadline(now):
+                continue
+            if r.state is State.PREFILLING:
+                task = self._prefill_tasks.get(slot)
+                self._abort_prefill(
+                    slot, task.handle if task is not None else None,
+                    f"deadline exceeded ({r.deadline_s:.3f}s)",
+                    state=State.DEADLINE, sink=self.expired)
+            else:
+                self._release(r)
+                self._expire(r)
+
+    @staticmethod
+    def _reset_for_resubmit(req: Request) -> None:
+        """A drained request back to a fresh ``WAITING`` state for another
+        replica; ``t_arrival`` stays, so a deadline's clock runs on."""
+        req.state = State.WAITING
+        req.error = None
+        req.slot = req.replica = -1
+        req.output_tokens = []
+        req.cur_len = 0
+        req.t_admitted = req.t_first_token = req.t_done = 0.0
+        req.prefill_stats = {}
+        req.linked_media = []
+        req.load_s = req.load_blocked_s = 0.0
+        req.compute_s = req.overlap_s = 0.0
+
+    def drain_for_failover(self) -> List[Request]:
+        """Strip every request that is not terminal off this replica after
+        a crash: chunked prefills and decoding slots abort through
+        :meth:`_abort_prefill` (pages freed, pins released), waiting ones
+        leave through ``scheduler.discard``.  Returns them reset to
+        ``WAITING``, chunked prefills and slots first, then the queue in
+        admission order."""
+        reclaim: List[Request] = []
+        for slot in list(self._prefill_tasks):
+            self._abort_prefill(slot, self._prefill_tasks[slot].handle,
+                                "replica failover", sink=reclaim)
+        for slot, r in enumerate(self.running):
+            if r is not None:
+                self._abort_prefill(slot, None, "replica failover",
+                                    sink=reclaim)
+        queued = list(self.queue)
+        for req in queued:
+            self.scheduler.discard(req)
+        out = reclaim + queued
+        for req in out:
+            self._reset_for_resubmit(req)
+        return out
 
     def _finalize_prefill(self, req: Request, result: PolicyResult,
                           handle: Optional[PrefetchHandle] = None) -> None:
@@ -492,7 +601,7 @@ class MPICEngine:
         for media_id, _score in hits:
             # pinned while linked: a spool must not free the tensors
             entry = self.dynamic_lib.get(req.prompt.user_id, media_id,
-                                         pin=True)
+                                         replica=self.replica_id, pin=True)
             if entry is None:
                 continue
             try:
@@ -688,6 +797,27 @@ class MPICEngine:
         self._release(r)
 
     # ------------------------------------------------------------------
+    # cluster hooks: the router and the backpressure read these
+    # ------------------------------------------------------------------
+    @property
+    def has_work(self) -> bool:
+        """Anything waiting, prefilling or decoding on this replica?"""
+        return bool(self.queue or any(r is not None for r in self.running))
+
+    def load_info(self) -> dict:
+        """The load a router scores: free slots and pages, queue depth."""
+        free_pages = self.pool.free_pages if self._paged else 0
+        total_pages = self.pool.cfg.num_pages if self._paged else 0
+        return {
+            "replica": self.replica_id,
+            "free_slots": sum(1 for r in self.running if r is None),
+            "queue_depth": len(self.queue),
+            "prefills_inflight": len(self._prefill_tasks),
+            "free_pages": free_pages,
+            "total_pages": total_pages,
+        }
+
+    # ------------------------------------------------------------------
     def report(self) -> dict:
         done = self.finished
         if not done:
@@ -695,8 +825,10 @@ class MPICEngine:
         ttfts = [r.ttft for r in done]
         steps = self.decode_step_s
         return {
+            "replica": self.replica_id,
             "requests": len(done),
             "failed": len(self.failed),
+            "expired": len(self.expired),
             "mean_ttft_s": float(np.mean(ttfts)),
             "p90_ttft_s": float(np.percentile(ttfts, 90)),
             "mean_prefill_s": float(np.mean(
@@ -706,5 +838,7 @@ class MPICEngine:
             "total_tokens": sum(len(r.output_tokens) for r in done),
             "paged": self._paged,
             "scheduler": self.scheduler.stats(done),
-            "library": self.static_lib.stats(),
+            # a cluster's replicas share one library: its report has it
+            **({} if self.replica_id is not None
+               else {"library": self.static_lib.stats()}),
         }

@@ -1,5 +1,9 @@
-"""Request lifecycle (port of the JAX package's ``serving/request.py``,
-without deadlines)."""
+"""Request lifecycle (port of the JAX package's ``serving/request.py``).
+
+``deadline_s`` is a wall-clock budget from ``t_arrival``: the engine reaps
+a request past it (terminal ``DEADLINE``) at admission and at the top of
+every step, and the cluster reaps one held under backpressure.  A
+failover resubmit keeps ``t_arrival``, so the clock runs on."""
 from __future__ import annotations
 
 import dataclasses
@@ -21,6 +25,7 @@ class State(enum.Enum):
     RUNNING = "running"         # decode phase (continuous batching slot)
     DONE = "done"
     FAILED = "failed"           # prefill raised or bad policy; slot freed
+    DEADLINE = "deadline"       # deadline_s elapsed; reaped, resources freed
     FROZEN = "frozen"           # decode snapshotted into the library; slot
                                 # freed (serving/sessions.py)
 
@@ -36,6 +41,8 @@ class Request:
     # MRAG: if set, the retriever runs after the prefill
     retrieval_query: Optional[np.ndarray] = None
     retrieval_top_k: int = 1
+    # wall-clock budget from arrival (seconds); None: no deadline
+    deadline_s: Optional[float] = None
     # the session this request belongs to (set by thaw and fork, stamped by
     # freeze), and an optional freeze point: once this many output tokens
     # are out, the engine freezes the request instead of decoding further
@@ -48,6 +55,7 @@ class Request:
     output_tokens: List[int] = dataclasses.field(default_factory=list)
     cur_len: int = 0                 # tokens currently in this request's cache
     slot: int = -1                   # decode batch slot
+    replica: int = -1                # engine replica (cluster routing)
     error: Optional[str] = None      # why the request FAILED
 
     # metrics
@@ -80,6 +88,14 @@ class Request:
     def load_overlap_ratio(self) -> float:
         """Share of this request's load time hidden under compute."""
         return self.overlap_s / self.load_s if self.load_s > 0 else 0.0
+
+    def past_deadline(self, now: Optional[float] = None) -> bool:
+        """Has the budget from arrival elapsed?  False without a
+        ``deadline_s``."""
+        if self.deadline_s is None:
+            return False
+        return ((now if now is not None else time.perf_counter())
+                - self.t_arrival > self.deadline_s)
 
     @property
     def done(self) -> bool:

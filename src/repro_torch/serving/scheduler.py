@@ -61,28 +61,54 @@ PREFETCH_DEPTH = 2
 
 
 class WaitingQueue:
-    """Priority waiting queue: higher ``Request.priority`` first, FIFO ties."""
+    """Priority waiting queue: higher ``Request.priority`` first, FIFO ties.
 
-    def __init__(self):
-        self._heap: List[Tuple[int, int, Request]] = []
+    ``aging_s > 0`` ages priorities: a queued request's effective priority
+    grows by one level per ``aging_s`` seconds waited, so that a burst of
+    higher-priority traffic cannot starve older requests.  The order is
+    then decided at pop and peek time (a scan); ``aging_s=0`` keeps the
+    static heap.
+    """
+
+    def __init__(self, aging_s: float = 0.0):
+        self.aging_s = float(aging_s)
+        self._heap: List[Tuple[int, int, float, Request]] = []
         self._seq = itertools.count()
 
     def push(self, req: Request) -> None:
-        heapq.heappush(self._heap, (-req.priority, next(self._seq), req))
+        item = (-req.priority, next(self._seq), time.perf_counter(), req)
+        if self.aging_s > 0:
+            self._heap.append(item)     # a plain list: ordered at pop
+        else:
+            heapq.heappush(self._heap, item)
+
+    def _aged_key(self, item, now: float):
+        neg_pri, seq, t_enq, _ = item
+        return (neg_pri - (now - t_enq) / self.aging_s, seq)
 
     def pop(self) -> Request:
-        return heapq.heappop(self._heap)[2]
+        if self.aging_s > 0:
+            now = time.perf_counter()
+            i = min(range(len(self._heap)),
+                    key=lambda j: self._aged_key(self._heap[j], now))
+            return self._heap.pop(i)[3]
+        return heapq.heappop(self._heap)[3]
 
     def peek(self, n: int) -> List[Request]:
         """The next ``n`` requests in admission order, not popped."""
-        return [item[2] for item in heapq.nsmallest(n, self._heap)]
+        if self.aging_s > 0:
+            now = time.perf_counter()
+            order = sorted(self._heap, key=lambda it: self._aged_key(it, now))
+            return [item[3] for item in order[:n]]
+        return [item[3] for item in heapq.nsmallest(n, self._heap)]
 
     def remove(self, req: Request) -> bool:
         """Drop one queued request by identity."""
         for i, item in enumerate(self._heap):
-            if item[2] is req:
+            if item[3] is req:
                 self._heap.pop(i)
-                heapq.heapify(self._heap)
+                if self.aging_s <= 0:
+                    heapq.heapify(self._heap)
                 return True
         return False
 
@@ -93,7 +119,7 @@ class WaitingQueue:
         return bool(self._heap)
 
     def __iter__(self):
-        return iter(item[2] for item in sorted(self._heap))
+        return iter(item[3] for item in sorted(self._heap))
 
 
 def _media_ids(req: Request) -> List[str]:
@@ -106,14 +132,19 @@ class PipelinedScheduler:
     ``prefetch_filter(req)`` says whether a request's policy will gather
     library entries at all (the engine's ``_policy_consumes_entries``), so
     that requests that never link media occupy no loader worker.
+    ``replica`` tags the prefetches issued on a loader that a cluster's
+    replicas share (per-replica warmth, deduplicated fetches);
+    ``aging_s`` goes to the :class:`WaitingQueue`.
     """
 
     def __init__(self, loader: ParallelLoader, *, pipelined: bool = True,
-                 max_intervals: int = 1024, prefetch_filter=None):
+                 max_intervals: int = 1024, prefetch_filter=None,
+                 replica=None, aging_s: float = 0.0):
         self.loader = loader
         self.pipelined = pipelined
         self.prefetch_filter = prefetch_filter
-        self.queue = WaitingQueue()
+        self.replica = replica
+        self.queue = WaitingQueue(aging_s=aging_s)
         self._handles: Dict[str, PrefetchHandle] = {}
         # the engine's compute windows; old ones cannot meet new loads
         self._compute_intervals: deque = deque(maxlen=max_intervals)
@@ -145,7 +176,8 @@ class PipelinedScheduler:
 
     def _issue(self, req: Request) -> PrefetchHandle:
         handle = self.loader.prefetch_handle(req.prompt.user_id,
-                                             _media_ids(req))
+                                             _media_ids(req),
+                                             replica=self.replica)
         self._recent_handles.append(handle)
         return handle
 
@@ -155,7 +187,8 @@ class PipelinedScheduler:
 
     def _slowest_tier_rank(self, req: Request) -> int:
         lib = self.loader.library
-        return min(_TIER_RANK[lib.peek_tier(req.prompt.user_id, mid)]
+        return min(_TIER_RANK[lib.peek_tier(req.prompt.user_id, mid,
+                                            replica=self.replica)]
                    for mid in _media_ids(req))
 
     def _top_up(self) -> None:
@@ -169,6 +202,16 @@ class PipelinedScheduler:
         window.sort(key=self._slowest_tier_rank)
         for req in window:
             self._handles[req.req_id] = self._issue(req)
+
+    def discard(self, req: Request) -> bool:
+        """Take a waiting request out (deadline reaping, failover drain)
+        and release its prefetch handle's pins; its fetches finish and
+        retire on their own.  True if it was queued."""
+        removed = self.queue.remove(req)
+        handle = self._handles.pop(req.req_id, None)
+        if handle is not None:
+            handle.release()
+        return removed
 
     # -- the compute stream ------------------------------------------------------
     @contextlib.contextmanager

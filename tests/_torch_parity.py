@@ -9,6 +9,8 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
+from jax.experimental.compilation_cache import compilation_cache
 
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import build_model as jax_build_model
@@ -35,3 +37,30 @@ def build_pair(seed: int = 0, arch: str = ARCH, **over):
     tree = jax.tree_util.tree_map(np.asarray, jparams)
     tmodel = torch_build_model(tcfg)
     return jmodel, jparams, tmodel, params_from_numpy(tree, tcfg, "cpu")
+
+
+_CACHE_OPTIONS = {"jax_compilation_cache_dir": None,
+                  "jax_persistent_cache_min_compile_time_secs": 0,
+                  "jax_persistent_cache_min_entry_size_bytes": 0}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_compile_cache(tmp_path_factory):
+    """JAX's persistent compilation cache, for the module that imports
+    this fixture: every JAX engine the parity tests build compiles its
+    steps anew, to executables the cache then loads instead.  The
+    executables are the same, so is every result; the cache is off again
+    after the module."""
+    saved = {name: getattr(jax.config, name) for name in _CACHE_OPTIONS}
+    options = dict(_CACHE_OPTIONS, jax_compilation_cache_dir=str(
+        tmp_path_factory.mktemp("jax_compile_cache")))
+    for name, value in options.items():
+        jax.config.update(name, value)
+    compilation_cache.reset_cache()
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            jax.config.update(name, value)
+        compilation_cache.reset_cache()
+

@@ -27,6 +27,8 @@ from repro_torch.serving import EngineConfig, MPICEngine, Request
 from repro_torch.data import make_dialogues
 
 from _torch_serve import build_gqa_pair, serve
+# autouse: JAX's persistent compilation cache while this module runs
+from _torch_parity import jax_compile_cache  # noqa: F401
 
 CHUNK = 32
 SETUPS = [("mpic", "", True), ("mpic", "int8", True),

@@ -18,6 +18,8 @@ from repro_torch.models.layers import INVALID_POS
 
 from _torch_parity import build_pair
 from _torch_serve import serve
+# autouse: JAX's persistent compilation cache while this module runs
+from _torch_parity import jax_compile_cache  # noqa: F401
 
 MAX_NEW = 6
 # (policy, pool dtype, paged); the mpic cases keep their original ids

@@ -43,6 +43,8 @@ from repro_torch.data import image_embeds
 from repro_torch.serving import EngineConfig, MPICEngine, Request
 
 from _torch_parity import build_pair
+# autouse: JAX's persistent compilation cache while this module runs
+from _torch_parity import jax_compile_cache  # noqa: F401
 
 SITES = ["peer.request", "peer.body", "disk.read", "disk.write",
          "loader.fetch", "engine.step"]

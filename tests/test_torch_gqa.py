@@ -28,6 +28,8 @@ from repro_torch.core.linker import precompute_media_kv
 from repro_torch.models.layers import INVALID_POS, attention_qkv, rope_relink
 
 from _torch_serve import MODELS, build_gqa_pair
+# autouse: JAX's persistent compilation cache while this module runs
+from _torch_parity import jax_compile_cache  # noqa: F401
 from test_torch_model import (
     ATOL,
     KV_LEN,

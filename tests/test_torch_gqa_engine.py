@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 
 from _torch_serve import build_gqa_pair, serve
+# autouse: JAX's persistent compilation cache while this module runs
+from _torch_parity import jax_compile_cache  # noqa: F401
 
 POLICIES = ("mpic", "cacheblend", "full_recompute", "prefix_caching",
             "full_reuse")

@@ -62,6 +62,8 @@ from repro_torch.models.transformer import init_params
 
 from _torch_parity import build_pair
 from _torch_serve import build_gqa_pair, serve
+# autouse: JAX's persistent compilation cache while this module runs
+from _torch_parity import jax_compile_cache  # noqa: F401
 
 ARCH = "hymba-1.5b"
 ATOL = 1e-4

@@ -25,6 +25,8 @@ from repro.models import moe as jmoe
 from repro_torch.models import moe
 
 from _torch_parity import build_pair, smoke_configs
+# autouse: JAX's persistent compilation cache while this module runs
+from _torch_parity import jax_compile_cache  # noqa: F401
 
 ATOL = 1e-4
 

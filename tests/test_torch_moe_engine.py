@@ -8,6 +8,8 @@ tokens.  The checks are ``_torch_moe_serve``'s; granite-moe-1b-a400m is
 import pytest
 
 import _torch_moe_serve as ms
+# autouse: JAX's persistent compilation cache while this module runs
+from _torch_parity import jax_compile_cache  # noqa: F401
 
 ARCH = "deepseek-moe-16b"
 SETUPS = ms.setups(chunked=True)

@@ -7,6 +7,8 @@ fp32 and an int8 pool; chunked ``mpic`` runs on deepseek alone.
 import pytest
 
 import _torch_moe_serve as ms
+# autouse: JAX's persistent compilation cache while this module runs
+from _torch_parity import jax_compile_cache  # noqa: F401
 
 ARCH = "granite-moe-1b-a400m"
 SETUPS = ms.setups(chunked=False)

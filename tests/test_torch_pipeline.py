@@ -25,6 +25,8 @@ from repro_torch.data import make_dialogues
 from repro_torch.serving import EngineConfig, MPICEngine, Request
 
 from _torch_parity import build_pair
+# autouse: JAX's persistent compilation cache while this module runs
+from _torch_parity import jax_compile_cache  # noqa: F401
 
 MAX_NEW = 5
 N_REQ = 3

@@ -40,6 +40,8 @@ from repro_torch.core.paged_prefill import PagedPrefiller
 from repro_torch.data import make_dialogues
 
 from _torch_parity import build_pair
+# autouse: JAX's persistent compilation cache while this module runs
+from _torch_parity import jax_compile_cache  # noqa: F401
 
 LOGIT_ATOL = 1e-3
 DEV_ATOL = 1e-4

@@ -30,6 +30,8 @@ from repro_torch.data import make_dialogues
 from repro_torch.serving import EngineConfig, MPICEngine, Request
 
 from _torch_serve import build_gqa_pair
+# autouse: JAX's persistent compilation cache while this module runs
+from _torch_parity import jax_compile_cache  # noqa: F401
 
 BLOCKS = [("u", "a"), ("u", "b")]
 COUNTS = {"rehydrated": 3, "skipped": 1, "corrupt": 1, "expired": 1}

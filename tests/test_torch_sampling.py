@@ -22,6 +22,8 @@ from repro.serving import MPICEngine as JaxEngine
 from repro_torch.serving import EngineConfig, MPICEngine
 
 from _torch_serve import build_gqa_pair, serve
+# autouse: JAX's persistent compilation cache while this module runs
+from _torch_parity import jax_compile_cache  # noqa: F401
 
 SEEDS = [0, 1, 7, 12345]
 SAMPLED = dict(greedy=False, temperature=0.8, top_k=8)

@@ -6,8 +6,10 @@ CLIs build equal ``EngineConfig`` fields, and the same static library
 (peers, fault plan); a ``--device cpu`` run under ``mpic,full_recompute,
 bogus`` fails only the bogus request and prints the JAX CLI's ``reused``
 and ``tokens`` per request when it serves the JAX CLI's weights, and so
-does a run of the MoE granite-moe-1b-a400m with ``--freeze-idle-s``;
-without ``--device cpu`` and without a card the run exits non-zero.
+does a run of the MoE granite-moe-1b-a400m with ``--freeze-idle-s``, and
+a run through a two-replica cluster (``--replicas 2 --router affinity
+--deadline-s``), which also prints each request's replica; without
+``--device cpu`` and without a card the run exits non-zero.
 """
 import dataclasses
 import os
@@ -27,12 +29,16 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.launch import serve
 from repro_torch.weights import params_from_numpy
 
+# autouse: JAX's persistent compilation cache while this module runs
+from _torch_parity import jax_compile_cache  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORTED = {"--arch", "--device", "--requests", "--policy", "--mpic-k",
           "--max-new-tokens", "--slots", "--max-seq-len", "--paged",
           "--no-paged", "--pipelined", "--no-pipelined", "--prefill-chunk",
           "--peers", "--serve-blocks", "--fault-plan", "--fault-seed",
-          "--freeze-idle-s", "--help"}
+          "--freeze-idle-s", "--replicas", "--fleet", "--router",
+          "--deadline-s", "--help"}
 ARGVS = [
     [],
     ["--no-paged", "--slots", "2", "--max-seq-len", "1024"],
@@ -168,6 +174,34 @@ def test_cpu_run_of_the_moe_granite_as_the_reference(monkeypatch, capsys):
     assert port == ref
     assert [r > 0 for r, _ in port[0]] == [True, False]
     assert [t for _, t in port[0]] == [4, 4] and not port[1]
+
+
+def _cluster_requests(text):
+    """(reused, tokens, replica) of each served request, in print order."""
+    return [tuple(int(x) for x in m) for m in re.findall(
+        r"^  req\d+: ttft=.*reused=\s*(\d+)\s+tokens=(\d+) "
+        r"replica=(\d+)$", text, re.M)]
+
+
+def test_cpu_cluster_run_as_the_reference(monkeypatch, capsys):
+    """``--replicas 2 --router affinity --deadline-s 60`` through both CLIs
+    on the JAX CLI's weights: the same requests on the same replicas with
+    the same ``reused`` and ``tokens``, none reaped."""
+    argv = ["--requests", "3", "--replicas", "2", "--router", "affinity",
+            "--deadline-s", "60", "--max-new-tokens", "4"]
+    jcfg = jax_smoke_config("llava-1.6-7b")
+    tree = jax.tree_util.tree_map(
+        np.asarray, jax_build_model(jcfg).init(jax.random.PRNGKey(0)))
+    serve.main([*argv, "--device", "cpu"], params=params_from_numpy(
+        tree, get_smoke_config("llava-1.6-7b"), "cpu"))
+    port = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["serve.py", *argv])
+    jax_serve.main()
+    ref = capsys.readouterr().out
+    assert _cluster_requests(port) == _cluster_requests(ref)
+    assert len(_cluster_requests(port)) == 3
+    assert {r for *_, r in _cluster_requests(port)} == {0, 1}
+    assert "DEADLINE" not in port and "replicas=2 router=affinity" in port
 
 
 def test_default_device_without_a_card_exits_non_zero():

@@ -41,6 +41,8 @@ from repro_torch.serving import EngineConfig, MPICEngine, Request, State
 from repro_torch.serving.sessions import SESSION_MEDIA_PREFIX, SessionHandle
 
 from _torch_parity import build_pair
+# autouse: JAX's persistent compilation cache while this module runs
+from _torch_parity import jax_compile_cache  # noqa: F401
 
 POOLS = pytest.mark.parametrize("pool_dtype", ["", "int8"],
                                 ids=["fp32", "int8"])

@@ -48,6 +48,8 @@ from repro_torch.serving import EngineConfig, MPICEngine, Request
 from repro_torch.weights import params_from_numpy
 
 from _torch_parity import build_pair, smoke_configs
+# autouse: JAX's persistent compilation cache while this module runs
+from _torch_parity import jax_compile_cache  # noqa: F401
 
 ARCH = "mamba2-130m"
 ATOL = 1e-4
