@@ -189,6 +189,30 @@ timed on its own line:
    layer (deepseek's upload must drop some, ``MOE_DROP_GATES``); the decode
    step printed beside the device floor of reading every expert's weights
    and of the routed ones alone;
+5l. whisper-small at full width (``serve_whisper``, after 5e; seeded bf16
+   weights, 0.61 GB) on the dense cache: four seeded audio inputs of 1500
+   frames encoded at once, their cross K/V put into a cache of 4 rows of
+   512 slots, four decoder prompts of 448, 320, 192 and 64 tokens each
+   prefilled into its row, then 8 greedy decode steps of all rows
+   (``run_whisper``).  Gates: kernel 5 alone launched, on the tensor cores
+   once per encoder layer and twice per decoder layer (self, cross) in
+   each prefill, on the split keys twice per decoder layer in each decode
+   step; every logit finite; each request's prefill and decode logits
+   within ``WHISPER_REL_RMS`` of ``Model.forward`` over its prompt and
+   generated tokens, and above it when it attends to another request's
+   cross K/V (the planted fault).  Printed: encode, cross K/V, each
+   prefill, the decode step, peak memory;
+5m. the trainer on the card (``train_on_card``): ``python -m
+   repro_torch.launch.train --arch stablelm-1.6b --full --steps 30 --ckpt
+   ...`` in a subprocess (batch 8, seq 64): exit 0, the reference's lines,
+   finite losses, the last logged below the first, the checkpoint written;
+   then granite-moe-1b-a400m (batch 8, its capacity drops counted) and
+   whisper-small (batch 4, seeded audio frames) at full width for 3 steps
+   each through ``train()`` in this process: finite losses, no kernel
+   launched, whisper's checkpoint written and loaded back bit-equal.
+   Printed: the step time, the card's memory (the subprocess, sampled) or
+   the peak allocated (in process).  Only ``layers.attend`` may run here;
+   the plain versions still raise;
 6. each kernel against its plain PyTorch version on the state phases 3-5b
    left (layer 0 of the live pool or the captured dense-attention and SSD
    inputs) and on synthetic shapes (32 query heads on 8 kv heads, window
@@ -222,7 +246,11 @@ timed on its own line:
    long-request inputs, with the resources of its (Q 64, hd 64, ds 16)
    instantiation; kernels 1-5 at deepseek-moe-16b's and
    granite-moe-1b-a400m's layer-0 shapes (both pools' prefill and decode,
-   the upload);
+   the upload); kernel 5 at whisper-small's layer-0 shapes from 5l (the
+   encoder's 1500 x 1500 with every query at the last frame's position
+   and the first prefill's self and cross on the tensor cores, a decode
+   step's self and cross on the split keys), each with its device time,
+   bound and SDPA's time;
 7. a small fp32 model served by the same engine on the card and on the CPU
    (plain versions) under every policy and on the dense cache, and under
    ``mpic`` with its media on disk and pipelined admission on both pools,
@@ -236,9 +264,12 @@ timed on its own line:
    image of two windows uploaded through ``banded_attend``, card against
    CPU alike; the smoke deepseek-moe-16b in fp32 under ``mpic`` on both
    pools and ``full_recompute`` (its prompts pass T = 64: the card's runs
-   must drop pairs); and a freeze / thaw / suffix thaw / fork round on the
+   must drop pairs); a freeze / thaw / suffix thaw / fork round on the
    smoke llava in fp32 (same tokens, suffix first-token logits within
-   1e-3, ``cow_copies`` 1).
+   1e-3, ``cow_copies`` 1); whisper-small's smoke config in fp32 through
+   5l's pass (same tokens, logits within 1e-3); and three train steps of
+   the smoke yi-9b and whisper-small in fp32 from the same weights on the
+   same batches (losses within 1e-4 relative).
 
 During the serving phases the plain versions and ``layers.attend`` raise
 if called.  Each serving run resets the kernels' launch counts (and the
@@ -483,6 +514,25 @@ CLUSTER_DEADLINE_S = 1e-3
 FLEET_SLOTS = 2
 FLEET_FREEZE_AFTER = 4
 FLEET_START_S = 600.0
+# phase 5l: whisper-small's decoder prompts (at most its 448-token
+# context), each prefilled into its own row of a dense cache of this many
+# slots, beside four seeded audio inputs of 1500 frames
+WHISPER = "whisper-small"
+WHISPER_PROMPTS = (448, 320, 192, 64)
+WHISPER_KV_LEN = 512
+# each request's prefill and decode logits against Model.forward over its
+# prompt and generated tokens, as the RMS of their difference over the RMS
+# of forward's: kernel 5 on both sides, the decode step on its split-key
+# route where forward takes the tensor cores, so only the order of bf16
+# work differs (the same passes in bf16 against fp32 read ~1 % on the
+# CPU); a request attending to another request's cross K/V (the planted
+# fault, run_whisper's cross_of) reads ~72 % on the CPU
+WHISPER_REL_RMS = 0.05
+# phase 5m: the trainer's command line (batch 8, seq 64 by default)
+TRAIN_ARGS = ["--arch", "stablelm-1.6b", "--full", "--steps", "30"]
+# (arch, steps, batch) of 5m's in-process full-width runs through train()
+TRAIN_RUNS = (("granite-moe-1b-a400m", 3, 8), (WHISPER, 3, 4))
+TRAIN_SEQ = 64
 
 
 def phase(name: str, t0: float) -> None:
@@ -935,6 +985,378 @@ def serve_fleet(reference, phase3_tokens, weight_bytes, *, device=None,
     return runs_fleet
 
 
+# -- phases 5l and 5m: whisper-small and the trainer --------------------------
+
+def whisper_traffic(cfg, seed: int = 31):
+    """Phase 5l's traffic for ``cfg``: four seeded audio inputs (4,
+    encoder_seq, d_model) fp32 at the scale of the JAX package's whisper
+    tests (N(0, 0.02)) and four decoder prompts of ``WHISPER_PROMPTS``
+    tokens."""
+    rng = np.random.default_rng(seed)
+    audio = (rng.standard_normal((len(WHISPER_PROMPTS), cfg.encoder_seq,
+                                  cfg.d_model)) * 0.02).astype(np.float32)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in WHISPER_PROMPTS]
+    return audio, prompts
+
+
+@contextlib.contextmanager
+def recording_dense(names, into):
+    """Keep a copy of the inputs of the next ``len(names)`` dense
+    selective-attention calls of the model's passes, under ``names`` in
+    ``into`` (with the window: ``dense_case``'s arguments)."""
+    import repro_torch.models.transformer as tf
+
+    real, pending = tf.selective_attention, list(names)
+
+    def recording(q, k, v, q_pos, kv_pos, *, window=0):
+        if pending:
+            into[pending.pop(0)] = tuple(t.clone() for t in
+                                         (q, k, v, q_pos, kv_pos)) + (window,)
+        return real(q, k, v, q_pos, kv_pos, window=window)
+
+    tf.selective_attention = recording
+    try:
+        yield
+    finally:
+        tf.selective_attention = real
+
+
+def run_whisper(model, params, audio, prompts, *, device=None,
+                cross_of=None, capture=None):
+    """Phase 5l's pass: the encoder over every audio input at once, their
+    cross K/V into the rows of a dense cache of ``WHISPER_KV_LEN`` slots,
+    each prompt prefilled into its own row, then ``MAX_NEW`` greedy decode
+    steps of all rows.  Row ``b`` reads the cross K/V of request
+    ``cross_of[b]`` (the planted fault; its own by default).  With
+    ``capture`` (a dict), layer 0's dense-attention inputs of the encoder,
+    of the first prompt's prefill and of the first decode step go there.
+    Returns fp32 numpy logits (``prefill``: one (S_b, V) per request;
+    ``decode``: (MAX_NEW, B, V)), the tokens (B, 1 + MAX_NEW) and host
+    seconds (``encode_s``, ``cross_kv_s``, ``prefill_s`` per request,
+    ``decode_s`` per step), each stage ended by a device sync."""
+    import torch
+
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+
+    last = [0.0]
+
+    def lap():
+        """Seconds since the last lap, after a device sync."""
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        last[0], dt = now, now - last[0]
+        return dt
+
+    def recorded(names):
+        return (recording_dense(names, capture) if capture is not None
+                else contextlib.nullcontext())
+
+    n = len(prompts)
+    out = {"prefill": [], "decode": [], "prefill_s": [], "decode_s": []}
+    cache = model.make_cache(n, WHISPER_KV_LEN, device=dev)
+    lap()
+    with recorded(["encoder"]):
+        enc = model.encode_audio(params, torch.as_tensor(audio, device=dev))
+    out["encode_s"] = lap()
+    ck, cv = model.cross_kv(params, enc)
+    if cross_of is not None:
+        ck, cv = ck[:, cross_of], cv[:, cross_of]
+    cache["cross_k"], cache["cross_v"] = ck, cv
+    out["cross_kv_s"] = lap()
+    del enc
+    firsts = []
+    for b, toks in enumerate(prompts):
+        row = {k: v[b:b + 1] if k == "pos" else v[:, b:b + 1]
+               for k, v in cache.items()}
+        with recorded(["prefill_self", "prefill_cross"] if b == 0 else []):
+            logits, _ = model.prefill(params, torch.as_tensor(
+                toks[None], device=dev), row)
+        out["prefill_s"].append(lap())
+        firsts.append(int(logits[0, -1].argmax()))
+        out["prefill"].append(logits[0].float().cpu().numpy())
+        lap()
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                        device=dev)
+    tok = torch.tensor(firsts, dtype=torch.int32, device=dev)[:, None]
+    tokens = [tok]
+    lap()
+    for step in range(MAX_NEW):
+        pos = (lens + step)[:, None]
+        with recorded(["decode_self", "decode_cross"] if step == 0 else []):
+            logits, cache = model.decode_step(params, tok, pos, cache, pos)
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        tokens.append(tok)
+        out["decode_s"].append(lap())
+        out["decode"].append(logits.float().cpu().numpy())
+        lap()
+    out["decode"] = np.stack(out["decode"])
+    out["tokens"] = torch.cat(tokens, 1).cpu().numpy()
+    return out
+
+
+def whisper_rel_rms(model, params, audio, prompts, out, *, device=None):
+    """Per request, the RMS of (its prefill logits, then its decode
+    logits) minus ``Model.forward``'s over its prompt and generated tokens,
+    over the RMS of forward's."""
+    import torch
+
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    rel = []
+    for b, toks in enumerate(prompts):
+        seq = np.concatenate([toks, out["tokens"][b, :MAX_NEW]])
+        full = model.forward(params, torch.as_tensor(seq[None], device=dev),
+                             audio_embeds=torch.as_tensor(audio[b:b + 1],
+                                                          device=dev))
+        full = full[0].float().cpu().numpy()
+        got = np.concatenate([out["prefill"][b], out["decode"][:, b]])
+        rel.append(float(np.sqrt(np.mean((got - full) ** 2)
+                                 / np.mean(full ** 2))))
+    return rel
+
+
+def serve_whisper(guard, runs, capture):
+    """Phase 5l: full-width whisper-small with seeded bf16 weights on the
+    dense cache (``run_whisper``).  Gates: kernel 5 alone launched, on the
+    tensor cores once per encoder layer and per decoder layer twice (self
+    and cross) in each prefill, on the split keys twice per decoder layer
+    in each decode step; every logit finite; each request within
+    ``WHISPER_REL_RMS`` of ``Model.forward``, and above it with another
+    request's cross K/V.  Layer 0's inputs go to ``capture`` for phase 6.
+    """
+    import torch
+
+    import repro_torch.kernels.selective_attn.ops as sel_ops
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS, _build
+    from repro_torch.models import build_model
+
+    cfg = get_config(WHISPER)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()        # what earlier phases keep
+    params = model.init(seed=0)
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    audio, prompts = whisper_traffic(cfg)
+    print(f"{cfg.name}: {cfg.encoder_layers} encoder and {cfg.num_layers} "
+          f"decoder layers, d_model {cfg.d_model}, {nbytes / 2**30:.2f} GiB "
+          f"of seeded weights; audio {audio.shape}, prompts "
+          f"{list(WHISPER_PROMPTS)} tokens into {WHISPER_KV_LEN} slots a row")
+    with guard():
+        _build.reset_launches(KERNELS.values())
+        out = run_whisper(model, params, audio, prompts, capture=capture)
+        torch.cuda.synchronize()
+        launches = {k: v.launches for k, v in KERNELS.items()}
+        routes = dict(sel_ops.SEL_ATTN.route_launches)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    n, layers = len(prompts), cfg.num_layers
+    want_routes = {sel_ops.TENSOR_CORES: cfg.encoder_layers + 2 * layers * n,
+                   sel_ops.SPLIT_KEYS: 2 * layers * MAX_NEW}
+    print(f"  encode {out['encode_s'] * 1e3:.2f} ms (4 x {cfg.encoder_seq} "
+          f"frames), cross K/V {out['cross_kv_s'] * 1e3:.2f} ms, prefill "
+          f"{[round(x * 1e3, 2) for x in out['prefill_s']]} ms, decode step "
+          f"mean {np.mean(out['decode_s'][1:]) * 1e3:.2f} ms (first "
+          f"{out['decode_s'][0] * 1e3:.2f}); peak {peak:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB earlier phases hold")
+    print(f"  launches {launches}; sel_attn by route {routes}; tokens "
+          f"{out['tokens'].tolist()}", flush=True)
+    if any(n_ for name, n_ in launches.items() if name != "sel_attn") or \
+            {r: c for r, c in routes.items() if c} != want_routes or \
+            launches["sel_attn"] != sum(want_routes.values()):
+        raise RuntimeError(f"{WHISPER}: kernel launches {launches}, routes "
+                           f"{routes}, want {want_routes}")
+    if not all(np.isfinite(x).all() for x in [*out["prefill"],
+                                              out["decode"]]):
+        raise RuntimeError(f"{WHISPER}: non-finite logits")
+    with guard():
+        rel = whisper_rel_rms(model, params, audio, prompts, out)
+        faulty = run_whisper(model, params, audio, prompts,
+                             cross_of=[1, 2, 3, 0])
+        rel_fault = whisper_rel_rms(model, params, audio, prompts, faulty)
+    print(f"  against Model.forward: relative RMS {[f'{r:.3e}' for r in rel]}"
+          f" (limit {WHISPER_REL_RMS}); another request's cross K/V "
+          f"{[f'{r:.3e}' for r in rel_fault]}", flush=True)
+    print(f"  the planted fault's pass, warm: encode "
+          f"{faulty['encode_s'] * 1e3:.2f} ms, cross K/V "
+          f"{faulty['cross_kv_s'] * 1e3:.2f} ms, prefill "
+          f"{[round(x * 1e3, 2) for x in faulty['prefill_s']]} ms, decode "
+          f"step mean {np.mean(faulty['decode_s']) * 1e3:.2f} ms",
+          flush=True)
+    if not max(rel) <= WHISPER_REL_RMS < min(rel_fault):
+        raise RuntimeError(f"{WHISPER}: the forward gate failed: {rel}, "
+                           f"planted fault {rel_fault}")
+    runs[f"{WHISPER}:serve"] = {
+        "model": WHISPER, "launches": launches, "sel_attn_routes": routes,
+        "encode_ms": out["encode_s"] * 1e3,
+        "cross_kv_ms": out["cross_kv_s"] * 1e3,
+        "prefill_ms": [x * 1e3 for x in out["prefill_s"]],
+        "decode_step_ms": [x * 1e3 for x in out["decode_s"]],
+        "warm_ms": {k: np.multiply(faulty[f"{k}_s"], 1e3).tolist()
+                    for k in ("encode", "cross_kv", "prefill", "decode")},
+        "peak_gib": peak, "rel_rms": rel, "rel_rms_fault": rel_fault,
+        "prompt_tokens": list(WHISPER_PROMPTS)}
+    del model, params, out, faulty
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _timed(batches, stamps):
+    """``batches`` recording the host clock, after a device sync, at each
+    batch taken: the end of the step before it."""
+    import torch
+
+    for b in batches:
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        yield b
+
+
+def train_on_card(guard, env):
+    """Phase 5m: the launcher as a subprocess (``TRAIN_ARGS``, with
+    ``--ckpt``), then ``TRAIN_RUNS`` in this process through ``train()``;
+    the last also writes its checkpoint and loads it back.  Gates: exit
+    0, the reference's lines, finite losses, the last logged one below the
+    first; no kernel launched while training; the loaded parameters
+    bit-equal."""
+    import torch
+
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.configs import get_config
+    from repro_torch.data import train_batches, with_audio
+    from repro_torch.kernels import KERNELS, _build
+    from repro_torch.models import build_model
+    from repro_torch.training import (
+        TrainConfig,
+        load_checkpoint,
+        save_checkpoint,
+        train,
+    )
+    from repro_torch.weights import params_from_numpy, reference_tree
+
+    result = {}
+    tmp = tempfile.mkdtemp(prefix="mpic_smoke_train_")
+    try:
+        ckpt = os.path.join(tmp, "stablelm.msgpack")
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGS,
+               "--ckpt", ckpt]
+        baseline = card_memory_mib()
+        rc, out, err, wall, card_mib, rss = run_watched(cmd, env, 900)
+        print(f"$ {' '.join(cmd[1:])}\n  exit {rc} in {wall:.3f} s; the "
+              f"card's memory in use at most {card_mib} MiB (nvidia-smi, "
+              f"{baseline} MiB before it started), its resident memory at "
+              "most " + (f"{rss:.0f} MiB" if rss else "not readable here"))
+        for line in out.splitlines():
+            print(f"  | {line}")
+        if rc != 0:
+            raise RuntimeError(f"the trainer exited {rc}: {err[-3000:]}")
+        head = re.match(r"arch=(\S+) params=([\d.]+)M devices=1$",
+                        out.splitlines()[0])
+        logged = [(int(s), float(loss), float(t)) for s, loss, t in
+                  re.findall(r"^step +(\d+)  loss (\S+)  \((\S+)s\)$", out,
+                             re.M)]
+        losses = [loss for _, loss, _ in logged]
+        size = os.path.getsize(ckpt)
+        # every parameter as 4 bytes at least (bf16 goes as fp32); the
+        # printed count is rounded to 0.1 M
+        n_params = (float(head[2]) - 0.05) * 1e6 if head else 0.0
+        arch = get_config(TRAIN_ARGS[TRAIN_ARGS.index("--arch") + 1]).name
+        if (not head or head[1] != arch or len(logged) < 2
+                or not np.isfinite(losses).all()
+                or not losses[-1] < losses[0] or size < 4 * n_params):
+            raise RuntimeError(f"the trainer's output is wrong:\n{out}")
+        (s0, _, t0), (s1, _, t1) = logged[0], logged[-1]
+        step_ms = (t1 - t0) / (s1 - s0) * 1e3
+        print(f"  {arch}: {head[2]}M parameters, loss {losses[0]:.4f}"
+              f" -> {losses[-1]:.4f}; {step_ms:.1f} ms a step after the "
+              f"first (its log's clock, steps {s0}-{s1}); checkpoint "
+              f"{size / 2**30:.2f} GiB", flush=True)
+        result[arch] = {
+            "wall_s": wall, "card_mib_max": card_mib,
+            "card_mib_before": baseline, "rss_mib_max": rss,
+            "losses": logged, "step_ms": step_ms, "ckpt_bytes": size}
+
+        drops = []
+        route = moe_mod.route
+
+        def counting(*args, **kwargs):
+            got = route(*args, **kwargs)
+            drops.append(int((~got[4]).sum()))
+            return got
+
+        for arch, steps, batch in TRAIN_RUNS:
+            cfg = get_config(arch)
+            model = build_model(cfg)
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            params = model.init(seed=0)
+            data = train_batches(batch=batch, seq=TRAIN_SEQ,
+                                 vocab=cfg.vocab_size, d_model=cfg.d_model)
+            if cfg.is_encoder_decoder:
+                data = with_audio(data, encoder_seq=cfg.encoder_seq,
+                                  d_model=cfg.d_model)
+            stamps = []
+            drops.clear()
+            moe_mod.route = counting
+            try:
+                with guard():
+                    _build.reset_launches(KERNELS.values())
+                    params, opt_state, hist = train(
+                        model, params, _timed(data, stamps),
+                        TrainConfig(steps=steps, log_every=1))
+                    torch.cuda.synchronize()
+                    stamps.append(time.perf_counter())
+                    launches = {k: v.launches for k, v in KERNELS.items()}
+            finally:
+                moe_mod.route = route
+            peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+            step_ms = [(b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:])]
+            losses = [loss for _, loss in hist]
+            print(f"  {arch} ({cfg.num_layers} layers, d_model "
+                  f"{cfg.d_model}), batch {batch} x {TRAIN_SEQ}: losses "
+                  f"{[round(x, 4) for x in losses]}, steps after the first "
+                  f"{[round(x, 1) for x in step_ms]} ms, peak {peak:.2f} GiB "
+                  f"above the {held / 2**30:.2f} GiB held before"
+                  + (f"; (token, choice) pairs dropped by capacity "
+                     f"{sum(drops)} over {len(drops)} routed passes"
+                     if cfg.arch_type == "moe" else ""), flush=True)
+            if not np.isfinite(losses).all() or any(launches.values()):
+                raise RuntimeError(f"{arch}: losses {losses}, kernel "
+                                   f"launches while training {launches}")
+            result[arch] = {"losses": losses, "step_ms": step_ms,
+                            "peak_gib": peak}
+            if cfg.arch_type == "moe":
+                result[arch]["dropped_pairs"] = sum(drops)
+            if arch == TRAIN_RUNS[-1][0]:
+                path = os.path.join(tmp, f"{arch}.msgpack")
+                t = time.perf_counter()
+                save_checkpoint(path, {"params": reference_tree(params),
+                                       "step": steps})
+                back = params_from_numpy(load_checkpoint(path)["params"],
+                                         cfg)
+                same = all(torch.equal(a, b) for a, b in zip(
+                    back.parameters(), params.parameters()))
+                print(f"  {arch}: checkpoint of {os.path.getsize(path) / 2**20:.1f}"
+                      f" MiB written and loaded back in "
+                      f"{time.perf_counter() - t:.2f} s, parameters "
+                      f"bit-equal {same}", flush=True)
+                if not same:
+                    raise RuntimeError(f"{arch}: the checkpoint's "
+                                       "parameters differ")
+                del back
+            del model, params, opt_state, data
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"train runs: {json.dumps(result)}", flush=True)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1028,11 +1450,14 @@ def main() -> int:
                (ssd_ops, "ssd_chunk_ref")]
 
     @contextlib.contextmanager
-    def no_plain_versions():
+    def no_plain_versions(training=False):
         """The plain versions and ``layers.attend`` raise while serving on
         the card: every attention and SSD chunk step there must go through
-        a kernel."""
-        saved = [(mod, name, getattr(mod, name)) for mod, name in guarded]
+        a kernel.  While ``training``, ``layers.attend`` runs (the training
+        forward's attention, which the kernels, having no backward, do not
+        serve) and the plain versions still raise."""
+        saved = [(mod, name, getattr(mod, name)) for mod, name in guarded
+                 if not (training and (mod, name) == (layers, "attend"))]
 
         def forbid(name):
             def call(*args, **kwargs):
@@ -2787,6 +3212,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("serve_hymba", t0)
 
+    # -- 5l. whisper-small at full width ---------------------------------------
+    t0 = time.perf_counter()
+    print(f"serve_whisper: {WHISPER} on the dense cache:")
+    whisper_captured = {}
+    serve_whisper(no_plain_versions, runs, whisper_captured)
+    captured.update({f"{WHISPER}:{k}": v for k, v in whisper_captured.items()})
+    del whisper_captured
+    phase("serve_whisper", t0)
+
+    # -- 5m. the trainer on the card -------------------------------------------
+    t0 = time.perf_counter()
+    print("train: the launcher, then train() in this process:")
+    train_on_card(lambda: no_plain_versions(training=True), env)
+    phase("train", t0)
+
     # -- 6. kernels against their plain versions ----------------------------
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -3142,14 +3582,24 @@ def main() -> int:
                   "dense_mpic": sel_ops.TENSOR_CORES,
                   "chunk": sel_ops.TENSOR_CORES,
                   "long_prefill": sel_ops.TENSOR_CORES,
-                  "dense_decode": sel_ops.SPLIT_KEYS}
+                  "dense_decode": sel_ops.SPLIT_KEYS,
+                  # whisper's: the encoder (every query at the last frame's
+                  # position), the first prompt's prefill (self and cross
+                  # over 1500 frames), a decode step's self and cross
+                  "encoder": sel_ops.TENSOR_CORES,
+                  "prefill_self": sel_ops.TENSOR_CORES,
+                  "prefill_cross": sel_ops.TENSOR_CORES,
+                  "decode_self": sel_ops.SPLIT_KEYS,
+                  "decode_cross": sel_ops.SPLIT_KEYS}
     gqa_dense = [n for caps in (GQA_CAPTURES, MOE_CAPTURES)
                  for c in caps.values() for n in c.values()] + \
-        list(HYMBA_CAPTURES.values())
+        list(HYMBA_CAPTURES.values()) + \
+        [n for n in captured if n.startswith(f"{WHISPER}:")]
     # hymba's layer-0 shapes: kernel 5 at the upload, the long request's
     # prefill and a decode step with it (the window biting in both), the
     # banded calls of phase 5e; kernel 6 below
     gqa_results[HYMBA] = {"sel_attn": dict(banded)}
+    gqa_results[WHISPER] = {}
     for name in ("dense_mpic", "full_recompute", "dense_decode", "upload",
                  *gqa_dense):
         res = dense_case(*captured[name])
@@ -3694,6 +4144,63 @@ def main() -> int:
     if not diff <= 1e-3 or not same or outs[None][2] != 1 or \
             len(resumed) != MAX_NEW:
         raise RuntimeError("the card's sessions disagree with the CPU's")
+    # whisper's smoke config in fp32 through phase 5l's pass (32 frames,
+    # the same prompts), on the card and on the CPU
+    small = dataclasses.replace(get_smoke_config(WHISPER),
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    smodel = build_model(small)
+    p_cpu = smodel.init(seed=1, device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to(dev)
+    audio, prompts = whisper_traffic(small)
+    with no_plain_versions():
+        w_gpu = run_whisper(smodel, p_gpu, audio, prompts)
+    w_cpu = run_whisper(smodel, p_cpu, audio, prompts, device="cpu")
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(
+        [*w_cpu["prefill"], w_cpu["decode"]],
+        [*w_gpu["prefill"], w_gpu["decode"]]))
+    same = np.array_equal(w_cpu["tokens"], w_gpu["tokens"])
+    print(f"small fp32 {WHISPER} (encode, cross K/V, four prefills, "
+          f"{MAX_NEW} decode steps): card vs CPU logit max diff {diff:.2e}, "
+          f"tokens identical {same}")
+    if not diff <= 1e-3 or not same:
+        raise RuntimeError("the card's whisper disagrees with the CPU's")
+    # three train steps of the smoke yi-9b and whisper in fp32, card
+    # against CPU, from the same weights on the same batches
+    from repro_torch.data import train_batches, with_audio
+    from repro_torch.training import AdamW, cosine_warmup, make_train_step
+    for arch in ("yi-9b", WHISPER):
+        small = dataclasses.replace(get_smoke_config(arch),
+                                    param_dtype="float32",
+                                    compute_dtype="float32")
+        smodel = build_model(small)
+        p_cpu = smodel.init(seed=1, device="cpu")
+        losses = {}
+        for where, p in (("cpu", p_cpu), ("cuda", copy.deepcopy(p_cpu).to(
+                dev))):
+            data = train_batches(batch=2, seq=TRAIN_SEQ,
+                                 vocab=small.vocab_size, d_model=small.d_model)
+            if small.is_encoder_decoder:
+                data = with_audio(data, encoder_seq=small.encoder_seq,
+                                  d_model=small.d_model)
+            opt = AdamW(lr=cosine_warmup(1e-3, 1, 3))
+            step, state = make_train_step(smodel, opt), opt.init(p)
+            with (no_plain_versions(training=True) if where == "cuda"
+                  else contextlib.nullcontext()):
+                losses[where] = []
+                for _ in range(3):
+                    batch = {k: torch.as_tensor(v, device=p.embed.device)
+                             for k, v in next(data).items()}
+                    p, state, loss = step(p, state, batch)
+                    losses[where].append(float(loss))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                       losses["cpu"]))
+        print(f"small fp32 {arch}: three train steps, card losses "
+              f"{losses['cuda']} vs CPU {losses['cpu']}: relative "
+              f"{rel:.2e}")
+        if not rel <= 1e-4:
+            raise RuntimeError(f"{arch}: the card's training disagrees with "
+                               "the CPU's")
     phase("small_reference", t0)
 
     # -- report ------------------------------------------------------------

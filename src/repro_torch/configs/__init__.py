@@ -5,9 +5,10 @@ MHA decoders (qwen2.5-14b with QKV bias, G 5; yi-9b, G 8;
 phi3-medium-14b, G 4; stablelm-1.6b, MHA at head dim 64), two MoE
 decoders (deepseek-moe-16b, MHA at head dim 128, 64 experts top-6 and 2
 shared; granite-moe-1b-a400m, G 2 at head dim 64, 32 experts top-8),
-mamba2-130m and the hybrid hymba-1.5b (attention and SSD heads in every
-layer, G 5, a 2048-token window); whisper and internvl2-76b are not ported
-yet."""
+mamba2-130m, the hybrid hymba-1.5b (attention and SSD heads in every
+layer, G 5, a 2048-token window) and the encoder-decoder whisper-small
+(learned positions, cross attention over 1,500 encoded audio frames);
+internvl2-76b is not ported yet."""
 from __future__ import annotations
 
 from repro_torch.configs import (
@@ -19,6 +20,7 @@ from repro_torch.configs import (
     phi3_medium_14b,
     qwen2_5_14b,
     stablelm_1_6b,
+    whisper_small,
     yi_9b,
 )
 from repro_torch.configs.base import ModelConfig, reduced
@@ -28,7 +30,8 @@ _REGISTRY = {"llava-1.6-7b": llava_mpic, "mamba2-130m": mamba2_130m,
              "phi3-medium-14b": phi3_medium_14b,
              "stablelm-1.6b": stablelm_1_6b, "hymba-1.5b": hymba_1_5b,
              "deepseek-moe-16b": deepseek_moe_16b,
-             "granite-moe-1b-a400m": granite_moe_1b_a400m}
+             "granite-moe-1b-a400m": granite_moe_1b_a400m,
+             "whisper-small": whisper_small}
 
 
 def _module(arch_id: str):

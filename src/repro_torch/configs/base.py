@@ -3,9 +3,9 @@
 Field for field the same as the JAX package's ``ModelConfig``, so one
 configuration reads the same in both packages and the tests can compare
 them with ``dataclasses.asdict``.  The port serves the attention-only
-architectures, the pure SSM and the attention + SSM hybrid (``Model``
-rejects the rest); the other fields are kept so that the two dataclasses
-stay interchangeable.
+architectures, the pure SSM, the attention + SSM hybrid and the audio
+encoder-decoder (``Model`` rejects other combinations); every field is
+kept so that the two dataclasses stay interchangeable.
 """
 from __future__ import annotations
 

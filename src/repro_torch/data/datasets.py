@@ -11,13 +11,14 @@ embedding (seeded by its id) from the stub frontend — the modality
 carve-out.  What matters for the reproduction is the *prompt structure*
 (where media KV lands and how often prefixes diverge), which these
 generators match.  (The port's own copy of the JAX package's
-``data/datasets.py``, without the training pipeline.)
+``data/datasets.py``, the training pipeline included, plus the audio
+frames that whisper's training batches need.)
 """
 from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import List
+from typing import Iterator, List
 
 import numpy as np
 
@@ -97,3 +98,56 @@ def make_dialogues(*, n: int, n_images: int, d_model: int,
     return [_mk_prompt(rng, tok, d_model, media_len, n_images, style,
                        user_id, include_system, conv_id=i)
             for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# training pipeline (tokens + media for the train example / train_4k shape)
+# ---------------------------------------------------------------------------
+
+def train_batches(*, batch: int, seq: int, vocab: int, d_model: int,
+                  media_fraction: float = 0.25, media_len: int = 16,
+                  seed: int = 0) -> Iterator[dict]:
+    """Infinite stream of causal-LM batches with interleaved media spans.
+
+    Deterministic synthetic text with learnable structure (repeated n-gram
+    process) so a small model's loss visibly drops within a few hundred
+    steps.  The same numpy draws as the JAX package's: a seed gives the
+    same batches in both.
+    """
+    rng = np.random.default_rng(seed)
+    # order-1 markov over a small alphabet embedded in the byte range
+    k = 64
+    trans = rng.dirichlet(np.ones(k) * 0.1, size=k)
+    while True:
+        toks = np.zeros((batch, seq), np.int32)
+        state = rng.integers(0, k, size=batch)
+        for t in range(seq):
+            nxt = np.array([rng.choice(k, p=trans[s]) for s in state])
+            toks[:, t] = nxt + 8
+            state = nxt
+        media_mask = np.zeros((batch, seq), bool)
+        media = np.zeros((batch, seq, d_model), np.float32)
+        for b in range(batch):
+            if rng.random() < media_fraction:
+                off = int(rng.integers(0, max(seq - media_len, 1)))
+                media_mask[b, off:off + media_len] = True
+                media[b, off:off + media_len] = (
+                    rng.standard_normal((media_len, d_model)) * 0.02)
+        labels = np.concatenate([toks[:, 1:], np.full((batch, 1), -1, np.int32)],
+                                axis=1)
+        yield {"tokens": toks, "labels": labels,
+               "media_embeds": media, "media_mask": media_mask}
+
+
+def with_audio(batches: Iterator[dict], *, encoder_seq: int, d_model: int,
+               seed: int = 0) -> Iterator[dict]:
+    """``batches`` with seeded audio frames added to each: ``audio_embeds``
+    (B, encoder_seq, d_model) fp32, N(0, 0.02), the stub frontend's frame
+    embeddings that an encoder-decoder's loss encodes (``train_batches``
+    carries none, so whisper cannot train on it alone)."""
+    rng = np.random.default_rng(seed)
+    for b in batches:
+        n = b["tokens"].shape[0]
+        frames = rng.standard_normal((n, encoder_seq, d_model),
+                                     dtype=np.float32) * np.float32(0.02)
+        yield dict(b, audio_embeds=frames)

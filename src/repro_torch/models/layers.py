@@ -1,4 +1,5 @@
-"""Core neural-net primitives: norms, RoPE, SwiGLU, position-masked attention.
+"""Core neural-net primitives: norms, RoPE, SwiGLU and GELU MLPs,
+position-masked attention.
 
 Plain functions on tensors, with weights passed explicitly (the layer
 modules in :mod:`repro_torch.models.transformer` hold them).  Layouts are
@@ -24,6 +25,18 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5):
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
     return (out * scale.float()).to(dt)
+
+
+def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+              eps: float = 1e-5):
+    """fp32 layer norm with the population variance, then scale and
+    bias, back in x's dtype."""
+    dt = x.dtype
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -92,14 +105,17 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     return torch.repeat_interleave(x, n_rep, dim=2)
 
 
-def attend(q, k, v, q_pos, kv_pos, *, window: int = 0):
+def attend(q, k, v, q_pos, kv_pos, *, window: int = 0,
+           bidirectional: bool = False):
     """Causal attention masked by original token positions.
 
     q (B, Sq, Hq, Dh); k, v (B, Skv, Hkv, Dh); q_pos (B, Sq); kv_pos
     (B, Skv) with ``INVALID_POS`` for empty slots; ``window`` > 0 keeps
-    only keys with ``kv_pos > q_pos - window``.  Logits and the value
+    only keys with ``kv_pos > q_pos - window``; ``bidirectional`` keeps
+    every valid key (the encoder, cross attention).  Logits and the value
     product accumulate in fp32, the probabilities round to the value dtype
-    first, as the JAX package does.
+    first, as the JAX package does.  Differentiable: the training forward
+    runs on it.
     """
     hq, dh = q.shape[2], q.shape[3]
     k = repeat_kv(k, hq // k.shape[2])
@@ -108,9 +124,11 @@ def attend(q, k, v, q_pos, kv_pos, *, window: int = 0):
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     kp = kv_pos[:, None, None, :]
     qp = q_pos[:, None, :, None]
-    mask = (kp != INVALID_POS) & (kp <= qp)
-    if window > 0:
-        mask = mask & (kp > qp - window)
+    mask = kp != INVALID_POS
+    if not bidirectional:
+        mask = mask & (kp <= qp)
+        if window > 0:
+            mask = mask & (kp > qp - window)
     logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
@@ -121,12 +139,14 @@ def attend(q, k, v, q_pos, kv_pos, *, window: int = 0):
 # attention projections and MLP
 # ---------------------------------------------------------------------------
 
-def attention_qkv(attn, cfg, x: torch.Tensor, positions: torch.Tensor):
+def attention_qkv(attn, cfg, x: torch.Tensor, positions: torch.Tensor, *,
+                  rope: bool = True):
     """x (B,S,D), positions (B,S) -> q (B,S,Hq,Dh), k/v (B,S,Hkv,Dh).
 
     ``attn`` holds ``wq``/``wk``/``wv`` (in, out) and, with
     ``cfg.qkv_bias``, ``bq``/``bk``/``bv``, added before RoPE (so a relink
-    rotates the biased K exactly)."""
+    rotates the biased K exactly).  No RoPE with ``rope=False`` (the
+    encoder) or learned positions (``cfg.learned_pos_emb``)."""
     b, s, _ = x.shape
     q, k, v = x @ attn.wq, x @ attn.wk, x @ attn.wv
     if cfg.qkv_bias:
@@ -134,8 +154,9 @@ def attention_qkv(attn, cfg, x: torch.Tensor, positions: torch.Tensor):
     q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
     k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if rope and not cfg.learned_pos_emb:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -146,3 +167,10 @@ def attention_out(wo: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
 
 def swiglu(w_gate, w_up, w_down, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def gelu_mlp(w_up, b_up, w_down, b_down, x: torch.Tensor) -> torch.Tensor:
+    """whisper's MLP: the tanh GELU (``jax.nn.gelu``'s default), biases
+    on both projections."""
+    h = F.gelu(x @ w_up + b_up, approximate="tanh")
+    return h @ w_down + b_down

@@ -1,4 +1,5 @@
-"""Public model facade (port of the JAX package's ``models/model.py``).
+"""Public model facade (port of the JAX package's ``models/model.py``):
+the serving passes, whisper's encoder, and the training loss.
 
 ``Model`` holds the config; the parameters are a
 :class:`~repro_torch.models.transformer.Transformer` module passed to each
@@ -16,21 +17,26 @@ from repro_torch.models.layers import INVALID_POS
 
 
 def _check_supported(cfg: ModelConfig) -> None:
+    """The port builds the families the JAX package's configs use: an
+    audio model is whisper's encoder-decoder with learned positions, and
+    only it has an encoder or learned positions."""
     unsupported = []
-    if cfg.arch_type == "audio":
-        unsupported.append(f"arch_type={cfg.arch_type!r}")
     if cfg.hybrid != (cfg.arch_type == "hybrid"):
         unsupported.append(f"hybrid={cfg.hybrid} with "
                            f"arch_type={cfg.arch_type!r}")
-    if cfg.is_encoder_decoder:
-        unsupported.append("encoder-decoder")
-    if cfg.learned_pos_emb:
-        unsupported.append("learned_pos_emb")
+    audio = cfg.arch_type == "audio"
+    if audio != cfg.is_encoder_decoder:
+        unsupported.append(f"is_encoder_decoder={cfg.is_encoder_decoder} "
+                           f"with arch_type={cfg.arch_type!r}")
+    if audio != cfg.learned_pos_emb:
+        unsupported.append(f"learned_pos_emb={cfg.learned_pos_emb} "
+                           f"with arch_type={cfg.arch_type!r}")
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet ({', '.join(unsupported)}); the "
             "port serves attention-only models with RoPE (dense or MoE "
-            "FFNs), the pure SSM and the attention + SSM hybrid")
+            "FFNs), the pure SSM, the attention + SSM hybrid and the audio "
+            "encoder-decoder with learned positions")
 
 
 def _pad_right(t: torch.Tensor, pad: int) -> torch.Tensor:
@@ -48,9 +54,42 @@ class Model:
     def init(self, *, seed: int = 0, device=None) -> tf.Transformer:
         return tf.init_params(self.cfg, seed=seed, device=device)
 
-    def embed(self, params, tokens, media_embeds=None, media_mask=None):
-        return tf.embed_tokens(params, self.cfg, tokens, media_embeds,
-                               media_mask)
+    def embed(self, params, tokens, media_embeds=None, media_mask=None,
+              positions=None):
+        """Token embeddings, media embeddings where ``media_mask`` is set,
+        and whisper's learned positions (``positions`` (B, S), 0..S-1 by
+        default)."""
+        x = tf.embed_tokens(params, self.cfg, tokens, media_embeds,
+                            media_mask)
+        if self.cfg.learned_pos_emb:
+            if positions is None:
+                x = x + params.pos_embed[:tokens.shape[1]][None]
+            else:
+                x = x + params.pos_embed[positions.long()]
+        return x
+
+    # -- training -----------------------------------------------------------
+    def loss(self, params, batch) -> torch.Tensor:
+        """Mean next-token NLL over the labels >= 0 of ``batch`` (a dict of
+        tensors: ``tokens``, ``labels`` (B, S), optionally ``media_embeds``
+        / ``media_mask`` and whisper's ``audio_embeds``), plus a MoE's aux
+        term ``router_aux_loss_coef * aux / L``; a differentiable fp32
+        scalar (see :func:`repro_torch.models.transformer.forward_train`).
+        """
+        logits, aux = tf.forward_train(
+            params, self.cfg, batch["tokens"],
+            media_embeds=batch.get("media_embeds"),
+            media_mask=batch.get("media_mask"),
+            audio_embeds=batch.get("audio_embeds"))
+        labels = batch["labels"].long()
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+        mask = (labels >= 0).float()
+        loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        if self.cfg.arch_type == "moe":
+            loss = loss + self.cfg.router_aux_loss_coef * aux / max(
+                self.cfg.num_layers, 1)
+        return loss
 
     def chunk_pad(self, s: int) -> int:
         """Steps that pad ``s`` tokens to a multiple of ``ssm_chunk`` for
@@ -59,11 +98,13 @@ class Model:
             return (-s) % self.cfg.ssm_chunk
         return 0
 
-    def forward(self, params, tokens, media_embeds=None, media_mask=None):
+    def forward(self, params, tokens, media_embeds=None, media_mask=None,
+                audio_embeds=None):
         """Logits (B, S, V) fp32 of a contiguous sequence from position 0,
         with no cache (the JAX package's ``Model.forward`` without the
         loss): an SSM or a hybrid pads to ``ssm_chunk`` with token 0, whose
-        rows come after every real one and are cut off."""
+        rows come after every real one and are cut off.  whisper's decoder
+        attends to the encoding of ``audio_embeds`` (B, Senc, D)."""
         s = tokens.shape[1]
         pad = self.chunk_pad(s)
         if pad:
@@ -72,7 +113,11 @@ class Model:
                 media_embeds = _pad_right(media_embeds, pad)
                 media_mask = _pad_right(media_mask, pad)
         x = self.embed(params, tokens, media_embeds, media_mask)
-        return tf.forward(params, self.cfg, x)[:, :s]
+        cross_kv = None
+        if self.cfg.is_encoder_decoder:
+            cross_kv = self.cross_kv(params,
+                                     self.encode_audio(params, audio_embeds))
+        return tf.forward(params, self.cfg, x, cross_kv)[:, :s]
 
     # -- serving ------------------------------------------------------------
     def make_cache(self, batch: int, kv_len: int, *, device=None) -> dict:
@@ -81,10 +126,14 @@ class Model:
         return tf.make_cache(self.cfg, batch, kv_len, device=device)
 
     def prefill(self, params, tokens, cache, *, media_embeds=None,
-                media_mask=None, positions=None, write_idx=None):
+                media_mask=None, positions=None, write_idx=None,
+                audio_embeds=None):
         """Prefill ``tokens`` (B, S) into ``cache``, in place; contiguous
         from position 0 unless ``positions``/``write_idx`` (B, S) int32 say
-        otherwise.  Returns (logits (B, S, V), cache).
+        otherwise.  Returns (logits (B, S, V), cache).  An encoder-decoder
+        given ``audio_embeds`` (B, Senc, D) encodes them first and puts
+        their cross K/V into the cache (``cross_k``/``cross_v``); without,
+        it attends to the cross K/V the cache holds.
 
         An SSM or a hybrid needs S to be a multiple of ``ssm_chunk``: the
         tokens are right-padded with steps that ``ssm_mask`` (0 on the
@@ -102,6 +151,9 @@ class Model:
                                      device=tokens.device).repeat(b, 1)
         if write_idx is None:
             write_idx = positions
+        if self.cfg.is_encoder_decoder and audio_embeds is not None:
+            cache["cross_k"], cache["cross_v"] = self.cross_kv(
+                params, self.encode_audio(params, audio_embeds))
         ssm_mask = ssm_tail = None
         pad = self.chunk_pad(s)
         if pad:
@@ -125,7 +177,7 @@ class Model:
                         < s).float()[None].expand(b, s + pad)
             ssm_tail = torch.full((b,), s - (self.cfg.ssm_conv_width - 1),
                                   dtype=torch.int32, device=tokens.device)
-        x = self.embed(params, tokens, media_embeds, media_mask)
+        x = self.embed(params, tokens, media_embeds, media_mask, positions)
         logits, cache = tf.forward_with_cache(
             params, self.cfg, x, positions, cache, write_idx,
             contiguous=contiguous, ssm_mask=ssm_mask, ssm_tail_start=ssm_tail)
@@ -143,14 +195,15 @@ class Model:
         KV in the selected slots, which the recomputed tokens' K/V fill
         inside this one pass.  Returns (logits (B, Sq, V), cache)."""
         self._needs_attention("selective prefill")
-        x = self.embed(params, sel_tokens, media_embeds, media_mask)
+        x = self.embed(params, sel_tokens, media_embeds, media_mask,
+                       sel_positions)
         return tf.forward_with_cache(params, self.cfg, x, sel_positions,
                                      cache, write_idx)
 
     def decode_step(self, params, token, position, cache, write_idx):
         """One decode step against a dense cache.  token, position and
         write_idx (B, 1).  Returns (logits (B, V), cache)."""
-        x = self.embed(params, token)
+        x = self.embed(params, token, positions=position)
         logits, cache = tf.forward_with_cache(params, self.cfg, x, position,
                                               cache, write_idx)
         return logits[:, -1, :], cache
@@ -160,10 +213,10 @@ class Model:
 
     def supports_paged_decode(self) -> bool:
         """Paged decode covers pure-attention KV caches; an SSM and a
-        hybrid keep the dense decode path (their state is no KV).  The JAX
-        predicate also excludes encoder-decoder models, which the port does
-        not accept."""
-        return not (self.cfg.attn_free or self.cfg.hybrid)
+        hybrid keep the dense decode path (their state is no KV), and so
+        does an encoder-decoder (its cross K/V live in the dense cache)."""
+        cfg = self.cfg
+        return not (cfg.attn_free or cfg.hybrid or cfg.is_encoder_decoder)
 
     def selective_prefill_paged(self, params, sel_tokens, sel_positions,
                                 pool_k, pool_v, page_table, lengths,
@@ -174,7 +227,8 @@ class Model:
         See :func:`repro_torch.models.transformer.selective_prefill_paged`.
         Returns logits (B, Sq, V)."""
         self._needs_attention("selective prefill")
-        x = self.embed(params, sel_tokens, media_embeds, media_mask)
+        x = self.embed(params, sel_tokens, media_embeds, media_mask,
+                       sel_positions)
         return tf.selective_prefill_paged(
             params, self.cfg, x, sel_positions, pool_k, pool_v, page_table,
             lengths, write_pages, write_offs, k_scales, v_scales)
@@ -185,10 +239,21 @@ class Model:
         """One decode step against the page pool, written in place.  See
         :func:`repro_torch.models.transformer.decode_paged`.  Returns
         logits (B, V)."""
-        x = self.embed(params, token)
+        x = self.embed(params, token, positions=position)
         return tf.decode_paged(
             params, self.cfg, x, position, pool_k, pool_v, page_table,
             lengths, write_pages, write_offs, k_scales, v_scales)
+
+    # -- whisper ---------------------------------------------------------------
+    def encode_audio(self, params, audio_embeds) -> torch.Tensor:
+        """The encoder's output (B, Senc, D); see
+        :func:`repro_torch.models.transformer.encode`."""
+        return tf.encode(params, self.cfg, audio_embeds)
+
+    def cross_kv(self, params, enc_out):
+        """(cross_k, cross_v), each (L, B, Senc, Hkv, Dh); see
+        :func:`repro_torch.models.transformer.compute_cross_kv`."""
+        return tf.compute_cross_kv(params, self.cfg, enc_out)
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -1,6 +1,6 @@
-"""Decoder-only model for the attention architectures, the pure SSM and the
-attention + SSM hybrid (port of the JAX package's ``models/transformer.py``,
-the parts the serving paths and the inference forward run).
+"""The model for the attention architectures, the pure SSM, the attention +
+SSM hybrid and the audio encoder-decoder (port of the JAX package's
+``models/transformer.py``).
 
 The weights are ``nn.Module``s: a :class:`Transformer` holds the embedding,
 an ``nn.ModuleList`` of :class:`DecoderLayer` (or, for an SSM, of
@@ -9,9 +9,14 @@ stacked layer axis), the final norm and the LM head (none when the
 embeddings are tied: the head is then ``embed.T``).  A hybrid's
 :class:`DecoderLayer` also holds an :class:`~repro_torch.models.ssm.SSM`
 and the two norms that mix its output with the attention's; a MoE's holds
-a :class:`~repro_torch.models.moe.MoE` in place of the MLP.  Weights keep
-the JAX layout ``(in, out)`` and apply as ``x @ W``.  The passes are plain
-functions on tensors:
+a :class:`~repro_torch.models.moe.MoE` in place of the MLP.  whisper's
+(``arch_type="audio"``) holds layer norms (:class:`LayerNorm`), a
+:class:`GeluMLP` and the cross attention over the encoder's output
+(``cross_norm``, ``cross_attn``); its :class:`Transformer` adds the
+decoder's learned positions ``pos_embed``, the encoder's layers
+(:class:`EncoderLayer`), its positions ``enc_pos_embed`` and its norm
+``enc_norm``.  Weights keep the JAX layout ``(in, out)`` and apply as
+``x @ W``.  The passes are plain functions on tensors:
 
 * :func:`forward_with_cache`: any tokens at any positions against a dense
   cache (:func:`make_cache`): the media upload, the baselines' prefills,
@@ -23,12 +28,23 @@ functions on tensors:
 * :func:`decode_paged`: one decode step for every slot against the page
   pool;
 * :func:`selective_prefill_paged`: the MPIC selective prefill against the
-  page pool.
+  page pool;
+* :func:`encode` and :func:`compute_cross_kv`: whisper's encoder over
+  frame embeddings and the decoder layers' cross-attention K/V over its
+  output, which the dense cache carries as ``cross_k``/``cross_v``;
+* :func:`forward_train`: the training forward (logits and the MoE aux
+  loss), differentiable.
 
-Every pass writes each layer's new K/V into its cache or pool tensors in
-place (the JAX versions return new buffers from donated jits or functional
-scatters; no caller reads the old buffer again) and runs attention through
-the kernel dispatchers, which launch the CUDA kernels on the card.
+Every serving pass writes each layer's new K/V into its cache or pool
+tensors in place (the JAX versions return new buffers from donated jits or
+functional scatters; no caller reads the old buffer again) and runs
+attention through the kernel dispatchers, which launch the CUDA kernels on
+the card: the decoder's self and cross attention and the encoder's all go
+through the dense selective attention (kernel 5).  :func:`forward_train`
+alone attends with :func:`~repro_torch.models.layers.attend`, the
+counterpart of the JAX package's jnp ``attend`` that its training forward
+runs: the kernels have no backward, and no training pass calls them or
+their plain versions.
 """
 from __future__ import annotations
 
@@ -47,9 +63,12 @@ from repro_torch.kernels.selective_attn.ops import (
 )
 from repro_torch.models.layers import (
     INVALID_POS,
+    attend,
     attention_out,
     attention_qkv,
     banded_attend,
+    gelu_mlp,
+    layernorm,
     rmsnorm,
     swiglu,
 )
@@ -101,19 +120,64 @@ class SwiGLU(nn.Module):
         return swiglu(self.w_gate, self.w_up, self.w_down, x)
 
 
+class GeluMLP(nn.Module):
+    """whisper's MLP: ``w_up``/``w_down`` and the biases ``b_up``/
+    ``b_down`` (zeros, as ``init_gelu_mlp`` makes them)."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        self.w_up = _weight((d, f), dtype, device)
+        self.w_down = _weight((f, d), dtype, device)
+        self.b_up = _zeros(f, dtype, device)
+        self.b_down = _zeros(d, dtype, device)
+
+    def forward(self, x):
+        return gelu_mlp(self.w_up, self.b_up, self.w_down, self.b_down, x)
+
+
+class LayerNorm(nn.Module):
+    """``scale`` (ones) and ``bias`` (zeros), as ``init_layernorm``."""
+
+    def __init__(self, d, dtype, device):
+        super().__init__()
+        self.scale = _ones(d, dtype, device)
+        self.bias = _zeros(d, dtype, device)
+
+
+def _norm_param(cfg, dtype, device):
+    """A norm's parameters: whisper's layer norm, else an RMS norm scale."""
+    if cfg.arch_type == "audio":
+        return LayerNorm(cfg.d_model, dtype, device)
+    return _ones(cfg.d_model, dtype, device)
+
+
+def _norm(p, x, eps: float):
+    if isinstance(p, LayerNorm):
+        return layernorm(p.scale, p.bias, x, eps)
+    return rmsnorm(p, x, eps)
+
+
 class DecoderLayer(nn.Module):
     """Attention and MLP (``moe`` in its place for ``arch_type="moe"``);
     with ``cfg.hybrid`` also the SSM heads, which run beside the attention
     on the same normed input, and the norms ``attn_mix_norm``/
-    ``ssm_mix_norm`` of the two outputs they mix."""
+    ``ssm_mix_norm`` of the two outputs they mix.  whisper's layer norms
+    every branch, runs a :class:`GeluMLP` and attends to the encoder's
+    output through ``cross_attn`` (normed by ``cross_norm``) between its
+    self attention and its MLP."""
 
     def __init__(self, cfg, dtype, device):
         super().__init__()
-        self.attn_norm = _ones(cfg.d_model, dtype, device)
+        self.attn_norm = _norm_param(cfg, dtype, device)
         self.attn = Attention(cfg, dtype, device)
-        self.mlp_norm = _ones(cfg.d_model, dtype, device)
+        self.mlp_norm = _norm_param(cfg, dtype, device)
         if cfg.arch_type == "moe":
             self.moe = MoE(cfg, dtype, device)
+        elif cfg.arch_type == "audio":
+            self.mlp = GeluMLP(cfg, dtype, device)
+            self.cross_norm = LayerNorm(cfg.d_model, dtype, device)
+            self.cross_attn = Attention(cfg, dtype, device)
         else:
             self.mlp = SwiGLU(cfg, dtype, device)
         if cfg.hybrid:
@@ -129,6 +193,18 @@ class SSMLayer(nn.Module):
         self.ssm = SSM(cfg, dtype, device)
 
 
+class EncoderLayer(nn.Module):
+    """One layer of whisper's encoder: layer-normed self attention and
+    GELU MLP."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        self.attn_norm = LayerNorm(cfg.d_model, dtype, device)
+        self.attn = Attention(cfg, dtype, device)
+        self.mlp_norm = LayerNorm(cfg.d_model, dtype, device)
+        self.mlp = GeluMLP(cfg, dtype, device)
+
+
 class Transformer(nn.Module):
     """The parameters of one model (``params`` in the functions below)."""
 
@@ -140,9 +216,19 @@ class Transformer(nn.Module):
         self.embed = _weight((cfg.vocab_size, cfg.d_model), dt, dev)
         self.layers = nn.ModuleList(
             layer(cfg, dt, dev) for _ in range(cfg.num_layers))
-        self.final_norm = _ones(cfg.d_model, dt, dev)
+        self.final_norm = _norm_param(cfg, dt, dev)
         self.lm_head = (None if cfg.tie_embeddings else
                         _weight((cfg.d_model, cfg.vocab_size), dt, dev))
+        if cfg.learned_pos_emb:
+            self.pos_embed = _weight(
+                (cfg.max_position_embeddings, cfg.d_model), dt, dev)
+        if cfg.is_encoder_decoder:
+            self.enc_layers = nn.ModuleList(
+                EncoderLayer(cfg, dt, dev)
+                for _ in range(cfg.encoder_layers))
+            self.enc_norm = LayerNorm(cfg.d_model, dt, dev)
+            self.enc_pos_embed = _weight(
+                (cfg.encoder_seq, cfg.d_model), dt, dev)
 
 
 def init_params(cfg, *, seed: int = 0, device=None) -> Transformer:
@@ -156,7 +242,9 @@ def init_params(cfg, *, seed: int = 0, device=None) -> Transformer:
     log(linspace(1, 16)), ``D`` ones, ``conv_b`` zeros.  The numbers
     differ from the JAX ones (a ``torch.Generator`` is not ``jax.random``);
     the tests carry the JAX weights over with
-    :func:`repro_torch.weights.params_from_numpy`."""
+    :func:`repro_torch.weights.params_from_numpy`.  whisper's position
+    tables draw at 0.02 as well; its layer-norm biases and MLP biases are
+    zeros."""
     params = Transformer(cfg, device=device)
     gen = torch.Generator(device=params.embed.device).manual_seed(seed)
 
@@ -176,19 +264,37 @@ def init_params(cfg, *, seed: int = 0, device=None) -> Transformer:
 
     with torch.no_grad():
         fill(params.embed, 0.02)
+        def fill_attn(attn: Attention) -> None:
+            for w in (attn.wq, attn.wk, attn.wv, attn.wo):
+                fill(w)
+
         for lp in params.layers:
             if isinstance(lp, SSMLayer):
                 fill_ssm(lp.ssm)
                 continue
-            for w in (lp.attn.wq, lp.attn.wk, lp.attn.wv, lp.attn.wo):
-                fill(w)
-            ffn = lp.moe if cfg.arch_type == "moe" else lp.mlp
-            for _, w in ffn.named_parameters():
-                fill(w)
+            fill_attn(lp.attn)
+            if cfg.arch_type == "moe":
+                for _, w in lp.moe.named_parameters():
+                    fill(w)
+            elif cfg.arch_type == "audio":
+                fill(lp.mlp.w_up)
+                fill(lp.mlp.w_down)
+                fill_attn(lp.cross_attn)
+            else:
+                for w in (lp.mlp.w_gate, lp.mlp.w_up, lp.mlp.w_down):
+                    fill(w)
             if cfg.hybrid:
                 fill_ssm(lp.ssm)
         if params.lm_head is not None:
             fill(params.lm_head, 0.02)
+        if cfg.learned_pos_emb:
+            fill(params.pos_embed, 0.02)
+        if cfg.is_encoder_decoder:
+            for lp in params.enc_layers:
+                fill_attn(lp.attn)
+                fill(lp.mlp.w_up)
+                fill(lp.mlp.w_down)
+            fill(params.enc_pos_embed, 0.02)
     return params
 
 
@@ -206,17 +312,40 @@ def embed_tokens(params: Transformer, cfg, tokens, media_embeds=None,
 
 
 def _logits(params: Transformer, cfg, x) -> torch.Tensor:
-    x = rmsnorm(params.final_norm, x, cfg.rms_norm_eps)
+    x = _norm(params.final_norm, x, cfg.rms_norm_eps)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     return x.float() @ head.float()
 
 
-def _mlp(lp: DecoderLayer, cfg, x) -> torch.Tensor:
-    """The residual FFN block; a MoE's aux loss is dropped (serving)."""
-    h = rmsnorm(lp.mlp_norm, x, cfg.rms_norm_eps)
+def _ffn(lp: DecoderLayer, cfg, x):
+    """The residual FFN block: (x + FFN(norm(x)), the MoE's aux loss, a
+    zero without one)."""
+    h = _norm(lp.mlp_norm, x, cfg.rms_norm_eps)
     if cfg.arch_type == "moe":
-        return x + moe_ffn(lp.moe, cfg, h)[0]
-    return x + lp.mlp(h)
+        out, aux = moe_ffn(lp.moe, cfg, h)
+        return x + out, aux
+    return x + lp.mlp(h), x.new_zeros((), dtype=torch.float32)
+
+
+def _cross_attention(lp: DecoderLayer, cfg, x, cross_k, cross_v, *,
+                     train: bool = False):
+    """whisper's cross attention of ``x`` (B, S, D) over one layer's
+    encoder K/V (B, Senc, Hkv, Dh): every query sees every frame.  The
+    reference masks it with zero positions on both sides, which pass the
+    causal test, so the serving passes give those to kernel 5 unchanged;
+    ``train`` attends with ``layers.attend``."""
+    h = _norm(lp.cross_norm, x, cfg.rms_norm_eps)
+    b, s, _ = h.shape
+    q = (h @ lp.cross_attn.wq).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    q_pos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
+    kv_pos = torch.zeros((b, cross_k.shape[1]), dtype=torch.int32,
+                         device=x.device)
+    if train:
+        o = attend(q, cross_k, cross_v, q_pos, kv_pos, bidirectional=True)
+    else:
+        o = selective_attention(q.contiguous(), cross_k, cross_v, q_pos,
+                                kv_pos)
+    return attention_out(lp.cross_attn.wo, o)
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +357,9 @@ def make_cache(cfg, batch: int, kv_len: int, *, device=None) -> dict:
     Hkv, Dh) zeros in the compute dtype, ``pos`` (B, kv_len) int32
     ``INVALID_POS``.  An SSM's cache is its recurrent state instead, zeros:
     ``ssm_h`` (L, B, H, ds, hd) fp32 and ``ssm_conv`` (L, B, W-1, di) in
-    the compute dtype (``kv_len`` unused).  A hybrid's holds both."""
+    the compute dtype (``kv_len`` unused).  A hybrid's holds both.  An
+    encoder-decoder's adds ``cross_k``/``cross_v`` (L, B, encoder_seq, Hkv,
+    Dh) zeros, which a prefill with audio replaces."""
     dev = resolve_device(device)
     dt = torch_dtype(cfg.compute_dtype)
     cache = {}
@@ -243,6 +374,11 @@ def make_cache(cfg, batch: int, kv_len: int, *, device=None) -> dict:
         st = init_ssm_state(cfg, cfg.num_layers * batch, dt, dev)
         cache["ssm_h"] = st["h"].unflatten(0, (cfg.num_layers, batch))
         cache["ssm_conv"] = st["conv"].unflatten(0, (cfg.num_layers, batch))
+    if cfg.is_encoder_decoder:
+        shape = (cfg.num_layers, batch, cfg.encoder_seq, cfg.num_kv_heads,
+                 cfg.head_dim)
+        cache["cross_k"] = torch.zeros(shape, dtype=dt, device=dev)
+        cache["cross_v"] = torch.zeros(shape, dtype=dt, device=dev)
     return cache
 
 
@@ -311,7 +447,8 @@ def forward_with_cache(params: Transformer, cfg, embeds, positions, cache,
     A contiguous prefill that fills the cache exactly (``Sq == kv_len``)
     with a window it spans at least twice, in whole windows, attends over
     the fresh K/V with :func:`~repro_torch.models.layers.banded_attend`,
-    as the JAX package does.
+    as the JAX package does.  An encoder-decoder's layers also attend to
+    the cache's ``cross_k``/``cross_v`` (:func:`_cross_attention`).
     """
     if cfg.arch_type == "ssm":
         return _forward_ssm(params, cfg, embeds, cache, ssm_mask,
@@ -324,7 +461,7 @@ def forward_with_cache(params: Transformer, cfg, embeds, positions, cache,
     kv_pos = _scatter_rows(cache["pos"], positions, write_idx)
     x = embeds
     for l, lp in enumerate(params.layers):
-        h = rmsnorm(lp.attn_norm, x, cfg.rms_norm_eps)
+        h = _norm(lp.attn_norm, x, cfg.rms_norm_eps)
         q, k_new, v_new = attention_qkv(lp.attn, cfg, h, positions)
         k_full = _scatter_rows(cache["k"][l], k_new, write_idx)
         v_full = _scatter_rows(cache["v"][l], v_new, write_idx)
@@ -337,33 +474,36 @@ def forward_with_cache(params: Transformer, cfg, embeds, positions, cache,
         if cfg.hybrid:
             a = _mix(lp, cfg, a, _ssm_step(lp.ssm, cfg, h, cache, l,
                                            ssm_mask, ssm_tail_start))
-        x = _mlp(lp, cfg, x + a)
+        x = x + a
+        if cfg.is_encoder_decoder:
+            x = x + _cross_attention(lp, cfg, x, cache["cross_k"][l],
+                                     cache["cross_v"][l])
+        x = _ffn(lp, cfg, x)[0]
     return _logits(params, cfg, x), cache
 
 
-def forward(params: Transformer, cfg, embeds) -> torch.Tensor:
-    """Plain causal pass over a contiguous sequence from position 0, with
-    no cache: the inference half of the JAX package's ``forward_train``.
-
-    embeds (B, S, D); an SSM or a hybrid needs S to be a multiple of
-    ``cfg.ssm_chunk`` (``Model.forward`` pads).  Attention runs through
-    :func:`~repro_torch.models.layers.banded_attend` when the window fits
-    the sequence at least twice, in whole windows, else the dense
-    selective attention over the sequence itself.  Returns logits
-    (B, S, V) fp32."""
-    b, s, _ = embeds.shape
+def _contiguous(params: Transformer, cfg, x, cross_kv, *, train: bool):
+    """The layers over a contiguous sequence from position 0, with no
+    cache: (logits (B, S, V) fp32, the summed MoE aux loss).  Serving
+    attends through the kernel dispatchers (``banded_attend`` when the
+    window fits the sequence at least twice, in whole windows); ``train``
+    through ``layers.attend`` with the window, which equals the band
+    (the JAX training forward bands it the same way)."""
+    b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
-                             device=embeds.device).repeat(b, 1)
+                             device=x.device).repeat(b, 1)
     w = cfg.sliding_window
-    x = embeds
-    for lp in params.layers:
+    aux = x.new_zeros((), dtype=torch.float32)
+    for l, lp in enumerate(params.layers):
         if cfg.attn_free:
             h = rmsnorm(lp.norm, x, cfg.rms_norm_eps)
             x = x + ssm_forward(lp.ssm, cfg, h)[0]
             continue
-        h = rmsnorm(lp.attn_norm, x, cfg.rms_norm_eps)
+        h = _norm(lp.attn_norm, x, cfg.rms_norm_eps)
         q, k, v = attention_qkv(lp.attn, cfg, h, positions)
-        if w and s % w == 0 and s >= 2 * w:
+        if train:
+            o = attend(q, k, v, positions, positions, window=w)
+        elif w and s % w == 0 and s >= 2 * w:
             o = banded_attend(q.contiguous(), k, v, positions, w)
         else:
             o = selective_attention(q.contiguous(), k, v, positions,
@@ -371,8 +511,106 @@ def forward(params: Transformer, cfg, embeds) -> torch.Tensor:
         a = attention_out(lp.attn.wo, o)
         if cfg.hybrid:
             a = _mix(lp, cfg, a, ssm_forward(lp.ssm, cfg, h)[0])
-        x = _mlp(lp, cfg, x + a)
-    return _logits(params, cfg, x)
+        x = x + a
+        if cross_kv is not None:
+            x = x + _cross_attention(lp, cfg, x, cross_kv[0][l],
+                                     cross_kv[1][l], train=train)
+        x, a_l = _ffn(lp, cfg, x)
+        aux = aux + a_l
+    return _logits(params, cfg, x), aux
+
+
+def forward(params: Transformer, cfg, embeds, cross_kv=None) -> torch.Tensor:
+    """Plain causal pass over a contiguous sequence from position 0, with
+    no cache: the inference half of the JAX package's ``forward_train``.
+
+    embeds (B, S, D) (with the learned positions added, for whisper);
+    ``cross_kv`` an encoder-decoder's ``(cross_k, cross_v)`` from
+    :func:`compute_cross_kv`.  An SSM or a hybrid needs S to be a multiple
+    of ``cfg.ssm_chunk`` (``Model.forward`` pads).  Attention runs through
+    :func:`~repro_torch.models.layers.banded_attend` when the window fits
+    the sequence at least twice, in whole windows, else the dense
+    selective attention over the sequence itself.  Returns logits
+    (B, S, V) fp32."""
+    return _contiguous(params, cfg, embeds, cross_kv, train=False)[0]
+
+
+def forward_train(params: Transformer, cfg, tokens, media_embeds=None,
+                  media_mask=None, *, audio_embeds=None):
+    """The training forward of the JAX package's ``forward_train``: a
+    causal pass over contiguous ``tokens`` (B, S) from position 0, media
+    embeddings where ``media_mask`` is set, whisper's learned positions and
+    its encoder over ``audio_embeds`` (B, Senc, D).  Returns (logits
+    (B, S, V) fp32, the summed MoE aux loss).
+
+    Every attention runs through ``layers.attend``, the counterpart of the
+    jnp ``attend`` that the JAX training forward runs (it reaches no Pallas
+    kernel): the port's kernels have no backward, so this pass never calls
+    them or their plain versions.  Differentiable end to end, the MoE's
+    capacity dispatch included.  An SSM or a hybrid raises: their SSD
+    runs through kernel 6 in the port, which has no backward (ROADMAP
+    queue 1, SSM and hybrid training)."""
+    if cfg.attn_free or cfg.hybrid:
+        raise NotImplementedError(
+            f"{cfg.name}: training an SSM or a hybrid is not ported yet: "
+            "the port's SSD runs through the ssd_chunk kernel, which has "
+            "no backward (ROADMAP queue 1, SSM and hybrid training)")
+    b, s = tokens.shape
+    x = embed_tokens(params, cfg, tokens, media_embeds, media_mask)
+    if cfg.learned_pos_emb:
+        x = x + params.pos_embed[:s][None]
+    cross_kv = None
+    if cfg.is_encoder_decoder:
+        cross_kv = compute_cross_kv(
+            params, cfg, _encode(params, cfg, audio_embeds, train=True))
+    return _contiguous(params, cfg, x, cross_kv, train=True)
+
+
+# ---------------------------------------------------------------------------
+# whisper: the encoder and the cross-attention K/V
+# ---------------------------------------------------------------------------
+
+def _encode(params: Transformer, cfg, audio_embeds, *, train: bool):
+    b, s, _ = audio_embeds.shape
+    x = audio_embeds.to(torch_dtype(cfg.compute_dtype))
+    x = x + params.enc_pos_embed[:s][None]
+    pos = torch.arange(s, dtype=torch.int32,
+                       device=x.device).repeat(b, 1)
+    # bidirectional attention is causal attention with every query at the
+    # last key's position: kernel 5 runs it unchanged
+    last = torch.full((b, s), s - 1, dtype=torch.int32, device=x.device)
+    eps = cfg.rms_norm_eps
+    for lp in params.enc_layers:
+        h = _norm(lp.attn_norm, x, eps)
+        q, k, v = attention_qkv(lp.attn, cfg, h, pos, rope=False)
+        if train:
+            o = attend(q, k, v, pos, pos, bidirectional=True)
+        else:
+            o = selective_attention(q.contiguous(), k, v, last, pos)
+        x = x + attention_out(lp.attn.wo, o)
+        x = x + lp.mlp(_norm(lp.mlp_norm, x, eps))
+    return _norm(params.enc_norm, x, eps)
+
+
+def encode(params: Transformer, cfg, audio_embeds) -> torch.Tensor:
+    """whisper's bidirectional encoder over precomputed frame embeddings
+    ``audio_embeds`` (B, Senc, D) (the stub frontend): learned positions,
+    no RoPE, every layer's attention through kernel 5 with each query at
+    position ``Senc - 1`` and the keys at ``0 .. Senc - 1``, so that every
+    query sees every frame.  Returns (B, Senc, D) in the compute dtype."""
+    return _encode(params, cfg, audio_embeds, train=False)
+
+
+def compute_cross_kv(params: Transformer, cfg, enc_out):
+    """Each decoder layer's cross-attention K/V over the encoder's output
+    ``enc_out`` (B, Senc, D): (cross_k, cross_v), each (L, B, Senc, Hkv,
+    Dh).  They hold no decoder position, so they are what MPIC stores for
+    an audio segment."""
+    b, s, _ = enc_out.shape
+    shape = (b, s, cfg.num_kv_heads, cfg.head_dim)
+    ks = [(enc_out @ lp.cross_attn.wk).reshape(shape) for lp in params.layers]
+    vs = [(enc_out @ lp.cross_attn.wv).reshape(shape) for lp in params.layers]
+    return torch.stack(ks), torch.stack(vs)
 
 
 # ---------------------------------------------------------------------------
@@ -420,7 +658,7 @@ def decode_paged(params: Transformer, cfg, embeds, positions, pool_k, pool_v,
                             k_scale=_scales(k_scales, l),
                             v_scale=_scales(v_scales, l),
                             window=cfg.sliding_window)
-        x = _mlp(lp, cfg, x + attention_out(lp.attn.wo, o[:, None]))
+        x = _ffn(lp, cfg, x + attention_out(lp.attn.wo, o[:, None]))[0]
     return _logits(params, cfg, x)[:, -1, :]
 
 
@@ -453,5 +691,5 @@ def selective_prefill_paged(params: Transformer, cfg, embeds, sel_positions,
             q.contiguous(), pool_k[l], pool_v[l], page_table, sel_positions,
             lengths, k_scale=_scales(k_scales, l),
             v_scale=_scales(v_scales, l), window=cfg.sliding_window)
-        x = _mlp(lp, cfg, x + attention_out(lp.attn.wo, o))
+        x = _ffn(lp, cfg, x + attention_out(lp.attn.wo, o))[0]
     return _logits(params, cfg, x)

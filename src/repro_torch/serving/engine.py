@@ -375,19 +375,38 @@ class MPICEngine:
                 and not self._prefix_only
                 and req.prompt.total_len > chunk)
 
+    def _refusal(self, req: Request, policy_name: str) -> Optional[str]:
+        """Why the engine cannot serve ``req`` under ``policy_name``, or
+        None.  An encoder-decoder's linked cache would lack the cross K/V
+        its layers read (the JAX engine raises ``KeyError: 'cross_k'``
+        there); ``full_recompute`` and ``prefix_caching`` build their cache
+        with ``make_cache`` and serve it, its cross K/V zeros (a text-only
+        request carries no audio)."""
+        if policy_name not in POLICIES:
+            return (f"unknown policy {req.policy!r} "
+                    f"(ported: {sorted(POLICIES)})")
+        if self.model.cfg.is_encoder_decoder and policy_name in (
+                "mpic", "cacheblend", "full_reuse"):
+            return (f"{policy_name} links media KV into a decoder cache "
+                    f"that has no cross-attention K/V, which every layer "
+                    f"of the encoder-decoder {self.model.cfg.name} reads; "
+                    "serve it with full_recompute or prefix_caching")
+        return None
+
     def _begin_prefill(self, req: Request, slot: int,
                        handle: Optional[PrefetchHandle]) -> None:
         policy_name = self._resolve_policy(req)
-        policy = POLICIES.get(policy_name)
-        if policy is None:
-            # a bad policy name fails THAT request, the engine keeps serving
+        refusal = self._refusal(req, policy_name)
+        if refusal is not None:
+            # a request the engine cannot serve fails, the engine keeps
+            # serving
             req.state = State.FAILED
-            req.error = (f"unknown policy {req.policy!r} "
-                         f"(ported: {sorted(POLICIES)})")
+            req.error = refusal
             self.failed.append(req)
             if handle is not None:
                 handle.release()
             return
+        policy = POLICIES[policy_name]
         req.slot = slot
         req.state = State.PREFILLING
         self.running[slot] = req

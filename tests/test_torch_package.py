@@ -1,6 +1,7 @@
-"""Package rules of the port: it never imports JAX or the JAX package, its
-entry points mean the card unless the CPU is asked for, and a CPU run
-launches no CUDA kernel."""
+"""Package rules of the port: it never imports JAX, the JAX package or
+``msgpack`` (the card's machine has none of them), its entry points mean
+the card unless the CPU is asked for, and a CPU run launches no CUDA
+kernel."""
 import ast
 import dataclasses
 import pathlib
@@ -35,7 +36,8 @@ def _imported_modules(path: pathlib.Path):
 def test_no_jax_or_reference_import(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {mod}"
+        assert top not in ("jax", "jaxlib", "repro", "msgpack"), \
+            f"{path}: imports {mod}"
 
 
 def test_imports_with_jax_blocked():
@@ -43,6 +45,7 @@ def test_imports_with_jax_blocked():
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['msgpack'] = None\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
