@@ -213,6 +213,33 @@ timed on its own line:
    Printed: the step time, the card's memory (the subprocess, sampled) or
    the peak allocated (in process).  Only ``layers.attend`` may run here;
    the plain versions still raise;
+5n. the SSM and the hybrid trained at full width (``train_ssm_on_card``):
+   ``python -m repro_torch.launch.train --arch mamba2-130m --full --steps
+   3`` and the same for hymba-1.5b, called in this process (batch 8 x 64,
+   one SSD chunk): the reference's lines, finite losses, no kernel
+   launched (the SSD runs ``ssd_chunked_train``). Printed: the step time,
+   the peak allocated above what was held, the losses;
+5o. internvl2-76b tensor-parallel (``serve_tensor_parallel``): with four
+   cards or more, four NCCL ranks at full depth, a card each; otherwise two
+   gloo ranks on card 0 at 16 of its 80 layers (its setup printed on its
+   own line). Each rank, a spawned process, draws its shard of the seeded
+   weights (never the whole model), then serves phase 3's traffic with
+   256-token images under ``mpic`` and ``full_recompute`` on a bf16 pool
+   and ``mpic`` on an int8 pool, ``mpic`` again with a fault planted on
+   the last rank (its view of each linked entry one kv head off), and an
+   exact check: fp32 weights at full width and 2 layers under ``mpic`` on
+   an fp32 and on an int8 pool. Gates: every rank gives the same tokens,
+   finite first logits and launches kernels 1/3 (2/4 on int8) and 5, the
+   bf16 runs none on the CUDA cores; against the unsharded engine of the
+   same depth on the same card (after the ranks exit) the exact checks'
+   tokens equal and their first-token logits within 1e-3 (max |diff| over
+   max |logit|); the bf16 runs' relative RMS within 1.5 times the floor
+   that the unsharded engine shows with its row-parallel products split
+   and summed in fp32 as the ranks do, and the planted fault's above it
+   (bf16 tokens printed per request, not gated).
+   Printed per rank: TTFT, prefill alone, decode step, uploads, peak
+   memory, launches by kernel and route; phase 6 adds kernels 1-4 at rank
+   0's shard shape (32 query heads on 4 kv heads with two ranks);
 6. each kernel against its plain PyTorch version on the state phases 3-5b
    left (layer 0 of the live pool or the captured dense-attention and SSD
    inputs) and on synthetic shapes (32 query heads on 8 kv heads, window
@@ -269,7 +296,8 @@ timed on its own line:
    1e-3, ``cow_copies`` 1); whisper-small's smoke config in fp32 through
    5l's pass (same tokens, logits within 1e-3); and three train steps of
    the smoke yi-9b and whisper-small in fp32 from the same weights on the
-   same batches (losses within 1e-4 relative).
+   same batches (losses within 1e-4 relative), and so mamba2-130m and
+   hymba-1.5b (hymba at 128 tokens, two smoke windows: the band).
 
 During the serving phases the plain versions and ``layers.attend`` raise
 if called.  Each serving run resets the kernels' launch counts (and the
@@ -290,6 +318,8 @@ import gc
 import hashlib
 import json
 import os
+import pickle
+import queue
 import re
 import shutil
 import subprocess
@@ -533,6 +563,37 @@ TRAIN_ARGS = ["--arch", "stablelm-1.6b", "--full", "--steps", "30"]
 # (arch, steps, batch) of 5m's in-process full-width runs through train()
 TRAIN_RUNS = (("granite-moe-1b-a400m", 3, 8), (WHISPER, 3, 4))
 TRAIN_SEQ = 64
+# phase 5n: the SSM and the hybrid trained at full width through the
+# launcher (batch 8, seq 64: one SSD chunk), and phase 7's small fp32
+# train steps per arch (hymba at two smoke windows: the band)
+SSM_TRAIN_ARCHS = ("mamba2-130m", HYMBA)
+SSM_TRAIN_STEPS = 3
+SMALL_TRAIN_SEQ = {HYMBA: 128}
+# phase 5o: internvl2-76b tensor-parallel; with fewer than 4 cards two gloo
+# ranks share card 0 at TP_DEPTH layers, then the unsharded engine of the
+# same depth serves the same traffic on the same card
+TP_ARCH = "internvl2-76b"
+TP_DEPTH = 16
+TP_MEDIA_LEN = 256
+TP_RUNS = (("mpic", ""), ("full_recompute", ""), ("mpic", "int8"))
+# the bf16 runs' first-token logits against the unsharded engine's, as
+# relative RMS: the ranks' fp32 partial sums add in another order than one
+# product's, a bf16 value now and then rounds the other way, and through
+# 16 layers of seeded weights that alone moves the logits by ~1-2e-2;
+# greedy tokens then part where two logits lie that close.  The run
+# measures that floor itself (the unsharded engine with its row products
+# split in the ranks' halves, mpic) and holds every bf16 run within
+# TP_FLOOR_FACTOR times it; a fault planted on the last rank (its view of
+# each linked entry one kv head off, TP_FAULT) must read above that
+# limit.  The exact check runs fp32 weights on an fp32 and an int8 pool
+# (TP_FP32_POOLS) at full width and TP_FP32_DEPTH layers: the same
+# tokens, logits within TP_FP32_REL (max |diff| over max |logit|)
+TP_FLOOR_FACTOR = 1.5
+TP_FAULT = "mpic-bf16-fault"
+TP_FP32_DEPTH = 2
+TP_FP32_POOLS = ("", "int8")
+TP_FP32_REL = 1e-3
+TP_JOIN_S = 900.0
 
 
 def phase(name: str, t0: float) -> None:
@@ -599,6 +660,76 @@ def run_watched(cmd, env, timeout_s: float):
 # -- phases 5j and 5k: the cluster and the fleet -------------------------
 # (module level, so that they can be driven on their own: the device, the
 # model and the plain-version guard are arguments)
+
+GUARDED = (("repro_torch.kernels.selective_attn.ops", "selective_attention_ref"),
+           ("repro_torch.kernels.selective_attn.ops",
+            "selective_attention_paged_ref"),
+           ("repro_torch.kernels.paged_attn.ops", "paged_attention_ref"),
+           ("repro_torch.models.layers", "attend"),
+           ("repro_torch.kernels.ssd_chunk.ops", "ssd_chunk_ref"))
+
+
+@contextlib.contextmanager
+def no_plain_versions(training=False):
+    """The plain versions and ``layers.attend`` raise while serving on the
+    card: every attention and SSD chunk step there must go through a
+    kernel.  While ``training``, ``layers.attend`` runs (the training
+    forward's attention, which the kernels, having no backward, do not
+    serve) and the plain versions still raise."""
+    import importlib
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name in
+             ((importlib.import_module(m), n) for m, n in GUARDED)
+             if not (training and name == "attend")]
+
+    def forbid(name):
+        def call(*args, **kwargs):
+            raise RuntimeError(f"{name} was called while serving on "
+                               "the card")
+        return call
+
+    for mod, name, _ in saved:
+        setattr(mod, name, forbid(name))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def snapshot(eng):
+    """Layer 0 of an engine's pool and the live decode / newest prefill
+    shapes (phase 6 holds kernels 1-4 to their plain versions there)."""
+    import torch
+
+    from repro_torch.core.linker import bucket
+    from repro_torch.core.select import mpic_selection, selection_indices
+
+    dev = eng.device
+    pool, ps = eng.pool, eng.cfg.page_size
+    lengths = np.asarray([r.cur_len for r in eng.running], np.int32)
+    mp = bucket(max(pool.pages_for(int(n)) for n in lengths), 1)
+    last = max(eng.running, key=lambda r: r.t_admitted)
+    sel = selection_indices(mpic_selection(last.prompt, K_MPIC))
+    q_pos = np.zeros((bucket(len(sel), 16),), np.int32)
+    q_pos[:len(sel)] = sel
+    row = eng._page_tables[last.slot]
+    pmp = min(bucket(pool.pages_for(last.prompt.total_len)), len(row))
+    q8 = pool.quantized
+    return {
+        "k": pool.k[0].clone(), "v": pool.v[0].clone(),
+        "ks": pool.k_scale[0].clone() if q8 else None,
+        "vs": pool.v_scale[0].clone() if q8 else None,
+        "decode_pt": torch.as_tensor(eng._page_tables[:, :mp].copy(),
+                                     device=dev),
+        "decode_len": torch.as_tensor(lengths, device=dev),
+        "prefill_pt": torch.as_tensor(row[None, :pmp].copy(), device=dev),
+        "q_pos": torch.as_tensor(q_pos[None], device=dev),
+        "prefill_len": torch.tensor([last.prompt.total_len],
+                                    dtype=torch.int32, device=dev),
+        "n_sel": len(sel), "ps": ps,
+    }
+
 
 def phase3_requests(d_model, media_len, mrag=True, **request_kw):
     """Phase 3's traffic: four two-image MMDU-style dialogues (``mpic``
@@ -1357,6 +1488,508 @@ def train_on_card(guard, env):
     return result
 
 
+def train_ssm_on_card(guard):
+    """Phase 5n: ``python -m repro_torch.launch.train --arch <a> --full
+    --steps 3`` for mamba2-130m and hymba-1.5b, called in this process so
+    that the step times (host clock after a device sync, at each batch
+    taken), the peak memory and the launch counts can be read.  Gates: the
+    reference's lines, finite losses, no kernel launched (the SSD runs
+    through ``ssd_chunked_train``; only ``layers.attend`` may run)."""
+    import io
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS, _build
+    from repro_torch.launch import train as launch_train
+
+    result = {}
+    real = launch_train.train
+    for arch in SSM_TRAIN_ARCHS:
+        cfg = get_config(arch)
+        stamps = []
+        launch_train.train = lambda model, params, data, tc, **kw: real(
+            model, params, _timed(data, stamps), tc, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        out = io.StringIO()
+        try:
+            with guard(), contextlib.redirect_stdout(out):
+                _build.reset_launches(KERNELS.values())
+                params, opt_state, hist = launch_train.main(
+                    ["--arch", arch, "--full", "--steps",
+                     str(SSM_TRAIN_STEPS)])
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                launches = {k: v.launches for k, v in KERNELS.items()}
+        finally:
+            launch_train.train = real
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        lines = out.getvalue().splitlines()
+        losses = [loss for _, loss in hist]
+        step_ms = [(b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:])]
+        for line in lines:
+            print(f"  | {line}")
+        print(f"  {arch} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+              f"ssm_chunk {cfg.ssm_chunk}), batch 8 x 64: losses "
+              f"{[round(x, 4) for x in losses]}, steps after the first "
+              f"{[round(x, 1) for x in step_ms]} ms, peak {peak:.2f} GiB "
+              f"above the {held / 2**30:.2f} GiB held before; launches "
+              f"{launches}", flush=True)
+        head = re.fullmatch(rf"arch={re.escape(cfg.name)} params=[\d.]+M "
+                            r"devices=\d+", lines[0]) if lines else None
+        if (not head or len(losses) != SSM_TRAIN_STEPS
+                or not np.isfinite(losses).all() or any(launches.values())):
+            raise RuntimeError(f"{arch}: the launcher's lines {lines}, "
+                               f"kernel launches {launches}")
+        result[arch] = {"losses": losses, "step_ms": step_ms,
+                        "peak_gib": peak}
+        del params, opt_state
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"ssm train runs: {json.dumps(result)}", flush=True)
+    return result
+
+
+def tp_traffic(eng, policy: str, snap_paged: bool = False,
+               media_len: int = TP_MEDIA_LEN):
+    """Phase 3's traffic at internvl2's image length (four two-image
+    dialogues, 8 new tokens, the last with the MRAG query) under one
+    policy, through ``eng`` with the plain versions forbidden and the
+    launch counts reset first.  Returns tokens, first-token logits, the
+    launches (by route), TTFT and decode step, the peak memory of this
+    process and, with ``snap_paged``, a CPU copy of the pool's layer-0
+    snapshot once every slot decodes."""
+    import torch
+
+    from repro_torch.kernels import KERNELS, _build
+    import repro_torch.kernels.selective_attn.ops as sel_ops
+    from repro_torch.serving import Request, State
+
+    d = eng.model.cfg.d_model
+    cuda = eng.device.type == "cuda"
+    samples, rag, _ = phase3_requests(d, media_len)
+    firsts = {}
+    finalize = eng._finalize_prefill
+
+    def record(req, result, *rest):
+        firsts[req.req_id] = np.asarray(result.first_logits, np.float32)
+        return finalize(req, result, *rest)
+
+    eng._finalize_prefill = record
+    snap = None
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    # (a rehearsal on the CPU runs the plain versions)
+    with no_plain_versions() if cuda else contextlib.nullcontext():
+        _build.reset_launches(KERNELS.values())
+        t = time.perf_counter()
+        for smp in samples:
+            for _, seg in smp.prompt.media_segments():
+                eng.upload(smp.prompt.user_id, seg.media_id, seg.embeds)
+        eng.upload("*", "rag-0", rag, dynamic=True)
+        if cuda:
+            torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t
+        reqs = [Request(prompt=smp.prompt, max_new_tokens=MAX_NEW,
+                        policy=policy, policy_kwargs={"k": K_MPIC}
+                        if policy == "mpic" else {}) for smp in samples]
+        reqs[-1].retrieval_query = rag.mean(0)
+        for r in reqs:
+            eng.submit(r)
+        steps = 0
+        while eng.queue or any(eng.running):
+            eng.step()
+            steps += 1
+            if steps > 10 * MAX_NEW * len(reqs):
+                raise RuntimeError("engine made no progress")
+            if snap_paged and snap is None and all(
+                    r is not None and r.state is State.RUNNING
+                    for r in eng.running):
+                snap = {k: v.cpu() if torch.is_tensor(v) else v
+                        for k, v in snapshot(eng).items()}
+        if cuda:
+            torch.cuda.synchronize()
+        launches = {k: v.launches for k, v in KERNELS.items()}
+        routes = dict(sel_ops.SEL_ATTN.route_launches)
+    eng._finalize_prefill = finalize
+    rep = eng.report()
+    return {
+        "tokens": [list(r.output_tokens) for r in reqs],
+        "firsts": np.stack([firsts[r.req_id] for r in reqs]),
+        "done": [r.done for r in reqs],
+        "linked_rag": "rag-0" in reqs[-1].linked_media,
+        "prompt_tokens": [r.prompt.total_len for r in reqs],
+        "launches": launches, "sel_attn_routes": routes,
+        "upload_s": upload_s, "mean_ttft_ms": rep["mean_ttft_s"] * 1e3,
+        "mean_prefill_ms": rep["mean_prefill_s"] * 1e3,
+        "mean_decode_step_ms": rep["mean_decode_step_s"] * 1e3,
+        "decode_steps": rep["decode_steps"],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda
+        else 0.0,
+        "snap": snap}
+
+
+def _tp_engine(cfg, params, pool, mesh=None, device=None):
+    from repro_torch.models import build_model
+    from repro_torch.serving import EngineConfig, MPICEngine
+    return MPICEngine(build_model(cfg), params, EngineConfig(
+        max_seq_len=2048, decode_slots=4, page_size=16, pool_dtype=pool),
+        mesh=mesh, device=device)
+
+
+def _fp32(cfg):
+    """The exact check's model: ``cfg``'s widths, ``TP_FP32_DEPTH``
+    layers, fp32 weights and compute."""
+    return dataclasses.replace(cfg, num_layers=TP_FP32_DEPTH,
+                               param_dtype="float32", compute_dtype="float32")
+
+
+def _plant_fault(eng) -> None:
+    """The last rank's view of every linked entry starts one kv head
+    early (``TP_FAULT``): its attention reads a neighbour's K/V of the
+    media, and the all-reduce hands that to every rank."""
+    from repro_torch.serving.sharding import EntryShard
+
+    plan = eng.sharding
+    lo, n = plan._heads
+    if plan.mesh.rank == plan.mesh.model - 1 and plan.attn:
+        plan.entry = lambda e: None if e is None else EntryShard(
+            e, lo - 1, n)
+
+
+def _tp_suite(cfg, params, mesh, device, media_len, snap=False,
+              fault=False):
+    """``TP_RUNS`` on bf16 ``params`` (with ``fault`` under a mesh, also
+    ``TP_FAULT``'s ``mpic`` run) and the exact check's ``mpic`` on fresh
+    fp32 weights (seed 1) on each of ``TP_FP32_POOLS``: {label:
+    ``tp_traffic``'s result}.  Under a mesh the weights are this rank's
+    shards; ``snap`` keeps the pool snapshots of the ``mpic`` runs.
+    ``params`` is emptied (the caller's bf16 weights go before the fp32
+    ones are drawn)."""
+    import torch
+
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.sharding import ServingSharding
+
+    out = {}
+    for policy, pool in TP_RUNS:
+        eng = _tp_engine(cfg, params[0], pool, mesh, device)
+        out[f"{policy}-{pool or 'bf16'}"] = tp_traffic(
+            eng, policy, snap_paged=snap and policy == "mpic",
+            media_len=media_len)
+        if eng.pool is not None:
+            out["pool_shape"] = tuple(eng.pool.k.shape)
+        eng.close()
+    if fault and mesh is not None:
+        eng = _tp_engine(cfg, params[0], "", mesh, device)
+        _plant_fault(eng)
+        out[TP_FAULT] = tp_traffic(eng, "mpic", media_len=media_len)
+        eng.sharding.__dict__.pop("entry", None)
+        eng.close()
+    params.clear()
+    gc.collect()
+    cfg32 = _fp32(cfg)
+    sharding = None if mesh is None else ServingSharding(mesh, cfg32)
+    p32 = init_params(cfg32, seed=1, device=device, sharding=sharding)
+    for pool in TP_FP32_POOLS:
+        eng = _tp_engine(cfg32, p32, pool, mesh, device)
+        out[f"mpic-{pool + '-' if pool else ''}fp32"] = tp_traffic(
+            eng, "mpic", media_len=media_len)
+        eng.close()
+    del eng, p32
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank(rank, world, port, cfg, device, media_len, out_q):
+    """One rank of phase 5o: its process group, its shard of the seeded
+    weights drawn directly (``init_params(sharding=)``), then
+    ``_tp_suite``; its results (and rank 0's pool snapshots) go to
+    ``out_q``."""
+    import torch
+
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.sharding import ServingSharding
+
+    mesh = None
+    try:
+        mesh = make_serving_mesh(1, world, rank=rank, timeout_s=TP_JOIN_S,
+                                 init_method=f"tcp://127.0.0.1:{port}",
+                                 device=device)
+        if mesh.device.type == "cpu":
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        t = time.perf_counter()
+        params = init_params(cfg, seed=0, device=mesh.device,
+                             sharding=ServingSharding(mesh, cfg))
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize()
+        res = {"init_s": time.perf_counter() - t, "device": str(mesh.device),
+               "backend": mesh.backend,
+               "weights_gib": sum(p.numel() * p.element_size() for p in
+                                  params.parameters()) / 2**30}
+        held = [params]
+        del params
+        res["runs"] = _tp_suite(cfg, held, mesh, mesh.device, media_len,
+                                snap=rank == 0,
+                                fault=cfg.num_layers <= TP_DEPTH)
+        res["pool_shape"] = res["runs"].pop("pool_shape")
+        # by value: a tensor shared by descriptor dies with this process
+        out_q.put(pickle.dumps((rank, res, None)))
+    except BaseException:
+        import traceback
+        out_q.put(pickle.dumps((rank, None, traceback.format_exc())))
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _rel(got, ref):
+    """(relative RMS, max |diff| over max |ref|) of two logit stacks."""
+    diff = got - ref
+    return (float(np.linalg.norm(diff) / np.linalg.norm(ref)),
+            float(np.abs(diff).max() / np.abs(ref).max()))
+
+
+def serve_tensor_parallel(*, device=None, cfg=None,
+                          media_len: int = TP_MEDIA_LEN):
+    """Phase 5o: internvl2-76b tensor-parallel.  With four cards or more,
+    four NCCL ranks at full depth (one card each); otherwise two gloo ranks
+    on card 0 at ``TP_DEPTH`` layers, then the unsharded engine of that
+    depth on the same card once the ranks have exited.  Each rank draws
+    its shard of the seeded weights (never the whole model) and serves
+    ``TP_RUNS`` in bf16 (at ``TP_DEPTH``, also ``TP_FAULT``), then the
+    exact check (``_fp32``) on each of ``TP_FP32_POOLS``.  Gates: every
+    rank finishes every request with the same tokens, finite first logits,
+    kernels 1/3 (2/4 on int8) and 5 launched on each rank, the bf16 runs
+    none on the CUDA cores; against the unsharded engine the exact
+    checks' tokens equal and their first-token logits within
+    ``TP_FP32_REL``; at ``TP_DEPTH``, the bf16 runs' relative RMS within
+    ``TP_FLOOR_FACTOR`` times the floor that the unsharded engine shows
+    with its row products split as the ranks split them, and the planted
+    fault's above that (bf16 tokens printed, not gated).
+    Returns (the runs by label, rank 0's pool snapshots by pool, the world
+    size).  ``device``, ``cfg`` (the whole model's, its depth as given)
+    and ``media_len`` rehearse it on the CPU."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import (
+        backend_for,
+        free_port,
+        make_serving_mesh,
+    )
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.sharding import ServingSharding, _fp32_matmul
+
+    full = get_config(TP_ARCH)
+    cuda = device is None
+    cards = torch.cuda.device_count() if cuda else 0
+    world, depth = (4, full.num_layers) if cards >= 4 else (2, TP_DEPTH)
+    if cfg is None:
+        cfg = dataclasses.replace(full, num_layers=depth)
+    depth = cfg.num_layers
+    backend = backend_for(torch.device("cuda" if cuda else "cpu"), world)
+    print(f"tensor_parallel: {TP_ARCH} world size {world}, backend "
+          f"{backend}, depth {depth} of {full.num_layers} layers (the exact "
+          f"check {TP_FP32_DEPTH}, fp32), cards {cards}", flush=True)
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    t = time.perf_counter()
+    procs = [ctx.Process(target=_tp_rank, args=(
+        r, world, port, cfg, device, media_len, q)) for r in range(world)]
+    for proc in procs:
+        proc.start()
+    got = {}
+    try:
+        while len(got) < world:
+            if time.perf_counter() - t > TP_JOIN_S:
+                raise RuntimeError(f"phase 5o: no result from ranks "
+                                   f"{sorted(set(range(world)) - set(got))}"
+                                   f" in {TP_JOIN_S:.0f} s")
+            try:
+                rank, res, err = pickle.loads(q.get(timeout=5.0))
+            except queue.Empty:
+                # a rank that died before it could report (its start-up)
+                dead = [r for r, proc in enumerate(procs)
+                        if r not in got and proc.exitcode not in (None, 0)]
+                if dead:
+                    raise RuntimeError(f"phase 5o: ranks {dead} exited "
+                                       "without a result")
+                continue
+            if err is not None:
+                raise RuntimeError(f"phase 5o: rank {rank} failed:\n{err}")
+            got[rank] = res
+        for proc in procs:
+            proc.join(timeout=60)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=10)
+    ranks_s = time.perf_counter() - t
+    bad = [proc.exitcode for proc in procs if proc.exitcode != 0]
+    if bad:
+        raise RuntimeError(f"phase 5o: rank exit codes {bad}")
+    runs, snaps = {}, {}
+    key = f"{TP_ARCH}:tp{world}"
+    for label in got[0]["runs"]:
+        per = [got[r]["runs"][label] for r in range(world)]
+        r0 = per[0]
+        paged = ("sel_attn_paged_q8", "paged_attn_q8") \
+            if "int8" in label else ("sel_attn_paged", "paged_attn")
+        need = ("sel_attn",) + (paged if label.startswith("mpic")
+                                else paged[1:])
+        for r, res in enumerate(per):
+            if (not all(res["done"]) or not res["linked_rag"]
+                    or res["tokens"] != r0["tokens"]
+                    or not np.isfinite(res["firsts"]).all()
+                    or (cuda and any(res["launches"][n] == 0
+                                     for n in need))
+                    or (not label.endswith("fp32")
+                        and res["sel_attn_routes"].get("cuda_cores"))):
+                raise RuntimeError(f"phase 5o {label}: rank {r}: "
+                                   f"{ {k: v for k, v in res.items() if k not in ('firsts', 'snap')} }")
+            print(f"  rank {r} {label}: TTFT mean {res['mean_ttft_ms']:.2f}"
+                  f" ms (prefill alone {res['mean_prefill_ms']:.2f} ms), "
+                  f"decode step {res['mean_decode_step_ms']:.2f} ms over "
+                  f"{res['decode_steps']} steps, uploads "
+                  f"{res['upload_s']:.3f} s, peak {res['peak_gib']:.2f} GiB "
+                  f"(this rank's process); launches {res['launches']}, "
+                  f"sel_attn by route {res['sel_attn_routes']}", flush=True)
+        if r0["snap"] is not None:
+            snaps[label.split("-")[1]] = r0["snap"]
+        runs[f"{key}:{label}"] = {
+            "model": key, "world": world, "backend": backend,
+            "depth": TP_FP32_DEPTH if label.endswith("fp32") else depth,
+            "launches": r0["launches"],
+            "launches_by_rank": [res["launches"] for res in per],
+            **{k: [res[k] for res in per] for k in (
+                "mean_ttft_ms", "mean_prefill_ms", "mean_decode_step_ms",
+                "upload_s", "peak_gib")},
+            "prompt_tokens": r0["prompt_tokens"],
+            "sel_attn_routes": r0["sel_attn_routes"]}
+    print(f"  ranks: {[got[r]['device'] for r in range(world)]}, pool "
+          f"{got[0]['pool_shape']} a rank, weights "
+          f"{[round(got[r]['weights_gib'], 2) for r in range(world)]} GiB, "
+          f"drawn in {[round(got[r]['init_s'], 1) for r in range(world)]} "
+          f"s; {ranks_s:.1f} s from spawn to the last result", flush=True)
+    # the unsharded engine on the same card: the bf16 runs where the depth
+    # fits one card, and the exact check
+    if depth > TP_DEPTH:
+        print(f"  unsharded bf16 runs: not run ({depth} layers do not fit "
+              "one card)")
+        cfg32 = _fp32(cfg)
+        p32 = init_params(cfg32, seed=1, device=device)
+        whole = {}
+        for pool in TP_FP32_POOLS:
+            eng = _tp_engine(cfg32, p32, pool, None, device)
+            whole[f"mpic-{pool + '-' if pool else ''}fp32"] = tp_traffic(
+                eng, "mpic", media_len=media_len)
+            eng.close()
+        del eng, p32
+    else:
+        t = time.perf_counter()
+        params = init_params(cfg, seed=0, device=device)
+        if cuda:
+            torch.cuda.synchronize()
+        print(f"  unsharded {depth}-layer model: "
+              f"{sum(p.numel() * p.element_size() for p in params.parameters()) / 2**30:.2f}"
+              f" GiB drawn in {time.perf_counter() - t:.1f} s", flush=True)
+        # the bf16 floor: the same weights in one process (a 1x1 mesh, no
+        # collective), every row-parallel product cut in the ranks' halves
+        # whose fp32 partial sums are added and rounded once, as the ranks'
+        # all-reduce adds them
+        plan = ServingSharding(make_serving_mesh(1, 1, device=device), cfg)
+
+        def split_rows(x, w):
+            k = w.shape[0] // world
+            parts = [_fp32_matmul(x[..., i * k:(i + 1) * k],
+                                  w[i * k:(i + 1) * k]) for i in range(world)]
+            return sum(parts[1:], parts[0]).to(x.dtype)
+
+        plan.row_parallel = split_rows
+        params.sharding = plan
+        floors = {}
+        for pool in ("", "int8"):
+            eng = _tp_engine(cfg, params, pool, None, device)
+            floors[f"mpic-{pool or 'bf16'}"] = tp_traffic(
+                eng, "mpic", media_len=media_len)
+            eng.close()
+        params.sharding = None
+        held = [params]
+        del params, eng
+        whole = _tp_suite(cfg, held, None, device, media_len)
+        whole.pop("pool_shape")
+    failed = []
+    limits = {}
+    if depth <= TP_DEPTH:
+        for label, floor in floors.items():
+            ref = whole[label]
+            floor_rel, floor_max = _rel(floor["firsts"], ref["firsts"])
+            limits[label] = TP_FLOOR_FACTOR * floor_rel
+            print(f"  floor of {label}, the unsharded engine with its "
+                  f"row-parallel products split in {world} and summed in "
+                  f"fp32: first-token logits relative RMS {floor_rel:.2e}, "
+                  f"max {floor_max:.2e}; tokens equal "
+                  f"{floor['tokens'] == ref['tokens']}; the limit "
+                  f"{TP_FLOOR_FACTOR} x {floor_rel:.2e} = "
+                  f"{limits[label]:.2e}", flush=True)
+            runs[f"{key}:{label}"].update(floor_rel=floor_rel,
+                                          floor_rel_max=floor_max)
+        # the int8 pool's runs against its floor, the others the bf16's
+        for label in whole:
+            limits.setdefault(label, limits["mpic-int8" if "int8" in label
+                                            else "mpic-bf16"])
+        whole[TP_FAULT] = whole["mpic-bf16"]
+        limits[TP_FAULT] = limits["mpic-bf16"]
+    for label, ref in whole.items():
+        r0 = got[0]["runs"][label]
+        rel, rel_max = _rel(r0["firsts"], ref["firsts"])
+        same = r0["tokens"] == ref["tokens"]
+        lead = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                     len(x)) for x, y in zip(r0["tokens"], ref["tokens"])]
+        exact = label.endswith("fp32")
+        print(f"  unsharded {label}: TTFT mean {ref['mean_ttft_ms']:.2f} ms,"
+              f" decode step {ref['mean_decode_step_ms']:.2f} ms, peak "
+              f"{ref['peak_gib']:.2f} GiB; tokens equal to rank 0's {same} "
+              f"(equal leading tokens {lead} of {MAX_NEW}); first-token "
+              f"logits relative RMS {rel:.2e}, max |diff| over max |logit| "
+              f"{rel_max:.2e} (limit "
+              + (f"{TP_FP32_REL} on the latter" if exact
+                 else f"{limits[label]:.2e} on the former, "
+                 + ("which this planted fault must exceed"
+                    if label == TP_FAULT else "not above")) + ")",
+              flush=True)
+        runs[f"{key}:{label}"].update(
+            unsharded_mean_ttft_ms=ref["mean_ttft_ms"],
+            unsharded_mean_decode_step_ms=ref["mean_decode_step_ms"],
+            unsharded_peak_gib=ref["peak_gib"], first_logits_rel=rel,
+            first_logits_rel_max=rel_max, tokens_equal=same,
+            equal_leading_tokens=lead)
+        if exact:
+            ok = same and rel_max <= TP_FP32_REL
+        elif label == TP_FAULT:
+            ok = rel > limits[label]
+        else:
+            ok = rel <= limits[label]
+        if not ok:
+            failed.append(f"{label}: tokens {r0['tokens']} vs unsharded "
+                          f"{ref['tokens']}, logits rel {rel} / {rel_max}"
+                          + ("" if exact else f", limit {limits[label]}"))
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    if failed:
+        raise RuntimeError("phase 5o: " + "; ".join(failed))
+    return runs, snaps, world
+
+
 def main() -> int:
     import torch
 
@@ -1443,35 +2076,6 @@ def main() -> int:
     print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{nbytes / 2**30:.2f} GiB of seeded weights")
     phase("init", t0)
-
-    guarded = [(sel_ops, "selective_attention_ref"),
-               (sel_ops, "selective_attention_paged_ref"),
-               (paged_ops, "paged_attention_ref"), (layers, "attend"),
-               (ssd_ops, "ssd_chunk_ref")]
-
-    @contextlib.contextmanager
-    def no_plain_versions(training=False):
-        """The plain versions and ``layers.attend`` raise while serving on
-        the card: every attention and SSD chunk step there must go through
-        a kernel.  While ``training``, ``layers.attend`` runs (the training
-        forward's attention, which the kernels, having no backward, do not
-        serve) and the plain versions still raise."""
-        saved = [(mod, name, getattr(mod, name)) for mod, name in guarded
-                 if not (training and (mod, name) == (layers, "attend"))]
-
-        def forbid(name):
-            def call(*args, **kwargs):
-                raise RuntimeError(f"{name} was called while serving on "
-                                   "the card")
-            return call
-
-        for mod, name, _ in saved:
-            setattr(mod, name, forbid(name))
-        try:
-            yield
-        finally:
-            for mod, name, fn in saved:
-                setattr(mod, name, fn)
 
     @contextlib.contextmanager
     def capture_dense(cases, eng):
@@ -1696,32 +2300,6 @@ def main() -> int:
         torch.cuda.empty_cache()
         return reqs, launches, snap
 
-    def snapshot(eng):
-        """Layer 0 of the pool and the live decode / newest prefill shapes."""
-        pool, ps = eng.pool, eng.cfg.page_size
-        lengths = np.asarray([r.cur_len for r in eng.running], np.int32)
-        mp = bucket(max(pool.pages_for(int(n)) for n in lengths), 1)
-        last = max(eng.running, key=lambda r: r.t_admitted)
-        sel = selection_indices(mpic_selection(last.prompt, K_MPIC))
-        q_pos = np.zeros((bucket(len(sel), 16),), np.int32)
-        q_pos[:len(sel)] = sel
-        row = eng._page_tables[last.slot]
-        pmp = min(bucket(pool.pages_for(last.prompt.total_len)), len(row))
-        q8 = pool.quantized
-        return {
-            "k": pool.k[0].clone(), "v": pool.v[0].clone(),
-            "ks": pool.k_scale[0].clone() if q8 else None,
-            "vs": pool.v_scale[0].clone() if q8 else None,
-            "decode_pt": torch.as_tensor(eng._page_tables[:, :mp].copy(),
-                                         device=dev),
-            "decode_len": torch.as_tensor(lengths, device=dev),
-            "prefill_pt": torch.as_tensor(row[None, :pmp].copy(), device=dev),
-            "q_pos": torch.as_tensor(q_pos[None], device=dev),
-            "prefill_len": torch.tensor([last.prompt.total_len],
-                                        dtype=torch.int32, device=dev),
-            "n_sel": len(sel), "ps": ps,
-        }
-
     runs = {}
     runs_cli = {}           # phase 5g: the CLI's runs, in subprocesses
     t0 = time.perf_counter()
@@ -1908,14 +2486,17 @@ def main() -> int:
             key=lambda k: -k[1])
         return kernels, sum(ms for _, ms, _ in kernels)
 
-    def device_ms(fn, iters):
+    def device_ms(fn, iters, floor_ms=None):
         """Device time of one call: every device activity of ``iters``
-        back-to-back calls under torch.profiler, summed, over ``iters``
-        (None when the profiler saw none in two tries: it sometimes
-        records no device activity for a whole profile)."""
+        back-to-back calls under torch.profiler, summed, over ``iters``.
+        A profile is a reading only when it saw device activity and, given
+        ``floor_ms`` (the call's bound), no less time than that: the
+        profiler sometimes records no device activity for a whole profile,
+        or only part of it.  None (not measured) when three tries gave no
+        reading."""
         fn()
         torch.cuda.synchronize()
-        for _ in range(2):
+        for _ in range(3):
             with torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1923,7 +2504,7 @@ def main() -> int:
                     fn()
                 torch.cuda.synchronize()
             _, busy = device_kernels(prof)
-            if busy > 0:
+            if busy > 0 and (floor_ms is None or busy / iters >= floor_ms):
                 return busy / iters
         return None
 
@@ -3227,6 +3808,22 @@ def main() -> int:
     train_on_card(lambda: no_plain_versions(training=True), env)
     phase("train", t0)
 
+    # -- 5n. the SSM and the hybrid trained at full width -------------------
+    t0 = time.perf_counter()
+    train_ssm_on_card(lambda: no_plain_versions(training=True))
+    phase("train_ssm", t0)
+
+    # -- 5o. internvl2-76b tensor-parallel ------------------------------------
+    t0 = time.perf_counter()
+    tp_runs, tp_snaps, tp_world = serve_tensor_parallel()
+    runs.update(tp_runs)
+    tp_key = f"{TP_ARCH}:tp{tp_world}"
+    for pool_name, snap in tp_snaps.items():
+        gqa_snaps[tp_key, pool_name] = {
+            k: v.to(dev) if torch.is_tensor(v) else v
+            for k, v in snap.items()}
+    phase("serve_tensor_parallel", t0)
+
     # -- 6. kernels against their plain versions ----------------------------
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -3369,8 +3966,8 @@ def main() -> int:
             "plain_ms": events_ms(lambda: selective_attention_paged_ref(
                 qt, k, v, pt, q_pos, lens, ks, vs, window=window), 5),
             "library_ms": events_ms(library, 20),
-            "device_ms": device_ms(kernel, 20),
-            "library_device_ms": device_ms(library, 20),
+            "device_ms": device_ms(kernel, 20, bound_ms),
+            "library_device_ms": device_ms(library, 20, bound_ms),
             "shape": f"q {tuple(q.shape)} bf16 ({n_sel} selected), "
                      f"pool layer 0 {k.dtype} ({k.shape[2]} kv heads), page "
                      f"table {tuple(pt.shape)}, length {length}, window "
@@ -3388,15 +3985,19 @@ def main() -> int:
         results[name] = prefill_main(snap, hq, dh, window)
     # the same at each GQA model's layer 0, from its served runs
     gqa_results, gqa_paged = {}, []
-    for arch in (*GQA_ARCHS, *MOE_ARCHS):
-        acfg = get_config(arch)
+    # (internvl2's rank 0 of phase 5o at its shard's heads)
+    tp_cfg = get_config(TP_ARCH)
+    paged_shapes = [(arch, get_config(arch).num_heads, get_config(arch))
+                    for arch in (*GQA_ARCHS, *MOE_ARCHS)] + [
+        (tp_key, tp_cfg.num_heads // tp_world, tp_cfg)]
+    for arch, heads, acfg in paged_shapes:
         by_kernel = gqa_results[arch] = {}
         for pool_name, suffix in (("bf16", ""), ("int8", "_q8")):
-            args = (gqa_snaps.pop((arch, pool_name)), acfg.num_heads,
+            args = (gqa_snaps.pop((arch, pool_name)), heads,
                     acfg.head_dim, acfg.sliding_window)
             res, kernel = decode_main(*args)
             by_kernel["paged_attn" + suffix] = {
-                **res, "device_ms": device_ms(kernel, 20)}
+                **res, "device_ms": device_ms(kernel, 20, res["bound_ms"])}
             by_kernel["sel_attn_paged" + suffix] = prefill_main(*args)
         gqa_paged += [(f"{name} at {arch} G "
                        f"{acfg.num_heads // acfg.num_kv_heads}", r)
@@ -3567,8 +4168,8 @@ def main() -> int:
             plain_ms=events_ms(lambda: dense_ref(
                 q, k, v, q_pos, kv_pos, window), 5),
             library_ms=events_ms(library, 20),
-            device_ms=device_ms(kernel, 20),
-            library_device_ms=device_ms(library, 20),
+            device_ms=device_ms(kernel, 20, bound_ms),
+            library_device_ms=device_ms(library, 20, bound_ms),
             shape=f"q {tuple(q.shape)} {str(q.dtype)[6:]}, k/v "
                   f"{tuple(k.shape)}, {keys} of {b * skv} key slots kept, "
                   f"{pairs} (query, key) pairs, window {window}")
@@ -3738,9 +4339,9 @@ def main() -> int:
             ms=events_ms(kernel, 50),
             plain_ms=events_ms(lambda: ssd_chunk_ref(*args), 10),
             library_ms=None,
-            device_ms=device_ms(kernel, 20),
+            device_ms=device_ms(kernel, 20, bound_ms),
             cuda_cores_ms=events_ms(cuda_cores, 50),
-            cuda_cores_device_ms=device_ms(cuda_cores, 20),
+            cuda_cores_device_ms=device_ms(cuda_cores, 20, bound_ms),
             shape=f"x {tuple(x.shape)} (B, NC, H, Q, hd) read through the "
                   f"model's layout, bm/cm {tuple(bm.shape)}, fp32")
         return res
@@ -4165,11 +4766,12 @@ def main() -> int:
           f"tokens identical {same}")
     if not diff <= 1e-3 or not same:
         raise RuntimeError("the card's whisper disagrees with the CPU's")
-    # three train steps of the smoke yi-9b and whisper in fp32, card
-    # against CPU, from the same weights on the same batches
+    # three train steps of the smoke yi-9b, whisper, mamba2 and hymba (at
+    # two windows: the band) in fp32, card against CPU, from the same
+    # weights on the same batches
     from repro_torch.data import train_batches, with_audio
     from repro_torch.training import AdamW, cosine_warmup, make_train_step
-    for arch in ("yi-9b", WHISPER):
+    for arch in ("yi-9b", WHISPER, *SSM_TRAIN_ARCHS):
         small = dataclasses.replace(get_smoke_config(arch),
                                     param_dtype="float32",
                                     compute_dtype="float32")
@@ -4178,7 +4780,8 @@ def main() -> int:
         losses = {}
         for where, p in (("cpu", p_cpu), ("cuda", copy.deepcopy(p_cpu).to(
                 dev))):
-            data = train_batches(batch=2, seq=TRAIN_SEQ,
+            data = train_batches(batch=2,
+                                 seq=SMALL_TRAIN_SEQ.get(arch, TRAIN_SEQ),
                                  vocab=small.vocab_size, d_model=small.d_model)
             if small.is_encoder_decoder:
                 data = with_audio(data, encoder_seq=small.encoder_seq,

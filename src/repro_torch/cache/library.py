@@ -266,6 +266,8 @@ class KVLibrary:
         self._copy_streams: Dict[torch.device, torch.cuda.Stream] = {}
         self._session_ctr = {"freezes": 0, "thaws": 0, "forks": 0}
         self._session_sources: List[Callable[[], Dict[str, int]]] = []
+        # set: why this library may not spool (every spool raises it)
+        self.no_spool: Optional[str] = None
         self.rehydrate_stats: Dict[str, int] = {}
         if rehydrate:
             self.rehydrate_stats = self.rehydrate_spool(device)
@@ -823,7 +825,9 @@ class KVLibrary:
         """Demote one entry to disk, hashing its bytes into the content
         key at its first spool; False if pinned or being read (the caller
         holds the lock and must not wait for ``_mlock``) or if the write
-        failed."""
+        failed.  Raises NotImplementedError when ``no_spool`` is set."""
+        if self.no_spool is not None:
+            raise NotImplementedError(self.no_spool)
         if e.meta.pins > 0 or not self._disk_ok():
             return False
         if not e._mlock.acquire(blocking=False):

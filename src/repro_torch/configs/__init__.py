@@ -7,14 +7,16 @@ decoders (deepseek-moe-16b, MHA at head dim 128, 64 experts top-6 and 2
 shared; granite-moe-1b-a400m, G 2 at head dim 64, 32 experts top-8),
 mamba2-130m, the hybrid hymba-1.5b (attention and SSD heads in every
 layer, G 5, a 2048-token window) and the encoder-decoder whisper-small
-(learned positions, cross attention over 1,500 encoded audio frames);
-internvl2-76b is not ported yet."""
+(learned positions, cross attention over 1,500 encoded audio frames),
+and internvl2-76b (80 layers at d 8192, G 8 at head dim 128; 141 GB of
+bf16 weights, served tensor-parallel)."""
 from __future__ import annotations
 
 from repro_torch.configs import (
     deepseek_moe_16b,
     granite_moe_1b_a400m,
     hymba_1_5b,
+    internvl2_76b,
     llava_mpic,
     mamba2_130m,
     phi3_medium_14b,
@@ -31,7 +33,8 @@ _REGISTRY = {"llava-1.6-7b": llava_mpic, "mamba2-130m": mamba2_130m,
              "stablelm-1.6b": stablelm_1_6b, "hymba-1.5b": hymba_1_5b,
              "deepseek-moe-16b": deepseek_moe_16b,
              "granite-moe-1b-a400m": granite_moe_1b_a400m,
-             "whisper-small": whisper_small}
+             "whisper-small": whisper_small,
+             "internvl2-76b": internvl2_76b}
 
 
 def _module(arch_id: str):

@@ -75,7 +75,8 @@ def precompute_media_kv(model, params, embeds: torch.Tensor):
 
     embeds (length, D) on the model's device -> (k, v), each
     (L, length, Hkv, Dh) in the compute dtype.  This is what the library
-    stores when a user uploads a file.
+    stores when a user uploads a file; a tensor-parallel rank gathers
+    every rank's kv heads into it, so the entry is the whole model's.
 
     A hybrid stores its K/V only (the SSM state depends on the whole
     prefix).  Its prefill pads the segment to ``ssm_chunk`` and parks the
@@ -88,11 +89,14 @@ def precompute_media_kv(model, params, embeds: torch.Tensor):
     tokens = torch.zeros((1, length), dtype=torch.int32, device=embeds.device)
     mask = torch.ones((1, length), dtype=torch.bool, device=embeds.device)
     _, cache = model.prefill(params, tokens, cache, media_embeds=embeds[None],
-                             media_mask=mask)
+                             media_mask=mask, logits=False)
+    k, v = cache["k"][:, 0], cache["v"][:, 0]
     if scratch:
-        return (cache["k"][:, 0, :length].contiguous(),
-                cache["v"][:, 0, :length].contiguous())
-    return cache["k"][:, 0], cache["v"][:, 0]
+        k, v = k[:, :length].contiguous(), v[:, :length].contiguous()
+    if params.sharding is not None:
+        # a tensor-parallel rank computed its kv heads: the entry is whole
+        k, v = (params.sharding.gather_heads(t) for t in (k, v))
+    return k, v
 
 
 def scale_row_ids(n: int, qkv) -> np.ndarray:
@@ -104,12 +108,13 @@ def scale_row_ids(n: int, qkv) -> np.ndarray:
 
 
 def _gather_placements(prompt: Prompt, library, selection: np.ndarray,
-                       entries=None):
+                       entries=None, sharding=None):
     """Resolve each media segment to a library entry (from ``entries`` when
-    given), or force its recompute.  Returns (selection grown by misses,
-    [(offset, entry, length)], miss ids).  Each placed entry is made ready
-    for this thread's stream (``Entry.wait_loaded``); none is dequantized
-    here."""
+    given; with a tensor-parallel rank's ``sharding``, its view of the
+    rank's kv heads), or force its recompute.  Returns (selection grown
+    by misses, [(offset, entry, length)], miss ids).  Each placed entry is
+    made ready for this thread's stream (``Entry.wait_loaded``); none is
+    dequantized here."""
     sel = selection.copy()
     misses = []
     placed = []
@@ -125,15 +130,18 @@ def _gather_placements(prompt: Prompt, library, selection: np.ndarray,
             misses.append(seg.media_id)
         else:
             entry.wait_loaded()
+            if sharding is not None:
+                entry = sharding.entry(entry)
             placed.append((off, entry, seg.length))
     return sel, placed, misses
 
 
 def link_prompt(model, prompt: Prompt, library, selection: np.ndarray, *,
                 kv_len: Optional[int] = None, device=None,
-                entries=None) -> LinkResult:
+                entries=None, sharding=None) -> LinkResult:
     """Build the dense blended cache of one request on ``device`` (None
-    means the card).
+    means the card); a tensor-parallel rank passes its ``sharding``
+    (``params.sharding``) and links its kv heads of each entry.
 
     Placed segments (already on the device, in the library) are relinked
     with one ``rope_relink`` over their concatenation and written at their
@@ -148,7 +156,7 @@ def link_prompt(model, prompt: Prompt, library, selection: np.ndarray, *,
     if kv_len < total + 1:
         raise ValueError(f"kv_len {kv_len} < prompt {total} + 1")
     sel, placed, misses = _gather_placements(prompt, library, selection,
-                                             entries)
+                                             entries, sharding)
     sel_idx = selection_indices(sel)
     cache = model.make_cache(1, kv_len, device=device)
     k_buf, v_buf, pos = cache["k"][:, 0], cache["v"][:, 0], cache["pos"][0]
@@ -199,8 +207,9 @@ def bucket(n: int, lo: int = 8) -> int:
 
 def link_paged(model, prompt: Prompt, library, selection: np.ndarray, pool,
                page_row: np.ndarray, *, scratch_page: int,
-               entries=None) -> PagedLinkResult:
-    """Link a prompt's reused segments directly into its reserved pages.
+               entries=None, sharding=None) -> PagedLinkResult:
+    """Link a prompt's reused segments directly into its reserved pages
+    (``sharding`` as in :func:`link_prompt`).
 
     All placed segments are relinked with one ``rope_relink`` and written
     with one :meth:`~repro_torch.cache.paged.PagedKVPool.link_write`, or,
@@ -215,7 +224,7 @@ def link_paged(model, prompt: Prompt, library, selection: np.ndarray, pool,
     total = prompt.total_len
     ps = pool.cfg.page_size
     sel, placed, misses = _gather_placements(prompt, library, selection,
-                                             entries)
+                                             entries, sharding)
     forced = sel & ~selection                   # miss-driven recomputes
     sel_idx = selection_indices(sel)
 

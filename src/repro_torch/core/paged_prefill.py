@@ -90,11 +90,11 @@ class BoundPagedPrefill:
         return self.prefiller.pool
 
     def link(self, model, prompt: Prompt, library, selection: np.ndarray,
-             *, entries=None) -> PagedLinkResult:
+             *, entries=None, sharding=None) -> PagedLinkResult:
         return link_paged(model, prompt, library, selection,
                           self.prefiller.pool, self.page_row,
                           scratch_page=self.prefiller.scratch_page,
-                          entries=entries)
+                          entries=entries, sharding=sharding)
 
     def reselect(self, model, prompt: Prompt, link: PagedLinkResult,
                  selection: np.ndarray) -> PagedLinkResult:

@@ -164,6 +164,10 @@ def prefix_caching(model, params, prompt: Prompt, library=None, *,
                            if prefix_store else (0, None, None))
     if model.cfg.attn_free or model.cfg.hybrid:
         n_hit = 0
+    if n_hit and params.sharding is not None:
+        # the store holds whole K/V; a tensor-parallel rank takes its heads
+        k_hit, v_hit = (params.sharding.local_heads(t)
+                        for t in (k_hit, v_hit))
     total = prompt.total_len
     cache = model.make_cache(1, kv_len or total + 1, device=dev)
     if n_hit:
@@ -191,7 +195,7 @@ def full_reuse(model, params, prompt: Prompt, library, *, kv_len=None,
     dev = _device(params)
     selection = sel_mod.full_reuse_selection(prompt)
     link = link_prompt(model, prompt, library, selection, kv_len=kv_len,
-                       device=dev, entries=entries)
+                       device=dev, entries=entries, sharding=params.sharding)
 
     # step 1: the text KV on its own (text attends only to text, at its
     # original positions), a separate engine invocation
@@ -233,7 +237,9 @@ def full_reuse(model, params, prompt: Prompt, library, *, kv_len=None,
 def _probe_k_deviation(model, params, prompt: Prompt, k_cached0) -> np.ndarray:
     """Layer-0 K of every token, recomputed, against the linked cache's
     layer-0 K ``k_cached0`` (S, Hkv, Dh): the L1 deviation per token,
-    cacheblend's ranking signal (one layer, no cache)."""
+    cacheblend's ranking signal (one layer, no cache).  A
+    tensor-parallel rank sums its kv heads' share over the ranks, so that
+    every rank ranks the same scores."""
     cfg = model.cfg
     toks, mask, emb = _full_prompt_arrays(model, prompt, _device(params))
     x = model.embed(params, toks, emb, mask)
@@ -243,6 +249,8 @@ def _probe_k_deviation(model, params, prompt: Prompt, k_cached0) -> np.ndarray:
     h = rmsnorm(lp0.attn_norm, x, cfg.rms_norm_eps)
     _, k_probe, _ = attention_qkv(lp0.attn, cfg, h, positions)
     dev = (k_probe[0].float() - k_cached0.float()).abs().sum(dim=(-1, -2))
+    if params.sharding is not None and params.sharding.attn:
+        dev = params.sharding.mesh.all_reduce(dev)
     return dev.cpu().numpy()
 
 
@@ -267,7 +275,8 @@ def cacheblend(model, params, prompt: Prompt, library, *, r: float = 0.15,
     base_sel = sel_mod.full_reuse_selection(prompt)
     name = f"cacheblend-{int(r * 100)}"
     if paged is not None:
-        link0 = paged.link(model, prompt, library, base_sel, entries=entries)
+        link0 = paged.link(model, prompt, library, base_sel, entries=entries,
+                           sharding=params.sharding)
         # the probe reads the pool before the prefill has written the
         # selected slots: blank them, as the dense dummy cache does, so a
         # previous tenant's K cannot steer the ranking
@@ -285,13 +294,13 @@ def cacheblend(model, params, prompt: Prompt, library, *, r: float = 0.15,
              "paged_prefill": True, "wall_s": time.perf_counter() - t0,
              "misses": link.misses})
     link0 = link_prompt(model, prompt, library, base_sel, device=dev,
-                        entries=entries)
+                        entries=entries, sharding=params.sharding)
     dev_scores = _probe_k_deviation(model, params, prompt,
                                     link0.cache["k"][0, 0, :prompt.total_len])
     del link0
     selection = sel_mod.cacheblend_selection(prompt, dev_scores, r)
     link = link_prompt(model, prompt, library, selection, kv_len=kv_len,
-                       device=dev, entries=entries)
+                       device=dev, entries=entries, sharding=params.sharding)
     logits, cache = _selective_step(model, params, link)
     return PolicyResult(
         _first_logits(logits), cache,
@@ -311,7 +320,8 @@ def mpic(model, params, prompt: Prompt, library, *, k: int = 32,
     t0 = time.perf_counter()
     selection = sel_mod.mpic_selection(prompt, k)
     if paged is not None:
-        link = paged.link(model, prompt, library, selection, entries=entries)
+        link = paged.link(model, prompt, library, selection, entries=entries,
+                          sharding=params.sharding)
         first = paged.prefill(params, link)
         return PolicyResult(
             first, None,
@@ -320,7 +330,8 @@ def mpic(model, params, prompt: Prompt, library, *, k: int = 32,
              "paged_prefill": True, "wall_s": time.perf_counter() - t0,
              "misses": link.misses})
     link = link_prompt(model, prompt, library, selection, kv_len=kv_len,
-                       device=_device(params), entries=entries)
+                       device=_device(params), entries=entries,
+                       sharding=params.sharding)
     logits, cache = _selective_step(model, params, link)
     return PolicyResult(
         _first_logits(logits), cache,

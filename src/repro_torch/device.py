@@ -3,6 +3,8 @@
 Every entry point takes ``device=None`` and means the card by it.  Only a
 caller that asks for ``"cpu"`` gets the CPU, where the kernels' plain
 PyTorch versions run; there is no silent fallback from the card to the CPU.
+``"meta"`` builds shapes without memory (the tensor-parallel plan reads a
+model's parameter shapes so).
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available: the port runs on the card by default; "
             "pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -31,18 +31,39 @@ locally missing media KV from theirs before falling back to recompute.
 ``--policy`` takes a comma-separated trace cycled over the requests; an
 unknown policy name fails that request, and the server keeps serving.
 
-Not ported: ``--mesh`` (mesh sharding).
+``--mesh 1xM`` (``auto``: every visible card) serves tensor-parallel over
+M ranks: the launcher spawns M processes joined by ``torch.distributed``
+(``launch/mesh.py``), each serving its shard of the weights (drawn
+directly, never whole) on the same stream, and rank 0 prints the lines,
+with ``mesh=1xM`` in the header and the backend on a line of its own:
+NCCL when every rank has a card of its own, gloo on the CPU and when the
+ranks share fewer cards.  ``--device`` passes through to the ranks.  A
+mesh with a ``data`` axis, and a mesh with ``--replicas`` or ``--fleet``,
+are not ported (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import os
+import sys
 from typing import List, Optional, Tuple, Union
+
+import torch
+import torch.multiprocessing as mp
 
 from repro_torch.cache import FaultPlan, KVLibrary, KVPeerServer
 from repro_torch.configs import ModelConfig, get_config, get_smoke_config
 from repro_torch.data import image_embeds, make_dialogues
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (
+    ServingMesh,
+    free_port,
+    make_serving_mesh,
+)
 from repro_torch.models import build_model
+from repro_torch.models.transformer import init_params
 from repro_torch.serving import (
     ClusterConfig,
     EngineConfig,
@@ -119,7 +140,21 @@ def build_parser() -> argparse.ArgumentParser:
                          "delay=0.5,stop=1'")
     ap.add_argument("--fault-seed", type=int, default=0,
                     help="seed for fault-plan probability draws")
+    ap.add_argument("--mesh", default="none",
+                    help="'none' (default), 'auto' (every visible card) or "
+                         "'1xM': tensor-parallel serving over M ranks")
     return ap
+
+
+def parse_mesh(spec: str) -> Optional[Tuple[int, int]]:
+    """'none' -> None; 'auto' -> (1, 0), every visible card; 'DxM' ->
+    (D, M)."""
+    if spec in ("none", ""):
+        return None
+    if spec == "auto":
+        return 1, 0
+    data, model = (int(x) for x in spec.lower().split("x"))
+    return data, model
 
 
 def engine_config(args: argparse.Namespace) -> EngineConfig:
@@ -130,21 +165,28 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
         freeze_idle_s=args.freeze_idle_s)
 
 
-def build(args: argparse.Namespace, params=None
+def build(args: argparse.Namespace, params=None,
+          mesh: Optional[ServingMesh] = None
           ) -> Tuple[ModelConfig, Union[MPICEngine, MPICCluster],
                      Optional[FaultPlan]]:
     """The model config, the engine (a cluster with ``--replicas`` > 1)
     and the fault plan that ``args`` ask for.  ``params`` (on the
-    engine's device) replace the seeded weights; the static library gets
-    the peers and the plan, when given."""
-    device = resolve_device(args.device)
+    engine's device; whole, also under a mesh) replace the seeded
+    weights; the static library gets the peers and the plan, when given.
+    Under ``mesh`` the engine serves this rank's shard, drawn directly
+    when no ``params`` are given."""
+    device = resolve_device(args.device) if mesh is None else mesh.device
     cfg = (get_config(args.arch) if device.type == "cuda"
            else get_smoke_config(args.arch))
     peers = [p.strip() for p in args.peers.split(",") if p.strip()]
     faults = (FaultPlan.parse(args.fault_plan, seed=args.fault_seed)
               if args.fault_plan else None)
     model = build_model(cfg)
-    if params is None:
+    if params is None and mesh is not None:
+        from repro_torch.serving.sharding import ServingSharding
+        params = init_params(cfg, seed=0, device=device,
+                             sharding=ServingSharding(mesh, cfg))
+    elif params is None:
         params = model.init(seed=0, device=device)
     if args.replicas > 1:
         return cfg, MPICCluster(model, params, engine_config(args),
@@ -159,7 +201,8 @@ def build(args: argparse.Namespace, params=None
     static_lib = (KVLibrary(peers=peers, faults=faults, device=device)
                   if peers or faults else None)
     eng = MPICEngine(model, params, engine_config(args),
-                     static_library=static_lib, device=device, faults=faults)
+                     static_library=static_lib, device=device, faults=faults,
+                     mesh=mesh)
     return cfg, eng, faults
 
 
@@ -167,7 +210,8 @@ def serve(args: argparse.Namespace, cfg: ModelConfig,
           eng: Union[MPICEngine, MPICCluster], policies: List[str],
           faults: Optional[FaultPlan]) -> None:
     """Upload the stream's images, submit its requests under the cycled
-    policies, run the engine or cluster, and print the results."""
+    policies, run the engine or cluster, and print the results (under a
+    mesh every rank runs this; the caller silences all but rank 0)."""
     media_len = (cfg.media_token_len if eng.device.type == "cuda"
                  else SMOKE_MEDIA_LEN)
     dialogues = make_dialogues(n=args.requests, n_images=2,
@@ -188,10 +232,15 @@ def serve(args: argparse.Namespace, cfg: ModelConfig,
                            policy=policy, policy_kwargs=kw,
                            deadline_s=args.deadline_s))
     done = eng.run()
+    mesh = getattr(eng, "mesh", None)
     print(f"\narch={cfg.name} policy={args.policy} paged={args.paged} "
           f"pipelined={args.pipelined} device={eng.device.type} "
-          f"replicas={args.replicas}"
+          + (f"mesh={mesh.data}x{mesh.model} " if mesh is not None else "")
+          + f"replicas={args.replicas}"
           + (f" router={args.router}" if args.replicas > 1 else ""))
+    if mesh is not None:
+        print(f"  tensor_parallel: backend={mesh.backend} "
+              f"ranks={mesh.model} device={eng.device}")
     for r in done:
         rep = f" replica={r.replica}" if args.replicas > 1 else ""
         print(f"  {r.req_id}: ttft={r.ttft * 1e3:7.0f} ms  "
@@ -213,6 +262,10 @@ def main(argv: Optional[List[str]] = None, *, params=None) -> None:
     policies = [p.strip() for p in args.policy.split(",") if p.strip()]
     if not policies:
         ap.error("--policy needs at least one policy name")
+    shape = parse_mesh(args.mesh)
+    if shape is not None and (args.replicas > 1 or args.fleet > 0):
+        ap.error("--mesh with --replicas or --fleet is not ported "
+                 "(ROADMAP.md, queue 1)")
     if args.fleet > 0:
         # the supervisor builds the hosts, uploads and submits
         from repro_torch.launch.fleet import run_fleet
@@ -222,6 +275,10 @@ def main(argv: Optional[List[str]] = None, *, params=None) -> None:
                   deadline_s=args.deadline_s,
                   freeze_idle_s=args.freeze_idle_s,
                   max_seq_len=args.max_seq_len, device=args.device)
+        return
+    if shape is not None:
+        _serve_mesh(sys.argv[1:] if argv is None else argv, args, shape,
+                    params)
         return
     cfg, eng, faults = build(args, params)
     peer_server = None if args.replicas <= 1 else eng.peer_server
@@ -235,6 +292,49 @@ def main(argv: Optional[List[str]] = None, *, params=None) -> None:
         if peer_server is not None:
             peer_server.close()
         eng.close()
+
+
+def _serve_mesh(argv, args, shape, params) -> None:
+    """Spawn the mesh's ranks and wait for them (one rank: in this
+    process); any rank's failure raises here."""
+    data, model = shape
+    if data != 1:
+        make_serving_mesh(data, model, device=args.device)     # raises
+    if model == 0:
+        if resolve_device(args.device).type != "cuda":
+            raise ValueError("--mesh auto means every visible card; on the "
+                             "CPU give --mesh 1xM")
+        model = torch.cuda.device_count()
+    if model == 1:
+        _rank_main(0, argv, 1, None, params)
+        return
+    mp.start_processes(_rank_main, args=(argv, model, free_port(), params),
+                       nprocs=model, join=True, start_method="spawn")
+
+
+def _rank_main(rank: int, argv, model: int, port: Optional[int],
+               params) -> None:
+    """One rank of ``--mesh``: its process group, its engine over its
+    shard, the stream; only rank 0 prints."""
+    args = build_parser().parse_args(argv)
+    policies = [p.strip() for p in args.policy.split(",") if p.strip()]
+    if resolve_device(args.device).type == "cpu":
+        # the ranks share this host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // model))
+    mesh = make_serving_mesh(1, model, device=args.device, rank=rank,
+                             init_method=(None if port is None else
+                                          f"tcp://127.0.0.1:{port}"))
+    quiet = contextlib.redirect_stdout(io.StringIO()) if rank else \
+        contextlib.nullcontext()
+    try:
+        with quiet:
+            cfg, eng, faults = build(args, params, mesh)
+            try:
+                serve(args, cfg, eng, policies, faults)
+            finally:
+                eng.close()
+    finally:
+        mesh.close()
 
 
 if __name__ == "__main__":

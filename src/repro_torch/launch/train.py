@@ -10,8 +10,9 @@ every tenth of the run; ``--ckpt PATH`` writes the parameters and the
 step there at the end, in the reference's checkpoint format.
 
 It runs on the card and raises without one; ``--device cpu`` runs on the
-CPU.  An SSM or a hybrid raises ``NotImplementedError`` at its first step
-(``models.transformer.forward_train``).  Not ported: the reference's mesh
+CPU.  Every family trains, the SSM (mamba2-130m) and the hybrid
+(hymba-1.5b) included; theirs need ``--seq`` to be a multiple of
+``ssm_chunk``, as the reference asserts.  Not ported: the reference's mesh
 (one card).
 """
 from __future__ import annotations

@@ -98,6 +98,32 @@ def banded_attend(q, k, v, positions, window: int):
     return selective_attention(q, k, v, positions, positions, window=window)
 
 
+def banded_attend_train(q, k, v, positions, window: int):
+    """The training pass's counterpart of :func:`banded_attend`, the JAX
+    package's jnp ``banded_attend``: the sequence cut into S/w query
+    blocks, block i attending through :func:`attend` to the keys of
+    blocks i-1 and i (2w keys, the first block's earlier half empty), so
+    the logits are the S x 2w band's.  Differentiable; it calls no kernel.
+    Same arguments and requirements as :func:`banded_attend`."""
+    b, s, hq, dh = q.shape
+    if not (window > 0 and s % window == 0 and s >= 2 * window):
+        raise ValueError(f"banded_attend_train: needs S % w == 0 and "
+                         f"S >= 2w; got S {s}, w {window}")
+    nb = s // window
+
+    def band(x):                    # (B, S, ...) -> (B*nb, 2w, ...)
+        xr = x.reshape(b, nb, window, *x.shape[2:])
+        prev = torch.cat([torch.zeros_like(xr[:, :1]), xr[:, :-1]], 1)
+        return torch.cat([prev, xr], 2).flatten(0, 1)
+
+    qp = positions.reshape(b, nb, window)
+    kp = torch.cat([torch.full_like(qp[:, :1], INVALID_POS), qp[:, :-1]], 1)
+    kp = torch.cat([kp, qp], 2).flatten(0, 1)
+    o = attend(q.reshape(b * nb, window, hq, dh), band(k), band(v),
+               qp.flatten(0, 1), kp, window=window)
+    return o.reshape(b, s, hq, dh)
+
+
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     """(B, S, Hkv, Dh) -> (B, S, Hkv*n_rep, Dh) for GQA."""
     if n_rep == 1:

@@ -46,6 +46,8 @@ def _pad_right(t: torch.Tensor, pad: int) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class Model:
+    """On a tensor-parallel rank ``cfg`` is the rank's local config and
+    the plan rides on the parameters (``params.sharding``)."""
     cfg: ModelConfig
 
     def __post_init__(self):
@@ -127,7 +129,7 @@ class Model:
 
     def prefill(self, params, tokens, cache, *, media_embeds=None,
                 media_mask=None, positions=None, write_idx=None,
-                audio_embeds=None):
+                audio_embeds=None, logits: bool = True):
         """Prefill ``tokens`` (B, S) into ``cache``, in place; contiguous
         from position 0 unless ``positions``/``write_idx`` (B, S) int32 say
         otherwise.  Returns (logits (B, S, V), cache).  An encoder-decoder
@@ -143,7 +145,8 @@ class Model:
         query sees their K/V, which go to the scratch slot ``kv_len - 1``
         as in the JAX package; a contiguous prefill whose scratch slot
         would be one of its own tokens' raises (give the cache a slot
-        more)."""
+        more).  ``logits=False`` skips the head and returns None for the
+        logits (an upload keeps only the cache)."""
         b, s = tokens.shape
         contiguous = positions is None and write_idx is None
         if positions is None:
@@ -178,10 +181,11 @@ class Model:
             ssm_tail = torch.full((b,), s - (self.cfg.ssm_conv_width - 1),
                                   dtype=torch.int32, device=tokens.device)
         x = self.embed(params, tokens, media_embeds, media_mask, positions)
-        logits, cache = tf.forward_with_cache(
+        out, cache = tf.forward_with_cache(
             params, self.cfg, x, positions, cache, write_idx,
-            contiguous=contiguous, ssm_mask=ssm_mask, ssm_tail_start=ssm_tail)
-        return (logits[:, :s] if pad else logits), cache
+            contiguous=contiguous, ssm_mask=ssm_mask, ssm_tail_start=ssm_tail,
+            logits=logits)
+        return (out[:, :s] if pad and logits else out), cache
 
     def _needs_attention(self, what: str) -> None:
         if self.cfg.arch_type == "ssm":

@@ -9,6 +9,11 @@ kernel on the card; only the O(T/chunk) inter-chunk composition
 JAX package runs it as an associative scan).  B and C are shared by the
 heads.
 
+Training differentiates :func:`ssd_chunked_train` instead, the
+counterpart of the jnp ``ssd_chunked`` that the JAX trainer
+differentiates: the kernel has no backward, so the training pass calls
+neither it nor its plain version.
+
 State caches (decode), per layer:
   ssd state  (B, H, ds, hd) fp32  the recurrent summary
   conv state (B, W-1, di)         the causal conv's input tail
@@ -96,11 +101,52 @@ def ssd_chunked(x, bm, cm, log_a, dtv, h0):
     return y_intra.permute(0, 1, 3, 2, 4) + y_inter, h
 
 
-def ssm_forward(params: SSM, cfg, x, state=None, dt_mask=None,
-                tail_start=None):
-    """Full-sequence (prefill) SSD pass.
+def ssd_chunked_train(x, bm, cm, log_a, dtv, h0):
+    """The chunked SSD core of the training pass, fp32 and differentiable:
+    the arguments and results of :func:`ssd_chunked`.
 
-    x (B, T, D) with T a multiple of ``cfg.ssm_chunk`` (the caller pads).
+    The intra-chunk terms are batched products over the chunk axis, as in
+    the JAX package's jnp ``ssd_chunked``; the chunk states compose in a
+    loop over the chunks that stacks them (no buffer written in place).
+    The causal mask selects with ``torch.where`` before the exponent where
+    the reference multiplies by a lower-triangular mask: a masked pair's
+    exponent ``cum_q - cum_k`` is positive and overflows at a large dt,
+    which gives the reference inf * 0 = NaN.  Both agree, values and
+    gradients, wherever the reference's are finite."""
+    q = x.shape[2]
+    cum = torch.cumsum(log_a, dim=2)                      # (B, NC, Q, H)
+    # intra-chunk: (L o C B^T) . (dt X)
+    cb = torch.einsum("bnqs,bnks->bnqk", cm, bm)          # (B, NC, Q, Q)
+    tril = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, NC, Q, K, H)
+    decay = torch.exp(torch.where(tril[None, None, :, :, None], diff,
+                                  torch.full_like(diff, -torch.inf)))
+    scores = cb[..., None] * decay * dtv[:, :, None, :, :]
+    y_intra = torch.einsum("bnqkh,bnkhd->bnqhd", scores, x)
+    # each chunk's state contribution and decay
+    total = cum[:, :, -1, :]                              # (B, NC, H)
+    wgt = torch.exp(total[:, :, None, :] - cum) * dtv     # (B, NC, Q, H)
+    s_c = torch.einsum("bnqs,bnqh,bnqhd->bnhsd", bm, wgt, x)
+    a_c = torch.exp(total)
+    # the state entering each chunk: H_c = a_c . H_{c-1} + S_c
+    h, h_in = h0, []
+    for c in range(x.shape[1]):
+        h_in.append(h)
+        h = a_c[:, c, :, None, None] * h + s_c[:, c]
+    y_inter = torch.einsum("bnqs,bnhsd->bnqhd", cm, torch.stack(h_in, 1)) \
+        * torch.exp(cum)[..., None]
+    return y_intra + y_inter, h
+
+
+def ssm_forward(params: SSM, cfg, x, state=None, dt_mask=None,
+                tail_start=None, *, train: bool = False):
+    """Full-sequence (prefill, or with ``train`` training) SSD pass.
+
+    x (B, T, D) with T a multiple of ``cfg.ssm_chunk`` (the caller pads; a
+    training sequence is not padded, and a multiple is required as the
+    JAX package asserts it).  ``train`` runs :func:`ssd_chunked_train`, the
+    differentiable core, where serving runs :func:`ssd_chunked` (the
+    kernel).
     dt_mask (B, T): 0 on padding steps, which forces dt = 0 there (the
     state neither decays nor absorbs input) and zeroes their conv input.
     tail_start (B,): per-row start of the last W-1 real inputs, the decode
@@ -129,7 +175,8 @@ def ssm_forward(params: SSM, cfg, x, state=None, dt_mask=None,
     xh = xc.float().reshape(b, nc, q, nh, hd)
     h0 = (torch.zeros((b, nh, ds, hd), dtype=torch.float32, device=x.device)
           if state is None else state["h"].float())
-    y, h_final = ssd_chunked(
+    core = ssd_chunked_train if train else ssd_chunked
+    y, h_final = core(
         xh, bm.reshape(b, nc, q, ds), cm.reshape(b, nc, q, ds),
         log_a.reshape(b, nc, q, nh), dtv.reshape(b, nc, q, nh), h0)
     y = y + params.D[:, None] * xh

@@ -33,7 +33,7 @@ decoder's learned positions ``pos_embed``, the encoder's layers
   frame embeddings and the decoder layers' cross-attention K/V over its
   output, which the dense cache carries as ``cross_k``/``cross_v``;
 * :func:`forward_train`: the training forward (logits and the MoE aux
-  loss), differentiable.
+  loss), differentiable, the SSD heads included.
 
 Every serving pass writes each layer's new K/V into its cache or pool
 tensors in place (the JAX versions return new buffers from donated jits or
@@ -43,8 +43,8 @@ the card: the decoder's self and cross attention and the encoder's all go
 through the dense selective attention (kernel 5).  :func:`forward_train`
 alone attends with :func:`~repro_torch.models.layers.attend`, the
 counterpart of the JAX package's jnp ``attend`` that its training forward
-runs: the kernels have no backward, and no training pass calls them or
-their plain versions.
+runs, and runs the SSD through ``ssd_chunked_train``: the kernels have no
+backward, and no training pass calls them or their plain versions.
 """
 from __future__ import annotations
 
@@ -52,6 +52,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.cache.pagequant import quant_scatter
@@ -67,6 +68,7 @@ from repro_torch.models.layers import (
     attention_out,
     attention_qkv,
     banded_attend,
+    banded_attend_train,
     gelu_mlp,
     layernorm,
     rmsnorm,
@@ -206,10 +208,17 @@ class EncoderLayer(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The parameters of one model (``params`` in the functions below)."""
+    """The parameters of one model (``params`` in the functions below),
+    built to ``cfg``'s shapes.  A tensor-parallel rank's shard (built to
+    ``launch.specs.local_config``'s shapes) carries its plan in
+    ``sharding`` (a :class:`~repro_torch.serving.sharding.
+    ServingSharding`; None for a whole model), which the passes read for
+    their collectives."""
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
+        self.cfg = cfg
+        self.sharding = None
         dev = resolve_device(device)
         dt = torch_dtype(cfg.param_dtype)
         layer = SSMLayer if cfg.arch_type == "ssm" else DecoderLayer
@@ -231,7 +240,8 @@ class Transformer(nn.Module):
                 (cfg.encoder_seq, cfg.d_model), dt, dev)
 
 
-def init_params(cfg, *, seed: int = 0, device=None) -> Transformer:
+def init_params(cfg, *, seed: int = 0, device=None,
+                sharding=None) -> Transformer:
     """Seeded random weights on ``device``, drawn as the JAX package's
     ``dense_init`` draws them: N(0, 1) in fp32 scaled by 1/sqrt(fan_in)
     (0.02 for the embedding and the LM head, 0.5 for the SSM conv; a
@@ -244,14 +254,31 @@ def init_params(cfg, *, seed: int = 0, device=None) -> Transformer:
     the tests carry the JAX weights over with
     :func:`repro_torch.weights.params_from_numpy`.  whisper's position
     tables draw at 0.02 as well; its layer-norm biases and MLP biases are
-    zeros."""
-    params = Transformer(cfg, device=device)
+    zeros.
+
+    With ``sharding`` (a :class:`~repro_torch.serving.sharding.
+    ServingSharding` of ``cfg``) it builds only this rank's shard: every
+    leaf is drawn whole, in the same order from the same generator, and
+    the rank keeps its piece, so that the ranks' shards concatenate to
+    the whole model's weights; no more than one whole leaf is held at a
+    time."""
+    if sharding is not None:
+        params = Transformer(sharding.local_cfg, device=device)
+        params.sharding = sharding
+    else:
+        params = Transformer(cfg, device=device)
     gen = torch.Generator(device=params.embed.device).manual_seed(seed)
+    names = {id(p): n for n, p in params.named_parameters()}
 
     def fill(w: nn.Parameter, scale: Optional[float] = None) -> None:
-        s = scale if scale is not None else 1.0 / math.sqrt(w.shape[0])
-        w.copy_(torch.randn(w.shape, generator=gen, dtype=torch.float32,
-                            device=w.device) * s)
+        shape = (w.shape if sharding is None
+                 else sharding.whole_shapes[names[id(w)]])
+        s = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+        x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=w.device) * s
+        if sharding is not None:
+            x = sharding.shard_leaf(names[id(w)], x)
+        w.copy_(x)
 
     def fill_ssm(p: SSM) -> None:
         for w in (p.in_proj, p.bc_proj, p.dt_proj, p.out_proj):
@@ -304,7 +331,9 @@ def init_params(cfg, *, seed: int = 0, device=None) -> Transformer:
 
 def embed_tokens(params: Transformer, cfg, tokens, media_embeds=None,
                  media_mask=None) -> torch.Tensor:
-    x = params.embed[tokens.long()]
+    sh = params.sharding
+    x = (params.embed[tokens.long()] if sh is None
+         else sh.embed(params.embed, tokens))
     if media_embeds is not None:
         # modality-frontend carve-out: precomputed patch embeddings
         x = torch.where(media_mask[..., None], media_embeds.to(x.dtype), x)
@@ -312,19 +341,39 @@ def embed_tokens(params: Transformer, cfg, tokens, media_embeds=None,
 
 
 def _logits(params: Transformer, cfg, x) -> torch.Tensor:
+    """fp32 logits of the normed ``x``; a rank's vocabulary slice of them
+    gathered into the whole vocabulary on every rank."""
     x = _norm(params.final_norm, x, cfg.rms_norm_eps)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    return x.float() @ head.float()
+    logits = x.float() @ head.float()
+    sh = params.sharding
+    return logits if sh is None else sh.gather_vocab(logits)
 
 
-def _ffn(lp: DecoderLayer, cfg, x):
+def _attn_out(params: Transformer, wo, o):
+    """The attention's output projection; a rank's heads' partial product
+    summed over the ranks."""
+    sh = params.sharding
+    if sh is None or not sh.attn:
+        return attention_out(wo, o)
+    return sh.row_parallel(o.flatten(2), wo)
+
+
+def _ffn(params: Transformer, lp: DecoderLayer, cfg, x):
     """The residual FFN block: (x + FFN(norm(x)), the MoE's aux loss, a
-    zero without one)."""
+    zero without one).  A rank's slice of ``d_ff`` ends in a partial
+    ``w_down`` product summed over the ranks."""
     h = _norm(lp.mlp_norm, x, cfg.rms_norm_eps)
+    zero = x.new_zeros((), dtype=torch.float32)
     if cfg.arch_type == "moe":
         out, aux = moe_ffn(lp.moe, cfg, h)
         return x + out, aux
-    return x + lp.mlp(h), x.new_zeros((), dtype=torch.float32)
+    sh = params.sharding
+    if sh is None or not sh.mlp:
+        return x + lp.mlp(h), zero
+    m = lp.mlp
+    return x + sh.row_parallel(F.silu(h @ m.w_gate) * (h @ m.w_up),
+                               m.w_down), zero
 
 
 def _cross_attention(lp: DecoderLayer, cfg, x, cross_k, cross_v, *,
@@ -414,19 +463,19 @@ def _mix(lp: DecoderLayer, cfg, attn_out, ssm_out):
 
 
 def _forward_ssm(params: Transformer, cfg, embeds, cache, ssm_mask,
-                 ssm_tail_start):
+                 ssm_tail_start, logits: bool):
     """The SSM layers, each through :func:`_ssm_step`."""
     x = embeds
     for l, lp in enumerate(params.layers):
         h = rmsnorm(lp.norm, x, cfg.rms_norm_eps)
         x = x + _ssm_step(lp.ssm, cfg, h, cache, l, ssm_mask, ssm_tail_start)
-    return _logits(params, cfg, x), cache
+    return (_logits(params, cfg, x) if logits else None), cache
 
 
 def forward_with_cache(params: Transformer, cfg, embeds, positions, cache,
                        write_idx, *, window: Optional[int] = None,
                        contiguous: bool = False, ssm_mask=None,
-                       ssm_tail_start=None):
+                       ssm_tail_start=None, logits: bool = True):
     """Run tokens (any subset, any positions) against a dense cache.
 
     embeds (B, Sq, D) of the tokens to compute; positions (B, Sq) int32
@@ -436,7 +485,8 @@ def forward_with_cache(params: Transformer, cfg, embeds, positions, cache,
     cache in place, then selective attention runs over the whole cache, so
     the computed tokens see each other inside this one pass.  ``contiguous``
     marks a plain prefill from position 0 (``positions == write_idx ==
-    arange``).  Returns (logits (B, Sq, V) fp32, cache).
+    arange``).  Returns (logits (B, Sq, V) fp32, cache); with
+    ``logits=False`` the head is skipped and the logits are None.
 
     An SSM ignores positions and write_idx: a prefill of Sq > 1 tokens
     starts from an empty state (``ssm_mask`` (B, Sq) 0 on padding steps,
@@ -452,7 +502,7 @@ def forward_with_cache(params: Transformer, cfg, embeds, positions, cache,
     """
     if cfg.arch_type == "ssm":
         return _forward_ssm(params, cfg, embeds, cache, ssm_mask,
-                            ssm_tail_start)
+                            ssm_tail_start, logits)
     w = cfg.sliding_window if window is None else window
     s_q = embeds.shape[1]
     kv_len = cache["k"].shape[2]
@@ -470,7 +520,7 @@ def forward_with_cache(params: Transformer, cfg, embeds, positions, cache,
         else:
             o = selective_attention(q.contiguous(), k_full, v_full,
                                     positions, kv_pos, window=w)
-        a = attention_out(lp.attn.wo, o)
+        a = _attn_out(params, lp.attn.wo, o)
         if cfg.hybrid:
             a = _mix(lp, cfg, a, _ssm_step(lp.ssm, cfg, h, cache, l,
                                            ssm_mask, ssm_tail_start))
@@ -478,44 +528,50 @@ def forward_with_cache(params: Transformer, cfg, embeds, positions, cache,
         if cfg.is_encoder_decoder:
             x = x + _cross_attention(lp, cfg, x, cache["cross_k"][l],
                                      cache["cross_v"][l])
-        x = _ffn(lp, cfg, x)[0]
-    return _logits(params, cfg, x), cache
+        x = _ffn(params, lp, cfg, x)[0]
+    return (_logits(params, cfg, x) if logits else None), cache
 
 
 def _contiguous(params: Transformer, cfg, x, cross_kv, *, train: bool):
     """The layers over a contiguous sequence from position 0, with no
-    cache: (logits (B, S, V) fp32, the summed MoE aux loss).  Serving
-    attends through the kernel dispatchers (``banded_attend`` when the
-    window fits the sequence at least twice, in whole windows); ``train``
-    through ``layers.attend`` with the window, which equals the band
-    (the JAX training forward bands it the same way)."""
+    cache: (logits (B, S, V) fp32, the summed MoE aux loss).  When the
+    window fits the sequence at least twice, in whole windows, attention
+    takes the S x 2w band, as the JAX package's passes do: serving through
+    ``banded_attend`` (kernel 5), ``train`` through
+    ``banded_attend_train``; otherwise serving runs the dense selective
+    attention and ``train`` ``layers.attend`` with the window.  ``train``
+    runs the SSD heads through ``ssd_chunked_train``.  An SSM or a hybrid
+    needs S to be a multiple of ``cfg.ssm_chunk``."""
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).repeat(b, 1)
     w = cfg.sliding_window
+    banded = w and s % w == 0 and s >= 2 * w
     aux = x.new_zeros((), dtype=torch.float32)
     for l, lp in enumerate(params.layers):
         if cfg.attn_free:
             h = rmsnorm(lp.norm, x, cfg.rms_norm_eps)
-            x = x + ssm_forward(lp.ssm, cfg, h)[0]
+            x = x + ssm_forward(lp.ssm, cfg, h, train=train)[0]
             continue
         h = _norm(lp.attn_norm, x, cfg.rms_norm_eps)
         q, k, v = attention_qkv(lp.attn, cfg, h, positions)
-        if train:
+        if train and banded:
+            o = banded_attend_train(q, k, v, positions, w)
+        elif train:
             o = attend(q, k, v, positions, positions, window=w)
-        elif w and s % w == 0 and s >= 2 * w:
+        elif banded:
             o = banded_attend(q.contiguous(), k, v, positions, w)
         else:
             o = selective_attention(q.contiguous(), k, v, positions,
                                     positions, window=w)
-        a = attention_out(lp.attn.wo, o)
+        a = _attn_out(params, lp.attn.wo, o)
         if cfg.hybrid:
-            a = _mix(lp, cfg, a, ssm_forward(lp.ssm, cfg, h)[0])
+            a = _mix(lp, cfg, a, ssm_forward(lp.ssm, cfg, h, train=train)[0])
         x = x + a
         if cross_kv is not None:
             x = x + _cross_attention(lp, cfg, x, cross_kv[0][l],
                                      cross_kv[1][l], train=train)
-        x, a_l = _ffn(lp, cfg, x)
+        x, a_l = _ffn(params, lp, cfg, x)
         aux = aux + a_l
     return _logits(params, cfg, x), aux
 
@@ -543,18 +599,15 @@ def forward_train(params: Transformer, cfg, tokens, media_embeds=None,
     its encoder over ``audio_embeds`` (B, Senc, D).  Returns (logits
     (B, S, V) fp32, the summed MoE aux loss).
 
-    Every attention runs through ``layers.attend``, the counterpart of the
-    jnp ``attend`` that the JAX training forward runs (it reaches no Pallas
-    kernel): the port's kernels have no backward, so this pass never calls
-    them or their plain versions.  Differentiable end to end, the MoE's
-    capacity dispatch included.  An SSM or a hybrid raises: their SSD
-    runs through kernel 6 in the port, which has no backward (ROADMAP
-    queue 1, SSM and hybrid training)."""
-    if cfg.attn_free or cfg.hybrid:
-        raise NotImplementedError(
-            f"{cfg.name}: training an SSM or a hybrid is not ported yet: "
-            "the port's SSD runs through the ssd_chunk kernel, which has "
-            "no backward (ROADMAP queue 1, SSM and hybrid training)")
+    Every attention runs through ``layers.attend`` (the band through
+    ``layers.banded_attend_train``), the counterpart of the jnp ``attend``
+    that the JAX training forward runs, and every SSD through
+    ``ssm.ssd_chunked_train``, the counterpart of its jnp ``ssd_chunked``
+    (it reaches no Pallas kernel): the port's kernels have no backward, so
+    this pass never calls them or their plain versions.  Differentiable
+    end to end, the MoE's capacity dispatch included.  An SSM or a hybrid
+    needs S to be a multiple of ``cfg.ssm_chunk`` and raises otherwise, as
+    the JAX package asserts (``Model.loss`` does not pad)."""
     b, s = tokens.shape
     x = embed_tokens(params, cfg, tokens, media_embeds, media_mask)
     if cfg.learned_pos_emb:
@@ -658,7 +711,8 @@ def decode_paged(params: Transformer, cfg, embeds, positions, pool_k, pool_v,
                             k_scale=_scales(k_scales, l),
                             v_scale=_scales(v_scales, l),
                             window=cfg.sliding_window)
-        x = _ffn(lp, cfg, x + attention_out(lp.attn.wo, o[:, None]))[0]
+        x = _ffn(params, lp, cfg,
+                 x + _attn_out(params, lp.attn.wo, o[:, None]))[0]
     return _logits(params, cfg, x)[:, -1, :]
 
 
@@ -691,5 +745,5 @@ def selective_prefill_paged(params: Transformer, cfg, embeds, sel_positions,
             q.contiguous(), pool_k[l], pool_v[l], page_table, sel_positions,
             lengths, k_scale=_scales(k_scales, l),
             v_scale=_scales(v_scales, l), window=cfg.sliding_window)
-        x = _ffn(lp, cfg, x + attention_out(lp.attn.wo, o))[0]
+        x = _ffn(params, lp, cfg, x + _attn_out(params, lp.attn.wo, o))[0]
     return _logits(params, cfg, x)

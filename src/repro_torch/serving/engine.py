@@ -91,7 +91,25 @@ many tokens are out, and ``freeze_idle_s > 0`` spools snapshots idle that
 long.  A write into a page that a fork still shares copies the page first
 (the MRAG link and the decode step).  Paged engines only.
 
-Not ported yet: mesh sharding.
+**Tensor parallelism.**  ``mesh=`` (a
+:class:`~repro_torch.launch.mesh.ServingMesh`, one process per rank of
+its ``model`` axis) serves the model cut over the ranks, as the JAX
+engine's ``mesh`` does: every rank builds this engine over the same
+whole model and the whole weights or its shard of them
+(``init_params(sharding=)``), uploads and submits the same work, and runs
+the same loop; the plan (:class:`~repro_torch.serving.sharding.
+ServingSharding`) sets the shapes.  The pool and the dense cache are
+allocated at the rank's kv heads, the kernels run on them unchanged, the
+passes meet in ``all_reduce`` and ``all_gather``, and every rank samples
+the same token from the gathered logits.  Library entries stay whole: an
+upload gathers its heads, a link reads the rank's.  Host decisions that
+read a clock come from rank 0 (deadlines); the ones that read the
+request stream (admission order, cacheblend's picks, from summed
+deviations) agree by construction.  The disk and peer tiers under a mesh
+are not ported (ROADMAP.md queue 1): a library given with a spool
+directory or peers raises here, and a library that would spool (over its
+host budget, or ``spool_now``) raises there, as do sessions and queue
+aging.
 """
 from __future__ import annotations
 
@@ -115,6 +133,7 @@ from repro_torch.models.layers import INVALID_POS, rope_relink
 from repro_torch.serving.request import Request, State
 from repro_torch.serving.retriever import Retriever
 from repro_torch.serving.sessions import SessionHandle, SessionStore
+from repro_torch.serving.sharding import ServingSharding
 from repro_torch.serving.scheduler import (
     CHUNKABLE_POLICIES,
     ChunkedPrefillTask,
@@ -148,24 +167,40 @@ class MPICEngine:
                  dynamic_library: Optional[KVLibrary] = None,
                  retriever: Optional[Retriever] = None, device=None,
                  faults=None, replica_id: Optional[int] = None,
-                 loader: Optional[ParallelLoader] = None):
+                 loader: Optional[ParallelLoader] = None, mesh=None):
         """``device`` None means the card, and raises without one; pass
         ``"cpu"`` to serve with the kernels' plain versions.  ``params``
         must already live on that device.  A cluster passes its shared
         libraries, ``retriever`` and ``loader`` and a distinct
         ``replica_id`` to each replica; ``replica_id=None`` keeps the
-        single-engine accounting."""
+        single-engine accounting.  ``mesh`` serves tensor-parallel (see
+        the module's notes): ``model`` is the whole model, ``params`` the
+        whole weights or this rank's shard, on the mesh's device, which
+        ``device`` defaults to."""
+        self.mesh = mesh
+        self.cfg = engine_cfg or EngineConfig()
+        if mesh is not None:
+            plan = ServingSharding(mesh, model.cfg)
+            device = mesh.device if device is None else device
+            params = plan.shard(params)
+            model = plan.local_model()
+            self._refuse_under_mesh(static_library, dynamic_library)
         self.device = resolve_device(device)
         self.replica_id = replica_id
         self.model = model
         self.params = params
-        self.cfg = engine_cfg or EngineConfig()
         if self.cfg.pool_dtype not in ("", "int8"):
             raise ValueError(f"pool_dtype {self.cfg.pool_dtype!r}: "
                              "use '' (compute dtype) or 'int8'")
         self.faults = faults
         self.static_lib = static_library or KVLibrary(faults=faults)
         self.dynamic_lib = dynamic_library or KVLibrary(shared=True)
+        if mesh is not None:
+            for lib in (self.static_lib, self.dynamic_lib):
+                lib.no_spool = ("a tensor-parallel engine's library went "
+                                "over its host budget: the disk tier under "
+                                "a mesh is not ported yet (ROADMAP.md, "
+                                "queue 1)")
         self.retriever = retriever if retriever is not None else Retriever()
         self.loader = loader if loader is not None else ParallelLoader(
             self.static_lib, replica=replica_id)
@@ -219,6 +254,31 @@ class MPICEngine:
 
             self.static_lib.add_session_source(gauges)
 
+    @property
+    def sharding(self):
+        """The tensor-parallel plan (the one the rank's parameters carry),
+        or None."""
+        return self.params.sharding
+
+    def _refuse_under_mesh(self, *libraries) -> None:
+        """What a tensor-parallel engine does not serve yet raises here
+        (ROADMAP.md, queue 1)."""
+        why = []
+        if self.cfg.freeze_idle_s > 0:
+            why.append("sessions (freeze_idle_s)")
+        if self.cfg.queue_aging_s > 0:
+            why.append("queue aging (each rank's clock would order the "
+                       "queue)")
+        for lib in libraries:
+            if lib is not None and (lib.disk.spool_dir is not None
+                                    or lib.network is not None):
+                why.append("a library with a spool directory or peers "
+                           "(the disk and peer tiers)")
+        if why:
+            raise NotImplementedError(
+                f"not ported under a mesh yet: {'; '.join(why)} "
+                "(ROADMAP.md, queue 1)")
+
     def _init_pool(self) -> None:
         mcfg = self.model.cfg
         ps = self.cfg.page_size
@@ -269,6 +329,10 @@ class MPICEngine:
     # workflow 2: submit a query
     # ------------------------------------------------------------------
     def submit(self, request: Request) -> Request:
+        if self.mesh is not None and request.freeze_after is not None:
+            raise NotImplementedError(
+                "sessions (freeze_after) are not ported under a mesh yet "
+                "(ROADMAP.md, queue 1)")
         total = request.prompt.total_len
         if total + 1 >= self.cfg.max_seq_len:
             raise ValueError(f"prompt of {total} tokens exceeds the slot's "
@@ -302,6 +366,7 @@ class MPICEngine:
     def freeze(self, req_id: str, *, spool: bool = False) -> SessionHandle:
         """Snapshot a decoding request into the static library and free its
         slot: :meth:`SessionStore.freeze`."""
+        self._no_sessions_under_mesh()
         return self.sessions.freeze(req_id, spool=spool)
 
     @torch.inference_mode()
@@ -309,6 +374,7 @@ class MPICEngine:
              max_new_tokens: Optional[int] = None) -> Request:
         """Resume a frozen session in a free slot, optionally after the
         next turn's suffix: :meth:`SessionStore.thaw`."""
+        self._no_sessions_under_mesh()
         return self.sessions.thaw(handle, suffix_tokens,
                                   max_new_tokens=max_new_tokens)
 
@@ -317,7 +383,14 @@ class MPICEngine:
              max_new_tokens: Optional[int] = None) -> List[Request]:
         """Thaw one snapshot into ``n`` children sharing its pages
         (copy-on-write): :meth:`SessionStore.fork`."""
+        self._no_sessions_under_mesh()
         return self.sessions.fork(handle, n, max_new_tokens=max_new_tokens)
+
+    def _no_sessions_under_mesh(self) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "sessions are not ported under a mesh yet (ROADMAP.md, "
+                "queue 1)")
 
     def run(self, max_steps: int = 10_000) -> List[Request]:
         steps = 0
@@ -342,7 +415,7 @@ class MPICEngine:
             if slot < 0:
                 return
             req, handle = self.scheduler.pop()
-            if req.past_deadline():
+            if req.req_id in self._expired([req]):
                 if handle is not None:
                     handle.release()
                 self._expire(req)
@@ -486,17 +559,28 @@ class MPICEngine:
         req.t_done = time.perf_counter()
         self.expired.append(req)
 
+    def _expired(self, reqs: List[Request]) -> set:
+        """The ids of ``reqs`` past their deadlines now; under a mesh, rank
+        0's clock decides for every rank."""
+        now = time.perf_counter()
+        ids = {r.req_id for r in reqs if r.past_deadline(now)}
+        if self.mesh is not None and any(r.deadline_s is not None
+                                         for r in reqs):
+            ids = self.mesh.broadcast_object(ids)
+        return ids
+
     def _reap_deadlines(self) -> None:
         """Expire every request past its deadline: waiting ones leave the
         queue with their prefetch pins released, a chunked prefill aborts
         through :meth:`_abort_prefill`, a decoding slot frees its pages and
         keeps its partial output on the request."""
-        now = time.perf_counter()
-        for req in [r for r in self.queue if r.past_deadline(now)]:
+        expired = self._expired(
+            list(self.queue) + [r for r in self.running if r is not None])
+        for req in [r for r in self.queue if r.req_id in expired]:
             self.scheduler.discard(req)
             self._expire(req)
         for slot, r in enumerate(self.running):
-            if r is None or not r.past_deadline(now):
+            if r is None or r.req_id not in expired:
                 continue
             if r.state is State.PREFILLING:
                 task = self._prefill_tasks.get(slot)
@@ -630,9 +714,11 @@ class MPICEngine:
                 off = req.cur_len
                 if off + length + 1 >= self.cfg.max_seq_len:
                     break
+                view = (entry if self.sharding is None
+                        else self.sharding.entry(entry))
                 if not self._paged:
-                    self._dense_link(req.slot, entry.k, entry.v, off)
-                elif not self._paged_link(req, entry, length, off):
+                    self._dense_link(req.slot, view.k, view.v, off)
+                elif not self._paged_link(req, view, length, off):
                     break                   # pool full: stop linking
             finally:
                 self.dynamic_lib.unpin(entry)
@@ -640,8 +726,9 @@ class MPICEngine:
             req.linked_media.append(media_id)
 
     def _paged_link(self, req: Request, entry, length: int, off: int) -> bool:
-        """Link one MRAG segment at positions ``off ..`` of the request's
-        pages; False when the pool cannot extend it."""
+        """Link one MRAG segment (an entry, or a rank's view of it) at
+        positions ``off ..`` of the request's pages; False when the pool
+        cannot extend it."""
         pages = self.pool.extend(req.req_id, length, off)
         if pages is not None:
             # copy-on-write: the link writes [off, off + length), which may

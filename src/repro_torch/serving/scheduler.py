@@ -376,7 +376,8 @@ class ChunkedPrefillTask:
                                            entries=entries)
             return
         link = link_prompt(model, prompt, library, selection, kv_len=kv_len,
-                           device=params.embed.device, entries=entries)
+                           device=params.embed.device, entries=entries,
+                           sharding=params.sharding)
         n = len(link.sel_idx)
         for a in range(0, n, chunk):
             # each chunk writes its K/V into link.cache for the next ones

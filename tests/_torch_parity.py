@@ -64,3 +64,22 @@ def jax_compile_cache(tmp_path_factory):
             jax.config.update(name, value)
         compilation_cache.reset_cache()
 
+
+
+def jax_traffic(jmodel, jparams, setup: str):
+    """The JAX engine's answer to ``_torch_sharded.SETUPS[setup]``'s
+    stream (unsharded, paged passes on their ``ref`` backend): the same
+    per-request dicts as ``_torch_sharded.run_traffic``."""
+    from repro.core import Prompt, text_segment
+    from repro.data import image_embeds, make_dialogues
+    from repro.serving import EngineConfig, MPICEngine, Request
+
+    from _torch_sharded import SETUPS, run_traffic
+    over, policies = SETUPS[setup]
+    eng = MPICEngine(jmodel, jparams, EngineConfig(
+        paged_backend="ref", pipelined=False, **over))
+    pkg = {"make_dialogues": make_dialogues, "image_embeds": image_embeds,
+           "text_segment": text_segment, "Prompt": Prompt,
+           "Request": Request}
+    return run_traffic(eng, pkg, jmodel.cfg.d_model,
+                       jmodel.cfg.media_token_len, policies)

@@ -1,0 +1,308 @@
+"""Tensor-parallel ranks for the port's sharded-serving tests, and the
+traffic both packages' engines serve.
+
+No JAX here: the ranks are processes started with ``torch.multiprocessing``
+(spawn), which import this module and the port only.  :class:`Ranks`
+starts ``world`` ranks on the CPU over gloo (a free port from
+``bind(0)``, an init timeout that bounds every collective), each building
+the port's model from the same numpy weight tree, sharding it over its
+mesh and running a list of cases; every rank's results come back through
+a queue.  ``Ranks.results`` waits at most ``JOIN_TIMEOUT_S`` and kills
+the ranks past it, so a hang fails the test instead of running into the
+suite's clock.
+
+:func:`run_traffic` serves the same stream through either package's
+engine, given that package's constructors: three two-image dialogues
+under a trace of policies and one MRAG request (retrieved 12-token image,
+``mpic``).  The parity cases mirror the JAX package's sharded worker
+(``tests/_sharded_worker.py``): kernel, decode, prefill, mrag,
+cacheblend, dense, int8, nondiv.
+"""
+import queue as queue_mod
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+JOIN_TIMEOUT_S = 120.0      # the whole run of one set of ranks
+INIT_TIMEOUT_S = 60.0       # the process group and each collective
+MAX_NEW = 5
+REL = 1e-4              # first-token logits, relative (see check_requests)
+POLICY_KW = {"mpic": {"k": 8}, "cacheblend": {"r": 0.25}}
+# setup name -> (EngineConfig overrides, the three dialogues' policies)
+SETUPS = {
+    "paged": (dict(max_seq_len=256, decode_slots=2),
+              ("mpic", "cacheblend", "full_recompute")),
+    "dense": (dict(max_seq_len=256, decode_slots=2, paged=False),
+              ("mpic", "full_recompute", "cacheblend")),
+    "int8": (dict(max_seq_len=256, decode_slots=2, pool_dtype="int8"),
+             ("mpic", "cacheblend", "full_recompute")),
+}
+
+
+def rel(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max()
+                 / np.abs(np.asarray(b)).max())
+
+
+def check_requests(got, want, *, tol=REL, atol=None):
+    """A rank's requests against the unsharded engine's: done, the same
+    tokens, linked media and counts; first-token logits within ``tol``
+    relative (or ``atol`` absolute)."""
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert g["done"] == "done"
+        assert g["tokens"] == w["tokens"]
+        assert len(g["tokens"]) == MAX_NEW
+        assert g["linked"] == w["linked"]
+        assert g["n_reused"] == w["n_reused"]
+        assert g["n_recomputed"] == w["n_recomputed"]
+        if atol is None:
+            assert rel(g["first"], w["first"]) <= tol
+        else:
+            np.testing.assert_allclose(g["first"], w["first"], atol=atol,
+                                       rtol=0)
+    assert "RAG1" in got[-1]["linked"]
+
+
+def run_traffic(eng, pkg, d_model: int, media_len: int, policies):
+    """Serve the stream through ``eng`` (``pkg``: a dict of the package's
+    ``make_dialogues``, ``image_embeds``, ``text_segment``, ``Prompt`` and
+    ``Request``).  Returns one dict per request: its tokens, first-token
+    logits, ``n_reused``, ``n_recomputed`` and linked media."""
+    firsts = {}
+    finalize = eng._finalize_prefill
+
+    def record(req, result, *rest):
+        firsts[req.req_id] = np.asarray(result.first_logits, np.float32)
+        return finalize(req, result, *rest)
+
+    eng._finalize_prefill = record
+    samples = pkg["make_dialogues"](n=3, n_images=2, d_model=d_model,
+                                    media_len=media_len)
+    for s in samples:
+        for _, seg in s.prompt.media_segments():
+            eng.upload(s.prompt.user_id, seg.media_id, seg.embeds)
+    rag = pkg["image_embeds"]("RAG1", 12, d_model)
+    eng.upload("*", "RAG1", rag, dynamic=True)
+    mk = pkg["Request"]
+    reqs = [mk(prompt=s.prompt, max_new_tokens=MAX_NEW, policy=p,
+               policy_kwargs=POLICY_KW.get(p, {}))
+            for s, p in zip(samples, policies)]
+    rag_req = mk(prompt=pkg["Prompt"]([pkg["text_segment"](
+        np.arange(20, 60))], user_id="u0"), max_new_tokens=MAX_NEW,
+        policy="mpic", policy_kwargs=POLICY_KW["mpic"])
+    rag_req.retrieval_query = rag.mean(0)
+    reqs.append(rag_req)
+    for r in reqs:
+        eng.submit(r)
+    steps = 0
+    while (eng.scheduler.queue or any(eng.running)) and steps < 1000:
+        eng.step()
+        steps += 1
+    return [{"tokens": list(r.output_tokens), "first": firsts[r.req_id],
+             "n_reused": r.prefill_stats.get("n_reused"),
+             "n_recomputed": r.prefill_stats.get("n_recomputed"),
+             "linked": list(r.linked_media), "done": r.state.value}
+            for r in reqs]
+
+
+def _torch_pkg():
+    from repro_torch.core import Prompt, text_segment
+    from repro_torch.data import image_embeds, make_dialogues
+    from repro_torch.serving import Request
+    return {"make_dialogues": make_dialogues, "image_embeds": image_embeds,
+            "text_segment": text_segment, "Prompt": Prompt,
+            "Request": Request}
+
+
+# ---------------------------------------------------------------------------
+# the cases a rank runs
+# ---------------------------------------------------------------------------
+
+def case_serve(model, params, mesh, setup: str):
+    """One setup of :data:`SETUPS` through ``MPICEngine(mesh=)``; also
+    whether every page came back and which shapes the pool and the dense
+    cache have."""
+    from repro_torch.serving import EngineConfig, MPICEngine
+    over, policies = SETUPS[setup]
+    eng = MPICEngine(model, params, EngineConfig(**over), mesh=mesh,
+                     device="cpu")
+    try:
+        out = run_traffic(eng, _torch_pkg(), model.cfg.d_model,
+                          model.cfg.media_token_len, policies)
+        facts = {"attn_sharded": eng.sharding.attn,
+                 "local_kv_heads": eng.model.cfg.num_kv_heads}
+        if eng.pool is not None:
+            facts["pool_shape"] = tuple(eng.pool.k.shape)
+            facts["pages_back"] = (eng.pool.free_pages
+                                   == eng.pool.cfg.num_pages - 1)
+            if eng.pool.quantized:
+                facts["scale_shape"] = tuple(eng.pool.k_scale.shape)
+        else:
+            facts["cache_shape"] = tuple(eng._batch_cache["k"].shape)
+        return {"requests": out, "facts": facts}
+    finally:
+        eng.close()
+
+
+def case_kernel(model, params, mesh):
+    """Kernels 1, 3 and 5 (their dispatchers) on the rank's kv heads of
+    whole seeded inputs, gathered over the heads, against the whole call:
+    the largest difference of each."""
+    from repro_torch.kernels.paged_attn.ops import paged_attention
+    from repro_torch.kernels.selective_attn.ops import (
+        selective_attention,
+        selective_attention_paged,
+    )
+    from repro_torch.serving.sharding import ServingSharding
+    sh = ServingSharding(mesh, model.cfg)
+    rng = np.random.default_rng(0)
+    hkv, g, dh, pages, ps = model.cfg.num_kv_heads, 2, 16, 6, 16
+    hq = hkv * g
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    kp, vp = t(pages, ps, hkv, dh), t(pages, ps, hkv, dh)
+    table = torch.as_tensor(rng.permutation(pages)[:4][None].repeat(2, 0),
+                            dtype=torch.int32)
+    lengths = torch.tensor([37, 12], dtype=torch.int32)
+    q1 = t(2, hq, dh)
+    qs = t(1, 5, hq, dh)
+    qpos = torch.tensor([[3, 10, 20, 30, 36]], dtype=torch.int32)
+    k, v = t(1, 40, hkv, dh), t(1, 40, hkv, dh)
+    kvpos = torch.arange(40, dtype=torch.int32)[None]
+    lo, n = sh.mesh.rank * (hkv // mesh.model), hkv // mesh.model
+
+    def heads(x, dim):
+        return x.narrow(dim, lo * g, n * g) if x.shape[dim] == hq \
+            else x.narrow(dim, lo, n)
+
+    runs = {
+        "paged_decode": (lambda q, kp_, vp_: paged_attention(
+            q, kp_, vp_, table, lengths, window=8), (q1, kp, vp), (1, 2, 2),
+            1),
+        "paged_prefill": (lambda q, kp_, vp_: selective_attention_paged(
+            q, kp_, vp_, table[:1], qpos, lengths[:1]), (qs, kp, vp),
+            (2, 2, 2), 2),
+        "dense": (lambda q, k_, v_: selective_attention(
+            q, k_, v_, qpos, kvpos, window=16), (qs, k, v), (2, 2, 2), 2),
+    }
+    err = {}
+    for name, (fn, args, dims, out_dim) in runs.items():
+        want = fn(*args)
+        got = mesh.all_gather(fn(*[heads(a, d).contiguous()
+                                   for a, d in zip(args, dims)]), out_dim)
+        err[name] = float((got - want).abs().max())
+    return err
+
+
+def case_decode(model, params, mesh, tokens, steps: int):
+    """The reference's model-level decode case: a prefill of ``tokens``
+    into a dense cache, its K/V written into a head-sharded pool, then
+    ``steps`` paged decode steps fed greedily.  Returns the prefill's last
+    logits and each step's (whole vocabulary)."""
+    from repro_torch.cache.paged import PagedConfig, PagedKVPool
+    from repro_torch.serving.sharding import ServingSharding
+    sh = ServingSharding(mesh, model.cfg)
+    local, shard = sh.local_model(), sh.shard(params)
+    cfg = local.cfg
+    t0 = len(tokens)
+    with torch.inference_mode():
+        cache = local.make_cache(1, 64, device="cpu")
+        logits, cache = local.prefill(
+            shard, torch.as_tensor(np.asarray(tokens)[None],
+                                   dtype=torch.int32), cache)
+        pool = PagedKVPool(PagedConfig(
+            num_pages=8, page_size=16, num_layers=cfg.num_layers,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+            dtype="float32"), device="cpu")
+        pt = pool.alloc("r", t0 + steps)
+        pool.write_tokens(pt, 0, cache["k"][:, 0, :t0], cache["v"][:, 0, :t0])
+        out = [logits[0, -1].numpy().copy()]
+        tok = int(logits[0, -1].argmax())
+        for i in range(steps):
+            cur = t0 + i
+            lg = local.decode_step_paged(
+                shard, torch.tensor([[tok]], dtype=torch.int32),
+                torch.tensor([[cur]], dtype=torch.int32), pool.k, pool.v,
+                torch.as_tensor(pt[None]),
+                torch.tensor([cur + 1], dtype=torch.int32),
+                torch.tensor([pt[cur // 16]], dtype=torch.int32),
+                torch.tensor([cur % 16], dtype=torch.int32))
+            out.append(lg[0].numpy().copy())
+            tok = int(lg[0].argmax())
+    return {"logits": out, "pool_shape": tuple(pool.k.shape)}
+
+
+CASES = {"serve": case_serve, "kernel": case_kernel, "decode": case_decode}
+
+
+def _rank_main(rank, world, port, cfg, tree, jobs, out_q):
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import build_model
+    from repro_torch.weights import params_from_numpy
+    torch.set_num_threads(1)
+    mesh = None
+    try:
+        mesh = make_serving_mesh(model=world, device="cpu", rank=rank,
+                                 init_method=f"tcp://127.0.0.1:{port}",
+                                 timeout_s=INIT_TIMEOUT_S)
+        model = build_model(cfg)
+        params = params_from_numpy(tree, cfg, "cpu")
+        res = {name: CASES[kind](model, params, mesh, **kw)
+               for name, kind, kw in jobs}
+        out_q.put((rank, res, None))
+    except BaseException:
+        out_q.put((rank, None, traceback.format_exc()))
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+class Ranks:
+    """``world`` ranks started now, each running ``jobs`` (``(name,
+    case, kwargs)``) on ``cfg`` (the port's config) with the weights of
+    ``tree``."""
+
+    def __init__(self, world: int, cfg, tree, jobs):
+        from repro_torch.launch.mesh import free_port
+        ctx = mp.get_context("spawn")
+        self._q = ctx.Queue()
+        port = free_port()
+        self._procs = [ctx.Process(target=_rank_main, daemon=True, args=(
+            r, world, port, cfg, tree, jobs, self._q)) for r in range(world)]
+        for p in self._procs:
+            p.start()
+        self._t0 = time.monotonic()
+
+    def results(self):
+        """{rank: {job name: result}}; raises on a rank's error or past
+        the join timeout (the ranks are killed either way)."""
+        out = {}
+        try:
+            while len(out) < len(self._procs):
+                left = JOIN_TIMEOUT_S - (time.monotonic() - self._t0)
+                try:
+                    rank, res, err = self._q.get(timeout=max(left, 0.1))
+                except queue_mod.Empty:
+                    raise TimeoutError(
+                        f"ranks {sorted(set(range(len(self._procs))) - set(out))}"
+                        f" gave no result in {JOIN_TIMEOUT_S} s")
+                if err is not None:
+                    raise RuntimeError(f"rank {rank} failed:\n{err}")
+                out[rank] = res
+            for p in self._procs:
+                p.join(timeout=max(JOIN_TIMEOUT_S
+                                   - (time.monotonic() - self._t0), 1.0))
+        finally:
+            for p in self._procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=5)
+        return out
+

@@ -8,7 +8,8 @@ bogus`` fails only the bogus request and prints the JAX CLI's ``reused``
 and ``tokens`` per request when it serves the JAX CLI's weights, and so
 does a run of the MoE granite-moe-1b-a400m with ``--freeze-idle-s``, and
 a run through a two-replica cluster (``--replicas 2 --router affinity
---deadline-s``), which also prints each request's replica; without
+--deadline-s``), which also prints each request's replica, and a
+tensor-parallel run over two ranks (``--mesh 1x2``); without
 ``--device cpu`` and without a card the run exits non-zero.
 """
 import dataclasses
@@ -38,7 +39,7 @@ PORTED = {"--arch", "--device", "--requests", "--policy", "--mpic-k",
           "--no-paged", "--pipelined", "--no-pipelined", "--prefill-chunk",
           "--peers", "--serve-blocks", "--fault-plan", "--fault-seed",
           "--freeze-idle-s", "--replicas", "--fleet", "--router",
-          "--deadline-s", "--help"}
+          "--deadline-s", "--mesh", "--help"}
 ARGVS = [
     [],
     ["--no-paged", "--slots", "2", "--max-seq-len", "1024"],
@@ -152,6 +153,31 @@ def test_cpu_run_fails_only_the_bogus_request_as_the_reference(
     assert [t for _, t in port[0]] == [4, 4]
     assert len(port[1]) == len(ref[1]) == 1
     assert port[1][0].startswith("unknown policy 'bogus'")
+
+
+def test_cpu_mesh_run_serves_the_references_tokens(monkeypatch, capfd):
+    """``--mesh 1x2 --device cpu``: two gloo ranks spawned by the CLI on
+    the JAX CLI's weights (handed whole to the ranks, which cut them),
+    rank 0 alone printing, against the JAX CLI unsharded: the same
+    ``reused`` and ``tokens`` per request, the mesh in the header and the
+    backend on its own line."""
+    argv = ["--requests", "3", "--policy", "mpic,full_recompute,bogus",
+            "--max-new-tokens", "4"]
+    jcfg = jax_smoke_config("llava-1.6-7b")
+    tree = jax.tree_util.tree_map(
+        np.asarray, jax_build_model(jcfg).init(jax.random.PRNGKey(0)))
+    serve.main([*argv, "--device", "cpu", "--mesh", "1x2"],
+               params=params_from_numpy(
+                   tree, get_smoke_config("llava-1.6-7b"), "cpu"))
+    port = capfd.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["serve.py", *argv])
+    jax_serve.main()
+    ref = capfd.readouterr().out
+    assert _requests(port)[0] == _requests(ref)[0]
+    assert len(_requests(port)[0]) == 2
+    assert len(_requests(port)[1]) == len(_requests(ref)[1]) == 1
+    assert port.count("\narch=") == 1 and "mesh=1x2 replicas=1" in port
+    assert "  tensor_parallel: backend=gloo ranks=2 device=cpu" in port
 
 
 def test_cpu_run_of_the_moe_granite_as_the_reference(monkeypatch, capsys):

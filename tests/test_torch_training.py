@@ -3,7 +3,8 @@ the JAX weights carried over: ``train_batches``, the loss and every
 gradient leaf of the dense yi-9b, the MoE granite (aux loss, capacity
 drops), llava (media spans) and whisper (audio frames), one AdamW update,
 ``cosine_warmup``, five train steps, checkpoint files byte for byte both
-ways, the launcher's lines, and the refusal of SSM and hybrid training.
+ways and the launcher's lines (the SSM and the hybrid train in
+``test_torch_ssm_training.py``).
 
 Tolerances, relative ones as a leaf's error norm over its norm: loss and
 each gradient leaf within 1e-4 relative (fp32 sums in another order);
@@ -35,7 +36,6 @@ from repro.training import save_checkpoint as jax_save_checkpoint
 from repro_torch.configs import get_smoke_config
 from repro_torch.data import train_batches, with_audio
 from repro_torch.launch import train as launch_train
-from repro_torch.models import build_model
 from repro_torch.training import (
     AdamW,
     apply_updates,
@@ -276,15 +276,3 @@ def test_whisper_trains_from_the_launcher_where_the_reference_cannot(
                        "--batch", "2", "--seq", "16", "--device", "cpu"])
     out = _lines(capsys.readouterr().out)
     assert out[0].startswith("arch=whisper-small-smoke") and len(out) == 3
-
-
-@pytest.mark.parametrize("arch", ["mamba2-130m", "hymba-1.5b"])
-def test_ssm_and_hybrid_training_is_refused(arch):
-    cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32",
-                              compute_dtype="float32")
-    model = build_model(cfg)
-    params = model.init(seed=0, device="cpu")
-    batch = {k: torch.as_tensor(v) for k, v in _batch(cfg, seq=16).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        value_and_grad(model, params, batch)
-    assert all(not p.requires_grad for p in params.parameters())
