@@ -55,7 +55,12 @@ timed on its own line:
    run: the upload time (spooling included), each request's load busy,
    blocked, compute and overlap ms, TTFT, prefill alone, the decode step
    (and over the steps with a load in flight), and the disk's bytes read
-   and the share of read time spent on SHA-1;
+   and the share of read time spent on SHA-1; and the paper's Eq. 1 per
+   request (``cache.transfer.plan_transfers`` from where its images lay
+   before it was served, a miss costing the least time of its image's
+   upload pass): ``parallel_s`` and ``sequential_s`` from ``TIER_BW``'s
+   assumed disk rate and from the rate the run's reads reached, beside the
+   measured TTFT (printed, not gated);
 5f. phase 3's traffic with its media KV pulled from a peer over the
    network tier, in one process: a serving host uploads the eight static
    images into a bf16 library and an int8 one (``quantize=True``), each
@@ -187,8 +192,8 @@ timed on its own line:
    device memory printed; after each model one untimed upload and full
    prefill count the (token, choice) pairs capacity dropped in every
    layer (deepseek's upload must drop some, ``MOE_DROP_GATES``); the decode
-   step printed beside the device floor of reading every expert's weights
-   and of the routed ones alone;
+   step printed beside its least time (``roofline.step_cost``) with every
+   expert's weights read and with the routed experts' alone;
 5l. whisper-small at full width (``serve_whisper``, after 5e; seeded bf16
    weights, 0.61 GB) on the dense cache: four seeded audio inputs of 1500
    frames encoded at once, their cross K/V put into a cache of 4 rows of
@@ -239,7 +244,11 @@ timed on its own line:
    (bf16 tokens printed per request, not gated).
    Printed per rank: TTFT, prefill alone, decode step, uploads, peak
    memory, launches by kernel and route; phase 6 adds kernels 1-4 at rank
-   0's shard shape (32 query heads on 4 kv heads with two ranks);
+   0's shard shape (32 query heads on 4 kv heads with two ranks).  Each
+   rank records the collectives of its passes; those of its first paged
+   decode step and paged prefill in each ``mpic`` run must equal, kind,
+   count and bytes, what the dry run's recording mesh counts on ``meta``
+   for the same config, rank and shapes (``launch.dryrun.trace_serving``);
 6. each kernel against its plain PyTorch version on the state phases 3-5b
    left (layer 0 of the live pool or the captured dense-attention and SSD
    inputs) and on synthetic shapes (32 query heads on 8 kv heads, window
@@ -261,7 +270,8 @@ timed on its own line:
    at both live shapes beside its CUDA-core route, the first port's
    kernel); the limit is per element
    (``repro_torch/kernels/check.py``): one bf16 ulp of the value for bf16
-   outputs, 1e-4 for fp32 ones, 1e-4 + 1e-4 |ref| for the SSD chunk;
+   outputs, 1e-4 for fp32 ones, 1e-4 + 1e-4 |ref| for the SSD chunk; each
+   bound from ``repro_torch.roofline``'s kernel costs;
    kernels 1-5 also at each GQA model's layer-0 shapes from phase 5d
    (qwen2.5-14b G 5, yi-9b G 8, phi3-medium-14b G 4, stablelm-1.6b G 1 at
    head dim 64: both pools' prefill and decode and the upload on the
@@ -297,7 +307,26 @@ timed on its own line:
    5l's pass (same tokens, logits within 1e-3); and three train steps of
    the smoke yi-9b and whisper-small in fp32 from the same weights on the
    same batches (losses within 1e-4 relative), and so mamba2-130m and
-   hymba-1.5b (hymba at 128 tokens, two smoke windows: the band).
+   hymba-1.5b (hymba at 128 tokens, two smoke windows: the band);
+8. every step an earlier phase timed beside its least time on this card
+   (``repro_torch.roofline``: the larger of its operations over the bf16
+   peak, its bytes over HBM's rate and its collectives over NVLink's; the
+   least work of the passes each serving run recorded: real rows only,
+   each query's visible keys, a MoE's routed experts, and the weights and
+   KV once a step: once for a request's whole prefill, however many
+   passes or chunks it ran), what bounds it, ``roofline_share`` and
+   ``mfu``, and the host time the recording itself took inside each
+   measured step (its share printed), with the
+   card's name and power limit: llava's prefill and decode step per policy
+   and pool (3-5), mamba2's (5b, and its profiled prefill), each GQA and
+   MoE model's (5d, 5i), hymba's (5e), whisper's encode, cross K/V,
+   prefills and decode step (5l), the training steps (5m, 5n), each
+   rank's prefill and decode step (5o; the ranks' work adds up on a card
+   they share).  A share above 1.05 fails the run, naming the step (the
+   count would overstate the work).  Then ``python -m
+   repro_torch.launch.dryrun --serving-selftest`` and ``--arch
+   internvl2-76b --shape decode_32k`` in subprocesses: exit 0, and the
+   card's memory in use no higher while they run.
 
 During the serving phases the plain versions and ``layers.attend`` raise
 if called.  Each serving run resets the kernels' launch counts (and the
@@ -311,6 +340,7 @@ before the last line.  Without a card it exits 2.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
@@ -333,8 +363,6 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 K_MPIC = 32
 MAX_NEW = 8
 KERNEL_FILES = {
@@ -576,6 +604,7 @@ TP_ARCH = "internvl2-76b"
 TP_DEPTH = 16
 TP_MEDIA_LEN = 256
 TP_RUNS = (("mpic", ""), ("full_recompute", ""), ("mpic", "int8"))
+TP_LABELS = tuple(f"{p}-{pool or 'bf16'}" for p, pool in TP_RUNS)
 # the bf16 runs' first-token logits against the unsharded engine's, as
 # relative RMS: the ranks' fp32 partial sums add in another order than one
 # product's, a bf16 value now and then rounds the other way, and through
@@ -655,6 +684,353 @@ def run_watched(cmd, env, timeout_s: float):
         fo.seek(0)
         fe.seek(0)
         return proc.returncode, fo.read(), fe.read(), wall, card_mib, rss_max
+
+
+# -- phase 8: the least time of every step the card times -----------------
+# (module level: the tensor-parallel ranks of phase 5o record their passes
+# too)
+
+@contextlib.contextmanager
+def recording_passes(into, idle_pos=None, mesh=None):
+    """Keep in ``into`` one record per serving pass run inside the block:
+    its kind (``"decode"``: a paged decode step or ``Model.decode_step``;
+    else ``"prefill"``), the request whose prefill runs it (an engine's
+    ``_begin_prefill`` or a chunk's ``ChunkedPrefillTask.advance``; None
+    outside both), the config the weights have, and what decides its least
+    work (the queries' positions, the valid lengths or the dense cache's
+    positions after the pass's writes, the pool's dtype, whether it
+    computed logits, and a MoE's routing: each layer's expert choices),
+    and with a live ``mesh`` the collectives it ran (those since the pass
+    before: the pass's embedding runs just before it).  Inside the timed
+    window the recording clones only the small position tensors (the
+    routing is held, not copied); :func:`pass_costs` reads them after the
+    run.  Each record's ``record_s`` is the host time the recording spent
+    on that pass.  ``idle_pos`` is the position at which the engine's idle
+    dense slots decode (``max_seq_len - 1``)."""
+    import repro_torch.models.moe as moe_mod
+    import repro_torch.models.transformer as tf
+    from repro_torch.launch.mesh import record_collectives
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import MPICEngine
+    from repro_torch.serving.scheduler import ChunkedPrefillTask
+
+    clock = time.perf_counter
+    real = (tf.forward_with_cache, tf.selective_prefill_paged,
+            tf.decode_paged, moe_mod.route, Model.decode_step,
+            MPICEngine._begin_prefill, ChunkedPrefillTask.advance)
+    current, seen, decoding, request = [None], [0], [False], [None]
+
+    def run(rec, t0, fn, *args, **kwargs):
+        rec["routes"], rec["req"] = [], request[0]
+        into.append(rec)
+        current[0] = rec
+        rec["record_s"] = clock() - t0
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            t1 = clock()
+            current[0] = None
+            rec["calls"] = stream[seen[0]:]
+            seen[0] = len(stream)
+            rec["record_s"] += clock() - t1
+
+    def decode_step(self, *args, **kwargs):
+        decoding[0] = True
+        try:
+            return real[4](self, *args, **kwargs)
+        finally:
+            decoding[0] = False
+
+    def prefilling(req_id, fn, *args):
+        outer, request[0] = request[0], req_id
+        try:
+            return fn(*args)
+        finally:
+            request[0] = outer
+
+    def dense(params, cfg, embeds, positions, cache, write_idx, **kw):
+        t0 = clock()
+        rec = {"kind": "decode" if decoding[0] else "prefill",
+               "cfg": cfg, "q_pos": positions.clone(), "int8": False,
+               "window": kw.get("window"), "logits": kw.get("logits", True),
+               "idle_pos": idle_pos}
+        out = run(rec, t0, real[0], params, cfg, embeds, positions, cache,
+                  write_idx, **kw)
+        t1 = clock()
+        if "pos" in cache:
+            # held, not copied: it names the cache the pass wrote
+            rec["cache"] = cache["pos"]
+            rec["kv_pos"] = cache["pos"].clone()
+        rec["record_s"] += clock() - t1
+        return out
+
+    def paged_prefill(params, cfg, embeds, sel_positions, pool_k, pool_v,
+                      page_table, lengths, *args, **kw):
+        t0 = clock()
+        return run({"kind": "prefill", "cfg": cfg,
+                    "q_pos": sel_positions.clone(),
+                    "lengths": lengths.clone(), "page_size": pool_k.shape[1],
+                    "int8": pool_k.element_size() == 1, "logits": True},
+                   t0, real[1], params, cfg, embeds, sel_positions, pool_k,
+                   pool_v, page_table, lengths, *args, **kw)
+
+    def paged_decode(params, cfg, embeds, positions, pool_k, pool_v,
+                     page_table, lengths, *args, **kw):
+        t0 = clock()
+        return run({"kind": "decode", "cfg": cfg, "lengths": lengths.clone(),
+                    "page_size": pool_k.shape[1],
+                    "int8": pool_k.element_size() == 1, "logits": True},
+                   t0, real[2], params, cfg, embeds, positions, pool_k,
+                   pool_v, page_table, lengths, *args, **kw)
+
+    def route(*args, **kwargs):
+        out = real[3](*args, **kwargs)
+        if current[0] is not None:
+            t0 = clock()
+            current[0]["routes"].append(out[1])     # a new tensor a call
+            current[0]["record_s"] += clock() - t0
+        return out
+
+    def begin_prefill(self, req, *args):
+        return prefilling(req.req_id, real[5], self, req, *args)
+
+    def advance(self):
+        return prefilling(self.req.req_id, real[6], self)
+
+    (tf.forward_with_cache, tf.selective_prefill_paged, tf.decode_paged,
+     moe_mod.route, Model.decode_step, MPICEngine._begin_prefill,
+     ChunkedPrefillTask.advance) = (dense, paged_prefill, paged_decode,
+                                    route, decode_step, begin_prefill,
+                                    advance)
+    try:
+        with (record_collectives(mesh) if mesh is not None
+              else contextlib.nullcontext([])) as stream:
+            yield into
+    finally:
+        (tf.forward_with_cache, tf.selective_prefill_paged, tf.decode_paged,
+         moe_mod.route, Model.decode_step, MPICEngine._begin_prefill,
+         ChunkedPrefillTask.advance) = real
+
+
+def collective_record_s() -> float:
+    """Host seconds that ``record_collectives`` adds to one collective:
+    20,000 calls on a one-rank mesh (its collectives are the identity)
+    with and without the recording, the best of three each, the
+    difference a call."""
+    n = 20000
+    import torch
+
+    from repro_torch.launch.mesh import ServingMesh, record_collectives
+    mesh = ServingMesh(data=1, model=1, rank=0, backend="gloo",
+                       device=torch.device("cpu"))
+    x = torch.zeros(8)
+
+    def calls():
+        t = time.perf_counter()
+        for _ in range(n):
+            mesh.all_reduce(x)
+        return time.perf_counter() - t
+
+    bare = min(calls() for _ in range(3))
+    with record_collectives(mesh):
+        recorded = min(calls() for _ in range(3))
+    return max(recorded - bare, 0.0) / n
+
+
+def _real_prefix(q: np.ndarray) -> int:
+    """Selected positions padded to their bucket: the strictly increasing
+    prefix is the selection, the zeros after it the padding."""
+    stops = np.nonzero(q[1:] <= q[:-1])[0]
+    return int(stops[0]) + 1 if len(stops) else len(q)
+
+
+def _pass_rows(rec, seq):
+    """(rows, which of the pass's rows x tokens are real) of one recorded
+    pass: padding, idle slots and invalid positions left out; a prefill's
+    rows tagged with ``seq`` (and a dense cache's row), the sequence they
+    belong to."""
+    from repro_torch.models.layers import INVALID_POS
+    from repro_torch.roofline.analysis import Row
+
+    logits = rec["logits"]
+    if "lengths" in rec and rec["kind"] == "decode":
+        lens = rec["lengths"].cpu().numpy()
+        real = lens > 0
+        return [Row([int(n) - 1], int(n)) for n in lens[real]], real
+    if "lengths" in rec:                            # the paged prefill
+        q = rec["q_pos"].cpu().numpy()[0]
+        n = _real_prefix(q)
+        return ([Row(q[:n], int(rec["lengths"].cpu()[0]), logits, seq)],
+                np.arange(len(q)) < n)
+    qs = rec["q_pos"].cpu().numpy()                 # the dense cache
+    kv = rec["kv_pos"].cpu().numpy() if "kv_pos" in rec else None
+    rows, real = [], []
+    for b, q in enumerate(qs):
+        keep = q != INVALID_POS
+        if rec["kind"] == "decode" and rec["idle_pos"] is not None:
+            keep &= q != rec["idle_pos"]
+        real.append(keep)
+        if keep.any():
+            keys = (kv[b][kv[b] != INVALID_POS] if kv is not None
+                    else int(q[keep].max()) + 1)
+            rows.append(Row(q[keep], keys, logits,
+                            None if seq is None else (seq, b)))
+    return rows, np.concatenate(real)
+
+
+def pass_costs(records, all_experts: bool = False) -> list:
+    """The least work of each step the records hold: one dict for every
+    decode pass, and one for every request's prefill, however many passes
+    or chunks it ran (its rows share their sequence, so its weights, KV
+    and tokens count once: ``roofline.step_cost``); a prefill pass outside
+    any request is a step of its own.  Each dict: the ``kind``, the
+    ``cost`` (a MoE's distinct experts per layer from the routing of the
+    real rows, or every expert with ``all_experts``), the real
+    ``tokens``, the ``wire`` bytes of the collectives' real rows, the
+    ``passes`` and the host seconds the recording took (``record_s``)."""
+    from repro_torch.roofline.analysis import collective_bytes, step_cost
+
+    steps = {}
+    for i, rec in enumerate(records):
+        key = (i if rec["kind"] == "decode" or rec["req"] is None
+               else ("req", rec["req"]))
+        steps.setdefault(key, []).append(rec)
+    out = []
+    for key, recs in steps.items():
+        first = recs[0]
+        cfg = first["cfg"]
+        rows, experts, wire = [], None, 0.0
+        if recs[0]["routes"]:
+            experts = [set() for _ in range(cfg.num_layers)]
+        for rec in recs:
+            # a request's KV: its pages, or each dense cache it writes (a
+            # miss's recompute and full_reuse's text pass have their own)
+            seq = None if isinstance(key, int) else (
+                key, id(rec["cache"]) if "cache" in rec else "pages")
+            r, real = _pass_rows(rec, seq)
+            rows += r
+            # every collective of a pass is linear in its rows: the least
+            # work moves the real rows' share
+            wire += collective_bytes(rec.get("calls", ())).total_bytes \
+                * float(np.mean(real))
+            for layer, idx in enumerate(rec["routes"]):   # (rows x tokens, k)
+                idx = idx.cpu().numpy()
+                if len(idx) != len(real):
+                    raise RuntimeError(f"{len(idx)} routed rows, "
+                                       f"{len(real)} in the pass")
+                experts[layer].update(np.unique(idx[real]).tolist())
+        if experts is not None:
+            experts = [cfg.num_experts if all_experts else len(e)
+                       for e in experts]
+        out.append({
+            "kind": first["kind"],
+            "cost": step_cost(cfg, rows,
+                              kv_dtype="int8" if first["int8"] else None,
+                              page_size=first.get("page_size", 16),
+                              window=first.get("window"), experts=experts),
+            "tokens": sum(len(r.q_pos) for r in rows), "wire": wire,
+            "passes": len(recs),
+            "coll_ops": sum(len(rec.get("calls", ())) for rec in recs),
+            "record_s": sum(rec["record_s"] for rec in recs)})
+    return out
+
+
+def least_row(step: str, measured_ms: float, cost, model_flops: float, *,
+              chips: int = 1, coll_bytes: float = 0.0, note: str = "") -> dict:
+    """One line of phase 8: a step's measured time beside its least time
+    on the card (the largest of its operations over the bf16 peak, its
+    bytes over HBM's rate and its collectives' wire bytes over NVLink's),
+    what bounds it, ``roofline_share`` and ``mfu`` (``model_flops``, 2ND
+    or 6ND, on ``chips`` cards)."""
+    from repro_torch.roofline.analysis import (
+        CollectiveStats,
+        least_time,
+        mfu,
+        roofline_share,
+    )
+
+    rl = cost.roofline("", "", "", step, chips=chips,
+                       model_flops_global=model_flops,
+                       coll=CollectiveStats(coll_bytes, {}, 0))
+    return {"step": step, "measured_ms": measured_ms,
+            "least_ms": least_time(rl) * 1e3,
+            "bound_by": {"compute": "operations", "memory": "bytes",
+                         "collective": "collective bytes"}[rl.bottleneck],
+            "share": roofline_share(measured_ms / 1e3, rl),
+            "mfu": mfu(measured_ms / 1e3, model_flops, chips),
+            "flops": rl.flops_per_device, "bytes": rl.bytes_per_device,
+            "coll_bytes": coll_bytes, "note": note}
+
+
+def _total(costs):
+    total = costs[0]
+    for c in costs[1:]:
+        total = total + c
+    return total
+
+
+def served_rows(label: str, costs, n_requests: int, decode_steps: int,
+                prefill_ms: float, decode_ms: float, *, n_params: int,
+                scale: float = 1, chips: int = 1, note: str = "",
+                collective_s: float = 0.0) -> list:
+    """Phase 8's lines of one serving run from its :func:`pass_costs`:
+    the prefill (the mean least work of a request's prefill, beside the
+    engine's mean prefill alone) and the decode step (the mean least work
+    of its decode passes, beside the engine's mean decode step); 2ND model
+    FLOPs of ``n_params`` (the whole model's active parameters).
+    ``scale``: ranks a card (their work adds up there).  Each line also
+    carries ``record_ms``, the host time the recording spent in the
+    measured mean (``collective_s`` a recorded collective).  Raises when
+    the recorded steps are not the engine's: a prefill a request, a
+    decode pass a decode step."""
+    decode = [c for c in costs if c["kind"] == "decode"]
+    prefill = [c for c in costs if c["kind"] == "prefill"]
+    if len(decode) != decode_steps or len(prefill) != n_requests:
+        raise RuntimeError(f"{label}: {len(prefill)} prefills and "
+                           f"{len(decode)} decode passes recorded, the "
+                           f"engine timed {n_requests} and {decode_steps}")
+    out = []
+    for name, parts, ms in (("prefill", prefill, prefill_ms),
+                            ("decode step", decode, decode_ms)):
+        if not parts or not ms:
+            continue
+        n = len(parts)
+        tokens = sum(c["tokens"] for c in parts) / n
+        row = least_row(
+            f"{label} {name}", ms,
+            _total([c["cost"] for c in parts]).scaled(scale / n),
+            2.0 * n_params * tokens, chips=chips,
+            coll_bytes=sum(c["wire"] for c in parts) / n, note=note)
+        row["record_ms"] = 1e3 * sum(c["record_s"] for c in parts) / n
+        if collective_s:
+            row["record_ms"] += 1e3 * collective_s * sum(
+                c["coll_ops"] for c in parts) / n
+        out.append(row)
+    return out
+
+
+def run_dry_runs(env) -> None:
+    """``python -m repro_torch.launch.dryrun --serving-selftest`` and
+    ``--arch internvl2-76b --shape decode_32k`` in processes of their own,
+    both at once: each must exit 0 (no JAX on this machine) with the
+    card's memory in use no higher than before (meta tensors only)."""
+    cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", *args]
+            for args in (["--serving-selftest"], ["--arch", "internvl2-76b",
+                                                  "--shape", "decode_32k"])]
+    before = card_memory_mib()
+    with concurrent.futures.ThreadPoolExecutor(len(cmds)) as pool:
+        done = list(pool.map(lambda c: run_watched(c, env, 300), cmds))
+    for cmd, (rc, out, err, wall, card_mib, _) in zip(cmds, done):
+        args = cmd[3:]
+        print(f"$ {' '.join(cmd[1:])}\n  exit {rc} in {wall:.2f} s; the "
+              f"card's memory in use at most {card_mib} MiB ({before} MiB "
+              "before the two started)")
+        for line in out.splitlines():
+            print(f"  | {line}")
+        if rc != 0 or card_mib > before:
+            raise RuntimeError(f"the dry run {args} failed (exit {rc}, "
+                               f"card {before} -> {card_mib} MiB):\n"
+                               f"{err[-3000:]}")
 
 
 # -- phases 5j and 5k: the cluster and the fleet -------------------------
@@ -1251,6 +1627,42 @@ def whisper_rel_rms(model, params, audio, prompts, out, *, device=None):
     return rel
 
 
+def whisper_least(cfg, out) -> list:
+    """Phase 8's lines of 5l's pass: the encoder over 4 x 1500 frames and
+    the cross K/V (2ND of the weights they multiply), each prefill, and
+    the mean decode step after the first, beside their least times."""
+    from repro_torch.roofline.analysis import (
+        Row,
+        cross_kv_cost,
+        encode_cost,
+        step_cost,
+    )
+
+    b, frames = len(WHISPER_PROMPTS), cfg.encoder_seq
+    n_params = cfg.n_active_params()
+    rows = []
+    for name, cost, ms in (
+            ("encode", encode_cost(cfg, b, frames), out["encode_s"] * 1e3),
+            ("cross K/V", cross_kv_cost(cfg, b, frames),
+             out["cross_kv_s"] * 1e3)):
+        rows.append(least_row(f"{cfg.name} {name}", ms, cost,
+                              cost.weight_flops))
+    for n, sec in zip(WHISPER_PROMPTS, out["prefill_s"]):
+        rows.append(least_row(
+            f"{cfg.name} prefill of {n} tokens", sec * 1e3,
+            step_cost(cfg, [Row(np.arange(n), n)], cross_frames=frames),
+            2.0 * n_params * n))
+    steps = range(1, MAX_NEW)
+    cost = _total([step_cost(cfg, [Row([n + i], n + i + 1)
+                                   for n in WHISPER_PROMPTS],
+                             cross_frames=frames) for i in steps])
+    rows.append(least_row(
+        f"{cfg.name} decode step (steps 2-{MAX_NEW})",
+        float(np.mean(out["decode_s"][1:])) * 1e3,
+        cost.scaled(1 / len(steps)), 2.0 * n_params * b))
+    return rows
+
+
 def serve_whisper(guard, runs, capture):
     """Phase 5l: full-width whisper-small with seeded bf16 weights on the
     dense cache (``run_whisper``).  Gates: kernel 5 alone launched, on the
@@ -1330,7 +1742,8 @@ def serve_whisper(guard, runs, capture):
         "warm_ms": {k: np.multiply(faulty[f"{k}_s"], 1e3).tolist()
                     for k in ("encode", "cross_kv", "prefill", "decode")},
         "peak_gib": peak, "rel_rms": rel, "rel_rms_fault": rel_fault,
-        "prompt_tokens": list(WHISPER_PROMPTS)}
+        "prompt_tokens": list(WHISPER_PROMPTS),
+        "least": whisper_least(cfg, out)}
     del model, params, out, faulty
     gc.collect()
     torch.cuda.empty_cache()
@@ -1345,6 +1758,17 @@ def _timed(batches, stamps):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
         yield b
+
+
+def train_least(cfg, batch: int, seq: int, step_ms: float) -> dict:
+    """Phase 8's line of a training step: 6ND model FLOPs."""
+    from repro_torch.configs import InputShape
+    from repro_torch.roofline.analysis import model_flops, train_cost
+
+    return least_row(f"{cfg.name} train step (batch {batch} x {seq})",
+                     float(step_ms), train_cost(cfg, batch, seq),
+                     model_flops(cfg, InputShape("train", seq, batch,
+                                                 "train"), "train"))
 
 
 def train_on_card(guard, env):
@@ -1409,7 +1833,10 @@ def train_on_card(guard, env):
         result[arch] = {
             "wall_s": wall, "card_mib_max": card_mib,
             "card_mib_before": baseline, "rss_mib_max": rss,
-            "losses": logged, "step_ms": step_ms, "ckpt_bytes": size}
+            "losses": logged, "step_ms": step_ms, "ckpt_bytes": size,
+            "least": [train_least(get_config(
+                TRAIN_ARGS[TRAIN_ARGS.index("--arch") + 1]), 8, 64,
+                step_ms)]}
 
         drops = []
         route = moe_mod.route
@@ -1459,7 +1886,8 @@ def train_on_card(guard, env):
                 raise RuntimeError(f"{arch}: losses {losses}, kernel "
                                    f"launches while training {launches}")
             result[arch] = {"losses": losses, "step_ms": step_ms,
-                            "peak_gib": peak}
+                            "peak_gib": peak, "least": [train_least(
+                                cfg, batch, TRAIN_SEQ, np.mean(step_ms))]}
             if cfg.arch_type == "moe":
                 result[arch]["dropped_pairs"] = sum(drops)
             if arch == TRAIN_RUNS[-1][0]:
@@ -1543,7 +1971,8 @@ def train_ssm_on_card(guard):
             raise RuntimeError(f"{arch}: the launcher's lines {lines}, "
                                f"kernel launches {launches}")
         result[arch] = {"losses": losses, "step_ms": step_ms,
-                        "peak_gib": peak}
+                        "peak_gib": peak,
+                        "least": [train_least(cfg, 8, 64, np.mean(step_ms))]}
         del params, opt_state
         gc.collect()
         torch.cuda.empty_cache()
@@ -1595,26 +2024,39 @@ def tp_traffic(eng, policy: str, snap_paged: bool = False,
                         policy=policy, policy_kwargs={"k": K_MPIC}
                         if policy == "mpic" else {}) for smp in samples]
         reqs[-1].retrieval_query = rag.mean(0)
-        for r in reqs:
-            eng.submit(r)
-        steps = 0
-        while eng.queue or any(eng.running):
-            eng.step()
-            steps += 1
-            if steps > 10 * MAX_NEW * len(reqs):
-                raise RuntimeError("engine made no progress")
-            if snap_paged and snap is None and all(
-                    r is not None and r.state is State.RUNNING
-                    for r in eng.running):
-                snap = {k: v.cpu() if torch.is_tensor(v) else v
-                        for k, v in snapshot(eng).items()}
+        passes = []
+        with recording_passes(passes, mesh=eng.sharding and
+                              eng.sharding.mesh):
+            for r in reqs:
+                eng.submit(r)
+            steps = 0
+            while eng.queue or any(eng.running):
+                eng.step()
+                steps += 1
+                if steps > 10 * MAX_NEW * len(reqs):
+                    raise RuntimeError("engine made no progress")
+                if snap_paged and snap is None and all(
+                        r is not None and r.state is State.RUNNING
+                        for r in eng.running):
+                    snap = {k: v.cpu() if torch.is_tensor(v) else v
+                            for k, v in snapshot(eng).items()}
         if cuda:
             torch.cuda.synchronize()
         launches = {k: v.launches for k, v in KERNELS.items()}
         routes = dict(sel_ops.SEL_ATTN.route_launches)
     eng._finalize_prefill = finalize
     rep = eng.report()
+    # the collectives of the first paged decode step and paged prefill,
+    # with the shapes that decide them
+    paged = {rec["kind"]: rec for rec in reversed(passes)
+             if "lengths" in rec}
     return {
+        "costs": pass_costs(passes),
+        "collectives": {kind: {"shape": tuple(rec["q_pos"].shape)
+                               if kind == "prefill"
+                               else tuple(rec["lengths"].shape),
+                               "calls": rec.get("calls", [])}
+                        for kind, rec in paged.items()},
         "tokens": [list(r.output_tokens) for r in reqs],
         "firsts": np.stack([firsts[r.req_id] for r in reqs]),
         "done": [r.done for r in reqs],
@@ -1747,6 +2189,40 @@ def _tp_rank(rank, world, port, cfg, device, media_len, out_q):
             mesh.close()
 
 
+def tp_collectives_check(cfg, label: str, per) -> dict:
+    """Each rank's live collectives in its first paged decode step and
+    paged prefill of run ``label`` against what the dry run's recording
+    mesh counts on ``meta`` for the same config, rank and shapes (the
+    serving steps of ``launch.dryrun.trace_serving``, on a bf16 pool: the
+    collectives run on activations, whatever the pool holds).  Raises
+    when they differ in count, kind or bytes."""
+    from repro_torch.launch.dryrun import trace_serving
+    from repro_torch.launch.mesh import RecordingMesh
+    from repro_torch.roofline.analysis import collective_bytes
+
+    out = {}
+    for r, res in enumerate(per):
+        for kind, step in (("decode", "serve_decode"),
+                           ("prefill", "serve_prefill")):
+            live = res["collectives"][kind]
+            shape = live["shape"]
+            traced = trace_serving(
+                cfg, step, RecordingMesh(len(per), r), slots=shape[0],
+                kv_len=2048, s_sel=shape[1] if kind == "prefill" else None)[2]
+            got, want = live["calls"], traced
+            print(f"  {label} rank {r} {kind} {shape}: {len(got)} "
+                  f"collectives, {collective_bytes(got).total_bytes:.0f} "
+                  f"wire bytes live; the dry run's {len(want)}, "
+                  f"{collective_bytes(want).total_bytes:.0f}", flush=True)
+            if got != want:
+                raise RuntimeError(f"phase 5o {label} rank {r} {kind}: live "
+                                   f"collectives {got}, the dry run's {want}")
+            out[f"rank {r} {kind}"] = {
+                "count": len(got),
+                "wire_bytes": collective_bytes(got).total_bytes}
+    return out
+
+
 def _rel(got, ref):
     """(relative RMS, max |diff| over max |ref|) of two logit stacks."""
     diff = got - ref
@@ -1794,9 +2270,14 @@ def serve_tensor_parallel(*, device=None, cfg=None,
         cfg = dataclasses.replace(full, num_layers=depth)
     depth = cfg.num_layers
     backend = backend_for(torch.device("cuda" if cuda else "cpu"), world)
+    used = min(world, cards) if cuda else 1
     print(f"tensor_parallel: {TP_ARCH} world size {world}, backend "
           f"{backend}, depth {depth} of {full.num_layers} layers (the exact "
           f"check {TP_FP32_DEPTH}, fp32), cards {cards}", flush=True)
+    # the host time the ranks' recording adds to each collective
+    coll_record_s = collective_record_s()
+    print(f"  recording a collective: {coll_record_s * 1e6:.3f} us on the "
+          "host", flush=True)
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     port = free_port()
@@ -1874,6 +2355,21 @@ def serve_tensor_parallel(*, device=None, cfg=None,
                 "upload_s", "peak_gib")},
             "prompt_tokens": r0["prompt_tokens"],
             "sel_attn_routes": r0["sel_attn_routes"]}
+        if label in TP_LABELS:
+            # each rank's steps beside their least time on the cards the
+            # ranks share (the ranks' work adds up on a shared card)
+            runs[f"{key}:{label}"]["least"] = [
+                row for r, res in enumerate(per)
+                for row in served_rows(
+                    f"{key}:{label} rank {r}", res["costs"],
+                    len(res["done"]), res["decode_steps"],
+                    res["mean_prefill_ms"], res["mean_decode_step_ms"],
+                    n_params=cfg.n_active_params(), scale=world / used,
+                    chips=used, note=f"{world} ranks on {used} card(s)",
+                    collective_s=coll_record_s)]
+        if label.startswith("mpic") and label in TP_LABELS:
+            runs[f"{key}:{label}"]["collectives"] = tp_collectives_check(
+                cfg, label, per)
     print(f"  ranks: {[got[r]['device'] for r in range(world)]}, pool "
           f"{got[0]['pool_shape']} a rank, weights "
           f"{[round(got[r]['weights_gib'], 2) for r in range(world)]} GiB, "
@@ -2011,8 +2507,11 @@ def main() -> int:
         KVLibrary,
         KVPeerServer,
         PeerTransport,
+        TransferPlan,
         content_key,
+        plan_transfers,
     )
+    from repro_torch.cache.backends import TIER_BW
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import Prompt, text_segment
     from repro_torch.core.policies import full_recompute
@@ -2041,6 +2540,16 @@ def main() -> int:
     from repro_torch.kernels.ssd_chunk.ops import ssd_chunk
     from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
     from repro_torch.models import build_model
+    from repro_torch.roofline.analysis import (
+        Row,
+        dense_attention_kernel_cost,
+        kernel_bound,
+        paged_decode_kernel_cost,
+        paged_prefill_kernel_cost,
+        ssd_chunk_kernel_cost,
+        step_cost,
+        valid_keys_decode,
+    )
     from repro_torch.serving import EngineConfig, MPICEngine, Request, State
 
     # fp32 products in full fp32 on the card (the CPU reference has no TF32)
@@ -2221,19 +2730,21 @@ def main() -> int:
             reqs[-1].retrieval_query = rag.mean(0)
             for r, seed in zip(reqs, seeds or ()):
                 r.seed = seed
+            passes = []
             t_serve = time.perf_counter()
-            for r in reqs:
-                eng.submit(r)
-            steps = 0
-            while eng.queue or any(eng.running):
-                eng.step()
-                steps += 1
-                if steps > 10 * MAX_NEW * len(reqs):
-                    raise RuntimeError("engine made no progress")
-                if snap_paged and snap is None and all(
-                        r is not None and r.state is State.RUNNING
-                        for r in eng.running):
-                    snap = snapshot(eng)
+            with recording_passes(passes, idle_pos=max_seq_len - 1):
+                for r in reqs:
+                    eng.submit(r)
+                steps = 0
+                while eng.queue or any(eng.running):
+                    eng.step()
+                    steps += 1
+                    if steps > 10 * MAX_NEW * len(reqs):
+                        raise RuntimeError("engine made no progress")
+                    if snap_paged and snap is None and all(
+                            r is not None and r.state is State.RUNNING
+                            for r in eng.running):
+                        snap = snapshot(eng)
             torch.cuda.synchronize()
             serve_s = time.perf_counter() - t_serve
             launches = {k: v.launches for k, v in KERNELS.items()}
@@ -2277,9 +2788,24 @@ def main() -> int:
         print(f"  launches {launches}; sel_attn by route {routes}"
               + (f"; ssd_chunk by route {ssd_routes}" if ssd_routes else ""),
               flush=True)
+        costs = pass_costs(passes)
+        least = served_rows(
+            label if ":" in label else f"{scfg.name}:{label}", costs,
+            len(reqs), rep["decode_steps"], rep["mean_prefill_s"] * 1e3,
+            rep["mean_decode_step_s"] * 1e3,
+            n_params=scfg.n_active_params())
+        if scfg.arch_type == "moe":
+            # the decode step's floors: every expert's weights read (the
+            # capacity layout's bmm reads them all) and the routed ones
+            for key, cs in (("all", pass_costs(passes, all_experts=True)),
+                            ("routed", costs)):
+                dec = [c["cost"] for c in cs if c["kind"] == "decode"]
+                moe_floors[label, key] = _total(dec).scaled(
+                    1 / len(dec)).least_s * 1e3
+        del passes
         runs[label] = {
             "policy": policy, "pool": pool_dtype or "bf16", "paged": paged,
-            "prefill_ms": prefills,
+            "least": least, "prefill_ms": prefills,
             "mean_ttft_ms": rep["mean_ttft_s"] * 1e3,
             "p90_ttft_ms": rep["p90_ttft_s"] * 1e3,
             "mean_prefill_ms": rep["mean_prefill_s"] * 1e3,
@@ -2302,6 +2828,7 @@ def main() -> int:
 
     runs = {}
     runs_cli = {}           # phase 5g: the CLI's runs, in subprocesses
+    moe_floors = {}         # phase 5i: (run, "all"/"routed") -> ms
     t0 = time.perf_counter()
     print("serve, bf16 pool, mpic:")
     reqs16, launches16, snap16 = serve(
@@ -2410,15 +2937,17 @@ def main() -> int:
             _build.reset_launches(KERNELS.values())     # the main path only
             reqs = [Request(prompt=p, max_new_tokens=MAX_NEW, policy=policy,
                             policy_kwargs=dict(kwargs)) for p in prompts]
+            passes = []
             t_serve = time.perf_counter()
-            for r in reqs:
-                eng.submit(r)
-            steps = 0
-            while eng.queue or any(eng.running):
-                eng.step()
-                steps += 1
-                if steps > 10 * MAX_NEW * len(reqs):
-                    raise RuntimeError("engine made no progress")
+            with recording_passes(passes, idle_pos=eng.cfg.max_seq_len - 1):
+                for r in reqs:
+                    eng.submit(r)
+                steps = 0
+                while eng.queue or any(eng.running):
+                    eng.step()
+                    steps += 1
+                    if steps > 10 * MAX_NEW * len(reqs):
+                        raise RuntimeError("engine made no progress")
             torch.cuda.synchronize()
             serve_s = time.perf_counter() - t_serve
             launches = {k: v.launches for k, v in KERNELS.items()}
@@ -2457,9 +2986,15 @@ def main() -> int:
               f"{rep['total_tokens'] / serve_s:.1f} tokens/s")
         print(f"  launches {launches}; ssd_chunk by route {routes}",
               flush=True)
+        least = served_rows(
+            f"{mcfg.name}:{label}", pass_costs(passes), len(reqs),
+            rep["decode_steps"], rep["mean_prefill_s"] * 1e3,
+            rep["mean_decode_step_s"] * 1e3,
+            n_params=mcfg.n_active_params())
         runs[label] = {
             "model": mcfg.name, "policy": policy, "pool": None,
-            "paged": False, "mean_ttft_ms": rep["mean_ttft_s"] * 1e3,
+            "paged": False, "least": least,
+            "mean_ttft_ms": rep["mean_ttft_s"] * 1e3,
             "p90_ttft_ms": rep["p90_ttft_s"] * 1e3,
             "mean_prefill_ms": rep["mean_prefill_s"] * 1e3,
             "mean_decode_step_ms": rep["mean_decode_step_s"] * 1e3,
@@ -2556,6 +3091,11 @@ def main() -> int:
              "activity)"))
     for name, ms, n in kernels_ms[:8]:
         print(f"    {ms:8.3f} ms  {n:5d}x  {name[:90]}")
+    runs["ssm_full_recompute"]["least"].append(least_row(
+        f"{mcfg.name} one prefill of {prompt.total_len} tokens", wall,
+        step_cost(mcfg, [Row(np.arange(prompt.total_len),
+                             prompt.total_len)]),
+        2.0 * mcfg.n_active_params() * prompt.total_len))
     runs["ssm_full_recompute"]["profiled_prefill"] = {
         "tokens": prompt.total_len, "wall_ms": wall,
         "device_busy_ms": busy if busy > 0 else None,
@@ -2646,6 +3186,9 @@ def main() -> int:
     # spooling every block to a temporary directory right after its upload,
     # so that each request's media comes back from disk through the loader
     t0 = time.perf_counter()
+    # a miss's cost in Eq. 1: recomputing one image's KV (its upload pass)
+    recompute_s = step_cost(cfg, [Row(np.arange(MEDIA_LEN), MEDIA_LEN,
+                                      logits=False)]).least_s
     spool_root = tempfile.mkdtemp(prefix="mpic_smoke_spool_")
     print(f"spool directory {spool_root}: "
           f"{shutil.disk_usage(spool_root).free / 2**30:.1f} GiB free")
@@ -2706,6 +3249,13 @@ def main() -> int:
                             policy="mpic", policy_kwargs={"k": K_MPIC})
                     for s in samples]
             reqs[-1].retrieval_query = rag.mean(0)
+            # Eq. 1 for each request from where its images lie now: a hit
+            # loads at its tier's rate, a miss recomputes the image (its
+            # upload pass's least time)
+            plans = [plan_transfers(
+                static, s.prompt.user_id,
+                [seg.media_id for _, seg in s.prompt.media_segments()],
+                lambda m: recompute_s) for s in samples]
             t_serve = time.perf_counter()
             for r in reqs:
                 eng.submit(r)
@@ -2738,7 +3288,7 @@ def main() -> int:
                "launches": launches, "loads": loads,
                "decode_windows": decode_windows, "upload_s": upload_s,
                "serve_s": serve_s, "steps": steps, "report": eng.report(),
-               "load_failures": eng.loader.load_failures}
+               "load_failures": eng.loader.load_failures, "plans": plans}
         del eng, finalize, decode_step, recording_finalize, timed_decode
         gc.collect()
         torch.cuda.empty_cache()
@@ -2860,6 +3410,38 @@ def main() -> int:
                       library=("disk" if on_disk else "memory")
                       + (", int8" if quantize else ""), pipelined=pipelined,
                       rehydrated=static.rehydrate_stats.get("rehydrated"))
+        # the paper's Eq. 1 beside what the run measured, from TIER_BW's
+        # assumed disk rate and from the rate this run's reads reached
+        rate = disk["bytes_read"] / disk["fetch_s"] if disk["fetch_s"] \
+            else None
+        modelled = {}
+        for name, bw in (("TIER_BW", TIER_BW),
+                         ("measured", {**TIER_BW, "disk": rate or TIER_BW[
+                             "disk"]})):
+            plans = [TransferPlan(p.hits, p.misses, sum(
+                n / bw[t] for _, t, n in p.hits), p.compute_s)
+                for p in out["plans"]]
+            modelled[name] = {
+                "parallel_ms": [p.parallel_s * 1e3 for p in plans],
+                "sequential_ms": [p.sequential_s * 1e3 for p in plans]}
+        rep = out["report"]
+        print(f"    Eq. 1 per request (hits {[len(p.hits) for p in out['plans']]}"
+              f", misses {[len(p.misses) for p in out['plans']]}, a miss "
+              f"{recompute_s * 1e3:.3f} ms): parallel "
+              f"{[round(x, 3) for x in modelled['TIER_BW']['parallel_ms']]} "
+              f"ms / sequential "
+              f"{[round(x, 3) for x in modelled['TIER_BW']['sequential_ms']]}"
+              f" ms at TIER_BW's {TIER_BW['disk'] / 1e9:.2f} GB/s disk; "
+              f"parallel "
+              f"{[round(x, 3) for x in modelled['measured']['parallel_ms']]}"
+              f" / sequential "
+              f"{[round(x, 3) for x in modelled['measured']['sequential_ms']]}"
+              f" ms at the measured "
+              + (f"{rate / 1e9:.3f} GB/s" if rate else "rate (no disk read)")
+              + f"; measured TTFT mean {rep['mean_ttft_s'] * 1e3:.2f} ms "
+              f"({'pipelined' if pipelined else 'sequential'})", flush=True)
+        runs[label]["transfer_plan"] = {**modelled,
+                                        "measured_disk_bytes_per_s": rate}
         del static, dynamic
         return out
 
@@ -3605,24 +4187,21 @@ def main() -> int:
 
     serve_models(MOE_RUNS, MOE_CAPTURES, after=count_drops)
     for arch in MOE_ARCHS:
-        mc = get_config(arch)
-        # the capacity layout multiplies every expert's weights each pass;
-        # four decode slots route at most 4·k of them
-        per_expert = 3 * mc.d_model * mc.d_ff * 2
-        floor_all = mc.num_layers * mc.num_experts * per_expert
-        floor_routed = mc.num_layers * min(
-            mc.num_experts, 4 * mc.experts_per_token) * per_expert
-        step = runs[f"{arch}:mpic"]["mean_decode_step_ms"]
-        print(f"  {arch}: decode step {step:.2f} ms against a device floor "
-              f"of {floor_all / HBM_BYTES_PER_S * 1e3:.2f} ms for every "
-              f"expert's weights ({floor_all / 1e9:.2f} GB a step) and "
-              f"{floor_routed / HBM_BYTES_PER_S * 1e3:.2f} ms for the "
-              "routed experts alone", flush=True)
+        # the decode step's least time (roofline.step_cost, the mean over
+        # the run's steps) with every expert's weights read, as the
+        # capacity layout's batched products read them, and with the
+        # experts the live rows routed to alone
+        label = f"{arch}:mpic"
+        step = runs[label]["mean_decode_step_ms"]
+        floor_all = moe_floors[label, "all"]
+        floor_routed = moe_floors[label, "routed"]
+        print(f"  {arch}: decode step {step:.2f} ms against a least time "
+              f"of {floor_all:.2f} ms with every expert's weights read and "
+              f"{floor_routed:.2f} ms with the routed experts' alone "
+              f"({card})", flush=True)
         for label, *_ in dict(MOE_RUNS)[arch]:
-            runs[label].update(all_experts_floor_ms=floor_all
-                               / HBM_BYTES_PER_S * 1e3,
-                               routed_experts_floor_ms=floor_routed
-                               / HBM_BYTES_PER_S * 1e3,
+            runs[label].update(all_experts_floor_ms=floor_all,
+                               routed_experts_floor_ms=floor_routed,
                                capacity_drops=moe_drops[arch])
     d = "deepseek-moe-16b"
     same = runs[f"{d}:mpic"]["tokens"] == runs[f"{d}:full_recompute"]["tokens"]
@@ -3805,12 +4384,13 @@ def main() -> int:
     # -- 5m. the trainer on the card -------------------------------------------
     t0 = time.perf_counter()
     print("train: the launcher, then train() in this process:")
-    train_on_card(lambda: no_plain_versions(training=True), env)
+    trained = train_on_card(lambda: no_plain_versions(training=True), env)
     phase("train", t0)
 
     # -- 5n. the SSM and the hybrid trained at full width -------------------
     t0 = time.perf_counter()
-    train_ssm_on_card(lambda: no_plain_versions(training=True))
+    trained.update(train_ssm_on_card(
+        lambda: no_plain_versions(training=True)))
     phase("train_ssm", t0)
 
     # -- 5o. internvl2-76b tensor-parallel ------------------------------------
@@ -3839,24 +4419,6 @@ def main() -> int:
         if scale is not None:
             g = g * scale[pt.long()].repeat_interleave(ps, dim=1)[..., None]
         return g.to(dtype)
-
-    def valid_keys_decode(lens, ps, mp, window):
-        hi = np.minimum(lens, mp * ps)
-        lo = np.maximum(0, lens - window) if window > 0 else 0
-        return np.maximum(hi - lo, 0)
-
-    def valid_keys_prefill(q_pos, length, window):
-        n = np.minimum(q_pos + 1, length)
-        if window > 0:
-            n = n - np.maximum(0, q_pos - window + 1)
-        return np.maximum(n, 0)
-
-    def bound(nbytes, flops, dtype):
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = flops / PEAK_FLOPS["bfloat16" if dtype == torch.bfloat16
-                                   else "float32"]
-        return (max(t_bytes, t_ops) * 1e3,
-                "bytes" if t_bytes >= t_ops else "operations")
 
     def decode_case(q, k, v, ks, vs, pt, lens, window):
         out = paged_attention(q, k, v, pt, lens, k_scale=ks, v_scale=vs,
@@ -3891,14 +4453,11 @@ def main() -> int:
             mask &= idx > lens[:, None] - 1 - window
         q4 = q[:, :, None, :]
         n_keys = valid_keys_decode(lens.cpu().numpy(), ps, mp, window)
-        kv_item = k.element_size()
-        nbytes = (2 * q.numel() * q.element_size()
-                  + 2 * int(n_keys.sum()) * k.shape[2] * dh * kv_item
-                  + pt.numel() * 4 + lens.numel() * 4
-                  + (2 * int(np.ceil(n_keys / ps).sum()) * k.shape[2] * 4
-                     if ks is not None else 0))
-        flops = 4 * dh * hq * int(n_keys.sum())
-        bound_ms, bound_by = bound(nbytes, flops, q.dtype)
+        bound_ms, bound_by = kernel_bound(*paged_decode_kernel_cost(
+            n_keys, batch=b, hq=hq, hkv=k.shape[2], dh=dh,
+            q_item=q.element_size(), kv_item=k.element_size(),
+            table_numel=pt.numel(), page_size=ps, quantized=ks is not None),
+            q.dtype)
 
         def kernel():
             return paged_attention(q, k, v, pt, lens, k_scale=ks, v_scale=vs,
@@ -3940,16 +4499,11 @@ def main() -> int:
             mask &= idx > qp - window
         qt = q.transpose(1, 2).contiguous()
         length = int(lens[0])
-        qp_np = q_pos[0].cpu().numpy()
-        n_keys = valid_keys_prefill(qp_np, length, window)
-        read_keys = min(length, int(qp_np.max()) + 1)
-        nbytes = (2 * q.numel() * q.element_size() + q_pos.numel() * 4
-                  + 2 * read_keys * k.shape[2] * dh * k.element_size()
-                  + pt.numel() * 4 + 4
-                  + (2 * -(-read_keys // ps) * k.shape[2] * 4
-                     if ks is not None else 0))
-        flops = 4 * dh * hq * int(n_keys.sum())
-        bound_ms, bound_by = bound(nbytes, flops, q.dtype)
+        bound_ms, bound_by = kernel_bound(*paged_prefill_kernel_cost(
+            q_pos[0].cpu().numpy(), length, window, q_numel=q.numel(),
+            hq=hq, hkv=k.shape[2], dh=dh, q_item=q.element_size(),
+            kv_item=k.element_size(), table_numel=pt.numel(),
+            page_size=ps, quantized=ks is not None), q.dtype)
 
         def kernel():
             return selective_attention_paged(q, k, v, pt, q_pos, lens,
@@ -4146,10 +4700,10 @@ def main() -> int:
         mask = dense_mask(q_pos, kv_pos, window)
         pairs = int(mask.sum())
         keys = int(mask.any(dim=1).sum())      # keys some query keeps
-        nbytes = (2 * q.numel() * q.element_size()
-                  + 4 * (q_pos.numel() + kv_pos.numel())
-                  + 2 * keys * hkv_ * dh_ * k.element_size())
-        bound_ms, bound_by = bound(nbytes, 4 * dh_ * hq_ * pairs, q.dtype)
+        bound_ms, bound_by = kernel_bound(*dense_attention_kernel_cost(
+            pairs, keys, q_numel=q.numel(),
+            pos_numel=q_pos.numel() + kv_pos.numel(), hq=hq_, hkv=hkv_,
+            dh=dh_, item=q.element_size()), q.dtype)
         rep = hq_ // hkv_
         qt = q.transpose(1, 2).contiguous()
         kt = k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
@@ -4313,16 +4867,11 @@ def main() -> int:
         x, bm = args[0], args[1]
         b, nc, h, q, hd = x.shape
         ds = bm.shape[-1]
-        # each operand read once, each output written once
-        nbytes = 4 * (sum(t.numel() for t in args)
-                      + sum(t.numel() for t in out))
-        # the least work: C.B^T once per chunk (it does not depend on the
-        # head) and only over the kept pairs k <= q; per head the scores
-        # times x over those pairs, their decay and dt factors, the state
-        pairs = q * (q + 1) // 2
-        flops = b * nc * (2 * ds * pairs
-                          + h * (2 * hd * pairs + 4 * pairs + 2 * ds * q * hd))
-        bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+        nbytes, flops = ssd_chunk_kernel_cost(
+            b=b, nc=nc, h=h, q=q, hd=hd, ds=ds,
+            in_numel=sum(t.numel() for t in args),
+            out_numel=sum(t.numel() for t in out))
+        bound_ms, bound_by = kernel_bound(nbytes, flops, torch.float32)
 
         def kernel():
             return ssd_chunk(*args)
@@ -4805,6 +5354,39 @@ def main() -> int:
             raise RuntimeError(f"{arch}: the card's training disagrees with "
                                "the CPU's")
     phase("small_reference", t0)
+
+    # -- 8. every timed step beside its least time on this card --------------
+    t0 = time.perf_counter()
+    least_times = [row for r in [*runs.values(), *trained.values()]
+                   for row in r.get("least", [])]
+    print(f"least times ({card}; peaks of the H100 SXM data sheet at 700 "
+          "W: 989 TFLOP/s bf16, 3.35 TB/s HBM, 450 GB/s NVLink): measured "
+          "/ least, what bounds it, roofline share, MFU")
+    for row in least_times:
+        print(f"  {row['step']}: {row['measured_ms']:.3f} ms / "
+              f"{row['least_ms']:.4f} ms ({row['bound_by']}), share "
+              f"{row['share']:.4f}, mfu {row['mfu']:.4f}"
+              + (f", recording {row['record_ms']:.4f} ms of the measured"
+                 if "record_ms" in row else "")
+              + (f" [{row['note']}]" if row["note"] else ""))
+    recorded = [row for row in least_times if "record_ms" in row]
+    if recorded:
+        worst = max(recorded, key=lambda r: r["record_ms"] / r["measured_ms"])
+        total = (sum(r["record_ms"] for r in recorded)
+                 / sum(r["measured_ms"] for r in recorded))
+        print(f"the recording's host time in the timed steps: at most "
+              f"{worst['record_ms'] / worst['measured_ms']:.4%} of a "
+              f"measured step ({worst['step']}), {total:.4%} over all of "
+              "them", flush=True)
+    print(f"least times: {json.dumps({'card': card, 'steps': least_times})}",
+          flush=True)
+    run_dry_runs(env)
+    over = [f"{row['step']} (share {row['share']:.3f})"
+            for row in least_times if row["share"] > 1.05]
+    if over:
+        raise RuntimeError("steps faster than their least time (the count "
+                           f"overstates their work): {over}")
+    phase("least_times", t0)
 
     # -- report ------------------------------------------------------------
     # launches: every serving run's count, each reset before its first

@@ -32,6 +32,8 @@ from repro_torch.cache.transfer import (
     LoadRecord,
     ParallelLoader,
     PrefetchHandle,
+    TransferPlan,
+    plan_transfers,
 )
 
 __all__ = [
@@ -40,7 +42,7 @@ __all__ = [
     "MemoryBackend", "NetworkBackend", "PagedConfig", "PagedKVPool",
     "ParallelLoader", "PeerBreaker", "PeerTransport", "PrefetchHandle",
     "QuantizedKV", "ReplicaCrash", "StorageBackend", "TIER_DISK", "TIER_HBM",
-    "TIER_HOST", "TIER_NETWORK", "content_key", "dequantize_kv",
-    "payload_from_bytes", "payload_to_bytes", "quantize_kv", "scope_digest",
-    "verify_payload",
+    "TIER_HOST", "TIER_NETWORK", "TransferPlan", "content_key", "dequantize_kv",
+    "payload_from_bytes", "payload_to_bytes", "plan_transfers",
+    "quantize_kv", "scope_digest", "verify_payload",
 ]

@@ -70,6 +70,15 @@ TIER_HOST = "host"
 TIER_DISK = "disk"
 TIER_NETWORK = "network"
 
+# per-tier load rates (bytes/s) of the analytic transfer plan
+# (``transfer.plan_transfers``); real loads go through the backends
+# whatever these say.  The host tier is one PCIe Gen5 x16 link a card
+# (64 GB/s a direction); disk (3.5 GB/s, an NVMe drive) and network
+# (1.25 GB/s, a 10 GbE peer link) are the reference's assumptions, not
+# measurements.
+TIER_BW = {TIER_HBM: float("inf"), TIER_HOST: 64e9,
+           TIER_DISK: 3.5e9, TIER_NETWORK: 1.25e9}
+
 
 # ---------------------------------------------------------------------------
 # payload and metadata

@@ -19,8 +19,10 @@ carry its id (``replica=``), a fetch of one ``(user, media)`` already in
 flight for another replica is shared, and the consuming handle marks the
 entry warm on its own replica at gather time (``KVLibrary.touch``).
 
-Not ported: ``TransferPlan`` / ``plan_transfers`` (the analytic model of
-the JAX package's Fig. 6 benchmark).
+:class:`TransferPlan` / :func:`plan_transfers` are the paper's Eq. 1
+load/compute model (Fig. 6): the blocks that hit, at their tier's rate
+(``backends.TIER_BW``), against the misses' recompute, pipelined ``T =
+max(load, compute)`` and sequential ``T = load + compute``.
 """
 from __future__ import annotations
 
@@ -28,8 +30,9 @@ import concurrent.futures as cf
 import dataclasses
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+from repro_torch.cache.backends import TIER_BW
 from repro_torch.cache.library import (
     TIER_DISK,
     TIER_HBM,
@@ -44,6 +47,45 @@ from repro_torch.cache.library import (
 # miss is a pull)
 _TIER_RANK = {TIER_NETWORK: 0, TIER_DISK: 1, TIER_HOST: 2, TIER_HBM: 3,
               None: 4}
+
+
+@dataclasses.dataclass
+class TransferPlan:
+    """The analytic Fig. 6 schedule of one request: which blocks hit (and
+    from which tier), which miss, and the modelled wall times."""
+    hits: List[Tuple[str, str, int]]      # (media_id, tier, nbytes)
+    misses: List[str]
+    load_s: float
+    compute_s: float
+
+    @property
+    def parallel_s(self) -> float:
+        """Pipelined wall time, ``T ~ max(load, compute)`` (Eq. 1)."""
+        return max(self.load_s, self.compute_s)
+
+    @property
+    def sequential_s(self) -> float:
+        """Wall time with no overlap: ``load + compute``."""
+        return self.load_s + self.compute_s
+
+
+def plan_transfers(library: KVLibrary, user_id: str,
+                   media_ids: Sequence[str],
+                   compute_estimator: Callable[[str], float]) -> TransferPlan:
+    """One request's load/compute overlap from the library's current
+    placement (``peek_tier``) and ``TIER_BW``; a miss costs
+    ``compute_estimator(media_id)`` seconds.  Read-only."""
+    hits, misses, load_s = [], [], 0.0
+    for mid in media_ids:
+        tier = library.peek_tier(user_id, mid)
+        if tier is None:
+            misses.append(mid)
+            continue
+        e = library._entries[library._key(user_id, mid)]
+        hits.append((mid, tier, e.nbytes))
+        load_s += e.nbytes / TIER_BW[tier]
+    compute_s = sum(compute_estimator(m) for m in misses)
+    return TransferPlan(hits, misses, load_s, compute_s)
 
 
 @dataclasses.dataclass

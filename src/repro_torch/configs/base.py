@@ -5,7 +5,9 @@ configuration reads the same in both packages and the tests can compare
 them with ``dataclasses.asdict``.  The port serves the attention-only
 architectures, the pure SSM, the attention + SSM hybrid and the audio
 encoder-decoder (``Model`` rejects other combinations); every field is
-kept so that the two dataclasses stay interchangeable.
+kept so that the two dataclasses stay interchangeable.  ``n_params`` /
+``n_active_params``, :class:`InputShape` and :data:`INPUT_SHAPES` (the
+dry run's four input shapes) are the reference's too.
 """
 from __future__ import annotations
 
@@ -93,6 +95,66 @@ class ModelConfig:
     @property
     def ssm_num_heads(self) -> int:
         return self.ssm_inner // self.ssm_head_dim
+
+    def n_params(self) -> int:
+        """Analytic parameter count, the reference's formula term for term
+        (the 6ND model FLOPs of ``roofline.model_flops`` read it)."""
+        d, L = self.d_model, self.num_layers
+        n = self.vocab_size * d  # embed
+        if not self.tie_embeddings:
+            n += self.vocab_size * d
+        per_layer = 0
+        if not self.attn_free:
+            per_layer += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+            if self.qkv_bias:
+                per_layer += self.q_dim + 2 * self.kv_dim
+        if self.arch_type in ("moe",):
+            per_layer += d * self.num_experts  # router
+            per_layer += (self.num_experts + self.num_shared_experts) * 3 * d * self.d_ff
+        elif self.arch_type == "ssm":
+            di, ds, nh = self.ssm_inner, self.ssm_state, self.ssm_num_heads
+            per_layer += d * (2 * di + 2 * ds + nh)  # in_proj(z,x) + B,C + dt
+            per_layer += di * d  # out_proj
+            per_layer += self.ssm_conv_width * di + nh + di  # conv, A, D
+        else:
+            per_layer += 3 * d * self.d_ff
+        if self.hybrid:
+            di, ds, nh = self.ssm_inner, self.ssm_state, self.ssm_num_heads
+            per_layer += d * (2 * di + 2 * ds + nh) + di * d
+            per_layer += self.ssm_conv_width * di + nh + di
+        per_layer += 2 * d  # norms
+        n += L * per_layer
+        if self.is_encoder_decoder:
+            # encoder self-attn + ffn, decoder cross-attn
+            enc = self.encoder_layers * (4 * d * d + 3 * d * self.d_ff + 2 * d)
+            cross = L * (4 * d * d)
+            n += enc + cross
+        return n
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: only routed experts that fire)."""
+        if self.arch_type != "moe":
+            return self.n_params()
+        full = self.n_params()
+        inactive = (self.num_experts - self.experts_per_token)
+        per_expert = 3 * self.d_model * self.d_ff
+        return full - self.num_layers * inactive * per_expert
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
 
 
 def reduced(cfg: ModelConfig, **over) -> ModelConfig:

@@ -4,7 +4,7 @@ Every entry point takes ``device=None`` and means the card by it.  Only a
 caller that asks for ``"cpu"`` gets the CPU, where the kernels' plain
 PyTorch versions run; there is no silent fallback from the card to the CPU.
 ``"meta"`` builds shapes without memory (the tensor-parallel plan reads a
-model's parameter shapes so).
+model's parameter shapes so, and the dry run traces whole steps there).
 """
 from __future__ import annotations
 

@@ -6,7 +6,8 @@ plain version on the CPU.
 (B,) int32; optional k_scale/v_scale (P, Hkv) fp32 for the int8 pool.
 It returns (B, Hq, Dh) in q's dtype.
 
-A CPU tensor goes to :func:`paged_attention_ref`.  A CUDA tensor launches
+A CPU tensor goes to :func:`paged_attention_ref`, as does a ``meta`` one
+(the dry run's shapes; it launches nothing).  A CUDA tensor launches
 ``csrc/paged_attn.cu`` (``paged_attn`` for a 16-bit or fp32 pool,
 ``paged_attn_q8`` for an int8 pool) or raises: there is no fallback on the
 card.  The C entry runs the split-key kernel, which writes one fp32 partial
@@ -79,7 +80,8 @@ def _check(cond: bool, what: str) -> None:
 
 def paged_attention(q, k_pool, v_pool, page_table, lengths, *,
                     k_scale=None, v_scale=None, window: int = 0):
-    if q.device.type == "cpu":
+    # meta runs no kernel: the plain version computes its shapes
+    if q.device.type in ("cpu", "meta"):
         return paged_attention_ref(q, k_pool, v_pool, page_table, lengths,
                                    k_scale, v_scale, window=window)
     if q.device.type != "cuda":

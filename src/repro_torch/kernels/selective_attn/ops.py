@@ -4,7 +4,8 @@ versions on the CPU.
 ``selective_attention`` (dense, over an explicit ``kv_pos``) takes the
 model's layout: q (B, Sq, Hq, Dh); k/v (B, Skv, Hkv, Dh); q_pos (B, Sq)
 int32; kv_pos (B, Skv) int32 with ``INVALID_POS`` for an empty slot, in any
-order.  It returns (B, Sq, Hq, Dh) in q's dtype.  A CPU tensor goes to
+order.  It returns (B, Sq, Hq, Dh) in q's dtype.  A CPU tensor (and a
+``meta`` one: the dry run's shapes) goes to
 :func:`selective_attention_ref` (layout (B, H, S, Dh)); a CUDA tensor
 launches ``sel_attn`` of ``csrc/selective_attn.cu``, which reads every
 operand in place and masks both ragged edges itself (the JAX wrapper pads
@@ -118,7 +119,8 @@ def _check(cond: bool, what: str, name="selective_attention_paged") -> None:
 
 
 def selective_attention(q, k, v, q_pos, kv_pos, *, window: int = 0):
-    if q.device.type == "cpu":
+    # meta runs no kernel: the plain version computes its shapes
+    if q.device.type in ("cpu", "meta"):
         out = selective_attention_ref(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), q_pos,
             kv_pos, window=window)
@@ -169,7 +171,8 @@ def selective_attention(q, k, v, q_pos, kv_pos, *, window: int = 0):
 
 def selective_attention_paged(q, k_pool, v_pool, page_table, q_pos, lengths,
                               *, k_scale=None, v_scale=None, window: int = 0):
-    if q.device.type == "cpu":
+    # meta runs no kernel: the plain version computes its shapes
+    if q.device.type in ("cpu", "meta"):
         out = selective_attention_paged_ref(
             q.transpose(1, 2), k_pool, v_pool, page_table, q_pos, lengths,
             k_scale, v_scale, window=window)

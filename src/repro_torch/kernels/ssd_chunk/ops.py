@@ -10,7 +10,8 @@ be strided views: the model holds x as (B, NC, Q, H, hd) and la/dt as
 through their strides; only the last dim of x, bm and cm must have unit
 stride.
 
-A CPU tensor goes to :func:`ssd_chunk_ref`.  A CUDA tensor launches
+A CPU tensor goes to :func:`ssd_chunk_ref`, as does a ``meta`` one
+(the dry run's shapes; it launches nothing).  A CUDA tensor launches
 ``csrc/ssd_chunk.cu`` or raises: there is no fallback on the card.
 :func:`ssd_route` picks one of two routes from the host's shapes alone:
 
@@ -80,7 +81,8 @@ def _check(cond: bool, what: str) -> None:
 
 
 def ssd_chunk(x, bm, cm, la, dt):
-    if x.device.type == "cpu":
+    # meta runs no kernel: the plain version computes its shapes
+    if x.device.type in ("cpu", "meta"):
         return ssd_chunk_ref(x, bm, cm, la, dt)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk: unsupported device {x.device}")

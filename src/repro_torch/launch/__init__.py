@@ -1,2 +1,3 @@
-"""Entry points of the port: ``python -m repro_torch.launch.serve`` and
-``python -m repro_torch.launch.train``."""
+"""Entry points of the port: ``python -m repro_torch.launch.serve``,
+``python -m repro_torch.launch.train`` and ``python -m
+repro_torch.launch.dryrun`` (on the ``meta`` device)."""

@@ -1,4 +1,5 @@
-"""The serving mesh (port of the JAX package's ``launch/mesh.py``).
+"""The serving mesh, the production mesh and the card's rates (port of the
+JAX package's ``launch/mesh.py``).
 
 The reference runs one controller over a ``data x model`` device mesh and
 lets GSPMD insert the collectives.  The port runs one process per rank of
@@ -14,14 +15,23 @@ tensors but gathers none, so :meth:`ServingMesh.all_gather` runs a
 zero-padded ``all_reduce`` there).  The ``data`` axis is not ported: a
 mesh with ``data > 1`` raises (ROADMAP.md, queue 1); the port's replicas
 and cluster serve slots in parallel instead.
+
+:class:`RecordingMesh` stands in for one rank of a ``model`` axis on the
+``meta`` device: its collectives return shape-correct results, make no
+process group and are recorded; :func:`record_collectives` records a live
+mesh's alike.  :func:`make_production_mesh` describes the dry run's mesh
+(axis names and sizes, nothing more), and the ``H100_*`` constants are the
+card's data-sheet rates that ``roofline`` reads.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import os
+import math
 import socket
-from typing import Optional
+from typing import Iterator, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -30,6 +40,21 @@ from repro_torch.device import resolve_device
 
 AXES = ("data", "model")
 INIT_TIMEOUT_S = 120.0      # process group set-up and every collective
+
+# NVIDIA H100 80GB HBM3 (SXM5) data sheet, dense rates at its 700 W power
+# limit: the roofline's peaks.  A card set below 700 W runs slower under
+# load, so a share against these peaks is stated beside the card's limit.
+H100_PEAK_FLOPS_BF16 = 989e12       # tensor cores, bf16 and fp16
+H100_PEAK_FLOPS_FP32 = 67e12        # fp32 outside the tensor cores
+H100_HBM_BW = 3.35e12               # bytes/s
+H100_NVLINK_BW = 450e9              # NVLink 4, bytes/s a direction: model
+H100_NDR_BW = 50e9                  # one 400 Gb/s NDR link a card: data, pod
+
+# the production mesh: one 8-card NVLink node per model group, 32 of them
+# (256 cards) on the data axis, and two such pods
+PRODUCTION_MODEL = 8
+PRODUCTION_DATA = 32
+PRODUCTION_PODS = 2
 
 
 @dataclasses.dataclass
@@ -144,12 +169,119 @@ def make_serving_mesh(data: int = 1, model: int = 0, *, device=None,
                        device=dev)
 
 
-def serving_rules() -> dict:
-    """Logical name -> mesh axis for the serving path: heads, kv heads,
-    the MLP, experts and the vocabulary on ``model``, the batch of slots
-    on ``data``, no sequence axis (the reference's ``activation_rules``
-    with their defaults).  ``launch.specs.param_pspecs`` reads the kv
-    heads' axis from it."""
-    return {"batch": ("data",), "seq": None, "kv_seq": None,
-            "heads": "model", "kv_heads": "model", "mlp": "model",
-            "experts": "model", "vocab": "model"}
+def batch_axes(multi_pod: bool) -> Tuple[str, ...]:
+    return ("pod", "data") if multi_pod else ("data",)
+
+
+def activation_rules(*, multi_pod: bool = False) -> dict:
+    """Logical name -> mesh axis, the reference's rules with no sequence
+    axis: the batch on :func:`batch_axes`, heads, kv heads, the MLP,
+    experts and the vocabulary on ``model``.  ``launch.specs`` reads the
+    batch's axes (the dry run) and the kv heads' axis (the serving cut)
+    from it."""
+    return {
+        "batch": batch_axes(multi_pod),
+        "seq": None,
+        "kv_seq": None,
+        "heads": "model",
+        "kv_heads": "model",
+        "mlp": "model",
+        "experts": "model",
+        "vocab": "model",
+    }
+
+
+@dataclasses.dataclass(frozen=True)
+class ProductionMesh:
+    """An abstract mesh: its axis names and sizes.  No process group and
+    no device stands behind it; the dry run and the partition specs read
+    it as they read a live mesh (``axis_names`` and ``shape``)."""
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def name(self) -> str:
+        return "x".join(str(n) for n in self.shape)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
+    """``data 32 x model 8`` (256 cards: an 8-card NVLink node per model
+    group), or ``pod 2 x data 32 x model 8`` (512) with ``multi_pod``,
+    where the reference's TPU mesh is 16 x 16 (x 2)."""
+    if multi_pod:
+        return ProductionMesh(("pod", "data", "model"), (
+            PRODUCTION_PODS, PRODUCTION_DATA, PRODUCTION_MODEL))
+    return ProductionMesh(AXES, (PRODUCTION_DATA, PRODUCTION_MODEL))
+
+
+@dataclasses.dataclass(frozen=True)
+class Collective:
+    """One collective a rank ran: its kind (``"all-reduce"`` or
+    ``"all-gather"``, as the reference's HLO names them), the bytes of its
+    result and the size of its group."""
+    kind: str
+    result_bytes: int
+    group: int
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+class RecordingMesh(ServingMesh):
+    """One rank of a ``1 x model`` mesh on ``device`` (``meta`` by
+    default) with no process group: ``all_reduce`` returns its input,
+    ``all_gather`` an uninitialised tensor of the gathered shape, and
+    every call lands in :attr:`calls`."""
+
+    def __init__(self, model: int, rank: int = 0, device="meta"):
+        super().__init__(data=1, model=model, rank=rank, backend="none",
+                         device=torch.device(device))
+        self.calls: List[Collective] = []
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        self.calls.append(Collective("all-reduce", _nbytes(x), self.model))
+        return x
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        dim %= x.dim()
+        shape = list(x.shape)
+        shape[dim] *= self.model
+        out = x.new_empty(shape)
+        self.calls.append(Collective("all-gather", _nbytes(out), self.model))
+        return out
+
+    def broadcast_object(self, obj):
+        return obj
+
+    def close(self) -> None:
+        pass
+
+
+@contextlib.contextmanager
+def record_collectives(mesh: ServingMesh) -> Iterator[List[Collective]]:
+    """Every ``all_reduce`` and ``all_gather`` that the live ``mesh`` runs
+    inside the block, appended to the yielded list as :class:`Collective`
+    records (the collectives themselves run as before)."""
+    calls: List[Collective] = []
+    reduce, gather = mesh.all_reduce, mesh.all_gather
+
+    def all_reduce(x):
+        out = reduce(x)
+        calls.append(Collective("all-reduce", _nbytes(out), mesh.model))
+        return out
+
+    def all_gather(x, dim):
+        out = gather(x, dim)
+        calls.append(Collective("all-gather", _nbytes(out), mesh.model))
+        return out
+
+    mesh.all_reduce, mesh.all_gather = all_reduce, all_gather
+    try:
+        yield calls
+    finally:
+        del mesh.all_reduce, mesh.all_gather

@@ -1,17 +1,18 @@
-"""Tensor-parallel partition specs of the serving path (port of the part of
-the JAX package's ``launch/specs.py`` that serving reads; its dry-run step
-functions, input specs and dense-cache specs are not ported yet, ROADMAP.md
-queue 1).
+"""Partition specs, step functions and input specs (port of the JAX
+package's ``launch/specs.py``): the tensor-parallel cut that serving
+reads, and the dry run's half.
 
-A spec is a tuple with one entry per dimension: a mesh axis name, or None
-for a replicated dimension.  :func:`leaf_spec` is the reference's
-``_leaf_spec`` without FSDP (``wq``/``wk``/``wv``, ``w_gate``/``w_up``
+A spec is a tuple with one entry per dimension: a mesh axis name (or a
+tuple of names), or None for a replicated dimension.  :func:`leaf_spec` is
+the reference's ``_leaf_spec`` (``wq``/``wk``/``wv``, ``w_gate``/``w_up``
 and the SSM's input projections column-parallel on ``model``,
 ``wo``/``w_down``/``out_proj`` row-parallel, ``embed`` on its vocabulary
-rows, ``lm_head`` on its last dimension) and :func:`guard` its ``_guard``
-(an axis that does not divide its dimension is dropped); both read the
-JAX tree's paths, layers stacked on axis 0.  :func:`param_pspecs` applies
-them to the port's per-layer parameters, with two rules of the port's own:
+rows, ``lm_head`` on its last dimension; with ``fsdp`` the complementary
+dimension on ``data``, the train rows' description) and :func:`guard` its
+``_guard`` (an axis that does not divide its dimension is dropped); both
+read the JAX tree's paths, layers stacked on axis 0.
+:func:`param_pspecs` applies them, without FSDP, to the port's per-layer
+parameters, with two rules of the port's own:
 
 * attention is cut by whole kv heads or not at all: where the kv heads do
   not divide the ``model`` axis, every attention leaf is replicated (the
@@ -26,15 +27,28 @@ specs which products are cut, and :func:`local_config` (the config whose
 shapes one rank's shard, KV pool and dense cache have) reads :func:`cuts`.
 :func:`shard_params` cuts a whole :class:`~repro_torch.models.transformer.
 Transformer` into one rank's shard.
+
+The dry run's half runs on the ``meta`` device: :func:`make_step_fn` and
+:func:`input_specs` (``prefill``, ``mpic_prefill`` and ``decode`` on the
+dense cache), :func:`make_serving_step_fn` and :func:`serving_input_specs`
+(``serve_decode`` and ``serve_prefill`` on the paged pool, laid out by
+``ServingSharding``), :func:`step_kind`, :func:`decode_kv_len` and
+:func:`cache_pspecs`.  Inputs are ``meta`` tensors of the global shapes
+beside their specs, where the reference has ``ShapeDtypeStruct`` and
+``NamedSharding``; :func:`localize` cuts them to one rank's shapes.
+:func:`cache_pspecs` is the reference's, and the port's dense-cache cut
+wherever the kv heads divide ``model``; where they do not, the reference
+cuts the sequence on ``model`` and the port keeps each rank's cache whole
+(attention replicated), which :func:`localize` follows.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.launch.mesh import serving_rules
+from repro_torch.launch.mesh import activation_rules
 from repro_torch.launch.pspec import axis_divides
 from repro_torch.weights import leaf_path
 
@@ -47,27 +61,41 @@ _ATTN = ("attn",)
 _BIAS_OF = {"bq": "wq", "bk": "wk", "bv": "wv"}
 
 
-def leaf_spec(path: str, ndim: int) -> Spec:
+def leaf_spec(path: str, ndim: int, *, fsdp: bool = False) -> Spec:
     """One parameter leaf of the JAX tree (``path`` like
     ``/layers/attn/wq``, ``ndim`` counting the stacked layer axis) -> its
-    spec: tensor parallelism on ``model``."""
+    spec: tensor parallelism on ``model``, and with ``fsdp`` the other
+    matrix dimension on ``data``."""
     name = path.split("/")[-1]
     stacked = "/layers/" in path or "/enc_layers/" in path
     spec = [None] * ndim
     if name == "embed":
         spec[0] = "model"
+        if fsdp:
+            spec[1] = "data"
     elif name == "lm_head":
         spec[-1] = "model"
+        if fsdp:
+            spec[-2] = "data"
+    elif name in ("pos_embed", "enc_pos_embed"):
+        if fsdp and ndim >= 2:
+            spec[-2] = "data"
     elif name in _COL and ndim >= 2:
         spec[-1] = "model"
+        if fsdp:
+            spec[-2] = "data"
     elif name in _ROW and ndim >= 2:
         spec[-2] = "model"
+        if fsdp:
+            spec[-1] = "data"
     elif name == "conv_w" and ndim >= 2:
         spec[-1] = "model"
     if "/moe/" in path and name in ("w_gate", "w_up", "w_down") and \
             "/shared/" not in path:
         spec = [None] * ndim
         spec[1 if stacked else 0] = "model"
+        if fsdp:
+            spec[-1 if name == "w_down" else -2] = "data"
     return tuple(spec)
 
 
@@ -87,7 +115,7 @@ def param_pspecs(cfg, mesh) -> Dict[str, Spec]:
     layer's leaves unstacked: the reference's decision with the layer axis
     dropped), under the port's attention and bias rules."""
     attn_ok = bool(cfg.num_kv_heads) and axis_divides(
-        mesh, serving_rules()["kv_heads"], cfg.num_kv_heads)
+        mesh, activation_rules()["kv_heads"], cfg.num_kv_heads)
     specs = {}
     for name, p in _meta_params(cfg).named_parameters():
         path, index = leaf_path(name)
@@ -166,3 +194,310 @@ def shard_params(params, mesh, specs: Dict[str, Spec] = None):
         for name, p in shard.named_parameters():
             p.copy_(shard_leaf(whole[name], specs[name], mesh))
     return shard
+
+
+# ---------------------------------------------------------------------------
+# the dry run: which steps, their inputs and the dense cache's specs
+# ---------------------------------------------------------------------------
+
+def _sizes(mesh) -> Dict[str, int]:
+    return dict(zip(mesh.axis_names, mesh.shape))
+
+
+def step_kind(cfg, shape) -> Optional[str]:
+    """The step a shape runs for this arch; None: skipped (the
+    reference's rule)."""
+    if shape.kind == "train":
+        return "train"
+    if shape.kind == "prefill":
+        return "prefill"
+    if shape.seq_len > 32768:
+        if cfg.is_encoder_decoder:
+            return None        # whisper: the decoder's context is small
+        if cfg.arch_type == "ssm" or cfg.hybrid or cfg.sliding_window:
+            return "decode"    # a sub-quadratic path exists
+        return None
+    return "decode"
+
+
+def decode_kv_len(cfg, shape) -> int:
+    """The cache a decode shape needs: the window for a long context with
+    one (the sub-quadratic path)."""
+    if shape.seq_len > 32768 and cfg.sliding_window:
+        return cfg.sliding_window
+    return shape.seq_len
+
+
+def _dims(cfg, shape, mesh):
+    """(batch spec, kv-sequence spec, multi_pod): the batch on the batch
+    axes where they divide it, else on ``data`` alone, else nowhere, and
+    then a long decode's KV sequence on ``data``."""
+    multi_pod = "pod" in mesh.axis_names
+    ba = activation_rules(multi_pod=multi_pod)["batch"]
+    sizes = _sizes(mesh)
+    bsz = 1
+    for a in ba:
+        bsz *= sizes[a]
+    batch_spec = ba if shape.global_batch % bsz == 0 else (
+        ("data",) if shape.global_batch % sizes["data"] == 0 else None)
+    kv_seq_spec = "data" if batch_spec is None else None
+    return batch_spec, kv_seq_spec, multi_pod
+
+
+def _kv_head_axis(cfg, mesh):
+    return "model" if (cfg.num_kv_heads and cfg.num_kv_heads
+                       % _sizes(mesh)["model"] == 0) else None
+
+
+def _axis(spec):
+    """One axis named by a 1-tuple is named alone (as ``PartitionSpec``
+    normalizes it)."""
+    return spec[0] if isinstance(spec, tuple) and len(spec) == 1 else spec
+
+
+def cache_pspecs(cfg, mesh, batch_spec, kv_seq_spec) -> Dict[str, Spec]:
+    """Specs of the dense cache's tensors (the reference's; see the
+    module's docstring for where the port's cut differs)."""
+    batch_spec = _axis(batch_spec)
+    kh = _kv_head_axis(cfg, mesh)
+    seq_model = None if kh else "model"
+    out = {}
+    if not cfg.attn_free:
+        kv = (None, batch_spec, kv_seq_spec or seq_model, kh, None)
+        out["k"] = out["v"] = kv
+        out["pos"] = (batch_spec, kv_seq_spec or seq_model)
+    if cfg.arch_type == "ssm" or cfg.hybrid:
+        out["ssm_h"] = (None, batch_spec, None, None, None)
+        out["ssm_conv"] = (None, batch_spec, None, "model"
+                           if cfg.ssm_inner % mesh.shape[-1] == 0 else None)
+    if cfg.is_encoder_decoder:
+        out["cross_k"] = out["cross_v"] = (None, batch_spec, None,
+                                           _kv_head_axis(cfg, mesh), None)
+    return out
+
+
+def make_step_fn(cfg, kind: str, shape):
+    """The step ``kind`` runs, as a function of the parameters and
+    :func:`input_specs`' inputs, through the port's passes (``cfg``: the
+    config whose shapes the parameters have, a rank's
+    :func:`local_config` under a mesh)."""
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tf
+    model = build_model(cfg)
+
+    if kind == "prefill":
+        def fn(params, batch):
+            tokens = batch["tokens"]
+            cache = model.make_cache(tokens.shape[0], tokens.shape[1],
+                                     device=tokens.device)
+            return model.prefill(
+                params, tokens, cache,
+                media_embeds=batch.get("media_embeds"),
+                media_mask=batch.get("media_mask"),
+                audio_embeds=batch.get("audio_embeds"))
+        return fn
+
+    if kind == "mpic_prefill":
+        def fn(params, batch, cache):
+            return model.selective_prefill(
+                params, batch["sel_tokens"], batch["sel_pos"], cache,
+                batch["sel_pos"], media_embeds=batch.get("media_embeds"),
+                media_mask=batch.get("media_mask"))
+        return fn
+
+    if kind == "decode":
+        def fn(params, cache, token, position):
+            window = cfg.sliding_window
+            wi = (position % window if shape.seq_len > 32768 and window
+                  else position)            # a ring buffer's slot
+            x = model.embed(params, token, positions=position)
+            logits, cache = tf.forward_with_cache(params, cfg, x, position,
+                                                  cache, wi)
+            return logits[:, -1, :], cache
+        return fn
+
+    if kind == "train":
+        raise NotImplementedError(
+            "the train step under a mesh is not ported (ROADMAP.md, queue 1 "
+            "item 6)")
+    raise ValueError(kind)
+
+
+# the share of a prompt that an mpic prefill recomputes (the reference's
+# ``mpic_sel_frac``)
+MPIC_SEL_FRAC = 0.125
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg, shape, kind: str, mesh):
+    """``(args, specs)``: ``meta`` tensors of every input of the step at
+    its global shapes, and their specs (the reference's layout)."""
+    from repro_torch.device import torch_dtype
+    batch_spec, kv_seq_spec, _ = _dims(cfg, shape, mesh)
+    b, s = shape.global_batch, shape.seq_len
+    cd, i32 = torch_dtype(cfg.compute_dtype), torch.int32
+    rows, rows3 = (_axis(batch_spec), None), (_axis(batch_spec), None, None)
+
+    def media(batch, specs, n):
+        if cfg.is_multimodal:
+            batch["media_embeds"] = _meta((b, n, cfg.d_model), cd)
+            batch["media_mask"] = _meta((b, n), torch.bool)
+            specs["media_embeds"], specs["media_mask"] = rows3, rows
+        if cfg.is_encoder_decoder:
+            batch["audio_embeds"] = _meta((b, cfg.encoder_seq, cfg.d_model),
+                                          cd)
+            specs["audio_embeds"] = rows3
+
+    if kind in ("train", "prefill"):
+        batch, specs = {"tokens": _meta((b, s), i32)}, {"tokens": rows}
+        if kind == "train":
+            batch["labels"], specs["labels"] = _meta((b, s), i32), rows
+        media(batch, specs, s)
+        return (batch,), (specs,)
+
+    if kind == "mpic_prefill":
+        s_sel = max(int(s * MPIC_SEL_FRAC), 1)
+        batch = {"sel_tokens": _meta((b, s_sel), i32),
+                 "sel_pos": _meta((b, s_sel), i32)}
+        specs = {"sel_tokens": rows, "sel_pos": rows}
+        if cfg.is_multimodal:
+            batch["media_embeds"] = _meta((b, s_sel, cfg.d_model), cd)
+            batch["media_mask"] = _meta((b, s_sel), torch.bool)
+            specs["media_embeds"], specs["media_mask"] = rows3, rows
+        cache, cache_sp = _cache_specs(cfg, mesh, b, s, batch_spec,
+                                       kv_seq_spec)
+        return (batch, cache), (specs, cache_sp)
+
+    if kind == "decode":
+        cache, cache_sp = _cache_specs(cfg, mesh, b, decode_kv_len(cfg, shape),
+                                       batch_spec, kv_seq_spec)
+        tok = _meta((b, 1), i32)
+        return (cache, tok, _meta((b, 1), i32)), (cache_sp, rows, rows)
+
+    raise ValueError(kind)
+
+
+def _cache_specs(cfg, mesh, batch: int, kv_len: int, batch_spec,
+                 kv_seq_spec):
+    from repro_torch.device import torch_dtype
+    cd = torch_dtype(cfg.compute_dtype)
+    L = cfg.num_layers
+    specs = cache_pspecs(cfg, mesh, batch_spec, kv_seq_spec)
+    cache = {}
+    if not cfg.attn_free:
+        kv = (L, batch, kv_len, cfg.num_kv_heads, cfg.head_dim)
+        cache["k"], cache["v"] = _meta(kv, cd), _meta(kv, cd)
+        cache["pos"] = _meta((batch, kv_len), torch.int32)
+    if cfg.arch_type == "ssm" or cfg.hybrid:
+        cache["ssm_h"] = _meta((L, batch, cfg.ssm_num_heads, cfg.ssm_state,
+                                cfg.ssm_head_dim), torch.float32)
+        cache["ssm_conv"] = _meta((L, batch, cfg.ssm_conv_width - 1,
+                                   cfg.ssm_inner), cd)
+    if cfg.is_encoder_decoder:
+        cross = (L, batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
+        cache["cross_k"], cache["cross_v"] = _meta(cross, cd), _meta(cross,
+                                                                     cd)
+    return cache, {k: specs[k] for k in cache}
+
+
+def localize(args, specs, mesh, *, cut_model: bool = True):
+    """One rank's ``meta`` inputs from global ``args`` and their
+    ``specs`` (nested alike: tuples and dicts of tensors): each dimension
+    divided by the sizes of the axes its spec names.  ``cut_model=False``
+    keeps ``model`` dimensions whole (the port's dense cache where
+    attention is replicated)."""
+    sizes = _sizes(mesh)
+    if isinstance(args, dict):
+        return {k: localize(v, specs[k], mesh, cut_model=cut_model)
+                for k, v in args.items()}
+    if isinstance(args, (tuple, list)):
+        return type(args)(localize(a, sp, mesh, cut_model=cut_model)
+                          for a, sp in zip(args, specs))
+    shape = list(args.shape)
+    for d, ax in enumerate(specs):
+        names = ax if isinstance(ax, tuple) else (ax,)
+        for n in names:
+            if n is None or (n == "model" and not cut_model):
+                continue
+            if shape[d] % sizes[n]:
+                raise ValueError(f"dimension {d} of {tuple(args.shape)} does "
+                                 f"not divide over {n} ({sizes[n]})")
+            shape[d] //= sizes[n]
+    return torch.empty(shape, dtype=args.dtype, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# the serving steps on the paged pool
+# ---------------------------------------------------------------------------
+
+SERVE_PAGE_SIZE = 16
+
+
+def make_serving_step_fn(cfg, kind: str):
+    """The engine's paged step as a function of the parameters and
+    :func:`serving_input_specs`' inputs: ``serve_decode``
+    one token for every slot against the pool, ``serve_prefill`` the
+    paged selective prefill of one admission (``cfg``: the config of the
+    parameters' shapes, a rank's ``local_config``)."""
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tf
+    model = build_model(cfg)
+
+    if kind == "serve_decode":
+        def fn(params, pool_k, pool_v, token, position, page_table, lengths,
+               write_pages, write_offs):
+            x = model.embed(params, token, positions=position)
+            return tf.decode_paged(params, cfg, x, position, pool_k, pool_v,
+                                   page_table, lengths, write_pages,
+                                   write_offs)
+        return fn
+
+    if kind == "serve_prefill":
+        def fn(params, pool_k, pool_v, sel_tokens, sel_pos, page_table,
+               lengths, write_pages, write_offs):
+            x = model.embed(params, sel_tokens, positions=sel_pos)
+            return tf.selective_prefill_paged(
+                params, cfg, x, sel_pos, pool_k, pool_v, page_table, lengths,
+                write_pages, write_offs)
+        return fn
+
+    raise ValueError(kind)
+
+
+def serving_input_specs(cfg, mesh, *, slots: int, kv_len: int, kind: str,
+                        s_sel: Optional[int] = None):
+    """``(args, specs)`` of the serving step's inputs at global shapes:
+    the pool cut as ``ServingSharding`` cuts it (kv heads on ``model``
+    where attention is cut), everything else replicated, as every rank
+    builds the same host operands.  ``serve_prefill`` is one admission
+    (batch 1) of ``s_sel`` selected tokens (``kv_len x MPIC_SEL_FRAC`` by
+    default), on pages of ``SERVE_PAGE_SIZE`` slots."""
+    from repro_torch.device import torch_dtype
+    from repro_torch.serving.sharding import ServingSharding
+    sh = ServingSharding(mesh, cfg)
+    cd, i32 = torch_dtype(cfg.compute_dtype), torch.int32
+    page_size = SERVE_PAGE_SIZE
+    pages_per_slot = -(-kv_len // page_size)
+    num_pages = slots * pages_per_slot + 1          # + the scratch page
+    pool = _meta((cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+                  cfg.head_dim), cd)
+    pool_sp = (None, None, None, "model" if sh.attn else None, None)
+    rep1, rep2 = (None,), (None, None)
+
+    if kind == "serve_decode":
+        tok, vec = _meta((slots, 1), i32), _meta((slots,), i32)
+        table = _meta((slots, pages_per_slot), i32)
+        return ((pool, pool, tok, tok, table, vec, vec, vec),
+                (pool_sp, pool_sp, rep2, rep2, rep2, rep1, rep1, rep1))
+
+    if kind == "serve_prefill":
+        n = s_sel or max(int(kv_len * MPIC_SEL_FRAC), 1)
+        sel = _meta((1, n), i32)
+        return ((pool, pool, sel, sel, _meta((1, pages_per_slot), i32),
+                 _meta((1,), i32), sel, sel),
+                (pool_sp, pool_sp, rep2, rep2, rep2, rep1, rep2, rep2))
+
+    raise ValueError(kind)

@@ -63,14 +63,19 @@ class EntryShard:
     qv = property(lambda s: s._cut_q(s._entry.qv))
 
 
+def refused(cfg) -> bool:
+    """Whether the plan refuses ``cfg``'s family: MoE, SSM, hybrid and the
+    encoder-decoder are not cut yet."""
+    return (cfg.arch_type in ("moe", "ssm", "hybrid", "audio") or cfg.hybrid
+            or cfg.is_encoder_decoder)
+
+
 class ServingSharding:
     """Mesh + the whole model's config -> one rank's plan."""
 
     def __init__(self, mesh, model_cfg):
         cfg = model_cfg
-        unsupported = (cfg.arch_type in ("moe", "ssm", "hybrid", "audio")
-                       or cfg.hybrid or cfg.is_encoder_decoder)
-        if unsupported:
+        if refused(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: tensor parallelism covers dense and VLM "
                 f"attention models; MoE expert sharding, SSM/hybrid heads "

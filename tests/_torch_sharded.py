@@ -205,8 +205,10 @@ def case_decode(model, params, mesh, tokens, steps: int):
     """The reference's model-level decode case: a prefill of ``tokens``
     into a dense cache, its K/V written into a head-sharded pool, then
     ``steps`` paged decode steps fed greedily.  Returns the prefill's last
-    logits and each step's (whole vocabulary)."""
+    logits and each step's (whole vocabulary), and the collectives the
+    prefill and the first decode step ran (``record_collectives``)."""
     from repro_torch.cache.paged import PagedConfig, PagedKVPool
+    from repro_torch.launch.mesh import record_collectives
     from repro_torch.serving.sharding import ServingSharding
     sh = ServingSharding(mesh, model.cfg)
     local, shard = sh.local_model(), sh.shard(params)
@@ -214,9 +216,10 @@ def case_decode(model, params, mesh, tokens, steps: int):
     t0 = len(tokens)
     with torch.inference_mode():
         cache = local.make_cache(1, 64, device="cpu")
-        logits, cache = local.prefill(
-            shard, torch.as_tensor(np.asarray(tokens)[None],
-                                   dtype=torch.int32), cache)
+        with record_collectives(mesh) as prefill_calls:
+            logits, cache = local.prefill(
+                shard, torch.as_tensor(np.asarray(tokens)[None],
+                                       dtype=torch.int32), cache)
         pool = PagedKVPool(PagedConfig(
             num_pages=8, page_size=16, num_layers=cfg.num_layers,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
@@ -225,18 +228,22 @@ def case_decode(model, params, mesh, tokens, steps: int):
         pool.write_tokens(pt, 0, cache["k"][:, 0, :t0], cache["v"][:, 0, :t0])
         out = [logits[0, -1].numpy().copy()]
         tok = int(logits[0, -1].argmax())
+        decode_calls = []
         for i in range(steps):
             cur = t0 + i
-            lg = local.decode_step_paged(
-                shard, torch.tensor([[tok]], dtype=torch.int32),
-                torch.tensor([[cur]], dtype=torch.int32), pool.k, pool.v,
-                torch.as_tensor(pt[None]),
-                torch.tensor([cur + 1], dtype=torch.int32),
-                torch.tensor([pt[cur // 16]], dtype=torch.int32),
-                torch.tensor([cur % 16], dtype=torch.int32))
+            with record_collectives(mesh) as calls:
+                lg = local.decode_step_paged(
+                    shard, torch.tensor([[tok]], dtype=torch.int32),
+                    torch.tensor([[cur]], dtype=torch.int32), pool.k, pool.v,
+                    torch.as_tensor(pt[None]),
+                    torch.tensor([cur + 1], dtype=torch.int32),
+                    torch.tensor([pt[cur // 16]], dtype=torch.int32),
+                    torch.tensor([cur % 16], dtype=torch.int32))
+            decode_calls = decode_calls or calls
             out.append(lg[0].numpy().copy())
             tok = int(lg[0].argmax())
-    return {"logits": out, "pool_shape": tuple(pool.k.shape)}
+    return {"logits": out, "pool_shape": tuple(pool.k.shape),
+            "prefill_calls": prefill_calls, "decode_calls": decode_calls}
 
 
 CASES = {"serve": case_serve, "kernel": case_kernel, "decode": case_decode}

@@ -46,7 +46,7 @@ from repro_torch.serving import EngineConfig, MPICEngine, Request
 from repro_torch.serving.sharding import ServingSharding
 from repro_torch.weights import leaf_path
 
-from _torch_parity import build_pair, jax_traffic
+from _torch_parity import build_pair, jax_traffic, smoke_configs
 from _torch_parity import jax_compile_cache  # noqa: F401
 from _torch_sharded import (
     REL,
@@ -157,6 +157,26 @@ def test_model_level_paged_decode_matches_the_jax_dense_decode(runs):
             assert g.shape == w.shape == (512,)
             assert rel(g, w) <= REL
             assert int(np.argmax(g)) == int(np.argmax(w))
+
+
+def test_live_collectives_equal_the_dry_runs_recording(runs):
+    """The collectives each rank's prefill and first paged decode step ran
+    over gloo, kind for kind and byte for byte, are what the dry run's
+    recording mesh counts for the same config and shapes on ``meta``."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.dryrun import trace_serving, trace_step
+    from repro_torch.launch.mesh import ProductionMesh, RecordingMesh
+    cfg = smoke_configs(ARCH)[1]
+    shape = InputShape("case_decode", len(TOKENS), 1, "prefill")
+    prefill = trace_step(cfg, "prefill", shape,
+                         ProductionMesh(("data", "model"), (1, 2)))[2]
+    decode = trace_serving(cfg, "serve_decode", RecordingMesh(2), slots=1,
+                           kv_len=len(TOKENS) + STEPS)[2]
+    assert len(prefill) == len(decode) == 2 * cfg.num_layers + 2
+    for rank in (0, 1):
+        got = runs[2][rank]["decode"]
+        assert got["prefill_calls"] == prefill
+        assert got["decode_calls"] == decode
 
 
 # ---------------------------------------------------------------------------
