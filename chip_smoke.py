@@ -249,6 +249,29 @@ timed on its own line:
    decode step and paged prefill in each ``mpic`` run must equal, kind,
    count and bytes, what the dry run's recording mesh counts on ``meta``
    for the same config, rank and shapes (``launch.dryrun.trace_serving``);
+5p. the paper's system half on 5o's ranks (``_tp_system``, in the same
+   processes after 5o's bf16 runs, on the same weights): a warm memory
+   run on each pool, which the tiers are read against; every image
+   spooled at its upload (host budget 0) into one directory the ranks
+   share, on a bf16 and an int8 pool (rank 0 alone writes); the dialogue
+   images pulled from a block server that this process runs over that
+   spool once rank 0 reports it whole (rank 0 pulls and writes, the others
+   read its files), on both pools; a ``full_recompute`` session frozen
+   after 4 tokens and spooled, thawed from disk, thawed with a 64-token
+   turn beside a cold recompute, forked into 2; two replicas over the
+   mesh (affinity) with an aging queue and a priority a request; rank 1's
+   disk reads failing. Gates (``tp_system_check``): the warm memory,
+   disk and peer runs' tokens equal each rank's 5o memory run on the same
+   pool, exactly; the session's ranks equal, its resume exact, its suffix
+   thaw within 10 % relative RMS of the cold run with the same first
+   token or a near tie that the run measures (``first_token_tie``), its
+   forks identical; the replicas' tokens equal the memory run's, one
+   admission order and routing on every rank; the planted fault raising
+   ``RankDivergence`` on every rank; kernels 1/3 (2/4) and 5 on each
+   rank. Printed per rank: TTFT against the warm memory run, load and
+   blocked a request, spool files written and bytes read, the libraries'
+   sync a step, the session's freeze, spool, thaw and fork ms and its
+   first-token margins, the seconds the phase took;
 6. each kernel against its plain PyTorch version on the state phases 3-5b
    left (layer 0 of the live pool or the captured dense-attention and SSD
    inputs) and on synthetic shapes (32 query heads on 8 kv heads, window
@@ -623,6 +646,30 @@ TP_FP32_DEPTH = 2
 TP_FP32_POOLS = ("", "int8")
 TP_FP32_REL = 1e-3
 TP_JOIN_S = 900.0
+# phase 5p: the paper's system half on 5o's ranks, weights and shape.
+# Every image spooled (host budget 0) into one directory the ranks share,
+# on both pools; the dialogue images pulled from a block server that this
+# process runs over that spool (rank 0 pulls, the others read what it
+# writes); a session frozen after SESSION_FREEZE_AFTER tokens and spooled,
+# thawed from disk, thawed again with a TP_SUFFIX-token turn, forked into
+# TP_FORKS; two replicas (affinity) with an aging queue (TP_AGING_S, one
+# priority a request from TP_PRIORITIES); rank 1's own disk reads failing
+# (TP_READ_FAULT), which must raise on every rank
+TP_SUFFIX = 64
+TP_FORKS = 2
+# the suffix thaw's first greedy token against the cold recompute's: the
+# same, or a near tie, which the run reads from its own logits: where the
+# two runs' top tokens a (cold) and b (thawed) differ, the gap between
+# them moved by (cold[a] - cold[b]) + (thawed[b] - thawed[a]), and that
+# move is a tie when it is no larger than TP_TIE_SIGMAS times the spread
+# of the same difference over two tokens taken at random (sqrt(2) times
+# the RMS of thawed - cold over the vocabulary).  A fault that moves the
+# logits moves that floor with them, and the relative RMS gate still holds
+TP_TIE_SIGMAS = 3.0
+TP_AGING_S = 0.5
+TP_PRIORITIES = (0, 2, 1, 0)
+TP_READ_FAULT = "disk.read:io_error"
+TP_PEER_TIMEOUT_S = 60.0
 
 
 def phase(name: str, t0: float) -> None:
@@ -1809,7 +1856,8 @@ def train_on_card(guard, env):
             print(f"  | {line}")
         if rc != 0:
             raise RuntimeError(f"the trainer exited {rc}: {err[-3000:]}")
-        head = re.match(r"arch=(\S+) params=([\d.]+)M devices=1$",
+        # devices: the cards the process sees (the trainer takes one)
+        head = re.match(r"arch=(\S+) params=([\d.]+)M devices=\d+$",
                         out.splitlines()[0])
         logged = [(int(s), float(loss), float(t)) for s, loss, t in
                   re.findall(r"^step +(\d+)  loss (\S+)  \((\S+)s\)$", out,
@@ -1981,14 +2029,16 @@ def train_ssm_on_card(guard):
 
 
 def tp_traffic(eng, policy: str, snap_paged: bool = False,
-               media_len: int = TP_MEDIA_LEN):
+               media_len: int = TP_MEDIA_LEN, upload_static: bool = True):
     """Phase 3's traffic at internvl2's image length (four two-image
     dialogues, 8 new tokens, the last with the MRAG query) under one
     policy, through ``eng`` with the plain versions forbidden and the
-    launch counts reset first.  Returns tokens, first-token logits, the
-    launches (by route), TTFT and decode step, the peak memory of this
-    process and, with ``snap_paged``, a CPU copy of the pool's layer-0
-    snapshot once every slot decodes."""
+    launch counts reset first (``upload_static=False`` leaves the
+    dialogue images to the library's peers).  Returns tokens, first-token
+    logits, the launches (by route), TTFT, load and blocked time and
+    decode step, the peak memory of this process and, with
+    ``snap_paged``, a CPU copy of the pool's layer-0 snapshot once every
+    slot decodes."""
     import torch
 
     from repro_torch.kernels import KERNELS, _build
@@ -2006,6 +2056,16 @@ def tp_traffic(eng, policy: str, snap_paged: bool = False,
         return finalize(req, result, *rest)
 
     eng._finalize_prefill = record
+    # the host time of each step's broadcast of the libraries' changes
+    sync_s = [0.0]
+    sync = eng._sync_libraries
+
+    def timed_sync():
+        t0 = time.perf_counter()
+        sync()
+        sync_s[0] += time.perf_counter() - t0
+
+    eng._sync_libraries = timed_sync
     snap = None
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -2013,7 +2073,7 @@ def tp_traffic(eng, policy: str, snap_paged: bool = False,
     with no_plain_versions() if cuda else contextlib.nullcontext():
         _build.reset_launches(KERNELS.values())
         t = time.perf_counter()
-        for smp in samples:
+        for smp in samples if upload_static else ():
             for _, seg in smp.prompt.media_segments():
                 eng.upload(smp.prompt.user_id, seg.media_id, seg.embeds)
         eng.upload("*", "rag-0", rag, dynamic=True)
@@ -2045,6 +2105,7 @@ def tp_traffic(eng, policy: str, snap_paged: bool = False,
         launches = {k: v.launches for k, v in KERNELS.items()}
         routes = dict(sel_ops.SEL_ATTN.route_launches)
     eng._finalize_prefill = finalize
+    del eng._sync_libraries
     rep = eng.report()
     # the collectives of the first paged decode step and paged prefill,
     # with the shapes that decide them
@@ -2065,19 +2126,22 @@ def tp_traffic(eng, policy: str, snap_paged: bool = False,
         "launches": launches, "sel_attn_routes": routes,
         "upload_s": upload_s, "mean_ttft_ms": rep["mean_ttft_s"] * 1e3,
         "mean_prefill_ms": rep["mean_prefill_s"] * 1e3,
+        "mean_load_ms": rep["scheduler"]["mean_load_s"] * 1e3,
+        "mean_blocked_ms": rep["scheduler"]["mean_load_blocked_s"] * 1e3,
         "mean_decode_step_ms": rep["mean_decode_step_s"] * 1e3,
         "decode_steps": rep["decode_steps"],
+        "sync_ms_per_step": sync_s[0] / max(steps, 1) * 1e3,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda
         else 0.0,
         "snap": snap}
 
 
-def _tp_engine(cfg, params, pool, mesh=None, device=None):
+def _tp_engine(cfg, params, pool, mesh=None, device=None, **kw):
     from repro_torch.models import build_model
     from repro_torch.serving import EngineConfig, MPICEngine
     return MPICEngine(build_model(cfg), params, EngineConfig(
         max_seq_len=2048, decode_slots=4, page_size=16, pool_dtype=pool),
-        mesh=mesh, device=device)
+        mesh=mesh, device=device, **kw)
 
 
 def _fp32(cfg):
@@ -2101,14 +2165,14 @@ def _plant_fault(eng) -> None:
 
 
 def _tp_suite(cfg, params, mesh, device, media_len, snap=False,
-              fault=False):
+              fault=False, system=None):
     """``TP_RUNS`` on bf16 ``params`` (with ``fault`` under a mesh, also
-    ``TP_FAULT``'s ``mpic`` run) and the exact check's ``mpic`` on fresh
-    fp32 weights (seed 1) on each of ``TP_FP32_POOLS``: {label:
-    ``tp_traffic``'s result}.  Under a mesh the weights are this rank's
-    shards; ``snap`` keeps the pool snapshots of the ``mpic`` runs.
-    ``params`` is emptied (the caller's bf16 weights go before the fp32
-    ones are drawn)."""
+    ``TP_FAULT``'s ``mpic`` run; with ``system``, phase 5p's runs under
+    ``"system"``) and the exact check's ``mpic`` on fresh fp32 weights
+    (seed 1) on each of ``TP_FP32_POOLS``: {label: ``tp_traffic``'s
+    result}.  Under a mesh the weights are this rank's shards; ``snap``
+    keeps the pool snapshots of the ``mpic`` runs.  ``params`` is emptied
+    (the caller's bf16 weights go before the fp32 ones are drawn)."""
     import torch
 
     from repro_torch.models.transformer import init_params
@@ -2129,6 +2193,9 @@ def _tp_suite(cfg, params, mesh, device, media_len, snap=False,
         out[TP_FAULT] = tp_traffic(eng, "mpic", media_len=media_len)
         eng.sharding.__dict__.pop("entry", None)
         eng.close()
+    if system is not None and mesh is not None:
+        out["system"] = _tp_system(cfg, params[0], mesh, device, media_len,
+                                   system)
     params.clear()
     gc.collect()
     cfg32 = _fp32(cfg)
@@ -2146,9 +2213,280 @@ def _tp_suite(cfg, params, mesh, device, media_len, snap=False,
     return out
 
 
-def _tp_rank(rank, world, port, cfg, device, media_len, out_q):
-    """One rank of phase 5o: its process group, its shard of the seeded
-    weights drawn directly (``init_params(sharding=)``), then
+def _disk_io(lib) -> dict:
+    """A library's spool files written, and its disk and network reads."""
+    tiers = lib.stats()["tiers"]
+    return {"files_written": lib.disk.stats()["puts"],
+            "bytes_written": tiers["disk"]["bytes_written"],
+            "disk_fetches": tiers["disk"]["fetches"],
+            "bytes_read": tiers["disk"]["bytes_read"],
+            "disk_fetch_s": tiers["disk"]["fetch_s"],
+            "network_fetches": tiers.get("network", {}).get("fetches", 0)}
+
+
+def first_token_tie(thawed, cold) -> dict:
+    """The two runs' first-token logits side by side: each run's top two
+    tokens and their margin, the logits of both at the cold run's top
+    token ``a`` and the thawed run's ``b``, the move of the gap between
+    them, the noise floor (``TP_TIE_SIGMAS`` x sqrt(2) x RMS of thawed -
+    cold) and whether the first tokens agree or the move lies within that
+    floor."""
+    thawed = np.asarray(thawed, np.float64).reshape(-1)
+    cold = np.asarray(cold, np.float64).reshape(-1)
+    top = {name: [int(i) for i in np.argsort(-x, kind="stable")[:2]]
+           for name, x in (("thawed", thawed), ("cold", cold))}
+    a, b = top["cold"][0], top["thawed"][0]
+    move = float((cold[a] - cold[b]) + (thawed[b] - thawed[a]))
+    floor = TP_TIE_SIGMAS * float(np.sqrt(2.0 * np.mean(
+        (thawed - cold) ** 2)))
+    return {"top2": top,
+            "margins": {name: float(x[top[name][0]] - x[top[name][1]])
+                        for name, x in (("thawed", thawed), ("cold", cold))},
+            "at_a": [float(thawed[a]), float(cold[a])],
+            "at_b": [float(thawed[b]), float(cold[b])],
+            "gap_move": move, "tie_floor": floor,
+            "ok": a == b or move <= floor}
+
+
+def _tp_sessions(cfg, params, mesh, device, media_len, spool):
+    """Phase 5p's sessions on one rank: phase 3's first dialogue under
+    ``full_recompute`` uninterrupted, then frozen after
+    ``SESSION_FREEZE_AFTER`` tokens and spooled (rank 0 writes the whole
+    snapshot, gathered over the ranks' heads), thawed from disk, thawed
+    again with a ``TP_SUFFIX``-token turn beside a cold ``full_recompute``
+    of the whole history, and forked into ``TP_FORKS``; the launches of
+    all of it."""
+    import torch
+
+    from repro_torch.cache import KVLibrary
+    from repro_torch.cache.library import TIER_DISK
+    from repro_torch.core import Prompt, text_segment
+    from repro_torch.kernels import KERNELS, _build
+    from repro_torch.serving import Request
+
+    cuda = mesh.device.type == "cuda"
+    lib = KVLibrary(spool_dir=spool, device=device, mesh=mesh)
+    eng = _tp_engine(cfg, params, "", mesh, device, static_library=lib)
+    prompt = phase3_requests(cfg.d_model, media_len)[0][0].prompt
+    secs, firsts = {}, []
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            if cuda:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = fn(*args, **kwargs)
+            if cuda:
+                torch.cuda.synchronize()
+            secs[key] = time.perf_counter() - t
+            return got
+        return call
+
+    def request(**kw):
+        return Request(prompt=prompt, max_new_tokens=MAX_NEW,
+                       policy="full_recompute", **kw)
+
+    with no_plain_versions() if cuda else contextlib.nullcontext():
+        _build.reset_launches(KERNELS.values())
+        for _, seg in prompt.media_segments():
+            eng.upload(prompt.user_id, seg.media_id, seg.embeds)
+        base = eng.submit(request())
+        eng.run()
+        freeze, spool_now = eng.sessions.freeze, lib.spool_now
+        eng.sessions.freeze = timed(freeze, "freeze_spooled_ms")
+        lib.spool_now = timed(spool_now, "spool_ms")
+        fz = eng.submit(request(freeze_after=SESSION_FREEZE_AFTER))
+        eng.run()
+        eng.sessions.freeze, lib.spool_now = freeze, spool_now
+        h = eng.sessions.handles[fz.session_id]
+        spooled = lib.peek_tier(h.user_id, h.media_id,
+                                salt=h.cache_salt) == TIER_DISK
+        th = timed(eng.thaw, "thaw_from_disk_ms")(h)
+        eng.run()
+        suffix = [int(t) for t in np.random.default_rng(21).integers(
+            8, 200, TP_SUFFIX)]
+        prefill = eng._prefiller.prefill
+
+        def keep(*args):
+            logits = prefill(*args)
+            firsts.append(np.asarray(logits, np.float32))
+            return logits
+
+        eng._prefiller.prefill = keep
+        th2 = timed(eng.thaw, "thaw_with_suffix_ms")(
+            h, suffix, max_new_tokens=MAX_NEW)
+        eng._prefiller.prefill = prefill
+        eng.run()
+        cold = Request(prompt=Prompt(list(prompt.segments) + [
+            text_segment(fz.output_tokens + suffix)],
+            user_id=prompt.user_id), max_new_tokens=MAX_NEW,
+            policy="full_recompute")
+        finalize = eng._finalize_prefill
+
+        def record(req, result, *rest):
+            firsts.append(np.asarray(result.first_logits, np.float32))
+            return finalize(req, result, *rest)
+
+        eng._finalize_prefill = record
+        eng.submit(cold)
+        eng.run()
+        eng._finalize_prefill = finalize
+        kids = timed(eng.fork, "fork_ms")(h, TP_FORKS,
+                                          max_new_tokens=MAX_NEW)
+        eng.run()
+        if cuda:
+            torch.cuda.synchronize()
+        launches = {k: v.launches for k, v in KERNELS.items()}
+    eng.close()
+    diff = firsts[0] - firsts[1]
+    return {"tokens": {"base": base.output_tokens, "frozen": fz.output_tokens,
+                       "thawed": th.output_tokens,
+                       "suffix_thawed": th2.output_tokens,
+                       "cold": cold.output_tokens,
+                       "forks": [k.output_tokens for k in kids]},
+            "done": [r.done for r in (base, th, th2, cold, *kids)],
+            "spooled": spooled, "n_ctx": h.n_ctx,
+            "suffix_rel_rms": float(np.linalg.norm(diff)
+                                    / np.linalg.norm(firsts[1])),
+            "first_token": first_token_tie(firsts[0], firsts[1]),
+            **{k: v * 1e3 for k, v in secs.items()},
+            "launches": launches, **_disk_io(lib)}
+
+
+def _tp_replicas(cfg, params, mesh, device, media_len):
+    """Phase 5p's cluster on one rank: two replicas over the mesh, the
+    affinity router, an aging queue and phase 3's traffic with a priority
+    a request; returns the tokens by request, each replica's admission
+    order, the routing and the launches."""
+    import torch
+
+    from repro_torch.kernels import KERNELS, _build
+    from repro_torch.models import build_model
+    from repro_torch.serving import (ClusterConfig, EngineConfig,
+                                     MPICCluster)
+
+    cuda = mesh.device.type == "cuda"
+    cluster = MPICCluster(build_model(cfg), params, EngineConfig(
+        max_seq_len=2048, decode_slots=4, page_size=16,
+        queue_aging_s=TP_AGING_S), ClusterConfig(
+        replicas=2, router="affinity"), mesh=mesh, device=device)
+    samples, rag, requests = phase3_requests(cfg.d_model, media_len)
+    reqs = requests()
+    admitted = []
+    for eng in cluster.engines:
+        def pop(_pop=eng.scheduler.pop, replica=eng.replica_id):
+            req, handle = _pop()
+            admitted.append((replica, reqs.index(req)))
+            return req, handle
+        eng.scheduler.pop = pop
+    with no_plain_versions() if cuda else contextlib.nullcontext():
+        _build.reset_launches(KERNELS.values())
+        for smp in samples:
+            for _, seg in smp.prompt.media_segments():
+                cluster.upload(smp.prompt.user_id, seg.media_id, seg.embeds)
+        cluster.upload("*", "rag-0", rag, dynamic=True)
+        for r, priority in zip(reqs, TP_PRIORITIES):
+            r.priority = priority
+            cluster.submit(r)
+        cluster.run()
+        if cuda:
+            torch.cuda.synchronize()
+        launches = {k: v.launches for k, v in KERNELS.items()}
+    rep = cluster.report()
+    cluster.close()
+    return {"tokens": [list(r.output_tokens) for r in reqs],
+            "done": [r.done for r in reqs], "admitted": admitted,
+            "routed": [d.replica for d in cluster.decisions],
+            "mean_ttft_ms": rep["mean_ttft_s"] * 1e3, "launches": launches}
+
+
+def _tp_system(cfg, params, mesh, device, media_len, system):
+    """Phase 5p on one rank, on 5o's bf16 weights: {label: result}.
+    ``system``: the spool root the ranks share, the queue to the parent
+    (rank 0 says there when its spool of every image is whole) and the
+    queue the parent's block server's address comes back on."""
+    import torch
+
+    from repro_torch.cache import FaultPlan, KVLibrary
+    from repro_torch.cache.library import RankDivergence
+    from repro_torch.cache.net import PeerTransport
+
+    t = time.perf_counter()
+    root = system["root"]
+    out = {}
+
+    def spooled(name, faults=None):
+        return [KVLibrary(shared=shared, spool_dir=os.path.join(root, name),
+                          hbm_capacity=0, host_capacity=0, device=device,
+                          faults=faults, mesh=mesh)
+                for shared in (False, True)]
+
+    def settle():
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+
+    # the warm memory run each tier is read against: 5o's ran first in
+    # these processes and paid their warm-up
+    for pool in ("", "int8"):
+        eng = _tp_engine(cfg, params, pool, mesh, device)
+        res = tp_traffic(eng, "mpic", media_len=media_len)
+        res.pop("snap")
+        out[f"memory-{pool or 'bf16'}"] = res
+        eng.close()
+        settle()
+    for pool in ("", "int8"):
+        static, dynamic = spooled("disk")
+        eng = _tp_engine(cfg, params, pool, mesh, device,
+                         static_library=static, dynamic_library=dynamic)
+        res = tp_traffic(eng, "mpic", media_len=media_len)
+        res.pop("snap")
+        out[f"disk-{pool or 'bf16'}"] = dict(res, **_disk_io(static))
+        eng.close()
+        settle()
+    if mesh.rank == 0:
+        system["to_parent"].put(pickle.dumps(
+            ("spool", os.path.join(root, "disk"))))
+    addr = system["from_parent"].get(timeout=TP_JOIN_S)
+    for pool in ("", "int8"):
+        label = f"peer-{pool or 'bf16'}"
+        static = KVLibrary(peers=[PeerTransport(
+            addr, timeout_s=TP_PEER_TIMEOUT_S)], device=device,
+            spool_dir=os.path.join(root, label), mesh=mesh)
+        eng = _tp_engine(cfg, params, pool, mesh, device,
+                         static_library=static)
+        res = tp_traffic(eng, "mpic", media_len=media_len,
+                         upload_static=False)
+        res.pop("snap")
+        out[label] = dict(res, **_disk_io(static))
+        eng.close()
+        settle()
+    out["sessions"] = _tp_sessions(cfg, params, mesh, device, media_len,
+                                   os.path.join(root, "sessions"))
+    settle()
+    out["replicas"] = _tp_replicas(cfg, params, mesh, device, media_len)
+    settle()
+    # the planted divergence: rank 1's own reads of the spool fail
+    static, dynamic = spooled("fault", FaultPlan.parse(TP_READ_FAULT)
+                              if mesh.rank == 1 else None)
+    eng = _tp_engine(cfg, params, "", mesh, device, static_library=static,
+                     dynamic_library=dynamic)
+    try:
+        tp_traffic(eng, "mpic", media_len=media_len)
+        out["fault"] = {"raised": None}
+    except RankDivergence as exc:
+        out["fault"] = {"raised": str(exc)}
+    finally:
+        eng.close()
+    settle()
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
+def _tp_rank(rank, world, port, cfg, device, media_len, out_q,
+             system=None):
+    """One rank of phases 5o and 5p: its process group, its shard of the
+    seeded weights drawn directly (``init_params(sharding=)``), then
     ``_tp_suite``; its results (and rank 0's pool snapshots) go to
     ``out_q``."""
     import torch
@@ -2177,8 +2515,10 @@ def _tp_rank(rank, world, port, cfg, device, media_len, out_q):
         del params
         res["runs"] = _tp_suite(cfg, held, mesh, mesh.device, media_len,
                                 snap=rank == 0,
-                                fault=cfg.num_layers <= TP_DEPTH)
+                                fault=cfg.num_layers <= TP_DEPTH,
+                                system=system)
         res["pool_shape"] = res["runs"].pop("pool_shape")
+        res["system"] = res["runs"].pop("system", None)
         # by value: a tensor shared by descriptor dies with this process
         out_q.put(pickle.dumps((rank, res, None)))
     except BaseException:
@@ -2187,6 +2527,170 @@ def _tp_rank(rank, world, port, cfg, device, media_len, out_q):
     finally:
         if mesh is not None:
             mesh.close()
+
+
+def tp_block_server(spool: str, world: int, to_ranks):
+    """Phase 5p (b)'s peer: a block server in this process over a library
+    rehydrated from the ranks' spool (on the CPU: a spooled block is served
+    from its file), its address sent to every rank."""
+    from repro_torch.cache import KVLibrary, KVPeerServer
+
+    lib = KVLibrary(spool_dir=spool, rehydrate=True, device="cpu")
+    server = KVPeerServer(lib)
+    print(f"  5p: a block server at {server.address} over the ranks' spool "
+          f"(rehydrated {lib.rehydrate_stats})", flush=True)
+    for _ in range(world):
+        to_ranks.put(server.address)
+    return server
+
+
+def tp_system_check(got, world: int, key: str, cuda: bool) -> dict:
+    """Phase 5p's gates and lines over every rank's results: the warm
+    memory, disk and peer runs' tokens equal to the rank's memory run of
+    5o on the same pool, rank 0 alone writing the spool and pulling, each
+    tier's TTFT against the warm memory run; the session's ranks equal,
+    its resume exact, its suffix thaw within ``SESSION_REL_RMS`` of a cold
+    recompute with the same first token or a near tie
+    (:func:`first_token_tie`), its forks greedy identical; the replicas' tokens equal to the memory run's, one
+    admission order and routing on every rank; the planted read fault
+    raised on every rank.  Kernels 1/3/5 (2/4 on int8) on each rank.
+    Returns the runs for the kernels' line."""
+    failed = []
+    sysres = [got[r]["system"] for r in range(world)]
+    runs = {}
+
+    def need(label):
+        paged = ("sel_attn_paged_q8", "paged_attn_q8") \
+            if "int8" in label else ("sel_attn_paged", "paged_attn")
+        return ("sel_attn",) + paged
+
+    def kernels_ok(label, launches):
+        return not cuda or all(launches[n] > 0 for n in need(label))
+
+    for pool in ("bf16", "int8"):
+        for r, res in enumerate(sysres):
+            warm = res[f"memory-{pool}"]
+            same = warm["tokens"] == got[r]["runs"][f"mpic-{pool}"]["tokens"]
+            print(f"  5p rank {r} memory-{pool} (warm): TTFT mean "
+                  f"{warm['mean_ttft_ms']:.2f} ms, load "
+                  f"{warm['mean_load_ms']:.2f} ms, blocked "
+                  f"{warm['mean_blocked_ms']:.2f} ms a request, decode step "
+                  f"{warm['mean_decode_step_ms']:.2f} ms, the libraries' sync"
+                  f" {warm['sync_ms_per_step']:.3f} ms a step; tokens equal "
+                  f"to 5o's memory run's {same}", flush=True)
+            if not (same and all(warm["done"])):
+                failed.append(f"memory-{pool} rank {r}")
+    for label in ("disk-bf16", "disk-int8", "peer-bf16", "peer-int8"):
+        memory = f"mpic-{label.split('-')[1]}"
+        for r, res in enumerate(sysres):
+            run = res[label]
+            mem = got[r]["runs"][memory]
+            warm = res[f"memory-{label.split('-')[1]}"]
+            lead = r == 0
+            print(f"  5p rank {r} {label}: TTFT mean {run['mean_ttft_ms']:.2f}"
+                  f" ms, {run['mean_ttft_ms'] / warm['mean_ttft_ms']:.3f}x the"
+                  f" warm memory run's {warm['mean_ttft_ms']:.2f}, load "
+                  f"{run['mean_load_ms']:.2f} ms, blocked "
+                  f"{run['mean_blocked_ms']:.2f} ms a request; spool files "
+                  f"written {run['files_written']} ({run['bytes_written'] / 2**20:.1f}"
+                  f" MiB), disk reads {run['disk_fetches']} "
+                  f"({run['bytes_read'] / 2**20:.1f} MiB in "
+                  f"{run['disk_fetch_s']:.3f} s), peer pulls "
+                  f"{run['network_fetches']}; tokens equal to the memory "
+                  f"run's {run['tokens'] == mem['tokens']}; launches "
+                  f"{run['launches']}", flush=True)
+            if label.startswith("peer"):
+                # rank 0 pulls and writes, the others read its files
+                io = ((run["network_fetches"] > 0) == lead
+                      and (run["disk_fetches"] > 0) != lead)
+            else:
+                io = run["disk_fetches"] > 0
+            ok = (run["tokens"] == mem["tokens"] and all(run["done"])
+                  and run["linked_rag"] and io
+                  and (run["files_written"] > 0) == lead
+                  and kernels_ok(label, run["launches"]))
+            if not ok:
+                failed.append(f"{label} rank {r}")
+        runs[f"{key}:system-{label}"] = {
+            "model": key, "world": world, "launches": sysres[0][label][
+                "launches"],
+            "launches_by_rank": [res[label]["launches"] for res in sysres],
+            **{k: [res[label][k] for res in sysres] for k in (
+                "mean_ttft_ms", "mean_load_ms", "mean_blocked_ms",
+                "files_written", "bytes_read")},
+            "warm_memory_ttft_ms": [res[f"memory-{label.split('-')[1]}"][
+                "mean_ttft_ms"] for res in sysres]}
+    sess = [res["sessions"] for res in sysres]
+    for r, s in enumerate(sess):
+        tok = s["tokens"]
+        resumed = tok["frozen"][:-1] + tok["thawed"] == tok["base"]
+        forks = all(k[:len(tok["thawed"])] == tok["thawed"]
+                    for k in tok["forks"])
+        first = tok["suffix_thawed"][0] == tok["cold"][0]
+        tie = s["first_token"]
+        print(f"  5p rank {r} sessions: frozen after "
+              f"{SESSION_FREEZE_AFTER} tokens (n_ctx {s['n_ctx']}), spooled "
+              f"{s['spooled']}: freeze with its spool "
+              f"{s['freeze_spooled_ms']:.2f} ms (spool {s['spool_ms']:.2f}),"
+              f" thaw from disk {s['thaw_from_disk_ms']:.2f} ms, thaw with "
+              f"a {TP_SUFFIX}-token turn {s['thaw_with_suffix_ms']:.2f} ms, "
+              f"fork into {TP_FORKS} {s['fork_ms']:.2f} ms; resume exact "
+              f"{resumed}; the suffix thaw against a cold full_recompute: "
+              f"relative RMS {s['suffix_rel_rms']:.3e} (limit "
+              f"{SESSION_REL_RMS}), first token equal {first}; forks greedy "
+              f"identical {forks}; tokens equal to rank 0's "
+              f"{tok == sess[0]['tokens']}; launches {s['launches']}",
+              flush=True)
+        print(f"  5p rank {r} sessions, first-token logits: top two "
+              f"(token, margin) thawed {tie['top2']['thawed']} "
+              f"{tie['margins']['thawed']:.4e}, cold {tie['top2']['cold']} "
+              f"{tie['margins']['cold']:.4e}; thawed / cold at the cold "
+              f"run's top token {tie['at_a'][0]:.4e} / {tie['at_a'][1]:.4e},"
+              f" at the thawed run's {tie['at_b'][0]:.4e} / "
+              f"{tie['at_b'][1]:.4e}; the gap between them moved "
+              f"{tie['gap_move']:.4e} against a noise floor of "
+              f"{tie['tie_floor']:.4e} ({TP_TIE_SIGMAS} x sqrt(2) x RMS of "
+              f"thawed - cold): the same token or a near tie {tie['ok']}",
+              flush=True)
+        if not (resumed and forks and tie["ok"] and s["spooled"]
+                and all(s["done"]) and tok == sess[0]["tokens"]
+                and s["suffix_rel_rms"] <= SESSION_REL_RMS
+                and kernels_ok("sessions", s["launches"])):
+            failed.append(f"sessions rank {r}")
+    runs[f"{key}:system-sessions"] = {
+        "model": key, "world": world, "launches": sess[0]["launches"],
+        "launches_by_rank": [s["launches"] for s in sess],
+        **{k: [s[k] for s in sess] for k in (
+            "freeze_spooled_ms", "spool_ms", "thaw_from_disk_ms",
+            "thaw_with_suffix_ms", "fork_ms", "suffix_rel_rms")},
+        "first_token": [s["first_token"] for s in sess]}
+    reps = [res["replicas"] for res in sysres]
+    for r, rp in enumerate(reps):
+        mem = got[r]["runs"]["mpic-bf16"]
+        print(f"  5p rank {r} replicas: routed {rp['routed']}, admitted "
+              f"(replica, request) {rp['admitted']}, TTFT mean "
+              f"{rp['mean_ttft_ms']:.2f} ms; tokens equal to the one-engine "
+              f"run's {rp['tokens'] == mem['tokens']}; launches "
+              f"{rp['launches']}", flush=True)
+        if not (rp["tokens"] == mem["tokens"] and all(rp["done"])
+                and rp["admitted"] == reps[0]["admitted"]
+                and rp["routed"] == reps[0]["routed"]
+                and kernels_ok("replicas", rp["launches"])):
+            failed.append(f"replicas rank {r}")
+    runs[f"{key}:system-replicas"] = {
+        "model": key, "world": world, "launches": reps[0]["launches"],
+        "launches_by_rank": [rp["launches"] for rp in reps],
+        "mean_ttft_ms": [rp["mean_ttft_ms"] for rp in reps]}
+    for r, res in enumerate(sysres):
+        raised = res["fault"]["raised"]
+        print(f"  5p rank {r} planted read fault ({TP_READ_FAULT} on rank "
+              f"1): raised {raised!r}; the phase took {res['seconds']:.1f} "
+              "s on this rank", flush=True)
+        if not raised:
+            failed.append(f"fault rank {r} did not raise")
+    if failed:
+        raise RuntimeError("phase 5p: " + "; ".join(failed))
+    return runs
 
 
 def tp_collectives_check(cfg, label: str, per) -> dict:
@@ -2280,10 +2784,16 @@ def serve_tensor_parallel(*, device=None, cfg=None,
           "host", flush=True)
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
+    # phase 5p: the spool the ranks share, and the block server this
+    # process runs over it once rank 0 says that every image is spooled
+    system = {"root": tempfile.mkdtemp(prefix="tp_system_"),
+              "to_parent": q, "from_parent": ctx.Queue()}
+    peer = None
     port = free_port()
     t = time.perf_counter()
     procs = [ctx.Process(target=_tp_rank, args=(
-        r, world, port, cfg, device, media_len, q)) for r in range(world)]
+        r, world, port, cfg, device, media_len, q, system))
+        for r in range(world)]
     for proc in procs:
         proc.start()
     got = {}
@@ -2294,7 +2804,12 @@ def serve_tensor_parallel(*, device=None, cfg=None,
                                    f"{sorted(set(range(world)) - set(got))}"
                                    f" in {TP_JOIN_S:.0f} s")
             try:
-                rank, res, err = pickle.loads(q.get(timeout=5.0))
+                msg = pickle.loads(q.get(timeout=5.0))
+                if isinstance(msg[0], str):
+                    peer = tp_block_server(msg[1], world,
+                                           system["from_parent"])
+                    continue
+                rank, res, err = msg
             except queue.Empty:
                 # a rank that died before it could report (its start-up)
                 dead = [r for r, proc in enumerate(procs)
@@ -2313,6 +2828,9 @@ def serve_tensor_parallel(*, device=None, cfg=None,
             if proc.is_alive():
                 proc.kill()
                 proc.join(timeout=10)
+        if peer is not None:
+            peer.close()
+        shutil.rmtree(system["root"], ignore_errors=True)
     ranks_s = time.perf_counter() - t
     bad = [proc.exitcode for proc in procs if proc.exitcode != 0]
     if bad:
@@ -2339,7 +2857,8 @@ def serve_tensor_parallel(*, device=None, cfg=None,
             print(f"  rank {r} {label}: TTFT mean {res['mean_ttft_ms']:.2f}"
                   f" ms (prefill alone {res['mean_prefill_ms']:.2f} ms), "
                   f"decode step {res['mean_decode_step_ms']:.2f} ms over "
-                  f"{res['decode_steps']} steps, uploads "
+                  f"{res['decode_steps']} steps (the libraries' sync "
+                  f"{res['sync_ms_per_step']:.3f} ms a step), uploads "
                   f"{res['upload_s']:.3f} s, peak {res['peak_gib']:.2f} GiB "
                   f"(this rank's process); launches {res['launches']}, "
                   f"sel_attn by route {res['sel_attn_routes']}", flush=True)
@@ -2352,7 +2871,7 @@ def serve_tensor_parallel(*, device=None, cfg=None,
             "launches_by_rank": [res["launches"] for res in per],
             **{k: [res[k] for res in per] for k in (
                 "mean_ttft_ms", "mean_prefill_ms", "mean_decode_step_ms",
-                "upload_s", "peak_gib")},
+                "sync_ms_per_step", "upload_s", "peak_gib")},
             "prompt_tokens": r0["prompt_tokens"],
             "sel_attn_routes": r0["sel_attn_routes"]}
         if label in TP_LABELS:
@@ -2483,6 +3002,8 @@ def serve_tensor_parallel(*, device=None, cfg=None,
         torch.cuda.empty_cache()
     if failed:
         raise RuntimeError("phase 5o: " + "; ".join(failed))
+    # phase 5p's gates, once 5o's have all held
+    runs.update(tp_system_check(got, world, key, cuda))
     return runs, snaps, world
 
 

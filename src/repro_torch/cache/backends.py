@@ -33,6 +33,12 @@ arrays, so both packages give one block the same key.
 Fault sites (``cache/faults.py``): ``disk.read`` and ``disk.write`` in
 :class:`DiskBackend`, ``peer.request`` and ``peer.body`` in the transport.
 
+**One spool, many readers.**  The ranks of a tensor-parallel mesh share one
+host and one spool directory: rank 0's library owns the files, and every
+other rank's :class:`DiskBackend` is a ``reader``, which reads the same
+keys and never writes, deletes, sweeps or unlinks a file (not even a
+corrupt one or an orphaned ``.tmp``: the owner decides about it).
+
 **Per-replica HBM accounting.**  A library that a cluster's replicas share
 records, per block, which replicas hold it warm on their device
 (``BlockMetadata.hbm_replicas``, replica -> last use there), and
@@ -342,18 +348,23 @@ class DiskBackend(StorageBackend):
     seconds spent re-hashing what was read (inside ``fetch_s``).
     ``failure_streak`` counts consecutive device-level failures (reads and
     writes; a clean one resets it), which the library's quarantine reads.
+    ``reader=True`` (another process owns the directory) makes ``put`` and
+    ``delete`` no-ops, sweeps no ``.tmp`` file at construction and leaves a
+    corrupt file where it is.
     """
 
     name = TIER_DISK
 
-    def __init__(self, spool_dir: Optional[str] = None, *, faults=None):
+    def __init__(self, spool_dir: Optional[str] = None, *, faults=None,
+                 reader: bool = False):
         super().__init__()
         self.spool_dir = spool_dir
         self.faults = faults          # FaultPlan (disk.read / disk.write)
+        self.reader = reader
         self.failure_streak = 0
         self.counters.update(corrupt=0, io_errors=0, tmp_swept=0,
                              verify_s=0.0)
-        if spool_dir is None:
+        if spool_dir is None or reader:
             return
         os.makedirs(spool_dir, exist_ok=True)
         # a crash mid-put leaves `<key>.*.npz.tmp` behind (a final name is
@@ -414,7 +425,10 @@ class DiskBackend(StorageBackend):
             meta: Optional[BlockMetadata] = None) -> None:
         """Write atomically; an ``OSError`` is counted and raised, so that
         the library keeps the entry resident.  ENOSPC is counted but kept
-        out of the failure streak: a full disk is not a dying one."""
+        out of the failure streak: a full disk is not a dying one.  A
+        reader writes nothing."""
+        if self.reader:
+            return
         with self._lock:
             if self.spool_dir is None:
                 self.spool_dir = tempfile.mkdtemp(prefix="mpic_spool_")
@@ -486,15 +500,16 @@ class DiskBackend(StorageBackend):
         return payload
 
     def _corrupt(self, path: str) -> None:
-        try:
-            os.unlink(path)
-        except OSError:
-            pass
+        if not self.reader:
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
         self._count(misses=1, corrupt=1)
 
     def delete(self, key: str) -> None:
         path = self.path_for(key)
-        if path is None:
+        if path is None or self.reader:
             return
         try:
             os.unlink(path)

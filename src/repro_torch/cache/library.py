@@ -88,6 +88,33 @@ brought in.  The affinity router reads :meth:`KVLibrary.warmth` (and
 ``peek_tier(..., replica=)``); a fleet host gossips
 :meth:`KVLibrary.ident_tiers` in its heartbeat.  Without ``replica`` every
 call keeps the single-engine accounting.
+
+**Tensor parallelism.**  Under a mesh (``KVLibrary(mesh=)``, and
+:meth:`KVLibrary.attach_mesh`, which a mesh engine calls) every rank holds
+the same whole entries, and rank 0 decides every outcome that reads a
+clock, a disk or a peer.  Rank 0's library is an ordinary one: it
+rehydrates, expires, spools, quarantines, pulls and writes the files.
+Every other rank's is a follower, which decides nothing on its own: its
+disk tier reads rank 0's spool directory and never writes, sweeps or
+unlinks a file in it, it rehydrates nothing, pulls from no peer, expires
+nothing by its own clock and demotes nothing by its own budget.  A library
+given ``mesh=`` takes that role when it is built, before it touches the
+spool; one attached later only from then on.  Two calls on the engine's
+thread (never on a loader worker) carry rank 0's outcomes to the others:
+
+* :meth:`KVLibrary.sync` (every engine step and upload) broadcasts the
+  placement of the entries that rank 0 changed since the last sync (all
+  of them at the first), which a follower mirrors: a block rank 0 spooled
+  drops its tensors and takes rank 0's content key, a block rank 0
+  dropped goes, a spooled block the follower lacks is indexed from rank
+  0's file.  A step that changed nothing broadcasts an empty change log.
+* :meth:`KVLibrary.agree` (each lookup a request consumes) broadcasts rank
+  0's hit or miss.  A follower that hit where rank 0 missed drops its hit;
+  one that missed where rank 0 hit reads rank 0's file (rank 0 writes one
+  first for a block it pulled from a peer).  The ranks then sum a flag: if
+  one rank could not follow, every rank raises :class:`RankDivergence`
+  together, so that no rank recomputes alone and no collective is left
+  waiting.
 """
 from __future__ import annotations
 
@@ -95,7 +122,7 @@ import errno
 import os
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -115,9 +142,33 @@ from repro_torch.cache.backends import (
 )
 from repro_torch.cache.quant import QuantizedKV, dequantize_kv, quantize_kv
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import agree
 
 __all__ = ["TIER_HBM", "TIER_HOST", "TIER_DISK", "TIER_NETWORK", "Entry",
-           "KVLibrary"]
+           "KVLibrary", "RankDivergence"]
+
+
+class RankDivergence(RuntimeError):
+    """A rank of a mesh could not follow rank 0's outcome of a lookup (its
+    read of rank 0's spool file failed, or rank 0 holds the block in no
+    file); every rank raises it together."""
+
+
+class _Placement(NamedTuple):
+    """Rank 0's view of one entry, which the other ranks mirror."""
+    tier: str
+    resident: bool
+    key: Optional[str]
+    nbytes: int
+    replicas: tuple
+    ident: Optional[str]
+    salt: Optional[str]
+    media_id: str
+    scope_user: Optional[str]
+    dtype: Optional[str]
+    shape: Optional[tuple]
+    created: float
+    expires: float
 
 
 class Entry:
@@ -141,6 +192,7 @@ class Entry:
         # set by a disk or peer read onto the card: the tensors were
         # allocated on the library's copy stream
         self._on_copy_stream = False
+        self._pulled = False          # its bytes came from a peer
 
     qk = property(lambda s: s.payload.qk)
     qv = property(lambda s: s.payload.qv)
@@ -223,7 +275,11 @@ class KVLibrary:
     ``rehydrate=True`` re-indexes ``spool_dir`` now (``rehydrate_stats``
     holds the counts).  Blocks that ``put`` stores live on their tensors'
     device; a rehydrated block's disk read and a block pulled from a peer
-    land on ``device`` (None means the card).
+    land on ``device`` (None means the card).  ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.ServingMesh`) gives a rank other than
+    0 the follower's role from the start: its disk tier sweeps and unlinks
+    nothing and it does not rehydrate (rank 0 does; the first
+    :meth:`sync` indexes rank 0's blocks).
     """
 
     def __init__(self, *, hbm_capacity: int = 2 << 30,
@@ -233,7 +289,8 @@ class KVLibrary:
                  shared: bool = False, quantize: bool = False,
                  peers: Optional[List] = None, faults=None,
                  disk_fail_threshold: int = 3,
-                 rehydrate: bool = False, device=None):
+                 rehydrate: bool = False, device=None, mesh=None):
+        self.mesh = mesh              # or attach_mesh
         self.quantize = quantize
         self.default_ttl = default_ttl
         self.shared = shared
@@ -241,7 +298,8 @@ class KVLibrary:
         self.device = device          # where pulled and rehydrated blocks go
         self.memory = MemoryBackend(hbm_capacity=hbm_capacity,
                                     host_capacity=host_capacity)
-        self.disk = DiskBackend(spool_dir, faults=faults)
+        self.disk = DiskBackend(spool_dir, faults=faults,
+                                reader=self._follower)
         self.disk_fail_threshold = disk_fail_threshold
         self._disk_quarantined = False  # sticky until reinstate_disk
         self.network: Optional[NetworkBackend] = None
@@ -266,10 +324,19 @@ class KVLibrary:
         self._copy_streams: Dict[torch.device, torch.cuda.Stream] = {}
         self._session_ctr = {"freezes": 0, "thaws": 0, "forks": 0}
         self._session_sources: List[Callable[[], Dict[str, int]]] = []
-        # set: why this library may not spool (every spool raises it)
-        self.no_spool: Optional[str] = None
+        self._attached = None         # the mesh of the first sync
+        # the keys whose placement this rank changed since the last sync
+        # (None: every key, or not attached yet): rank 0 sends them; a
+        # follower puts them back as rank 0 last placed them (its own disk
+        # read makes a block resident that rank 0 holds on disk)
+        self._dirty: Optional[set] = None
+        # a follower: rank 0's last placement of each key, and the
+        # demotions it could not mirror yet (the entry pinned or being
+        # read), retried at each sync
+        self._placed: Dict[Tuple[str, str], _Placement] = {}
+        self._unmirrored: Dict[Tuple[str, str], _Placement] = {}
         self.rehydrate_stats: Dict[str, int] = {}
-        if rehydrate:
+        if rehydrate and not self._follower:
             self.rehydrate_stats = self.rehydrate_spool(device)
 
     def connect_peers(self, peers: List, **net_kwargs) -> None:
@@ -285,7 +352,11 @@ class KVLibrary:
         """Is the disk tier usable?  ``disk_fail_threshold`` consecutive
         device-level failures quarantine it, and the flag stays until
         :meth:`reinstate_disk`, so that a flapping disk cannot
-        oscillate."""
+        oscillate.  A follower rank reads what rank 0's outcomes send it
+        to read: rank 0's quarantine stops rank 0's spools, which the
+        follower mirrors."""
+        if self._follower:
+            return True
         if self._disk_quarantined:
             return False
         if self.disk.failure_streak >= self.disk_fail_threshold:
@@ -336,6 +407,24 @@ class KVLibrary:
     def _key(self, user_id: str, media_id: str) -> Tuple[str, str]:
         return ("*", media_id) if self.shared else (user_id, media_id)
 
+    @property
+    def _follower(self) -> bool:
+        """A rank of a mesh other than rank 0: it follows rank 0."""
+        m = self.mesh
+        return m is not None and m.model > 1 and m.rank != 0
+
+    def _mark(self, *keys) -> None:
+        """These keys' placement changed on this rank (for the next
+        :meth:`sync`)."""
+        if self._dirty is not None and self.mesh is not None:
+            self._dirty.update(keys)
+
+    def _live(self, e: Entry, now: Optional[float] = None) -> bool:
+        """Is ``e`` unexpired?  A follower's clock decides nothing: rank
+        0's expiries reach it through :meth:`sync` and :meth:`agree`."""
+        return self._follower or (time.time() if now is None
+                                  else now) <= e.expires
+
     # -- the API ---------------------------------------------------------------
     def put(self, user_id: str, media_id: str, k=None, v=None, *,
             ttl: Optional[float] = None, salt: Optional[str] = None,
@@ -380,6 +469,7 @@ class KVLibrary:
             self._entries[key] = e
             self._by_ident[m.ident] = key
             self.memory.put(m.ident, e.payload, m)
+            self._mark(key)
             self._rebalance()
         if replaced:
             for fn in list(self._listeners):
@@ -404,7 +494,7 @@ class KVLibrary:
         key = self._key(user_id, media_id)
         with self._lock:
             e = self._entries.get(key)
-            if e is not None and time.time() > e.expires:
+            if e is not None and not self._live(e):
                 self._evict(key)
                 e = None
             if e is not None and e.meta.salt != salt:
@@ -433,6 +523,8 @@ class KVLibrary:
                         if pin:
                             e.meta.pins += 1
                         changed = was_slow
+                        if was_slow or replica is not None:
+                            self._mark(key)
                         if replica is not None:
                             fresh = (replica not in e.meta.hbm_replicas
                                      or e.tier != TIER_HBM)
@@ -448,6 +540,7 @@ class KVLibrary:
             with self._lock:
                 if self._entries.get(key) is e:
                     self._entries.pop(key)
+                    self._mark(key)
             return None
         return e
 
@@ -464,7 +557,7 @@ class KVLibrary:
             if p is not None:
                 self._adopt(e, p, TIER_DISK)
                 return
-        if self.network is not None and m.ident:
+        if self.network is not None and m.ident and not self._follower:
             p, hdrs = self.network.get_with_headers(m.ident)
             claimed = hdrs.get("X-Block-Key")
             if p is not None and (m.key is None or claimed is None
@@ -473,6 +566,7 @@ class KVLibrary:
                     m.key = claimed or content_key(
                         p, (m.scope_user, m.media_id), m.salt)
                 self._adopt(e, p, TIER_NETWORK)
+                e._pulled = True
                 return
         raise FileNotFoundError(m.key or m.ident or m.media_id)
 
@@ -510,6 +604,7 @@ class KVLibrary:
                 return None
             self._entries[key] = e
             self._by_ident[m.ident] = key
+            self._mark(key)
         return e
 
     def _network_admit(self, user_id: str, media_id: str,
@@ -518,8 +613,9 @@ class KVLibrary:
         verified pull becomes a host-tier entry with the peer's content key
         and remaining TTL, its tensors copied to ``device``; a miss (404,
         timeouts after the retry, a failed checksum, open breakers) returns
-        None."""
-        if self.network is None:
+        None.  Under a mesh only rank 0 asks (:meth:`agree` brings the
+        block to the others)."""
+        if self.network is None or self._follower:
             return None
         key = self._key(user_id, media_id)
         ident = scope_digest(key, salt)
@@ -537,6 +633,7 @@ class KVLibrary:
         m.tier = TIER_HOST
         m.key = hdrs.get("X-Block-Key") or content_key(p, key, salt)
         m.salt = salt
+        e._pulled = True
         self._to_device(e, p, TIER_NETWORK)
         e.payload.k, e.payload.v = p.k, p.v
         e.payload.qk, e.payload.qv = p.qk, p.qv
@@ -549,6 +646,7 @@ class KVLibrary:
             self._entries[key] = e
             self._by_ident[ident] = key
             self.memory.put(ident, e.payload, m)
+            self._mark(key)
             self._count(TIER_NETWORK, "promotes")
             self._rebalance()
         return e
@@ -611,7 +709,7 @@ class KVLibrary:
         holds."""
         with self._lock:
             e = self._entries.get(self._key(user_id, media_id))
-            if e is None or time.time() > e.expires or e.meta.salt != salt:
+            if e is None or not self._live(e) or e.meta.salt != salt:
                 return None
             if replica is None:
                 return e.tier
@@ -629,7 +727,7 @@ class KVLibrary:
         A block spooled since is left alone (the claim would be false)."""
         with self._lock:
             e = self._entries.get(self._key(user_id, media_id))
-            if e is None or time.time() > e.expires:
+            if e is None or not self._live(e):
                 return
             if e.payload.k is None and e.payload.qk is None:
                 return
@@ -638,6 +736,7 @@ class KVLibrary:
             e.meta.hbm_replicas[replica] = e.last_used
             e.tier = TIER_HBM
             if fresh:
+                self._mark(self._key(user_id, media_id))
                 self._rebalance()
 
     def warmth(self, user_id: str, media_ids, replica) -> Dict[str, int]:
@@ -659,7 +758,7 @@ class KVLibrary:
         now = time.time()
         with self._lock:
             return {e.meta.ident: e.tier for e in self._entries.values()
-                    if e.meta.ident and now <= e.expires}
+                    if e.meta.ident and self._live(e, now)}
 
     def delete(self, user_id: str, media_id: str) -> None:
         """Remove a block from every tier (idempotent)."""
@@ -669,7 +768,16 @@ class KVLibrary:
     def spool_now(self, user_id: str, media_id: str) -> bool:
         """Demote one entry to disk regardless of pressure.  False when the
         entry is missing, pinned, being read, or the write failed (it
-        then stays resident)."""
+        then stays resident).  Under a mesh rank 0 spools, every rank
+        returns rank 0's answer, and a follower mirrors the spool at once
+        (a :meth:`sync` of rank 0's change log)."""
+        done = agree(self.mesh, not self._follower
+                     and self._spool_one(user_id, media_id))
+        if done and self.mesh is not None:
+            self.sync()
+        return done
+
+    def _spool_one(self, user_id: str, media_id: str) -> bool:
         with self._lock:
             key = self._key(user_id, media_id)
             e = self._entries.get(key)
@@ -680,10 +788,12 @@ class KVLibrary:
             return self._spool(key, e)
 
     def expire_now(self) -> int:
-        """Delete expired entries; returns how many."""
+        """Delete expired entries; returns how many (none on a follower:
+        rank 0's expiries reach it through :meth:`sync`)."""
         now = time.time()
         with self._lock:
-            dead = [k for k, e in self._entries.items() if now > e.expires]
+            dead = [k for k, e in self._entries.items()
+                    if not self._live(e, now)]
             for k in dead:
                 self._evict(k)
         return len(dead)
@@ -740,6 +850,7 @@ class KVLibrary:
                     continue
                 self._entries[scope] = e
                 self._by_ident[m.ident] = scope
+                self._mark(scope)
             stats["rehydrated"] += 1
         return stats
 
@@ -753,7 +864,7 @@ class KVLibrary:
         with self._lock:
             key = self._by_ident.get(ident)
             e = self._entries.get(key) if key is not None else None
-            if e is None or time.time() > e.expires:
+            if e is None or not self._live(e):
                 pushed = self._pushed.get(ident)
                 return (pushed[0], dict(pushed[1])) if pushed else None
             headers = {"X-Media-Id": e.meta.media_id,
@@ -806,7 +917,7 @@ class KVLibrary:
                 return True
             key = self._by_ident.get(ident)
             e = self._entries.get(key) if key is not None else None
-            return e is not None and time.time() <= e.expires
+            return e is not None and self._live(e)
 
     # -- tier management -----------------------------------------------------------
     def _evict(self, key) -> None:
@@ -815,6 +926,7 @@ class KVLibrary:
         unlink is safe) or misses."""
         e = self._entries.pop(key, None)
         if e is not None:
+            self._mark(key)
             if self._by_ident.get(e.meta.ident) == key:
                 del self._by_ident[e.meta.ident]
             self.memory.delete(e.meta.ident)
@@ -825,9 +937,7 @@ class KVLibrary:
         """Demote one entry to disk, hashing its bytes into the content
         key at its first spool; False if pinned or being read (the caller
         holds the lock and must not wait for ``_mlock``) or if the write
-        failed.  Raises NotImplementedError when ``no_spool`` is set."""
-        if self.no_spool is not None:
-            raise NotImplementedError(self.no_spool)
+        failed."""
         if e.meta.pins > 0 or not self._disk_ok():
             return False
         if not e._mlock.acquire(blocking=False):
@@ -845,28 +955,40 @@ class KVLibrary:
                 if exc.errno == errno.ENOSPC:
                     self._enospc += 1
                 return False
-            self.memory.delete(m.ident)
-            e.payload.k = e.payload.v = None
-            e.payload.qk = e.payload.qv = None
-            e._on_copy_stream = False
-            e.tier = TIER_DISK
-            self._count(TIER_HOST, "demotes")
+            self._drop_tensors(e, TIER_DISK)
+            self._mark(key)
         finally:
             e._mlock.release()
         return True
+
+    def _drop_tensors(self, e: Entry, tier: str) -> None:
+        """The tensors of a spooled entry go (the caller holds the lock and
+        ``e._mlock``)."""
+        self.memory.delete(e.meta.ident)
+        e.payload.k = e.payload.v = None
+        e.payload.qk = e.payload.qv = None
+        e._on_copy_stream = False
+        e.tier = tier
+        self._count(TIER_HOST, "demotes")
 
     def _rebalance(self) -> None:
         """Demote LRU entries while a tier is over its budget.  First each
         replica's holds against its own budget
         (:meth:`MemoryBackend.demote_replicas`), then the entries no
         replica holds: hbm -> host (a label), host -> disk (a spool).  The
-        caller holds the lock."""
+        caller holds the lock.  A follower demotes only as rank 0 did
+        (:meth:`sync`)."""
+        if self._follower:
+            return
         live = list(self._entries.values())
         nb = {id(e.meta): e.nbytes for e in live}
+        held = {id(e.meta): len(e.meta.hbm_replicas) for e in live}
         dropped = self.memory.demote_replicas(
             (e.meta for e in live), lambda m: nb[id(m)])
         if dropped:
             self._count(TIER_HBM, "demotes", dropped)
+            self._mark(*(k for k, e in self._entries.items()
+                         if len(e.meta.hbm_replicas) != held[id(e.meta)]))
         for tier, cap, demote in (
                 (TIER_HBM, self.memory.hbm_capacity, TIER_HOST),
                 (TIER_HOST, self.memory.host_capacity, TIER_DISK)):
@@ -883,8 +1005,241 @@ class KVLibrary:
                         continue        # pinned or being read: next victim
                 else:
                     e.tier = TIER_HOST
+                    self._mark(k)
                     self._count(TIER_HBM, "demotes")
                 used -= freed
+
+    # -- tensor parallelism: rank 0 decides ---------------------------------
+    def attach_mesh(self, mesh) -> None:
+        """Serve the ranks of ``mesh`` (see the module's notes).  Every rank
+        calls it at the same point (a mesh engine's construction); a second
+        call with the same mesh does nothing.  A follower's disk tier
+        becomes a reader, and its entries take rank 0's placement (the
+        first :meth:`sync`, of every entry)."""
+        if self._attached is mesh:
+            return
+        if self._attached is not None or (self.mesh is not None
+                                          and self.mesh is not mesh):
+            raise ValueError("a library serves one mesh")
+        self.mesh = self._attached = mesh
+        if self.device is None:
+            self.device = mesh.device   # where a follower's reads land
+        self.disk.reader = self._follower
+        self._dirty = None
+        self.sync()
+
+    @staticmethod
+    def _placement_of(e: Entry) -> _Placement:
+        m = e.meta
+        return _Placement(
+            m.tier, e.payload.k is not None or e.payload.qk is not None,
+            m.key, m.nbytes, tuple(sorted(m.hbm_replicas, key=repr)),
+            m.ident, m.salt, m.media_id, m.scope_user, m.dtype,
+            None if m.shape is None else tuple(m.shape), m.created,
+            m.expires)
+
+    def sync_state(self) -> Optional[dict]:
+        """Rank 0's side of :meth:`sync`: the spool directory and the
+        placement of each entry whose placement changed since the last
+        call (None for one that went; every entry, with ``full``, at the
+        first).  None on a follower."""
+        if self._follower:
+            return None
+        with self._lock:
+            full = self._dirty is None
+            keys = self._entries if full else self._dirty
+            changes = {k: (self._placement_of(self._entries[k])
+                           if k in self._entries else None) for k in keys}
+            self._dirty = set()
+        return {"dir": self.disk.spool_dir, "full": full,
+                "entries": changes}
+
+    def apply_sync(self, state: dict) -> None:
+        """Every rank's side of :meth:`sync`, with rank 0's ``state``: a
+        follower mirrors rank 0's changes."""
+        if self._follower:
+            if state["dir"] is not None:
+                self.disk.spool_dir = state["dir"]
+            self._mirror(state["entries"], state["full"])
+
+    def sync(self) -> None:
+        """One broadcast of rank 0's :meth:`sync_state` on the engine's
+        thread, applied on every rank (every rank calls it at the same
+        point).  Nothing without a mesh."""
+        if self.mesh is not None:
+            self.apply_sync(self.mesh.broadcast_object(self.sync_state()))
+
+    def _mirror(self, changes: Dict, full: bool) -> None:
+        """A follower's entries as rank 0 placed them (``changes``: key ->
+        rank 0's placement, or None; ``full``: every key rank 0 holds, so
+        that one it does not goes).  An entry rank 0 has not goes (its file
+        stays: rank 0's), one rank 0 spooled drops its tensors under rank
+        0's content key (unless pinned or being read: retried at the next
+        sync), a spooled one the follower lacks is indexed from rank 0's
+        file, a resident one takes rank 0's tier label and replica holds.
+        A block rank 0 holds resident and this rank does not stays unread
+        until a lookup asks for it (:meth:`agree`); one this rank read
+        where rank 0 holds it on disk goes back to disk."""
+        with self._lock:
+            if full:
+                for key in [k for k in self._entries if k not in changes]:
+                    self._evict(key)
+                self._unmirrored.clear()
+                self._placed.clear()
+            own = () if full or self._dirty is None else self._dirty
+            pending = {**{k: self._placed[k] for k in own
+                          if k in self._placed},
+                       **self._unmirrored, **changes}
+            self._unmirrored = {}
+            for key, p in changes.items():
+                if p is None:
+                    self._placed.pop(key, None)
+                else:
+                    self._placed[key] = p
+            for key, p in pending.items():
+                e = self._entries.get(key)
+                if p is None or (e is not None and e.meta.ident != p.ident):
+                    self._evict(key)
+                    e = None
+                if p is None:
+                    continue
+                if e is None:
+                    if not p.resident and p.key is not None:
+                        self._index(key, p)
+                    continue
+                e.meta.hbm_replicas = {r: e.meta.hbm_replicas.get(
+                    r, e.last_used) for r in p.replicas}
+                resident = (e.payload.k is not None
+                            or e.payload.qk is not None)
+                if p.resident:
+                    if resident:
+                        e.tier = p.tier
+                    continue
+                e.meta.key, e.meta.nbytes = p.key, p.nbytes
+                if not resident:
+                    e.tier = p.tier
+                elif e.meta.pins == 0 and e._mlock.acquire(blocking=False):
+                    try:
+                        self._drop_tensors(e, p.tier)
+                    finally:
+                        e._mlock.release()
+                else:
+                    self._unmirrored[key] = p
+            self._dirty = set()
+
+    def _index(self, key, p: _Placement) -> Entry:
+        """A payload-less disk-tier entry for rank 0's spooled block ``p``
+        (the caller holds the lock)."""
+        e = Entry(p.media_id, created=p.created, expires=p.expires,
+                  device=resolve_device(self.device))
+        m = e.meta
+        m.tier, m.last_used = TIER_DISK, time.time()
+        m.key, m.nbytes = p.key, p.nbytes
+        m.ident, m.salt, m.scope_user = p.ident, p.salt, p.scope_user
+        m.dtype, m.shape = p.dtype, p.shape
+        e._owner = self
+        self._entries[key] = e
+        self._by_ident[m.ident] = key
+        return e
+
+    def agree(self, user_id: str, media_id: str, entry: Optional[Entry], *,
+              salt: Optional[str] = None, replica=None) -> Optional[Entry]:
+        """Rank 0's outcome of one lookup, on every rank.  ``entry`` is this
+        rank's answer (pinned, or None); the result is ``entry`` or rank
+        0's other answer: None where rank 0 missed, or, where only rank 0
+        hit, the block read from rank 0's file and pinned (the caller
+        unpins ``entry`` when it gets something else).  Without a mesh,
+        ``entry``.  On the engine's thread only, every rank calling it for
+        the same lookups in the same order: it broadcasts, then sums the
+        ranks' flags, and raises :class:`RankDivergence` on every rank when
+        one rank could not follow."""
+        if self.mesh is None:
+            return entry
+        key = self._key(user_id, media_id)
+        state = None if self._follower else self._lookup_state(key, entry)
+        state = self.mesh.broadcast_object(state)
+        out, why = entry, None
+        if self._follower:
+            out, why = self._follow(user_id, media_id, key, entry, state,
+                                    salt, replica)
+        elif not state["hit"]:
+            out = None          # rank 0 could not write its pulled block
+        if self.mesh.any_rank(why is not None):
+            if out is not None and out is not entry:
+                self.unpin(out)
+            raise RankDivergence(
+                f"{media_id!r}: a rank could not follow rank 0's lookup"
+                + (f" (rank {self.mesh.rank}: {why})" if why else ""))
+        return out
+
+    def _lookup_state(self, key, entry: Optional[Entry]) -> dict:
+        """Rank 0's side of :meth:`agree`.  A block it pulled from a peer
+        is on no other rank: its file is written first (a failed write
+        makes the lookup a miss on every rank)."""
+        if entry is None:
+            with self._lock:
+                return {"hit": False, "present": key in self._entries}
+        m = entry.meta
+        if (self.mesh.model > 1 and entry._pulled
+                and not self.disk.contains(m.key)):
+            try:
+                with entry._mlock:
+                    entry.wait_loaded()
+                    m.nbytes = entry.payload.stored_nbytes
+                    self.disk.put(m.key, entry.payload, m)
+            except OSError:
+                with self._clock:
+                    self._spool_failures += 1
+                return {"hit": False, "present": True}
+        return {"hit": True, "placement": self._placement_of(entry),
+                "file": m.key is not None and self.disk.contains(m.key),
+                "dir": self.disk.spool_dir}
+
+    def _follow(self, user_id, media_id, key, entry, state, salt, replica):
+        """A follower's side of :meth:`agree`: (its answer, why it could
+        not follow or None)."""
+        if not state["hit"]:
+            if not state["present"]:
+                with self._lock:
+                    self._evict(key)
+            return None, None
+        if entry is not None:
+            return entry, None
+        p = state["placement"]
+        if not state["file"]:
+            return None, "rank 0 holds the block in no file"
+        self.disk.spool_dir = state["dir"]
+        with self._lock:
+            e = self._entries.get(key)
+            if e is not None and (e.meta.ident != p.ident
+                                  or e.meta.key != p.key):
+                self._evict(key)
+                e = None
+            if e is None:
+                self._index(key, p)
+        got = self.get(user_id, media_id, salt=salt, replica=replica,
+                       pin=True)
+        if got is None:
+            return None, (f"its read of rank 0's spool file "
+                          f"{self.disk.path_for(p.key)} failed")
+        return got, None
+
+    def get_agreed(self, user_id: str, media_id: str, *,
+                   salt: Optional[str] = None,
+                   replica=None) -> Optional[Entry]:
+        """``get(..., pin=True)`` on the engine's thread, with rank 0's
+        outcome under a mesh (:meth:`agree`)."""
+        e = self.get(user_id, media_id, salt=salt, replica=replica, pin=True)
+        try:
+            out = self.agree(user_id, media_id, e, salt=salt,
+                             replica=replica)
+        except BaseException:
+            if e is not None:
+                self.unpin(e)
+            raise
+        if e is not None and out is not e:
+            self.unpin(e)
+        return out
 
     # -- introspection -------------------------------------------------------------
     def stats(self) -> dict:

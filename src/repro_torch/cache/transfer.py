@@ -8,6 +8,10 @@ runs library fetches on a thread pool; :class:`PrefetchHandle` bundles one
 request's fetches and hands each entry out, pinned, when the linker asks
 for it (blocking only on fetches that are still running).
 
+Under a mesh the workers only fetch: the outcome each rank consumes is
+rank 0's, shared where the engine's thread gathers it
+(:meth:`PrefetchHandle.get`), so that no collective runs on a worker.
+
 A fetch from disk or from a peer ends when its bytes are on the engine's
 device (:meth:`KVLibrary.get` waits for its copy), so a load interval
 covers the copy to the card too.  The ``loader.fetch`` fault site
@@ -134,7 +138,7 @@ class PrefetchHandle:
         lib = self._loader.library
         resident = (entry.payload.k is not None
                     or entry.payload.qk is not None)
-        if resident and time.time() <= entry.expires:
+        if resident and lib._live(entry):
             if lib._entries.get(lib._key(self.user_id, media_id)) is entry:
                 return entry
         return lib.get(self.user_id, media_id, replica=self.replica)
@@ -144,7 +148,22 @@ class PrefetchHandle:
         its fetch is still running.  An id that was never prefetched falls
         back to one synchronous ``library.get``.  A fetch that another
         replica's prefetch issued marks the entry warm on this handle's
-        replica."""
+        replica.  Under a mesh the answer is rank 0's
+        (:meth:`KVLibrary.agree`): the consumer's thread, never a worker,
+        carries a fetch's outcome to the other ranks."""
+        lib = self._loader.library
+        entry = self._gather(media_id, timeout)
+        agreed = lib.agree(self.user_id, media_id, entry,
+                           replica=self.replica)
+        if agreed is not entry:
+            if entry is not None:
+                self._pinned.pop(media_id, None)
+                lib.unpin(entry)
+            if agreed is not None:
+                self._adopt(media_id, agreed)
+        return agreed
+
+    def _gather(self, media_id: str, timeout: float) -> Optional[Entry]:
         lib = self._loader.library
         rec = self.records.get(media_id)
         if rec is None:

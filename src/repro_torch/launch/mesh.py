@@ -7,7 +7,10 @@ the ``model`` (tensor-parallel) axis, joined by ``torch.distributed``:
 every rank holds its shard of the weights and of the KV pool, runs the
 same engine loop on the same submissions, and meets the others in the
 collectives of :class:`ServingMesh` (``all_reduce`` after a row-parallel
-product, ``all_gather`` of head or vocab shards).
+product, ``all_gather`` of head or vocab shards).  Host decisions that
+read a clock, a disk or a peer are rank 0's, shared with :func:`agree`
+(which is the identity without a mesh); :meth:`ServingMesh.any_rank` lets
+every rank take the same branch when one rank cannot go on.
 
 The backend follows the device: NCCL when every rank has a card of its
 own, gloo on the CPU and when ranks share fewer cards (gloo reduces CUDA
@@ -106,10 +109,31 @@ class ServingMesh:
             else None)
         return box[0]
 
+    def any_rank(self, flag: bool) -> bool:
+        """Whether ``flag`` holds on any rank: a sum over the ranks, so
+        that every rank takes the same branch (raising together, say).
+        Not a pass's collective: :func:`record_collectives` leaves it
+        out."""
+        if self.model == 1:
+            return bool(flag)
+        t = torch.tensor([int(bool(flag))], dtype=torch.int32,
+                         device=self.device if self.backend == "nccl"
+                         else "cpu")
+        dist.all_reduce(t)
+        return bool(t.item())
+
     def close(self) -> None:
         """Leave the process group (every rank calls it)."""
         if self.model > 1 and dist.is_initialized():
             dist.destroy_process_group()
+
+
+def agree(mesh: Optional[ServingMesh], value):
+    """Rank 0's ``value`` on every rank of ``mesh``, or ``value`` itself
+    without one: a host decision that reads a clock, a disk, a peer or
+    other rank-local state.  Every rank calls it at the same point, on the
+    engine's thread."""
+    return value if mesh is None else mesh.broadcast_object(value)
 
 
 def free_port() -> int:

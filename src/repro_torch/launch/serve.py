@@ -37,9 +37,15 @@ M ranks: the launcher spawns M processes joined by ``torch.distributed``
 directly, never whole) on the same stream, and rank 0 prints the lines,
 with ``mesh=1xM`` in the header and the backend on a line of its own:
 NCCL when every rank has a card of its own, gloo on the CPU and when the
-ranks share fewer cards.  ``--device`` passes through to the ranks.  A
-mesh with a ``data`` axis, and a mesh with ``--replicas`` or ``--fleet``,
-are not ported (ROADMAP.md, queue 1).
+ranks share fewer cards.  ``--device`` passes through to the ranks.  Under
+a mesh every flag above works as without one: ``--replicas`` gives each
+replica an engine over the mesh, ``--peers`` pulls on rank 0 (the others
+read what it pulled from the spool that the ranks share),
+``--serve-blocks`` serves rank 0's library, ``--freeze-idle-s`` and
+``--deadline-s`` go by rank 0's clock, and ``--fault-plan`` reaches every
+rank.  A mesh with a ``data`` axis is not ported (ROADMAP.md, queue 1).
+``--mesh`` with ``--fleet`` is an error: the JAX launcher's ``--fleet``
+returns before it reads ``--mesh``, so neither package has that path.
 """
 from __future__ import annotations
 
@@ -197,9 +203,9 @@ def build(args: argparse.Namespace, params=None,
                                               deadline_s=args.deadline_s,
                                               faults=faults,
                                               on_stuck="report"),
-                                device=device), faults
-    static_lib = (KVLibrary(peers=peers, faults=faults, device=device)
-                  if peers or faults else None)
+                                device=device, mesh=mesh), faults
+    static_lib = (KVLibrary(peers=peers, faults=faults, device=device,
+                            mesh=mesh) if peers or faults else None)
     eng = MPICEngine(model, params, engine_config(args),
                      static_library=static_lib, device=device, faults=faults,
                      mesh=mesh)
@@ -263,9 +269,10 @@ def main(argv: Optional[List[str]] = None, *, params=None) -> None:
     if not policies:
         ap.error("--policy needs at least one policy name")
     shape = parse_mesh(args.mesh)
-    if shape is not None and (args.replicas > 1 or args.fleet > 0):
-        ap.error("--mesh with --replicas or --fleet is not ported "
-                 "(ROADMAP.md, queue 1)")
+    if shape is not None and args.fleet > 0:
+        ap.error("--mesh with --fleet: the JAX launcher's --fleet returns "
+                 "before it reads --mesh, so neither package serves a fleet "
+                 "over a mesh")
     if args.fleet > 0:
         # the supervisor builds the hosts, uploads and submits
         from repro_torch.launch.fleet import run_fleet
@@ -281,9 +288,19 @@ def main(argv: Optional[List[str]] = None, *, params=None) -> None:
                     params)
         return
     cfg, eng, faults = build(args, params)
+    _run(args, cfg, eng, policies, faults)
+
+
+def _run(args: argparse.Namespace, cfg: ModelConfig,
+         eng: Union[MPICEngine, MPICCluster], policies: List[str],
+         faults: Optional[FaultPlan], rank: int = 0) -> None:
+    """:func:`serve` beside the block server that ``--serve-blocks`` asks
+    for (a cluster's own; under a mesh, rank 0's alone), then close
+    both."""
     peer_server = None if args.replicas <= 1 else eng.peer_server
     try:
-        if args.serve_blocks is not None and args.replicas <= 1:
+        if args.serve_blocks is not None and args.replicas <= 1 \
+                and rank == 0:
             peer_server = KVPeerServer(eng.static_lib, port=args.serve_blocks)
         if peer_server is not None:
             print(f"serving KV blocks to peers at {peer_server.address}")
@@ -329,10 +346,7 @@ def _rank_main(rank: int, argv, model: int, port: Optional[int],
     try:
         with quiet:
             cfg, eng, faults = build(args, params, mesh)
-            try:
-                serve(args, cfg, eng, policies, faults)
-            finally:
-                eng.close()
+            _run(args, cfg, eng, policies, faults, rank)
     finally:
         mesh.close()
 

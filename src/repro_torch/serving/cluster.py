@@ -36,10 +36,20 @@ record ``stuck_report`` with ``on_stuck="report"``) when ``max_steps`` end
 with work still live, and a cluster whose every replica is quarantined
 raises at once.
 
+**Replicas over a mesh.**  ``mesh=`` gives every replica an engine over
+the same tensor-parallel mesh, as the JAX cluster does: every rank runs
+the same cluster, uploads and submits the same work, and the replicas
+step round-robin, so the ranks issue their collectives in one order.
+Rank 0 decides what reads a clock or rank-local state (a pending
+request's deadline, each routing decision) and broadcasts it; the block
+server runs on rank 0 alone.  A crash from the seeded fault plan fires
+alike on every rank and quarantines the replica there; any other error
+ends the run on every rank instead of quarantining a replica on one.
+
 In eager PyTorch the replicas share the one model module; there is no
 compiled step to share between them (the JAX cluster's ``_share_jits``)
 and no trace count to report.  ``device`` follows the engine: None means
-the card, and raises without one.
+the card (the mesh's device under a mesh), and raises without one.
 """
 from __future__ import annotations
 
@@ -49,10 +59,12 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.cache.faults import ReplicaCrash
 from repro_torch.cache.library import KVLibrary
 from repro_torch.cache.net import KVPeerServer
 from repro_torch.cache.transfer import ParallelLoader
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import agree
 from repro_torch.serving.engine import EngineConfig, MPICEngine
 from repro_torch.serving.request import Request, State
 from repro_torch.serving.retriever import Retriever
@@ -96,15 +108,19 @@ class MPICCluster:
     def __init__(self, model, params, engine_cfg: Optional[EngineConfig] = None,
                  cluster_cfg: Optional[ClusterConfig] = None, *,
                  static_library: Optional[KVLibrary] = None,
-                 dynamic_library: Optional[KVLibrary] = None, device=None):
+                 dynamic_library: Optional[KVLibrary] = None, device=None,
+                 mesh=None):
         self.cfg = cluster_cfg or ClusterConfig()
         if self.cfg.replicas < 1:
             raise ValueError(f"replicas {self.cfg.replicas}: need >= 1")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(
+            mesh.device if device is None and mesh is not None else device)
         self.faults = self.cfg.faults
-        self.static_lib = static_library or KVLibrary(faults=self.faults,
-                                                      device=self.device)
-        self.dynamic_lib = dynamic_library or KVLibrary(shared=True)
+        self.static_lib = static_library or KVLibrary(
+            faults=self.faults, device=self.device, mesh=mesh)
+        self.dynamic_lib = dynamic_library or KVLibrary(shared=True,
+                                                        mesh=mesh)
         if self.faults is not None and self.static_lib.faults is None:
             # a library built outside joins the cluster's fault plan
             self.static_lib.faults = self.faults
@@ -112,7 +128,8 @@ class MPICCluster:
         if self.cfg.peers:
             self.static_lib.connect_peers(self.cfg.peers)
         self.peer_server = None
-        if self.cfg.serve_port is not None:
+        if self.cfg.serve_port is not None and (mesh is None
+                                                or mesh.rank == 0):
             self.peer_server = KVPeerServer(self.static_lib,
                                             port=self.cfg.serve_port)
         self.retriever = Retriever()
@@ -126,7 +143,8 @@ class MPICCluster:
                        static_library=self.static_lib,
                        dynamic_library=self.dynamic_lib,
                        retriever=self.retriever, device=self.device,
-                       faults=self.faults, replica_id=i, loader=self.loader)
+                       faults=self.faults, replica_id=i, loader=self.loader,
+                       mesh=mesh)
             for i in range(self.cfg.replicas)]
         self._pending: deque = deque()      # held by backpressure
         self.decisions: List[RoutingDecision] = []
@@ -213,9 +231,13 @@ class MPICCluster:
 
     def _dispatch(self) -> None:
         """Route pending requests onto replicas with queue room; one whose
-        deadline passed while it was held is reaped instead."""
+        deadline passed while it was held is reaped instead.  Under a mesh
+        both are rank 0's decisions."""
         while self._pending:
-            if self._pending[0].past_deadline():
+            late = self._pending[0].past_deadline()
+            if self._pending[0].deadline_s is not None:
+                late = agree(self.mesh, late)
+            if late:
                 req = self._pending.popleft()
                 req.state = State.DEADLINE
                 req.error = f"deadline exceeded ({req.deadline_s:.3f}s)"
@@ -226,7 +248,7 @@ class MPICCluster:
                 return                      # backpressure: hold
             req = self._pending.popleft()
             views = [replica_view(e, self.static_lib, req) for e in eligible]
-            decision = self.router.route(req, views)
+            decision = agree(self.mesh, self.router.route(req, views))
             self.decisions.append(decision)
             req.replica = decision.replica
             self.engines[decision.replica].submit(req)
@@ -244,6 +266,9 @@ class MPICCluster:
                 try:
                     eng.step()
                 except Exception as exc:
+                    if self.mesh is not None and not isinstance(
+                            exc, ReplicaCrash):
+                        raise
                     self._quarantine(eng, exc)
             self._dispatch()                # freed room is used at once
         self._rr = (self._rr + 1) % n

@@ -102,14 +102,20 @@ ServingSharding`) sets the shapes.  The pool and the dense cache are
 allocated at the rank's kv heads, the kernels run on them unchanged, the
 passes meet in ``all_reduce`` and ``all_gather``, and every rank samples
 the same token from the gathered logits.  Library entries stay whole: an
-upload gathers its heads, a link reads the rank's.  Host decisions that
-read a clock come from rank 0 (deadlines); the ones that read the
-request stream (admission order, cacheblend's picks, from summed
-deviations) agree by construction.  The disk and peer tiers under a mesh
-are not ported (ROADMAP.md queue 1): a library given with a spool
-directory or peers raises here, and a library that would spool (over its
-host budget, or ``spool_now``) raises there, as do sessions and queue
-aging.
+upload gathers its heads, a link reads the rank's, and a session's
+snapshot gathers its pages' heads (and an int8 pool's scale rows) into a
+whole block, which a thaw or a fork reads the rank's heads of.  Rank 0
+decides every outcome that reads a clock, a disk or a peer, and
+broadcasts it on the engine's thread: deadlines, the aged queue order,
+the libraries' expiries, spools, disk reads and peer pulls
+(:meth:`KVLibrary.sync` every step and upload, :meth:`KVLibrary.agree`
+at each lookup a prefill or a thaw consumes; see ``cache/library.py``),
+the idle sweep's choice and a new session's name and salt.  Rank 0 alone
+writes the spool, which the ranks share (one host); the others read it.
+The decisions that read the request stream (admission, cacheblend's
+picks, from summed deviations) agree by construction.  A rank that cannot
+follow rank 0 makes every rank raise together
+(:class:`~repro_torch.cache.library.RankDivergence`).
 """
 from __future__ import annotations
 
@@ -129,6 +135,7 @@ from repro_torch.core.linker import bucket, precompute_media_kv, scale_row_ids
 from repro_torch.core.paged_prefill import PagedPrefiller
 from repro_torch.core.policies import POLICIES, PolicyResult, PrefixStore
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import agree
 from repro_torch.models.layers import INVALID_POS, rope_relink
 from repro_torch.serving.request import Request, State
 from repro_torch.serving.retriever import Retriever
@@ -184,7 +191,6 @@ class MPICEngine:
             device = mesh.device if device is None else device
             params = plan.shard(params)
             model = plan.local_model()
-            self._refuse_under_mesh(static_library, dynamic_library)
         self.device = resolve_device(device)
         self.replica_id = replica_id
         self.model = model
@@ -193,21 +199,20 @@ class MPICEngine:
             raise ValueError(f"pool_dtype {self.cfg.pool_dtype!r}: "
                              "use '' (compute dtype) or 'int8'")
         self.faults = faults
-        self.static_lib = static_library or KVLibrary(faults=faults)
-        self.dynamic_lib = dynamic_library or KVLibrary(shared=True)
+        self.static_lib = static_library or KVLibrary(faults=faults,
+                                                      mesh=mesh)
+        self.dynamic_lib = dynamic_library or KVLibrary(shared=True,
+                                                        mesh=mesh)
         if mesh is not None:
             for lib in (self.static_lib, self.dynamic_lib):
-                lib.no_spool = ("a tensor-parallel engine's library went "
-                                "over its host budget: the disk tier under "
-                                "a mesh is not ported yet (ROADMAP.md, "
-                                "queue 1)")
+                lib.attach_mesh(mesh)
         self.retriever = retriever if retriever is not None else Retriever()
         self.loader = loader if loader is not None else ParallelLoader(
             self.static_lib, replica=replica_id)
         self.scheduler = PipelinedScheduler(
             self.loader, pipelined=self.cfg.pipelined,
             prefetch_filter=self._policy_consumes_entries,
-            replica=replica_id, aging_s=self.cfg.queue_aging_s)
+            replica=replica_id, aging_s=self.cfg.queue_aging_s, mesh=mesh)
         self.running: List[Optional[Request]] = [None] * self.cfg.decode_slots
         self.finished: List[Request] = []
         self.failed: List[Request] = []
@@ -260,24 +265,15 @@ class MPICEngine:
         or None."""
         return self.params.sharding
 
-    def _refuse_under_mesh(self, *libraries) -> None:
-        """What a tensor-parallel engine does not serve yet raises here
-        (ROADMAP.md, queue 1)."""
-        why = []
-        if self.cfg.freeze_idle_s > 0:
-            why.append("sessions (freeze_idle_s)")
-        if self.cfg.queue_aging_s > 0:
-            why.append("queue aging (each rank's clock would order the "
-                       "queue)")
-        for lib in libraries:
-            if lib is not None and (lib.disk.spool_dir is not None
-                                    or lib.network is not None):
-                why.append("a library with a spool directory or peers "
-                           "(the disk and peer tiers)")
-        if why:
-            raise NotImplementedError(
-                f"not ported under a mesh yet: {'; '.join(why)} "
-                "(ROADMAP.md, queue 1)")
+    def _sync_libraries(self) -> None:
+        """Rank 0's changes to both libraries' placement on every rank, in
+        one broadcast (:meth:`KVLibrary.sync`)."""
+        if self.mesh is None:
+            return
+        libs = (self.static_lib, self.dynamic_lib)
+        states = self.mesh.broadcast_object([lib.sync_state() for lib in libs])
+        for lib, state in zip(libs, states):
+            lib.apply_sync(state)
 
     def _init_pool(self) -> None:
         mcfg = self.model.cfg
@@ -322,6 +318,7 @@ class MPICEngine:
                             device=self.device))
         lib = self.dynamic_lib if dynamic else self.static_lib
         lib.put(user_id, media_id, k, v, ttl=ttl)
+        lib.sync()
         if dynamic:
             self.retriever.add(media_id, embeds)
 
@@ -329,10 +326,6 @@ class MPICEngine:
     # workflow 2: submit a query
     # ------------------------------------------------------------------
     def submit(self, request: Request) -> Request:
-        if self.mesh is not None and request.freeze_after is not None:
-            raise NotImplementedError(
-                "sessions (freeze_after) are not ported under a mesh yet "
-                "(ROADMAP.md, queue 1)")
         total = request.prompt.total_len
         if total + 1 >= self.cfg.max_seq_len:
             raise ValueError(f"prompt of {total} tokens exceeds the slot's "
@@ -355,6 +348,7 @@ class MPICEngine:
                     f"injected crash on replica {self.replica_id} "
                     f"({rule.describe()})")
         self._reap_deadlines()
+        self._sync_libraries()
         self._advance_prefills()
         self._admit()
         self._decode()
@@ -366,7 +360,6 @@ class MPICEngine:
     def freeze(self, req_id: str, *, spool: bool = False) -> SessionHandle:
         """Snapshot a decoding request into the static library and free its
         slot: :meth:`SessionStore.freeze`."""
-        self._no_sessions_under_mesh()
         return self.sessions.freeze(req_id, spool=spool)
 
     @torch.inference_mode()
@@ -374,7 +367,6 @@ class MPICEngine:
              max_new_tokens: Optional[int] = None) -> Request:
         """Resume a frozen session in a free slot, optionally after the
         next turn's suffix: :meth:`SessionStore.thaw`."""
-        self._no_sessions_under_mesh()
         return self.sessions.thaw(handle, suffix_tokens,
                                   max_new_tokens=max_new_tokens)
 
@@ -383,14 +375,7 @@ class MPICEngine:
              max_new_tokens: Optional[int] = None) -> List[Request]:
         """Thaw one snapshot into ``n`` children sharing its pages
         (copy-on-write): :meth:`SessionStore.fork`."""
-        self._no_sessions_under_mesh()
         return self.sessions.fork(handle, n, max_new_tokens=max_new_tokens)
-
-    def _no_sessions_under_mesh(self) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "sessions are not ported under a mesh yet (ROADMAP.md, "
-                "queue 1)")
 
     def run(self, max_steps: int = 10_000) -> List[Request]:
         steps = 0
@@ -564,9 +549,8 @@ class MPICEngine:
         0's clock decides for every rank."""
         now = time.perf_counter()
         ids = {r.req_id for r in reqs if r.past_deadline(now)}
-        if self.mesh is not None and any(r.deadline_s is not None
-                                         for r in reqs):
-            ids = self.mesh.broadcast_object(ids)
+        if any(r.deadline_s is not None for r in reqs):
+            ids = agree(self.mesh, ids)
         return ids
 
     def _reap_deadlines(self) -> None:
@@ -703,8 +687,8 @@ class MPICEngine:
         hits = self.retriever.query(req.retrieval_query, req.retrieval_top_k)
         for media_id, _score in hits:
             # pinned while linked: a spool must not free the tensors
-            entry = self.dynamic_lib.get(req.prompt.user_id, media_id,
-                                         replica=self.replica_id, pin=True)
+            entry = self.dynamic_lib.get_agreed(
+                req.prompt.user_id, media_id, replica=self.replica_id)
             if entry is None:
                 continue
             try:

@@ -53,6 +53,7 @@ from repro_torch.core.policies import (
     _full_prompt_arrays,
     _selective_step,
 )
+from repro_torch.launch.mesh import agree
 from repro_torch.serving.request import Request, State
 
 # queued requests whose media loads are kept in flight (the JAX engine's
@@ -67,11 +68,15 @@ class WaitingQueue:
     grows by one level per ``aging_s`` seconds waited, so that a burst of
     higher-priority traffic cannot starve older requests.  The order is
     then decided at pop and peek time (a scan); ``aging_s=0`` keeps the
-    static heap.
+    static heap.  Under ``mesh`` the aged order is rank 0's on every rank
+    (:func:`~repro_torch.launch.mesh.agree`): it reads each rank's clock,
+    and the ranks push the same requests in the same order, so a push
+    number names one request on every rank.
     """
 
-    def __init__(self, aging_s: float = 0.0):
+    def __init__(self, aging_s: float = 0.0, mesh=None):
         self.aging_s = float(aging_s)
+        self.mesh = mesh
         self._heap: List[Tuple[int, int, float, Request]] = []
         self._seq = itertools.count()
 
@@ -86,20 +91,27 @@ class WaitingQueue:
         neg_pri, seq, t_enq, _ = item
         return (neg_pri - (now - t_enq) / self.aging_s, seq)
 
+    def _aged(self, n: int) -> List[int]:
+        """The heap indices of the next ``n`` requests by aged priority
+        now (rank 0's clock under a mesh)."""
+        now = time.perf_counter()
+        order = sorted(range(len(self._heap)),
+                       key=lambda j: self._aged_key(self._heap[j], now))[:n]
+        if self.mesh is None:
+            return order
+        seqs = agree(self.mesh, [self._heap[j][1] for j in order])
+        at = {item[1]: j for j, item in enumerate(self._heap)}
+        return [at[seq] for seq in seqs]
+
     def pop(self) -> Request:
         if self.aging_s > 0:
-            now = time.perf_counter()
-            i = min(range(len(self._heap)),
-                    key=lambda j: self._aged_key(self._heap[j], now))
-            return self._heap.pop(i)[3]
+            return self._heap.pop(self._aged(1)[0])[3]
         return heapq.heappop(self._heap)[3]
 
     def peek(self, n: int) -> List[Request]:
         """The next ``n`` requests in admission order, not popped."""
         if self.aging_s > 0:
-            now = time.perf_counter()
-            order = sorted(self._heap, key=lambda it: self._aged_key(it, now))
-            return [item[3] for item in order[:n]]
+            return [self._heap[j][3] for j in self._aged(n)]
         return [item[3] for item in heapq.nsmallest(n, self._heap)]
 
     def remove(self, req: Request) -> bool:
@@ -134,17 +146,17 @@ class PipelinedScheduler:
     that requests that never link media occupy no loader worker.
     ``replica`` tags the prefetches issued on a loader that a cluster's
     replicas share (per-replica warmth, deduplicated fetches);
-    ``aging_s`` goes to the :class:`WaitingQueue`.
+    ``aging_s`` and ``mesh`` go to the :class:`WaitingQueue`.
     """
 
     def __init__(self, loader: ParallelLoader, *, pipelined: bool = True,
                  max_intervals: int = 1024, prefetch_filter=None,
-                 replica=None, aging_s: float = 0.0):
+                 replica=None, aging_s: float = 0.0, mesh=None):
         self.loader = loader
         self.pipelined = pipelined
         self.prefetch_filter = prefetch_filter
         self.replica = replica
-        self.queue = WaitingQueue(aging_s=aging_s)
+        self.queue = WaitingQueue(aging_s=aging_s, mesh=mesh)
         self._handles: Dict[str, PrefetchHandle] = {}
         # the engine's compute windows; old ones cannot meet new loads
         self._compute_intervals: deque = deque(maxlen=max_intervals)

@@ -32,7 +32,14 @@ paged selective prefill.
     (:meth:`~repro_torch.cache.paged.PagedKVPool.make_exclusive`).
 
 ``KVLibrary.note_session`` counts the events for ``stats()["sessions"]``,
-beside the pool's ``cow_copies`` and ``pages_shared``.  A handle is
+beside the pool's ``cow_copies`` and ``pages_shared``.
+
+Under a tensor-parallel mesh each rank's pool holds its kv heads: a freeze
+gathers every rank's heads of the pages (and of an int8 pool's scale
+rows) into one whole snapshot, the same block on every rank under rank
+0's session name and salt, which spools in the unsharded format; a thaw
+or a fork adopts the rank's heads of it.  The idle sweep spools what rank
+0's clock finds idle.  Copy-on-write stays per rank.  A handle is
 JSON-safe and means the same in both packages: the engines sample with
 ``np.random.default_rng(seed)``, so ``rng_state`` carries over.
 """
@@ -48,6 +55,7 @@ import numpy as np
 from repro_torch.cache.quant import QuantizedKV
 from repro_torch.core.linker import session_suffix_link
 from repro_torch.core.segments import Prompt, text_segment
+from repro_torch.launch.mesh import agree
 from repro_torch.serving.request import Request, State
 
 SESSION_MEDIA_PREFIX = "__session__::"
@@ -138,14 +146,21 @@ class SessionStore:
                 f"freeze: request {req_id!r} is {req.state.value}, "
                 "only decoding (RUNNING) requests can freeze")
 
+        # both random: under a mesh, rank 0's
         sid = req.session_id or f"sess-{os.urandom(6).hex()}"
-        salt = self._salts.setdefault(sid, _new_salt())
+        sid, salt = agree(eng.mesh, (sid, self._salts.get(sid,
+                                                          _new_salt())))
+        salt = self._salts.setdefault(sid, salt)
         media_id = SESSION_MEDIA_PREFIX + sid
         user_id = req.prompt.user_id
         n_ctx = req.cur_len
         pool = eng.pool
 
         snap = pool.export_session(eng._page_tables[req.slot], n_ctx)
+        if eng.sharding is not None:
+            # every rank's kv heads: the block is whole, as an upload's
+            snap = {name: eng.sharding.gather_heads(t, 2)
+                    for name, t in snap.items()}
         rng = eng._rngs.get(req.req_id)
         rng_state = rng.bit_generator.state if rng is not None else None
 
@@ -188,9 +203,10 @@ class SessionStore:
     # -- thaw --------------------------------------------------------------
     def _fetch_snapshot(self, handle: SessionHandle) -> dict:
         """The snapshot from the library, any tier (a local miss asks the
-        peers at the salted address), as the pool's snapshot dict."""
-        e = self._lib.get(handle.user_id, handle.media_id,
-                          salt=handle.cache_salt, pin=True)
+        peers at the salted address), as the pool's snapshot dict; under a
+        mesh rank 0's lookup, cut to the rank's kv heads."""
+        e = self._lib.get_agreed(handle.user_id, handle.media_id,
+                                 salt=handle.cache_salt)
         if e is None:
             raise LookupError(
                 f"thaw: session snapshot {handle.session_id!r} not found "
@@ -199,10 +215,16 @@ class SessionStore:
             e.wait_loaded()
             if e.payload.qk is not None:
                 qk, qv = e.payload.qk, e.payload.qv
-                return {"qk": qk.q, "qv": qv.q,
+                snap = {"qk": qk.q, "qv": qv.q,
                         "k_scale": qk.scale[..., 0],
                         "v_scale": qv.scale[..., 0]}
-            return {"k": e.payload.k, "v": e.payload.v}
+            else:
+                snap = {"k": e.payload.k, "v": e.payload.v}
+            sharding = self.engine.sharding
+            if sharding is not None:
+                snap = {name: sharding.local_heads(t, 2)
+                        for name, t in snap.items()}
+            return snap
         finally:
             self._lib.unpin(e)
 
@@ -353,12 +375,19 @@ class SessionStore:
         """Spool the snapshots frozen longer than ``max_idle_s`` ago
         (``EngineConfig.freeze_idle_s``, run every engine step); a thaw of
         one reads its spool file (or a peer) back.  Returns how many were
-        spooled by this call."""
+        spooled by this call.  Under a mesh rank 0's clock picks them (a
+        broadcast whenever a handle is not spooled yet, which every rank
+        knows alike)."""
         now = time.time()
         demoted = 0
-        for sid, h in self.handles.items():
-            if sid in self._spooled or now - h.frozen_at <= max_idle_s:
-                continue
+        waiting = [sid for sid in self.handles if sid not in self._spooled]
+        if not waiting:
+            return 0
+        idle = agree(self.engine.mesh, [
+            sid for sid in waiting
+            if now - self.handles[sid].frozen_at > max_idle_s])
+        for sid in idle:
+            h = self.handles[sid]
             if self._lib.spool_now(h.user_id, h.media_id):
                 self._spooled.add(sid)
                 demoted += 1

@@ -12,11 +12,15 @@ the ranks past it, so a hang fails the test instead of running into the
 suite's clock.
 
 :func:`run_traffic` serves the same stream through either package's
-engine, given that package's constructors: three two-image dialogues
-under a trace of policies and one MRAG request (retrieved 12-token image,
-``mpic``).  The parity cases mirror the JAX package's sharded worker
-(``tests/_sharded_worker.py``): kernel, decode, prefill, mrag,
-cacheblend, dense, int8, nondiv.
+engine (or a cluster), given that package's constructors: three two-image
+dialogues under a trace of policies and one MRAG request (retrieved
+12-token image, ``mpic``).  The parity cases mirror the JAX package's
+sharded worker (``tests/_sharded_worker.py``): kernel, decode, prefill,
+mrag, cacheblend, dense, int8, nondiv.  The system half's cases serve the
+stream with every block spooled to a directory the ranks share (disk),
+with every dialogue image pulled from a peer (peer), through two
+replicas (replicas), a session's freeze, thaw and fork (sessions), and an
+aging queue whose order each rank's clock would decide otherwise (aging).
 """
 import queue as queue_mod
 import time
@@ -26,7 +30,7 @@ import numpy as np
 import torch
 import torch.multiprocessing as mp
 
-JOIN_TIMEOUT_S = 120.0      # the whole run of one set of ranks
+JOIN_TIMEOUT_S = 180.0      # the whole run of one set of ranks
 INIT_TIMEOUT_S = 60.0       # the process group and each collective
 MAX_NEW = 5
 REL = 1e-4              # first-token logits, relative (see check_requests)
@@ -68,24 +72,36 @@ def check_requests(got, want, *, tol=REL, atol=None):
     assert "RAG1" in got[-1]["linked"]
 
 
-def run_traffic(eng, pkg, d_model: int, media_len: int, policies):
-    """Serve the stream through ``eng`` (``pkg``: a dict of the package's
-    ``make_dialogues``, ``image_embeds``, ``text_segment``, ``Prompt`` and
-    ``Request``).  Returns one dict per request: its tokens, first-token
-    logits, ``n_reused``, ``n_recomputed`` and linked media."""
-    firsts = {}
-    finalize = eng._finalize_prefill
-
-    def record(req, result, *rest):
-        firsts[req.req_id] = np.asarray(result.first_logits, np.float32)
-        return finalize(req, result, *rest)
-
-    eng._finalize_prefill = record
+def upload_dialogues(eng, pkg, d_model: int, media_len: int):
+    """Upload the stream's dialogue images; returns the dialogues."""
     samples = pkg["make_dialogues"](n=3, n_images=2, d_model=d_model,
                                     media_len=media_len)
     for s in samples:
         for _, seg in s.prompt.media_segments():
             eng.upload(s.prompt.user_id, seg.media_id, seg.embeds)
+    return samples
+
+
+def run_traffic(eng, pkg, d_model: int, media_len: int, policies, *,
+                upload: bool = True):
+    """Serve the stream through ``eng``, an engine or a cluster (``pkg``:
+    a dict of the package's ``make_dialogues``, ``image_embeds``,
+    ``text_segment``, ``Prompt`` and ``Request``); ``upload=False`` leaves
+    the dialogue images to the library's peers.  Returns one dict per
+    request: its tokens, first-token logits, ``n_reused``,
+    ``n_recomputed`` and linked media."""
+    firsts = {}
+    engines = getattr(eng, "engines", [eng])
+    for e in engines:
+        def record(req, result, *rest, finalize=e._finalize_prefill):
+            firsts[req.req_id] = np.asarray(result.first_logits, np.float32)
+            return finalize(req, result, *rest)
+        e._finalize_prefill = record
+    if upload:
+        samples = upload_dialogues(eng, pkg, d_model, media_len)
+    else:
+        samples = pkg["make_dialogues"](n=3, n_images=2, d_model=d_model,
+                                        media_len=media_len)
     rag = pkg["image_embeds"]("RAG1", 12, d_model)
     eng.upload("*", "RAG1", rag, dynamic=True)
     mk = pkg["Request"]
@@ -100,7 +116,8 @@ def run_traffic(eng, pkg, d_model: int, media_len: int, policies):
     for r in reqs:
         eng.submit(r)
     steps = 0
-    while (eng.scheduler.queue or any(eng.running)) and steps < 1000:
+    while any(e.scheduler.queue or any(e.running) for e in engines) \
+            and steps < 1000:
         eng.step()
         steps += 1
     return [{"tokens": list(r.output_tokens), "first": firsts[r.req_id],
@@ -246,7 +263,175 @@ def case_decode(model, params, mesh, tokens, steps: int):
             "prefill_calls": prefill_calls, "decode_calls": decode_calls}
 
 
-CASES = {"serve": case_serve, "kernel": case_kernel, "decode": case_decode}
+def _spooled(spool_dir: str, mesh=None):
+    """A static and a dynamic library with no memory budget over
+    ``spool_dir``, in ``mesh``'s role: every block spools at its upload."""
+    from repro_torch.cache import KVLibrary
+    return [KVLibrary(shared=shared, spool_dir=spool_dir, hbm_capacity=0,
+                      host_capacity=0, device="cpu", mesh=mesh)
+            for shared in (False, True)]
+
+
+def _tiers(lib) -> dict:
+    """A library's disk (and network) read and write counters."""
+    tiers = lib.stats()["tiers"]
+    out = {f"disk_{k}": tiers["disk"][k]
+           for k in ("fetches", "bytes_read", "bytes_written")}
+    if "network" in tiers:
+        out["network_fetches"] = tiers["network"]["fetches"]
+    return out
+
+
+def case_disk(model, params, mesh, spool_dir: str):
+    """The paged setup with every image, static and dynamic, spooled into
+    the directory that the ranks share: rank 0 writes, every rank reads.
+    Also returns the content keys of the static blocks this rank read."""
+    from repro_torch.serving import EngineConfig, MPICEngine
+    over, policies = SETUPS["paged"]
+    static, dynamic = _spooled(spool_dir, mesh)
+    read, get = set(), static.disk.get
+
+    def recorded(key):
+        got = get(key)
+        if got is not None:
+            read.add(key)
+        return got
+
+    static.disk.get = recorded
+    eng = MPICEngine(model, params, EngineConfig(**over), mesh=mesh,
+                     device="cpu", static_library=static,
+                     dynamic_library=dynamic)
+    try:
+        out = run_traffic(eng, _torch_pkg(), model.cfg.d_model,
+                          model.cfg.media_token_len, policies)
+        return {"requests": out,
+                "static": dict(_tiers(static), read_keys=sorted(read)),
+                "dynamic": _tiers(dynamic)}
+    finally:
+        eng.close()
+
+
+def case_peer(model, params, mesh, inbox, spool_dir: str):
+    """The paged setup with no dialogue image uploaded: rank 0 pulls each
+    from the peer whose address ``inbox`` brings (the JAX package's block
+    server), the other ranks read what rank 0 wrote into ``spool_dir``."""
+    from repro_torch.cache import KVLibrary
+    from repro_torch.serving import EngineConfig, MPICEngine
+    addr = inbox.get(timeout=JOIN_TIMEOUT_S)
+    over, policies = SETUPS["paged"]
+    static = KVLibrary(peers=[addr], spool_dir=spool_dir, device="cpu",
+                       mesh=mesh)
+    eng = MPICEngine(model, params, EngineConfig(**over), mesh=mesh,
+                     device="cpu", static_library=static)
+    try:
+        out = run_traffic(eng, _torch_pkg(), model.cfg.d_model,
+                          model.cfg.media_token_len, policies, upload=False)
+        return {"requests": out, "static": _tiers(static)}
+    finally:
+        eng.close()
+
+
+def case_sessions(model, params, mesh, pool: str, spool_dir: str):
+    """One dialogue under ``full_recompute`` frozen after 4 tokens (and
+    spooled), thawed with a 4-token suffix, then forked into 2; also run
+    unsharded (``mesh=None``) as the oracle.  Returns each request's
+    tokens and its first token's logits, and the snapshot's disk reads."""
+    from repro_torch.cache import KVLibrary
+    from repro_torch.serving import EngineConfig, MPICEngine, Request
+    pkg = _torch_pkg()
+    lib = KVLibrary(spool_dir=spool_dir, device="cpu", mesh=mesh)
+    eng = MPICEngine(model, params, EngineConfig(
+        max_seq_len=256, decode_slots=2, pool_dtype=pool), mesh=mesh,
+        device="cpu", static_library=lib)
+    firsts = {}
+    select = eng._select_token
+
+    def record(req, row):
+        firsts.setdefault(req.req_id, np.asarray(row, np.float32).copy())
+        return select(req, row)
+
+    eng._select_token = record
+    try:
+        dialogue = pkg["make_dialogues"](
+            n=1, n_images=2, d_model=model.cfg.d_model,
+            media_len=model.cfg.media_token_len)[0]
+        for _, seg in dialogue.prompt.media_segments():
+            eng.upload(dialogue.prompt.user_id, seg.media_id, seg.embeds)
+        req = eng.submit(pkg["Request"](
+            prompt=dialogue.prompt, max_new_tokens=8, freeze_after=4,
+            policy="full_recompute"))
+        eng.run()
+        handle = eng.sessions.handles[req.session_id]
+        spooled = eng.sessions.stats()["spooled_handles"]
+        thawed = eng.thaw(handle, [7, 8, 9, 10], max_new_tokens=MAX_NEW)
+        eng.run()
+        forks = eng.fork(handle, 2, max_new_tokens=MAX_NEW)
+        eng.run()
+        done = [req, thawed, *forks]
+        return {"tokens": [list(r.output_tokens) for r in done],
+                "first": [firsts[r.req_id] for r in done[:2]],
+                "state": [r.state.value for r in done],
+                "spooled": spooled, "static": _tiers(lib)}
+    finally:
+        eng.close()
+
+
+def case_replicas(model, params, mesh):
+    """The paged setup through two replicas over the mesh (affinity
+    routing, rank 0's decisions)."""
+    from repro_torch.serving import (ClusterConfig, EngineConfig,
+                                     MPICCluster)
+    over, policies = SETUPS["paged"]
+    cluster = MPICCluster(model, params, EngineConfig(**over), ClusterConfig(
+        replicas=2, router="affinity"), mesh=mesh, device="cpu")
+    try:
+        out = run_traffic(cluster, _torch_pkg(), model.cfg.d_model,
+                          model.cfg.media_token_len, policies)
+        return {"requests": out,
+                "replicas": [d.replica for d in cluster.decisions]}
+    finally:
+        cluster.close()
+
+
+def case_aging(model, params, mesh):
+    """Three dialogues of priorities 0, 2 and 1 into one slot with queue
+    aging, rank 1 waiting 0.2 s after each submit, so that its clock would
+    age its older requests ahead of rank 0's order.  Returns the admission
+    order (request indices) and every request's tokens."""
+    from repro_torch.serving import EngineConfig, MPICEngine
+    pkg = _torch_pkg()
+    eng = MPICEngine(model, params, EngineConfig(
+        max_seq_len=256, decode_slots=1, queue_aging_s=0.05), mesh=mesh,
+        device="cpu")
+    admitted = []
+    pop = eng.scheduler.pop
+
+    def record():
+        req, handle = pop()
+        admitted.append(req)
+        return req, handle
+
+    eng.scheduler.pop = record
+    try:
+        samples = upload_dialogues(eng, pkg, model.cfg.d_model,
+                                   model.cfg.media_token_len)
+        reqs = []
+        for s, priority in zip(samples, (0, 2, 1)):
+            reqs.append(eng.submit(pkg["Request"](
+                prompt=s.prompt, max_new_tokens=3, priority=priority,
+                policy="mpic", policy_kwargs=POLICY_KW["mpic"])))
+            if mesh.rank == 1:
+                time.sleep(0.2)
+        eng.run()
+        return {"order": [reqs.index(r) for r in admitted],
+                "tokens": [list(r.output_tokens) for r in reqs]}
+    finally:
+        eng.close()
+
+
+CASES = {"serve": case_serve, "kernel": case_kernel, "decode": case_decode,
+         "disk": case_disk, "peer": case_peer, "sessions": case_sessions,
+         "replicas": case_replicas, "aging": case_aging}
 
 
 def _rank_main(rank, world, port, cfg, tree, jobs, out_q):

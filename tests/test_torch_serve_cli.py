@@ -9,7 +9,8 @@ and ``tokens`` per request when it serves the JAX CLI's weights, and so
 does a run of the MoE granite-moe-1b-a400m with ``--freeze-idle-s``, and
 a run through a two-replica cluster (``--replicas 2 --router affinity
 --deadline-s``), which also prints each request's replica, and a
-tensor-parallel run over two ranks (``--mesh 1x2``); without
+tensor-parallel run over two ranks (``--mesh 1x2``), also with two
+replicas, peers, a block server and the idle sweep; without
 ``--device cpu`` and without a card the run exits non-zero.
 """
 import dataclasses
@@ -228,6 +229,34 @@ def test_cpu_cluster_run_as_the_reference(monkeypatch, capsys):
     assert len(_cluster_requests(port)) == 3
     assert {r for *_, r in _cluster_requests(port)} == {0, 1}
     assert "DEADLINE" not in port and "replicas=2 router=affinity" in port
+
+
+def test_cpu_mesh_cluster_run_with_the_system_half_as_the_reference(
+        monkeypatch, capfd):
+    """``--mesh 1x2 --replicas 2`` with ``--peers`` (a dead one: every
+    image is local), ``--serve-blocks 0`` (rank 0 alone serves) and
+    ``--freeze-idle-s``, on the JAX CLI's weights, against the JAX CLI's
+    unsharded ``--replicas 2`` run: the same ``reused`` and ``tokens`` per
+    request, one block server, the mesh and the router in the header."""
+    argv = ["--requests", "3", "--replicas", "2", "--router", "affinity",
+            "--max-new-tokens", "4", "--peers", "127.0.0.1:1",
+            "--serve-blocks", "0", "--freeze-idle-s", "5"]
+    jcfg = jax_smoke_config("llava-1.6-7b")
+    tree = jax.tree_util.tree_map(
+        np.asarray, jax_build_model(jcfg).init(jax.random.PRNGKey(0)))
+    serve.main([*argv, "--device", "cpu", "--mesh", "1x2"],
+               params=params_from_numpy(
+                   tree, get_smoke_config("llava-1.6-7b"), "cpu"))
+    port = capfd.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["serve.py", *argv])
+    jax_serve.main()
+    ref = capfd.readouterr().out
+    served = sorted(r[:2] for r in _cluster_requests(port))
+    assert served == sorted(r[:2] for r in _cluster_requests(ref))
+    assert len(served) == 3 and all(t == 4 for _, t in served)
+    assert port.count("serving KV blocks to peers at") == 1
+    assert "mesh=1x2 replicas=2 router=affinity" in port
+    assert "  tensor_parallel: backend=gloo ranks=2 device=cpu" in port
 
 
 def test_default_device_without_a_card_exits_non_zero():

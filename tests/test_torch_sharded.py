@@ -11,11 +11,19 @@ full_recompute: the prefill, mrag, cacheblend and decode cases), on the
 dense cache (the dense case) and on an int8 pool (the int8 case), and run
 the kernel and the model-level decode cases; four ranks, which the 2 kv
 heads do not divide, serve the paged and dense setups with attention
-replicated (the nondiv case).  Also: every parameter's cut against the
-reference's ``_leaf_spec``/``_guard``, the shards concatenating back to
-the whole weights (cut, and drawn per rank by ``init_params``), the
-pool's and the dense cache's kv heads per rank, and what raises under a
-mesh (a library that would spool among it).
+replicated (the nondiv case).  The paper's system half under the mesh, in
+the same two ranks: the paged setup with every block spooled into one
+directory the ranks share (rank 0 writes, both read), with every dialogue
+image pulled from the JAX package's block server (rank 0 pulls, rank 1
+reads rank 0's file), and through two replicas; a session's freeze, thaw
+and fork on fp32 and int8 pools against the port's unsharded engine
+(which ``test_torch_sessions.py`` holds to the JAX engine); an aging
+queue admitting in one order on both ranks.  Also: every parameter's cut
+against the reference's ``_leaf_spec``/``_guard``, the shards
+concatenating back to the whole weights (cut, and drawn per rank by
+``init_params``), the pool's and the dense cache's kv heads per rank, a
+1 x 1 mesh engine's spool file byte-equal to the unsharded engine's and
+read back by both packages, and what still raises under a mesh.
 
 Tolerances: greedy tokens, ``n_reused``, linked media exact; first-token
 logits within 1e-4 relative (max |diff| over max |logit|): the
@@ -26,6 +34,8 @@ unsharded int8 engine to against the JAX one (int8 rounding of K/V that
 differ in their last fp32 bits).
 """
 import dataclasses
+import os
+import shutil
 import types
 
 import jax
@@ -33,6 +43,9 @@ import numpy as np
 import pytest
 import torch
 
+import torch.multiprocessing as mp
+
+from repro.cache.library import KVLibrary as JaxLibrary
 from repro.launch.specs import _guard as jax_guard
 from repro.launch.specs import _leaf_spec as jax_leaf_spec
 from repro_torch.cache import KVLibrary
@@ -42,7 +55,7 @@ from repro_torch.launch import specs
 from repro_torch.launch.mesh import ServingMesh, make_serving_mesh
 from repro_torch.models import build_model
 from repro_torch.models.transformer import init_params
-from repro_torch.serving import EngineConfig, MPICEngine, Request
+from repro_torch.serving import EngineConfig, MPICEngine
 from repro_torch.serving.sharding import ServingSharding
 from repro_torch.weights import leaf_path
 
@@ -53,9 +66,11 @@ from _torch_sharded import (
     SETUPS,
     Ranks,
     _torch_pkg,
+    case_sessions,
     check_requests,
     rel,
     run_traffic,
+    upload_dialogues,
 )
 
 ARCH = "internvl2-76b"
@@ -79,40 +94,81 @@ def _jax_decode(jm, jp, tokens, steps):
     return out
 
 
+SESSION_POOLS = {"fp32": "", "int8": "int8"}
+
+
+def _jax_peer(jm, jp):
+    """The JAX package's block server over a JAX engine's library holding
+    the stream's dialogue images (the peer case pulls them)."""
+    from repro.cache.net import KVPeerServer
+    from repro.core import Prompt, text_segment
+    from repro.data import image_embeds, make_dialogues
+    from repro.serving import EngineConfig as JaxConfig
+    from repro.serving import MPICEngine as JaxEngine
+    from repro.serving import Request as JaxRequest
+    eng = JaxEngine(jm, jp, JaxConfig(paged_backend="ref", pipelined=False,
+                                      **SETUPS["paged"][0]))
+    upload_dialogues(eng, {"make_dialogues": make_dialogues,
+                           "image_embeds": image_embeds,
+                           "text_segment": text_segment, "Prompt": Prompt,
+                           "Request": JaxRequest},
+                     jm.cfg.d_model, jm.cfg.media_token_len)
+    return KVPeerServer(eng.static_lib)
+
+
 @pytest.fixture(scope="module")
-def runs():
+def runs(tmp_path_factory):
     """(JAX results, port unsharded results, 2-rank results, 4-rank
-    results); the ranks run while the JAX engines serve."""
+    results); the ranks run while the JAX engines serve.  The port's
+    unsharded results: the int8 setup and the session cases."""
     jm, jp, tm, tp = build_pair(arch=ARCH)
     tree = jax.tree_util.tree_map(np.asarray, jp)
+    inbox = mp.get_context("spawn").Queue()
+    spool = tmp_path_factory.mktemp("spool")
     two = Ranks(2, tm.cfg, tree, [(s, "serve", {"setup": s})
                                   for s in SETUPS] + [
         ("kernel", "kernel", {}),
-        ("decode", "decode", {"tokens": TOKENS, "steps": STEPS})])
+        ("decode", "decode", {"tokens": TOKENS, "steps": STEPS}),
+        ("disk", "disk", {"spool_dir": str(spool / "disk")}),
+        ("replicas", "replicas", {}), ("aging", "aging", {})] + [
+        (f"sessions-{name}", "sessions", {
+            "pool": pool, "spool_dir": str(spool / f"sessions-{name}")})
+        for name, pool in SESSION_POOLS.items()] + [
+        ("peer", "peer", {"inbox": inbox, "spool_dir": str(spool / "peer")})])
     four = Ranks(4, tm.cfg, tree, [(s, "serve", {"setup": s})
                                    for s in ("paged", "dense")])
+    server = None
     try:
+        server = _jax_peer(jm, jp)
+        for _ in range(2):
+            inbox.put(server.address)
         ref = {s: jax_traffic(jm, jp, s) for s in SETUPS}
         ref["decode"] = _jax_decode(jm, jp, TOKENS, STEPS)
         eng = MPICEngine(tm, tp, EngineConfig(**SETUPS["int8"][0]),
                          device="cpu")
-        port_int8 = run_traffic(eng, _torch_pkg(), tm.cfg.d_model,
-                                tm.cfg.media_token_len, SETUPS["int8"][1])
+        port = {"int8": run_traffic(eng, _torch_pkg(), tm.cfg.d_model,
+                                    tm.cfg.media_token_len,
+                                    SETUPS["int8"][1])}
         eng.close()
+        for name, pool in SESSION_POOLS.items():
+            port[f"sessions-{name}"] = case_sessions(
+                tm, tp, None, pool, str(spool / f"unsharded-{name}"))
     finally:
         r2, r4 = two.results(), four.results()
-    return ref, port_int8, r2, r4
+        if server is not None:
+            server.close()
+    return ref, port, r2, r4
 
 
 @pytest.mark.parametrize("setup", list(SETUPS))
 def test_two_ranks_serve_the_jax_engines_tokens(runs, setup):
-    ref, port_int8, r2, _ = runs
+    ref, port, r2, _ = runs
     for rank in (0, 1):
         res = r2[rank][setup]
         check_requests(res["requests"], ref[setup],
                        atol=1e-3 if setup == "int8" else None)
         if setup == "int8":
-            check_requests(res["requests"], port_int8)
+            check_requests(res["requests"], port["int8"])
     assert [r["tokens"] for r in r2[0][setup]["requests"]] == \
         [r["tokens"] for r in r2[1][setup]["requests"]]
 
@@ -138,6 +194,77 @@ def test_four_ranks_replicate_attention_where_kv_heads_do_not_divide(
         assert not res["facts"]["attn_sharded"]
         assert res["facts"]["local_kv_heads"] == 2
         check_requests(res["requests"], ref[setup])
+
+
+def test_two_ranks_serve_every_block_from_the_spool_they_share(runs):
+    """Host budget 0: every image (the dialogues' and the MRAG one) spools
+    at its upload and is read back at its link.  Rank 0 alone writes the
+    files; both ranks read the same ones; the tokens are the JAX engine's.
+    How often a rank reads one block is timing: a loader thread's fetch
+    races rank 0's re-spool of a block no request pins yet."""
+    ref, _, r2, _ = runs
+    for rank in (0, 1):
+        res = r2[rank]["disk"]
+        check_requests(res["requests"], ref["paged"])
+        for lib in ("static", "dynamic"):
+            assert res[lib]["disk_fetches"] > 0
+            assert (res[lib]["disk_bytes_written"] > 0) == (rank == 0)
+    read = [set(r2[rank]["disk"]["static"]["read_keys"]) for rank in (0, 1)]
+    assert read[0] and read[0] == read[1]
+
+
+def test_two_ranks_serve_blocks_that_rank_0_pulls_from_a_jax_peer(runs):
+    """No dialogue image is uploaded: rank 0 pulls each from the JAX
+    package's block server (the wire formats are byte-equal) and writes
+    it into the shared spool, where rank 1 reads it; the tokens are the
+    JAX engine's, which computed those blocks."""
+    ref, _, r2, _ = runs
+    for rank in (0, 1):
+        check_requests(r2[rank]["peer"]["requests"], ref["paged"])
+    lead, other = r2[0]["peer"]["static"], r2[1]["peer"]["static"]
+    assert lead["network_fetches"] == 4 and other["network_fetches"] == 0
+    assert lead["disk_bytes_written"] == other["disk_bytes_read"] > 0
+    assert other["disk_bytes_written"] == 0
+
+
+def test_two_replicas_over_the_mesh_serve_the_jax_engines_tokens(runs):
+    ref, _, r2, _ = runs
+    for rank in (0, 1):
+        check_requests(r2[rank]["replicas"]["requests"], ref["paged"])
+    assert r2[0]["replicas"]["replicas"] == r2[1]["replicas"]["replicas"]
+    assert set(r2[0]["replicas"]["replicas"]) == {0, 1}
+
+
+@pytest.mark.parametrize("pool", list(SESSION_POOLS))
+def test_two_ranks_freeze_thaw_and_fork_as_the_unsharded_engine(runs, pool):
+    """freeze_after 4 (spooled whole by rank 0, read back by both at the
+    thaw), a thaw with a 4-token suffix, a fork into 2: the tokens of the
+    port's unsharded engine, the first tokens' logits within 1e-4
+    relative (fp32 pool) or 1e-3 absolute (int8 pool)."""
+    _, port, r2, _ = runs
+    want = port[f"sessions-{pool}"]
+    assert want["state"] == ["frozen", "done", "done", "done"]
+    assert len(want["tokens"][0]) == 4 and want["spooled"] == 1
+    for rank in (0, 1):
+        got = r2[rank][f"sessions-{pool}"]
+        assert got["tokens"] == want["tokens"]
+        assert got["state"] == want["state"] and got["spooled"] == 1
+        assert got["static"]["disk_fetches"] == 1
+        assert (got["static"]["disk_bytes_written"] > 0) == (rank == 0)
+        for g, w in zip(got["first"], want["first"]):
+            if pool == "int8":
+                np.testing.assert_allclose(g, w, atol=1e-3, rtol=0)
+            else:
+                assert rel(g, w) <= REL
+
+
+def test_the_aged_admission_order_is_rank_0s_on_every_rank(runs):
+    """Rank 1 waits after each submit, so its own clock would age the
+    queue into another order; both ranks admit in rank 0's."""
+    r2 = runs[2]
+    assert r2[0]["aging"] == r2[1]["aging"]
+    assert sorted(r2[0]["aging"]["order"]) == [0, 1, 2]
+    assert all(len(t) == 3 for t in r2[0]["aging"]["tokens"])
 
 
 def test_kernels_on_a_ranks_heads_equal_the_whole_call(runs):
@@ -301,28 +428,52 @@ def test_pool_and_dense_cache_hold_the_ranks_kv_heads(m):
         plan.local_cfg.num_kv_heads
 
 
-def test_a_mesh_engine_raises_where_its_library_would_spool():
-    """The disk tier under a mesh is not ported: the engine keeps the
-    libraries' host budgets, and a put that takes one over them raises
-    instead of spooling (a 1 x 1 mesh, two images over a budget of
-    one)."""
+def test_a_mesh_engine_spools_as_the_unsharded_engine_does(monkeypatch):
+    """A 1 x 1 mesh engine whose library goes over a 1-byte host budget
+    spools into a directory of its own, as the unsharded engine does: the
+    two files are byte-equal (one clock for both sidecars), and each
+    rehydrates into the JAX package's ``KVLibrary(rehydrate=True)`` and
+    the port's with the uploaded K/V."""
+    import repro_torch.cache.library as library_mod
+    monkeypatch.setattr(library_mod.time, "time", lambda: 1.0e9)
     cfg = dataclasses.replace(get_smoke_config(ARCH), param_dtype="float32",
                               compute_dtype="float32")
-    mesh = make_serving_mesh(1, 1, device="cpu")
-    lib = KVLibrary(hbm_capacity=0, host_capacity=1)
-    eng = MPICEngine(build_model(cfg), init_params(cfg, device="cpu"),
-                     EngineConfig(max_seq_len=256), mesh=mesh,
-                     static_library=lib)
-    try:
-        assert eng.dynamic_lib.memory.host_capacity == \
-            KVLibrary().memory.host_capacity
-        embeds = np.random.default_rng(0).standard_normal(
-            (16, cfg.d_model)).astype(np.float32)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    model, params = build_model(cfg), init_params(cfg, device="cpu")
+    embeds = np.random.default_rng(0).standard_normal(
+        (16, cfg.d_model)).astype(np.float32)
+    files = []
+    for mesh in (make_serving_mesh(1, 1, device="cpu"), None):
+        lib = KVLibrary(hbm_capacity=0, host_capacity=1)
+        eng = MPICEngine(model, params, EngineConfig(max_seq_len=256),
+                         mesh=mesh, static_library=lib, device="cpu")
+        try:
             eng.upload("u", "img-0", embeds)
-        assert lib.disk.spool_dir is None       # nothing was written
+            entry = lib._entries[("u", "img-0")]
+            assert entry.tier == "disk" and entry.payload.k is None
+            files.append(lib.disk.path_for(entry.meta.key))
+        finally:
+            eng.close()
+    try:
+        with open(files[0], "rb") as a, open(files[1], "rb") as b:
+            assert a.read() == b.read()
+        assert os.path.dirname(files[0]) != os.path.dirname(files[1])
+        want = None
+        for path in files:
+            ours = KVLibrary(spool_dir=os.path.dirname(path),
+                             rehydrate=True, device="cpu")
+            theirs = JaxLibrary(spool_dir=os.path.dirname(path),
+                                rehydrate=True)
+            got = ours.get("u", "img-0")
+            ref = theirs.get("u", "img-0")
+            assert ours.rehydrate_stats["rehydrated"] == 1
+            assert got is not None and ref is not None
+            want = got.k if want is None else want
+            assert torch.equal(got.k, want)
+            np.testing.assert_array_equal(np.asarray(ref.k),
+                                          got.k.numpy())
     finally:
-        eng.close()
+        for path in files:
+            shutil.rmtree(os.path.dirname(path), ignore_errors=True)
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-130m",
@@ -332,28 +483,13 @@ def test_unported_families_raise_under_a_mesh(arch):
         ServingSharding(_mesh(2), get_smoke_config(arch))
 
 
-def test_what_a_mesh_does_not_serve_yet_raises(tmp_path):
-    cfg = dataclasses.replace(get_smoke_config(ARCH), param_dtype="float32",
-                              compute_dtype="float32")
-    model = build_model(cfg)
-    params = init_params(cfg, device="cpu")
-    mesh = make_serving_mesh(1, 1, device="cpu")
+def test_what_a_mesh_does_not_serve_yet_raises(capsys):
+    """The ``data`` axis (ROADMAP.md, queue 1) and ``--mesh`` with
+    ``--fleet``, which the JAX launcher has no path for either: its
+    ``--fleet`` returns before it reads ``--mesh``."""
+    from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_serving_mesh(2, 1, device="cpu")
-    for kw in ({"static_library": KVLibrary(spool_dir=str(tmp_path))},
-               {"static_library": KVLibrary(peers=["127.0.0.1:1"])}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MPICEngine(model, params, EngineConfig(), mesh=mesh, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MPICEngine(model, params, EngineConfig(freeze_idle_s=1.0),
-                   mesh=mesh)
-    eng = MPICEngine(model, params, EngineConfig(max_seq_len=256),
-                     mesh=mesh)
-    try:
-        assert eng.device.type == "cpu" and eng.params.sharding is not None
-        prompt = _torch_pkg()["make_dialogues"](
-            n=1, n_images=1, d_model=cfg.d_model, media_len=16)[0].prompt
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.submit(Request(prompt=prompt, freeze_after=2))
-    finally:
-        eng.close()
+    with pytest.raises(SystemExit):
+        serve.main(["--mesh", "1x2", "--fleet", "2", "--device", "cpu"])
+    assert "returns before it reads --mesh" in capsys.readouterr().err
