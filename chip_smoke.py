@@ -272,6 +272,31 @@ timed on its own line:
    blocked a request, spool files written and bytes read, the libraries'
    sync a step, the session's freeze, spool, thaw and fork ms and its
    first-token margins, the seconds the phase took;
+5q. the families whose routed experts or SSD heads the ``model`` axis cuts
+   (``serve_tensor_families``): deepseek-moe-16b at full width and depth
+   over two gloo ranks on card 0 (each ~16 GiB: 32 of the 64 experts, 8 of
+   the 16 heads, half the shared experts and of the vocabulary; four NCCL
+   ranks with four cards) under phase 5o's runs and traffic and the exact
+   check in fp32 at 2 layers on both pools, each with a fault planted on
+   the last rank (its expert slice one expert early); mamba2-130m (12 of its
+   24 SSD heads a rank), hymba-1.5b (its attention and 25 SSD heads whole
+   on each rank, the MLP cut) and whisper-small (6 of its 12 heads) over
+   two ranks, mamba2 and hymba under ``full_recompute`` on the dense cache
+   (hymba's 6,000-token request first), whisper through 5l's pass; then
+   each model's unsharded engine on the same card.  Gates: every rank's
+   tokens equal and its first logits finite; each model's kernels on
+   every rank (deepseek 1/3, 2/4 on int8, and 5; mamba2 6; hymba 5 and 6;
+   whisper 5); every bf16 run's first-token logits within 1.5x the floor
+   that the unsharded engine shows with its row products, experts'
+   combine and shared experts cut as the ranks cut them (the bf16
+   fault's reading printed beside it); the exact check's tokens and
+   logits within 1e-3, on the fp32 pool the pairs every routing pass
+   drops, equal to the unsharded engine's, its fault's logits above
+   1e-3; each rank's
+   live collectives of its first prefill and decode pass equal to the dry
+   run's recording.  Printed per rank and for the unsharded engine: TTFT,
+   prefill alone, decode step, peak memory, each step's least time and
+   roofline share; deepseek's experts' all-reduce timed alone;
 6. each kernel against its plain PyTorch version on the state phases 3-5b
    left (layer 0 of the live pool or the captured dense-attention and SSD
    inputs) and on synthetic shapes (32 query heads on 8 kv heads, window
@@ -310,7 +335,9 @@ timed on its own line:
    encoder's 1500 x 1500 with every query at the last frame's position
    and the first prefill's self and cross on the tensor cores, a decode
    step's self and cross on the split keys), each with its device time,
-   bound and SDPA's time;
+   bound and SDPA's time; and at phase 5q's rank 0: kernels 1-4 at
+   deepseek's 8 kv heads (G 1), kernel 5 at whisper's 6 heads, kernel 6
+   at mamba2's 12 heads on the tensor cores;
 7. a small fp32 model served by the same engine on the card and on the CPU
    (plain versions) under every policy and on the dense cache, and under
    ``mpic`` with its media on disk and pipelined admission on both pools,
@@ -344,8 +371,8 @@ timed on its own line:
    and pool (3-5), mamba2's (5b, and its profiled prefill), each GQA and
    MoE model's (5d, 5i), hymba's (5e), whisper's encode, cross K/V,
    prefills and decode step (5l), the training steps (5m, 5n), each
-   rank's prefill and decode step (5o; the ranks' work adds up on a card
-   they share).  A share above 1.05 fails the run, naming the step (the
+   rank's prefill and decode step (5o, 5q; the ranks' work adds up on a
+   card they share).  A share above 1.05 fails the run, naming the step (the
    count would overstate the work).  Then ``python -m
    repro_torch.launch.dryrun --serving-selftest`` and ``--arch
    internvl2-76b --shape decode_32k`` in subprocesses: exit 0, and the
@@ -670,6 +697,44 @@ TP_AGING_S = 0.5
 TP_PRIORITIES = (0, 2, 1, 0)
 TP_READ_FAULT = "disk.read:io_error"
 TP_PEER_TIMEOUT_S = 60.0
+# phase 5q: the families whose routed experts or SSD heads the model axis
+# cuts, at full width, each on its ranks and then unsharded on the same
+# card once the ranks have exited.  deepseek-moe-16b at full depth (28
+# layers, 31.45 GiB of bf16 weights): two gloo ranks of ~16 GiB on one
+# card (32 of its 64 experts and 8 of its 16 heads a rank), four NCCL
+# ranks with four cards; TP_RUNS with 5o's traffic and the exact check in
+# fp32 at TP_FP32_DEPTH layers on both pools (the same tokens, first-token
+# logits within TP_FP32_REL; on the fp32 pool the same pairs dropped by
+# every routing pass: an int8 pool's rounding of K/V that differ in their
+# last fp32 bits can move a pair across its expert's capacity), each with
+# a planted fault (TQ_FAULT, TQ_FAULT_FP32: the last rank's expert slice
+# one expert early, so that it adds another rank's expert's pairs with
+# its own weights and leaves its last expert's unserved).  At 28 layers
+# the bf16 floor is most of the distance between unrelated logits (a
+# bf16 rounding that moves one routing choice moves which pairs the
+# capacity drops, and that cascades), so the fault is gated in the exact
+# check, where the limit is TP_FP32_REL, and its bf16 reading is printed
+# beside the bf16 limit.  mamba2-130m (12 of its 24
+# SSD heads a rank), hymba-1.5b (its 5 kv heads and 25 SSD heads do not
+# divide: attention and the SSM whole on each rank, the MLP cut) and
+# whisper-small (6 of its 12 heads, encoder and decoder) on two ranks:
+# mamba2 and hymba full_recompute on the dense cache (hymba's HYMBA_LONG
+# request first), whisper run_whisper's four 1500-frame inputs.  The bf16
+# runs are held within TP_FLOOR_FACTOR times the floor the unsharded
+# engine shows with its row products, its experts' combine and its shared
+# experts cut as the ranks cut them (``_split_plan``)
+TQ_MOE = "deepseek-moe-16b"
+TQ_SSM = ("mamba2-130m", HYMBA)
+TQ_ARCHS = (TQ_MOE, *TQ_SSM, WHISPER)
+TQ_FAULT = "mpic-bf16-fault"
+TQ_FAULT_FP32 = "mpic-fp32-fault"
+# the experts' all-reduce timed alone on the ranks: (2, rows, d_model) fp32
+# (the routed and the shared partial sums) for a 4-slot decode step and a
+# 1024-row prefill, TQ_COLL_ITERS calls after three warm ones
+TQ_COLL_ROWS = (4, 1024)
+TQ_COLL_ITERS = 20
+TQ_SEQ = {HYMBA: HYMBA_SEQ}
+TQ_SMALL_WORLD = 2
 
 
 def phase(name: str, t0: float) -> None:
@@ -743,7 +808,8 @@ def recording_passes(into, idle_pos=None, mesh=None):
     its kind (``"decode"``: a paged decode step or ``Model.decode_step``;
     else ``"prefill"``), the request whose prefill runs it (an engine's
     ``_begin_prefill`` or a chunk's ``ChunkedPrefillTask.advance``; None
-    outside both), the config the weights have, and what decides its least
+    outside both), the config the weights have (and a tensor-parallel
+    rank's widths and routed experts), and what decides its least
     work (the queries' positions, the valid lengths or the dense cache's
     positions after the pass's writes, the pool's dtype, whether it
     computed logits, and a MoE's routing: each layer's expert choices),
@@ -767,13 +833,16 @@ def recording_passes(into, idle_pos=None, mesh=None):
             MPICEngine._begin_prefill, ChunkedPrefillTask.advance)
     current, seen, decoding, request = [None], [0], [False], [None]
 
-    def run(rec, t0, fn, *args, **kwargs):
+    def run(rec, t0, fn, params, *args, **kwargs):
         rec["routes"], rec["req"] = [], request[0]
+        sh = params.sharding
+        if sh is not None:
+            rec["widths"], rec["expert_range"] = sh.widths, sh.expert_range
         into.append(rec)
         current[0] = rec
         rec["record_s"] = clock() - t0
         try:
-            return fn(*args, **kwargs)
+            return fn(params, *args, **kwargs)
         finally:
             t1 = clock()
             current[0] = None
@@ -934,7 +1003,9 @@ def pass_costs(records, all_experts: bool = False) -> list:
     ``cost`` (a MoE's distinct experts per layer from the routing of the
     real rows, or every expert with ``all_experts``), the real
     ``tokens``, the ``wire`` bytes of the collectives' real rows, the
-    ``passes`` and the host seconds the recording took (``record_s``)."""
+    ``passes`` and the host seconds the recording took (``record_s``).  A
+    tensor-parallel rank's step counts its own widths and, of the routed
+    experts, its own."""
     from repro_torch.roofline.analysis import collective_bytes, step_cost
 
     steps = {}
@@ -949,6 +1020,7 @@ def pass_costs(records, all_experts: bool = False) -> list:
         rows, experts, wire = [], None, 0.0
         if recs[0]["routes"]:
             experts = [set() for _ in range(cfg.num_layers)]
+        lo, n = first.get("expert_range", (0, cfg.num_experts))
         for rec in recs:
             # a request's KV: its pages, or each dense cache it writes (a
             # miss's recompute and full_reuse's text pass have their own)
@@ -965,16 +1037,18 @@ def pass_costs(records, all_experts: bool = False) -> list:
                 if len(idx) != len(real):
                     raise RuntimeError(f"{len(idx)} routed rows, "
                                        f"{len(real)} in the pass")
-                experts[layer].update(np.unique(idx[real]).tolist())
+                idx = idx[real]
+                experts[layer].update(np.unique(
+                    idx[(idx >= lo) & (idx < lo + n)]).tolist())
         if experts is not None:
-            experts = [cfg.num_experts if all_experts else len(e)
-                       for e in experts]
+            experts = [n if all_experts else len(e) for e in experts]
         out.append({
             "kind": first["kind"],
             "cost": step_cost(cfg, rows,
                               kv_dtype="int8" if first["int8"] else None,
                               page_size=first.get("page_size", 16),
-                              window=first.get("window"), experts=experts),
+                              window=first.get("window"), experts=experts,
+                              widths=first.get("widths")),
             "tokens": sum(len(r.q_pos) for r in rows), "wire": wire,
             "passes": len(recs),
             "coll_ops": sum(len(rec.get("calls", ())) for rec in recs),
@@ -3007,6 +3081,695 @@ def serve_tensor_parallel(*, device=None, cfg=None,
     return runs, snaps, world
 
 
+@contextlib.contextmanager
+def counting_drops(into):
+    """Inside the block every MoE routing pass's (rows, dropped pairs) is
+    appended to ``into``, in the order the passes route (one a layer)."""
+    import repro_torch.models.moe as moe_mod
+
+    real = moe_mod.route
+
+    def counting(*args, **kwargs):
+        out = real(*args, **kwargs)
+        into.append((int(out[1].shape[0]), int((~out[4]).sum())))
+        return out
+
+    moe_mod.route = counting
+    try:
+        yield into
+    finally:
+        moe_mod.route = real
+
+
+@contextlib.contextmanager
+def capture_first_ssd(into):
+    """A CPU copy of the first SSD chunk call's inputs (layer 0 of the
+    first prefill), strides and all, in ``into["args"]``."""
+    import repro_torch.models.ssm as ssm_mod
+
+    real = ssm_mod.ssd_chunk
+
+    def recording(*args):
+        if "args" not in into:
+            into["args"] = tuple(t.clone().cpu() for t in args)
+        return real(*args)
+
+    ssm_mod.ssd_chunk = recording
+    try:
+        yield
+    finally:
+        ssm_mod.ssd_chunk = real
+
+
+def _split_plan(cfg, world: int, device):
+    """The floor's plan: one process (a 1 x 1 mesh, no collective) that
+    cuts what ``world`` ranks cut as they cut it (attention's and the
+    MLP's row products, the SSM's ``out_proj``, the shared experts' down
+    projection in ``world`` row blocks, the routed experts' combine in
+    ``world`` expert groups), each part's fp32 sum added in fp32 and
+    rounded once, as the ranks' all-reduce adds them."""
+    from repro_torch.launch.mesh import ServingMesh, make_serving_mesh
+    from repro_torch.serving.sharding import ServingSharding, _fp32_matmul
+
+    plan = ServingSharding(make_serving_mesh(1, 1, device=device), cfg)
+    ranks = ServingSharding(ServingMesh(1, world, 0, "gloo", plan.mesh.device),
+                            cfg)
+    plan.attn, plan.mlp, plan.vocab = ranks.attn, ranks.mlp, ranks.vocab
+    plan.experts, plan.ssm = ranks.experts, ranks.ssm
+
+    def split_partial(x, w):
+        k = w.shape[0] // world
+        parts = [_fp32_matmul(x[..., i * k:(i + 1) * k], w[i * k:(i + 1) * k])
+                 for i in range(world)]
+        return sum(parts[1:], parts[0])
+
+    def split_experts(contrib, gate_idx):
+        n = cfg.num_experts // world
+        parts = [(contrib.float() * ((gate_idx >= i * n)
+                                     & (gate_idx < (i + 1) * n))[..., None]
+                  ).sum(dim=1) for i in range(world)]
+        return sum(parts[1:], parts[0])
+
+    plan.partial_product = split_partial
+    plan.row_parallel = lambda x, w: split_partial(x, w).to(x.dtype)
+    plan.expert_partial = split_experts
+    return plan
+
+
+def tq_ssm_traffic(eng, media_len: int, long_prompt=None, ssd_into=None):
+    """Phase 5q's traffic of the SSM and the hybrid on the dense cache:
+    four two-image dialogues (their media inlined by the prefill; after
+    ``long_prompt`` where given) under ``full_recompute``, ``MAX_NEW``
+    tokens each, the plain versions forbidden on the card and the launch
+    counts reset first.  Returns what ``tp_traffic`` does (tokens,
+    first-token logits, launches by kernel and route, TTFT, prefill alone,
+    decode step, peak) and the collectives of the first prefill and the
+    first decode pass with their shapes; ``ssd_into`` takes the first SSD
+    chunk call's inputs."""
+    import torch
+
+    import repro_torch.kernels.selective_attn.ops as sel_ops
+    import repro_torch.kernels.ssd_chunk.ops as ssd_ops
+    from repro_torch.data import make_dialogues
+    from repro_torch.kernels import KERNELS, _build
+    from repro_torch.serving import Request
+
+    cfg = eng.model.cfg
+    cuda = eng.device.type == "cuda"
+    samples = make_dialogues(n=4, n_images=2, d_model=cfg.d_model,
+                             media_len=media_len, style="mmdu")
+    prompts = [long_prompt] * (long_prompt is not None) + [
+        s.prompt for s in samples]
+    firsts = {}
+    finalize = eng._finalize_prefill
+
+    def record(req, result, *rest):
+        firsts[req.req_id] = np.asarray(result.first_logits, np.float32)
+        return finalize(req, result, *rest)
+
+    eng._finalize_prefill = record
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with (no_plain_versions() if cuda else contextlib.nullcontext()), (
+            capture_first_ssd(ssd_into) if ssd_into is not None
+            else contextlib.nullcontext()):
+        _build.reset_launches(KERNELS.values())
+        reqs = [Request(prompt=p, max_new_tokens=MAX_NEW,
+                        policy="full_recompute") for p in prompts]
+        passes = []
+        with recording_passes(passes, idle_pos=eng.cfg.max_seq_len - 1,
+                              mesh=eng.mesh):
+            for r in reqs:
+                eng.submit(r)
+            steps = 0
+            while eng.queue or any(eng.running):
+                eng.step()
+                steps += 1
+                if steps > 10 * MAX_NEW * len(reqs):
+                    raise RuntimeError("engine made no progress")
+        if cuda:
+            torch.cuda.synchronize()
+        launches = {k: v.launches for k, v in KERNELS.items()}
+        routes = {"sel_attn": dict(sel_ops.SEL_ATTN.route_launches),
+                  "ssd_chunk": dict(ssd_ops.SSD_CHUNK.route_launches)}
+    eng._finalize_prefill = finalize
+    rep = eng.report()
+    prefill = next(p for p in passes if p["kind"] == "prefill")
+    decode = next(p for p in passes if p["kind"] == "decode")
+    return {
+        "costs": pass_costs(passes),
+        "collectives": {
+            "prefill": {"rows": 1, "tokens": int(prefill["q_pos"].shape[1]),
+                        "calls": prefill.get("calls", [])},
+            "decode": {"rows": int(decode["q_pos"].shape[0]),
+                       "tokens": eng.cfg.max_seq_len,
+                       "calls": decode.get("calls", [])}},
+        "tokens": [list(r.output_tokens) for r in reqs],
+        "firsts": np.stack([firsts[r.req_id] for r in reqs]),
+        "done": [r.done and r.prefill_stats.get("policy") == "full_recompute"
+                 for r in reqs],
+        "prompt_tokens": [r.prompt.total_len for r in reqs],
+        "launches": launches, "routes": routes,
+        "mean_ttft_ms": rep["mean_ttft_s"] * 1e3,
+        "mean_prefill_ms": rep["mean_prefill_s"] * 1e3,
+        "mean_decode_step_ms": rep["mean_decode_step_s"] * 1e3,
+        "decode_steps": rep["decode_steps"],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda
+        else 0.0}
+
+
+def tq_whisper(cfg, model, params, device, mesh=None, capture=None):
+    """Phase 5q's whisper run: ``run_whisper`` of ``whisper_traffic(cfg)``
+    (``cfg`` the whole model's) through ``model`` and ``params`` (a rank's
+    shard under ``mesh``), the plain versions forbidden on the card and
+    the launch counts reset first; ``capture`` takes layer 0's
+    dense-attention inputs (CPU copies).  Returns tokens, each prompt's
+    last prefill logits (``firsts``), launches, encode / prefill / decode
+    times, peak and the first decode pass's collectives."""
+    import torch
+
+    import repro_torch.kernels.selective_attn.ops as sel_ops
+    from repro_torch.kernels import KERNELS, _build
+
+    cuda = torch.device(device if device is not None else "cuda").type \
+        == "cuda"
+    audio, prompts = whisper_traffic(cfg)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    live = {} if capture is not None else None
+    with no_plain_versions() if cuda else contextlib.nullcontext():
+        _build.reset_launches(KERNELS.values())
+        passes = []
+        with recording_passes(passes, mesh=mesh):
+            out = run_whisper(model, params, audio, prompts, device=device,
+                              capture=live)
+        launches = {k: v.launches for k, v in KERNELS.items()}
+        routes = {"sel_attn": dict(sel_ops.SEL_ATTN.route_launches)}
+    if capture is not None:
+        capture.update({k: tuple(t.cpu() if torch.is_tensor(t) else t
+                                 for t in v) for k, v in live.items()})
+    decode = next(p for p in passes if p["kind"] == "decode")
+    firsts = np.stack([p[-1] for p in out["prefill"]])
+    return {
+        "costs": pass_costs(passes),
+        "collectives": {"decode": {
+            "rows": int(decode["q_pos"].shape[0]), "tokens": WHISPER_KV_LEN,
+            "calls": decode.get("calls", [])}},
+        "tokens": out["tokens"].tolist(), "firsts": firsts,
+        "done": [bool(np.isfinite(out["decode"]).all())] * len(prompts),
+        "prompt_tokens": [len(p) for p in prompts],
+        "launches": launches, "routes": routes,
+        "encode_ms": out["encode_s"] * 1e3,
+        "mean_ttft_ms": (out["encode_s"] + out["cross_kv_s"]
+                         + float(np.mean(out["prefill_s"]))) * 1e3,
+        "mean_prefill_ms": float(np.mean(out["prefill_s"])) * 1e3,
+        "mean_decode_step_ms": float(np.mean(out["decode_s"][1:])) * 1e3,
+        "decode_steps": MAX_NEW,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda
+        else 0.0}
+
+
+def _plant_expert_fault(plan):
+    """``TQ_FAULT`` on the last rank: its expert slice starts one expert
+    early (its first weights serve another rank's expert, its last
+    expert's pairs go unserved).  Returns the slice to restore."""
+    saved = plan.expert_range
+    if plan.mesh.rank == plan.mesh.model - 1 and plan.experts:
+        lo, n = saved
+        plan.expert_range = (lo - 1, n)
+    return saved
+
+
+def _tq_moe(cfg, held, mesh, device, media_len, *, runs=TP_RUNS,
+            fault=False, fp32=True, snap=False):
+    """deepseek's runs of phase 5q: ``runs`` (policy, pool) on
+    ``held[0]`` (a rank's shard under ``mesh``; whole, or carrying the
+    floor's plan, without), with ``fp32`` the exact check on fresh fp32
+    weights (seed 1, ``TP_FP32_DEPTH`` layers; ``held`` is emptied
+    first), with ``fault`` ``TQ_FAULT``'s run and ``TQ_FAULT_FP32``'s.
+    Every run counts the pairs each routing pass drops (``drops``)."""
+    import torch
+
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.sharding import ServingSharding
+
+    def serve(c, params, policy, pool, snap_paged=False):
+        eng = _tp_engine(c, params, pool, mesh, device)
+        try:
+            drops = []
+            with counting_drops(drops):
+                r = tp_traffic(eng, policy, snap_paged=snap_paged,
+                               media_len=media_len)
+            r["drops"] = drops
+            if eng.pool is not None:
+                r["pool_shape"] = tuple(eng.pool.k.shape)
+            return r
+        finally:
+            eng.close()
+
+    def faulty(label, c, params):
+        plan = params.sharding
+        saved = _plant_expert_fault(plan)
+        try:
+            out[label] = serve(c, params, "mpic", "")
+        finally:
+            plan.expert_range = saved
+
+    out = {}
+    for policy, pool in runs:
+        out[f"{policy}-{pool or 'bf16'}"] = serve(
+            cfg, held[0], policy, pool, snap and policy == "mpic")
+    if fault:
+        faulty(TQ_FAULT, cfg, held[0])
+    if fp32:
+        held.clear()
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        cfg32 = _fp32(cfg)
+        p32 = init_params(cfg32, seed=1, device=device, sharding=None
+                          if mesh is None else ServingSharding(mesh, cfg32))
+        for pool in TP_FP32_POOLS:
+            out[f"mpic-{pool + '-' if pool else ''}fp32"] = serve(
+                cfg32, p32, "mpic", pool)
+        if fault:
+            faulty(TQ_FAULT_FP32, cfg32, p32)
+        del p32
+    return out
+
+
+def _tq_suite(cfg, held, mesh, device, media_len, *, capture=None,
+              floor=False):
+    """Phase 5q's runs of one model (``cfg`` the whole model's) on
+    ``held[0]``: a rank's shard under ``mesh``; else whole, carrying the
+    floor's plan with ``floor`` (deepseek then serves its ``mpic`` runs
+    alone).  ``capture`` (rank 0's) takes deepseek's pool snapshots,
+    whisper's layer-0 attention inputs and mamba2's first SSD chunk
+    inputs."""
+    from repro_torch.core import Prompt, text_segment
+    from repro_torch.models import build_model
+    from repro_torch.serving import EngineConfig, MPICEngine
+
+    if cfg.arch_type == "moe":
+        if floor:
+            return _tq_moe(cfg, held, None, device, media_len,
+                           runs=(("mpic", ""), ("mpic", "int8")), fp32=False)
+        return _tq_moe(cfg, held, mesh, device, media_len,
+                       fault=mesh is not None, snap=capture is not None)
+    model = build_model(cfg) if mesh is None else \
+        held[0].sharding.local_model()
+    if cfg.is_encoder_decoder:
+        return {"serve": tq_whisper(cfg, model, held[0], device, mesh,
+                                    capture)}
+    eng = MPICEngine(build_model(cfg), held[0], EngineConfig(
+        max_seq_len=HYMBA_SEQ if cfg.hybrid else 2048, decode_slots=4,
+        paged=True), mesh=mesh, device=device)
+    long_prompt = Prompt([text_segment(np.random.default_rng(7).integers(
+        8, 200, HYMBA_LONG))], user_id="u0") if cfg.hybrid else None
+    try:
+        return {"full_recompute": tq_ssm_traffic(
+            eng, media_len, long_prompt,
+            capture if capture is not None and cfg.attn_free else None)}
+    finally:
+        eng.close()
+
+
+def _all_reduce_ms(mesh, shape) -> float:
+    """Milliseconds of one ``mesh.all_reduce`` of an fp32 tensor of
+    ``shape`` on the mesh's device: ``TQ_COLL_ITERS`` calls after three
+    warm ones, each rank in step (every rank calls it)."""
+    import torch
+
+    x = torch.zeros(shape, dtype=torch.float32, device=mesh.device)
+    cuda = mesh.device.type == "cuda"
+    for _ in range(3):
+        mesh.all_reduce(x)
+    if cuda:
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(TQ_COLL_ITERS):
+        mesh.all_reduce(x)
+    if cuda:
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t) / TQ_COLL_ITERS * 1e3
+
+
+def _tq_rank(rank, world, port, cfgs, device, media_len, out_q):
+    """One rank of phase 5q: its process group, then for each model its
+    shard of the seeded weights drawn directly (``init_params(
+    sharding=)``) and ``_tq_suite``; the results (rank 0's captures too)
+    go to ``out_q``, pickled by value."""
+    import torch
+
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.sharding import ServingSharding
+
+    mesh = None
+    try:
+        mesh = make_serving_mesh(1, world, rank=rank, timeout_s=TP_JOIN_S,
+                                 init_method=f"tcp://127.0.0.1:{port}",
+                                 device=device)
+        cuda = mesh.device.type == "cuda"
+        if not cuda:
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        res = {}
+        for arch, cfg in cfgs.items():
+            t = time.perf_counter()
+            params = init_params(cfg, seed=0, device=mesh.device,
+                                 sharding=ServingSharding(mesh, cfg))
+            if cuda:
+                torch.cuda.synchronize()
+            plan = params.sharding
+            info = {"init_s": time.perf_counter() - t,
+                    "device": str(mesh.device), "backend": mesh.backend,
+                    "cuts": plan.cuts, "widths": plan.widths,
+                    "weights_gib": sum(p.numel() * p.element_size() for p in
+                                       params.parameters()) / 2**30}
+            held = [params]
+            del params
+            capture = {} if rank == 0 else None
+            runs = _tq_suite(cfg, held, mesh, mesh.device, media_len,
+                             capture=capture)
+            if cfg.arch_type == "moe":
+                info["experts_all_reduce_ms"] = {
+                    rows: _all_reduce_ms(mesh, (2, rows, cfg.d_model))
+                    for rows in TQ_COLL_ROWS}
+            res[arch] = {**info, "runs": runs, "capture": capture}
+            held.clear()
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+        out_q.put(pickle.dumps((rank, res, None)))
+    except BaseException:
+        import traceback
+        out_q.put(pickle.dumps((rank, None, traceback.format_exc())))
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _tq_spawn(world: int, cfgs, device, media_len) -> list:
+    """Phase 5q's ranks of one world size, spawned; every rank's results
+    in rank order.  Raises on a rank's error, a rank that died without a
+    result, a non-zero exit, or past ``TP_JOIN_S``."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.mesh import free_port
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    t = time.perf_counter()
+    procs = [ctx.Process(target=_tq_rank, args=(
+        r, world, port, cfgs, device, media_len, q)) for r in range(world)]
+    for proc in procs:
+        proc.start()
+    got = {}
+    try:
+        while len(got) < world:
+            if time.perf_counter() - t > TP_JOIN_S:
+                raise RuntimeError(f"phase 5q: no result from ranks "
+                                   f"{sorted(set(range(world)) - set(got))}"
+                                   f" in {TP_JOIN_S:.0f} s")
+            try:
+                rank, res, err = pickle.loads(q.get(timeout=5.0))
+            except queue.Empty:
+                dead = [r for r, proc in enumerate(procs)
+                        if r not in got and proc.exitcode not in (None, 0)]
+                if dead:
+                    raise RuntimeError(f"phase 5q: ranks {dead} exited "
+                                       "without a result")
+                continue
+            if err is not None:
+                raise RuntimeError(f"phase 5q: rank {rank} failed:\n{err}")
+            got[rank] = res
+        for proc in procs:
+            proc.join(timeout=60)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=10)
+    bad = [proc.exitcode for proc in procs if proc.exitcode != 0]
+    if bad:
+        raise RuntimeError(f"phase 5q: rank exit codes {bad}")
+    print(f"  {world} ranks of {sorted(cfgs)}: "
+          f"{time.perf_counter() - t:.1f} s from spawn to the last result",
+          flush=True)
+    return [got[r] for r in range(world)]
+
+
+def tq_collectives_check(cfg, label: str, per) -> dict:
+    """Each rank's live collectives in the first prefill and decode pass
+    of a dense-cache run (``tq_ssm_traffic``, ``tq_whisper``) against
+    what the dry run's recording mesh counts on ``meta`` for the same
+    config, rank and shapes (``launch.dryrun.trace_step``).  Raises when
+    they differ in count, kind or bytes."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.launch.mesh import ProductionMesh
+    from repro_torch.roofline.analysis import collective_bytes
+
+    mesh = ProductionMesh(("data", "model"), (1, len(per)))
+    out = {}
+    for kind, live in per[0]["collectives"].items():
+        want = trace_step(cfg, kind, InputShape(
+            "5q", live["tokens"], live["rows"], kind), mesh)[2]
+        for r, res in enumerate(per):
+            got = res["collectives"][kind]["calls"]
+            print(f"  {label} rank {r} {kind} ({live['rows']} rows): "
+                  f"{len(got)} collectives, "
+                  f"{collective_bytes(got).total_bytes:.0f} wire bytes "
+                  f"live; the dry run's {len(want)}, "
+                  f"{collective_bytes(want).total_bytes:.0f}", flush=True)
+            if got != want:
+                raise RuntimeError(f"phase 5q {label} rank {r} {kind}: live "
+                                   f"collectives {got}, the dry run's {want}")
+            out[f"rank {r} {kind}"] = {
+                "count": len(got),
+                "wire_bytes": collective_bytes(got).total_bytes}
+    return out
+
+
+# the kernels each model's runs must launch on every rank (int8 pools:
+# kernels 2 and 4 in place of 1 and 3; deepseek's full_recompute runs
+# kernel 5 in place of 1)
+TQ_KERNELS = {"moe": ("sel_attn", "sel_attn_paged", "paged_attn"),
+              "ssm": ("ssd_chunk",), "hybrid": ("sel_attn", "ssd_chunk"),
+              "audio": ("sel_attn",)}
+
+
+def serve_tensor_families(*, device=None, cfgs=None,
+                          media_len: int = TP_MEDIA_LEN):
+    """Phase 5q (see ``TQ_MOE``): deepseek-moe-16b over two gloo ranks on
+    one card at full depth (four NCCL ranks with four cards), mamba2-130m,
+    hymba-1.5b and whisper-small over two ranks, then each model's
+    unsharded engine on the same card.  Gates: every rank ends every
+    request with the same tokens and finite first logits; each model's
+    kernels (``TQ_KERNELS``) launched on every rank; every bf16 run's
+    first-token logits within ``TP_FLOOR_FACTOR`` times the floor
+    (``_split_plan``) of the unsharded engine's; deepseek's exact check
+    (fp32, ``TP_FP32_DEPTH`` layers, both pools): the unsharded engine's
+    tokens, logits within ``TP_FP32_REL``, on the fp32 pool the pairs
+    every routing pass drops, and the planted fault's logits above that
+    limit; each rank's live collectives equal to the dry run's
+    recording.  Returns (runs by label, rank 0's
+    paged snapshots by (key, pool), rank 0's captures by model key).
+    ``device``, ``cfgs`` ({arch: whole config}) and ``media_len``
+    rehearse it on the CPU."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import backend_for
+    from repro_torch.models.transformer import init_params
+
+    cuda = device is None
+    cards = torch.cuda.device_count() if cuda else 0
+    cfgs = cfgs or {arch: get_config(arch) for arch in TQ_ARCHS}
+    worlds = {arch: (4 if cards >= 4 and cfg.arch_type == "moe"
+                     else TQ_SMALL_WORLD) for arch, cfg in cfgs.items()}
+    coll_record_s = collective_record_s()
+    got = {}
+    for world in sorted(set(worlds.values()), reverse=True):
+        group = {a: c for a, c in cfgs.items() if worlds[a] == world}
+        print(f"tensor_families: {sorted(group)} over {world} ranks, "
+              f"backend {backend_for(torch.device('cuda' if cuda else 'cpu'), world)}, "
+              f"cards {cards}", flush=True)
+        per = _tq_spawn(world, group, device, media_len)
+        for arch in group:
+            got[arch] = [p[arch] for p in per]
+    runs, snaps, captures, failed = {}, {}, {}, []
+    for arch, cfg in cfgs.items():
+        per_rank = got[arch]
+        world = len(per_rank)
+        used = min(world, cards) if cuda else 1
+        key = f"{arch}:tp{world}"
+        print(f"  {key}: cuts {per_rank[0]['cuts']}, widths "
+              f"{per_rank[0]['widths']}, weights "
+              f"{[round(p['weights_gib'], 2) for p in per_rank]} GiB a rank "
+              f"(drawn in {[round(p['init_s'], 1) for p in per_rank]} s) on "
+              f"{[p['device'] for p in per_rank]}", flush=True)
+        if "experts_all_reduce_ms" in per_rank[0]:
+            print(f"  {key}: the experts' all-reduce (routed and shared "
+                  f"partial sums, fp32, one a layer) alone, ms a call by "
+                  f"rows: {[p['experts_all_reduce_ms'] for p in per_rank]}",
+                  flush=True)
+        if per_rank[0]["capture"]:
+            captures[key] = per_rank[0]["capture"]
+        family = "moe" if cfg.arch_type == "moe" else (
+            "hybrid" if cfg.hybrid else "ssm" if cfg.attn_free else "audio")
+        for label in per_rank[0]["runs"]:
+            per = [p["runs"][label] for p in per_rank]
+            r0 = per[0]
+            need = TQ_KERNELS[family]
+            if family == "moe" and not label.startswith("mpic"):
+                need = tuple(n for n in need if n != "sel_attn_paged")
+            if "int8" in label:
+                need = tuple(n + "_q8" if n != "sel_attn" else n
+                             for n in need)
+            for r, res in enumerate(per):
+                if (not all(res["done"]) or res["tokens"] != r0["tokens"]
+                        or not np.isfinite(res["firsts"]).all()
+                        or (cuda and any(res["launches"][n] == 0
+                                         for n in need))):
+                    raise RuntimeError(
+                        f"phase 5q {key} {label}: rank {r}: "
+                        f"{ {k: v for k, v in res.items() if k not in ('firsts', 'snap', 'costs')} }")
+                print(f"  rank {r} {label}: TTFT mean "
+                      f"{res['mean_ttft_ms']:.2f} ms (prefill alone "
+                      f"{res['mean_prefill_ms']:.2f} ms), decode step "
+                      f"{res['mean_decode_step_ms']:.2f} ms over "
+                      f"{res['decode_steps']} steps, peak "
+                      f"{res['peak_gib']:.2f} GiB (this rank's process); "
+                      f"launches { {k: n for k, n in res['launches'].items() if n} }",
+                      flush=True)
+            if r0.get("snap") is not None:
+                snaps[key, label.split("-")[1]] = r0["snap"]
+            run = runs[f"{key}:{label}"] = {
+                "model": key, "world": world, "backend": per_rank[0]["backend"],
+                "depth": TP_FP32_DEPTH if "fp32" in label
+                else cfg.num_layers,
+                "launches": r0["launches"],
+                "launches_by_rank": [res["launches"] for res in per],
+                **{k: [res[k] for res in per] for k in (
+                    "mean_ttft_ms", "mean_prefill_ms", "mean_decode_step_ms",
+                    "peak_gib")},
+                "prompt_tokens": r0["prompt_tokens"]}
+            if "experts_all_reduce_ms" in per_rank[0]:
+                run["experts_all_reduce_ms"] = [
+                    p["experts_all_reduce_ms"] for p in per_rank]
+            if "drops" in r0:
+                run["dropped_pairs"] = sum(d for _, d in r0["drops"])
+            if label in TP_LABELS or label in ("full_recompute", "serve"):
+                run["least"] = [
+                    row for r, res in enumerate(per)
+                    for row in served_rows(
+                        f"{key}:{label} rank {r}", res["costs"],
+                        len(res["done"]), res["decode_steps"],
+                        res["mean_prefill_ms"], res["mean_decode_step_ms"],
+                        n_params=cfg.n_active_params(), scale=world / used,
+                        chips=used, note=f"{world} ranks on {used} card(s)",
+                        collective_s=coll_record_s)]
+                for row in run["least"]:
+                    print(f"    {row['step']}: {row['measured_ms']:.3f} ms "
+                          f"/ least {row['least_ms']:.4f} ms "
+                          f"({row['bound_by']}), share {row['share']:.4f}",
+                          flush=True)
+            if family == "moe" and label in ("mpic-bf16", "mpic-int8"):
+                run["collectives"] = tp_collectives_check(cfg, f"{key} "
+                                                          f"{label}", per)
+            elif family != "moe":
+                run["collectives"] = tq_collectives_check(
+                    cfg, f"{key} {label}", per)
+        # the unsharded engine on the same card, once the ranks are gone:
+        # the floor (the ranks' cut in one process), then the same runs
+        t = time.perf_counter()
+        params = init_params(cfg, seed=0, device=device)
+        params.sharding = _split_plan(cfg, world, device)
+        floors = _tq_suite(cfg, [params], None, device, media_len,
+                           floor=True)
+        params.sharding = None
+        whole = _tq_suite(cfg, [params], None, device, media_len)
+        del params
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        print(f"  {key}: the unsharded engine's runs took "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        limits = {}
+        for label, floor in floors.items():
+            floor_rel, floor_max = _rel(floor["firsts"],
+                                        whole[label]["firsts"])
+            limits[label] = TP_FLOOR_FACTOR * floor_rel
+            print(f"  {key} floor of {label}, the unsharded engine with "
+                  f"the ranks' cut in {world}: first-token logits relative "
+                  f"RMS {floor_rel:.2e}, max {floor_max:.2e}; tokens equal "
+                  f"{floor['tokens'] == whole[label]['tokens']}; the limit "
+                  f"{TP_FLOOR_FACTOR} x {floor_rel:.2e} = "
+                  f"{limits[label]:.2e}", flush=True)
+            runs[f"{key}:{label}"].update(floor_rel=floor_rel,
+                                          floor_rel_max=floor_max)
+        for label, ref in whole.items():
+            limits.setdefault(label, limits.get(
+                "mpic-int8" if "int8" in label else "mpic-bf16"))
+        if TQ_FAULT in got[arch][0]["runs"]:
+            whole[TQ_FAULT], limits[TQ_FAULT] = whole["mpic-bf16"], \
+                limits["mpic-bf16"]
+            whole[TQ_FAULT_FP32] = whole["mpic-fp32"]
+        for label, ref in whole.items():
+            r0 = got[arch][0]["runs"][label]
+            rel, rel_max = _rel(r0["firsts"], ref["firsts"])
+            same = r0["tokens"] == ref["tokens"]
+            exact = label.endswith("fp32") or label == TQ_FAULT_FP32
+            drops_same = r0.get("drops") == ref.get("drops")
+            print(f"  unsharded {key} {label}: TTFT mean "
+                  f"{ref['mean_ttft_ms']:.2f} ms (prefill alone "
+                  f"{ref['mean_prefill_ms']:.2f}), decode step "
+                  f"{ref['mean_decode_step_ms']:.2f} ms, peak "
+                  f"{ref['peak_gib']:.2f} GiB; rank 0's tokens equal {same}; "
+                  f"first-token logits relative RMS {rel:.2e}, max |diff| "
+                  f"over max |logit| {rel_max:.2e} (limit "
+                  + (f"{TP_FP32_REL} on the latter"
+                     + (", which this planted fault must exceed"
+                        if label == TQ_FAULT_FP32 else "") if exact
+                     else f"{limits[label]:.2e} on the former"
+                     + (", the planted fault's reading beside it"
+                        if label == TQ_FAULT else ", not above")) + ")"
+                  + (f"; pairs dropped, every routing pass: equal "
+                     f"{drops_same} ({sum(d for _, d in ref['drops'])} "
+                     f"unsharded, {sum(d for _, d in r0['drops'])} rank 0)"
+                     if "drops" in ref else ""), flush=True)
+            runs[f"{key}:{label}"].update(
+                unsharded_mean_ttft_ms=ref["mean_ttft_ms"],
+                unsharded_mean_prefill_ms=ref["mean_prefill_ms"],
+                unsharded_mean_decode_step_ms=ref["mean_decode_step_ms"],
+                unsharded_peak_gib=ref["peak_gib"], first_logits_rel=rel,
+                first_logits_rel_max=rel_max, tokens_equal=same)
+            if label == TQ_FAULT_FP32:
+                ok = rel_max > TP_FP32_REL
+            elif exact:
+                # the pairs dropped: on the fp32 pool, where the ranks'
+                # activations are the unsharded engine's to fp32 rounding
+                ok = (same and rel_max <= TP_FP32_REL and (
+                    "int8" in label or (drops_same and any(
+                        d for _, d in ref["drops"]))))
+            elif label == TQ_FAULT:
+                ok = True
+            else:
+                ok = rel <= limits[label]
+            if not ok:
+                failed.append(f"{key} {label}: tokens {r0['tokens']} vs "
+                              f"unsharded {ref['tokens']}, logits rel {rel} /"
+                              f" {rel_max}" + ("" if exact else
+                                               f", limit {limits[label]}")
+                              + (f", drops equal {drops_same}"
+                                 if exact else ""))
+    if failed:
+        raise RuntimeError("phase 5q: " + "; ".join(failed))
+    return runs, snaps, captures
+
+
 def main() -> int:
     import torch
 
@@ -4925,6 +5688,28 @@ def main() -> int:
             for k, v in snap.items()}
     phase("serve_tensor_parallel", t0)
 
+    # -- 5q. the MoE, SSM, hybrid and encoder-decoder families ---------------
+    t0 = time.perf_counter()
+    tq_runs, tq_snaps, tq_captures = serve_tensor_families()
+    runs.update(tq_runs)
+
+    def to_dev(v):
+        return v.to(dev) if torch.is_tensor(v) else v
+
+    for (key, pool_name), snap in tq_snaps.items():
+        gqa_snaps[key, pool_name] = {k: to_dev(v) for k, v in snap.items()}
+    # rank 0's shapes for phase 6: deepseek's paged pool (kernels 1-4),
+    # whisper's layer-0 attention (kernel 5), mamba2's SSD chunk (kernel 6)
+    tq_moe_key = next(key for key, _ in tq_snaps)
+    tq_whisper_key, tq_ssd_key = (next(k for k in tq_captures if
+                                       k.startswith(arch + ":"))
+                                  for arch in (WHISPER, "mamba2-130m"))
+    captured.update({f"{tq_whisper_key}:{k}": tuple(to_dev(t) for t in v)
+                     for k, v in tq_captures[tq_whisper_key].items()})
+    tq_ssd = tuple(to_dev(t) for t in tq_captures[tq_ssd_key]["args"])
+    del tq_captures
+    phase("serve_tensor_families", t0)
+
     # -- 6. kernels against their plain versions ----------------------------
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -5061,10 +5846,13 @@ def main() -> int:
     # the same at each GQA model's layer 0, from its served runs
     gqa_results, gqa_paged = {}, []
     # (internvl2's rank 0 of phase 5o at its shard's heads)
-    tp_cfg = get_config(TP_ARCH)
+    # (and deepseek's rank 0 of phase 5q)
+    tp_cfg, tq_cfg = get_config(TP_ARCH), get_config(TQ_MOE)
+    tq_world = int(tq_moe_key.rpartition(":tp")[2])
     paged_shapes = [(arch, get_config(arch).num_heads, get_config(arch))
                     for arch in (*GQA_ARCHS, *MOE_ARCHS)] + [
-        (tp_key, tp_cfg.num_heads // tp_world, tp_cfg)]
+        (tp_key, tp_cfg.num_heads // tp_world, tp_cfg),
+        (tq_moe_key, tq_cfg.num_heads // tq_world, tq_cfg)]
     for arch, heads, acfg in paged_shapes:
         by_kernel = gqa_results[arch] = {}
         for pool_name, suffix in (("bf16", ""), ("int8", "_q8")):
@@ -5275,7 +6063,7 @@ def main() -> int:
     # prefill and a decode step with it (the window biting in both), the
     # banded calls of phase 5e; kernel 6 below
     gqa_results[HYMBA] = {"sel_attn": dict(banded)}
-    gqa_results[WHISPER] = {}
+    gqa_results[WHISPER], gqa_results[tq_whisper_key] = {}, {}
     for name in ("dense_mpic", "full_recompute", "dense_decode", "upload",
                  *gqa_dense):
         res = dense_case(*captured[name])
@@ -5436,6 +6224,17 @@ def main() -> int:
               f"{res['bound_ms']:.4f} by {res['bound_by']}); {res['shape']}")
     gqa_results[HYMBA]["ssd_chunk"] = hymba_ssd_cases
     del hymba_ssd
+    # mamba2's rank 0 of phase 5q: 12 of its 24 heads, the tensor cores
+    res = ssd_case(tq_ssd, timed=True)
+    if res["route"] != ssd_ops.TENSOR_CORES or not res["worst"] <= 1.0:
+        raise RuntimeError(f"ssd_chunk: {tq_ssd_key}'s rank 0 shape: {res}")
+    print(f"  ssd_chunk at {tq_ssd_key} rank 0 ({tq_ssd[0].shape[2]} heads) "
+          f"via {res['route']}: max |err| {res['max_abs_err']:.3e}, "
+          f"err/limit {res['worst']:.3f}; {res['ms']:.4f} ms (device "
+          f"{res['device_ms']}; plain {res['plain_ms']:.4f}, bound "
+          f"{res['bound_ms']:.4f} by {res['bound_by']}); {res['shape']}")
+    gqa_results[tq_ssd_key] = {"ssd_chunk": {"rank0_prefill": res}}
+    del tq_ssd
 
     def ssd_inputs(b, nc, h, q, hd, ds, dt_hi=0.2):
         return (randn(b, nc, h, q, hd, dtype=torch.float32),

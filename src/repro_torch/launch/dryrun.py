@@ -17,8 +17,6 @@ The run's device is ``meta`` by nature; nothing here touches a card.
 Rows are ``ok`` or ``skipped`` with the reason, never ``error``:
 
 * where the reference's ``step_kind`` skips the shape;
-* the families ``ServingSharding`` refuses under a mesh (MoE, SSM,
-  hybrid, the encoder-decoder; ROADMAP.md queue 1 item 5);
 * ``train_4k`` under a mesh, and a decode whose batch does not divide the
   data axis (``long_500k``: its KV sequence would go on ``data``), both
   ROADMAP.md queue 1 item 6.
@@ -65,11 +63,7 @@ from repro_torch.roofline.analysis import (
     model_flops,
     step_cost,
 )
-from repro_torch.serving.sharding import refused
 
-QUEUE_ITEM_5 = ("the family is not served under a mesh yet: MoE expert "
-                "sharding, SSM/hybrid heads and the encoder-decoder "
-                "(ROADMAP.md queue 1 item 5)")
 QUEUE_ITEM_6_TRAIN = ("training under a mesh (the data axis, FSDP) is not "
                       "ported (ROADMAP.md queue 1 item 6)")
 QUEUE_ITEM_6_KV_SEQ = ("the batch does not divide the data axis: the KV "
@@ -140,10 +134,14 @@ def trace_step(cfg, kind: str, shape, mesh):
     tp = RecordingMesh(model=sizes["model"], rank=0)
     shard, sh = shard_on_meta(cfg, tp)
     args, specs = S.input_specs(cfg, shape, kind, mesh)
-    # only the dense cache has a "model" dimension, its kv heads (or the
-    # reference's sequence cut): the port cuts it where attention is cut
-    local_args = S.localize(args, specs, mesh, cut_model=sh.attn)
-    fn = S.make_step_fn(sh.local_cfg, kind, shape)
+    # only the dense cache has "model" dimensions (the reference's): the
+    # port cuts its kv heads where attention is cut and its SSM state
+    # where the SSD heads are
+    specs = tuple(S.rank_cache_pspecs(cfg, mesh, sp, sh.cuts)
+                  if isinstance(sp, dict) and set(sp) & {"k", "ssm_h"}
+                  else sp for sp in specs)
+    local_args = S.localize(args, specs, mesh)
+    fn = S.make_step_fn(sh.local_cfg, kind, shape, sh.local_model())
     with torch.no_grad():
         out = fn(shard, *local_args)
     for a in local_args:
@@ -168,8 +166,6 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         return _skip(arch, shape_name, mesh.name,
                      "no sub-quadratic decode path (the reference's "
                      "step_kind)")
-    if refused(cfg):
-        return _skip(arch, shape_name, mesh.name, QUEUE_ITEM_5)
     if kind == "train":
         return _skip(arch, shape_name, mesh.name, QUEUE_ITEM_6_TRAIN)
     if S._dims(cfg, shape, mesh)[1] is not None:
@@ -184,7 +180,8 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     rows_b = _rows_of(kind, local_args)
     kv_len = (S.decode_kv_len(cfg, shape) if kind == "decode"
               else shape.seq_len)
-    cost = step_cost(local, _rows(kind, rows_b, shape.seq_len, kv_len))
+    cost = step_cost(local, _rows(kind, rows_b, shape.seq_len, kv_len),
+                     widths=sh.widths)
     params_b = _nbytes(list(shard.parameters()))
     # a prefill builds its cache inside the step
     cache_b = _nbytes(cache if cache is not None else

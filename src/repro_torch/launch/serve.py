@@ -34,7 +34,10 @@ unknown policy name fails that request, and the server keeps serving.
 ``--mesh 1xM`` (``auto``: every visible card) serves tensor-parallel over
 M ranks: the launcher spawns M processes joined by ``torch.distributed``
 (``launch/mesh.py``), each serving its shard of the weights (drawn
-directly, never whole) on the same stream, and rank 0 prints the lines,
+directly, never whole; every family: attention by kv heads, the MLP, a
+MoE's routed and shared experts, the SSM's and hybrid's SSD heads,
+whisper's encoder and decoder, each where the axis divides it) on the
+same stream, and rank 0 prints the lines,
 with ``mesh=1xM`` in the header and the backend on a line of its own:
 NCCL when every rank has a card of its own, gloo on the CPU and when the
 ranks share fewer cards.  ``--device`` passes through to the ranks.  Under

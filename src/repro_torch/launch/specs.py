@@ -6,25 +6,52 @@ A spec is a tuple with one entry per dimension: a mesh axis name (or a
 tuple of names), or None for a replicated dimension.  :func:`leaf_spec` is
 the reference's ``_leaf_spec`` (``wq``/``wk``/``wv``, ``w_gate``/``w_up``
 and the SSM's input projections column-parallel on ``model``,
-``wo``/``w_down``/``out_proj`` row-parallel, ``embed`` on its vocabulary
-rows, ``lm_head`` on its last dimension; with ``fsdp`` the complementary
-dimension on ``data``, the train rows' description) and :func:`guard` its
-``_guard`` (an axis that does not divide its dimension is dropped); both
-read the JAX tree's paths, layers stacked on axis 0.
+``wo``/``w_down``/``out_proj`` row-parallel, a MoE's routed experts on
+their expert axis, ``embed`` on its vocabulary rows, ``lm_head`` on its
+last dimension; with ``fsdp`` the complementary dimension on ``data``, the
+train rows' description; with ``replicate_ssm`` every SSM leaf whole) and
+:func:`guard` its ``_guard`` (an axis that does not divide its dimension
+is dropped); both read the JAX tree's paths, layers stacked on axis 0.
 :func:`param_pspecs` applies them, without FSDP, to the port's per-layer
-parameters, with two rules of the port's own:
+parameters, with rules of the port's own, each where the port runs a
+collective of its own in place of GSPMD's:
 
-* attention is cut by whole kv heads or not at all: where the kv heads do
-  not divide the ``model`` axis, every attention leaf is replicated (the
-  reference cuts ``wq``'s columns anyway and lets GSPMD move the
-  activations; the port's kernels run on whole heads with no collective
-  inside attention);
-* the QKV biases follow their weights' columns (the reference keeps them
-  whole and GSPMD slices them at the add).
+* **attention by whole kv heads**: where the kv heads do not divide the
+  ``model`` axis, every attention leaf (self, cross and the encoder's) is
+  replicated (the reference cuts ``wq``'s columns anyway and lets GSPMD
+  move the activations; the port's kernels run on whole heads with no
+  collective inside attention);
+* **biases follow their weights**: the QKV biases and whisper's MLP
+  ``b_up`` take their weights' columns (the reference keeps them whole and
+  GSPMD slices them at the add); ``b_down`` stays whole and is added once,
+  after the row-parallel sum;
+* **the router whole**: the reference cuts ``router``'s expert columns
+  and gathers the fp32 logits; the port routes on every rank from the
+  whole ``(D, E)`` router (512 KB a layer at deepseek), so every rank
+  computes the same choices, buffer positions and drops;
+* **``in_proj`` by halves**: it holds ``[x | z]``; a contiguous column
+  cut would give one rank all of x and another all of z, so each half is
+  cut by the rank's SSD heads (:data:`HALVED`, :func:`shard_leaf`'s
+  ``halves``);
+* **``bc_proj`` whole**: B and C are shared by every head, and a column
+  cut would split B from C;
+* **the SSM's 1-D leaves by heads**: ``dt_bias``, ``A_log``, ``D`` (the
+  rank's heads), ``conv_b`` and ``out_norm`` (its channels), which the
+  reference leaves whole; ``out_norm``'s sum of squares is summed over the
+  ranks (``ServingSharding.rms_norm``);
+* **``replicate_ssm``** (the reference's flag, set as its serving plan
+  sets it): where the SSD heads do not divide the axis (hymba's 25), every
+  SSM leaf is whole and each rank runs every head.
 
 :func:`param_pspecs` is the one decision; :func:`cuts` reads from its
-specs which products are cut, and :func:`local_config` (the config whose
-shapes one rank's shard, KV pool and dense cache have) reads :func:`cuts`.
+specs which products are cut, :func:`local_config` (the config whose
+shapes one rank's shard, KV pool and dense cache have) and
+:func:`local_widths` (the widths a config cannot carry: the rank's routed
+experts, shared experts' hidden units and SSD heads) read :func:`cuts`.
+A rank's config keeps the whole ``num_experts`` (``capacity`` and
+``route`` read it: a rank routes as the whole model does) and the whole
+SSM fields (``ssm_inner`` is derived from ``d_model``): the rank's shard
+carries those widths in its parameters' shapes and the plan.
 :func:`shard_params` cuts a whole :class:`~repro_torch.models.transformer.
 Transformer` into one rank's shard.
 
@@ -36,10 +63,11 @@ dense cache), :func:`make_serving_step_fn` and :func:`serving_input_specs`
 :func:`cache_pspecs`.  Inputs are ``meta`` tensors of the global shapes
 beside their specs, where the reference has ``ShapeDtypeStruct`` and
 ``NamedSharding``; :func:`localize` cuts them to one rank's shapes.
-:func:`cache_pspecs` is the reference's, and the port's dense-cache cut
-wherever the kv heads divide ``model``; where they do not, the reference
-cuts the sequence on ``model`` and the port keeps each rank's cache whole
-(attention replicated), which :func:`localize` follows.
+:func:`cache_pspecs` is the reference's; :func:`rank_cache_pspecs` turns
+it into the port's dense-cache cut (kv heads on ``model`` where attention
+is cut, whole where it is not, where the reference cuts the sequence; the
+SSM state by the rank's heads and channels where the SSM is cut), which
+:func:`localize` follows.
 """
 from __future__ import annotations
 
@@ -57,18 +85,29 @@ Spec = Tuple
 _COL = {"wq", "wk", "wv", "w_gate", "w_up", "in_proj", "bc_proj", "dt_proj",
         "router"}
 _ROW = {"wo", "w_down", "out_proj"}
-_ATTN = ("attn",)
-_BIAS_OF = {"bq": "wq", "bk": "wk", "bv": "wv"}
+_ATTN = ("attn", "cross_attn")
+_BIAS_OF = {"bq": "wq", "bk": "wk", "bv": "wv", "b_up": "w_up"}
+# the port's SSM cut: leaves cut by the rank's heads or channels (the
+# reference keeps the 1-D ones whole) and leaves kept whole
+_SSM_BY_HEADS = ("dt_bias", "A_log", "D", "conv_b", "out_norm")
+_SSM_WHOLE = ("bc_proj",)
+# leaves holding two blocks side by side on their cut dimension, each cut
+# by the rank's share: the SSM's in_proj, [x | z]
+HALVED = ("in_proj",)
 
 
-def leaf_spec(path: str, ndim: int, *, fsdp: bool = False) -> Spec:
+def leaf_spec(path: str, ndim: int, *, fsdp: bool = False,
+              replicate_ssm: bool = False) -> Spec:
     """One parameter leaf of the JAX tree (``path`` like
     ``/layers/attn/wq``, ``ndim`` counting the stacked layer axis) -> its
     spec: tensor parallelism on ``model``, and with ``fsdp`` the other
-    matrix dimension on ``data``."""
+    matrix dimension on ``data``; ``replicate_ssm`` keeps every SSM leaf
+    whole (the SSD heads do not divide the axis)."""
     name = path.split("/")[-1]
     stacked = "/layers/" in path or "/enc_layers/" in path
     spec = [None] * ndim
+    if replicate_ssm and "/ssm/" in path:
+        return tuple(spec)
     if name == "embed":
         spec[0] = "model"
         if fsdp:
@@ -110,27 +149,44 @@ def _meta_params(cfg):
     return Transformer(cfg, device="meta")
 
 
+def replicate_ssm(cfg, mesh) -> bool:
+    """The reference's ``replicate_ssm`` of its serving plan: a model with
+    SSD heads that do not divide the ``model`` axis."""
+    return bool((cfg.attn_free or cfg.hybrid) and not axis_divides(
+        mesh, "model", cfg.ssm_num_heads))
+
+
 def param_pspecs(cfg, mesh) -> Dict[str, Spec]:
     """{parameter name: spec} for the port's parameters of ``cfg`` (one
     layer's leaves unstacked: the reference's decision with the layer axis
-    dropped), under the port's attention and bias rules."""
+    dropped), under the port's rules (the module's notes)."""
     attn_ok = bool(cfg.num_kv_heads) and axis_divides(
         mesh, activation_rules()["kv_heads"], cfg.num_kv_heads)
+    rep_ssm = replicate_ssm(cfg, mesh)
     specs = {}
     for name, p in _meta_params(cfg).named_parameters():
         path, index = leaf_path(name)
         stacked = index is not None
         shape = ((cfg.num_layers if path[0] == "layers"
                   else cfg.encoder_layers),) * stacked + tuple(p.shape)
-        s = guard(leaf_spec("/" + "/".join(path), len(shape)), shape, mesh)
+        s = guard(leaf_spec("/" + "/".join(path), len(shape),
+                            replicate_ssm=rep_ssm), shape, mesh)
         specs[name] = s[1:] if stacked else s
     for name in specs:
         parts = name.split(".")
-        if len(parts) < 2 or parts[-2] not in _ATTN:
+        if len(parts) < 2:
             continue
-        if not attn_ok:
+        if parts[-2] == "moe" and parts[-1] == "router":
+            specs[name] = (None, None)
+        elif parts[-2] == "ssm" and not rep_ssm:
+            if parts[-1] in _SSM_WHOLE:
+                specs[name] = (None,) * len(specs[name])
+            elif parts[-1] in _SSM_BY_HEADS:
+                specs[name] = ("model",)
+        elif parts[-2] in _ATTN and not attn_ok:
             specs[name] = (None,) * len(specs[name])
-        elif parts[-1] in _BIAS_OF:
+        elif parts[-1] in _BIAS_OF and (parts[-2] in _ATTN
+                                        or parts[-2] == "mlp"):
             specs[name] = specs[".".join(parts[:-1] + [_BIAS_OF[parts[-1]]])
                                 ][-1:]
     return specs
@@ -139,11 +195,16 @@ def param_pspecs(cfg, mesh) -> Dict[str, Spec]:
 @dataclasses.dataclass(frozen=True)
 class Cuts:
     """Which products the ``model`` axis cuts: attention (by whole kv
-    heads, and with it the KV pool, its int8 scales and the dense cache),
-    the MLP (by ``d_ff``), the embedding and the head (by vocabulary)."""
+    heads, and with it the KV pool, its int8 scales, the dense cache and
+    whisper's cross K/V), the MLP (by ``d_ff``; a MoE's shared experts by
+    their hidden units), the embedding and the head (by vocabulary), a
+    MoE's routed experts (by expert) and the SSD heads (by head, and with
+    them the SSM state)."""
     attn: bool
     mlp: bool
     vocab: bool
+    experts: bool = False
+    ssm: bool = False
 
 
 def cuts(specs: Dict[str, Spec]) -> Cuts:
@@ -151,15 +212,31 @@ def cuts(specs: Dict[str, Spec]) -> Cuts:
     def cut(name, dim):
         return name in specs and specs[name][dim] == "model"
     return Cuts(attn=cut("layers.0.attn.wk", -1),
-                mlp=cut("layers.0.mlp.w_down", 0), vocab=cut("embed", 0))
+                mlp=(cut("layers.0.mlp.w_down", 0)
+                     or cut("layers.0.moe.shared.w_down", 0)),
+                vocab=cut("embed", 0), experts=cut("layers.0.moe.w_down", 0),
+                ssm=cut("layers.0.ssm.dt_proj", -1))
 
 
-def shard_leaf(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
-    """This rank's piece of a whole tensor under ``spec`` (a view)."""
+def halves(name: str) -> int:
+    """How many blocks sit side by side on a leaf's cut dimension: 2 for
+    :data:`HALVED`, else 1."""
+    return 2 if name.split(".")[-1] in HALVED else 1
+
+
+def shard_leaf(t: torch.Tensor, spec: Spec, mesh, halves: int = 1
+               ) -> torch.Tensor:
+    """This rank's piece of a whole tensor under ``spec``: a view, or with
+    ``halves`` > 1 the rank's piece of each of that many equal blocks of
+    the cut dimension, concatenated (a copy)."""
     for d, ax in enumerate(spec):
-        if ax == "model":
-            n = t.shape[d] // mesh.model
-            t = t.narrow(d, mesh.rank * n, n)
+        if ax != "model":
+            continue
+        if halves > 1:
+            return torch.cat([shard_leaf(b, spec, mesh) for b in
+                              torch.chunk(t, halves, dim=d)], dim=d)
+        n = t.shape[d] // mesh.model
+        t = t.narrow(d, mesh.rank * n, n)
     return t
 
 
@@ -167,32 +244,64 @@ def local_config(cfg, c: Cuts, m: int):
     """The config whose shapes one rank's shard has on a ``model`` axis of
     ``m``: its kv and query heads, its slice of ``d_ff`` and of the
     vocabulary, each only where ``c`` cuts them (``head_dim`` stays
-    explicit)."""
+    explicit).  A MoE's ``d_ff`` (the routed experts' hidden units, whole
+    on every rank), ``num_experts`` and the SSM fields stay whole: see
+    :func:`local_widths`."""
     over = {"head_dim": cfg.head_dim}
     if c.attn:
         over.update(num_heads=cfg.num_heads // m,
                     num_kv_heads=cfg.num_kv_heads // m)
-    if c.mlp:
+    if c.mlp and cfg.arch_type != "moe":
         over["d_ff"] = cfg.d_ff // m
     if c.vocab:
         over["vocab_size"] = cfg.vocab_size // m
     return dataclasses.replace(cfg, **over)
 
 
+@dataclasses.dataclass(frozen=True)
+class Widths:
+    """The widths of one rank's shard that its config does not carry: the
+    routed experts it holds, its shared experts' hidden units and its SSD
+    heads (``ssm_heads x ssm_head_dim`` channels).  :meth:`whole` gives
+    an unsharded model's."""
+    experts: int
+    shared_ff: int
+    ssm_heads: int
+
+    @classmethod
+    def whole(cls, cfg) -> "Widths":
+        return cls(experts=cfg.num_experts,
+                   shared_ff=cfg.d_ff * cfg.num_shared_experts,
+                   ssm_heads=cfg.ssm_num_heads if cfg.ssm_state else 0)
+
+
+def local_widths(cfg, c: Cuts, m: int) -> Widths:
+    """:class:`Widths` of one rank's shard on a ``model`` axis of ``m``."""
+    w = Widths.whole(cfg)
+    return Widths(experts=w.experts // m if c.experts else w.experts,
+                  shared_ff=(w.shared_ff // m
+                             if c.mlp and cfg.arch_type == "moe"
+                             else w.shared_ff),
+                  ssm_heads=w.ssm_heads // m if c.ssm else w.ssm_heads)
+
+
 def shard_params(params, mesh, specs: Dict[str, Spec] = None):
     """One rank's shard of a whole ``Transformer``: a ``Transformer`` of
-    :func:`local_config`'s shapes on the same device holding copies of the
-    rank's pieces (``specs`` defaults to :func:`param_pspecs` of the
-    params' config).  Its ``sharding`` is left for the caller to set."""
+    :func:`local_config`'s and :func:`local_widths`' shapes on the same
+    device holding copies of the rank's pieces (``specs`` defaults to
+    :func:`param_pspecs` of the params' config).  Its ``sharding`` is left
+    for the caller to set."""
     from repro_torch.models.transformer import Transformer
     cfg = params.cfg
     specs = specs or param_pspecs(cfg, mesh)
-    shard = Transformer(local_config(cfg, cuts(specs), mesh.model),
-                        device=params.embed.device)
+    c = cuts(specs)
+    shard = Transformer(local_config(cfg, c, mesh.model),
+                        device=params.embed.device,
+                        widths=local_widths(cfg, c, mesh.model))
     whole = dict(params.named_parameters())
     with torch.no_grad():
         for name, p in shard.named_parameters():
-            p.copy_(shard_leaf(whole[name], specs[name], mesh))
+            p.copy_(shard_leaf(whole[name], specs[name], mesh, halves(name)))
     return shard
 
 
@@ -276,14 +385,34 @@ def cache_pspecs(cfg, mesh, batch_spec, kv_seq_spec) -> Dict[str, Spec]:
     return out
 
 
-def make_step_fn(cfg, kind: str, shape):
+def rank_cache_pspecs(cfg, mesh, specs: Dict[str, Spec], c: Cuts
+                      ) -> Dict[str, Spec]:
+    """The port's dense-cache cut from :func:`cache_pspecs`' ``specs``:
+    ``model`` only where the port cuts (the kv heads and the cross K/V's
+    heads where attention is cut, none where it is not; the SSM state's
+    heads and the conv state's channels where the SSD heads are)."""
+    out = {}
+    for key, sp in specs.items():
+        sp = tuple(None if ax == "model" else ax for ax in sp)
+        if key in ("k", "v", "cross_k", "cross_v") and c.attn:
+            sp = sp[:3] + ("model",) + sp[4:]
+        elif key == "ssm_h" and c.ssm:
+            sp = sp[:2] + ("model",) + sp[3:]
+        elif key == "ssm_conv" and c.ssm:
+            sp = sp[:3] + ("model",)
+        out[key] = sp
+    return out
+
+
+def make_step_fn(cfg, kind: str, shape, model=None):
     """The step ``kind`` runs, as a function of the parameters and
     :func:`input_specs`' inputs, through the port's passes (``cfg``: the
     config whose shapes the parameters have, a rank's
-    :func:`local_config` under a mesh)."""
+    :func:`local_config` under a mesh; ``model`` the facade to run, a
+    rank's ``ServingSharding.local_model()``, by default ``cfg``'s)."""
     from repro_torch.models import build_model
     from repro_torch.models import transformer as tf
-    model = build_model(cfg)
+    model = model or build_model(cfg)
 
     if kind == "prefill":
         def fn(params, batch):

@@ -8,6 +8,7 @@ call as ``params``, as the JAX facade takes its parameter pytree.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -46,9 +47,12 @@ def _pad_right(t: torch.Tensor, pad: int) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class Model:
-    """On a tensor-parallel rank ``cfg`` is the rank's local config and
-    the plan rides on the parameters (``params.sharding``)."""
+    """On a tensor-parallel rank ``cfg`` is the rank's local config,
+    ``widths`` (``launch.specs.Widths``) the widths it cannot carry (the
+    rank's SSD heads size its dense cache's SSM state), and the plan rides
+    on the parameters (``params.sharding``)."""
     cfg: ModelConfig
+    widths: Optional[object] = None
 
     def __post_init__(self):
         _check_supported(self.cfg)
@@ -125,7 +129,9 @@ class Model:
     def make_cache(self, batch: int, kv_len: int, *, device=None) -> dict:
         """Empty dense cache on ``device`` (None means the card); see
         :func:`repro_torch.models.transformer.make_cache`."""
-        return tf.make_cache(self.cfg, batch, kv_len, device=device)
+        return tf.make_cache(self.cfg, batch, kv_len, device=device,
+                             ssm_heads=self.widths.ssm_heads
+                             if self.widths is not None else 0)
 
     def prefill(self, params, tokens, cache, *, media_embeds=None,
                 media_mask=None, positions=None, write_idx=None,

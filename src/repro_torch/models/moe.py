@@ -46,18 +46,22 @@ class SharedExperts(nn.Module):
 class MoE(nn.Module):
     """``router`` (D, E) fp32, ``w_gate``/``w_up`` (E, D, F), ``w_down``
     (E, F, D) in the parameter dtype, and ``shared`` when the config has
-    shared experts."""
+    shared experts.  A tensor-parallel rank holds the whole router,
+    ``experts`` of the routed experts and ``shared_ff`` of the shared
+    experts' hidden units (both whole by default)."""
 
-    def __init__(self, cfg, dtype, device):
+    def __init__(self, cfg, dtype, device, experts: int = 0,
+                 shared_ff: int = 0):
         super().__init__()
         d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+        n = experts or e
         self.router = _weight((d, e), torch.float32, device)
-        self.w_gate = _weight((e, d, f), dtype, device)
-        self.w_up = _weight((e, d, f), dtype, device)
-        self.w_down = _weight((e, f, d), dtype, device)
-        self.shared = (SharedExperts(d, f * cfg.num_shared_experts, dtype,
-                                     device)
-                       if cfg.num_shared_experts else None)
+        self.w_gate = _weight((n, d, f), dtype, device)
+        self.w_up = _weight((n, d, f), dtype, device)
+        self.w_down = _weight((n, f, d), dtype, device)
+        self.shared = (SharedExperts(
+            d, shared_ff or f * cfg.num_shared_experts, dtype, device)
+            if cfg.num_shared_experts else None)
 
 
 @contextlib.contextmanager
@@ -104,10 +108,21 @@ def route(router: torch.Tensor, cfg, xt: torch.Tensor,
 
 
 def moe_ffn(params: MoE, cfg, x: torch.Tensor, *,
-            capacity_factor: float = 1.25):
+            capacity_factor: float = 1.25, sharding=None):
     """x (B, S, D) -> (out (B, S, D) in x's dtype, aux loss fp32 scalar).
     The aux loss is the reference's Switch-style load-balance term;
-    serving drops it."""
+    serving drops it.
+
+    With ``sharding`` (a tensor-parallel rank's plan that cuts the routed
+    or the shared experts) every rank routes all ``T`` rows with the whole
+    router over the whole ``E``, so the choices, buffer positions and
+    drops are the unsharded pass's; the rank fills an ``(E/M, C, D)``
+    buffer of the same ``C`` for its own experts, sums its pairs' products
+    over the k choices in fp32 (``sharding.expert_partial``), and the
+    ranks' sums meet in one fp32 all-reduce, rounded once, as one card's
+    sum over the k choices accumulates in fp32 and rounds once.  A cut of
+    the shared experts (row-parallel on their hidden units) rides in the
+    same all-reduce and rounds as on one card (``sharding.reduce``)."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     t = b * s
@@ -119,26 +134,51 @@ def moe_ffn(params: MoE, cfg, x: torch.Tensor, *,
     ce = F.one_hot(gate_idx, e).float().sum(dim=1).mean(dim=0)
     aux = e * (me * ce).sum()
 
-    # gather dispatch into the (E, C) buffer; column C is the drop bin
-    slot = torch.where(keep, pos, cap)
-    flat_e, flat_s = gate_idx.reshape(-1), slot.reshape(-1)
-    src = torch.zeros((e, cap + 1), dtype=torch.long, device=x.device)
+    # the rank's experts [lo, lo + n): all of them without a cut
+    lo, n = (0, e) if sharding is None else sharding.expert_range
+    mine = (gate_idx >= lo) & (gate_idx < lo + n)
+    # gather dispatch into the (n, C) buffer; column C is the drop bin,
+    # which also takes the pairs of another rank's experts
+    slot = torch.where(keep & mine, pos, cap)
+    flat_e = (gate_idx - lo).clamp(0, n - 1).reshape(-1)
+    flat_s = slot.reshape(-1)
+    src = torch.zeros((n, cap + 1), dtype=torch.long, device=x.device)
     src[flat_e, flat_s] = torch.arange(
         t, device=x.device).repeat_interleave(k)
-    filled = torch.zeros((e, cap + 1), dtype=torch.bool, device=x.device)
+    filled = torch.zeros((n, cap + 1), dtype=torch.bool, device=x.device)
     filled[flat_e, flat_s] = True
 
     cd = torch_dtype(cfg.compute_dtype)
-    xe = xt.to(cd)[src[:, :cap]] * filled[:, :cap, None].to(cd)  # (E, C, D)
+    xe = xt.to(cd)[src[:, :cap]] * filled[:, :cap, None].to(cd)  # (n, C, D)
     h = F.silu(torch.bmm(xe, params.w_gate)) * torch.bmm(xe, params.w_up)
-    ye = torch.bmm(h, params.w_down)                             # (E, C, D)
+    ye = torch.bmm(h, params.w_down)                             # (n, C, D)
 
     # combine: each token's k outputs (a dropped pair reads a clamped slot
     # and weighs zero, as the reference's gather does)
     gathered = ye[flat_e, flat_s.clamp(max=cap - 1)].reshape(t, k, d)
-    out = (gathered * (gate_vals * keep).to(cd)[..., None]).sum(dim=1)
-    if params.shared is not None:
-        sp = params.shared
-        out = out + (F.silu(xt @ sp.w_gate) * (xt @ sp.w_up)) @ sp.w_down
+    contrib = gathered * (gate_vals * (keep & mine)).to(cd)[..., None]
+    sp = params.shared
+    if sharding is None:
+        out = contrib.sum(dim=1)
+        if sp is not None:
+            out = out + (F.silu(xt @ sp.w_gate) * (xt @ sp.w_up)) @ sp.w_down
+        return out.reshape(b, s, d).to(x.dtype), aux
+    # each part an fp32 partial sum where its experts are cut, else
+    # computed whole in the compute dtype as on one card
+    whole, partial = {}, {}
+    if sharding.experts:
+        partial["routed"] = sharding.expert_partial(contrib, gate_idx)
+    else:
+        whole["routed"] = contrib.sum(dim=1)
+    if sp is not None:
+        hidden = F.silu(xt @ sp.w_gate) * (xt @ sp.w_up)
+        if sharding.mlp:
+            partial["shared"] = sharding.partial_product(hidden, sp.w_down)
+        else:
+            whole["shared"] = hidden @ sp.w_down
+    whole.update(zip(partial, sharding.reduce(list(partial.values()), cd)))
+    out = whole["routed"]
+    if sp is not None:
+        out = out + whole["shared"]
     return out.reshape(b, s, d).to(x.dtype), aux
 

@@ -18,6 +18,14 @@ State caches (decode), per layer:
   ssd state  (B, H, ds, hd) fp32  the recurrent summary
   conv state (B, W-1, di)         the causal conv's input tail
 MPIC does not apply here: the state depends on the whole prefix.
+
+Tensor parallelism: a rank's :class:`SSM` holds its SSD heads (``heads``
+of them, and their ``heads x ssm_head_dim`` channels: each half of
+``in_proj``'s ``[x | z]``, ``dt_proj``'s columns, ``dt_bias``, ``A_log``,
+``D``, the conv and ``out_norm``) and the whole ``bc_proj``; the passes
+read those widths from the parameters' shapes, and with the rank's plan
+(``sharding``) ``out_norm`` normalises over every rank's channels and
+``out_proj`` ends in a row-parallel sum.
 """
 from __future__ import annotations
 
@@ -38,10 +46,11 @@ class SSM(nn.Module):
     projections ``(in, out)`` in the parameter dtype; ``dt_bias``,
     ``A_log`` and ``D`` always fp32."""
 
-    def __init__(self, cfg, dtype, device):
+    def __init__(self, cfg, dtype, device, heads: int = 0):
         super().__init__()
-        d, di, ds = cfg.d_model, cfg.ssm_inner, cfg.ssm_state
-        nh, w = cfg.ssm_num_heads, cfg.ssm_conv_width
+        nh = heads or cfg.ssm_num_heads
+        d, di, ds = cfg.d_model, nh * cfg.ssm_head_dim, cfg.ssm_state
+        w = cfg.ssm_conv_width
 
         def empty(*shape, dt=dtype):
             return _param(torch.empty(shape, dtype=dt, device=device))
@@ -138,8 +147,26 @@ def ssd_chunked_train(x, bm, cm, log_a, dtv, h0):
     return y_intra + y_inter, h
 
 
+def _widths(params: SSM, cfg):
+    """(channels, heads, head dim) of ``params``: the model's, or a
+    tensor-parallel rank's."""
+    nh = params.A_log.shape[0]
+    return nh * cfg.ssm_head_dim, nh, cfg.ssm_head_dim
+
+
+def _out(params: SSM, cfg, y, z, sharding):
+    """The gated ``out_norm`` and ``out_proj``; a rank's channels normed
+    over every rank's and its partial product summed."""
+    g = F.silu(z)
+    if sharding is None:
+        return (rmsnorm(params.out_norm, y) * g) @ params.out_proj
+    return sharding.row_parallel(
+        sharding.rms_norm(params.out_norm, y, cfg.ssm_inner) * g,
+        params.out_proj)
+
+
 def ssm_forward(params: SSM, cfg, x, state=None, dt_mask=None,
-                tail_start=None, *, train: bool = False):
+                tail_start=None, *, train: bool = False, sharding=None):
     """Full-sequence (prefill, or with ``train`` training) SSD pass.
 
     x (B, T, D) with T a multiple of ``cfg.ssm_chunk`` (the caller pads; a
@@ -151,11 +178,13 @@ def ssm_forward(params: SSM, cfg, x, state=None, dt_mask=None,
     state neither decays nor absorbs input) and zeroes their conv input.
     tail_start (B,): per-row start of the last W-1 real inputs, the decode
     conv state (default T-(W-1)), clamped at 0.
+    ``sharding``: a tensor-parallel rank's plan, where its SSD heads are
+    cut (``params`` its shard).
     Returns (out (B, T, D), new state {"h", "conv"}).
     """
     b, t, _ = x.shape
-    di, ds = cfg.ssm_inner, cfg.ssm_state
-    nh, hd, q = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_chunk
+    ds, q = cfg.ssm_state, cfg.ssm_chunk
+    di, nh, hd = _widths(params, cfg)
     if t % q:
         raise ValueError(f"seq {t} not divisible by ssm_chunk {q}")
     nc = t // q
@@ -182,8 +211,7 @@ def ssm_forward(params: SSM, cfg, x, state=None, dt_mask=None,
     y = y + params.D[:, None] * xh
     y = y.reshape(b, t, di).to(x.dtype)
 
-    y = rmsnorm(params.out_norm, y) * F.silu(z)
-    out = y @ params.out_proj
+    out = _out(params, cfg, y, z, sharding)
     w1 = cfg.ssm_conv_width - 1
     if tail_start is None:
         conv_state = xin[:, t - w1:, :]
@@ -195,10 +223,11 @@ def ssm_forward(params: SSM, cfg, x, state=None, dt_mask=None,
     return out, {"h": h_final, "conv": conv_state}
 
 
-def ssm_decode(params: SSM, cfg, x, state):
-    """One decode step.  x (B, 1, D); state {"h", "conv"} -> (out, state)."""
+def ssm_decode(params: SSM, cfg, x, state, *, sharding=None):
+    """One decode step.  x (B, 1, D); state {"h", "conv"} -> (out, state);
+    ``sharding`` as in :func:`ssm_forward`."""
     b = x.shape[0]
-    di, nh, hd = cfg.ssm_inner, cfg.ssm_num_heads, cfg.ssm_head_dim
+    di, nh, hd = _widths(params, cfg)
 
     xin, z = torch.chunk(x @ params.in_proj, 2, dim=-1)    # (B, 1, di)
     buf = torch.cat([state["conv"].to(xin.dtype), xin], dim=1)  # (B, W, di)
@@ -215,16 +244,19 @@ def ssm_decode(params: SSM, cfg, x, state):
     y = torch.einsum("bs,bhsd->bhd", cm, h) + params.D[None, :, None] * xh
     y = y.reshape(b, 1, di).to(x.dtype)
 
-    y = rmsnorm(params.out_norm, y) * F.silu(z)
-    out = y @ params.out_proj
+    out = _out(params, cfg, y, z, sharding)
     return out, {"h": h, "conv": buf[:, 1:, :]}
 
 
-def init_ssm_state(cfg, batch: int, dtype=torch.float32, device=None) -> dict:
+def init_ssm_state(cfg, batch: int, dtype=torch.float32, device=None,
+                   heads: int = 0) -> dict:
+    """Zero state for ``batch`` rows at ``heads`` SSD heads (a
+    tensor-parallel rank's; the model's by default)."""
+    nh = heads or cfg.ssm_num_heads
     return {
-        "h": torch.zeros((batch, cfg.ssm_num_heads, cfg.ssm_state,
-                          cfg.ssm_head_dim), dtype=torch.float32,
-                         device=device),
-        "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, cfg.ssm_inner),
-                            dtype=dtype, device=device),
+        "h": torch.zeros((batch, nh, cfg.ssm_state, cfg.ssm_head_dim),
+                         dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.ssm_conv_width - 1,
+                             nh * cfg.ssm_head_dim), dtype=dtype,
+                            device=device),
     }

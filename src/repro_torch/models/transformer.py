@@ -31,7 +31,9 @@ decoder's learned positions ``pos_embed``, the encoder's layers
   page pool;
 * :func:`encode` and :func:`compute_cross_kv`: whisper's encoder over
   frame embeddings and the decoder layers' cross-attention K/V over its
-  output, which the dense cache carries as ``cross_k``/``cross_v``;
+  output, which the dense cache carries as ``cross_k``/``cross_v`` (a
+  tensor-parallel rank's at its heads: the encoder runs on its heads and
+  its slice of ``d_ff``, its output whole on every rank);
 * :func:`forward_train`: the training forward (logits and the MoE aux
   loss), differentiable, the SSD heads included.
 
@@ -169,13 +171,15 @@ class DecoderLayer(nn.Module):
     output through ``cross_attn`` (normed by ``cross_norm``) between its
     self attention and its MLP."""
 
-    def __init__(self, cfg, dtype, device):
+    def __init__(self, cfg, dtype, device, widths=None):
         super().__init__()
         self.attn_norm = _norm_param(cfg, dtype, device)
         self.attn = Attention(cfg, dtype, device)
         self.mlp_norm = _norm_param(cfg, dtype, device)
         if cfg.arch_type == "moe":
-            self.moe = MoE(cfg, dtype, device)
+            self.moe = MoE(cfg, dtype, device,
+                           *((widths.experts, widths.shared_ff)
+                             if widths else ()))
         elif cfg.arch_type == "audio":
             self.mlp = GeluMLP(cfg, dtype, device)
             self.cross_norm = LayerNorm(cfg.d_model, dtype, device)
@@ -183,16 +187,17 @@ class DecoderLayer(nn.Module):
         else:
             self.mlp = SwiGLU(cfg, dtype, device)
         if cfg.hybrid:
-            self.ssm = SSM(cfg, dtype, device)
+            self.ssm = SSM(cfg, dtype, device,
+                           widths.ssm_heads if widths else 0)
             self.attn_mix_norm = _ones(cfg.d_model, dtype, device)
             self.ssm_mix_norm = _ones(cfg.d_model, dtype, device)
 
 
 class SSMLayer(nn.Module):
-    def __init__(self, cfg, dtype, device):
+    def __init__(self, cfg, dtype, device, widths=None):
         super().__init__()
         self.norm = _ones(cfg.d_model, dtype, device)
-        self.ssm = SSM(cfg, dtype, device)
+        self.ssm = SSM(cfg, dtype, device, widths.ssm_heads if widths else 0)
 
 
 class EncoderLayer(nn.Module):
@@ -213,9 +218,11 @@ class Transformer(nn.Module):
     ``launch.specs.local_config``'s shapes) carries its plan in
     ``sharding`` (a :class:`~repro_torch.serving.sharding.
     ServingSharding`; None for a whole model), which the passes read for
-    their collectives."""
+    their collectives.  ``widths`` (``launch.specs.Widths``) are such a
+    shard's routed experts, shared experts' hidden units and SSD heads,
+    which its config cannot carry (the model's by default)."""
 
-    def __init__(self, cfg, *, device=None):
+    def __init__(self, cfg, *, device=None, widths=None):
         super().__init__()
         self.cfg = cfg
         self.sharding = None
@@ -224,7 +231,7 @@ class Transformer(nn.Module):
         layer = SSMLayer if cfg.arch_type == "ssm" else DecoderLayer
         self.embed = _weight((cfg.vocab_size, cfg.d_model), dt, dev)
         self.layers = nn.ModuleList(
-            layer(cfg, dt, dev) for _ in range(cfg.num_layers))
+            layer(cfg, dt, dev, widths) for _ in range(cfg.num_layers))
         self.final_norm = _norm_param(cfg, dt, dev)
         self.lm_head = (None if cfg.tie_embeddings else
                         _weight((cfg.d_model, cfg.vocab_size), dt, dev))
@@ -263,30 +270,37 @@ def init_params(cfg, *, seed: int = 0, device=None,
     the whole model's weights; no more than one whole leaf is held at a
     time."""
     if sharding is not None:
-        params = Transformer(sharding.local_cfg, device=device)
+        params = Transformer(sharding.local_cfg, device=device,
+                             widths=sharding.widths)
         params.sharding = sharding
     else:
         params = Transformer(cfg, device=device)
     gen = torch.Generator(device=params.embed.device).manual_seed(seed)
     names = {id(p): n for n, p in params.named_parameters()}
 
-    def fill(w: nn.Parameter, scale: Optional[float] = None) -> None:
-        shape = (w.shape if sharding is None
-                 else sharding.whole_shapes[names[id(w)]])
-        s = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-        x = torch.randn(shape, generator=gen, dtype=torch.float32,
-                        device=w.device) * s
+    def whole_shape(w: nn.Parameter):
+        return (w.shape if sharding is None
+                else sharding.whole_shapes[names[id(w)]])
+
+    def keep(w: nn.Parameter, x: torch.Tensor) -> None:
+        """``w`` <- the whole ``x``, or this rank's piece of it."""
         if sharding is not None:
             x = sharding.shard_leaf(names[id(w)], x)
         w.copy_(x)
+
+    def fill(w: nn.Parameter, scale: Optional[float] = None) -> None:
+        shape = whole_shape(w)
+        s = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+        keep(w, torch.randn(shape, generator=gen, dtype=torch.float32,
+                            device=w.device) * s)
 
     def fill_ssm(p: SSM) -> None:
         for w in (p.in_proj, p.bc_proj, p.dt_proj, p.out_proj):
             fill(w)
         fill(p.conv_w, 0.5)
         p.dt_bias.fill_(-4.6)
-        p.A_log.copy_(torch.log(torch.linspace(
-            1.0, 16.0, p.A_log.shape[0], dtype=torch.float32)))
+        keep(p.A_log, torch.log(torch.linspace(
+            1.0, 16.0, whole_shape(p.A_log)[0], dtype=torch.float32)))
         p.D.fill_(1.0)
 
     with torch.no_grad():
@@ -359,25 +373,43 @@ def _attn_out(params: Transformer, wo, o):
     return sh.row_parallel(o.flatten(2), wo)
 
 
+def _mlp(params: Transformer, m, h):
+    """A SwiGLU or whisper's GELU MLP on ``h``; a rank's slice of ``d_ff``
+    ends in a partial ``w_down`` product summed over the ranks, whisper's
+    ``b_down`` added once after the sum."""
+    sh = params.sharding
+    if sh is None or not sh.mlp:
+        return m(h)
+    if isinstance(m, GeluMLP):
+        return sh.row_parallel(F.gelu(h @ m.w_up + m.b_up, approximate="tanh"),
+                               m.w_down) + m.b_down
+    return sh.row_parallel(F.silu(h @ m.w_gate) * (h @ m.w_up), m.w_down)
+
+
 def _ffn(params: Transformer, lp: DecoderLayer, cfg, x):
     """The residual FFN block: (x + FFN(norm(x)), the MoE's aux loss, a
     zero without one).  A rank's slice of ``d_ff`` ends in a partial
-    ``w_down`` product summed over the ranks."""
+    ``w_down`` product summed over the ranks; a rank's routed (and
+    shared) experts meet the others' in the experts' combine."""
     h = _norm(lp.mlp_norm, x, cfg.rms_norm_eps)
     zero = x.new_zeros((), dtype=torch.float32)
     if cfg.arch_type == "moe":
-        out, aux = moe_ffn(lp.moe, cfg, h)
+        sh = params.sharding
+        out, aux = moe_ffn(lp.moe, cfg, h, sharding=sh if sh is not None and (
+            sh.experts or sh.mlp) else None)
         return x + out, aux
+    return x + _mlp(params, lp.mlp, h), zero
+
+
+def _ssm_sharding(params: Transformer):
+    """The plan the SSM passes take: the rank's where its SSD heads are
+    cut, else None (whole, or replicated on every rank)."""
     sh = params.sharding
-    if sh is None or not sh.mlp:
-        return x + lp.mlp(h), zero
-    m = lp.mlp
-    return x + sh.row_parallel(F.silu(h @ m.w_gate) * (h @ m.w_up),
-                               m.w_down), zero
+    return sh if sh is not None and sh.ssm else None
 
 
-def _cross_attention(lp: DecoderLayer, cfg, x, cross_k, cross_v, *,
-                     train: bool = False):
+def _cross_attention(params: Transformer, lp: DecoderLayer, cfg, x, cross_k,
+                     cross_v, *, train: bool = False):
     """whisper's cross attention of ``x`` (B, S, D) over one layer's
     encoder K/V (B, Senc, Hkv, Dh): every query sees every frame.  The
     reference masks it with zero positions on both sides, which pass the
@@ -394,21 +426,23 @@ def _cross_attention(lp: DecoderLayer, cfg, x, cross_k, cross_v, *,
     else:
         o = selective_attention(q.contiguous(), cross_k, cross_v, q_pos,
                                 kv_pos)
-    return attention_out(lp.cross_attn.wo, o)
+    return _attn_out(params, lp.cross_attn.wo, o)
 
 
 # ---------------------------------------------------------------------------
 # dense cache passes
 # ---------------------------------------------------------------------------
 
-def make_cache(cfg, batch: int, kv_len: int, *, device=None) -> dict:
+def make_cache(cfg, batch: int, kv_len: int, *, device=None,
+               ssm_heads: int = 0) -> dict:
     """Empty dense cache, every slot invalid: ``k``/``v`` (L, B, kv_len,
     Hkv, Dh) zeros in the compute dtype, ``pos`` (B, kv_len) int32
     ``INVALID_POS``.  An SSM's cache is its recurrent state instead, zeros:
     ``ssm_h`` (L, B, H, ds, hd) fp32 and ``ssm_conv`` (L, B, W-1, di) in
-    the compute dtype (``kv_len`` unused).  A hybrid's holds both.  An
-    encoder-decoder's adds ``cross_k``/``cross_v`` (L, B, encoder_seq, Hkv,
-    Dh) zeros, which a prefill with audio replaces."""
+    the compute dtype (``kv_len`` unused), at ``ssm_heads`` heads (a
+    tensor-parallel rank's; the model's by default).  A hybrid's holds
+    both.  An encoder-decoder's adds ``cross_k``/``cross_v`` (L, B,
+    encoder_seq, Hkv, Dh) zeros, which a prefill with audio replaces."""
     dev = resolve_device(device)
     dt = torch_dtype(cfg.compute_dtype)
     cache = {}
@@ -420,7 +454,7 @@ def make_cache(cfg, batch: int, kv_len: int, *, device=None) -> dict:
                  "pos": torch.full((batch, kv_len), INVALID_POS,
                                    dtype=torch.int32, device=dev)}
     if cfg.attn_free or cfg.hybrid:
-        st = init_ssm_state(cfg, cfg.num_layers * batch, dt, dev)
+        st = init_ssm_state(cfg, cfg.num_layers * batch, dt, dev, ssm_heads)
         cache["ssm_h"] = st["h"].unflatten(0, (cfg.num_layers, batch))
         cache["ssm_conv"] = st["conv"].unflatten(0, (cfg.num_layers, batch))
     if cfg.is_encoder_decoder:
@@ -439,17 +473,20 @@ def _scatter_rows(buf, vals, idx):
     return buf
 
 
-def _ssm_step(ssm: SSM, cfg, h, cache, l: int, ssm_mask, ssm_tail_start):
+def _ssm_step(params: Transformer, ssm: SSM, cfg, h, cache, l: int,
+              ssm_mask, ssm_tail_start):
     """Layer ``l``'s SSM heads on ``h``: a prefill (``Sq > 1``, from an
     empty state, Sq a multiple of ``cfg.ssm_chunk``) or one decode step
     from the cached state; the new state is written into ``cache`` in
     place.  Returns the heads' output."""
+    sh = _ssm_sharding(params)
     if h.shape[1] == 1:
         out, st = ssm_decode(ssm, cfg, h, {
-            "h": cache["ssm_h"][l], "conv": cache["ssm_conv"][l]})
+            "h": cache["ssm_h"][l], "conv": cache["ssm_conv"][l]},
+            sharding=sh)
     else:
         out, st = ssm_forward(ssm, cfg, h, dt_mask=ssm_mask,
-                              tail_start=ssm_tail_start)
+                              tail_start=ssm_tail_start, sharding=sh)
     cache["ssm_h"][l] = st["h"]
     cache["ssm_conv"][l] = st["conv"]
     return out
@@ -468,7 +505,8 @@ def _forward_ssm(params: Transformer, cfg, embeds, cache, ssm_mask,
     x = embeds
     for l, lp in enumerate(params.layers):
         h = rmsnorm(lp.norm, x, cfg.rms_norm_eps)
-        x = x + _ssm_step(lp.ssm, cfg, h, cache, l, ssm_mask, ssm_tail_start)
+        x = x + _ssm_step(params, lp.ssm, cfg, h, cache, l, ssm_mask,
+                          ssm_tail_start)
     return (_logits(params, cfg, x) if logits else None), cache
 
 
@@ -522,11 +560,11 @@ def forward_with_cache(params: Transformer, cfg, embeds, positions, cache,
                                     positions, kv_pos, window=w)
         a = _attn_out(params, lp.attn.wo, o)
         if cfg.hybrid:
-            a = _mix(lp, cfg, a, _ssm_step(lp.ssm, cfg, h, cache, l,
+            a = _mix(lp, cfg, a, _ssm_step(params, lp.ssm, cfg, h, cache, l,
                                            ssm_mask, ssm_tail_start))
         x = x + a
         if cfg.is_encoder_decoder:
-            x = x + _cross_attention(lp, cfg, x, cache["cross_k"][l],
+            x = x + _cross_attention(params, lp, cfg, x, cache["cross_k"][l],
                                      cache["cross_v"][l])
         x = _ffn(params, lp, cfg, x)[0]
     return (_logits(params, cfg, x) if logits else None), cache
@@ -548,10 +586,12 @@ def _contiguous(params: Transformer, cfg, x, cross_kv, *, train: bool):
     w = cfg.sliding_window
     banded = w and s % w == 0 and s >= 2 * w
     aux = x.new_zeros((), dtype=torch.float32)
+    ssm_sh = _ssm_sharding(params)
     for l, lp in enumerate(params.layers):
         if cfg.attn_free:
             h = rmsnorm(lp.norm, x, cfg.rms_norm_eps)
-            x = x + ssm_forward(lp.ssm, cfg, h, train=train)[0]
+            x = x + ssm_forward(lp.ssm, cfg, h, train=train,
+                                sharding=ssm_sh)[0]
             continue
         h = _norm(lp.attn_norm, x, cfg.rms_norm_eps)
         q, k, v = attention_qkv(lp.attn, cfg, h, positions)
@@ -566,10 +606,11 @@ def _contiguous(params: Transformer, cfg, x, cross_kv, *, train: bool):
                                     positions, window=w)
         a = _attn_out(params, lp.attn.wo, o)
         if cfg.hybrid:
-            a = _mix(lp, cfg, a, ssm_forward(lp.ssm, cfg, h, train=train)[0])
+            a = _mix(lp, cfg, a, ssm_forward(lp.ssm, cfg, h, train=train,
+                                             sharding=ssm_sh)[0])
         x = x + a
         if cross_kv is not None:
-            x = x + _cross_attention(lp, cfg, x, cross_kv[0][l],
+            x = x + _cross_attention(params, lp, cfg, x, cross_kv[0][l],
                                      cross_kv[1][l], train=train)
         x, a_l = _ffn(params, lp, cfg, x)
         aux = aux + a_l
@@ -640,8 +681,8 @@ def _encode(params: Transformer, cfg, audio_embeds, *, train: bool):
             o = attend(q, k, v, pos, pos, bidirectional=True)
         else:
             o = selective_attention(q.contiguous(), k, v, last, pos)
-        x = x + attention_out(lp.attn.wo, o)
-        x = x + lp.mlp(_norm(lp.mlp_norm, x, eps))
+        x = x + _attn_out(params, lp.attn.wo, o)
+        x = x + _mlp(params, lp.mlp, _norm(lp.mlp_norm, x, eps))
     return _norm(params.enc_norm, x, eps)
 
 

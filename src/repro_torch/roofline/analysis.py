@@ -296,10 +296,10 @@ class StepCost:
 _ITEM = {"bfloat16": 2, "float16": 2, "float32": 4, "int8": 1}
 
 
-def _meta_weights(cfg) -> Dict[str, Tuple[int, ...]]:
+def _meta_weights(cfg, widths=None) -> Dict[str, Tuple[int, ...]]:
     from repro_torch.models.transformer import Transformer
-    return {n: tuple(p.shape) for n, p in
-            Transformer(cfg, device="meta").named_parameters()}
+    return {n: tuple(p.shape) for n, p in Transformer(
+        cfg, device="meta", widths=widths).named_parameters()}
 
 
 def _param_item(name: str, cfg) -> int:
@@ -334,13 +334,14 @@ def _visible(q_pos, keys, window: int):
     return pairs, kp[np.cumsum(kept)[:-1] > 0]
 
 
-def _ssd_chunk_flops(cfg, n: int) -> float:
-    """The SSD's least work over ``n`` tokens from an empty state: per
-    chunk C·Bᵀ over the kept pairs once (the heads share it), per head the
-    scores times x, their decay and dt factors, the chunk's state, the
-    previous state's output term and the state's recurrence."""
-    q, ds, hd, h = cfg.ssm_chunk, cfg.ssm_state, cfg.ssm_head_dim, \
-        cfg.ssm_num_heads
+def _ssd_chunk_flops(cfg, n: int, heads: int = 0) -> float:
+    """The SSD's least work over ``n`` tokens from an empty state at
+    ``heads`` heads (the model's by default): per chunk C·Bᵀ over the kept
+    pairs once (the heads share it), per head the scores times x, their
+    decay and dt factors, the chunk's state, the previous state's output
+    term and the state's recurrence."""
+    q, ds, hd = cfg.ssm_chunk, cfg.ssm_state, cfg.ssm_head_dim
+    h = heads or cfg.ssm_num_heads
     nc = -(-n // q)
     pairs = q * (q + 1) // 2
     return nc * (2 * ds * pairs + h * (2 * hd * pairs + 4 * pairs
@@ -369,14 +370,18 @@ def step_cost(cfg, rows: Sequence[Row], *, kind: str = "serve",
               kv_dtype: Optional[str] = None, page_size: int = 16,
               window: Optional[int] = None,
               experts: Optional[Sequence[int]] = None,
-              cross_frames: int = 0) -> StepCost:
+              cross_frames: int = 0, widths=None) -> StepCost:
     """The least work of the decoder over ``rows`` (:class:`Row`): one
     pass, or the passes of one step given together (a request's prefill
     in chunks or in several passes, its rows sharing a ``seq``: the
     weights, the KV and an SSM's state then count once, as in one pass).
 
     ``cfg`` is the config whose shapes the weights have: a rank's
-    ``local_config`` for one rank's cut.  ``kind``: ``"serve"`` (a
+    ``local_config`` for one rank's cut, with its ``widths``
+    (``launch.specs.Widths``: its routed experts, shared experts' hidden
+    units and SSD heads; the leaves it holds whole count whole, as on
+    every rank).  A rank's routed experts do their share of the pairs,
+    ``k x widths.experts / E`` a token.  ``kind``: ``"serve"`` (a
     prefill, a selective prefill or a decode step: a sequence whose first
     query sits past position 0 continues an SSM state) or ``"train"``
     (forward and backward: three times the products, the parameters read
@@ -385,14 +390,15 @@ def step_cost(cfg, rows: Sequence[Row], *, kind: str = "serve",
     page of ``page_size`` slots and kv head for K and V, read and
     written); ``window`` defaults to ``cfg.sliding_window``; ``experts`` a
     MoE's distinct routed experts per layer where the routing is known,
-    else ``min(E, k x tokens)``, the most the pairs can reach;
+    else ``min(E, k x tokens)``, the most the pairs can reach (a rank's:
+    its own, at most ``widths.experts``);
     ``cross_frames`` the encoder frames an encoder-decoder's cross
     attention reads per sequence."""
     w = cfg.sliding_window if window is None else window
     train = kind == "train"
     kvd = _ITEM[kv_dtype or cfg.compute_dtype]
     cd = _ITEM[cfg.compute_dtype]
-    shapes = _meta_weights(cfg)
+    shapes = _meta_weights(cfg, widths)
     L, d = cfg.num_layers, cfg.d_model
     tokens = sum(len(r.q_pos) for r in rows)
     with_logits = sum(len(r.q_pos) for r in rows if r.logits)
@@ -415,7 +421,9 @@ def step_cost(cfg, rows: Sequence[Row], *, kind: str = "serve",
             continue
         per_token += math.prod(shp)
     k = cfg.experts_per_token
-    c.weight_flops = 2.0 * tokens * (per_token + k * moe_expert)
+    held = cfg.num_experts if widths is None else widths.experts
+    share = held / cfg.num_experts if cfg.num_experts else 1.0
+    c.weight_flops = 2.0 * tokens * (per_token + k * share * moe_expert)
     head_numel = d * (cfg.vocab_size if "lm_head" not in shapes
                       else shapes["lm_head"][1])
     c.weight_flops += 2.0 * with_logits * head_numel
@@ -444,14 +452,16 @@ def step_cost(cfg, rows: Sequence[Row], *, kind: str = "serve",
                 c.kv_bytes += (2.0 * len(seqs) * cross_frames * hkv * dh
                                * cd * L)
     if cfg.attn_free or cfg.hybrid:
-        di, ds, hd, nh = (cfg.ssm_inner, cfg.ssm_state, cfg.ssm_head_dim,
-                          cfg.ssm_num_heads)
+        ds, hd = cfg.ssm_state, cfg.ssm_head_dim
+        nh = cfg.ssm_num_heads if widths is None else widths.ssm_heads
+        di = nh * hd
         state = nh * ds * hd * 4 + (cfg.ssm_conv_width - 1) * di * cd
         for r in rows:
             n = len(r.q_pos)
             step = n == 1 and int(np.asarray(r.q_pos)[0]) > 0 and not train
             c.other_flops += L * (2.0 * cfg.ssm_conv_width * di * n + (
-                4.0 * nh * ds * hd if step else _ssd_chunk_flops(cfg, n)))
+                4.0 * nh * ds * hd if step
+                else _ssd_chunk_flops(cfg, n, nh)))
         if not train:
             # written once a sequence, and read where it continues one
             c.state_bytes = L * state * sum(
@@ -477,7 +487,7 @@ def step_cost(cfg, rows: Sequence[Row], *, kind: str = "serve",
         wbytes += head_numel * _ITEM[cfg.param_dtype]
     if cfg.arch_type == "moe":
         if experts is None:
-            experts = [min(cfg.num_experts, k * tokens)] * L
+            experts = [min(held, k * tokens)] * L
         if len(experts) != L:
             raise ValueError(f"experts: {len(experts)} entries for {L} "
                              "layers")

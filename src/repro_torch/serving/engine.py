@@ -98,10 +98,12 @@ engine's ``mesh`` does: every rank builds this engine over the same
 whole model and the whole weights or its shard of them
 (``init_params(sharding=)``), uploads and submits the same work, and runs
 the same loop; the plan (:class:`~repro_torch.serving.sharding.
-ServingSharding`) sets the shapes.  The pool and the dense cache are
-allocated at the rank's kv heads, the kernels run on them unchanged, the
-passes meet in ``all_reduce`` and ``all_gather``, and every rank samples
-the same token from the gathered logits.  Library entries stay whole: an
+ServingSharding`) sets the shapes, for every family (a MoE's experts,
+the SSM's and hybrid's SSD heads, whisper's encoder-decoder too).  The
+pool and the dense cache are allocated at the rank's kv heads (and SSD
+heads), the kernels run on them unchanged, the passes meet in
+``all_reduce`` and ``all_gather``, and every rank samples the same token
+from the gathered logits.  Library entries stay whole: an
 upload gathers its heads, a link reads the rank's, and a session's
 snapshot gathers its pages' heads (and an int8 pool's scale rows) into a
 whole block, which a thaw or a fork reads the rank's heads of.  Rank 0

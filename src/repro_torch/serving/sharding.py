@@ -8,27 +8,37 @@ mesh and the model's config through the parameter specs
 
 * the parameters (``specs``; :meth:`shard` cuts a whole model, and
   ``init_params(sharding=)`` draws a rank's shard directly);
-* what the specs cut (``cuts``: attention, the MLP, the vocabulary) and
-  the config of the rank's shapes (:attr:`local_cfg`), at which the engine
-  allocates the paged KV pool and its int8 scales (kv heads on ``model``
-  where attention is cut) and the dense cache straight, never whole;
+* what the specs cut (``cuts``: attention, the MLP, the vocabulary, a
+  MoE's routed experts, the SSD heads), the config of the rank's shapes
+  (:attr:`local_cfg`) and the widths it cannot carry (:attr:`widths`:
+  routed experts, shared experts' hidden units, SSD heads), at which the
+  engine allocates the paged KV pool and its int8 scales (kv heads on
+  ``model`` where attention is cut) and the dense cache (kv heads, the
+  cross K/V's heads, the SSM state's heads and channels) straight, never
+  whole;
 * small host operands (tokens, page tables, lengths): replicated, every
   rank builds the same ones.
 
 It also carries the collectives the model passes run (the reference's
 GSPMD inserts them): the vocab-parallel embedding (a masked local lookup
 summed over the ranks), the row-parallel products (fp32 partial sums,
-summed, then rounded once), the vocab-parallel LM head (local fp32
-logits, gathered), and the K/V head gather of an upload.  Attention runs
-on a rank's own kv heads with no collective inside; where the kv heads
-do not divide the axis, attention is replicated and the MLP stays cut.
+summed, then rounded once; whisper's ``b_down`` added once after the
+sum), the vocab-parallel LM head (local fp32 logits, gathered), the K/V
+head gather of an upload, the experts' combine (each rank's pairs summed
+over the k choices in fp32, with the shared experts' row-parallel
+partial in the same all-reduce, each rounded once: :meth:`reduce`) and
+the SSM's ``out_norm`` over all channels (the ranks' sums of squares
+summed before the ``rsqrt``: :meth:`rms_norm`).  Attention runs on a
+rank's own kv heads with no collective inside; where the kv heads do not
+divide the axis, attention is replicated and the MLP stays cut; where the
+SSD heads do not, every SSM leaf is whole (the reference's
+``replicate_ssm``) and each rank runs every head.  Routing is whole on
+every rank (``launch/specs.py``).
 
 Library entries stay whole (all heads), so that the memory tiers and the
 spool and wire formats stay those of the unsharded engine: an upload
 gathers its K/V heads once, and a link reads the rank's heads of an entry
-through :meth:`entry`.  MoE expert sharding, the SSM's and hybrid's SSD
-heads and the encoder-decoder are not ported under a mesh: the plan
-raises for them (ROADMAP.md, queue 1).
+through :meth:`entry`.
 """
 from __future__ import annotations
 
@@ -63,39 +73,32 @@ class EntryShard:
     qv = property(lambda s: s._cut_q(s._entry.qv))
 
 
-def refused(cfg) -> bool:
-    """Whether the plan refuses ``cfg``'s family: MoE, SSM, hybrid and the
-    encoder-decoder are not cut yet."""
-    return (cfg.arch_type in ("moe", "ssm", "hybrid", "audio") or cfg.hybrid
-            or cfg.is_encoder_decoder)
-
-
 class ServingSharding:
     """Mesh + the whole model's config -> one rank's plan."""
 
     def __init__(self, mesh, model_cfg):
         cfg = model_cfg
-        if refused(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: tensor parallelism covers dense and VLM "
-                f"attention models; MoE expert sharding, SSM/hybrid heads "
-                f"and the encoder-decoder under a mesh are next "
-                f"(ROADMAP.md, queue 1)")
         self.mesh = mesh
         self.cfg = cfg
         self.specs = S.param_pspecs(cfg, mesh)
         self.whole_shapes = {n: tuple(p.shape) for n, p in
                              S._meta_params(cfg).named_parameters()}
         # which products are cut: attention by whole kv heads, the MLP by
-        # d_ff, the embedding and the head by vocabulary
+        # d_ff, the embedding and the head by vocabulary, the routed
+        # experts by expert, the SSD heads by head
         self.cuts = S.cuts(self.specs)
         self.attn, self.mlp, self.vocab = (
             self.cuts.attn, self.cuts.mlp, self.cuts.vocab)
+        self.experts, self.ssm = self.cuts.experts, self.cuts.ssm
         self.local_cfg = S.local_config(cfg, self.cuts, mesh.model)
+        self.widths = S.local_widths(cfg, self.cuts, mesh.model)
+        # the rank's routed experts [lo, lo + n)
+        n = self.widths.experts
+        self.expert_range = (mesh.rank * n if self.experts else 0, n)
 
     # -- parameters ---------------------------------------------------------
     def shard_leaf(self, name: str, t: torch.Tensor) -> torch.Tensor:
-        return S.shard_leaf(t, self.specs[name], self.mesh)
+        return S.shard_leaf(t, self.specs[name], self.mesh, S.halves(name))
 
     def shard(self, params):
         """This rank's shard of ``params``: cut from a whole model, or
@@ -110,7 +113,7 @@ class ServingSharding:
         """The model facade the rank serves with (:attr:`local_cfg`; the
         plan rides on the rank's parameters)."""
         from repro_torch.models.model import Model
-        return Model(self.local_cfg)
+        return Model(self.local_cfg, widths=self.widths)
 
     # -- K/V heads ------------------------------------------------------------
     @property
@@ -156,6 +159,40 @@ class ServingSharding:
         with an fp32 result, summed over the ranks in fp32, rounded once to
         x's dtype, as the whole product's fp32 accumulation rounds once."""
         return self.mesh.all_reduce(_fp32_matmul(x, w)).to(x.dtype)
+
+    def partial_product(self, x: torch.Tensor, w: torch.Tensor):
+        """This rank's fp32 partial product ``x @ w`` of a row-parallel
+        weight, for :meth:`reduce` (:meth:`row_parallel` without its
+        sum)."""
+        return _fp32_matmul(x, w)
+
+    def expert_partial(self, contrib: torch.Tensor, gate_idx: torch.Tensor):
+        """This rank's share of the experts' combine: the products
+        ``contrib`` (T, k, D) of its own experts' pairs (``gate_idx``
+        (T, k) in :attr:`expert_range`), summed over the k choices in
+        fp32."""
+        lo, n = self.expert_range
+        mine = (gate_idx >= lo) & (gate_idx < lo + n)
+        return (contrib.float() * mine[..., None]).sum(dim=1)
+
+    def reduce(self, parts, dtype):
+        """fp32 partial sums ``parts`` (one shape) summed over the ranks in
+        one all-reduce, each then rounded once to ``dtype``."""
+        if not parts:
+            return []
+        summed = self.mesh.all_reduce(torch.stack(parts))
+        return [p.to(dtype) for p in summed.unbind(0)]
+
+    def rms_norm(self, scale: torch.Tensor, x: torch.Tensor, n: int,
+                 eps: float = 1e-5):
+        """An RMS norm over ``n`` channels of which this rank holds ``x``'s
+        last dimension (and ``scale``'s piece): the ranks' fp32 sums of
+        squares summed before the ``rsqrt``, as ``layers.rmsnorm`` takes
+        the mean over all ``n``."""
+        x32 = x.float()
+        ss = self.mesh.all_reduce((x32 * x32).sum(dim=-1, keepdim=True))
+        out = x32 * torch.rsqrt(ss / n + eps)
+        return (out * scale.float()).to(x.dtype)
 
 
 def _fp32_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

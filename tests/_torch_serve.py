@@ -4,7 +4,9 @@ and sampling: each served model's smoke config at its own query-head group
 group 2), both packages' models with the JAX weights carried over, nonzero
 QKV biases where the config has them (the JAX package initialises them to
 zeros, which would hide a dropped bias), and one function that serves the
-same traffic through either package's engine.
+same traffic through either package's engine; the SSM's and whisper's
+text-only streams (``serve_ssm``, ``serve_text``); and ``serve_rank``,
+which runs a stream on a tensor-parallel rank.
 """
 import jax
 import jax.numpy as jnp
@@ -78,14 +80,16 @@ def _store_system_prompt(pkg, eng, model, params):
 
 def serve(pkg, model, params, policy, pool_dtype="", paged=True, *,
           max_new=6, seeds=None, mrag=True, on_step=None, rag_len=12,
-          store_prefix=True, **engine_kw):
+          store_prefix=True, mesh=None, **engine_kw):
     """Three two-image dialogues and (``mrag``) one MRAG request, whose
     retrieved image has ``rag_len`` tokens, under one policy through one
     package's engine, two decode slots; with ``store_prefix`` the system
     prompt's KV sits in the engine's prefix store.  ``engine_kw`` go to
     both ``EngineConfig``s (``prefill_chunk_tokens``, ``greedy``,
     ``temperature``, ``top_k``); ``seeds`` are the requests' sampling
-    seeds; ``on_step(eng)`` runs after every engine step.  Returns
+    seeds; ``on_step(eng)`` runs after every engine step; ``mesh`` serves
+    the port's engine tensor-parallel (a rank of ``tests/_torch_sharded``'s
+    ranks, on the whole weights, which the engine cuts).  Returns
     (requests, first-token logits per request, engine)."""
     if pkg == "jax":
         eng = JaxEngine(model, params, JaxEngineConfig(
@@ -96,7 +100,7 @@ def serve(pkg, model, params, policy, pool_dtype="", paged=True, *,
     else:
         eng = MPICEngine(model, params, EngineConfig(
             max_seq_len=256, decode_slots=2, pool_dtype=pool_dtype,
-            paged=paged, **engine_kw), device="cpu")
+            paged=paged, **engine_kw), device="cpu", mesh=mesh)
         dialogues, embeds, text, mk_prompt, mk_req = (
             make_dialogues, image_embeds, text_segment, Prompt, Request)
     if store_prefix:
@@ -137,3 +141,103 @@ def serve(pkg, model, params, policy, pool_dtype="", paged=True, *,
         if on_step is not None:
             on_step(eng)
     return reqs, [firsts[r.req_id] for r in reqs], eng
+
+
+def serve_ssm(pkg, model, params, policy, max_new, mesh=None):
+    """The SSM's stream through one package's engine (paged asked for:
+    the dense cache): two image dialogues (media inlined by the prefill)
+    and one text request on two slots, so a slot is reused; ``mesh`` as
+    in :func:`serve`.  Returns (requests, first-token logits per request,
+    engine)."""
+    cfg = model.cfg
+    if pkg == "jax":
+        eng = JaxEngine(model, params, JaxEngineConfig(
+            max_seq_len=256, decode_slots=2, paged_backend="ref",
+            pipelined=False, paged=True))
+        dialogues, text, mk_prompt, mk_req = (jax_dialogues, jax_text,
+                                              JaxPrompt, JaxRequest)
+    else:
+        eng = MPICEngine(model, params, EngineConfig(
+            max_seq_len=256, decode_slots=2, paged=True), device="cpu",
+            mesh=mesh)
+        dialogues, text, mk_prompt, mk_req = (make_dialogues, text_segment,
+                                              Prompt, Request)
+    firsts = {}
+    finalize = eng._finalize_prefill
+
+    def record(req, result, *rest):
+        firsts[req.req_id] = np.asarray(result.first_logits, np.float32)
+        return finalize(req, result, *rest)
+
+    eng._finalize_prefill = record
+    kw = {"k": 8} if policy == "mpic" else {}
+    samples = dialogues(n=2, n_images=2, d_model=cfg.d_model,
+                        media_len=cfg.media_token_len)
+    reqs = [mk_req(prompt=s.prompt, max_new_tokens=max_new, policy=policy,
+                   policy_kwargs=kw) for s in samples]
+    reqs.append(mk_req(prompt=mk_prompt([text(np.arange(20, 57))],
+                                        user_id="u0"),
+                       max_new_tokens=max_new, policy=policy,
+                       policy_kwargs=kw))
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    return reqs, [firsts[r.req_id] for r in reqs], eng
+
+
+TEXT_TOKENS = np.arange(10, 30)
+
+
+def serve_text(pkg, model, params, policy, mesh=None):
+    """One text-only request (``TEXT_TOKENS``, 4 new tokens) through one
+    package's engine on two slots of 64 tokens (whisper's stream: no
+    audio, its cross K/V zeros); ``mesh`` as in :func:`serve`.  Returns
+    (requests, first-token logits per request, engine)."""
+    if pkg == "jax":
+        eng = JaxEngine(model, params, JaxEngineConfig(max_seq_len=64,
+                                                        decode_slots=2))
+        req = JaxRequest(prompt=JaxPrompt([jax_text(TEXT_TOKENS)],
+                                          user_id="u"),
+                         max_new_tokens=4, policy=policy)
+    else:
+        eng = MPICEngine(model, params, EngineConfig(max_seq_len=64,
+                                                     decode_slots=2),
+                         device="cpu", mesh=mesh)
+        req = Request(prompt=Prompt([text_segment(TEXT_TOKENS)],
+                                    user_id="u"),
+                      max_new_tokens=4, policy=policy)
+    firsts = {}
+    finalize = eng._finalize_prefill
+
+    def record(r, result, *rest):
+        firsts[r.req_id] = np.asarray(result.first_logits, np.float32)
+        return finalize(r, result, *rest)
+
+    eng._finalize_prefill = record
+    eng.submit(req)
+    eng.run()
+    return [req], [firsts[req.req_id]], eng
+
+
+_STREAMS = {"serve": serve, "serve_ssm": serve_ssm, "serve_text": serve_text}
+
+
+def serve_rank(model, params, mesh, stream, *args, **kw):
+    """One of this module's streams (``stream``: ``"serve"``,
+    ``"serve_ssm"`` or ``"serve_text"``, with its arguments after the
+    package's) through ``MPICEngine(mesh=)`` on a rank of
+    ``tests/_torch_sharded``'s ranks, on the whole weights: each
+    request's tokens, first-token logits, policy and linked media, the
+    shapes of the rank's dense cache, and its plan's cuts and widths."""
+    reqs, firsts, eng = _STREAMS[stream]("torch", model, params, *args,
+                                         mesh=mesh, **kw)
+    try:
+        return {"tokens": [r.output_tokens for r in reqs], "firsts": firsts,
+                "done": [r.done for r in reqs],
+                "policies": [r.prefill_stats.get("policy") for r in reqs],
+                "linked": [r.linked_media for r in reqs],
+                "cache": {k: tuple(v.shape)
+                          for k, v in (eng._batch_cache or {}).items()},
+                "cuts": eng.sharding.cuts, "widths": eng.sharding.widths}
+    finally:
+        eng.close()

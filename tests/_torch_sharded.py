@@ -21,6 +21,11 @@ stream with every block spooled to a directory the ranks share (disk),
 with every dialogue image pulled from a peer (peer), through two
 replicas (replicas), a session's freeze, thaw and fork (sessions), and an
 aging queue whose order each rank's clock would decide otherwise (aging).
+The families whose experts or SSD heads the mesh cuts run, through the
+call case, the traffic of their own parity modules (``target`` names a
+``module:function`` that takes the model, its weights and the mesh), so
+that each module holds its ranks to the JAX results it computes anyway;
+:class:`counting_drops` counts a MoE's dropped pairs pass by pass.
 """
 import queue as queue_mod
 import time
@@ -30,7 +35,7 @@ import numpy as np
 import torch
 import torch.multiprocessing as mp
 
-JOIN_TIMEOUT_S = 180.0      # the whole run of one set of ranks
+JOIN_TIMEOUT_S = 300.0      # the whole run of one set of ranks
 INIT_TIMEOUT_S = 60.0       # the process group and each collective
 MAX_NEW = 5
 REL = 1e-4              # first-token logits, relative (see check_requests)
@@ -139,6 +144,31 @@ def _torch_pkg():
 # ---------------------------------------------------------------------------
 # the cases a rank runs
 # ---------------------------------------------------------------------------
+
+class counting_drops:
+    """Inside the block every routing pass's (rows, dropped pairs) is
+    appended to ``drops``, in the order the passes route (``moe.route``
+    is the seam)."""
+
+    def __init__(self):
+        self.drops = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._route = route = moe.route
+
+        def counting(*args, **kwargs):
+            out = route(*args, **kwargs)
+            self.drops.append((int(out[1].shape[0]), int((~out[4]).sum())))
+            return out
+
+        moe.route = counting
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._route
+
 
 def case_serve(model, params, mesh, setup: str):
     """One setup of :data:`SETUPS` through ``MPICEngine(mesh=)``; also
@@ -429,9 +459,51 @@ def case_aging(model, params, mesh):
         eng.close()
 
 
+def audio_passes(model, params, mesh, tokens, audio, steps: int):
+    """whisper's model on the rank's shard: ``tokens`` (B, S) prefilled
+    into a dense cache of 64 slots with ``audio`` (B, Senc, D) encoded
+    first, then ``steps`` greedy decode steps.  Returns each pass's
+    whole-vocabulary last logits (B, V), the cache's cross K/V shape and
+    the collectives of the prefill (the encoder's included) and of the
+    first decode step."""
+    from repro_torch.launch.mesh import record_collectives
+    from repro_torch.serving.sharding import ServingSharding
+    sh = ServingSharding(mesh, model.cfg)
+    local, shard = sh.local_model(), sh.shard(params)
+    toks = torch.as_tensor(np.asarray(tokens), dtype=torch.int32)
+    b, s = toks.shape
+    with torch.inference_mode():
+        cache = local.make_cache(b, 64, device="cpu")
+        with record_collectives(mesh) as prefill_calls:
+            logits, cache = local.prefill(shard, toks, cache,
+                                          audio_embeds=torch.as_tensor(audio))
+        out = [logits[:, -1].numpy().copy()]
+        tok, decode_calls = logits[:, -1].argmax(-1), None
+        for i in range(steps):
+            p = torch.full((b, 1), s + i, dtype=torch.int32)
+            with record_collectives(mesh) as calls:
+                lg, cache = local.decode_step(
+                    shard, tok[:, None].to(torch.int32), p, cache, p)
+            decode_calls = calls if decode_calls is None else decode_calls
+            out.append(lg.numpy().copy())
+            tok = lg.argmax(-1)
+    return {"logits": out, "cross_k": tuple(cache["cross_k"].shape),
+            "prefill_calls": prefill_calls, "decode_calls": decode_calls}
+
+
+def case_call(model, params, mesh, target: str, **kw):
+    """``target`` (``"module:function"``, a test helper importable in the
+    rank) called with the model, its whole weights, the mesh and ``kw``:
+    a parity module's own traffic through ``MPICEngine(mesh=)``."""
+    import importlib
+    module, name = target.split(":")
+    return getattr(importlib.import_module(module), name)(
+        model, params, mesh, **kw)
+
+
 CASES = {"serve": case_serve, "kernel": case_kernel, "decode": case_decode,
          "disk": case_disk, "peer": case_peer, "sessions": case_sessions,
-         "replicas": case_replicas, "aging": case_aging}
+         "replicas": case_replicas, "aging": case_aging, "call": case_call}
 
 
 def _rank_main(rank, world, port, cfg, tree, jobs, out_q):
@@ -471,10 +543,29 @@ class Ranks:
         for p in self._procs:
             p.start()
         self._t0 = time.monotonic()
+        self._out = None
 
     def results(self):
-        """{rank: {job name: result}}; raises on a rank's error or past
-        the join timeout (the ranks are killed either way)."""
+        """{rank: {job name: result}}, collected at the first call and
+        kept; raises (at every call) on a rank's error or past the join
+        timeout (the ranks are killed either way)."""
+        if self._out is None:
+            try:
+                self._out = self._collect()
+            except (RuntimeError, TimeoutError) as e:
+                self._out = e
+        if isinstance(self._out, Exception):
+            raise self._out
+        return self._out
+
+    def close(self):
+        """Kill the ranks still running (results never asked for)."""
+        for p in self._procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=5)
+
+    def _collect(self):
         out = {}
         try:
             while len(out) < len(self._procs):
@@ -492,9 +583,5 @@ class Ranks:
                 p.join(timeout=max(JOIN_TIMEOUT_S
                                    - (time.monotonic() - self._t0), 1.0))
         finally:
-            for p in self._procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join(timeout=5)
+            self.close()
         return out
-

@@ -1,7 +1,8 @@
 """The port's dry run on ``meta`` (``repro_torch.launch.dryrun``): the
 serving selftest at ``model 8``, ``--all`` with one ``ok`` or
 ``skipped`` row per (arch x shape), the reference's row keys and no
-``error`` (internvl2-76b's decode row checked at full width), the
+``error`` (internvl2-76b's and deepseek-moe-16b's decode rows checked at
+full width), the
 kernels' dispatchers on ``meta`` tensors, and a run of the module's entry
 that imports neither ``jax`` nor the JAX package.  Nothing here allocates a weight: every
 tensor lives on ``meta``."""
@@ -28,7 +29,8 @@ SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 ROW_KEYS = set(Roofline("a", "s", "m", "k", 0.0, 0.0, 0.0, 0.0, 1)
                .to_dict()) | {"status", "lower_s", "compile_s", "coll_ops"}
 TRACED = {"internvl2-76b", "phi3-medium-14b", "yi-9b", "stablelm-1.6b",
-          "qwen2.5-14b"}
+          "qwen2.5-14b", "deepseek-moe-16b", "granite-moe-1b-a400m",
+          "mamba2-130m", "hymba-1.5b", "whisper-small"}
 
 
 def _meta(*shape, dtype=torch.float32):
@@ -56,9 +58,17 @@ def test_all_rows_are_ok_or_skipped(tmp_path, capsys):
     ok = {(r["arch"], r["shape"]) for r in rows if r["status"] == "ok"}
     assert ok == {(a, s) for a in TRACED
                   for s in ("prefill_32k", "decode_32k")}
-    assert "10 ok, 30 skipped, 0 errors" in capsys.readouterr().out
-    _check_internvl2_decode(rows[ASSIGNED_ARCHS.index("internvl2-76b") * 4
-                                 + list(INPUT_SHAPES).index("decode_32k")])
+    assert "20 ok, 20 skipped, 0 errors" in capsys.readouterr().out
+    for r in rows:
+        if r["status"] == "skipped":
+            assert "item 6" in r["reason"] or "step_kind" in r["reason"], r
+
+    def row(arch):
+        return rows[ASSIGNED_ARCHS.index(arch) * 4
+                    + list(INPUT_SHAPES).index("decode_32k")]
+
+    _check_internvl2_decode(row("internvl2-76b"))
+    _check_deepseek_decode(row("deepseek-moe-16b"))
 
 
 def _check_internvl2_decode(row):
@@ -78,6 +88,34 @@ def _check_internvl2_decode(row):
     assert mem["cache"] == 2 * cfg.num_layers * 4 * 32768 * 128 * 2 + \
         4 * 32768 * 4
     assert row["bytes_per_device"] > mem["params"]
+    assert row["bottleneck"] == "memory"
+
+
+def _check_deepseek_decode(row):
+    """deepseek-moe-16b's decode_32k row at full width: rank 0 of ``model
+    8`` holds 8 of the 64 routed experts, 2 of the 16 kv heads, an eighth
+    of the shared experts and of the vocabulary, and the whole fp32
+    router (512 KB a layer)."""
+    cfg = get_config("deepseek-moe-16b")
+    assert (row["arch"], row["step"], row["device"]) == (
+        "deepseek-moe-16b", "decode", "meta")
+    # the embedding, per layer the attention's row product and the
+    # experts' combine (routed and shared in one all-reduce), the gather
+    assert row["coll_ops"] == 2 * cfg.num_layers + 2
+    shard, sh = dryrun.shard_on_meta(cfg, dryrun.RecordingMesh(model=8))
+    assert sh.widths.experts == 8 and sh.expert_range == (0, 8)
+    experts = sum(p.numel() for n, p in shard.named_parameters()
+                  if ".moe.w_" in n)
+    assert experts * 8 == 3 * cfg.num_layers * cfg.num_experts * \
+        cfg.d_model * cfg.d_ff
+    router = cfg.num_layers * cfg.d_model * cfg.num_experts * 4
+    mem = row["memory_per_device"]
+    whole = 2 * cfg.n_params() - cfg.num_layers * cfg.d_model \
+        * cfg.num_experts * 2
+    assert 0.124 < (mem["params"] - router) / whole < 0.126
+    # 4 rows (128 / data 32) of 32768 slots at 2 kv heads of 16
+    assert mem["cache"] == 2 * cfg.num_layers * 4 * 32768 * 2 * 128 * 2 + \
+        4 * 32768 * 4
     assert row["bottleneck"] == "memory"
 
 

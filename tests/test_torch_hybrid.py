@@ -13,7 +13,12 @@ dense cache under ``full_recompute``, ``mpic`` and ``cacheblend`` (both
 served as ``full_recompute``), ``prefix_caching`` with an empty prefix
 store, and an MRAG-linked request whose 128-token image is uploaded
 through the banded branch; the dialogues' prompts (178-201 tokens) run
-past two windows.
+past two windows.  The same ``full_recompute`` stream on two gloo ranks
+(``tests/_torch_sharded.py``: 5 query heads on 1 kv head, 2 of the 4 SSD
+heads, half the MLP and the vocabulary a rank) and on three, which divide
+neither the kv heads nor the SSD heads (every attention and SSM leaf
+whole on each rank, the reference's ``replicate_ssm``), held to the JAX
+engine's tokens and first-token logits within 1e-4 relative.
 
 Tolerances:
 
@@ -37,6 +42,7 @@ of the reference's side of their comparison.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -62,6 +68,7 @@ from repro_torch.models.transformer import init_params
 
 from _torch_parity import build_pair
 from _torch_serve import build_gqa_pair, serve
+from _torch_sharded import REL, Ranks, rel
 # autouse: JAX's persistent compilation cache while this module runs
 from _torch_parity import jax_compile_cache  # noqa: F401
 
@@ -81,6 +88,26 @@ def pair(request):
 @pytest.fixture(scope="module")
 def g5():
     return build_pair(arch=ARCH, **CASES["g5"])
+
+
+# ranks -> the plan's (attention, SSD heads) cut
+RANK_WORLDS = {2: (True, True), 3: (False, False)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def ranks(g5):
+    """Two and three gloo ranks serving the engine stream under
+    ``full_recompute`` tensor-parallel, started with the module so that
+    they run while the JAX package serves."""
+    tree = jax.tree_util.tree_map(np.asarray, g5[1])
+    started = {world: Ranks(world, g5[2].cfg, tree, [(
+        "full_recompute", "call", {
+            "target": "_torch_serve:serve_rank", "stream": "serve",
+            "policy": "full_recompute", "rag_len": 128,
+            "store_prefix": False})]) for world in RANK_WORLDS}
+    yield started
+    for r in started.values():
+        r.close()
 
 
 def _tokens(cfg, s, seed, b=1):
@@ -340,6 +367,18 @@ ENGINE_RUNS = {
 }
 
 
+_JAX_RUNS = {}
+
+
+def _jax_serve(g5, run):
+    """The JAX engine's answer to ``ENGINE_RUNS[run]``, once a module."""
+    if run not in _JAX_RUNS:
+        policy, engine_kw = ENGINE_RUNS[run]
+        _JAX_RUNS[run] = serve("jax", *g5[:2], policy, rag_len=128,
+                               store_prefix=False, **engine_kw)
+    return _JAX_RUNS[run]
+
+
 @pytest.mark.parametrize("run", list(ENGINE_RUNS))
 def test_engine_matches_jax(g5, run):
     """Three dialogues and an MRAG request on the dense cache (``paged``
@@ -349,7 +388,7 @@ def test_engine_matches_jax(g5, run):
     jm, jp, tm, tp = g5
     policy, engine_kw = ENGINE_RUNS[run]
     kw = dict(rag_len=128, store_prefix=False, **engine_kw)
-    jreqs, jfirst, _ = serve("jax", jm, jp, policy, **kw)
+    jreqs, jfirst, _ = _jax_serve(g5, run)
     treqs, tfirst, teng = serve("torch", tm, tp, policy, **kw)
     assert teng.pool is None and set(teng._batch_cache) == HYBRID_KEYS
     assert min(r.prompt.total_len for r in treqs[:3]) > \
@@ -365,6 +404,30 @@ def test_engine_matches_jax(g5, run):
         assert "chunks" not in tr.prefill_stats
         assert tr.output_tokens == jr.output_tokens
         np.testing.assert_allclose(tl, jl, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("world", list(RANK_WORLDS))
+def test_ranks_serve_the_jax_engines_tokens(g5, ranks, world):
+    """The engine stream under ``full_recompute`` on ``world`` ranks: on 2
+    each rank cuts attention by its kv head and the SSD heads by 2 of 4
+    (their state in its dense cache); on 3 neither divides, and every
+    attention and SSM leaf is whole on each rank.  Both give the JAX
+    engine's tokens, first-token logits within 1e-4 relative."""
+    jreqs, jfirst, _ = _jax_serve(g5, "full_recompute")
+    cfg = g5[2].cfg
+    attn, ssm = RANK_WORLDS[world]
+    for rank, got in ranks[world].results().items():
+        res = got["full_recompute"]
+        assert (res["cuts"].attn, res["cuts"].ssm) == (attn, ssm)
+        heads = cfg.ssm_num_heads // world if ssm else cfg.ssm_num_heads
+        assert res["widths"].ssm_heads == res["cache"]["ssm_h"][2] == heads
+        assert res["cache"]["k"][3] == (cfg.num_kv_heads // world if attn
+                                        else cfg.num_kv_heads)
+        assert res["tokens"] == [r.output_tokens for r in jreqs]
+        assert res["linked"] == [r.linked_media for r in jreqs]
+        assert set(res["policies"]) == {"full_recompute"}
+        for g, j in zip(res["firsts"], jfirst):
+            assert rel(g, j) <= REL
 
 
 # ---------------------------------------------------------------------------

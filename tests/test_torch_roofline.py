@@ -257,6 +257,50 @@ def test_step_cost_products_equal_flop_counter_on_the_plain_path():
     assert counts["aten.bmm"] == cost.attn_flops == attn * S
 
 
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-130m",
+                                  "hymba-1.5b"])
+def test_a_ranks_step_cost_counts_its_shard(arch):
+    """Rank 0 of a 2-wide ``model`` axis at full width (2 layers), its
+    prefill traced on ``meta``: its products with the weights as
+    ``FlopCounterMode`` counts them (a MoE's routed experts aside: a rank
+    does ``k x experts / E`` of the pairs a token on average), its
+    weights' bytes its shard's (the leaves it holds whole, whole: the
+    router, ``bc_proj``, hymba's replicated SSM), its SSM state its heads'
+    and channels'."""
+    from repro_torch.launch.dryrun import shard_on_meta
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    shard, sh = shard_on_meta(cfg, port_mesh.RecordingMesh(model=2))
+    local, w = sh.local_model(), sh.widths
+    s = 128
+    tokens = torch.empty((1, s), dtype=torch.int32, device="meta")
+    cache = local.make_cache(1, s + 1, device="meta")
+    with FlopCounterMode(display=False) as fc:
+        local.prefill(shard, tokens, cache)
+    counts = {str(k): v for k, v in fc.get_flop_counts()["Global"].items()}
+    cost = step_cost(sh.local_cfg, [Row(np.arange(s), s)], widths=w)
+    experts = 0
+    if cfg.num_experts:
+        assert w.experts == cfg.num_experts // 2
+        experts = 2 * s * cfg.experts_per_token * w.experts \
+            / cfg.num_experts * sum(
+                p[0].numel() for n, p in shard.named_parameters()
+                if ".moe.w_" in n)
+    assert counts["aten.mm"] == pytest.approx(cost.weight_flops - experts,
+                                              rel=1e-12)
+    item = {"bfloat16": 2, "float32": 4}
+    held = sum(p.numel() * (4 if n.rsplit(".", 1)[-1] in (
+                                "router", "dt_bias", "A_log", "D")
+                            else item[cfg.param_dtype])
+               for n, p in shard.named_parameters() if n != "embed")
+    if cfg.tie_embeddings:
+        held += shard.embed.numel() * item[cfg.param_dtype]
+    assert cost.weight_bytes == held
+    if cfg.ssm_state:
+        assert cost.state_bytes == cfg.num_layers * (
+            cache["ssm_h"][0, 0].numel() * 4
+            + cache["ssm_conv"][0, 0].numel() * item[cfg.compute_dtype])
+
+
 def _brute_pairs(q_pos, keys, window):
     keys = np.arange(keys) if np.ndim(keys) == 0 else np.asarray(keys)
     q = np.asarray(q_pos)[:, None]

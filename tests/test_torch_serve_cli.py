@@ -10,7 +10,8 @@ does a run of the MoE granite-moe-1b-a400m with ``--freeze-idle-s``, and
 a run through a two-replica cluster (``--replicas 2 --router affinity
 --deadline-s``), which also prints each request's replica, and a
 tensor-parallel run over two ranks (``--mesh 1x2``), also with two
-replicas, peers, a block server and the idle sweep; without
+replicas, peers, a block server and the idle sweep, and with the MoE
+granite (its experts cut over the ranks); without
 ``--device cpu`` and without a card the run exits non-zero.
 """
 import dataclasses
@@ -136,19 +137,38 @@ def _requests(text):
     return served, failed
 
 
+_JAX_RUNS = {}
+_TREES = {}
+BOGUS_ARGV = ["--requests", "3", "--policy", "mpic,full_recompute,bogus",
+              "--max-new-tokens", "4"]
+
+
+def _jax_cli(argv, monkeypatch, capture):
+    """The JAX CLI's output for ``argv``, run once a module (``capture``:
+    the test's capsys or capfd, read empty first)."""
+    if tuple(argv) not in _JAX_RUNS:
+        monkeypatch.setattr(sys, "argv", ["serve.py", *argv])
+        jax_serve.main()
+        _JAX_RUNS[tuple(argv)] = capture.readouterr().out
+    return _JAX_RUNS[tuple(argv)]
+
+
+def _params(arch):
+    """The JAX CLI's weights of ``arch``'s smoke config (seed 0), in the
+    port (drawn once a module)."""
+    if arch not in _TREES:
+        _TREES[arch] = jax.tree_util.tree_map(
+            np.asarray, jax_build_model(jax_smoke_config(arch)).init(
+                jax.random.PRNGKey(0)))
+    return params_from_numpy(_TREES[arch], get_smoke_config(arch), "cpu")
+
+
 def test_cpu_run_fails_only_the_bogus_request_as_the_reference(
         monkeypatch, capsys):
-    argv = ["--requests", "3", "--policy", "mpic,full_recompute,bogus",
-            "--max-new-tokens", "4"]
-    jcfg = jax_smoke_config("llava-1.6-7b")
-    tree = jax.tree_util.tree_map(
-        np.asarray, jax_build_model(jcfg).init(jax.random.PRNGKey(0)))
-    serve.main([*argv, "--device", "cpu"], params=params_from_numpy(
-        tree, get_smoke_config("llava-1.6-7b"), "cpu"))
+    serve.main([*BOGUS_ARGV, "--device", "cpu"],
+               params=_params("llava-1.6-7b"))
     port = _requests(capsys.readouterr().out)
-    monkeypatch.setattr(sys, "argv", ["serve.py", *argv])
-    jax_serve.main()
-    ref = _requests(capsys.readouterr().out)
+    ref = _requests(_jax_cli(BOGUS_ARGV, monkeypatch, capsys))
     assert port[0] == ref[0]
     assert [r > 0 for r, _ in port[0]] == [True, False]
     assert [t for _, t in port[0]] == [4, 4]
@@ -162,18 +182,10 @@ def test_cpu_mesh_run_serves_the_references_tokens(monkeypatch, capfd):
     rank 0 alone printing, against the JAX CLI unsharded: the same
     ``reused`` and ``tokens`` per request, the mesh in the header and the
     backend on its own line."""
-    argv = ["--requests", "3", "--policy", "mpic,full_recompute,bogus",
-            "--max-new-tokens", "4"]
-    jcfg = jax_smoke_config("llava-1.6-7b")
-    tree = jax.tree_util.tree_map(
-        np.asarray, jax_build_model(jcfg).init(jax.random.PRNGKey(0)))
-    serve.main([*argv, "--device", "cpu", "--mesh", "1x2"],
-               params=params_from_numpy(
-                   tree, get_smoke_config("llava-1.6-7b"), "cpu"))
+    serve.main([*BOGUS_ARGV, "--device", "cpu", "--mesh", "1x2"],
+               params=_params("llava-1.6-7b"))
     port = capfd.readouterr().out
-    monkeypatch.setattr(sys, "argv", ["serve.py", *argv])
-    jax_serve.main()
-    ref = capfd.readouterr().out
+    ref = _jax_cli(BOGUS_ARGV, monkeypatch, capfd)
     assert _requests(port)[0] == _requests(ref)[0]
     assert len(_requests(port)[0]) == 2
     assert len(_requests(port)[1]) == len(_requests(ref)[1]) == 1
@@ -181,26 +193,37 @@ def test_cpu_mesh_run_serves_the_references_tokens(monkeypatch, capfd):
     assert "  tensor_parallel: backend=gloo ranks=2 device=cpu" in port
 
 
+GRANITE = "granite-moe-1b-a400m"
+GRANITE_ARGV = ["--arch", GRANITE, "--requests", "2", "--policy",
+                "mpic,full_recompute", "--max-new-tokens", "4",
+                "--freeze-idle-s", "5"]
+
+
 def test_cpu_run_of_the_moe_granite_as_the_reference(monkeypatch, capsys):
     """The smoke granite-moe-1b-a400m (G 2, 32 experts at smoke size 4,
     top-2) through both CLIs on the JAX CLI's weights, with the idle
     sweep on: the same ``reused`` and ``tokens`` per request."""
-    arch = "granite-moe-1b-a400m"
-    argv = ["--arch", arch, "--requests", "2", "--policy",
-            "mpic,full_recompute", "--max-new-tokens", "4",
-            "--freeze-idle-s", "5"]
-    tree = jax.tree_util.tree_map(
-        np.asarray,
-        jax_build_model(jax_smoke_config(arch)).init(jax.random.PRNGKey(0)))
-    serve.main([*argv, "--device", "cpu"], params=params_from_numpy(
-        tree, get_smoke_config(arch), "cpu"))
+    serve.main([*GRANITE_ARGV, "--device", "cpu"], params=_params(GRANITE))
     port = _requests(capsys.readouterr().out)
-    monkeypatch.setattr(sys, "argv", ["serve.py", *argv])
-    jax_serve.main()
-    ref = _requests(capsys.readouterr().out)
+    ref = _requests(_jax_cli(GRANITE_ARGV, monkeypatch, capsys))
     assert port == ref
     assert [r > 0 for r, _ in port[0]] == [True, False]
     assert [t for _, t in port[0]] == [4, 4] and not port[1]
+
+
+def test_cpu_mesh_run_of_the_moe_granite_as_the_reference(monkeypatch,
+                                                          capfd):
+    """The same granite run with ``--mesh 1x2``: two gloo ranks, each
+    holding 2 of the 4 experts and routing every row over all 4, rank 0
+    printing the JAX CLI's unsharded ``reused`` and ``tokens``."""
+    serve.main([*GRANITE_ARGV, "--device", "cpu", "--mesh", "1x2"],
+               params=_params(GRANITE))
+    port = capfd.readouterr().out
+    ref = _jax_cli(GRANITE_ARGV, monkeypatch, capfd)
+    assert _requests(port) == _requests(ref)
+    assert [t for _, t in _requests(port)[0]] == [4, 4]
+    assert port.count("\narch=") == 1 and "mesh=1x2 replicas=1" in port
+    assert "  tensor_parallel: backend=gloo ranks=2 device=cpu" in port
 
 
 def _cluster_requests(text):
@@ -216,11 +239,7 @@ def test_cpu_cluster_run_as_the_reference(monkeypatch, capsys):
     the same ``reused`` and ``tokens``, none reaped."""
     argv = ["--requests", "3", "--replicas", "2", "--router", "affinity",
             "--deadline-s", "60", "--max-new-tokens", "4"]
-    jcfg = jax_smoke_config("llava-1.6-7b")
-    tree = jax.tree_util.tree_map(
-        np.asarray, jax_build_model(jcfg).init(jax.random.PRNGKey(0)))
-    serve.main([*argv, "--device", "cpu"], params=params_from_numpy(
-        tree, get_smoke_config("llava-1.6-7b"), "cpu"))
+    serve.main([*argv, "--device", "cpu"], params=_params("llava-1.6-7b"))
     port = capsys.readouterr().out
     monkeypatch.setattr(sys, "argv", ["serve.py", *argv])
     jax_serve.main()
@@ -241,12 +260,8 @@ def test_cpu_mesh_cluster_run_with_the_system_half_as_the_reference(
     argv = ["--requests", "3", "--replicas", "2", "--router", "affinity",
             "--max-new-tokens", "4", "--peers", "127.0.0.1:1",
             "--serve-blocks", "0", "--freeze-idle-s", "5"]
-    jcfg = jax_smoke_config("llava-1.6-7b")
-    tree = jax.tree_util.tree_map(
-        np.asarray, jax_build_model(jcfg).init(jax.random.PRNGKey(0)))
     serve.main([*argv, "--device", "cpu", "--mesh", "1x2"],
-               params=params_from_numpy(
-                   tree, get_smoke_config("llava-1.6-7b"), "cpu"))
+               params=_params("llava-1.6-7b"))
     port = capfd.readouterr().out
     monkeypatch.setattr(sys, "argv", ["serve.py", *argv])
     jax_serve.main()

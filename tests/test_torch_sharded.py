@@ -23,7 +23,12 @@ against the reference's ``_leaf_spec``/``_guard``, the shards
 concatenating back to the whole weights (cut, and drawn per rank by
 ``init_params``), the pool's and the dense cache's kv heads per rank, a
 1 x 1 mesh engine's spool file byte-equal to the unsharded engine's and
-read back by both packages, and what still raises under a mesh.
+read back by both packages, every family's plan (the MoE's experts, the
+SSM's and hybrid's SSD heads, whisper's encoder-decoder) with its cuts
+and its shards concatenating back, and what still raises under a mesh
+(the families' parity modules serve them on ranks against their own
+JAX runs: ``test_torch_moe_engine*.py``, ``test_torch_ssm.py``,
+``test_torch_hybrid.py``, ``test_torch_whisper.py``).
 
 Tolerances: greedy tokens, ``n_reused``, linked media exact; first-token
 logits within 1e-4 relative (max |diff| over max |logit|): the
@@ -321,42 +326,70 @@ def _jax_mesh(m):
 
 
 def _reference_decision(cfg, name, shape, m):
+    """The reference's spec of one leaf, ``replicate_ssm`` set as its
+    serving plan sets it (SSD heads that do not divide the axis)."""
     path, index = leaf_path(name)
     stacked = index is not None
-    full = (cfg.num_layers,) * stacked + tuple(shape)
+    full = (cfg.num_layers if path[0] == "layers" else cfg.encoder_layers,
+            ) * stacked + tuple(shape)
+    rep_ssm = bool((cfg.attn_free or cfg.hybrid) and cfg.ssm_num_heads % m)
     spec = tuple(jax_guard(jax_leaf_spec("/" + "/".join(path), len(full),
-                                         fsdp=False), full, _jax_mesh(m)))
+                                         fsdp=False, replicate_ssm=rep_ssm),
+                           full, _jax_mesh(m)))
     return spec[1:] if stacked else spec
 
 
 CUTS = [("internvl2-76b", True, 2), ("internvl2-76b", False, 4),
         ("internvl2-76b", False, 8), ("llava-1.6-7b", True, 2),
         ("llava-1.6-7b", False, 4), ("qwen2.5-14b", False, 4),
-        ("internvl2-76b", True, 4)]
+        ("internvl2-76b", True, 4), ("deepseek-moe-16b", False, 2),
+        ("deepseek-moe-16b", True, 4), ("granite-moe-1b-a400m", False, 4),
+        ("mamba2-130m", False, 2), ("mamba2-130m", True, 8),
+        ("hymba-1.5b", False, 2), ("hymba-1.5b", True, 2),
+        ("whisper-small", False, 2), ("whisper-small", False, 8)]
+# the port's SSM leaves cut by heads or channels, which the reference
+# keeps whole, and the ones it keeps whole where the reference cuts
+SSM_BY_HEADS = ("dt_bias", "A_log", "D", "conv_b", "out_norm")
 
 
 @pytest.mark.parametrize("arch, smoke, m", CUTS, ids=[
     f"{a.split('-')[0]}-{'smoke' if s else 'full'}-{m}" for a, s, m in CUTS])
 def test_every_parameters_cut_is_the_references(arch, smoke, m):
-    """Equal to ``_leaf_spec``/``_guard`` leaf for leaf, but where the kv
-    heads do not divide the axis (the smoke internvl2 at 4): there the
-    port keeps every attention leaf whole, and the QKV biases follow their
-    weights."""
+    """Equal to ``_leaf_spec``/``_guard`` leaf for leaf, but where the
+    port runs a collective of its own (``launch/specs.py``'s named
+    rules): where the kv heads do not divide the axis the port keeps every
+    attention leaf (self, cross, the encoder's) whole; the QKV biases and
+    whisper's ``b_up`` follow their weights; the router stays whole; where
+    the SSD heads divide the axis ``bc_proj`` stays whole and the SSM's
+    1-D leaves are cut by heads or channels (where they do not, both
+    packages keep every SSM leaf whole: ``replicate_ssm``)."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     ours = specs.param_pspecs(cfg, _mesh(m))
     shapes = {n: tuple(p.shape) for n, p in
               specs._meta_params(cfg).named_parameters()}
     attn_cut = cfg.num_kv_heads % m == 0
+    ssm_cut = bool(cfg.ssm_state) and cfg.ssm_num_heads % m == 0
     for name, shape in shapes.items():
         want = _reference_decision(cfg, name, shape, m)
-        if ".attn." in name and not attn_cut:
+        parts = ["", *name.split(".")]
+        if parts[-2] in ("attn", "cross_attn") and not attn_cut:
             assert ours[name] == (None,) * len(shape), name
-        elif name.split(".")[-1] in ("bq", "bk", "bv"):
-            w = name[:-2] + "w" + name[-1]
+        elif parts[-1] in ("bq", "bk", "bv", "b_up"):
+            w = name[:-4] + "w_up" if parts[-1] == "b_up" else \
+                name[:-2] + "w" + name[-1]
             assert ours[name] == ours[w][-1:], name
+        elif parts[-1] == "router":
+            assert ours[name] == (None, None) != want, name
+        elif parts[-2] == "ssm" and ssm_cut and parts[-1] == "bc_proj":
+            assert ours[name] == (None, None) != want, name
+        elif parts[-2] == "ssm" and ssm_cut and parts[-1] in SSM_BY_HEADS:
+            assert ours[name] == ("model",) != want, name
         else:
             assert ours[name] == want, (name, ours[name], want)
     assert any(s == ("model", None) for s in ours.values())
+    if cfg.ssm_state and not ssm_cut:
+        assert all(s == (None,) * len(s) for n, s in ours.items()
+                   if ".ssm." in n)
 
 
 @pytest.mark.parametrize("arch", ["internvl2-76b", "deepseek-moe-16b",
@@ -374,18 +407,20 @@ def test_leaf_spec_is_the_references_for_every_family(arch):
             jax_leaf_spec(ref_path, ndim, fsdp=False)), name
 
 
-def _concat(parts, spec):
+def _concat(parts, spec, halves=1):
+    """The ranks' pieces put back together; a leaf of ``halves`` blocks
+    (``in_proj``'s ``[x | z]``) block by block."""
     dims = [d for d, ax in enumerate(spec) if ax == "model"]
-    return torch.cat(parts, dims[0]) if dims else parts[0]
+    if not dims:
+        return parts[0]
+    blocks = [torch.chunk(p, halves, dims[0]) for p in parts]
+    return torch.cat([b[i] for i in range(halves) for b in blocks], dims[0])
 
 
-@pytest.mark.parametrize("m", [2, 4])
-def test_shards_concatenate_to_the_whole_model(m):
+def _shards_concatenate(cfg, m):
     """``shard_params`` of a whole model and ``init_params(sharding=)``,
     which never builds the whole model: both give each rank its piece of
-    the same seeded weights."""
-    cfg = dataclasses.replace(get_smoke_config(ARCH), param_dtype="float32",
-                              compute_dtype="float32")
+    the same seeded weights.  Returns the plans."""
     whole = init_params(cfg, seed=3, device="cpu")
     plans = [ServingSharding(_mesh(m, r), cfg) for r in range(m)]
     cut = [p.shard(whole) for p in plans]
@@ -395,10 +430,46 @@ def test_shards_concatenate_to_the_whole_model(m):
         assert all(s.sharding is p for s, p in zip(shards, plans))
         named = [dict(s.named_parameters()) for s in shards]
         for name, w in whole.named_parameters():
-            got = _concat([n[name] for n in named], plans[0].specs[name])
+            got = _concat([n[name] for n in named], plans[0].specs[name],
+                          specs.halves(name))
             assert torch.equal(got, w), name
     assert cut[0].cfg == plans[0].local_cfg
+    return plans
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_shards_concatenate_to_the_whole_model(m):
+    cfg = dataclasses.replace(get_smoke_config(ARCH), param_dtype="float32",
+                              compute_dtype="float32")
+    plans = _shards_concatenate(cfg, m)
     assert plans[0].local_cfg.d_ff == cfg.d_ff // m
+
+
+FAMILY_SHARDS = [("deepseek-moe-16b", 2), ("deepseek-moe-16b", 4),
+                 ("granite-moe-1b-a400m", 2), ("mamba2-130m", 2),
+                 ("mamba2-130m", 4), ("hymba-1.5b", 2),
+                 ("whisper-small", 2)]
+
+
+@pytest.mark.parametrize("arch, m", FAMILY_SHARDS,
+                         ids=[f"{a.split('-')[0]}-{m}"
+                              for a, m in FAMILY_SHARDS])
+def test_family_shards_concatenate_to_the_whole_model(arch, m):
+    """The same for the families the plan cuts by expert or by SSD head:
+    the ranks' experts stack back into every expert, each half of
+    ``in_proj``'s ``[x | z]`` is every rank's channels of that half, and
+    ``A_log`` (drawn whole, then cut) is the whole model's."""
+    cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32",
+                              compute_dtype="float32")
+    plans = _shards_concatenate(cfg, m)
+    w = plans[0].widths
+    if cfg.num_experts:
+        assert plans[0].cuts.experts and w.experts == cfg.num_experts // m
+        assert [p.expert_range for p in plans] == [
+            (r * w.experts, w.experts) for r in range(m)]
+        assert plans[0].local_cfg.num_experts == cfg.num_experts
+    if cfg.ssm_state:
+        assert plans[0].cuts.ssm and w.ssm_heads == cfg.ssm_num_heads // m
 
 
 @pytest.mark.parametrize("m", [2, 4])
@@ -476,11 +547,59 @@ def test_a_mesh_engine_spools_as_the_unsharded_engine_does(monkeypatch):
             shutil.rmtree(os.path.dirname(path), ignore_errors=True)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-130m",
-                                  "hymba-1.5b", "whisper-small"])
-def test_unported_families_raise_under_a_mesh(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingSharding(_mesh(2), get_smoke_config(arch))
+# arch, m -> the cuts (attn, mlp, vocab, experts, ssm) and the rank's
+# widths (routed experts, shared experts' hidden units, SSD heads)
+FAMILY_PLANS = {
+    ("deepseek-moe-16b", 2): ((True, True, True, True, False),
+                              (32, 1408, 0)),
+    ("deepseek-moe-16b", 4): ((True, True, True, True, False), (16, 704, 0)),
+    ("granite-moe-1b-a400m", 2): ((True, False, False, True, False),
+                                  (16, 0, 0)),
+    ("granite-moe-1b-a400m", 4): ((True, False, False, True, False),
+                                  (8, 0, 0)),
+    ("mamba2-130m", 2): ((False, False, True, False, True), (0, 0, 12)),
+    ("mamba2-130m", 4): ((False, False, True, False, True), (0, 0, 6)),
+    ("hymba-1.5b", 2): ((False, True, False, False, False), (0, 0, 25)),
+    ("hymba-1.5b", 4): ((False, True, False, False, False), (0, 0, 25)),
+    ("whisper-small", 2): ((True, True, False, False, False), (0, 0, 0)),
+    ("whisper-small", 4): ((True, True, False, False, False), (0, 0, 0)),
+}
+
+
+@pytest.mark.parametrize("arch, m", list(FAMILY_PLANS),
+                         ids=[f"{a.split('-')[0]}-{m}"
+                              for a, m in FAMILY_PLANS])
+def test_every_family_builds_a_plan_with_its_cuts(arch, m):
+    """The MoE, SSM, hybrid and encoder-decoder families at their full
+    widths on 2 and 4 ranks: what the plan cuts and the rank's widths.
+    deepseek's experts, attention, shared experts and vocabulary all
+    divide; granite's and whisper's odd vocabularies stay whole; mamba2's
+    24 SSD heads divide (it has no attention or MLP); hymba's 5 kv heads
+    and 25 SSD heads do not (attention and every SSM leaf whole, the
+    reference's ``replicate_ssm``), its MLP is cut.  The rank's config
+    keeps the whole ``num_experts`` and ``d_ff`` of a MoE (routing and
+    capacity read them) and its SSM fields."""
+    cfg = get_config(arch)
+    plan = ServingSharding(_mesh(m, m - 1), cfg)
+    (attn, mlp, vocab, experts, ssm), widths = FAMILY_PLANS[arch, m]
+    assert plan.cuts == specs.Cuts(attn=attn, mlp=mlp, vocab=vocab,
+                                   experts=experts, ssm=ssm)
+    assert plan.widths == specs.Widths(*widths)
+    local = plan.local_cfg
+    assert (local.num_experts, local.ssm_inner, local.ssm_num_heads) == (
+        cfg.num_experts, cfg.ssm_inner, cfg.ssm_num_heads)
+    if cfg.arch_type == "moe":
+        assert local.d_ff == cfg.d_ff
+        assert plan.expert_range == ((m - 1) * widths[0], widths[0])
+    shard = plan.local_model()
+    assert shard.widths == plan.widths
+    cache = shard.make_cache(2, 8, device="meta")
+    if cfg.ssm_state:
+        assert cache["ssm_h"].shape[2] == widths[2]
+        assert cache["ssm_conv"].shape[3] == widths[2] * cfg.ssm_head_dim
+    if cfg.is_encoder_decoder:
+        assert cache["cross_k"].shape[3] == local.num_kv_heads == \
+            cfg.num_kv_heads // m
 
 
 def test_what_a_mesh_does_not_serve_yet_raises(capsys):

@@ -24,15 +24,10 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
-from repro.core import Prompt as JaxPrompt
-from repro.core import text_segment as jax_text
 from repro.data import make_dialogues as jax_dialogues
 from repro.kernels.ssd_chunk.ops import ssd_chunk as jax_ssd_chunk
 from repro.kernels.ssd_chunk.ref import ssd_chunk_ref as jax_ssd_chunk_ref
 from repro.models import ssm as jax_ssm
-from repro.serving import EngineConfig as JaxEngineConfig
-from repro.serving import MPICEngine as JaxEngine
-from repro.serving import Request as JaxRequest
 from repro_torch.configs import get_config
 from repro_torch.core import Prompt, text_segment
 from repro_torch.cache.library import KVLibrary
@@ -44,10 +39,12 @@ from repro_torch.kernels.ssd_chunk.ops import ssd_chunk
 from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
 from repro_torch.models import build_model, ssm
 from repro_torch.models.transformer import SSMLayer, init_params
-from repro_torch.serving import EngineConfig, MPICEngine, Request
+from repro_torch.serving import EngineConfig, MPICEngine
 from repro_torch.weights import params_from_numpy
 
 from _torch_parity import build_pair, smoke_configs
+from _torch_serve import serve_ssm
+from _torch_sharded import REL, Ranks, rel
 # autouse: JAX's persistent compilation cache while this module runs
 from _torch_parity import jax_compile_cache  # noqa: F401
 
@@ -314,43 +311,33 @@ def test_paged_engine_falls_back_to_the_dense_cache(pair):
             device="cpu")
 
 
+_JAX_RUNS = {}
+
+
 def _serve(pkg, model, params, policy):
-    """Two image dialogues (media inlined by the prefill) and one text
-    request on two slots, so a slot is reused.  Returns (requests,
-    first-token logits per request)."""
-    cfg = model.cfg
+    """``_torch_serve.serve_ssm`` at ``MAX_NEW``; the JAX package's runs
+    once a module."""
+    if pkg == "jax" and policy in _JAX_RUNS:
+        return _JAX_RUNS[policy]
+    out = serve_ssm(pkg, model, params, policy, MAX_NEW)
     if pkg == "jax":
-        eng = JaxEngine(model, params, JaxEngineConfig(
-            max_seq_len=256, decode_slots=2, paged_backend="ref",
-            pipelined=False, paged=True))
-        dialogues, text, mk_prompt, mk_req = (jax_dialogues, jax_text,
-                                              JaxPrompt, JaxRequest)
-    else:
-        eng = MPICEngine(model, params, EngineConfig(
-            max_seq_len=256, decode_slots=2, paged=True), device="cpu")
-        dialogues, text, mk_prompt, mk_req = (make_dialogues, text_segment,
-                                              Prompt, Request)
-    firsts = {}
-    finalize = eng._finalize_prefill
+        _JAX_RUNS[policy] = out
+    return out
 
-    def record(req, result, *rest):
-        firsts[req.req_id] = np.asarray(result.first_logits, np.float32)
-        return finalize(req, result, *rest)
 
-    eng._finalize_prefill = record
-    kw = {"k": 8} if policy == "mpic" else {}
-    samples = dialogues(n=2, n_images=2, d_model=cfg.d_model,
-                        media_len=cfg.media_token_len)
-    reqs = [mk_req(prompt=s.prompt, max_new_tokens=MAX_NEW, policy=policy,
-                   policy_kwargs=kw) for s in samples]
-    reqs.append(mk_req(prompt=mk_prompt([text(np.arange(20, 57))],
-                                        user_id="u0"),
-                       max_new_tokens=MAX_NEW, policy=policy,
-                       policy_kwargs=kw))
-    for r in reqs:
-        eng.submit(r)
-    eng.run()
-    return reqs, [firsts[r.req_id] for r in reqs], eng
+@pytest.fixture(scope="module", autouse=True)
+def ranks(pair):
+    """Two gloo ranks (``tests/_torch_sharded.py``) serving the stream
+    tensor-parallel under ``full_recompute`` (4 of the 8 SSD heads a
+    rank), started with the module, so that they run while the JAX
+    package serves."""
+    jparams, tmodel = pair[1], pair[2]
+    started = Ranks(2, tmodel.cfg, jax.tree_util.tree_map(
+        np.asarray, jparams), [("full_recompute", "call", {
+            "target": "_torch_serve:serve_rank", "stream": "serve_ssm",
+            "policy": "full_recompute", "max_new": MAX_NEW})])
+    yield started
+    started.close()
 
 
 @pytest.mark.parametrize("policy", ["full_recompute", "mpic"])
@@ -370,3 +357,22 @@ def test_engine_matches_jax(pair, policy):
         assert len(tr.output_tokens) == MAX_NEW
         assert tr.output_tokens == jr.output_tokens
         np.testing.assert_allclose(tl, jl, atol=1e-3, rtol=0)
+
+
+def test_two_ranks_serve_the_jax_engines_tokens(pair, ranks):
+    """The stream under ``full_recompute`` on two ranks, each holding 4 of
+    the 8 SSD heads (their state in its dense cache) and the whole
+    ``bc_proj``: the JAX engine's tokens, first-token logits within 1e-4
+    relative."""
+    jreqs, jfirst, _ = _serve("jax", *pair[:2], "full_recompute")
+    cfg = pair[2].cfg
+    for rank, got in ranks.results().items():
+        res = got["full_recompute"]
+        assert res["cuts"].ssm and res["widths"].ssm_heads == \
+            cfg.ssm_num_heads // 2
+        assert res["cache"]["ssm_h"][2] == cfg.ssm_num_heads // 2
+        assert res["cache"]["ssm_conv"][3] == cfg.ssm_inner // 2
+        assert res["tokens"] == [r.output_tokens for r in jreqs]
+        assert set(res["policies"]) == {"full_recompute"}
+        for g, j in zip(res["firsts"], jfirst):
+            assert rel(g, j) <= REL

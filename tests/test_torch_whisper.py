@@ -3,7 +3,12 @@ config (2 encoder and 2 decoder layers, 32 audio frames, d 256, 4 heads at
 Dh 64) with the JAX weights carried over: the config, the weight bridge
 both ways, ``layernorm`` and ``gelu_mlp``, the encoder, the cross K/V,
 ``Model.forward``, ``prefill`` with audio and ``decode_step``, and the
-engine on a text-only request.
+engine on a text-only request.  Two gloo ranks (``tests/_torch_sharded``:
+2 of the 4 heads of the encoder, the decoder and the cross attention, half
+of each MLP and of the vocabulary a rank) run the prefill over audio and
+three greedy decode steps, whose collectives are the dry run's recording
+on ``meta``, and serve the text-only request; the JAX results' tokens,
+logits within 1e-4 relative.
 
 The JAX side runs its jnp ``attend``; the port's serving passes run the
 dense selective attention's plain version (the kernel's, on the CPU),
@@ -44,6 +49,8 @@ from repro_torch.serving import EngineConfig, MPICEngine, Request, State
 from repro_torch.weights import params_from_numpy, params_to_numpy, reference_tree
 
 from _torch_parity import build_pair, jax_compile_cache  # noqa: F401
+from _torch_serve import serve_text
+from _torch_sharded import REL, Ranks, rel
 
 ARCH = "whisper-small"
 ATOL = 1e-4
@@ -71,6 +78,26 @@ def tokens(pair):
 
 def _np(x):
     return np.asarray(x, np.float32)
+
+
+AUDIO_STEPS = 3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def ranks(pair, audio, tokens):
+    """Two gloo ranks running the audio passes and the text-only request,
+    started with the module so that they run while the JAX package
+    computes."""
+    tree = jax.tree_util.tree_map(np.asarray, pair[1])
+    started = Ranks(2, pair[2].cfg, tree, [
+        ("audio", "call", {"target": "_torch_sharded:audio_passes",
+                           "tokens": tokens, "audio": audio,
+                           "steps": AUDIO_STEPS}),
+        ("text", "call", {"target": "_torch_serve:serve_rank",
+                          "stream": "serve_text",
+                          "policy": "full_recompute"})])
+    yield started
+    started.close()
 
 
 def test_configs_match_field_for_field():
@@ -297,3 +324,58 @@ def test_engine_on_a_text_only_request(pair):
     for r in reqs[:3]:
         assert r.state is State.FAILED and "cross-attention" in r.error
     assert reqs[3].output_tokens == results["full_recompute"]
+
+
+def test_ranks_encode_and_decode_as_the_jax_model(pair, audio, tokens,
+                                                  ranks):
+    """The encoder, the cross K/V (each rank's 2 heads) and the decoder
+    over them on two ranks: the prefill's last logits and three greedy
+    steps' against the JAX model's, and every pass's collectives against
+    the dry run's recording on ``meta`` (per encoder layer two row
+    products, per decoder layer three: self and cross attention and the
+    MLP; the vocab-parallel embedding and head)."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.launch.mesh import ProductionMesh
+    jm, jp, tm, _ = pair
+    cfg = tm.cfg
+    logits, cache = jm.prefill(jp, jnp.asarray(tokens), jm.make_cache(B, 64),
+                               audio_embeds=jnp.asarray(audio))
+    want = [_np(logits[:, -1])]
+    for i in range(AUDIO_STEPS):
+        nxt = jnp.argmax(logits[:, -1] if logits.ndim == 3 else logits,
+                         -1)[:, None].astype(jnp.int32)
+        pos = jnp.full((B, 1), S + i, jnp.int32)
+        logits, cache = jm.decode_step(jp, nxt, pos, cache, pos)
+        want.append(_np(logits))
+    mesh = ProductionMesh(("data", "model"), (1, 2))
+    prefill = trace_step(cfg, "prefill", InputShape("audio", S, B,
+                                                    "prefill"), mesh)[2]
+    decode = trace_step(cfg, "decode", InputShape("audio", 64, B, "decode"),
+                        mesh)[2]
+    assert len(prefill) == 2 * cfg.encoder_layers + 3 * cfg.num_layers + 2
+    assert len(decode) == 3 * cfg.num_layers + 2
+    for rank, got in ranks.results().items():
+        res = got["audio"]
+        assert res["cross_k"] == (cfg.num_layers, B, cfg.encoder_seq,
+                                  cfg.num_kv_heads // 2, cfg.head_dim)
+        assert len(res["logits"]) == len(want)
+        for g, w in zip(res["logits"], want):
+            assert g.shape == w.shape == (B, cfg.vocab_size)
+            assert rel(g, w) <= REL
+            assert (g.argmax(-1) == w.argmax(-1)).all()
+        assert res["prefill_calls"] == prefill
+        assert res["decode_calls"] == decode
+
+
+def test_ranks_serve_the_text_only_request_as_the_jax_engine(pair, ranks):
+    """``full_recompute`` of a text-only request on two ranks (its cross
+    K/V zeros at each rank's heads): the JAX engine's tokens, first-token
+    logits within 1e-4 relative."""
+    jreqs, jfirst, _ = serve_text("jax", *pair[:2], "full_recompute")
+    for rank, got in ranks.results().items():
+        res = got["text"]
+        assert res["cuts"].attn and res["cuts"].mlp
+        assert res["cache"]["cross_k"][3] == pair[2].cfg.num_kv_heads // 2
+        assert res["tokens"] == [r.output_tokens for r in jreqs]
+        assert rel(res["firsts"][0], jfirst[0]) <= REL
