@@ -297,6 +297,40 @@ timed on its own line:
    run's recording.  Printed per rank and for the unsharded engine: TTFT,
    prefill alone, decode step, peak memory, each step's least time and
    roofline share; deepseek's experts' all-reduce timed alone;
+5r. the ``data`` axis of the serving mesh (``serve_data_axis``):
+   llava-1.6-7b at full width and depth on ``data 2 x model 2``, four
+   gloo ranks on card 0 (each ~6.3 GiB: half the heads, the MLP and the
+   vocabulary; NCCL with four cards), each decoding 2 of the 4 slots of
+   5o's traffic (the prefills on every data rank, the paged pool whole
+   over ``data``, every decode step's new K/V rows and logits gathered
+   over ``data``) under ``TP_RUNS`` and the exact check in fp32 at 2
+   layers on both pools, with a fault planted on data rank 1 (its gather
+   of the rows one slot off); then the dry run's long decode
+   (``specs.make_step_fn("decode")``) on a seeded ring of llava's
+   8,192-slot window, 4,096 slots a data rank, 8 steps past the wrap
+   (seeded tokens fed), its attention merged over ``data`` through kernel 5's
+   log-sum-exp, in bf16 and in fp32 at 2 layers (with a second fault on
+   data rank 1: its log-sum-exp one more than it is); hymba-1.5b on
+   ``data 2 x model 1`` (the dense cache's two rows a rank) under
+   ``full_recompute``; then each model unsharded on the same card.
+   Gates: every rank's tokens equal and first logits finite; each data
+   rank's pool digest (and int8 scales) equal to its data peer's, and
+   the row fault's different; the exact checks' tokens and logits
+   within 1e-3 of the unsharded engine's; the bf16 runs within 1.5x the
+   floor (the unsharded engine with its row products split as the ranks
+   split them; the long decode's floor also splits the ring in 2 and
+   merges through the log-sum-exp in one process; hymba's runs the
+   ranks' products on model 1); the long decode in fp32 within 1e-3 and
+   the log-sum-exp fault above it; kernels 1/3 (2/4) and 5 on each
+   llava rank, 5 on the split route in the long decode, 5 and 6 on each
+   hymba rank; each rank's live collectives of its first paged decode
+   step and prefill, and of the long decode's first step, equal to the
+   dry run's recording (kind, axis, group, count, bytes).  Printed per
+   rank: slots, TTFT, prefill alone, decode step, the data gathers'
+   bytes and ms a step, peak memory, each step's least time (phase 8),
+   the long decode's step; the same for the unsharded engines; phase 6
+   adds kernel 5 with its log-sum-exp at the long decode's rank slice
+   (1 query, 16 heads, 4,096 keys), timed beside SDPA and its bound;
 6. each kernel against its plain PyTorch version on the state phases 3-5b
    left (layer 0 of the live pool or the captured dense-attention and SSD
    inputs) and on synthetic shapes (32 query heads on 8 kv heads, window
@@ -735,6 +769,31 @@ TQ_COLL_ROWS = (4, 1024)
 TQ_COLL_ITERS = 20
 TQ_SEQ = {HYMBA: HYMBA_SEQ}
 TQ_SMALL_WORLD = 2
+# phase 5r: the data axis of the serving mesh.  llava-1.6-7b at full width
+# and depth on data 2 x model 2: four ranks (gloo on one card, each ~6.3
+# GiB of weights: half the heads, the MLP and the vocabulary; NCCL with
+# four cards), each decoding 2 of the 4 slots of 5o's traffic with the
+# prefills on every data rank and the paged pool whole over data; TP_RUNS
+# and the exact check in fp32 at TP_FP32_DEPTH layers on both pools, then
+# the dry run's long decode (specs.make_step_fn("decode")) on a ring of
+# llava's 8,192-slot window, 4,096 slots a data rank, TR_LONG_STEPS steps
+# TR_LONG_PAST positions past the wrap (each fed a seeded token, the same
+# in every run), in bf16 and in fp32 at
+# TP_FP32_DEPTH layers.  Planted faults, both on data rank 1 and both in
+# the fp32 runs: its gather of the slots' new K/V rows one slot off
+# (TR_ROW_FAULT: its pool must then differ from its data peer's), its
+# log-sum-exp one more than it is before the long decode's merge
+# (TR_LSE_FAULT: the logits must then read above TP_FP32_REL).
+# hymba-1.5b on data 2 x model 1: the dense cache cut on its batch, two
+# slots' rows a rank, full_recompute on 5q's four dialogues
+TR_ARCH = "llava-1.6-7b"
+TR_SHAPE = (2, 2)
+TR_SSM_SHAPE = (2, 1)
+TR_LONG_SEQ = 40000                 # past 32k tokens: the ring of the window
+TR_LONG_PAST = 100
+TR_LONG_STEPS = 8
+TR_ROW_FAULT = "mpic-fp32-rowfault"
+TR_LSE_FAULT = 1.0
 
 
 def phase(name: str, t0: float) -> None:
@@ -1017,7 +1076,7 @@ def pass_costs(records, all_experts: bool = False) -> list:
     for key, recs in steps.items():
         first = recs[0]
         cfg = first["cfg"]
-        rows, experts, wire = [], None, 0.0
+        rows, experts, wire, coll_s = [], None, 0.0, 0.0
         if recs[0]["routes"]:
             experts = [set() for _ in range(cfg.num_layers)]
         lo, n = first.get("expert_range", (0, cfg.num_experts))
@@ -1029,9 +1088,12 @@ def pass_costs(records, all_experts: bool = False) -> list:
             r, real = _pass_rows(rec, seq)
             rows += r
             # every collective of a pass is linear in its rows: the least
-            # work moves the real rows' share
-            wire += collective_bytes(rec.get("calls", ())).total_bytes \
-                * float(np.mean(real))
+            # work moves the real rows' share, each at its axis's link
+            stats = collective_bytes(rec.get("calls", ()))
+            # (a data rank's pass whose own slots are all idle has none)
+            share = float(np.mean(real)) if len(real) else 0.0
+            wire += stats.total_bytes * share
+            coll_s += stats.least_s * share
             for layer, idx in enumerate(rec["routes"]):   # (rows x tokens, k)
                 idx = idx.cpu().numpy()
                 if len(idx) != len(real):
@@ -1050,6 +1112,7 @@ def pass_costs(records, all_experts: bool = False) -> list:
                               window=first.get("window"), experts=experts,
                               widths=first.get("widths")),
             "tokens": sum(len(r.q_pos) for r in rows), "wire": wire,
+            "coll_s": coll_s,
             "passes": len(recs),
             "coll_ops": sum(len(rec.get("calls", ())) for rec in recs),
             "record_s": sum(rec["record_s"] for rec in recs)})
@@ -1057,12 +1120,14 @@ def pass_costs(records, all_experts: bool = False) -> list:
 
 
 def least_row(step: str, measured_ms: float, cost, model_flops: float, *,
-              chips: int = 1, coll_bytes: float = 0.0, note: str = "") -> dict:
+              chips: int = 1, coll_bytes: float = 0.0,
+              coll_s=None, note: str = "") -> dict:
     """One line of phase 8: a step's measured time beside its least time
     on the card (the largest of its operations over the bf16 peak, its
-    bytes over HBM's rate and its collectives' wire bytes over NVLink's),
-    what bounds it, ``roofline_share`` and ``mfu`` (``model_flops``, 2ND
-    or 6ND, on ``chips`` cards)."""
+    bytes over HBM's rate and its collectives' wire bytes over their
+    axis's link, ``coll_s``, or NVLink's without it), what bounds it,
+    ``roofline_share`` and ``mfu`` (``model_flops``, 2ND or 6ND, on
+    ``chips`` cards)."""
     from repro_torch.roofline.analysis import (
         CollectiveStats,
         least_time,
@@ -1072,7 +1137,7 @@ def least_row(step: str, measured_ms: float, cost, model_flops: float, *,
 
     rl = cost.roofline("", "", "", step, chips=chips,
                        model_flops_global=model_flops,
-                       coll=CollectiveStats(coll_bytes, {}, 0))
+                       coll=CollectiveStats(coll_bytes, {}, 0, coll_s))
     return {"step": step, "measured_ms": measured_ms,
             "least_ms": least_time(rl) * 1e3,
             "bound_by": {"compute": "operations", "memory": "bytes",
@@ -1121,7 +1186,8 @@ def served_rows(label: str, costs, n_requests: int, decode_steps: int,
             f"{label} {name}", ms,
             _total([c["cost"] for c in parts]).scaled(scale / n),
             2.0 * n_params * tokens, chips=chips,
-            coll_bytes=sum(c["wire"] for c in parts) / n, note=note)
+            coll_bytes=sum(c["wire"] for c in parts) / n,
+            coll_s=sum(c["coll_s"] for c in parts) / n, note=note)
         row["record_ms"] = 1e3 * sum(c["record_s"] for c in parts) / n
         if collective_s:
             row["record_ms"] += 1e3 * collective_s * sum(
@@ -2233,7 +2299,7 @@ def _plant_fault(eng) -> None:
 
     plan = eng.sharding
     lo, n = plan._heads
-    if plan.mesh.rank == plan.mesh.model - 1 and plan.attn:
+    if plan.mesh.model_rank == plan.mesh.model - 1 and plan.attn:
         plan.entry = lambda e: None if e is None else EntryShard(
             e, lo - 1, n)
 
@@ -3768,6 +3834,701 @@ def serve_tensor_families(*, device=None, cfgs=None,
     if failed:
         raise RuntimeError("phase 5q: " + "; ".join(failed))
     return runs, snaps, captures
+
+
+# ---------------------------------------------------------------------------
+# phase 5r: the data axis of the serving mesh
+# ---------------------------------------------------------------------------
+
+def pool_digest(eng) -> dict:
+    """A digest of the engine's pool (and an int8 pool's scales), every
+    page but the scratch page (idle slots' padding writes land there): per
+    tensor the int64 sum of its 32-bit words (16-bit and 8-bit values
+    packed) each weighted by its index mod 65,521 plus one, over a
+    layer's pages at a time on the device.  Two pools whose digests
+    agree hold the same bytes but for a collision; a row written one slot
+    off moves it."""
+    import torch
+
+    pool = eng.pool
+    keep = torch.tensor([p for p in range(pool.cfg.num_pages)
+                         if p != eng._scratch_page], device=pool.k.device)
+    out = {}
+    names = ("k", "v") + (("k_scale", "v_scale") if pool.quantized else ())
+    for name in names:
+        t = getattr(pool, name)
+        total = 0
+        for layer in range(t.shape[0]):
+            words = t[layer].index_select(0, keep).contiguous().view(
+                torch.int32).reshape(-1).to(torch.int64)
+            w = torch.arange(words.numel(), device=words.device) % 65521 + 1
+            total += int((words * w).sum())
+        out[name] = total
+    return out
+
+
+def _shift_rows(plan) -> None:
+    """``TR_ROW_FAULT``: this data rank gathers every slot's new K/V rows
+    one slot off (a roll over the slots), so that it writes each slot's
+    row where its neighbour's belongs; the logits' gather stays right."""
+    import torch
+
+    real = plan.gather_slots
+
+    def shifted(x, slots, dim=0):
+        out = real(x, slots, dim)
+        return torch.roll(out, 1, dims=dim) if dim == 2 else out
+
+    plan.gather_slots = shifted
+
+
+def _offset_lse(plan) -> None:
+    """``TR_LSE_FAULT``: this data rank's log-sum-exp reads one more than
+    it is before the long decode's merge."""
+    real = plan.merge_kv_slices
+    plan.merge_kv_slices = lambda out, lse: real(out, lse + TR_LSE_FAULT)
+
+
+def _timed_gathers(plan, into: dict) -> None:
+    """The host seconds of every ``share_rows`` and ``gather_slots`` call
+    (the data gathers of a decode step and their writes), synchronized on
+    the card before and after, summed into ``into``."""
+    import torch
+
+    for name in ("share_rows", "gather_slots"):
+        real = getattr(plan, name)
+
+        def timed(*args, _real=real, _name=name, **kw):
+            if plan.mesh.device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _real(*args, **kw)
+            if plan.mesh.device.type == "cuda":
+                torch.cuda.synchronize()
+            into[_name] = into.get(_name, 0.0) + time.perf_counter() - t0
+            return out
+
+        setattr(plan, name, timed)
+
+
+def ring_cache(cfg, device, plan=None, seed: int = 7) -> dict:
+    """A seeded dense cache of batch 1 holding a wrapped ring of
+    ``cfg.sliding_window`` slots (positions ``at - W .. at - 1``, each at
+    slot ``p % W``, ``at = W + TR_LONG_PAST``) in the compute dtype, drawn
+    a layer at a time from one generator, the same numbers on every rank;
+    with ``plan`` only the rank's slice of the slots and its kv heads."""
+    import torch
+
+    from repro_torch.device import torch_dtype
+
+    w, dt = cfg.sliding_window, torch_dtype(cfg.compute_dtype)
+    at = w + TR_LONG_PAST
+    lo, n = plan.kv_slice(w) if plan is not None else (0, w)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (1, w, cfg.num_kv_heads, cfg.head_dim)
+    k, v = [], []
+    for _ in range(cfg.num_layers):
+        for into in (k, v):
+            t = torch.randn(shape, generator=gen, device=device).to(dt)
+            if plan is not None:
+                t = plan.local_heads(t, 2)
+            into.append(t[:, lo:lo + n].clone())
+    pos = torch.arange(at - w, at, device=device, dtype=torch.int32)
+    ring = torch.empty((1, w), dtype=torch.int32, device=device)
+    ring[0, pos % w] = pos
+    return {"k": torch.stack(k), "v": torch.stack(v),
+            "pos": ring[:, lo:lo + n].contiguous()}
+
+
+def long_decode_run(cfg, params, device, plan=None,
+                    steps: int = TR_LONG_STEPS):
+    """The dry run's ``long_500k`` step (``specs.make_step_fn("decode")``)
+    from :func:`ring_cache` for ``steps`` steps past the wrap, each fed a
+    seeded token (the same in every run, so that every step's logits
+    compare across runs whatever their argmax), through ``params`` (a
+    rank's shard under ``plan``, whose data axis the batch of 1 does not
+    divide: the KV sequence on ``data``).  Returns the logits of every
+    step, the mean step ms (after one warm step), the kernels' launches
+    and dense routes over the steps, the collectives of the first step
+    and the peak memory."""
+    import torch
+
+    import repro_torch.kernels.selective_attn.ops as sel_ops
+    from repro_torch.configs import InputShape
+    from repro_torch.kernels import KERNELS, _build
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import record_collectives
+    from repro_torch.models import build_model
+
+    from repro_torch.device import resolve_device
+
+    device = resolve_device(device)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    model = plan.local_model() if plan is not None else build_model(cfg)
+    local = model.cfg
+    cache = ring_cache(cfg, device, plan)
+    shape = InputShape("long_decode", TR_LONG_SEQ, 1, "decode")
+    fn = S.make_step_fn(local, "decode", shape, model)
+    at = cfg.sliding_window + TR_LONG_PAST
+    fed = np.random.default_rng(11).integers(1, cfg.vocab_size, steps)
+    out, times, calls = [], [], []
+    with (no_plain_versions() if cuda else contextlib.nullcontext()), \
+            torch.inference_mode():
+        _build.reset_launches(KERNELS.values())
+        for i in range(steps):
+            p = torch.full((1, 1), at + i, dtype=torch.int32, device=device)
+            tok = torch.full((1, 1), int(fed[i]), dtype=torch.int32,
+                             device=device)
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (record_collectives(plan.mesh) if plan is not None
+                  and i == 0 else contextlib.nullcontext([])) as got:
+                logits, cache = fn(params, cache, tok, p)
+            if cuda:
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            calls = calls or list(got)
+            out.append(logits[0].float().cpu().numpy())
+        launches = {k: v.launches for k, v in KERNELS.items()}
+        routes = dict(sel_ops.SEL_ATTN.route_launches)
+    return {"logits": np.stack(out), "step_ms": float(np.mean(times[1:]))
+            * 1e3, "launches": launches, "routes": routes, "calls": calls,
+            "slots": tuple(cache["k"].shape),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda
+            else 0.0}
+
+
+def _tr_llava(cfg, mesh, device, media_len) -> dict:
+    """One rank of phase 5r's llava: its shard of the seeded weights
+    (``init_params(sharding=)``), ``TP_RUNS`` on 5o's traffic (each with
+    its pool's digest and the data gathers' seconds), the exact check in
+    fp32 at ``TP_FP32_DEPTH`` layers on both pools, the row fault in that
+    check (``TR_ROW_FAULT``, on data rank 1), and the long decode in bf16
+    at full depth and in fp32 with and without the log-sum-exp fault
+    (``TR_LSE_FAULT``, on data rank 1)."""
+    import torch
+
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.sharding import ServingSharding
+
+    cuda = mesh.device.type == "cuda"
+    t = time.perf_counter()
+    params = init_params(cfg, seed=0, device=device,
+                         sharding=ServingSharding(mesh, cfg))
+    if cuda:
+        torch.cuda.synchronize()
+    res = {"init_s": time.perf_counter() - t, "device": str(mesh.device),
+           "backend": mesh.backend,
+           "coords": (mesh.rank, mesh.data_rank, mesh.model_rank),
+           "weights_gib": sum(p.numel() * p.element_size()
+                              for p in params.parameters()) / 2**30,
+           "runs": {}}
+
+    def serve(label, whole, prm, pool, policy, fault=None):
+        eng = _tp_engine(whole, prm, pool, mesh, device)
+        gathers = {}
+        _timed_gathers(eng.sharding, gathers)
+        if fault is not None and mesh.data_rank == 1:
+            fault(eng.sharding)
+        out = tp_traffic(eng, policy, media_len=media_len)
+        out["digest"] = pool_digest(eng)
+        out["slots"] = eng._own
+        out["gather_ms_per_step"] = (1e3 * sum(gathers.values())
+                                     / max(out["decode_steps"], 1))
+        res["runs"][label] = out
+        eng.close()
+        del eng
+        gc.collect()
+
+    for policy, pool in TP_RUNS:
+        serve(f"{policy}-{pool or 'bf16'}", cfg, params, pool, policy)
+    res["long-bf16"] = long_decode_run(cfg, params, device, params.sharding)
+    del params
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    cfg32 = _fp32(cfg)
+    p32 = init_params(cfg32, seed=1, device=device,
+                      sharding=ServingSharding(mesh, cfg32))
+    for pool in TP_FP32_POOLS:
+        serve(f"mpic-{pool + '-' if pool else ''}fp32", cfg32, p32, pool,
+              "mpic")
+    serve(TR_ROW_FAULT, cfg32, p32, "", "mpic", fault=_shift_rows)
+    res["long-fp32"] = long_decode_run(cfg32, p32, device, p32.sharding)
+    if mesh.data_rank == 1:
+        _offset_lse(p32.sharding)
+    res["long-fp32-fault"] = long_decode_run(cfg32, p32, device,
+                                             p32.sharding, steps=1)
+    del p32
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return res
+
+
+def _tr_hymba(cfg, mesh, device) -> dict:
+    """One rank of phase 5r's hymba on ``data 2 x model 1``: the whole
+    seeded weights, ``tq_ssm_traffic``'s four dialogues on the dense cache
+    (each rank holds its two slots' rows)."""
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import EngineConfig, MPICEngine
+    from repro_torch.serving.sharding import ServingSharding
+
+    params = init_params(cfg, seed=0, device=device,
+                         sharding=ServingSharding(mesh, cfg))
+    eng = MPICEngine(build_model(cfg), params, EngineConfig(
+        max_seq_len=2048, decode_slots=4), mesh=mesh, device=device)
+    try:
+        out = tq_ssm_traffic(eng, TP_MEDIA_LEN)
+        out["cache_rows"] = int(eng._batch_cache["k"].shape[1])
+        out["slots"] = eng._own
+    finally:
+        eng.close()
+    del params, eng
+    gc.collect()
+    if mesh.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tr_rank(rank, shape, port, cfg, device, media_len, out_q):
+    """One rank of phase 5r (world rank ``rank`` of a ``data x model``
+    mesh of ``shape``): llava's suite on ``2 x 2``, hymba's on ``2 x 1``;
+    its results go to ``out_q``, pickled by value."""
+    import torch
+
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    mesh = None
+    try:
+        mesh = make_serving_mesh(*shape, rank=rank, timeout_s=TP_JOIN_S,
+                                 init_method=f"tcp://127.0.0.1:{port}",
+                                 device=device)
+        if mesh.device.type == "cpu":
+            torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                                      // mesh.world))
+        res = (_tr_hymba(cfg, mesh, mesh.device) if cfg.hybrid else
+               _tr_llava(cfg, mesh, mesh.device, media_len))
+        out_q.put(pickle.dumps((rank, res, None)))
+    except BaseException:
+        import traceback
+        out_q.put(pickle.dumps((rank, None, traceback.format_exc())))
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _tr_spawn(shape, cfg, device, media_len) -> list:
+    """Phase 5r's ranks of one mesh, spawned; every rank's results in rank
+    order.  Raises on a rank's error, a rank that died without a result, a
+    non-zero exit, or past ``TP_JOIN_S``."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.mesh import free_port
+
+    world = shape[0] * shape[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    t = time.perf_counter()
+    procs = [ctx.Process(target=_tr_rank, args=(
+        r, shape, port, cfg, device, media_len, q)) for r in range(world)]
+    for proc in procs:
+        proc.start()
+    got = {}
+    try:
+        while len(got) < world:
+            if time.perf_counter() - t > TP_JOIN_S:
+                raise RuntimeError(f"phase 5r: no result from ranks "
+                                   f"{sorted(set(range(world)) - set(got))}"
+                                   f" in {TP_JOIN_S:.0f} s")
+            try:
+                rank, res, err = pickle.loads(q.get(timeout=5.0))
+            except queue.Empty:
+                dead = [r for r, proc in enumerate(procs)
+                        if r not in got and proc.exitcode not in (None, 0)]
+                if dead:
+                    raise RuntimeError(f"phase 5r: ranks {dead} exited "
+                                       "without a result")
+                continue
+            if err is not None:
+                raise RuntimeError(f"phase 5r: rank {rank} failed:\n{err}")
+            got[rank] = res
+        for proc in procs:
+            proc.join(timeout=60)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=10)
+    bad = [proc.exitcode for proc in procs if proc.exitcode != 0]
+    if bad:
+        raise RuntimeError(f"phase 5r: rank exit codes {bad}")
+    print(f"  {shape[0]} x {shape[1]} ranks of {cfg.name}: "
+          f"{time.perf_counter() - t:.1f} s from spawn to the last result",
+          flush=True)
+    return [got[r] for r in range(world)]
+
+
+def _split_keys_attention(data: int):
+    """The long decode's floor: ``transformer.selective_attention`` over
+    a ring cut in ``data`` slices of its slots, each through kernel 5 with
+    its log-sum-exp and merged in fp32 as the data ranks merge them
+    (``ServingSharding.merge_kv_slices``), in one process."""
+    import torch
+
+    import repro_torch.models.transformer as tf
+
+    real = tf.selective_attention
+
+    def split(q, k, v, q_pos, kv_pos, *, window=0, return_lse=False):
+        n = k.shape[1] // data
+        outs, lses = zip(*(real(q, k[:, i * n:(i + 1) * n].contiguous(),
+                                v[:, i * n:(i + 1) * n].contiguous(), q_pos,
+                                kv_pos[:, i * n:(i + 1) * n].contiguous(),
+                                window=window, return_lse=True)
+                           for i in range(data)))
+        lse = torch.stack(lses)
+        m = lse.max(0).values
+        m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+        w = torch.exp(lse - m)[..., None]
+        num = (torch.stack(outs).float() * w).sum(0)
+        den = w.sum(0)
+        return torch.where(den > 0, num / den.clamp_min(1e-30),
+                           torch.zeros_like(num)).to(q.dtype)
+
+    return real, split
+
+
+def tr_collectives_check(cfg, label: str, per, shape) -> dict:
+    """Each rank's live collectives in its first paged decode step and
+    paged prefill of run ``label`` against the dry run's recording of the
+    same config, world rank and shapes on ``meta`` (``trace_serving``
+    under a ``RecordingMesh`` of the same ``data x model``): kind, axis,
+    group, count and bytes.  Raises when they differ."""
+    from repro_torch.launch.dryrun import trace_serving
+    from repro_torch.launch.mesh import RecordingMesh
+    from repro_torch.roofline.analysis import collective_bytes
+
+    data, model = shape
+    out = {}
+    for r, res in enumerate(per):
+        for kind, step in (("decode", "serve_decode"),
+                           ("prefill", "serve_prefill")):
+            live = res["runs"][label]["collectives"][kind]
+            shp = live["shape"]
+            slots = shp[0] * data if kind == "decode" else shp[0]
+            traced = trace_serving(
+                cfg, step, RecordingMesh(model, r, data=data), slots=slots,
+                kv_len=2048, s_sel=shp[1] if kind == "prefill" else None)[2]
+            got = live["calls"]
+            stats = collective_bytes(got)
+            print(f"  {label} rank {r} {kind} {shp}: {len(got)} collectives "
+                  f"({sum(c.axis == 'data' for c in got)} on data), "
+                  f"{stats.total_bytes:.0f} wire bytes live; the dry run's "
+                  f"{len(traced)}, "
+                  f"{collective_bytes(traced).total_bytes:.0f}", flush=True)
+            if got != traced:
+                raise RuntimeError(f"phase 5r {label} rank {r} {kind}: live "
+                                   f"collectives {got}, the dry run's "
+                                   f"{traced}")
+            out[f"rank {r} {kind}"] = {
+                "count": len(got), "wire_bytes": stats.total_bytes,
+                "data_bytes": stats.by_axis.get("data", 0.0)}
+    return out
+
+
+def serve_data_axis(*, device=None, cfg=None, hymba_cfg=None,
+                    media_len: int = TP_MEDIA_LEN):
+    """Phase 5r (see ``TR_SHAPE``).  Returns its runs by label.
+    ``device``, ``cfg`` and ``hymba_cfg`` (the whole models') and
+    ``media_len`` rehearse it on the CPU."""
+    import torch
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.launch.mesh import ProductionMesh, backend_for
+    from repro_torch.models.transformer import init_params
+
+    cuda = device is None
+    dev = torch.device("cuda" if cuda else "cpu")
+    cfg = cfg or get_config(TR_ARCH)
+    hymba_cfg = hymba_cfg or get_config(HYMBA)
+    world = TR_SHAPE[0] * TR_SHAPE[1]
+    cards = torch.cuda.device_count() if cuda else 0
+    backend = backend_for(dev, world)
+    print(f"data_axis: {cfg.name} at {cfg.num_layers} layers on data "
+          f"{TR_SHAPE[0]} x model {TR_SHAPE[1]} ({world} ranks, backend "
+          f"{backend}, cards {cards}); {hymba_cfg.name} on data "
+          f"{TR_SSM_SHAPE[0]} x model {TR_SSM_SHAPE[1]}", flush=True)
+    coll_record_s = collective_record_s()
+    per = _tr_spawn(TR_SHAPE, cfg, device, media_len)
+    key = f"{cfg.name}:data{TR_SHAPE[0]}x{TR_SHAPE[1]}"
+    runs, failed = {}, []
+    used = min(world, cards) if cuda else 1
+    # -- the ranks' own gates ------------------------------------------------
+    for label in per[0]["runs"]:
+        ranks = [p["runs"][label] for p in per]
+        r0 = ranks[0]
+        paged = ("sel_attn_paged_q8", "paged_attn_q8") \
+            if "int8" in label else ("sel_attn_paged", "paged_attn")
+        need = ("sel_attn",) + (paged if label.startswith("mpic")
+                                else paged[1:])
+        fault = label == TR_ROW_FAULT
+        for r, res in enumerate(ranks):
+            if (not all(res["done"]) or not res["linked_rag"]
+                    or (not fault and res["tokens"] != r0["tokens"])
+                    or not np.isfinite(res["firsts"]).all()
+                    or (cuda and any(res["launches"][n] == 0
+                                     for n in need))
+                    or (not label.endswith("fp32") and not fault
+                        and res["sel_attn_routes"].get("cuda_cores"))):
+                raise RuntimeError(f"phase 5r {label}: rank {r}: "
+                                   f"{ {k: v for k, v in res.items() if k not in ('firsts', 'snap', 'costs')} }")
+            data_bytes = sum(c.result_bytes for c in res["collectives"].get(
+                "decode", {}).get("calls", []) if c.axis == "data")
+            print(f"  rank {r} {per[r]['coords']} {label}: slots "
+                  f"{res['slots']}, TTFT mean {res['mean_ttft_ms']:.2f} ms "
+                  f"(prefill alone {res['mean_prefill_ms']:.2f} ms), decode "
+                  f"step {res['mean_decode_step_ms']:.2f} ms over "
+                  f"{res['decode_steps']} steps, data gathers "
+                  f"{data_bytes} bytes and "
+                  f"{res['gather_ms_per_step']:.3f} ms a step, peak "
+                  f"{res['peak_gib']:.2f} GiB; launches {res['launches']}",
+                  flush=True)
+        # every data rank's pool equals its data peer's (same model rank)
+        m = TR_SHAPE[1]
+        same = [ranks[r]["digest"] == ranks[r + m]["digest"]
+                for r in range(world - m)]
+        print(f"  {label}: pool digests equal to the data peer's "
+              f"{same}", flush=True)
+        if fault:
+            if all(same):
+                failed.append(f"{label}: the planted row fault left every "
+                              "data peer's pool equal")
+        elif not all(same):
+            failed.append(f"{label}: data peers' pools differ {same}")
+        runs[f"{key}:{label}"] = {
+            "model": key, "world": world, "backend": backend,
+            "depth": TP_FP32_DEPTH if label.endswith("fp32") or fault
+            else cfg.num_layers,
+            "launches": r0["launches"],
+            "launches_by_rank": [res["launches"] for res in ranks],
+            "pools_equal_to_data_peer": same,
+            **{k: [res[k] for res in ranks] for k in (
+                "mean_ttft_ms", "mean_prefill_ms", "mean_decode_step_ms",
+                "gather_ms_per_step", "upload_s", "peak_gib")}}
+        if label in TP_LABELS:
+            runs[f"{key}:{label}"]["least"] = [
+                row for r, res in enumerate(ranks)
+                for row in served_rows(
+                    f"{key}:{label} rank {r}", res["costs"],
+                    len(res["done"]), res["decode_steps"],
+                    res["mean_prefill_ms"], res["mean_decode_step_ms"],
+                    n_params=cfg.n_active_params(), scale=world / used,
+                    chips=used, note=f"{world} ranks on {used} card(s)",
+                    collective_s=coll_record_s)]
+        if label.startswith("mpic") and label in TP_LABELS:
+            runs[f"{key}:{label}"]["collectives"] = tr_collectives_check(
+                cfg, label, per, TR_SHAPE)
+    for r, p in enumerate(per):
+        print(f"  rank {r} {p['coords']}: {p['device']}, "
+              f"{p['weights_gib']:.2f} GiB of weights drawn in "
+              f"{p['init_s']:.1f} s", flush=True)
+    # the long decode's live collectives against the dry run's
+    traced = trace_step(cfg, "decode", InputShape(
+        "long_decode", TR_LONG_SEQ, 1, "decode"), ProductionMesh(
+        ("data", "model"), TR_SHAPE))[2]
+    for r, p in enumerate(per):
+        lb = p["long-bf16"]
+        if lb["calls"] != traced:
+            raise RuntimeError(f"phase 5r long decode rank {r}: live "
+                               f"collectives {lb['calls']}, the dry run's "
+                               f"{traced}")
+        if cuda and lb["routes"].get("split_keys", 0) < cfg.num_layers:
+            raise RuntimeError(f"phase 5r long decode rank {r}: kernel 5's "
+                               f"split route {lb['routes']}")
+    # -- the unsharded engine on the same card, once the ranks are gone ------
+    t = time.perf_counter()
+    params = init_params(cfg, seed=0, device=device)
+    if cuda:
+        torch.cuda.synchronize()
+    print(f"  unsharded {cfg.num_layers}-layer model drawn in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    plan = _split_plan(cfg, TR_SHAPE[1], device)
+    params.sharding = plan
+    floors = {}
+    for pool in ("", "int8"):
+        eng = _tp_engine(cfg, params, pool, None, device)
+        floors[f"mpic-{pool or 'bf16'}"] = tp_traffic(eng, "mpic",
+                                                      media_len=media_len)
+        eng.close()
+    import repro_torch.models.transformer as tf
+    real_attn, split_attn = _split_keys_attention(TR_SHAPE[0])
+    tf.selective_attention = split_attn
+    try:
+        long_floor = long_decode_run(cfg, params, device)
+    finally:
+        tf.selective_attention = real_attn
+    params.sharding = None
+    long_whole = long_decode_run(cfg, params, device)
+    held = [params]
+    del params
+    whole = _tp_suite(cfg, held, None, device, media_len)
+    whole.pop("pool_shape")
+    cfg32 = _fp32(cfg)
+    p32 = init_params(cfg32, seed=1, device=device)
+    long32 = long_decode_run(cfg32, p32, device)
+    del p32
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    limits = {}
+    for label, floor in floors.items():
+        fr, fm = _rel(floor["firsts"], whole[label]["firsts"])
+        limits[label] = TP_FLOOR_FACTOR * fr
+        print(f"  floor of {label} (row products split in "
+              f"{TR_SHAPE[1]}): first-token logits relative RMS {fr:.2e}, "
+              f"max {fm:.2e}; the limit {limits[label]:.2e}", flush=True)
+    for label in whole:
+        limits.setdefault(label, limits["mpic-int8" if "int8" in label
+                                        else "mpic-bf16"])
+    whole[TR_ROW_FAULT] = whole["mpic-fp32"]
+    for label, ref in whole.items():
+        for r, p in enumerate(per):
+            got = p["runs"][label]
+            rel, rel_max = _rel(got["firsts"], ref["firsts"])
+            same = got["tokens"] == ref["tokens"]
+            exact = label.endswith("fp32")
+            if label == TR_ROW_FAULT:
+                print(f"  {label} rank {r}: tokens equal to the unsharded "
+                      f"engine's {same} (the fault moves the pool, read "
+                      "above)", flush=True)
+                continue
+            if r == 0:
+                print(f"  unsharded {label}: TTFT mean "
+                      f"{ref['mean_ttft_ms']:.2f} ms, prefill alone "
+                      f"{ref['mean_prefill_ms']:.2f} ms, decode step "
+                      f"{ref['mean_decode_step_ms']:.2f} ms, peak "
+                      f"{ref['peak_gib']:.2f} GiB", flush=True)
+            print(f"  rank {r} {label}: tokens equal {same}; first-token "
+                  f"logits relative RMS {rel:.2e}, max {rel_max:.2e} "
+                  f"(limit {TP_FP32_REL if exact else limits[label]:.2e} "
+                  f"on the {'latter' if exact else 'former'})", flush=True)
+            ok = (same and rel_max <= TP_FP32_REL) if exact else \
+                rel <= limits[label]
+            if not ok:
+                failed.append(f"{label} rank {r}: tokens {got['tokens']} vs "
+                              f"{ref['tokens']}, rel {rel} / {rel_max}")
+        runs[f"{key}:{label}"].update(
+            unsharded_mean_ttft_ms=ref["mean_ttft_ms"],
+            unsharded_mean_prefill_ms=ref["mean_prefill_ms"],
+            unsharded_mean_decode_step_ms=ref["mean_decode_step_ms"],
+            unsharded_peak_gib=ref["peak_gib"])
+    # -- the long decode -----------------------------------------------------
+    lf_rel = _rel(long_floor["logits"], long_whole["logits"])[0]
+    long_limit = TP_FLOOR_FACTOR * lf_rel
+    print(f"  long decode: a ring of {cfg.sliding_window} slots, "
+          f"{per[0]['long-bf16']['slots'][2]} a data rank, "
+          f"{TR_LONG_STEPS} steps past the wrap; unsharded step "
+          f"{long_whole['step_ms']:.2f} ms (peak {long_whole['peak_gib']:.2f}"
+          f" GiB); its floor (row products split in {TR_SHAPE[1]}, keys in "
+          f"{TR_SHAPE[0]} merged by log-sum-exp): relative RMS {lf_rel:.2e},"
+          f" the limit {long_limit:.2e}", flush=True)
+    long_rows = []
+    for r, p in enumerate(per):
+        lb, l32, lf = p["long-bf16"], p["long-fp32"], p["long-fp32-fault"]
+        rel_b = _rel(lb["logits"], long_whole["logits"])[0]
+        rel_32 = _rel(l32["logits"], long32["logits"])[1]
+        rel_f = _rel(lf["logits"], long32["logits"][:1])[1]
+        print(f"  rank {r} long decode: step {lb['step_ms']:.2f} ms, bf16 "
+              f"relative RMS {rel_b:.2e} (limit {long_limit:.2e}), fp32 at "
+              f"{TP_FP32_DEPTH} layers max {rel_32:.2e} (limit "
+              f"{TP_FP32_REL}), with the log-sum-exp fault on data rank 1 "
+              f"{rel_f:.2e}; kernel 5 by route {lb['routes']}; "
+              f"{len(lb['calls'])} collectives "
+              f"({sum(c.axis == 'data' for c in lb['calls'])} on data), "
+              f"peak {lb['peak_gib']:.2f} GiB", flush=True)
+        if rel_b > long_limit or rel_32 > TP_FP32_REL:
+            failed.append(f"long decode rank {r}: bf16 {rel_b} (limit "
+                          f"{long_limit}), fp32 {rel_32}")
+        data_rank = per[r]["coords"][1]
+        if data_rank == 1 and rel_f <= TP_FP32_REL:
+            failed.append(f"long decode rank {r}: the planted log-sum-exp "
+                          f"fault reads {rel_f}, not above {TP_FP32_REL}")
+        long_rows.append({"step_ms": lb["step_ms"], "rel_bf16": rel_b,
+                          "rel_fp32": rel_32, "rel_fault": rel_f})
+    runs[f"{key}:long_decode"] = {
+        "model": key, "world": world, "backend": backend,
+        "depth": cfg.num_layers, "launches": per[0]["long-bf16"]["launches"],
+        "ranks": long_rows, "unsharded_step_ms": long_whole["step_ms"],
+        "floor_rel": lf_rel, "limit": long_limit}
+    # -- hymba on data 2 x model 1 ------------------------------------------
+    hper = _tr_spawn(TR_SSM_SHAPE, hymba_cfg, device, media_len)
+    hparams = init_params(hymba_cfg, seed=0, device=device)
+    from repro_torch.models import build_model
+    from repro_torch.serving import EngineConfig, MPICEngine
+    href = {}
+    # the unsharded engine, and beside it the same with the ranks' plan on
+    # model 1 (every product through the plan's fp32-result matmul, as the
+    # ranks run them): the ranks' own arithmetic in one process
+    for name, plan in (("whole", None),
+                       ("plan", _split_plan(hymba_cfg, 1, device))):
+        hparams.sharding = plan
+        eng = MPICEngine(build_model(hymba_cfg), hparams, EngineConfig(
+            max_seq_len=2048, decode_slots=4), device=device)
+        href[name] = tq_ssm_traffic(eng, TP_MEDIA_LEN)
+        eng.close()
+    hparams.sharding = None
+    del eng, hparams
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    hkey = f"{hymba_cfg.name}:data{TR_SSM_SHAPE[0]}x{TR_SSM_SHAPE[1]}"
+    floor = _rel(href["plan"]["firsts"], href["whole"]["firsts"])[0]
+    for r, res in enumerate(hper):
+        rel = _rel(res["firsts"], href["whole"]["firsts"])[0]
+        rel_plan = _rel(res["firsts"], href["plan"]["firsts"])[1]
+        print(f"  {hkey} rank {r}: slots {res['slots']} ({res['cache_rows']}"
+              f" rows of the dense cache), TTFT {res['mean_ttft_ms']:.2f} ms,"
+              f" prefill alone {res['mean_prefill_ms']:.2f} ms, decode step "
+              f"{res['mean_decode_step_ms']:.2f} ms (unsharded "
+              f"{href['whole']['mean_decode_step_ms']:.2f}), peak "
+              f"{res['peak_gib']:.2f} GiB; first-token logits relative RMS "
+              f"{rel:.2e} from the unsharded engine's (its floor, the ranks' "
+              f"products in one process, {floor:.2e}; limit "
+              f"{TP_FLOOR_FACTOR} x the floor), max {rel_plan:.2e} from the "
+              f"floor run's (limit {TP_FP32_REL}); bf16 tokens equal to "
+              f"the floor run's {res['tokens'] == href['plan']['tokens']} "
+              f"(printed: a rank decodes 2 slots where it decodes 4, and "
+              f"bf16 rounds those products another way); launches "
+              f"{res['launches']}", flush=True)
+        if (not all(res["done"]) or res["tokens"] != hper[0]["tokens"]
+                or not np.isfinite(res["firsts"]).all()
+                or res["cache_rows"] != 2 or rel_plan > TP_FP32_REL
+                or rel > TP_FLOOR_FACTOR * floor
+                or (cuda and (res["launches"]["sel_attn"] == 0
+                              or res["launches"]["ssd_chunk"] == 0))):
+            failed.append(f"{hkey} rank {r}: tokens {res['tokens']}, rel "
+                          f"{rel_max}, launches {res['launches']}")
+    runs[hkey] = {"model": hkey, "world": 2,
+                  "launches": hper[0]["launches"],
+                  "launches_by_rank": [res["launches"] for res in hper],
+                  **{k: [res[k] for res in hper] for k in (
+                      "mean_ttft_ms", "mean_prefill_ms",
+                      "mean_decode_step_ms", "peak_gib")},
+                  "unsharded_mean_decode_step_ms":
+                      href["whole"]["mean_decode_step_ms"],
+                  "floor_rel": floor}
+    if failed:
+        raise RuntimeError("phase 5r: " + "; ".join(failed))
+    return runs
 
 
 def main() -> int:
@@ -5710,6 +6471,11 @@ def main() -> int:
     del tq_captures
     phase("serve_tensor_families", t0)
 
+    # -- 5r. the data axis: llava on data 2 x model 2, hymba on 2 x 1 -------
+    t0 = time.perf_counter()
+    runs.update(serve_data_axis())
+    phase("serve_data_axis", t0)
+
     # -- 6. kernels against their plain versions ----------------------------
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -5995,13 +6761,32 @@ def main() -> int:
             m &= kp > qp - window
         return m
 
-    def dense_case(q, k, v, q_pos, kv_pos, window, timed=True):
+    def dense_case(q, k, v, q_pos, kv_pos, window, timed=True, lse=False):
+        """One dense call held per element to its plain version (with
+        ``lse`` also each row's log-sum-exp, to 1e-4 of its size), then
+        timed beside the plain version, SDPA and its bound."""
         before = dict(sel_ops.SEL_ATTN.route_launches)
-        out = selective_attention(q, k, v, q_pos, kv_pos, window=window)
+        out = selective_attention(q, k, v, q_pos, kv_pos, window=window,
+                                  return_lse=lse)
         route, = [r for r, n in sel_ops.SEL_ATTN.route_launches.items()
                   if n != before.get(r, 0)]
+        extra = {}
+        if lse:
+            out, got = out
+            want = selective_attention_ref(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                q_pos, kv_pos, window=window,
+                return_lse=True)[1].transpose(1, 2)
+            live = ~torch.isinf(want)
+            err = float((got - want)[live].abs().max()) if live.any() \
+                else 0.0
+            limit = 1e-4 * (1 + float(want[live].abs().max()))
+            if not torch.equal(torch.isinf(got), ~live) or err > limit:
+                raise RuntimeError(f"sel_attn: log-sum-exp off by {err} "
+                                   f"(limit {limit})")
+            extra = {"lse_max_abs_err": err, "lse_limit": limit}
         res = {**compare(out, dense_ref(q, k, v, q_pos, kv_pos, window),
-                         v_absmax(v)), "out": out, "route": route}
+                         v_absmax(v)), "out": out, "route": route, **extra}
         if not timed:
             return res
         b, sq, hq_, dh_ = q.shape
@@ -6009,10 +6794,13 @@ def main() -> int:
         mask = dense_mask(q_pos, kv_pos, window)
         pairs = int(mask.sum())
         keys = int(mask.any(dim=1).sum())      # keys some query keeps
-        bound_ms, bound_by = kernel_bound(*dense_attention_kernel_cost(
+        nbytes, flops = dense_attention_kernel_cost(
             pairs, keys, q_numel=q.numel(),
             pos_numel=q_pos.numel() + kv_pos.numel(), hq=hq_, hkv=hkv_,
-            dh=dh_, item=q.element_size()), q.dtype)
+            dh=dh_, item=q.element_size())
+        # the log-sum-exp: one fp32 value a (query, head) row written
+        bound_ms, bound_by = kernel_bound(
+            nbytes + (b * sq * hq_ * 4 if lse else 0), flops, q.dtype)
         rep = hq_ // hkv_
         qt = q.transpose(1, 2).contiguous()
         kt = k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
@@ -6020,7 +6808,8 @@ def main() -> int:
         m4 = mask[:, None]
 
         def kernel():
-            return selective_attention(q, k, v, q_pos, kv_pos, window=window)
+            return selective_attention(q, k, v, q_pos, kv_pos, window=window,
+                                       return_lse=lse)
 
         def library():
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4)
@@ -6108,6 +6897,25 @@ def main() -> int:
             raise RuntimeError(f"sel_attn: synthetic {name} took the CUDA "
                                "cores")
         syn[name] = res
+    # the long decode's rank slice (phase 5r): one query of llava's heads
+    # on model 2 (16 on 16) over a data rank's 4,096 slots of the window's
+    # ring (positions TR_LONG_PAST past the wrap), through the split keys
+    # with each row's log-sum-exp
+    w = cfg.sliding_window
+    at = w + TR_LONG_PAST
+    ring = torch.arange(at - w, at, device=dev, dtype=torch.int32)
+    kv_pos = torch.empty(w, dtype=torch.int32, device=dev)
+    kv_pos[ring % w] = ring
+    n, h = w // TR_SHAPE[0], cfg.num_heads // TR_SHAPE[1]
+    res = dense_case(randn(1, 1, h, dh, dtype=torch.bfloat16),
+                     randn(1, n, h, dh, dtype=torch.bfloat16),
+                     randn(1, n, h, dh, dtype=torch.bfloat16),
+                     torch.full((1, 1), at, dtype=torch.int32, device=dev),
+                     kv_pos[None, :n].contiguous(), w, lse=True)
+    res.pop("out")
+    if not res["worst"] <= 1.0 or res["route"] != sel_ops.SPLIT_KEYS:
+        raise RuntimeError(f"sel_attn: the long decode's slice: {res}")
+    dense["long_decode_lse"] = res
     head = dense["dense_mpic"]
     results["sel_attn"] = {
         **{key: head[key] for key in ("ms", "plain_ms", "library_ms",

@@ -90,9 +90,10 @@ brought in.  The affinity router reads :meth:`KVLibrary.warmth` (and
 call keeps the single-engine accounting.
 
 **Tensor parallelism.**  Under a mesh (``KVLibrary(mesh=)``, and
-:meth:`KVLibrary.attach_mesh`, which a mesh engine calls) every rank holds
-the same whole entries, and rank 0 decides every outcome that reads a
-clock, a disk or a peer.  Rank 0's library is an ordinary one: it
+:meth:`KVLibrary.attach_mesh`, which a mesh engine calls) every rank of
+the world (both axes of a ``data x model`` mesh) holds the same whole
+entries, and world rank 0 ("rank 0" below) decides every outcome that
+reads a clock, a disk or a peer.  Rank 0's library is an ordinary one: it
 rehydrates, expires, spools, quarantines, pulls and writes the files.
 Every other rank's is a follower, which decides nothing on its own: its
 disk tier reads rank 0's spool directory and never writes, sweeps or
@@ -411,7 +412,7 @@ class KVLibrary:
     def _follower(self) -> bool:
         """A rank of a mesh other than rank 0: it follows rank 0."""
         m = self.mesh
-        return m is not None and m.model > 1 and m.rank != 0
+        return m is not None and m.world > 1 and m.rank != 0
 
     def _mark(self, *keys) -> None:
         """These keys' placement changed on this rank (for the next
@@ -1180,7 +1181,7 @@ class KVLibrary:
             with self._lock:
                 return {"hit": False, "present": key in self._entries}
         m = entry.meta
-        if (self.mesh.model > 1 and entry._pulled
+        if (self.mesh.world > 1 and entry._pulled
                 and not self.disk.contains(m.key)):
             try:
                 with entry._mlock:

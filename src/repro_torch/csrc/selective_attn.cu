@@ -1409,8 +1409,8 @@ template <typename T, int DPL>
 __global__ void __launch_bounds__(THREADS) sel_attn_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
-    T* __restrict__ out, int Sq, int Skv, int Hq, int Hkv, int window, int QT,
-    int GB, float scale) {
+    T* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int Hq,
+    int Hkv, int window, int QT, int GB, float scale) {
   constexpr int Dh = DPL * 32;
   constexpr int VN = Pack<T>::N;
   const int b = blockIdx.z;
@@ -1549,13 +1549,18 @@ __global__ void __launch_bounds__(THREADS) sel_attn_kernel(
         (((size_t)b * Sq + q0 + qi) * Hq + head0 + g) * Dh + lane * DPL;
 #pragma unroll
     for (int j = 0; j < DPL; ++j) out[base + j] = from_f<T>(acc[i][j] * inv);
+    // the row's log-sum-exp, natural log; -inf for a row with no kept key
+    if (lse != nullptr && lane == 0)
+      lse[((size_t)b * Sq + q0 + qi) * Hq + head0 + g] =
+          l[i] == 0.f ? __int_as_float(0xff800000) : m[i] + logf(l[i]);
   }
 }
 
 template <typename T, int DPL>
 int launch_dense(const void* q, const void* k, const void* v,
-                 const void* q_pos, const void* kv_pos, void* out, int B,
-                 int Sq, int Skv, int Hq, int Hkv, int window, void* stream) {
+                 const void* q_pos, const void* kv_pos, void* out, void* lse,
+                 int B, int Sq, int Skv, int Hq, int Hkv, int window,
+                 void* stream) {
   const int G = Hq / Hkv;
   int GB = G < DENSE_ROWS ? G : DENSE_ROWS;   // heads of the group per block
   while (G % GB) --GB;
@@ -1570,26 +1575,27 @@ int launch_dense(const void* q, const void* k, const void* v,
   kern<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(q_pos),
-      static_cast<const int*>(kv_pos), static_cast<T*>(out), Sq, Skv, Hq, Hkv,
-      window, QT, GB, 1.0f / sqrtf((float)(DPL * 32)));
+      static_cast<const int*>(kv_pos), static_cast<T*>(out),
+      static_cast<float*>(lse), Sq, Skv, Hq, Hkv, window, QT, GB,
+      1.0f / sqrtf((float)(DPL * 32)));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_dense(const void* q, const void* k, const void* v,
-                   const void* q_pos, const void* kv_pos, void* out, int B,
-                   int Sq, int Skv, int Hq, int Hkv, int Dh, int window,
-                   void* stream) {
+                   const void* q_pos, const void* kv_pos, void* out,
+                   void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int Dh,
+                   int window, void* stream) {
   switch (Dh) {
     case 32:
-      return launch_dense<T, 1>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, Hq,
-                                Hkv, window, stream);
+      return launch_dense<T, 1>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv,
+                                Hq, Hkv, window, stream);
     case 64:
-      return launch_dense<T, 2>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, Hq,
-                                Hkv, window, stream);
+      return launch_dense<T, 2>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv,
+                                Hq, Hkv, window, stream);
     case 128:
-      return launch_dense<T, 4>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, Hq,
-                                Hkv, window, stream);
+      return launch_dense<T, 4>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv,
+                                Hq, Hkv, window, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1666,8 +1672,9 @@ int launch_dense_mma(const void* q, const void* k, const void* v,
 template <int DH, int RT>
 int launch_dense_split(const void* q, const void* k, const void* v,
                        const void* q_pos, const void* kv_pos, void* ws,
-                       void* out, int B, int Sq, int Skv, int Hq, int Hkv,
-                       int window, int n_splits, cudaStream_t stream) {
+                       void* out, void* lse, int B, int Sq, int Skv, int Hq,
+                       int Hkv, int window, int n_splits,
+                       cudaStream_t stream) {
   const int n_tiles = (Sq * (Hq / Hkv) + RT - 1) / RT;
   const dim3 grid(n_splits, Hkv * n_tiles, B);
   sel_attn_split_kernel<DH, RT><<<grid, THREADS, 0, stream>>>(
@@ -1677,9 +1684,9 @@ int launch_dense_split(const void* q, const void* k, const void* v,
       static_cast<const int*>(kv_pos), static_cast<float*>(ws), Sq, Skv, Hq,
       Hkv, window, n_splits, LOG2E / sqrtf((float)DH));
   if (const cudaError_t err = cudaGetLastError()) return (int)err;
-  return launch_merge<__nv_bfloat16, DH>(static_cast<float*>(ws),
-                                         static_cast<__nv_bfloat16*>(out),
-                                         B * Sq, Hq, n_splits, stream);
+  return launch_merge<__nv_bfloat16, DH>(
+      static_cast<float*>(ws), static_cast<__nv_bfloat16*>(out), B * Sq, Hq,
+      n_splits, stream, static_cast<float*>(lse));
 }
 
 // Calls `fn.template run<DH, RT>()` for the split instantiation that
@@ -1698,13 +1705,14 @@ int split_dispatch(int dh, int rows, const F& fn) {
 
 struct SplitLaunch {
   const void *q, *k, *v, *q_pos, *kv_pos;
-  void *ws, *out;
+  void *ws, *out, *lse;
   int B, Sq, Skv, Hq, Hkv, window, n_splits;
   cudaStream_t stream;
   template <int DH, int RT>
   int run() const {
-    return launch_dense_split<DH, RT>(q, k, v, q_pos, kv_pos, ws, out, B, Sq,
-                                      Skv, Hq, Hkv, window, n_splits, stream);
+    return launch_dense_split<DH, RT>(q, k, v, q_pos, kv_pos, ws, out, lse, B,
+                                      Sq, Skv, Hq, Hkv, window, n_splits,
+                                      stream);
   }
 };
 
@@ -1744,18 +1752,21 @@ int dense_mma_info(int skv, int* info) {
 
 enum class Route { CORES, MMA, SPLIT };
 
-// One signature for every route (ws and n_splits serve the split route).
+// One signature for every route (ws and n_splits serve the split route;
+// lse, when not null, takes each row's log-sum-exp on the split and
+// CUDA-core routes, and the tensor-core route refuses it).
 template <Route ROUTE, typename T>
 int dense_entry(const void* q, const void* k, const void* v,
                 const void* q_pos, const void* kv_pos, void* ws, void* out,
-                int B, int Sq, int Skv, int Hq, int Hkv, int Dh, int window,
-                int n_splits, void* stream) {
+                void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int Dh,
+                int window, int n_splits, void* stream) {
   if (Hkv < 1 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if constexpr (ROUTE == Route::CORES) {
-    return dispatch_dense<T>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, Hq, Hkv,
-                             Dh, window, stream);
+    return dispatch_dense<T>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv, Hq,
+                             Hkv, Dh, window, stream);
   } else if constexpr (ROUTE == Route::MMA) {
+    if (lse != nullptr) return (int)cudaErrorInvalidValue;
     if (Dh == 64)
       return launch_dense_mma<64>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, Hq,
                                   Hkv, window, st);
@@ -1766,8 +1777,9 @@ int dense_entry(const void* q, const void* k, const void* v,
   } else {
     if (n_splits < 1) return (int)cudaErrorInvalidValue;
     return split_dispatch(Dh, Sq * (Hq / Hkv),
-                          SplitLaunch{q, k, v, q_pos, kv_pos, ws, out, B, Sq,
-                                      Skv, Hq, Hkv, window, n_splits, st});
+                          SplitLaunch{q, k, v, q_pos, kv_pos, ws, out, lse, B,
+                                      Sq, Skv, Hq, Hkv, window, n_splits,
+                                      st});
   }
 }
 
@@ -1776,10 +1788,11 @@ int dense_entry(const void* q, const void* k, const void* v,
 #define SEL_ATTN_DENSE_ENTRY(NAME, ROUTE, T)                                 \
   extern "C" int NAME(const void* q, const void* k, const void* v,           \
                       const void* q_pos, const void* kv_pos, void* ws,       \
-                      void* out, int B, int Sq, int Skv, int Hq, int Hkv,    \
-                      int Dh, int window, int n_splits, void* stream) {      \
-    return dense_entry<ROUTE, T>(q, k, v, q_pos, kv_pos, ws, out, B, Sq,     \
-                                 Skv, Hq, Hkv, Dh, window, n_splits,         \
+                      void* out, void* lse, int B, int Sq, int Skv, int Hq,  \
+                      int Hkv, int Dh, int window, int n_splits,             \
+                      void* stream) {                                        \
+    return dense_entry<ROUTE, T>(q, k, v, q_pos, kv_pos, ws, out, lse, B,    \
+                                 Sq, Skv, Hq, Hkv, Dh, window, n_splits,     \
                                  stream);                                    \
   }
 

@@ -172,11 +172,13 @@ __device__ __forceinline__ void store_partials(const Workspace& w,
 }
 
 // grid ceil(B * Hq / warps), block MERGE_THREADS: one warp per row, lanes
-// over the head dim.
+// over the head dim.  With `lse` (else nullptr) lane 0 also writes the
+// row's log-sum-exp of its kept scaled logits, natural log (the partials
+// hold log2 maxima), -inf for a row with no kept key.
 template <typename T, int DH>
 __global__ void __launch_bounds__(MERGE_THREADS) split_merge_kernel(
-    float* __restrict__ ws, T* __restrict__ out, int B, int Hq,
-    int n_splits) {
+    float* __restrict__ ws, T* __restrict__ out, float* __restrict__ lse,
+    int B, int Hq, int n_splits) {
   constexpr int PER = DH / 32;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (MERGE_THREADS / 32) + (threadIdx.x >> 5);
@@ -201,15 +203,19 @@ __global__ void __launch_bounds__(MERGE_THREADS) split_merge_kernel(
   for (int i = 0; i < PER; ++i)
     out[(size_t)row * DH + lane + 32 * i] =
         from_f<T>(lsum == 0.f ? 0.f : o_[i] / lsum);
+  if (lse != nullptr && lane == 0)
+    lse[row] = lsum == 0.f ? __int_as_float(0xff800000)
+                           : (mx + log2f(lsum)) * 0.6931471805599453f;
 }
 
-// The merge on `stream` for B * Hq rows of head dim DH.
+// The merge on `stream` for B * Hq rows of head dim DH (and their
+// log-sum-exp into `lse`, when given).
 template <typename T, int DH>
 int launch_merge(float* ws, T* out, int B, int Hq, int n_splits,
-                 cudaStream_t stream) {
+                 cudaStream_t stream, float* lse = nullptr) {
   const int warps = MERGE_THREADS / 32;
   split_merge_kernel<T, DH><<<(B * Hq + warps - 1) / warps, MERGE_THREADS, 0,
-                              stream>>>(ws, out, B, Hq, n_splits);
+                              stream>>>(ws, out, lse, B, Hq, n_splits);
   return (int)cudaGetLastError();
 }
 

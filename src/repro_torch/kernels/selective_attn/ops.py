@@ -65,7 +65,7 @@ _ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
 SEL_ATTN_PAGED = Kernel("sel_attn_paged", "selective_attn", _ARGS)
 SEL_ATTN_PAGED_Q8 = Kernel("sel_attn_paged_q8", "selective_attn", _ARGS)
 SEL_ATTN = Kernel("sel_attn", "selective_attn",
-                  [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8)
+                  [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8)
 KERNELS = (SEL_ATTN_PAGED, SEL_ATTN_PAGED_Q8, SEL_ATTN)
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -118,12 +118,21 @@ def _check(cond: bool, what: str, name="selective_attention_paged") -> None:
         raise ValueError(f"{name}: {what}")
 
 
-def selective_attention(q, k, v, q_pos, kv_pos, *, window: int = 0):
+def selective_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
+                        return_lse: bool = False):
+    """The dense selective attention (the module's notes); with
+    ``return_lse`` also each (query, head) row's log-sum-exp of its kept
+    scaled logits, (B, Sq, Hq) fp32, natural log, ``-inf`` for a row with
+    no kept key: a long decode merges its ranks' slices of the keys with
+    it.  On the card only the split-key and CUDA-core routes write it;
+    asking the tensor-core route for it raises."""
     # meta runs no kernel: the plain version computes its shapes
     if q.device.type in ("cpu", "meta"):
         out = selective_attention_ref(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), q_pos,
-            kv_pos, window=window)
+            kv_pos, window=window, return_lse=return_lse)
+        if return_lse:
+            return out[0].transpose(1, 2), out[1].transpose(1, 2)
         return out.transpose(1, 2)
     if q.device.type != "cuda":
         raise ValueError(f"selective_attention: unsupported device {q.device}")
@@ -153,9 +162,14 @@ def selective_attention(q, k, v, q_pos, kv_pos, *, window: int = 0):
     check(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
           "q, k and v must be 16-byte aligned")
     out = torch.empty_like(q)
-    if sq == 0:
-        return out
     route = dense_route(q.dtype, dh, sq, hq, hkv)
+    check(not return_lse or route != TENSOR_CORES,
+          f"the {route} route writes no log-sum-exp (the split-key and "
+          "CUDA-core routes do)")
+    lse = (torch.empty((b, sq, hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if sq == 0:
+        return (out, lse) if return_lse else out
     ws, n_splits = None, 0
     if route == SPLIT_KEYS:
         plan = plan_dense_splits(b, sq, hq, dh, skv)
@@ -164,9 +178,10 @@ def selective_attention(q, k, v, q_pos, kv_pos, *, window: int = 0):
                          device=q.device)
     SEL_ATTN.launch(_ROUTE_ENTRY.get(route, _SUFFIX[q.dtype]), ptr(q),
                     ptr(k), ptr(v), ptr(q_pos), ptr(kv_pos),
-                    None if ws is None else ptr(ws), ptr(out), b, sq, skv,
+                    None if ws is None else ptr(ws), ptr(out),
+                    None if lse is None else ptr(lse), b, sq, skv,
                     hq, hkv, dh, int(window), n_splits, route=route)
-    return out
+    return (out, lse) if return_lse else out
 
 
 def selective_attention_paged(q, k_pool, v_pool, page_table, q_pos, lengths,

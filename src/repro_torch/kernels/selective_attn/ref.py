@@ -57,13 +57,16 @@ def selective_attention_paged_ref(q, k_pool, v_pool, page_table, q_pos,
     return torch.einsum("bhqk,bhkd->bhqd", probs, v).to(q.dtype)
 
 
-def selective_attention_ref(q, k, v, q_pos, kv_pos, *, window: int = 0):
+def selective_attention_ref(q, k, v, q_pos, kv_pos, *, window: int = 0,
+                            return_lse: bool = False):
     """Dense selective attention.  q (B, Hq, Sq, Dh); k/v (B, Hkv, Skv, Dh);
     q_pos (B, Sq); kv_pos (B, Skv) int32 with ``INVALID_POS`` for an empty
     slot, in any order.  A key is kept iff its position is valid, at most
     the query's and, with a window, above ``q_pos - window``.  Logits,
     probabilities and the value product in fp32, rounded once to q's dtype;
-    a row with no kept key gives zeros.  Returns (B, Hq, Sq, Dh)."""
+    a row with no kept key gives zeros.  Returns (B, Hq, Sq, Dh); with
+    ``return_lse`` also each row's log-sum-exp of its kept scaled logits
+    (B, Hq, Sq) fp32, natural log, ``-inf`` for a row with no kept key."""
     b, hq, sq, dh = q.shape
     rep = hq // k.shape[1]
     k = torch.repeat_interleave(k, rep, dim=1)
@@ -79,5 +82,11 @@ def selective_attention_ref(q, k, v, q_pos, kv_pos, *, window: int = 0):
     logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     p = torch.softmax(logits, dim=-1)
     # fully masked rows (padding queries) -> zeros, not the uniform mean
-    p = torch.where(mask.any(dim=-1, keepdim=True), p, torch.zeros_like(p))
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    kept = mask.any(dim=-1, keepdim=True)
+    p = torch.where(kept, p, torch.zeros_like(p))
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(logits, dim=-1)
+    return out, torch.where(kept[..., 0], lse,
+                            torch.full_like(lse, -math.inf))

@@ -14,22 +14,29 @@ collectives' wire bytes, and the bytes the shard, its cache and its inputs
 hold.  Not a byte is allocated: a 76B step traces on a CPU-only machine.
 The run's device is ``meta`` by nature; nothing here touches a card.
 
+A decode whose batch no data axis divides (``long_500k``'s batch of 1)
+puts its KV sequence on ``data``: rank 0 holds ``kv_len / 32`` slots of
+the ring and merges its slice's attention with the other data ranks'
+through kernel 5's log-sum-exp (two fp32 all-reduces a layer on
+``data``, recorded beside the ``model`` axis's).
+
 Rows are ``ok`` or ``skipped`` with the reason, never ``error``:
 
 * where the reference's ``step_kind`` skips the shape;
-* ``train_4k`` under a mesh, and a decode whose batch does not divide the
-  data axis (``long_500k``: its KV sequence would go on ``data``), both
-  ROADMAP.md queue 1 item 6.
+* ``train_4k`` under a mesh (ROADMAP.md queue 1: training under a mesh
+  is the next slice).
 
 ``--serving-selftest`` traces ``serve_decode`` and ``serve_prefill`` on
 the paged pool and the dense decode step at ``model 8`` and asserts that
 rank 0's pool and dense cache hold ``Hkv / 8`` kv heads in and out of each
 step, and that the recorded collectives are the plan's: a vocab-parallel
 embedding's all-reduce, two fp32 all-reduces a layer (the row products)
-and the vocab gather.  An int8 pool is counted analytically and not
-traced: its quantizing scatter (``cache/pagequant.py``) calls
-``torch.unique``, whose size depends on the data (ROADMAP.md queue 1 item
-2(a)).
+and the vocab gather; then ``serve_decode`` on ``data 32 x model 8``,
+where rank 0 decodes its 1/32 of the slots and the step adds the data
+gathers of every slot's new K/V rows and logits.  An int8 pool is
+counted analytically and not traced: its quantizing scatter
+(``cache/pagequant.py``) calls ``torch.unique``, whose size depends on
+the data (ROADMAP.md queue 1 item 2(a)).
 
 Usage::
 
@@ -64,11 +71,9 @@ from repro_torch.roofline.analysis import (
     step_cost,
 )
 
-QUEUE_ITEM_6_TRAIN = ("training under a mesh (the data axis, FSDP) is not "
-                      "ported (ROADMAP.md queue 1 item 6)")
-QUEUE_ITEM_6_KV_SEQ = ("the batch does not divide the data axis: the KV "
-                       "sequence would go on 'data', which is not ported "
-                       "(ROADMAP.md queue 1 item 6)")
+QUEUE_ITEM_6_TRAIN = ("training under a mesh (FSDP on the data axis) is "
+                      "not ported: the next slice (ROADMAP.md queue 1 "
+                      "item 6)")
 INT8_ANALYTIC = ("counted analytically, not traced: the int8 pool's "
                  "quantizing scatter calls torch.unique, whose size depends "
                  "on the data (ROADMAP.md queue 1 item 2(a))")
@@ -131,7 +136,7 @@ def trace_step(cfg, kind: str, shape, mesh):
     ``(local inputs, output, collectives, shard, plan)``; raises where
     rank 0's dense cache is not its cut (its rows, its kv heads)."""
     sizes = dict(zip(mesh.axis_names, mesh.shape))
-    tp = RecordingMesh(model=sizes["model"], rank=0)
+    tp = RecordingMesh(model=sizes["model"], rank=0, data=sizes["data"])
     shard, sh = shard_on_meta(cfg, tp)
     args, specs = S.input_specs(cfg, shape, kind, mesh)
     # only the dense cache has "model" dimensions (the reference's): the
@@ -168,8 +173,6 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
                      "step_kind)")
     if kind == "train":
         return _skip(arch, shape_name, mesh.name, QUEUE_ITEM_6_TRAIN)
-    if S._dims(cfg, shape, mesh)[1] is not None:
-        return _skip(arch, shape_name, mesh.name, QUEUE_ITEM_6_KV_SEQ)
 
     t0 = time.perf_counter()
     local_args, out, calls, shard, sh = trace_step(cfg, kind, shape, mesh)
@@ -180,6 +183,8 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     rows_b = _rows_of(kind, local_args)
     kv_len = (S.decode_kv_len(cfg, shape) if kind == "decode"
               else shape.seq_len)
+    if kind == "decode" and cache is not None:
+        kv_len = cache["k"].shape[2]        # a data rank's slice of the ring
     cost = step_cost(local, _rows(kind, rows_b, shape.seq_len, kv_len),
                      widths=sh.widths)
     params_b = _nbytes(list(shard.parameters()))
@@ -187,9 +192,10 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     cache_b = _nbytes(cache if cache is not None else
                       sh.local_model().make_cache(rows_b, shape.seq_len,
                                                   device="meta"))
+    coll = collective_bytes(calls)
     rl = cost.roofline(arch, shape_name, mesh.name, kind, chips=mesh.size,
                        model_flops_global=model_flops(cfg, shape, kind),
-                       coll=collective_bytes(calls))
+                       coll=coll)
     rl.memory_per_device = {
         "params": params_b, "cache": cache_b,
         "inputs": _nbytes(local_args) - _nbytes(cache),
@@ -198,8 +204,11 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     row = rl.to_dict()
     row.update(status="ok", lower_s=round(trace_s, 2), compile_s=None,
                coll_ops=len(calls), device="meta",
+               coll_ops_by_axis={a: sum(c.axis == a for c in calls)
+                                 for a in sorted(coll.by_axis)},
+               coll_bytes_by_axis=coll.by_axis,
                counted="least work (roofline.step_cost) of rank 0's cut; "
-                       "collectives recorded on the model axis")
+                       "collectives recorded on the model and data axes")
     print(f"[{arch} x {shape_name} x {mesh.name}] step={kind} "
           f"trace={trace_s:.1f}s Tc={rl.t_compute * 1e3:.2f}ms "
           f"Tm={rl.t_memory * 1e3:.2f}ms "
@@ -318,8 +327,41 @@ def serving_selftest() -> int:
     print(f"[decode] model {model}: dense cache "
           f"{tuple(cache['k'].shape)} in and out, {len(mesh.calls)} "
           "collectives as planned", flush=True)
+    # the data axis: rank 0 of data 32 x model 8 decodes its slots, then
+    # gathers every slot's new K/V rows and logits over data
+    data = make_production_mesh().shape[0]
+    dmesh = RecordingMesh(model=model, rank=0, data=data)
+    local, out, calls = trace_serving(cfg, "serve_decode", dmesh,
+                                      slots=data * 2, kv_len=kv_len)
+    rows = local[2].shape[0]
+    want = plan_collectives(cfg, dmesh, rows, 1)
+    assert rows == 2 and calls == plan_data_collectives(
+        cfg, dmesh, want, data * 2), f"serve_decode on data: {calls}"
+    assert out.shape == (data * 2, cfg.vocab_size)
+    print(f"[serve_decode] data {data} x model {model}: rank 0 decodes "
+          f"{rows} of {data * 2} slots, {len(calls)} collectives, "
+          f"{sum(c.axis == 'data' for c in calls)} of them on data",
+          flush=True)
     print("serving selftest OK")
     return 0
+
+
+def plan_data_collectives(cfg, mesh, model_calls: list, slots: int) -> list:
+    """A data rank's paged decode step: the plan's ``model`` collectives
+    over its slots, then the ``data`` gathers of every slot's new K/V rows
+    (K and V of every layer, the rank's kv heads, in the compute dtype)
+    and of the logits (fp32)."""
+    from repro_torch.device import torch_dtype
+    from repro_torch.serving.sharding import ServingSharding
+    local = ServingSharding(mesh, cfg).local_cfg
+    item = torch.tensor([], dtype=torch_dtype(cfg.compute_dtype)
+                        ).element_size()
+    d = mesh.data
+    kv = (2 * cfg.num_layers * slots * local.num_kv_heads * cfg.head_dim
+          * item)
+    return model_calls + [
+        Collective("all-gather", kv, d, "data"),
+        Collective("all-gather", slots * cfg.vocab_size * 4, d, "data")]
 
 
 def main(argv=None):

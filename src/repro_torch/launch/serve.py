@@ -31,22 +31,26 @@ locally missing media KV from theirs before falling back to recompute.
 ``--policy`` takes a comma-separated trace cycled over the requests; an
 unknown policy name fails that request, and the server keeps serving.
 
-``--mesh 1xM`` (``auto``: every visible card) serves tensor-parallel over
-M ranks: the launcher spawns M processes joined by ``torch.distributed``
-(``launch/mesh.py``), each serving its shard of the weights (drawn
-directly, never whole; every family: attention by kv heads, the MLP, a
-MoE's routed and shared experts, the SSM's and hybrid's SSD heads,
-whisper's encoder and decoder, each where the axis divides it) on the
-same stream, and rank 0 prints the lines,
-with ``mesh=1xM`` in the header and the backend on a line of its own:
-NCCL when every rank has a card of its own, gloo on the CPU and when the
-ranks share fewer cards.  ``--device`` passes through to the ranks.  Under
-a mesh every flag above works as without one: ``--replicas`` gives each
-replica an engine over the mesh, ``--peers`` pulls on rank 0 (the others
-read what it pulled from the spool that the ranks share),
-``--serve-blocks`` serves rank 0's library, ``--freeze-idle-s`` and
-``--deadline-s`` go by rank 0's clock, and ``--fault-plan`` reaches every
-rank.  A mesh with a ``data`` axis is not ported (ROADMAP.md, queue 1).
+``--mesh DxM`` (``auto``: ``1 x`` every visible card) serves over a
+``data D x model M`` mesh of D·M ranks: the launcher spawns D·M processes
+joined by ``torch.distributed`` (``launch/mesh.py``); world rank
+``d·M + m`` serves model shard ``m`` of the weights (drawn directly,
+never whole; every family: attention by kv heads, the MLP, a MoE's
+routed and shared experts, the SSM's and hybrid's SSD heads, whisper's
+encoder and decoder, each where the axis divides it) and decodes the
+slots of data shard ``d`` (all of them where D does not divide
+``--slots``), on the same stream; prefills run on every data rank, the
+paged pool is whole over ``data`` (each decode step's new K/V rows
+gathered into every copy) and the dense cache holds the rank's slots.
+Rank 0 prints the lines, with ``mesh=DxM`` in the header and the backend
+on a line of its own: NCCL when every rank has a card of its own, gloo
+on the CPU and when the ranks share fewer cards.  ``--device`` passes
+through to the ranks.  Under a mesh every flag above works as without
+one: ``--replicas`` gives each replica an engine over the mesh,
+``--peers`` pulls on rank 0 (the others read what it pulled from the
+spool that the ranks share), ``--serve-blocks`` serves rank 0's library,
+``--freeze-idle-s`` and ``--deadline-s`` go by rank 0's clock, and
+``--fault-plan`` reaches every rank.
 ``--mesh`` with ``--fleet`` is an error: the JAX launcher's ``--fleet``
 returns before it reads ``--mesh``, so neither package has that path.
 """
@@ -150,8 +154,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--fault-seed", type=int, default=0,
                     help="seed for fault-plan probability draws")
     ap.add_argument("--mesh", default="none",
-                    help="'none' (default), 'auto' (every visible card) or "
-                         "'1xM': tensor-parallel serving over M ranks")
+                    help="'none' (default), 'auto' (every visible card on "
+                         "model) or 'DxM': serving over data D x model M "
+                         "ranks")
     return ap
 
 
@@ -249,7 +254,7 @@ def serve(args: argparse.Namespace, cfg: ModelConfig,
           + (f" router={args.router}" if args.replicas > 1 else ""))
     if mesh is not None:
         print(f"  tensor_parallel: backend={mesh.backend} "
-              f"ranks={mesh.model} device={eng.device}")
+              f"ranks={mesh.world} device={eng.device}")
     for r in done:
         rep = f" replica={r.replica}" if args.replicas > 1 else ""
         print(f"  {r.req_id}: ttft={r.ttft * 1e3:7.0f} ms  "
@@ -318,30 +323,31 @@ def _serve_mesh(argv, args, shape, params) -> None:
     """Spawn the mesh's ranks and wait for them (one rank: in this
     process); any rank's failure raises here."""
     data, model = shape
-    if data != 1:
-        make_serving_mesh(data, model, device=args.device)     # raises
     if model == 0:
         if resolve_device(args.device).type != "cuda":
             raise ValueError("--mesh auto means every visible card; on the "
-                             "CPU give --mesh 1xM")
-        model = torch.cuda.device_count()
-    if model == 1:
-        _rank_main(0, argv, 1, None, params)
+                             "CPU give --mesh DxM")
+        model = max(torch.cuda.device_count() // data, 1)
+    world = data * model
+    if world == 1:
+        _rank_main(0, argv, (1, 1), None, params)
         return
-    mp.start_processes(_rank_main, args=(argv, model, free_port(), params),
-                       nprocs=model, join=True, start_method="spawn")
+    mp.start_processes(_rank_main, args=(argv, (data, model), free_port(),
+                                         params),
+                       nprocs=world, join=True, start_method="spawn")
 
 
-def _rank_main(rank: int, argv, model: int, port: Optional[int],
+def _rank_main(rank: int, argv, shape: Tuple[int, int], port: Optional[int],
                params) -> None:
     """One rank of ``--mesh``: its process group, its engine over its
-    shard, the stream; only rank 0 prints."""
+    shard and slots, the stream; only rank 0 prints."""
     args = build_parser().parse_args(argv)
     policies = [p.strip() for p in args.policy.split(",") if p.strip()]
+    data, model = shape
     if resolve_device(args.device).type == "cpu":
         # the ranks share this host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // model))
-    mesh = make_serving_mesh(1, model, device=args.device, rank=rank,
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // (data * model)))
+    mesh = make_serving_mesh(data, model, device=args.device, rank=rank,
                              init_method=(None if port is None else
                                           f"tcp://127.0.0.1:{port}"))
     quiet = contextlib.redirect_stdout(io.StringIO()) if rank else \

@@ -62,7 +62,12 @@ dense cache), :func:`make_serving_step_fn` and :func:`serving_input_specs`
 ``ServingSharding``), :func:`step_kind`, :func:`decode_kv_len` and
 :func:`cache_pspecs`.  Inputs are ``meta`` tensors of the global shapes
 beside their specs, where the reference has ``ShapeDtypeStruct`` and
-``NamedSharding``; :func:`localize` cuts them to one rank's shapes.
+``NamedSharding``; :func:`localize` cuts them to one rank's shapes (the
+batch on ``data``, or a long decode's KV sequence on ``data`` where no
+data axis divides its batch: ``_dims``).  The decode step then runs a
+data rank's slice of the ring and merges it over ``data``
+(:func:`kv_slice_start`, the reference's ``shard_kv_seq``); the serving
+decode step runs a data rank's slots and gathers every slot's rows.
 :func:`cache_pspecs` is the reference's; :func:`rank_cache_pspecs` turns
 it into the port's dense-cache cut (kv heads on ``model`` where attention
 is cut, whole where it is not, where the reference cuts the sequence; the
@@ -236,7 +241,7 @@ def shard_leaf(t: torch.Tensor, spec: Spec, mesh, halves: int = 1
             return torch.cat([shard_leaf(b, spec, mesh) for b in
                               torch.chunk(t, halves, dim=d)], dim=d)
         n = t.shape[d] // mesh.model
-        t = t.narrow(d, mesh.rank * n, n)
+        t = t.narrow(d, mesh.model_rank * n, n)
     return t
 
 
@@ -440,16 +445,29 @@ def make_step_fn(cfg, kind: str, shape, model=None):
             wi = (position % window if shape.seq_len > 32768 and window
                   else position)            # a ring buffer's slot
             x = model.embed(params, token, positions=position)
-            logits, cache = tf.forward_with_cache(params, cfg, x, position,
-                                                  cache, wi)
+            logits, cache = tf.forward_with_cache(
+                params, cfg, x, position, cache, wi,
+                kv_slice=kv_slice_start(params, cfg, shape, cache))
             return logits[:, -1, :], cache
         return fn
 
     if kind == "train":
         raise NotImplementedError(
             "the train step under a mesh is not ported (ROADMAP.md, queue 1 "
-            "item 6)")
+            "item 6: training under a mesh is the next slice)")
     raise ValueError(kind)
+
+
+def kv_slice_start(params, cfg, shape, cache) -> Optional[int]:
+    """The first ring slot of a data rank's slice of a decode's cache where
+    the KV sequence is on ``data`` (``_dims``: a batch that no data axis
+    divides, ``long_500k``'s), else None: the reference's
+    ``shard_kv_seq``."""
+    sh = params.sharding
+    if sh is None or "k" not in cache or sh.mesh.data == 1 or \
+            _dims(cfg, shape, sh.mesh)[1] != "data":
+        return None
+    return sh.kv_slice(decode_kv_len(cfg, shape))[0]
 
 
 # the share of a prompt that an mpic prefill recomputes (the reference's
@@ -568,20 +586,23 @@ SERVE_PAGE_SIZE = 16
 def make_serving_step_fn(cfg, kind: str):
     """The engine's paged step as a function of the parameters and
     :func:`serving_input_specs`' inputs: ``serve_decode``
-    one token for every slot against the pool, ``serve_prefill`` the
-    paged selective prefill of one admission (``cfg``: the config of the
-    parameters' shapes, a rank's ``local_config``)."""
+    one token for every slot against the pool (a data rank: its slots'
+    rows, then every slot's write coordinates, the engine's
+    ``slot_writes``), ``serve_prefill`` the paged selective prefill of one
+    admission (``cfg``: the config of the parameters' shapes, a rank's
+    ``local_config``)."""
     from repro_torch.models import build_model
     from repro_torch.models import transformer as tf
     model = build_model(cfg)
 
     if kind == "serve_decode":
         def fn(params, pool_k, pool_v, token, position, page_table, lengths,
-               write_pages, write_offs):
+               write_pages, write_offs, *slot_writes):
             x = model.embed(params, token, positions=position)
             return tf.decode_paged(params, cfg, x, position, pool_k, pool_v,
                                    page_table, lengths, write_pages,
-                                   write_offs)
+                                   write_offs,
+                                   slot_writes=slot_writes or None)
         return fn
 
     if kind == "serve_prefill":
@@ -600,10 +621,14 @@ def serving_input_specs(cfg, mesh, *, slots: int, kv_len: int, kind: str,
                         s_sel: Optional[int] = None):
     """``(args, specs)`` of the serving step's inputs at global shapes:
     the pool cut as ``ServingSharding`` cuts it (kv heads on ``model``
-    where attention is cut), everything else replicated, as every rank
-    builds the same host operands.  ``serve_prefill`` is one admission
-    (batch 1) of ``s_sel`` selected tokens (``kv_len x MPIC_SEL_FRAC`` by
-    default), on pages of ``SERVE_PAGE_SIZE`` slots."""
+    where attention is cut; whole over ``data``), everything else
+    replicated, as every rank builds the same host operands, but for a
+    decode step's per-slot operands, which a data axis that divides the
+    slots cuts (the reference's ``batched``), with every slot's write
+    coordinates after them.  ``serve_prefill`` is one admission (batch
+    1, replicated over ``data``) of ``s_sel`` selected tokens
+    (``kv_len x MPIC_SEL_FRAC`` by default), on pages of
+    ``SERVE_PAGE_SIZE`` slots."""
     from repro_torch.device import torch_dtype
     from repro_torch.serving.sharding import ServingSharding
     sh = ServingSharding(mesh, cfg)
@@ -619,8 +644,13 @@ def serving_input_specs(cfg, mesh, *, slots: int, kv_len: int, kind: str,
     if kind == "serve_decode":
         tok, vec = _meta((slots, 1), i32), _meta((slots,), i32)
         table = _meta((slots, pages_per_slot), i32)
-        return ((pool, pool, tok, tok, table, vec, vec, vec),
-                (pool_sp, pool_sp, rep2, rep2, rep2, rep1, rep1, rep1))
+        if not sh.cuts_slots(slots):
+            return ((pool, pool, tok, tok, table, vec, vec, vec),
+                    (pool_sp, pool_sp, rep2, rep2, rep2, rep1, rep1, rep1))
+        cut1, cut2 = ("data",), ("data", None)
+        return ((pool, pool, tok, tok, table, vec, vec, vec, vec, vec),
+                (pool_sp, pool_sp, cut2, cut2, cut2, cut1, cut1, cut1, rep1,
+                 rep1))
 
     if kind == "serve_prefill":
         n = s_sel or max(int(kv_len * MPIC_SEL_FRAC), 1)

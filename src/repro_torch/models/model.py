@@ -245,14 +245,17 @@ class Model:
 
     def decode_step_paged(self, params, token, position, pool_k, pool_v,
                           page_table, lengths, write_pages, write_offs,
-                          k_scales=None, v_scales=None) -> torch.Tensor:
+                          k_scales=None, v_scales=None, *,
+                          slot_writes=None) -> torch.Tensor:
         """One decode step against the page pool, written in place.  See
-        :func:`repro_torch.models.transformer.decode_paged`.  Returns
-        logits (B, V)."""
+        :func:`repro_torch.models.transformer.decode_paged` (a data rank
+        passes its slots' rows and ``slot_writes``).  Returns logits
+        (B, V)."""
         x = self.embed(params, token, positions=position)
         return tf.decode_paged(
             params, self.cfg, x, position, pool_k, pool_v, page_table,
-            lengths, write_pages, write_offs, k_scales, v_scales)
+            lengths, write_pages, write_offs, k_scales, v_scales,
+            slot_writes=slot_writes)
 
     # -- whisper ---------------------------------------------------------------
     def encode_audio(self, params, audio_embeds) -> torch.Tensor:

@@ -465,11 +465,16 @@ def make_cache(cfg, batch: int, kv_len: int, *, device=None,
     return cache
 
 
-def _scatter_rows(buf, vals, idx):
-    """buf (B, S, ...) <- vals (B, Sq, ...) at idx (B, Sq), in place;
-    returns ``buf``."""
+def _scatter_rows(buf, vals, idx, keep=None):
+    """buf (B, S, ...) <- vals (B, Sq, ...) at idx (B, Sq), in place, only
+    where ``keep`` (B, Sq) holds when it is given; returns ``buf``."""
     rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
-    buf[rows, idx.long()] = vals.to(buf.dtype)
+    idx = idx.long()
+    vals = vals.to(buf.dtype)
+    if keep is not None:
+        keep = keep.reshape(*keep.shape, *(1,) * (vals.dim() - keep.dim()))
+        vals = torch.where(keep, vals, buf[rows, idx])
+    buf[rows, idx] = vals
     return buf
 
 
@@ -513,7 +518,8 @@ def _forward_ssm(params: Transformer, cfg, embeds, cache, ssm_mask,
 def forward_with_cache(params: Transformer, cfg, embeds, positions, cache,
                        write_idx, *, window: Optional[int] = None,
                        contiguous: bool = False, ssm_mask=None,
-                       ssm_tail_start=None, logits: bool = True):
+                       ssm_tail_start=None, logits: bool = True,
+                       kv_slice: Optional[int] = None):
     """Run tokens (any subset, any positions) against a dense cache.
 
     embeds (B, Sq, D) of the tokens to compute; positions (B, Sq) int32
@@ -537,6 +543,14 @@ def forward_with_cache(params: Transformer, cfg, embeds, positions, cache,
     the fresh K/V with :func:`~repro_torch.models.layers.banded_attend`,
     as the JAX package does.  An encoder-decoder's layers also attend to
     the cache's ``cross_k``/``cross_v`` (:func:`_cross_attention`).
+
+    ``kv_slice`` marks a data rank of a long decode whose KV sequence is
+    on ``data`` (the reference's ``shard_kv_seq``): the cache holds the
+    slots ``[kv_slice, kv_slice + kv_len)`` of the whole ring, a new
+    token's K/V and position land only on the rank that holds its slot
+    (``write_idx`` stays the whole ring's), and each layer attends over
+    the rank's slice with kernel 5's log-sum-exp and merges with the other
+    ranks' (``ServingSharding.merge_kv_slices``).
     """
     if cfg.arch_type == "ssm":
         return _forward_ssm(params, cfg, embeds, cache, ssm_mask,
@@ -546,15 +560,24 @@ def forward_with_cache(params: Transformer, cfg, embeds, positions, cache,
     kv_len = cache["k"].shape[2]
     banded = (contiguous and w and s_q == kv_len and s_q % w == 0
               and s_q >= 2 * w)
-    kv_pos = _scatter_rows(cache["pos"], positions, write_idx)
+    own = None
+    if kv_slice is not None:
+        local = write_idx.long() - kv_slice
+        own = (local >= 0) & (local < kv_len)
+        write_idx = local.clamp(0, kv_len - 1)
+    kv_pos = _scatter_rows(cache["pos"], positions, write_idx, own)
     x = embeds
     for l, lp in enumerate(params.layers):
         h = _norm(lp.attn_norm, x, cfg.rms_norm_eps)
         q, k_new, v_new = attention_qkv(lp.attn, cfg, h, positions)
-        k_full = _scatter_rows(cache["k"][l], k_new, write_idx)
-        v_full = _scatter_rows(cache["v"][l], v_new, write_idx)
+        k_full = _scatter_rows(cache["k"][l], k_new, write_idx, own)
+        v_full = _scatter_rows(cache["v"][l], v_new, write_idx, own)
         if banded:
             o = banded_attend(q.contiguous(), k_new, v_new, positions, w)
+        elif kv_slice is not None:
+            o = params.sharding.merge_kv_slices(*selective_attention(
+                q.contiguous(), k_full, v_full, positions, kv_pos, window=w,
+                return_lse=True))
         else:
             o = selective_attention(q.contiguous(), k_full, v_full,
                                     positions, kv_pos, window=w)
@@ -729,7 +752,7 @@ def _scales(scales, l):
 
 def decode_paged(params: Transformer, cfg, embeds, positions, pool_k, pool_v,
                  page_table, lengths, write_pages, write_offs, k_scales=None,
-                 v_scales=None) -> torch.Tensor:
+                 v_scales=None, *, slot_writes=None) -> torch.Tensor:
     """One decode step for ALL slots against the shared page pool.
 
     embeds (B, 1, D); positions (B, 1) (= current cache length); pool_k/v
@@ -739,14 +762,23 @@ def decode_paged(params: Transformer, cfg, embeds, positions, pool_k, pool_v,
     token; k_scales/v_scales (L, P, Hkv) fp32 mark an int8 pool and are
     updated in place.  Idle slots point their write at a scratch page and
     carry ``lengths == 0``.  Returns logits (B, V) fp32.
+
+    ``slot_writes`` (every slot's ``(write_pages, write_offs)``, (B,)
+    each) marks a data rank's step: the other inputs are the rows of its
+    slots; after the layers its new K/V rows are shared with the other
+    data ranks and every slot's are written (``ServingSharding.
+    share_rows``), and the whole batch's logits come back gathered.
     """
     pages, offs = write_pages.long(), write_offs.long()
     x = embeds
+    rows = [] if slot_writes is not None else None
     for l, lp in enumerate(params.layers):
         h = rmsnorm(lp.attn_norm, x, cfg.rms_norm_eps)
         q, k_new, v_new = attention_qkv(lp.attn, cfg, h, positions)
         _write_layer(l, pool_k, pool_v, k_scales, v_scales, pages, offs,
                      k_new[:, 0], v_new[:, 0])
+        if rows is not None:
+            rows.append((k_new[:, 0], v_new[:, 0]))
         o = paged_attention(q[:, 0].contiguous(), pool_k[l], pool_v[l],
                             page_table, lengths,
                             k_scale=_scales(k_scales, l),
@@ -754,7 +786,14 @@ def decode_paged(params: Transformer, cfg, embeds, positions, pool_k, pool_v,
                             window=cfg.sliding_window)
         x = _ffn(params, lp, cfg,
                  x + _attn_out(params, lp.attn.wo, o[:, None]))[0]
-    return _logits(params, cfg, x)[:, -1, :]
+    logits = _logits(params, cfg, x)[:, -1, :]
+    if rows is None:
+        return logits
+    sh = params.sharding
+    sh.share_rows(pool_k, pool_v, k_scales, v_scales,
+                  torch.stack([k for k, _ in rows]),
+                  torch.stack([v for _, v in rows]), *slot_writes)
+    return sh.gather_slots(logits, slot_writes[0].shape[0], 0)
 
 
 def selective_prefill_paged(params: Transformer, cfg, embeds, sel_positions,

@@ -6,7 +6,9 @@ Three terms per step, in seconds, on the card's data-sheet rates
 
   compute    = FLOPs per device / peak FLOP/s
   memory     = bytes per device / HBM bytes/s
-  collective = collective wire bytes per device / NVLink bytes/s
+  collective = collective wire bytes per device / their axis's link
+               (``model``: NVLink inside a node; ``data``: one NDR link
+               a card between nodes, ``H100_NDR_BW``)
 
 The reference reads the FLOPs and bytes from XLA's ``cost_analysis()`` and
 the collectives from the optimized HLO text.  The port has no HLO: the
@@ -47,6 +49,7 @@ import numpy as np
 
 from repro_torch.launch.mesh import (
     H100_HBM_BW,
+    H100_NDR_BW,
     H100_NVLINK_BW,
     H100_PEAK_FLOPS_BF16,
     H100_PEAK_FLOPS_FP32,
@@ -56,6 +59,9 @@ from repro_torch.launch.mesh import (
 PEAK_FLOPS_BF16 = H100_PEAK_FLOPS_BF16
 HBM_BW = H100_HBM_BW
 ICI_BW = H100_NVLINK_BW         # the model axis: NVLink inside a node
+# each axis's link, bytes/s a direction: the production mesh's model
+# groups are NVLink nodes, its data axis runs between them over NDR
+LINK_BW = {"model": H100_NVLINK_BW, "data": H100_NDR_BW}
 
 # what bounds a least time, by its largest term
 BOUND_BY = {"compute": "operations", "memory": "bytes",
@@ -97,18 +103,30 @@ class CollectiveStats:
     total_bytes: float
     by_kind: Dict[str, float]
     op_count: int
+    # the least seconds on the wire, each call at its axis's link (None:
+    # every byte over NVLink)
+    seconds: Optional[float] = None
+    by_axis: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+    @property
+    def least_s(self) -> float:
+        return (self.total_bytes / ICI_BW if self.seconds is None
+                else self.seconds)
 
 
 def collective_bytes(calls: Iterable[Collective]) -> CollectiveStats:
     """Wire bytes per device of the collectives a rank ran: each call's
-    kind, result bytes and group size through :func:`_wire_bytes`."""
-    total, by_kind, count = 0.0, {}, 0
+    kind, result bytes and group size through :func:`_wire_bytes`, and
+    their seconds at each call's axis's link (:data:`LINK_BW`)."""
+    total, by_kind, count, secs, by_axis = 0.0, {}, 0, 0.0, {}
     for c in calls:
         wb = _wire_bytes(c.kind, c.result_bytes, c.group)
         total += wb
         by_kind[c.kind] = by_kind.get(c.kind, 0.0) + wb
+        by_axis[c.axis] = by_axis.get(c.axis, 0.0) + wb
+        secs += wb / LINK_BW[c.axis]
         count += 1
-    return CollectiveStats(total, by_kind, count)
+    return CollectiveStats(total, by_kind, count, secs, by_axis)
 
 
 @dataclasses.dataclass
@@ -125,11 +143,15 @@ class Roofline:
     coll_by_kind: Dict[str, float] = dataclasses.field(default_factory=dict)
     memory_per_device: Optional[dict] = None
     dtype: str = "bfloat16"            # the products' (the port's field)
+    coll_seconds: Optional[float] = None   # each axis at its link
 
     @property
     def terms(self) -> Dict[str, float]:
-        return terms(self.flops_per_device, self.bytes_per_device,
-                     self.coll_bytes_per_device, self.dtype)
+        t = terms(self.flops_per_device, self.bytes_per_device,
+                  self.coll_bytes_per_device, self.dtype)
+        if self.coll_seconds is not None:
+            t["collective"] = self.coll_seconds
+        return t
 
     @property
     def t_compute(self) -> float:
@@ -290,7 +312,8 @@ class StepCost:
                         bytes_per_device=self.bytes,
                         coll_bytes_per_device=coll.total_bytes,
                         model_flops_global=model_flops_global, chips=chips,
-                        coll_by_kind=coll.by_kind, dtype=self.dtype)
+                        coll_by_kind=coll.by_kind, dtype=self.dtype,
+                        coll_seconds=coll.seconds)
 
 
 _ITEM = {"bfloat16": 2, "float16": 2, "float32": 4, "int8": 1}
@@ -393,7 +416,12 @@ def step_cost(cfg, rows: Sequence[Row], *, kind: str = "serve",
     else ``min(E, k x tokens)``, the most the pairs can reach (a rank's:
     its own, at most ``widths.experts``);
     ``cross_frames`` the encoder frames an encoder-decoder's cross
-    attention reads per sequence."""
+    attention reads per sequence.
+
+    A data rank's step is its rows: a decode step's rows of its own
+    slots, a prefill's whole rows (every data rank runs it), and a long
+    decode's row over the keys of its slice of the ring (``kv_len /
+    D``); its data collectives go to :func:`collective_bytes`."""
     w = cfg.sliding_window if window is None else window
     train = kind == "train"
     kvd = _ITEM[kv_dtype or cfg.compute_dtype]

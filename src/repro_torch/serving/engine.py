@@ -93,7 +93,7 @@ long.  A write into a page that a fork still shares copies the page first
 
 **Tensor parallelism.**  ``mesh=`` (a
 :class:`~repro_torch.launch.mesh.ServingMesh`, one process per rank of
-its ``model`` axis) serves the model cut over the ranks, as the JAX
+the mesh) serves the model cut over the ranks, as the JAX
 engine's ``mesh`` does: every rank builds this engine over the same
 whole model and the whole weights or its shard of them
 (``init_params(sharding=)``), uploads and submits the same work, and runs
@@ -118,6 +118,23 @@ The decisions that read the request stream (admission, cacheblend's
 picks, from summed deviations) agree by construction.  A rank that cannot
 follow rank 0 makes every rank raise together
 (:class:`~repro_torch.cache.library.RankDivergence`).
+
+**The data axis.**  On a ``data D x model M`` mesh (D·M processes, world
+rank ``d·M + m``) every rank still runs the same loop over the same
+submissions and holds model shard ``m``; it decodes the slots of data
+shard ``d`` (``ServingSharding.slot_range``: the d-th of D equal parts
+where D divides ``decode_slots``, else every slot).  Admission, the page
+tables and every host decision stay whole on every rank; a prefill
+(batch 1) runs on every data rank.  The paged pool is whole over
+``data``: a decode step runs the rank's slots, then its new K/V rows
+(an int8 pool's before they are quantized) are gathered over ``data`` in
+one collective for all layers and every rank writes every slot's rows
+(``decode_paged``'s ``slot_writes``), so every data rank's pool stays
+equal to the others'.  The dense cache holds the rank's slots' rows; a
+splice, an MRAG link and a release touch the row only on the rank that
+holds it.  The step's logits rows are gathered over ``data``, so every
+rank picks every slot's token, seeded generators included.  World rank
+0 decides what rank 0 decides above.
 """
 from __future__ import annotations
 
@@ -240,12 +257,15 @@ class MPICEngine:
         self.pool = None
         self._prefiller = None
         self._batch_cache = None
+        # the slots this rank decodes (every slot without a data axis)
+        self._own = (self.sharding.slot_range(self.cfg.decode_slots)
+                     if mesh is not None else (0, self.cfg.decode_slots))
         if self._paged:
             self._init_pool()
         else:
+            # a data rank holds its own slots' rows
             self._batch_cache = model.make_cache(
-                self.cfg.decode_slots, self.cfg.max_seq_len,
-                device=self.device)
+                self._own[1], self.cfg.max_seq_len, device=self.device)
         self.sessions = SessionStore(self)
         if self._paged:
             # the pool's copy-on-write gauges in the library's stats, held
@@ -268,8 +288,8 @@ class MPICEngine:
         return self.params.sharding
 
     def _sync_libraries(self) -> None:
-        """Rank 0's changes to both libraries' placement on every rank, in
-        one broadcast (:meth:`KVLibrary.sync`)."""
+        """World rank 0's changes to both libraries' placement on every
+        rank, in one broadcast (:meth:`KVLibrary.sync`)."""
         if self.mesh is None:
             return
         libs = (self.static_lib, self.dynamic_lib)
@@ -657,23 +677,36 @@ class MPICEngine:
         self.pool.write_tokens(self._page_tables[slot], 0,
                                rc["k"][:, 0, :b], rc["v"][:, 0, :b])
 
+    def _row(self, slot: int) -> Optional[int]:
+        """Slot ``slot``'s row of this rank's dense batch cache, or None
+        when another data rank holds it."""
+        lo, n = self._own
+        return slot - lo if lo <= slot < lo + n else None
+
     def _dense_splice(self, slot: int, rc: dict) -> None:
         """Copy every key of a per-request cache (batch 1) into row
         ``slot`` of the dense batch cache: K/V and ``pos``, an SSM's
         state, or both for a hybrid, so no row keeps a previous tenant's
-        state."""
+        state.  On a data axis only the rank that holds the slot writes
+        (every rank ran the replicated prefill)."""
+        row = self._row(slot)
+        if row is None:
+            return
         bc = self._batch_cache
         for key, buf in bc.items():
             if key == "pos":
-                buf[slot] = rc["pos"][0]
+                buf[row] = rc["pos"][0]
             else:
-                buf[:, slot] = rc[key][:, 0]
+                buf[:, row] = rc[key][:, 0]
 
     def _dense_link(self, slot: int, k_seg, v_seg, off: int) -> None:
         """Link one MRAG segment (L, n, Hkv, Dh), stored at position 0, at
         positions ``off ..`` of row ``slot`` of the dense batch cache.  A
         hybrid's SSM state stays as the prompt left it (the JAX engine's
         link writes K/V and positions only)."""
+        slot = self._row(slot)
+        if slot is None:
+            return
         bc = self._batch_cache
         n = k_seg.shape[1]
         theta = self.model.cfg.rope_theta
@@ -791,9 +824,11 @@ class MPICEngine:
                 self._finish(r)
 
     def _decode_dense_step(self, live: List[Request]) -> np.ndarray:
-        """One decode step over the dense batch cache for every slot.  Idle
-        slots decode token 0 at position ``max_seq_len - 1`` into that
-        slot, so they see one key; their logits are dropped."""
+        """One decode step over the dense batch cache for every slot (a
+        data rank: its own slots, their logits then gathered over
+        ``data``).  Idle slots decode token 0 at position ``max_seq_len -
+        1`` into that slot, so they see one key; their logits are
+        dropped."""
         t0 = time.perf_counter()
         B = self.cfg.decode_slots
         tokens = np.zeros((B, 1), np.int32)
@@ -801,10 +836,14 @@ class MPICEngine:
         for r in live:
             tokens[r.slot, 0] = r.output_tokens[-1]
             positions[r.slot, 0] = r.cur_len
-        pos = torch.as_tensor(positions, device=self.device)
+        lo, n = self._own
+        pos = torch.as_tensor(positions[lo:lo + n], device=self.device)
         logits, self._batch_cache = self.model.decode_step(
-            self.params, torch.as_tensor(tokens, device=self.device), pos,
+            self.params, torch.as_tensor(tokens[lo:lo + n],
+                                         device=self.device), pos,
             self._batch_cache, pos)
+        if self.sharding is not None:
+            logits = self.sharding.gather_slots(logits.float(), B)
         logits = logits.float().cpu().numpy()
         self.decode_step_s.append(time.perf_counter() - t0)
         return logits
@@ -857,14 +896,23 @@ class MPICEngine:
         mp_need = max(self.pool.pages_for(r.cur_len + 1) for r in live)
         mp = min(bucket(mp_need, 1), self._pages_per_slot)
         dev, pool = self.device, self.pool
+        # a data rank runs its own slots; every slot's write goes to every
+        # rank's copy of the pool (decode_paged's slot_writes)
+        lo, n = self._own
+        own = slice(lo, lo + n)
+        slot_writes = None
+        if n != B:
+            slot_writes = (torch.as_tensor(wp, device=dev),
+                           torch.as_tensor(wo, device=dev))
         logits = self.model.decode_step_paged(
-            self.params, torch.as_tensor(tokens, device=dev),
-            torch.as_tensor(positions, device=dev), pool.k, pool.v,
-            torch.as_tensor(np.ascontiguousarray(self._page_tables[:, :mp]),
-                            device=dev),
-            torch.as_tensor(lengths, device=dev),
-            torch.as_tensor(wp, device=dev), torch.as_tensor(wo, device=dev),
-            pool.k_scale, pool.v_scale)
+            self.params, torch.as_tensor(tokens[own], device=dev),
+            torch.as_tensor(positions[own], device=dev), pool.k, pool.v,
+            torch.as_tensor(np.ascontiguousarray(
+                self._page_tables[own, :mp]), device=dev),
+            torch.as_tensor(lengths[own], device=dev),
+            torch.as_tensor(wp[own], device=dev),
+            torch.as_tensor(wo[own], device=dev),
+            pool.k_scale, pool.v_scale, slot_writes=slot_writes)
         logits = logits.float().cpu().numpy()
         self.decode_step_s.append(time.perf_counter() - t0)
         return live, logits
@@ -875,11 +923,12 @@ class MPICEngine:
         if self._paged:
             self.pool.free(r.req_id)
             self._page_tables[r.slot] = self._scratch_page
-        elif r.slot >= 0 and "pos" in self._batch_cache:
+        elif (r.slot >= 0 and "pos" in self._batch_cache
+              and self._row(r.slot) is not None):
             # the row's K/V stay; marking every slot invalid empties it (an
             # SSM's or a hybrid's state stays too: the next splice, which
             # copies every key, overwrites it)
-            self._batch_cache["pos"][r.slot] = INVALID_POS
+            self._batch_cache["pos"][self._row(r.slot)] = INVALID_POS
         r.slot = -1
 
     def _finish(self, r: Request) -> None:

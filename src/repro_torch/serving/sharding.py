@@ -19,6 +19,21 @@ mesh and the model's config through the parameter specs
 * small host operands (tokens, page tables, lengths): replicated, every
   rank builds the same ones.
 
+On a ``data`` axis (the reference's ``batched`` and ``dense_cache``): a
+rank decodes the slots of its data shard (:meth:`slot_range`: the
+``d``-th of ``D`` equal parts where ``D`` divides the slot count, else
+every slot, the replicated case); the paged pool is replicated over
+``data`` (cut on ``model`` only), so a decode step's new K/V rows (an
+int8 pool's before they are quantized) are gathered over ``data`` in one
+collective for all layers and every rank writes all of them through the
+same write (:meth:`share_rows`), and its logits rows are gathered so that
+every rank picks every slot's token (:meth:`gather_slots`); a prefill
+(batch 1) is replicated over ``data``; the dense cache is cut on its
+batch dimension (the rank's slots' rows).  A long decode whose batch no
+data axis divides holds ``kv_len / D`` slots of its ring a rank; its
+ranks merge their slices' attention through kernel 5's log-sum-exp
+(:meth:`merge_kv_slices`).
+
 It also carries the collectives the model passes run (the reference's
 GSPMD inserts them): the vocab-parallel embedding (a masked local lookup
 summed over the ranks), the row-parallel products (fp32 partial sums,
@@ -94,7 +109,74 @@ class ServingSharding:
         self.widths = S.local_widths(cfg, self.cuts, mesh.model)
         # the rank's routed experts [lo, lo + n)
         n = self.widths.experts
-        self.expert_range = (mesh.rank * n if self.experts else 0, n)
+        self.expert_range = (mesh.model_rank * n if self.experts else 0, n)
+
+    # -- the data axis --------------------------------------------------------
+    def slot_range(self, slots: int):
+        """``(lo, n)``: the slots ``[lo, lo + n)`` this rank decodes of a
+        batch of ``slots``: its data shard's where ``data`` divides them,
+        else all of them (every data rank computes every slot)."""
+        d = self.mesh.data
+        if d == 1 or slots % d:
+            return 0, slots
+        n = slots // d
+        return self.mesh.data_rank * n, n
+
+    def cuts_slots(self, slots: int) -> bool:
+        return self.slot_range(slots)[1] != slots
+
+    def gather_slots(self, x: torch.Tensor, slots: int, dim: int = 0):
+        """Every data shard's rows of ``x`` (this rank's slots on ``dim``)
+        in slot order, where the slots are cut; else ``x``."""
+        if not self.cuts_slots(slots):
+            return x
+        return self.mesh.data_all_gather(x, dim)
+
+    def share_rows(self, pool_k, pool_v, k_scales, v_scales, k_rows, v_rows,
+                   write_pages, write_offs) -> None:
+        """Every slot's new K/V of a decode step into the replicated pool:
+        this rank's rows ``k_rows``/``v_rows`` (L, n, Hkv, Dh), in the
+        compute dtype, gathered over ``data`` in one collective for all
+        layers, then all ``B`` rows written at ``write_pages``/
+        ``write_offs`` (B,) through the pool's write (quantizing on an
+        int8 pool, whose running scales a row written again leaves as
+        they are), so every data rank's pool stays equal to the others'."""
+        slots = write_pages.shape[0]
+        rows = self.gather_slots(torch.stack([k_rows, v_rows]), slots, 2)
+        pages, offs = write_pages.long(), write_offs.long()
+        if k_scales is not None:
+            from repro_torch.cache.pagequant import quant_scatter
+            quant_scatter(pool_k, pool_v, k_scales, v_scales, pages, offs,
+                          rows[0], rows[1])
+        else:
+            pool_k[:, pages, offs] = rows[0].to(pool_k.dtype)
+            pool_v[:, pages, offs] = rows[1].to(pool_v.dtype)
+
+    def kv_slice(self, kv_len: int):
+        """``(lo, n)``: the ring slots ``[lo, lo + n)`` of a long decode's
+        cache of ``kv_len`` slots that this rank holds (the reference's
+        KV sequence on ``data``)."""
+        d = self.mesh.data
+        if kv_len % d:
+            raise ValueError(f"a cache of {kv_len} slots does not divide "
+                             f"over data ({d})")
+        n = kv_len // d
+        return self.mesh.data_rank * n, n
+
+    def merge_kv_slices(self, out: torch.Tensor, lse: torch.Tensor):
+        """The attention over every rank's slice of the keys from each
+        rank's ``out`` (B, Sq, Hq, Dh) and its rows' log-sum-exp ``lse``
+        (B, Sq, Hq) fp32 over its slice: the maximum over ``data``, then
+        the rescaled outputs and sums in one fp32 all-reduce; rounded once
+        to ``out``'s dtype.  A row no rank keeps a key for gives zeros."""
+        m = self.mesh.data_all_reduce(lse.clone(), "max")
+        m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+        w = torch.exp(lse - m)[..., None]
+        part = self.mesh.data_all_reduce(
+            torch.cat([out.float() * w, w], dim=-1))
+        num, den = part[..., :-1], part[..., -1:]
+        return torch.where(den > 0, num / den.clamp_min(1e-30),
+                           torch.zeros_like(num)).to(out.dtype)
 
     # -- parameters ---------------------------------------------------------
     def shard_leaf(self, name: str, t: torch.Tensor) -> torch.Tensor:
@@ -119,7 +201,7 @@ class ServingSharding:
     @property
     def _heads(self):
         n = self.local_cfg.num_kv_heads
-        return self.mesh.rank * n, n
+        return self.mesh.model_rank * n, n
 
     def local_heads(self, t: torch.Tensor, dim: int = 2) -> torch.Tensor:
         """The rank's kv heads of a whole K/V tensor (a view)."""
@@ -145,7 +227,7 @@ class ServingSharding:
         if not self.vocab:
             return table[tokens.long()]
         n = table.shape[0]
-        local = tokens.long() - self.mesh.rank * n
+        local = tokens.long() - self.mesh.model_rank * n
         mine = (local >= 0) & (local < n)
         x = table[local.clamp(0, n - 1)] * mine[..., None].to(table.dtype)
         return self.mesh.all_reduce(x)

@@ -27,6 +27,7 @@ call case, the traffic of their own parity modules (``target`` names a
 that each module holds its ranks to the JAX results it computes anyway;
 :class:`counting_drops` counts a MoE's dropped pairs pass by pass.
 """
+import contextlib
 import queue as queue_mod
 import time
 import traceback
@@ -49,6 +50,11 @@ SETUPS = {
     "int8": (dict(max_seq_len=256, decode_slots=2, pool_dtype="int8"),
              ("mpic", "cacheblend", "full_recompute")),
 }
+# the data axis's replicated case: 3 slots, which 2 data ranks do not
+# divide (greedy tokens do not depend on how the slots batch: held to the
+# JAX engine's "paged" run)
+SLOTS3 = (dict(max_seq_len=256, decode_slots=3),
+          ("mpic", "cacheblend", "full_recompute"))
 
 
 def rel(a, b) -> float:
@@ -170,19 +176,54 @@ class counting_drops:
         moe.route = self._route
 
 
-def case_serve(model, params, mesh, setup: str):
-    """One setup of :data:`SETUPS` through ``MPICEngine(mesh=)``; also
-    whether every page came back and which shapes the pool and the dense
-    cache have."""
+def pool_pages(eng) -> dict:
+    """numpy copies of the engine's pool (and an int8 pool's scales),
+    every page but the scratch page (idle slots' padding writes land
+    there); numpy, so that they outlive the rank that sends them."""
+    pool = eng.pool
+    keep = [p for p in range(pool.cfg.num_pages) if p != eng._scratch_page]
+    names = ("k", "v") + (("k_scale", "v_scale") if pool.quantized else ())
+    return {n: getattr(pool, n)[:, keep].numpy().copy() for n in names}
+
+
+def _group_size(group, n: int) -> int:
+    """The ranks of an axis's process group (the default group's where
+    the axis spans the world or is 1)."""
+    import torch.distributed as dist
+    if n == 1:
+        return 1
+    return dist.get_world_size(group)
+
+
+def case_serve(model, params, mesh, setup: str, pools: bool = False):
+    """One setup of :data:`SETUPS` (or ``"slots3"``: :data:`SLOTS3`)
+    through ``MPICEngine(mesh=)``; also whether every page came back,
+    which shapes the pool and the dense cache have, the slots the rank
+    decodes and, with ``pools``, the pool's pages after every request
+    (:func:`pool_pages`)."""
     from repro_torch.serving import EngineConfig, MPICEngine
-    over, policies = SETUPS[setup]
+    over, policies = SLOTS3 if setup == "slots3" else SETUPS[setup]
     eng = MPICEngine(model, params, EngineConfig(**over), mesh=mesh,
                      device="cpu")
+    snaps = []
+    if pools and eng.pool is not None:
+        finish = eng._finish
+
+        def snapshot_after(r):
+            finish(r)
+            snaps.append(pool_pages(eng))
+
+        eng._finish = snapshot_after
     try:
         out = run_traffic(eng, _torch_pkg(), model.cfg.d_model,
                           model.cfg.media_token_len, policies)
         facts = {"attn_sharded": eng.sharding.attn,
-                 "local_kv_heads": eng.model.cfg.num_kv_heads}
+                 "local_kv_heads": eng.model.cfg.num_kv_heads,
+                 "slots": eng._own, "coords": (mesh.rank, mesh.data_rank,
+                                               mesh.model_rank),
+                 "groups": tuple(_group_size(g, n) for g, n in (
+                     (mesh.model_group, mesh.model),
+                     (mesh.data_group, mesh.data)))}
         if eng.pool is not None:
             facts["pool_shape"] = tuple(eng.pool.k.shape)
             facts["pages_back"] = (eng.pool.free_pages
@@ -191,7 +232,7 @@ def case_serve(model, params, mesh, setup: str):
                 facts["scale_shape"] = tuple(eng.pool.k_scale.shape)
         else:
             facts["cache_shape"] = tuple(eng._batch_cache["k"].shape)
-        return {"requests": out, "facts": facts}
+        return {"requests": out, "facts": facts, "pools": snaps}
     finally:
         eng.close()
 
@@ -223,7 +264,7 @@ def case_kernel(model, params, mesh):
     qpos = torch.tensor([[3, 10, 20, 30, 36]], dtype=torch.int32)
     k, v = t(1, 40, hkv, dh), t(1, 40, hkv, dh)
     kvpos = torch.arange(40, dtype=torch.int32)[None]
-    lo, n = sh.mesh.rank * (hkv // mesh.model), hkv // mesh.model
+    lo, n = mesh.model_rank * (hkv // mesh.model), hkv // mesh.model
 
     def heads(x, dim):
         return x.narrow(dim, lo * g, n * g) if x.shape[dim] == hq \
@@ -491,6 +532,78 @@ def audio_passes(model, params, mesh, tokens, audio, steps: int):
             "prefill_calls": prefill_calls, "decode_calls": decode_calls}
 
 
+# a decode past 32k tokens: make_step_fn's ring buffer of the window
+LONG_SEQ = 40000
+LONG_AT = 100           # the first decode position: the ring has wrapped
+
+
+def ring_cache(cfg, seed: int, at: int = LONG_AT) -> dict:
+    """A seeded dense cache of batch 1 holding a wrapped ring of the
+    window (positions ``at - W .. at - 1``, each at slot ``p % W``): K/V
+    and, for a hybrid, SSM state from ``default_rng(seed)``, as numpy
+    arrays in the whole model's layout."""
+    rng = np.random.default_rng(seed)
+    w, L = cfg.sliding_window, cfg.num_layers
+    kv = (L, 1, w, cfg.num_kv_heads, cfg.head_dim)
+    pos = np.arange(at - w, at)
+    ring = np.empty((1, w), np.int32)
+    ring[0, pos % w] = pos
+    out = {"k": (0.5 * rng.standard_normal(kv)).astype(np.float32),
+           "v": (0.5 * rng.standard_normal(kv)).astype(np.float32),
+           "pos": ring}
+    if cfg.hybrid:
+        out["ssm_h"] = (0.1 * rng.standard_normal(
+            (L, 1, cfg.ssm_num_heads, cfg.ssm_state, cfg.ssm_head_dim))
+                        ).astype(np.float32)
+        out["ssm_conv"] = (0.1 * rng.standard_normal(
+            (L, 1, cfg.ssm_conv_width - 1, cfg.ssm_inner))).astype(np.float32)
+    return out
+
+
+def long_decode(model, params, mesh, steps: int = 8, seed: int = 5,
+                token: int = 7):
+    """The dry run's ``long_500k`` step (``specs.make_step_fn("decode")``
+    on a ring of the window) for ``steps`` greedy steps from
+    :func:`ring_cache`: on a mesh whose ``data`` axis the batch of 1 does
+    not divide, each rank holds its slice of the ring (its kv heads where
+    attention is cut) and merges its attention through kernel 5's
+    log-sum-exp.  Returns each step's logits (V,) and the collectives of
+    the first step."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import record_collectives
+    from repro_torch.serving.sharding import ServingSharding
+    cfg = model.cfg
+    sh = ServingSharding(mesh, cfg) if mesh is not None else None
+    local = sh.local_model() if sh else model
+    shard = sh.shard(params) if sh else params
+    cache = {k: torch.from_numpy(v) for k, v in
+             ring_cache(cfg, seed).items()}
+    shape = InputShape("long_decode", LONG_SEQ, 1, "decode")
+    if sh is not None:
+        if sh.attn:
+            cache["k"], cache["v"] = (sh.local_heads(cache[k], 3).clone()
+                                      for k in ("k", "v"))
+        lo, n = sh.kv_slice(cfg.sliding_window)
+        for k in ("k", "v"):
+            cache[k] = cache[k][:, :, lo:lo + n].clone()
+        cache["pos"] = cache["pos"][:, lo:lo + n].clone()
+    fn = S.make_step_fn(local.cfg, "decode", shape, local)
+    out, calls = [], []
+    tok = torch.tensor([[token]], dtype=torch.int32)
+    with torch.inference_mode():
+        for i in range(steps):
+            p = torch.tensor([[LONG_AT + i]], dtype=torch.int32)
+            with (record_collectives(mesh) if mesh is not None and i == 0
+                  else contextlib.nullcontext(calls)) as got:
+                logits, cache = fn(shard, cache, tok, p)
+            calls = calls or got
+            out.append(logits[0].numpy().copy())
+            tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    return {"logits": out, "calls": calls,
+            "slots": tuple(cache["k"].shape)}
+
+
 def case_call(model, params, mesh, target: str, **kw):
     """``target`` (``"module:function"``, a test helper importable in the
     rank) called with the model, its whole weights, the mesh and ``kw``:
@@ -502,24 +615,30 @@ def case_call(model, params, mesh, target: str, **kw):
 
 
 CASES = {"serve": case_serve, "kernel": case_kernel, "decode": case_decode,
+         "long_decode": long_decode,
          "disk": case_disk, "peer": case_peer, "sessions": case_sessions,
          "replicas": case_replicas, "aging": case_aging, "call": case_call}
 
 
-def _rank_main(rank, world, port, cfg, tree, jobs, out_q):
+def _rank_main(rank, world, phases, cfg, tree, out_q):
     from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.models import build_model
     from repro_torch.weights import params_from_numpy
     torch.set_num_threads(1)
     mesh = None
     try:
-        mesh = make_serving_mesh(model=world, device="cpu", rank=rank,
-                                 init_method=f"tcp://127.0.0.1:{port}",
-                                 timeout_s=INIT_TIMEOUT_S)
         model = build_model(cfg)
         params = params_from_numpy(tree, cfg, "cpu")
-        res = {name: CASES[kind](model, params, mesh, **kw)
-               for name, kind, kw in jobs}
+        res = {}
+        for data, port, jobs in phases:
+            mesh = make_serving_mesh(data, world // data, device="cpu",
+                                     rank=rank,
+                                     init_method=f"tcp://127.0.0.1:{port}",
+                                     timeout_s=INIT_TIMEOUT_S)
+            res.update({name: CASES[kind](model, params, mesh, **kw)
+                        for name, kind, kw in jobs})
+            mesh.close()
+            mesh = None
         out_q.put((rank, res, None))
     except BaseException:
         out_q.put((rank, None, traceback.format_exc()))
@@ -531,15 +650,18 @@ def _rank_main(rank, world, port, cfg, tree, jobs, out_q):
 class Ranks:
     """``world`` ranks started now, each running ``jobs`` (``(name,
     case, kwargs)``) on ``cfg`` (the port's config) with the weights of
-    ``tree``."""
+    ``tree``, on a ``1 x world`` mesh; then, in the same processes, each
+    ``(data, jobs)`` of ``then`` on a fresh ``data x world / data`` mesh
+    (one process group at a time), the results under one dict."""
 
-    def __init__(self, world: int, cfg, tree, jobs):
+    def __init__(self, world: int, cfg, tree, jobs, then=()):
         from repro_torch.launch.mesh import free_port
         ctx = mp.get_context("spawn")
         self._q = ctx.Queue()
-        port = free_port()
+        phases = [(data, free_port(), js) for data, js in
+                  [(1, jobs), *then] if js]
         self._procs = [ctx.Process(target=_rank_main, daemon=True, args=(
-            r, world, port, cfg, tree, jobs, self._q)) for r in range(world)]
+            r, world, phases, cfg, tree, self._q)) for r in range(world)]
         for p in self._procs:
             p.start()
         self._t0 = time.monotonic()

@@ -793,3 +793,54 @@ def test_link_write_q8_matches_cpu(dev, block_tokens):
                     device=dev).link_write_q8(
             torch.as_tensor(pages, device=dev), None, None, None, None,
             None, None, None, theta=1.0, relink=False)
+
+
+def _lse_check(q, k, v, q_pos, kv_pos, window, route):
+    """``return_lse=True`` on ``route``: one launch counted there, the
+    output and each row's log-sum-exp per element against the plain
+    version's pair (the log-sum-exp at the fp32 limit, exact ``-inf`` on a
+    row with no kept key)."""
+    kern = KERNELS["sel_attn"]
+    before = kern.route_launches.get(route, 0)
+    out, lse = selective_attention(q, k, v, q_pos, kv_pos, window=window,
+                                   return_lse=True)
+    torch.cuda.synchronize()
+    assert kern.route_launches.get(route, 0) == before + 1
+    ref, ref_lse = selective_attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), q_pos,
+        kv_pos, window=window, return_lse=True)
+    res = compare(out, ref.transpose(1, 2), v_absmax(v))
+    assert res["worst"] <= 1.0, res
+    ref_lse = ref_lse.transpose(1, 2)
+    assert lse.shape == ref_lse.shape and lse.dtype == torch.float32
+    empty = torch.isinf(ref_lse)
+    assert torch.equal(torch.isinf(lse), empty)
+    assert torch.all(lse[empty] < 0)
+    err = (lse - ref_lse)[~empty].abs()
+    assert float(err.max()) <= 1e-4 * (1 + float(ref_lse[~empty].abs().max()))
+
+
+@pytest.mark.parametrize("dh,hq,hkv,skv", [(128, 16, 16, 4096),
+                                           (64, 10, 2, 1000),
+                                           (128, 32, 8, 257)],
+                         ids=["llava-rank-slice", "gqa5", "gqa4"])
+@DENSE_WINDOWS
+def test_dense_lse_split_route(dev, dh, hq, hkv, skv, window):
+    """The long decode's rank slice (one query, 16 heads on 16 kv heads,
+    4,096 keys) and GQA shapes: the split-key route's log-sum-exp."""
+    q, k, v, q_pos, kv_pos = _dense_case(dev, 2, 1, skv, hq, hkv, dh,
+                                         seed=23)
+    _lse_check(q, k, v, q_pos, kv_pos, window, SPLIT_KEYS)
+
+
+@WINDOWS
+def test_dense_lse_cuda_core_route(dev, window):
+    q, k, v, q_pos, kv_pos = _dense_inputs(dev, torch.float32, 32, 8,
+                                           seed=24)
+    _lse_check(q, k, v, q_pos, kv_pos, window, CUDA_CORES)
+
+
+def test_dense_lse_raises_on_the_tensor_core_route(dev):
+    q, k, v, q_pos, kv_pos = _dense_case(dev, 1, 65, 129, 8, 8, 128, seed=25)
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        selective_attention(q, k, v, q_pos, kv_pos, return_lse=True)

@@ -1,8 +1,9 @@
 """The port's dry run on ``meta`` (``repro_torch.launch.dryrun``): the
 serving selftest at ``model 8``, ``--all`` with one ``ok`` or
 ``skipped`` row per (arch x shape), the reference's row keys and no
-``error`` (internvl2-76b's and deepseek-moe-16b's decode rows checked at
-full width), the
+``error`` (internvl2-76b's and deepseek-moe-16b's decode rows and
+internvl2-76b's ``long_500k`` row, its KV sequence on ``data``, checked
+at full width), the
 kernels' dispatchers on ``meta`` tensors, and a run of the module's entry
 that imports neither ``jax`` nor the JAX package.  Nothing here allocates a weight: every
 tensor lives on ``meta``."""
@@ -57,18 +58,22 @@ def test_all_rows_are_ok_or_skipped(tmp_path, capsys):
             assert ROW_KEYS <= set(r)
     ok = {(r["arch"], r["shape"]) for r in rows if r["status"] == "ok"}
     assert ok == {(a, s) for a in TRACED
-                  for s in ("prefill_32k", "decode_32k")}
-    assert "20 ok, 20 skipped, 0 errors" in capsys.readouterr().out
+                  for s in ("prefill_32k", "decode_32k")} | {
+        (a, "long_500k") for a in TRACED if a != "whisper-small"}
+    assert "29 ok, 11 skipped, 0 errors" in capsys.readouterr().out
     for r in rows:
         if r["status"] == "skipped":
-            assert "item 6" in r["reason"] or "step_kind" in r["reason"], r
+            assert ("training under a mesh" in r["reason"]
+                    and "item 6" in r["reason"]) or \
+                "step_kind" in r["reason"], r
 
-    def row(arch):
+    def row(arch, shape="decode_32k"):
         return rows[ASSIGNED_ARCHS.index(arch) * 4
-                    + list(INPUT_SHAPES).index("decode_32k")]
+                    + list(INPUT_SHAPES).index(shape)]
 
     _check_internvl2_decode(row("internvl2-76b"))
     _check_deepseek_decode(row("deepseek-moe-16b"))
+    _check_internvl2_long_decode(row("internvl2-76b", "long_500k"))
 
 
 def _check_internvl2_decode(row):
@@ -89,6 +94,29 @@ def _check_internvl2_decode(row):
         4 * 32768 * 4
     assert row["bytes_per_device"] > mem["params"]
     assert row["bottleneck"] == "memory"
+
+
+def _check_internvl2_long_decode(row):
+    """internvl2-76b's ``long_500k`` row at full width: a batch of 1 that
+    no data axis divides, so the KV sequence goes on ``data``: rank 0
+    holds 256 of the window's 8,192 ring slots (1 of 8 kv heads) and,
+    besides the model axis's collectives, merges its slice's attention
+    with the other 31 data ranks' in two fp32 all-reduces a layer."""
+    cfg = get_config("internvl2-76b")
+    assert (row["shape"], row["step"], row["status"]) == (
+        "long_500k", "decode", "ok")
+    slots = cfg.sliding_window // 32
+    mem = row["memory_per_device"]
+    assert mem["cache"] == 2 * cfg.num_layers * slots * 128 * 2 + slots * 4
+    assert row["coll_ops"] == 4 * cfg.num_layers + 2
+    assert row["coll_ops_by_axis"] == {"data": 2 * cfg.num_layers,
+                                       "model": 2 * cfg.num_layers + 2}
+    # per layer the maximum of each (query, head) row's log-sum-exp, then
+    # its rescaled output and sum, for the rank's eighth of the query
+    # heads, over the 32 data ranks: 2 * (32 - 1) / 32 of each on the wire
+    heads = cfg.num_heads // 8
+    assert row["coll_bytes_by_axis"]["data"] == cfg.num_layers * (
+        heads * 4 + heads * (cfg.head_dim + 1) * 4) * 2 * 31 / 32
 
 
 def _check_deepseek_decode(row):

@@ -18,7 +18,12 @@ past two windows.  The same ``full_recompute`` stream on two gloo ranks
 heads, half the MLP and the vocabulary a rank) and on three, which divide
 neither the kv heads nor the SSD heads (every attention and SSM leaf
 whole on each rank, the reference's ``replicate_ssm``), held to the JAX
-engine's tokens and first-token logits within 1e-4 relative.
+engine's tokens and first-token logits within 1e-4 relative; then the
+two ranks again as ``data 2 x model 1`` (each decodes one of the two
+slots from its row of the dense cache, the prefills replicated), held
+to the same JAX run, and the dry run's long decode (a wrapped ring of
+the 64-token window, 32 slots a data rank, the SSM state whole on each)
+within 1e-5 relative of the port's unsharded step.
 
 Tolerances:
 
@@ -68,7 +73,7 @@ from repro_torch.models.transformer import init_params
 
 from _torch_parity import build_pair
 from _torch_serve import build_gqa_pair, serve
-from _torch_sharded import REL, Ranks, rel
+from _torch_sharded import REL, Ranks, long_decode, rel
 # autouse: JAX's persistent compilation cache while this module runs
 from _torch_parity import jax_compile_cache  # noqa: F401
 
@@ -98,13 +103,16 @@ RANK_WORLDS = {2: (True, True), 3: (False, False)}
 def ranks(g5):
     """Two and three gloo ranks serving the engine stream under
     ``full_recompute`` tensor-parallel, started with the module so that
-    they run while the JAX package serves."""
+    they run while the JAX package serves; the two then serve it again on
+    ``data 2 x model 1`` (``"data"``)."""
     tree = jax.tree_util.tree_map(np.asarray, g5[1])
-    started = {world: Ranks(world, g5[2].cfg, tree, [(
-        "full_recompute", "call", {
-            "target": "_torch_serve:serve_rank", "stream": "serve",
-            "policy": "full_recompute", "rag_len": 128,
-            "store_prefix": False})]) for world in RANK_WORLDS}
+    job = ("call", {"target": "_torch_serve:serve_rank", "stream": "serve",
+                    "policy": "full_recompute", "rag_len": 128,
+                    "store_prefix": False})
+    started = {world: Ranks(world, g5[2].cfg, tree, [
+        ("full_recompute", *job)], then=[(2, [
+            ("data", *job), ("long", "long_decode", {})])] * (
+            world == 2)) for world in RANK_WORLDS}
     yield started
     for r in started.values():
         r.close()
@@ -428,6 +436,42 @@ def test_ranks_serve_the_jax_engines_tokens(g5, ranks, world):
         assert set(res["policies"]) == {"full_recompute"}
         for g, j in zip(res["firsts"], jfirst):
             assert rel(g, j) <= REL
+
+
+def test_data_ranks_serve_the_jax_engines_tokens(g5, ranks):
+    """``data 2 x model 1``: each rank holds the whole model and one row
+    of the dense cache (its slot: K/V, positions and SSM state), prefills
+    every request (replicated) and decodes its slot, the logits gathered
+    over ``data``; the JAX engine's tokens, first-token logits within
+    1e-4 relative, on both ranks."""
+    jreqs, jfirst, _ = _jax_serve(g5, "full_recompute")
+    cfg = g5[2].cfg
+    for rank, got in ranks[2].results().items():
+        res = got["data"]
+        assert res["cache"]["k"][1] == res["cache"]["ssm_h"][1] == 1
+        assert res["cache"]["ssm_h"][2] == cfg.ssm_num_heads
+        assert res["tokens"] == [r.output_tokens for r in jreqs]
+        assert res["linked"] == [r.linked_media for r in jreqs]
+        for g, j in zip(res["firsts"], jfirst):
+            assert rel(g, j) <= REL
+
+
+def test_long_decode_with_the_kv_sequence_on_data(g5, ranks):
+    """hymba's long decode on ``data 2 x model 1``: each rank holds half
+    the ring of the window and the whole SSM state, attends over its half
+    and merges through kernel 5's log-sum-exp (two fp32 all-reduces a
+    layer on ``data``); 8 greedy steps within 1e-5 relative of the
+    port's unsharded step."""
+    want = long_decode(g5[2], g5[3], None)["logits"]
+    cfg = g5[2].cfg
+    for rank, got in ranks[2].results().items():
+        res = got["long"]
+        assert res["slots"][2] == cfg.sliding_window // 2
+        assert len(res["logits"]) == len(want) == 8
+        for g, w in zip(res["logits"], want):
+            assert rel(g, w) <= 1e-5
+        assert sum(c.axis == "data" for c in res["calls"]) == \
+            2 * cfg.num_layers
 
 
 # ---------------------------------------------------------------------------

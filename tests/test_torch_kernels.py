@@ -236,3 +236,39 @@ def test_dense_fully_masked_row_is_zero():
                                rtol=0)
     np.testing.assert_allclose(out.numpy(), oracle.numpy(), atol=1e-5,
                                rtol=0)
+
+
+@pytest.mark.parametrize("window", [0, 16])
+def test_dense_plain_log_sum_exp(window):
+    """``selective_attention(..., return_lse=True)`` on the CPU (the plain
+    version): the same output as without it, and each (query, head) row's
+    log-sum-exp equal to ``torch.logsumexp`` of its kept scaled logits
+    (fp32, within 1e-5), ``-inf`` where no key is kept; the log-sum-exps
+    of two halves of the keys merge into the whole's, as the long decode's
+    data ranks merge theirs."""
+    rng = np.random.default_rng(4)
+    q, k, v, q_pos, kv_pos = (torch.from_numpy(a) for a in _dense_inputs(
+        rng, 2, 5, 40, 8, 2, 32))
+    kv_pos = kv_pos + 5
+    q_pos[0, 0] = 2
+    out, lse = selective_attention(q, k, v, q_pos, kv_pos, window=window,
+                                   return_lse=True)
+    assert torch.equal(out, selective_attention(q, k, v, q_pos, kv_pos,
+                                                window=window))
+    assert lse.shape == q.shape[:3] and lse.dtype == torch.float32
+    kk = torch.repeat_interleave(k, 4, dim=2)
+    s = torch.einsum("bqhd,bkhd->bqhk", q.float(), kk.float()) / 32 ** 0.5
+    kp, qp = kv_pos[:, None, None, :], q_pos[:, :, None, None]
+    keep = (kp != INVALID_POS) & (kp <= qp)
+    if window:
+        keep = keep & (kp > qp - window)
+    want = torch.logsumexp(s.masked_fill(~keep, -torch.inf), dim=-1)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    assert torch.isinf(lse[0, 0]).all() and (lse[0, 0] < 0).all()
+    live = ~torch.isinf(want)
+    torch.testing.assert_close(lse[live], want[live], atol=1e-5, rtol=0)
+    halves = [selective_attention(q, k[:, h], v[:, h], q_pos, kv_pos[:, h],
+                                  window=window, return_lse=True)
+              for h in (slice(0, 20), slice(20, 40))]
+    merged = torch.logaddexp(halves[0][1], halves[1][1])
+    torch.testing.assert_close(merged[live], lse[live], atol=1e-5, rtol=0)

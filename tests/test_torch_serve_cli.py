@@ -11,7 +11,8 @@ a run through a two-replica cluster (``--replicas 2 --router affinity
 --deadline-s``), which also prints each request's replica, and a
 tensor-parallel run over two ranks (``--mesh 1x2``), also with two
 replicas, peers, a block server and the idle sweep, and with the MoE
-granite (its experts cut over the ranks); without
+granite (its experts cut over the ranks), and a run over two data ranks
+(``--mesh 2x1``: two slots each); without
 ``--device cpu`` and without a card the run exits non-zero.
 """
 import dataclasses
@@ -190,6 +191,23 @@ def test_cpu_mesh_run_serves_the_references_tokens(monkeypatch, capfd):
     assert len(_requests(port)[0]) == 2
     assert len(_requests(port)[1]) == len(_requests(ref)[1]) == 1
     assert port.count("\narch=") == 1 and "mesh=1x2 replicas=1" in port
+    assert "  tensor_parallel: backend=gloo ranks=2 device=cpu" in port
+
+
+def test_cpu_mesh_run_on_the_data_axis_serves_the_references_tokens(
+        monkeypatch, capfd):
+    """``--mesh 2x1 --device cpu``: two gloo ranks, each holding the whole
+    model and decoding two of the four slots (the prefills on both, each
+    step's new K/V rows and logits gathered over ``data``), rank 0 alone
+    printing the JAX CLI's unsharded ``reused`` and ``tokens``."""
+    serve.main([*BOGUS_ARGV, "--device", "cpu", "--mesh", "2x1"],
+               params=_params("llava-1.6-7b"))
+    port = capfd.readouterr().out
+    ref = _jax_cli(BOGUS_ARGV, monkeypatch, capfd)
+    assert _requests(port)[0] == _requests(ref)[0]
+    assert len(_requests(port)[0]) == 2
+    assert len(_requests(port)[1]) == len(_requests(ref)[1]) == 1
+    assert port.count("\narch=") == 1 and "mesh=2x1 replicas=1" in port
     assert "  tensor_parallel: backend=gloo ranks=2 device=cpu" in port
 
 

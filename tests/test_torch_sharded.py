@@ -18,7 +18,19 @@ image pulled from the JAX package's block server (rank 0 pulls, rank 1
 reads rank 0's file), and through two replicas; a session's freeze, thaw
 and fork on fp32 and int8 pools against the port's unsharded engine
 (which ``test_torch_sessions.py`` holds to the JAX engine); an aging
-queue admitting in one order on both ranks.  Also: every parameter's cut
+queue admitting in one order on both ranks.  The ``data`` axis, in the
+same processes after those cases (a fresh process group each): the two
+ranks as ``data 2 x model 1`` and the four as ``data 2 x model 2`` serve
+the paged, int8 and dense setups (each data rank decodes one of the two
+slots, the prefills replicated), the two also the replicated case (3
+slots, which 2 data ranks do not divide), held to the same JAX runs, every
+data rank's pool after every request bit-equal to its data peer's and
+within fp32 rounding of the port's unsharded engine's heads (bit-equal
+in the replicated case); and the dry run's long decode (a wrapped ring of
+the 64-token window, its KV sequence on ``data``, merged through kernel
+5's log-sum-exp) within 1e-5 relative of the port's unsharded step,
+which is held once to the JAX package's ``decode_step``.  Also: every
+parameter's cut
 against the reference's ``_leaf_spec``/``_guard``, the shards
 concatenating back to the whole weights (cut, and drawn per rank by
 ``init_params``), the pool's and the dense cache's kv heads per rank, a
@@ -26,8 +38,9 @@ concatenating back to the whole weights (cut, and drawn per rank by
 read back by both packages, every family's plan (the MoE's experts, the
 SSM's and hybrid's SSD heads, whisper's encoder-decoder) with its cuts
 and its shards concatenating back, and what still raises under a mesh
-(the families' parity modules serve them on ranks against their own
-JAX runs: ``test_torch_moe_engine*.py``, ``test_torch_ssm.py``,
+(training, and ``--mesh`` with ``--fleet``; the families' parity
+modules serve them on ranks against their own JAX runs:
+``test_torch_moe_engine*.py``, ``test_torch_ssm.py``,
 ``test_torch_hybrid.py``, ``test_torch_whisper.py``).
 
 Tolerances: greedy tokens, ``n_reused``, linked media exact; first-token
@@ -67,13 +80,18 @@ from repro_torch.weights import leaf_path
 from _torch_parity import build_pair, jax_traffic, smoke_configs
 from _torch_parity import jax_compile_cache  # noqa: F401
 from _torch_sharded import (
+    LONG_AT,
     REL,
     SETUPS,
+    SLOTS3,
     Ranks,
     _torch_pkg,
     case_sessions,
     check_requests,
+    long_decode,
+    pool_pages,
     rel,
+    ring_cache,
     run_traffic,
     upload_dialogues,
 )
@@ -81,6 +99,7 @@ from _torch_sharded import (
 ARCH = "internvl2-76b"
 TOKENS = [5, 17, 200, 33, 101, 7, 64, 250, 12, 90, 3]
 STEPS = 4
+LONG_STEPS = 8
 
 
 def _jax_decode(jm, jp, tokens, steps):
@@ -121,11 +140,65 @@ def _jax_peer(jm, jp):
     return KVPeerServer(eng.static_lib)
 
 
+# the data axis's setups: on data 2 x model 1 (the two ranks) and on
+# data 2 x model 2 (the four), each rank's pool after every request
+DATA_SETUPS = {2: ("paged", "int8", "dense", "slots3"),
+               4: ("paged", "int8", "dense")}
+
+
+def _data_jobs(world):
+    """The data phase of ``world`` ranks: the long decode on the four
+    (where the model axis cuts its kv heads too), two replicas over the
+    mesh on the two."""
+    jobs = [(f"data-{s}", "serve", {"setup": s, "pools": True})
+            for s in DATA_SETUPS[world]]
+    extra = ("long", "long_decode", {}) if world == 4 else (
+        "data-replicas", "replicas", {})
+    return [(2, jobs + [extra])]
+
+
+def _unsharded(tm, tp, setup):
+    """The port's unsharded engine over a setup (or ``"slots3"``): its
+    requests and its pool after every request."""
+    over, policies = SLOTS3 if setup == "slots3" else SETUPS[setup]
+    eng = MPICEngine(tm, tp, EngineConfig(**over), device="cpu")
+    snaps, finish = [], eng._finish
+
+    def snapshot_after(r):
+        finish(r)
+        snaps.append(pool_pages(eng))
+
+    eng._finish = snapshot_after
+    try:
+        return {"requests": run_traffic(eng, _torch_pkg(), tm.cfg.d_model,
+                                        tm.cfg.media_token_len, policies),
+                "pools": snaps}
+    finally:
+        eng.close()
+
+
+def _jax_long_decode(jm, jp, steps, token=7):
+    """The JAX package's ``decode_step`` on :func:`ring_cache`'s wrapped
+    ring, greedy, each step writing slot ``position % window``."""
+    import jax.numpy as jnp
+    cache = {k: jnp.asarray(v) for k, v in ring_cache(jm.cfg, 5).items()}
+    w = jm.cfg.sliding_window
+    tok, out = jnp.full((1, 1), token, jnp.int32), []
+    for i in range(steps):
+        p = jnp.full((1, 1), LONG_AT + i, jnp.int32)
+        lg, cache = jm.decode_step(jp, tok, p, cache, p % w)
+        out.append(np.asarray(lg[0]))
+        tok = jnp.argmax(lg, axis=-1, keepdims=True).astype(jnp.int32)
+    return out
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(JAX results, port unsharded results, 2-rank results, 4-rank
-    results); the ranks run while the JAX engines serve.  The port's
-    unsharded results: the int8 setup and the session cases."""
+    results); the ranks run while the JAX engines serve, then again as
+    ``data 2 x model 1`` and ``data 2 x model 2``.  The port's unsharded
+    results: the paged, int8 and 3-slot setups with their pools, the long
+    decode and the session cases."""
     jm, jp, tm, tp = build_pair(arch=ARCH)
     tree = jax.tree_util.tree_map(np.asarray, jp)
     inbox = mp.get_context("spawn").Queue()
@@ -139,9 +212,11 @@ def runs(tmp_path_factory):
         (f"sessions-{name}", "sessions", {
             "pool": pool, "spool_dir": str(spool / f"sessions-{name}")})
         for name, pool in SESSION_POOLS.items()] + [
-        ("peer", "peer", {"inbox": inbox, "spool_dir": str(spool / "peer")})])
+        ("peer", "peer", {"inbox": inbox, "spool_dir": str(spool / "peer")})],
+        then=_data_jobs(2))
     four = Ranks(4, tm.cfg, tree, [(s, "serve", {"setup": s})
-                                   for s in ("paged", "dense")])
+                                   for s in ("paged", "dense")],
+                 then=_data_jobs(4))
     server = None
     try:
         server = _jax_peer(jm, jp)
@@ -149,12 +224,10 @@ def runs(tmp_path_factory):
             inbox.put(server.address)
         ref = {s: jax_traffic(jm, jp, s) for s in SETUPS}
         ref["decode"] = _jax_decode(jm, jp, TOKENS, STEPS)
-        eng = MPICEngine(tm, tp, EngineConfig(**SETUPS["int8"][0]),
-                         device="cpu")
-        port = {"int8": run_traffic(eng, _torch_pkg(), tm.cfg.d_model,
-                                    tm.cfg.media_token_len,
-                                    SETUPS["int8"][1])}
-        eng.close()
+        ref["long"] = _jax_long_decode(jm, jp, LONG_STEPS)
+        port = {s: _unsharded(tm, tp, s) for s in ("paged", "int8",
+                                                    "slots3")}
+        port["long"] = long_decode(tm, tp, None, steps=LONG_STEPS)
         for name, pool in SESSION_POOLS.items():
             port[f"sessions-{name}"] = case_sessions(
                 tm, tp, None, pool, str(spool / f"unsharded-{name}"))
@@ -173,7 +246,7 @@ def test_two_ranks_serve_the_jax_engines_tokens(runs, setup):
         check_requests(res["requests"], ref[setup],
                        atol=1e-3 if setup == "int8" else None)
         if setup == "int8":
-            check_requests(res["requests"], port["int8"])
+            check_requests(res["requests"], port["int8"]["requests"])
     assert [r["tokens"] for r in r2[0][setup]["requests"]] == \
         [r["tokens"] for r in r2[1][setup]["requests"]]
 
@@ -309,6 +382,136 @@ def test_live_collectives_equal_the_dry_runs_recording(runs):
         got = runs[2][rank]["decode"]
         assert got["prefill_calls"] == prefill
         assert got["decode_calls"] == decode
+
+
+# ---------------------------------------------------------------------------
+# the data axis
+# ---------------------------------------------------------------------------
+
+DATA_CASES = [(w, s) for w, setups in DATA_SETUPS.items() for s in setups]
+
+
+def _mesh_name(world):
+    return "2x1" if world == 2 else "2x2"
+
+
+@pytest.mark.parametrize("world, setup", DATA_CASES, ids=[
+    f"{_mesh_name(w)}-{s}" for w, s in DATA_CASES])
+def test_data_ranks_serve_the_jax_engines_tokens(runs, world, setup):
+    """``data 2 x model 1`` and ``data 2 x model 2``: every rank gives the
+    JAX engine's tokens and first-token logits within 1e-4 relative (the
+    int8 pool: 1e-3 absolute of the JAX engine's, 1e-4 relative of the
+    port's unsharded int8 engine's), each data rank decoding its slot
+    (all three slots in the replicated case), its dense cache holding
+    only its slot's row, its pool every page."""
+    ref, port, r2, r4 = runs
+    got = (r2 if world == 2 else r4)
+    model = world // 2
+    want = ref["paged" if setup == "slots3" else setup]
+    for rank in range(world):
+        res = got[rank][f"data-{setup}"]
+        check_requests(res["requests"], want,
+                       atol=1e-3 if setup == "int8" else None)
+        if setup == "int8":
+            check_requests(res["requests"], port["int8"]["requests"])
+        facts = res["facts"]
+        d, m = divmod(rank, model)
+        assert facts["coords"] == (rank, d, m)
+        assert facts["groups"] == (model, 2)
+        assert facts["slots"] == ((0, 3) if setup == "slots3" else (d, 1))
+        if setup == "dense":
+            assert facts["cache_shape"][1] == 1
+        else:
+            assert facts["pages_back"]
+            assert facts["pool_shape"][1] == (49 if setup == "slots3"
+                                              else 33)
+
+
+@pytest.mark.parametrize("world, setup", [
+    c for c in DATA_CASES if c[1] != "dense"], ids=[
+    f"{_mesh_name(w)}-{s}" for w, s in DATA_CASES if s != "dense"])
+def test_data_ranks_pools_equal_their_peers_and_the_unsharded_engine(
+        runs, world, setup):
+    """After every request each data rank's pool (and an int8 pool's
+    scales), the scratch page aside, is bit-equal to its data peer's (the
+    same model rank): every slot's new rows go into every copy through the
+    same write.  Against the port's unsharded engine's heads of that
+    model rank: bit-equal in the replicated case (every rank computes
+    every slot, as the unsharded engine does), else within fp32 rounding
+    (a rank's step runs its one slot where the unsharded one runs two, and
+    the CPU's products round a batch of 1 and of 2 differently): 1e-5 of
+    the largest K/V, int8 bytes within one step and scales within 1e-5
+    relative."""
+    _, port, r2, r4 = runs
+    got = r2 if world == 2 else r4
+    model = world // 2
+    want = port[setup]["pools"]
+    for rank in range(world):
+        mine = got[rank][f"data-{setup}"]["pools"]
+        peer = got[(rank + model) % world][f"data-{setup}"]["pools"]
+        assert len(mine) == len(peer) == len(want) == 4
+        for a, b, w in zip(mine, peer, want):
+            assert set(a) == set(b) == set(w)
+            for key in a:
+                np.testing.assert_array_equal(a[key], b[key])
+                axis = 3 if key in ("k", "v") else 2
+                n = w[key].shape[axis] // model
+                whole = np.take(w[key], range((rank % model) * n,
+                                              (rank % model + 1) * n), axis)
+                if setup == "slots3" and model == 1:
+                    np.testing.assert_array_equal(a[key], whole)
+                elif a[key].dtype == np.int8:
+                    assert np.abs(a[key].astype(int) - whole).max() <= 1
+                elif key.endswith("scale"):
+                    np.testing.assert_allclose(a[key], whole, rtol=1e-5)
+                else:
+                    np.testing.assert_allclose(
+                        a[key], whole, rtol=0,
+                        atol=1e-5 * np.abs(whole).max())
+
+
+def test_two_replicas_over_the_data_axis_serve_the_jax_engines_tokens(
+        runs):
+    """``MPICCluster(mesh=)`` on ``data 2 x model 1``: two replicas, each
+    an engine whose data ranks decode a slot each, routed alike on both
+    ranks (world rank 0's decisions), give the JAX engine's tokens."""
+    ref, _, r2, _ = runs
+    for rank in (0, 1):
+        check_requests(r2[rank]["data-replicas"]["requests"], ref["paged"])
+    assert r2[0]["data-replicas"]["replicas"] == \
+        r2[1]["data-replicas"]["replicas"]
+    assert set(r2[0]["data-replicas"]["replicas"]) == {0, 1}
+
+
+def test_long_decode_with_the_kv_sequence_on_data(runs):
+    """The dry run's ``long_500k`` step live on ``data 2 x model 2``: a
+    wrapped ring of the 64-token window, 32 slots and one kv head a rank,
+    8 greedy steps; every rank's logits within 1e-5 relative of the
+    port's unsharded step, each step's merge two fp32 all-reduces a layer
+    on ``data`` (``test_torch_hybrid.py`` runs hymba's on ``2 x 1``)."""
+    _, port, _, got = runs
+    world = 4
+    cfg = smoke_configs(ARCH)[1]
+    want = port["long"]["logits"]
+    assert len(want) == LONG_STEPS
+    for rank in range(world):
+        res = got[rank]["long"]
+        assert res["slots"][2] == cfg.sliding_window // 2
+        for g, w in zip(res["logits"], want):
+            assert rel(g, w) <= 1e-5
+        data = [c for c in res["calls"] if c.axis == "data"]
+        assert len(data) == 2 * cfg.num_layers
+        assert all(c.kind == "all-reduce" and c.group == 2 for c in data)
+
+
+def test_long_decode_matches_the_jax_decode_step(runs):
+    """The port's unsharded long decode that the data ranks are held to,
+    against the JAX package's ``decode_step`` on the same ring: logits
+    within 1e-4 relative, the same greedy tokens."""
+    ref, port, _, _ = runs
+    for g, w in zip(port["long"]["logits"], ref["long"]):
+        assert rel(g, w) <= REL
+        assert int(np.argmax(g)) == int(np.argmax(w))
 
 
 # ---------------------------------------------------------------------------
@@ -602,13 +805,28 @@ def test_every_family_builds_a_plan_with_its_cuts(arch, m):
             cfg.num_kv_heads // m
 
 
-def test_what_a_mesh_does_not_serve_yet_raises(capsys):
-    """The ``data`` axis (ROADMAP.md, queue 1) and ``--mesh`` with
-    ``--fleet``, which the JAX launcher has no path for either: its
-    ``--fleet`` returns before it reads ``--mesh``."""
+def test_what_a_mesh_does_not_serve_yet_raises(runs, capsys):
+    """The ``data`` axis serves now: the two ranks' ``2 x 1`` mesh had
+    world ranks 0 and 1 at data coordinates 0 and 1 on model coordinate
+    0, a ``model`` group of 1 and a ``data`` group of 2 (a ``ServingMesh``
+    computes the same coordinates without a process group).  Still
+    refused: training under a mesh (the next slice, ROADMAP.md queue 1)
+    and ``--mesh`` with ``--fleet``, which the JAX launcher has no path
+    for either: its ``--fleet`` returns before it reads ``--mesh``."""
+    from repro_torch.configs import INPUT_SHAPES
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_serving_mesh(2, 1, device="cpu")
+    r2 = runs[2]
+    for rank in (0, 1):
+        facts = r2[rank]["data-paged"]["facts"]
+        assert facts["coords"] == (rank, rank, 0)
+        assert facts["groups"] == (1, 2)
+    coords = [(m.data_rank, m.model_rank, m.world) for m in (
+        ServingMesh(data=2, model=2, rank=r, backend="gloo",
+                    device=torch.device("cpu")) for r in range(4))]
+    assert coords == [(0, 0, 4), (0, 1, 4), (1, 0, 4), (1, 1, 4)]
+    with pytest.raises(NotImplementedError, match="next slice"):
+        specs.make_step_fn(smoke_configs(ARCH)[1], "train",
+                           INPUT_SHAPES["train_4k"])
     with pytest.raises(SystemExit):
         serve.main(["--mesh", "1x2", "--fleet", "2", "--device", "cpu"])
     assert "returns before it reads --mesh" in capsys.readouterr().err
